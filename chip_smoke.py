@@ -1,0 +1,458 @@
+"""On-card smoke test of the PyTorch port (``src/repro_torch``).
+
+  python3 chip_smoke.py
+
+Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
+  1. the card's name and power limit (nvidia-smi);
+  2. build the hand-written CUDA kernels from the sources in the checkout
+     (nvcc, one process per source, in parallel) and print ptxas's report;
+  3. hold each kernel against its plain PyTorch version at the shapes of
+     the serving path below (bf16, tolerance 2e-2), and time kernel, plain
+     version and one PyTorch library call (yardstick only) with CUDA
+     events, beside the kernel's bound on an H100 (3.35 TB/s, 989 TFLOP/s
+     bf16, 67 TFLOP/s fp32 outside the tensor cores);
+  4. the reduced PT config in fp32: prefill logits, K/V and teacher-forced
+     paged decode steps on the card against the same weights on the CPU
+     (tolerance 1e-4), and whether the greedy token streams agree;
+  5. serve pt-6b-d4 at full width (random weights from a seeded
+     generator): 8 slots, 8 greedy requests of 512 prompt tokens and 64
+     new tokens, block size 16 — TTFT, TPOT, throughput, peak memory and
+     each kernel's launch count, which must all be non-zero;
+  6. where the time goes: device time by kernel (torch.profiler) over the
+     step that prefills 8 prompts and over three decode steps, and the
+     decode step's device busy share against its unprofiled TPOT.
+Prints one ``{"kernels": [...]}`` JSON line, then the card line, then
+``{"ok": true, "device": {...}}`` as the last line.
+"""
+from __future__ import annotations
+
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+HBM_BYTES_S = 3.35e12          # H100 SXM data sheet
+BF16_FLOP_S = 989e12
+FP32_FLOP_S = 67e12
+L2_BYTES = 50 * 2 ** 20
+KERNEL_TOL = 2e-2              # bf16, as the reference's kernel sweeps
+PARITY_TOL = 1e-4              # fp32 model on the card vs the CPU
+
+# the serving cell of phase 5, which fixes the kernel shapes of phase 3
+ARCH, SLOTS, PROMPT, NEW, BLOCK = "pt-6b-d4", 8, 512, 64, 16
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, arg_sets, iters: int) -> float:
+    """Mean ms per call, CUDA events, after one warm-up call per set; the
+    sets are cycled so the working set exceeds L2 like the serving path,
+    where every other layer's weights run between two calls."""
+    for a in arg_sets:
+        fn(*a)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(*arg_sets[i % len(arg_sets)])
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def copies_for(nbytes: int) -> int:
+    return max(1, math.ceil(2 * L2_BYTES / max(1, nbytes)))
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+# ---------------------------------------------------------------------------
+# phase 2 + 3: build the kernels, hold each against its plain version
+# ---------------------------------------------------------------------------
+
+def build_kernels() -> None:
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    built = build.build_all()
+    log(f"[build] {len(built)} CUDA libraries in "
+        f"{time.perf_counter() - t0:.1f}s (nvcc {build.nvcc_path()})")
+    for src, b in built.items():
+        log(f"[build] {src}: {b.seconds:.1f}s -> {b.path.name}")
+        for ln in b.ptxas:
+            log(f"[build]   {ln}")
+
+
+def _report(name, route, source, replaces, out, ref, ms, plain_ms, lib_ms,
+            bytes_, flops, flop_rate):
+    err = (out.float() - ref.float()).abs().max().item()
+    ok = torch.allclose(out.float(), ref.float(), rtol=KERNEL_TOL,
+                        atol=KERNEL_TOL)
+    t_bytes = bytes_ / HBM_BYTES_S * 1e3
+    t_ops = flops / flop_rate * 1e3
+    row = {"name": name, "route": route, "source": source,
+           "replaces": replaces, "launches": None, "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": lib_ms, "bytes": bytes_, "ops": flops}
+    log(f"[kernel] {name}: max_abs_err {err:.3e} (tol {KERNEL_TOL}) "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})")
+    if not ok:
+        raise SystemExit(f"[kernel] {name} disagrees with its plain version")
+    return row
+
+
+def check_kernels(dev: torch.device):
+    """Phase 3 at the shapes the pt-6b-d4 serving cell gives the kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+    cfg = get_config(ARCH)
+    n, H, KH, hd, d = (cfg.pt.n_tracks, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim, cfg.d_model)
+    bf = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(1)
+    rows = []
+
+    def randn(*shape, dtype=bf):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    # -- paged decode: the decode step near the end of the run ---------
+    cap = PROMPT + NEW + 8
+    nmax = -(-cap // BLOCK)
+    N = SLOTS * nmax + 1
+    L = PROMPT + NEW                       # live tokens of every row
+    perm = torch.randperm(N - 1, generator=torch.Generator().manual_seed(2))
+    table = (perm[:SLOTS * nmax].reshape(SLOTS, nmax) + 1).to(torch.int32)
+    table = table.to(dev)
+    lengths = torch.full((SLOTS,), L, dtype=torch.int32, device=dev)
+    p2 = 1
+    while p2 < -(-L // BLOCK):
+        p2 *= 2
+    max_len = min(nmax, p2) * BLOCK
+    one = nbytes(randn(n, N, BLOCK, KH, hd)) * 2
+    sets = [(randn(n, SLOTS, H, hd), randn(n, N, BLOCK, KH, hd),
+             randn(n, N, BLOCK, KH, hd)) for _ in range(copies_for(one))]
+    q, kp, vp = sets[0]
+    out = ops.paged_decode_attention(q, kp, vp, table, lengths,
+                                     max_len=max_len)
+    want = ref.paged_decode_attention_plain(q, kp, vp, table, lengths,
+                                            max_len=max_len)
+    k_ms = time_ms(lambda q, k, v: ops.paged_decode_attention(
+        q, k, v, table, lengths, max_len=max_len), sets, 200)
+    p_ms = time_ms(lambda q, k, v: ref.paged_decode_attention_plain(
+        q, k, v, table, lengths, max_len=max_len), sets, 20)
+    # yardstick: SDPA on K/V gathered and expanded beforehand (untimed)
+    tbl = table.long()
+
+    def gathered(q, k, v):
+        kk = k[:, tbl].reshape(n * SLOTS, nmax * BLOCK, KH, hd)[:, :L]
+        vv = v[:, tbl].reshape(n * SLOTS, nmax * BLOCK, KH, hd)[:, :L]
+        return (q.reshape(n * SLOTS, H, 1, hd),
+                kk.repeat_interleave(H // KH, 2).transpose(1, 2).contiguous(),
+                vv.repeat_interleave(H // KH, 2).transpose(1, 2).contiguous())
+
+    lib_sets = [gathered(*s) for s in sets]
+    l_ms = time_ms(F.scaled_dot_product_attention, lib_sets, 200)
+    del lib_sets
+    live = n * SLOTS * L * KH * hd * 2 * 2           # K and V rows, bf16
+    rows.append(_report(
+        "paged_decode_attention", "cuda",
+        "src/repro_torch/kernels/csrc/paged_decode.cu",
+        "src/repro/kernels/decode_attention.py:187", out, want, k_ms, p_ms,
+        l_ms, live + nbytes(q, table, lengths, out),
+        4.0 * n * SLOTS * L * H * hd, BF16_FLOP_S))
+    del sets, q, kp, vp, out, want
+
+    # -- flash prefill: the batched prefill of all 8 prompts -----------
+    Bn, S = n * SLOTS, PROMPT
+    one = nbytes(randn(Bn, S, H, hd)) * 2 + nbytes(randn(Bn, S, KH, hd)) * 2
+    sets = [(randn(Bn, S, H, hd), randn(Bn, S, KH, hd), randn(Bn, S, KH, hd))
+            for _ in range(copies_for(one))]
+    q, k, v = sets[0]
+    out = ops.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_plain(q, k, v, causal=True)
+    k_ms = time_ms(lambda q, k, v: ops.flash_attention(q, k, v, causal=True),
+                   sets, 10)
+    p_ms = time_ms(lambda q, k, v: ref.flash_attention_plain(
+        q, k, v, causal=True), sets, 4)
+
+    def bhsd(q, k, v):
+        return (q.transpose(1, 2).contiguous(),
+                k.repeat_interleave(H // KH, 2).transpose(1, 2).contiguous(),
+                v.repeat_interleave(H // KH, 2).transpose(1, 2).contiguous())
+
+    lib_sets = [bhsd(*s) for s in sets]
+    l_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), lib_sets, 10)
+    del lib_sets
+    rows.append(_report(
+        "flash_attention", "cuda",
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:79", out, want, k_ms, p_ms,
+        l_ms, nbytes(q, k, v, out),
+        4.0 * Bn * H * hd * S * (S + 1) / 2, BF16_FLOP_S))
+    del sets, q, k, v, out, want
+
+    # -- RMSNorm: ln1 / ln2 of the prefill, all tracks in one launch ---
+    shape = (n, SLOTS, PROMPT, d)
+    srow = torch.randn(d, generator=g, device=dev) * 0.1
+    scale = srow[None].expand(n, d).contiguous()   # same row: library-able
+    sets = [(randn(*shape),)
+            for _ in range(copies_for(2 * nbytes(randn(*shape))))]
+    x = sets[0][0]
+    out = ops.rmsnorm(x, scale)
+    want = ref.rmsnorm_plain(x, scale)
+    k_ms = time_ms(lambda x: ops.rmsnorm(x, scale), sets, 50)
+    p_ms = time_ms(lambda x: ref.rmsnorm_plain(x, scale), sets, 20)
+    w = (1.0 + srow).to(bf)
+    l_ms = time_ms(lambda x: F.rms_norm(x, (d,), weight=w, eps=1e-6),
+                   sets, 50)
+    rows.append(_report(
+        "rmsnorm", "triton", "src/repro_torch/kernels/rmsnorm.py",
+        "src/repro/kernels/rmsnorm.py:20", out, want, k_ms, p_ms, l_ms,
+        nbytes(x, scale, out), 4.0 * x.numel(), FP32_FLOP_S))
+    del sets, x, out, want
+    torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the reduced model in fp32, card against CPU
+# ---------------------------------------------------------------------------
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+def _close(name, a, b):
+    err = (a.float().cpu() - b.float().cpu()).abs().max().item()
+    log(f"[parity] {name}: max_abs_err {err:.3e} (tol {PARITY_TOL})")
+    if not torch.allclose(a.float().cpu(), b.float().cpu(), rtol=PARITY_TOL,
+                          atol=PARITY_TOL):
+        raise SystemExit(f"[parity] {name}: card and CPU disagree")
+
+
+def check_reduced_parity(dev: torch.device) -> None:
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.track import init_pt, pt_decode_step, pt_forward
+    from repro_torch.serving.engine import Engine, ModelRunner
+    from repro_torch.serving.sampler import SampleParams
+    cfg = reduced_config(ARCH)
+    cpu = torch.device("cpu")
+    params = {cpu: init_pt(torch.Generator().manual_seed(0), cfg, cpu)}
+    params[dev] = _to(params[cpu], dev)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, size=(L,)).tolist()
+               for L in (9, 16)]
+    teacher = rng.integers(1, cfg.vocab_size, size=(4, 2))
+    got = {}
+    for d in (cpu, dev):
+        toks = torch.as_tensor(np.asarray([p[:9] for p in prompts])).to(d)
+        logits, cache = pt_forward(params[d], {"inputs": toks}, cfg)
+        r = ModelRunner(cfg, params[d], max_slots=2, max_seq_len=32,
+                        device=d)
+        for s, p in enumerate(prompts):
+            r.kv.allocate(s, len(p) + 4)
+        first = r.prefill(prompts, 16, [0, 1], [SampleParams()] * 2)
+        steps = []
+        pos = np.asarray([len(p) for p in prompts], np.int32)
+        for t in range(teacher.shape[0]):
+            lg, r.cache = pt_decode_step(
+                r.params, r.cache, torch.as_tensor(teacher[t]).to(d),
+                torch.as_tensor(pos + t).to(d), cfg,
+                block_table=r.kv.table(), kv_max_len=32)
+            steps.append(lg)
+        got[d] = (logits, cache["blocks"][0], first, torch.stack(steps))
+    _close("prefill logits", got[dev][0], got[cpu][0])
+    _close("prefill K", got[dev][1], got[cpu][1])
+    _close("teacher-forced decode logits", got[dev][3], got[cpu][3])
+    if not np.array_equal(got[dev][2], got[cpu][2]):
+        raise SystemExit("[parity] first greedy tokens differ")
+    streams = {}
+    for d in (cpu, dev):
+        eng = Engine(cfg, params[d], max_slots=2, max_seq_len=48, device=d)
+        streams[d] = eng.generate(prompts + [prompts[0][:5]], 8)
+    log(f"[parity] greedy token streams, card vs CPU: "
+        f"{'identical' if streams[dev] == streams[cpu] else 'DIFFER'} "
+        f"({sum(map(len, streams[dev]))} tokens)")
+
+
+# ---------------------------------------------------------------------------
+# phase 5: serve pt-6b-d4 at full width
+# ---------------------------------------------------------------------------
+
+def serve_full(dev: torch.device, card: str):
+    from repro_torch.configs import get_config
+    from repro_torch.core.track import init_pt
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine, EngineMetrics, RequestState
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    params = init_pt(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    w_bytes = sum(nbytes(t) for t in _leaves(params))
+    log(f"[serve] {cfg.name}: {n_params / 1e9:.3f} B parameters, "
+        f"{w_bytes / 1e9:.3f} GB, init {time.perf_counter() - t0:.1f}s")
+    eng = Engine(cfg, params, max_slots=SLOTS, max_seq_len=PROMPT + NEW + 8,
+                 block_size=BLOCK, device=dev)
+    rng = np.random.default_rng(0)
+    # warm-up: cuBLAS handles and the Triton specialisations of every
+    # shape class the measured run meets (prefill and decode rows)
+    eng.generate([rng.integers(1, cfg.vocab_size, size=(16,)).tolist()
+                  for _ in range(SLOTS)], 3)
+    eng.metrics = EngineMetrics()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(rng.integers(1, cfg.vocab_size,
+                                    size=(PROMPT,)).tolist(), NEW)
+            for _ in range(SLOTS)]
+    steps0, transfers0 = eng.steps_run, eng.runner.decode_transfers
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    m = eng.metrics.summary()
+    peak = torch.cuda.max_memory_allocated(dev)
+    done = sum(r.state is RequestState.DONE and len(r.output) == NEW
+               for r in reqs)
+    # the decode step reads every weight once (the LM head as the fp32
+    # copy the runner keeps): the least time a step can take
+    read = w_bytes + nbytes(eng.runner.params["head"]) - nbytes(params["head"])
+    log(f"[serve] {card}: {SLOTS} reqs x ({PROMPT} in / {NEW} out), "
+        f"slots {SLOTS}, block {BLOCK}, {eng.steps_run - steps0} steps, "
+        f"wall {wall:.3f}s")
+    log(f"[serve] {card}: TTFT ms p50 {m['ttft_ms']['p50']:.2f} "
+        f"p90 {m['ttft_ms']['p90']:.2f}; TPOT ms p50 "
+        f"{m['tpot_ms']['p50']:.3f} p90 {m['tpot_ms']['p90']:.3f}; "
+        f"throughput {m['throughput_tok_s']:.1f} tok/s")
+    log(f"[serve] weight-read bound of a decode step "
+        f"{read / HBM_BYTES_S * 1e3:.3f} ms ({read / 1e9:.3f} GB at 3.35 TB/s)"
+        f"; peak memory {peak / 1e9:.3f} GB")
+    log(f"[serve] kernel launches: {json.dumps(launches)}; decode transfers "
+        f"{eng.runner.decode_transfers - transfers0}; finished {done}/{len(reqs)}")
+    head_choice_ms(eng, params, dev)
+    if done != len(reqs):
+        raise SystemExit("[serve] not every request finished")
+    if not all(launches.values()):
+        raise SystemExit(f"[serve] a kernel never ran: {launches}")
+    profile_steps(eng, cfg.vocab_size, rng, m["tpot_ms"]["p50"])
+    return launches
+
+
+def profile_steps(eng, vocab: int, rng, tpot_ms: float) -> None:
+    """Where the time goes: device time by kernel (torch.profiler, CUPTI)
+    over the step that admits and prefills SLOTS prompts and over three
+    decode steps, beside the decode step's unprofiled time (TPOT)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(SLOTS):
+        eng.submit(rng.integers(1, vocab, size=(PROMPT,)).tolist(), 5)
+    for what, n in (("admission step (prefill + first decode)", 1),
+                    ("decode step", 3)):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                eng.step()
+            torch.cuda.synchronize()
+        # device-side events only: an aten op's row repeats the device
+        # time of the kernels it launched, which have rows of their own
+        rows = sorted(((e.self_device_time_total / n / 1e3, e.count / n,
+                        e.key) for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA
+                       and e.self_device_time_total > 0), reverse=True)
+        if not rows:
+            log(f"[profile] {what}: the profiler saw no device time "
+                "(busy / idle share not measured)")
+            continue
+        busy = sum(r[0] for r in rows)
+        log(f"[profile] {what}: device busy {busy:.3f} ms in "
+            f"{sum(r[1] for r in rows):.0f} kernels and copies per step")
+        if what == "decode step":
+            log(f"[profile] decode step: busy {busy:.3f} ms of TPOT p50 "
+                f"{tpot_ms:.3f} ms unprofiled ({100 * busy / tpot_ms:.1f} % "
+                f"busy, {100 - 100 * busy / tpot_ms:.1f} % idle)")
+        for ms, count, key in rows[:8]:
+            log(f"[profile]   {ms:9.3f} ms {count:6.0f}x  {key[:90]}")
+
+
+def head_choice_ms(eng, params, dev) -> None:
+    """The LM head in fp32: the fp32 copy the runner keeps against a
+    per-step cast of the bf16 head, at the decode shape."""
+    h = torch.randn(SLOTS, params["head"].shape[0], device=dev)
+    kept = eng.runner.params["head"]
+    a = time_ms(lambda h: h @ kept, [(h,)], 50)
+    b = time_ms(lambda h: h @ params["head"].float(), [(h,)], 50)
+    log(f"[serve] LM head per decode step: fp32 copy {a:.4f} ms, cast each "
+        f"step {b:.4f} ms")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, tuple):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device visible", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import repro_torch  # noqa: F401  (fails outside a checkout)
+    # the port's reference numbers are taken in full fp32: no TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    card = card_line()
+    log(f"[card] {card} | torch {torch.__version__} cuda "
+        f"{torch.version.cuda} | {torch.cuda.get_device_name(0)}")
+    build_kernels()
+    rows = check_kernels(dev)
+    check_reduced_parity(dev)
+    launches = serve_full(dev, card)
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+        # the same two numbers under their longer key names as well
+        row["kernel_ms"] = row["ms"]
+        row["launches_in_serve"] = row["launches"]
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(card, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,46 @@
+"""Paged KV-cache leaf marker and block-table address arithmetic
+(counterpart of ``repro.common.paged``).
+
+A paged engine cache replaces every full-length K/V leaf with a block
+pool ``[..., num_blocks, block_size, KH, hd]`` shared by all slots and
+indexed through a per-slot block table.  Block 0 is the trash block:
+unallocated table entries point at it.  The int8 scale pool of the
+quantized arm is not ported yet (ROADMAP queue 1, item 6).
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+
+class PagedLeaf:
+    """Marks a cache leaf as a block pool (block axis where the dense
+    layout has batch, block-size axis where it has sequence)."""
+
+    def __init__(self, pool: torch.Tensor):
+        self.pool = pool
+
+    def __repr__(self) -> str:
+        return f"PagedLeaf({tuple(self.pool.shape)})"
+
+
+def is_paged(leaf: Any) -> bool:
+    return isinstance(leaf, PagedLeaf)
+
+
+def token_to_pool(table_rows: torch.Tensor, positions: torch.Tensor,
+                  block_size: int) -> torch.Tensor:
+    """Map token positions to flat pool row indices through a block table.
+
+    table_rows: [..., max_blocks_per_seq] int32 block ids;
+    positions:  [...] int token positions (same leading dims).
+    Returns int64 flat indices into a [num_blocks * block_size] row
+    space.  Positions past the table width resolve to the trash block 0,
+    never to a live block.
+    """
+    nmax = table_rows.shape[-1]
+    bidx = positions.long() // block_size
+    blk = torch.gather(table_rows.long(), -1, bidx.clamp(0, nmax - 1))
+    blk = torch.where(bidx < nmax, blk, torch.zeros_like(blk))
+    return blk * block_size + positions.long() % block_size

@@ -1,0 +1,280 @@
+"""Parallel Track (PT) Transformer, the paper's model (counterpart of
+``repro.core.track``).
+
+A PT model is ``n_tracks`` independent transformers of per-track width
+``cfg.d_model``.  All tracks read the same embedded input; after every
+``D = cfg.pt.block_depth`` layers their hidden states are fused by one
+mean (the one cross-track sync point of a track block) and every track
+continues from the fused state.
+
+On one GPU the tracks are a stacked leading dim of every parameter and
+activation ([R, D, n, ...] parameters, [n, B, S, d] activations), and
+each op of a layer covers all tracks in one launch: batched GEMMs, one
+RMSNorm launch, one attention launch.  There is no Python loop over
+tracks.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.common.paged import PagedLeaf
+from repro_torch.common.types import ModelConfig, PTConfig
+from repro_torch.models import rope as rope_lib
+from repro_torch.models.decoder import _embed, _head, model_dtype
+from repro_torch.models.layers import check_supported, layer_apply, layer_shapes
+
+
+# ---------------------------------------------------------------------------
+# sync-point accounting (the paper's section 2.2 claim)
+# ---------------------------------------------------------------------------
+
+def dense_tp_sync_points(n_layers: int) -> int:
+    """Megatron TP: one all-reduce after attention + one after FFN."""
+    return 2 * n_layers
+
+
+def pt_sync_points(n_layers: int, block_depth: int,
+                   fuse_final: bool = True) -> int:
+    n = n_layers // block_depth
+    if n_layers % block_depth and fuse_final:
+        n += 1
+    return n
+
+
+def sync_reduction(n_layers: int, block_depth: int) -> float:
+    """2L / (L/D) = 2D — '16x at D=8'."""
+    return dense_tp_sync_points(n_layers) / pt_sync_points(n_layers,
+                                                           block_depth)
+
+
+# ---------------------------------------------------------------------------
+# PT-ification of a dense decoder config
+# ---------------------------------------------------------------------------
+
+def _round_mult(x: float, m: int) -> int:
+    return max(m, int(round(x / m)) * m)
+
+
+def pt_ify(cfg: ModelConfig, n_tracks: int, block_depth: int,
+           fusion_op: str = "mean", width_mult: int = 128) -> ModelConfig:
+    """Track-parallel variant of a dense decoder config: per-track width
+    d/sqrt(n) (total parameters about preserved), heads and KV heads
+    divided across tracks (Table 1's recipe), d_ff scaled to preserve the
+    FFN parameters."""
+    if cfg.encdec is not None:
+        raise ValueError("PT is defined for decoder-only models")
+    if cfg.moe is not None or cfg.ssm is not None or cfg.rglru is not None:
+        raise NotImplementedError("PT-ification of MoE / SSM / RG-LRU "
+                                  "configs is not ported (ROADMAP queue 1, "
+                                  "item 8)")
+    d_t = _round_mult(cfg.d_model / math.sqrt(n_tracks), width_mult)
+    heads_t = max(1, cfg.n_heads // n_tracks)
+    kv_t = max(1, cfg.n_kv_heads // n_tracks)
+    d_ff_t = _round_mult(cfg.d_model * cfg.d_ff / (n_tracks * d_t),
+                         width_mult) if cfg.d_ff else 0
+    return cfg.replace(
+        name=f"{cfg.name}-pt{n_tracks}d{block_depth}", family="pt",
+        d_model=d_t, n_heads=heads_t, n_kv_heads=kv_t, d_ff=d_ff_t,
+        head_dim=cfg.head_dim,
+        pt=PTConfig(n_tracks=n_tracks, block_depth=block_depth,
+                    fusion_op=fusion_op))
+
+
+# ---------------------------------------------------------------------------
+# parameters
+# ---------------------------------------------------------------------------
+
+def _pt(cfg: ModelConfig) -> PTConfig:
+    if cfg.pt is None:
+        raise ValueError(f"{cfg.name} has no PT config")
+    return cfg.pt
+
+
+def _block_counts(cfg: ModelConfig) -> Tuple[int, int]:
+    D = _pt(cfg).block_depth
+    R, rem = cfg.n_layers // D, cfg.n_layers % D
+    if rem:
+        raise NotImplementedError(
+            f"{cfg.name}: a ragged tail of {rem} layers is not ported (no "
+            "registered config has one)")
+    return R, rem
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameter tree of ``repro.core.track.init_pt`` as (shape, std)
+    leaves: std is the normal draw's scale, None for norm scales (zeros,
+    fp32).  embed [V, d]; head [d, V]; blocks leaves [R, D, n, ...]."""
+    check_supported(cfg)
+    if len(cfg.pattern_unit) != 1 or cfg.pattern_prefix or cfg.pattern_suffix:
+        raise ValueError("PT models use a uniform layer pattern")
+    pt = _pt(cfg)
+    d = cfg.d_model
+    R, _ = _block_counts(cfg)
+    lead = (R, pt.block_depth, pt.n_tracks)
+
+    def stack(tree):
+        if isinstance(tree, dict):
+            return {k: stack(v) for k, v in tree.items()}
+        shape, std = tree
+        return (lead + tuple(shape), std)
+
+    specs: Dict[str, Any] = {
+        "embed": ((cfg.vocab_size, d), 1.0 / math.sqrt(d)),
+        "final_norm": {"scale": ((d,), None)},
+        "blocks": stack(layer_shapes(cfg, d)),
+        "tail": (),
+    }
+    if not cfg.tie_embeddings:
+        specs["head"] = ((d, cfg.vocab_size), 1.0 / math.sqrt(d))
+    return specs
+
+
+def init_pt(generator: torch.Generator, cfg: ModelConfig,
+            device: DeviceLike = None) -> Dict[str, Any]:
+    """Random PT parameters with the reference's distributions: weights
+    normal * 1/sqrt(fan_in) in the model dtype, norm scales zero (fp32).
+    ``generator`` must live on ``device`` (CUDA unless 'cpu' is given).
+    The numbers differ from the JAX init of the same seed; tests load one
+    JAX tree into both packages through ``weights.from_jax_params``."""
+    device = resolve_device(device)
+    dtype = model_dtype(cfg)
+
+    def make(tree):
+        if isinstance(tree, dict):
+            return {k: make(v) for k, v in tree.items()}
+        if tree == ():
+            return ()
+        shape, std = tree
+        if std is None:
+            return torch.zeros(shape, dtype=torch.float32, device=device)
+        t = torch.randn(shape, generator=generator, dtype=torch.float32,
+                        device=device)
+        return t.mul_(std).to(dtype)
+
+    return make(param_specs(cfg))
+
+
+def _layer(blocks, r: int, j: int):
+    """Parameters of layer j of track block r: leaves [n, ...] (views)."""
+    if isinstance(blocks, dict):
+        return {k: _layer(v, r, j) for k, v in blocks.items()}
+    return blocks[r, j]
+
+
+# ---------------------------------------------------------------------------
+# fusion
+# ---------------------------------------------------------------------------
+
+def _fuse(h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The sync point: h [n, B, S, d] -> fused [B, S, d].  The mean is
+    accumulated in fp32 and cast back, as jnp.mean does for bf16."""
+    pt = _pt(cfg)
+    if pt.fusion_op == "mean":
+        return torch.mean(h, dim=0, dtype=torch.float32).to(h.dtype)
+    if pt.fusion_op == "sum":
+        return torch.sum(h, dim=0, dtype=torch.float32).to(h.dtype)
+    raise ValueError(pt.fusion_op)
+
+
+def _spread(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Fused [B, S, d] -> [n, B, S, d] for every track.  Free in the
+    reference; here a copy of n * B * S * d elements, so the kernels get
+    contiguous operands."""
+    return x[None].expand(_pt(cfg).n_tracks, *x.shape).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# forward / decode
+# ---------------------------------------------------------------------------
+
+def pt_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+               mode: str = "prefill"):
+    """Whole-prompt prefill.  batch: {'inputs': [B, S] token ids,
+    'positions'?: [B, S]}.  Returns (logits [B, S, V], cache) with cache
+    {'blocks': (k, v) each [R, D, n, B, S, KH, hd], 'tail': ()}, the
+    reference's prefill cache layout.  (The reference also returns an
+    auxiliary loss, always zero here; training is ROADMAP queue 1,
+    item 10.)"""
+    if mode != "prefill":
+        raise NotImplementedError(f"pt_forward mode {mode!r} is not ported "
+                                  "(train: ROADMAP queue 1, item 10)")
+    pt = _pt(cfg)
+    spec = cfg.spec(cfg.pattern_unit[0])
+    inputs = batch["inputs"]
+    B, S = inputs.shape[:2]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = rope_lib.positions_default(B, S, device=inputs.device)
+    R, _ = _block_counts(cfg)
+    h = _embed(params, inputs, cfg)                          # [B, S, d]
+    ks, vs = [], []
+    for r in range(R):
+        hh = _spread(h, cfg)
+        for j in range(pt.block_depth):
+            hh, (k, v) = layer_apply(_layer(params["blocks"], r, j), hh,
+                                     cfg=cfg, spec=spec, mode="prefill",
+                                     positions=positions)
+            ks.append(k)
+            vs.append(v)
+        h = _fuse(hh, cfg)                                   # 1 sync / block
+    logits = _head(params, h, cfg)
+
+    def stacked(xs):
+        return torch.stack(xs).reshape(R, pt.block_depth, *xs[0].shape)
+
+    return logits, {"blocks": (stacked(ks), stacked(vs)), "tail": ()}
+
+
+def pt_decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
+                   cfg: ModelConfig, block_table: torch.Tensor,
+                   kv_max_len: Optional[int] = None):
+    """One token per row against the paged cache.  cache {'blocks':
+    (PagedLeaf k, PagedLeaf v) with pools [R, D, n, N, bs, KH, hd]};
+    tokens [B]; pos [B] int32 (cache write index); block_table [B, nmax]
+    int32.  The pools are updated in place.  Returns (logits [B, V],
+    cache)."""
+    pt = _pt(cfg)
+    spec = cfg.spec(cfg.pattern_unit[0])
+    R, _ = _block_counts(cfg)
+    k_leaf, v_leaf = cache["blocks"]
+    if not isinstance(k_leaf, PagedLeaf):
+        raise NotImplementedError("the contiguous (non-paged) cache is not "
+                                  "ported (ROADMAP queue 1, item 7)")
+    h = _embed(params, tokens[:, None], cfg)                 # [B, 1, d]
+    for r in range(R):
+        hh = _spread(h, cfg)
+        for j in range(pt.block_depth):
+            layer_cache = (PagedLeaf(k_leaf.pool[r, j]),
+                           PagedLeaf(v_leaf.pool[r, j]))
+            hh, _ = layer_apply(_layer(params["blocks"], r, j), hh, cfg=cfg,
+                                spec=spec, mode="decode", pos=pos,
+                                cache=layer_cache, block_table=block_table,
+                                kv_max_len=kv_max_len)
+        h = _fuse(hh, cfg)
+    return _head(params, h[:, 0], cfg), cache
+
+
+def pt_cache_shape(cfg: ModelConfig, batch: int, seq_len: int
+                   ) -> Tuple[int, ...]:
+    """Shape of one K or V leaf: [R, D, n, batch, seq_len, KH, hd].  The
+    paged engine lays its pools out the same way, with (num_blocks,
+    block_size) in place of (batch, seq_len)."""
+    pt = _pt(cfg)
+    R, _ = _block_counts(cfg)
+    return (R, pt.block_depth, pt.n_tracks, batch, seq_len, cfg.n_kv_heads,
+            cfg.head_dim)
+
+
+def pt_init_cache(cfg: ModelConfig, batch: int, seq_len: int,
+                  device: DeviceLike = None) -> Dict[str, Any]:
+    """Zeroed dense cache {'blocks': (k, v), 'tail': ()}."""
+    device = resolve_device(device)
+    shape = pt_cache_shape(cfg, batch, seq_len)
+    dtype = model_dtype(cfg)
+    return {"blocks": (torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device)),
+            "tail": ()}

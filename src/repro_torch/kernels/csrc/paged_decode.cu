@@ -1,0 +1,190 @@
+// Paged flash-decode for Hopper: one query token per sequence against a
+// block-pool K/V cache, GQA-aware, all Parallel-Track tracks in one launch.
+//
+// Replaces the Pallas kernel repro/kernels/decode_attention.py
+// ::paged_decode_attention (_paged_kernel, _online_softmax_step).
+//
+// Bound on the H100: bytes.  Each live K/V row is read once and feeds G
+// query heads with 2*G flops per element, far below the ~295 flop/byte
+// ridge, so the kernel can at best stream the live cache at 3.35 TB/s.
+// Design:
+//   * grid (KH, B, n_tracks): one block per (track, row, KV head), so one
+//     launch covers every track of a layer (the JAX vmap over tracks);
+//   * the block reads its own block-table row (Hopper has no scalar
+//     prefetch) and visits only live tokens, min(length, ceil(max_len/bs)
+//     blocks) -- dead blocks are never read;
+//   * each K/V row is loaded once for all G query heads of its KV head;
+//     the online-softmax state (m, l) lives in shared memory and the
+//     output accumulators in fp32 registers;
+//   * 64 tokens per step: one warp per token for q.k (lanes split the
+//     head dim), one warp per head for the softmax update, one thread per
+//     output column for P.V, so loads stay coalesced along the head dim.
+// A split-KV pass (more blocks in flight for short batches) and TMA
+// pipelining are left to a later optimisation.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kTile = 64;                        // tokens per softmax step
+constexpr int kMaxG = 8;                         // query heads per KV head
+constexpr int kMaxHd = 256;
+constexpr int kDPerThread = kMaxHd / kThreads;   // output columns / thread
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
+                    const T* __restrict__ v_pool,
+                    const int* __restrict__ table,
+                    const int* __restrict__ lengths, T* __restrict__ out,
+                    int B, int H, int KH, int hd, int N, int bs, int nmax,
+                    int n_sweep, float scale) {
+  const int kh = blockIdx.x, b = blockIdx.y, tr = blockIdx.z;
+  const int G = H / KH;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+
+  __shared__ float q_s[kMaxG * kMaxHd];
+  __shared__ float p_s[kMaxG * kTile];
+  __shared__ long long row_s[kTile];   // element offset of a token's K/V row
+  __shared__ float m_s[kMaxG], l_s[kMaxG], alpha_s[kMaxG];
+
+  // q rows of this KV head's G query heads, pre-scaled (as the Pallas
+  // kernel does: q.astype(f32) * scale)
+  const size_t q_off = ((size_t)(tr * B + b) * H + (size_t)kh * G) * hd;
+  for (int i = tid; i < G * hd; i += kThreads)
+    q_s[i] = rt::to_f(q[q_off + i]) * scale;
+  if (tid < kMaxG) {
+    m_s[tid] = -INFINITY;
+    l_s[tid] = 0.f;
+    alpha_s[tid] = 1.f;
+  }
+
+  const size_t track_off = (size_t)tr * N * bs * KH * hd;
+  const T* kp = k_pool + track_off;
+  const T* vp = v_pool + track_off;
+  const int* trow = table + (size_t)b * nmax;
+  const int L = lengths[b];
+  const int n_blk = min((L + bs - 1) / bs, n_sweep);
+  const int n_tok = max(0, min(L, n_blk * bs));   // columns >= L are masked
+
+  float acc[kDPerThread][kMaxG];
+#pragma unroll
+  for (int j = 0; j < kDPerThread; ++j)
+#pragma unroll
+    for (int g = 0; g < kMaxG; ++g) acc[j][g] = 0.f;
+  __syncthreads();
+
+  for (int t0 = 0; t0 < n_tok; t0 += kTile) {
+    const int tlen = min(kTile, n_tok - t0);
+    // 1. scores s[g][t] = q_g . k_t: one warp per token
+    for (int t = warp; t < kTile; t += kWarps) {
+      float s[kMaxG];
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
+      long long row = 0;
+      if (t < tlen) {
+        const int i = t0 + t;
+        const int blk = trow[i / bs];
+        row = ((long long)blk * bs + (i % bs)) * KH * hd + (long long)kh * hd;
+        for (int d = lane; d < hd; d += 32) {
+          const float kd = rt::to_f(kp[row + d]);
+#pragma unroll
+          for (int g = 0; g < kMaxG; ++g)
+            if (g < G) s[g] += q_s[g * hd + d] * kd;
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g)
+        if (g < G) s[g] = rt::warp_sum(s[g]);
+      if (lane == 0) {
+        row_s[t] = row;
+        for (int g = 0; g < G; ++g)
+          p_s[g * kTile + t] = (t < tlen) ? s[g] : -INFINITY;
+      }
+    }
+    __syncthreads();
+    // 2. online-softmax update: one warp per query head
+    for (int g = warp; g < G; g += kWarps) {
+      float* pr = p_s + g * kTile;
+      const float s0 = pr[lane], s1 = pr[lane + 32];
+      const float m_old = m_s[g];
+      // finite: every step holds at least one live token
+      const float m_new = fmaxf(m_old, rt::warp_max(fmaxf(s0, s1)));
+      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
+      pr[lane] = p0;
+      pr[lane + 32] = p1;
+      const float sum = rt::warp_sum(p0 + p1);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);   // 0 on the first step
+        alpha_s[g] = alpha;
+        l_s[g] = l_s[g] * alpha + sum;
+        m_s[g] = m_new;
+      }
+    }
+    __syncthreads();
+    // 3. acc = acc * alpha + P . V: one thread per output column
+#pragma unroll
+    for (int j = 0; j < kDPerThread; ++j) {
+      const int d = tid + j * kThreads;
+      if (d < hd) {
+#pragma unroll
+        for (int g = 0; g < kMaxG; ++g) acc[j][g] *= alpha_s[g];
+        for (int t = 0; t < tlen; ++t) {
+          const float vd = rt::to_f(vp[row_s[t] + d]);
+#pragma unroll
+          for (int g = 0; g < kMaxG; ++g)
+            if (g < G) acc[j][g] += p_s[g * kTile + t] * vd;
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  // 4. normalise (an empty row stores zeros, like the Pallas kernel)
+  const size_t o_off = ((size_t)(tr * B + b) * H + (size_t)kh * G) * hd;
+#pragma unroll
+  for (int j = 0; j < kDPerThread; ++j) {
+    const int d = tid + j * kThreads;
+    if (d < hd) {
+#pragma unroll
+      for (int g = 0; g < kMaxG; ++g)
+        if (g < G)
+          out[o_off + (size_t)g * hd + d] =
+              rt::from_f<T>(acc[j][g] / fmaxf(l_s[g], 1e-37f));
+    }
+  }
+}
+
+}  // namespace
+
+// q [n, B, H, hd]; k_pool/v_pool [n, N, bs, KH, hd]; table [B, nmax] int32;
+// lengths [B] int32; out [n, B, H, hd].  All contiguous, on one device.
+// Returns cudaGetLastError() after the launch.
+extern "C" int paged_decode_attention_launch(
+    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* lengths, void* out, int n, int B, int H, int KH, int hd,
+    int N, int bs, int nmax, int n_sweep, float scale, int dtype,
+    void* stream) {
+  if (H % KH != 0 || H / KH > kMaxG || hd > kMaxHd) return (int)cudaErrorInvalidValue;
+  const dim3 grid(KH, B, n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == rt::kFloat32) {
+    paged_decode_kernel<float><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k_pool),
+        static_cast<const float*>(v_pool), static_cast<const int*>(table),
+        static_cast<const int*>(lengths), static_cast<float*>(out), B, H, KH,
+        hd, N, bs, nmax, n_sweep, scale);
+  } else if (dtype == rt::kBFloat16) {
+    paged_decode_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k_pool),
+        static_cast<const __nv_bfloat16*>(v_pool),
+        static_cast<const int*>(table), static_cast<const int*>(lengths),
+        static_cast<__nv_bfloat16*>(out), B, H, KH, hd, N, bs, nmax, n_sweep,
+        scale);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

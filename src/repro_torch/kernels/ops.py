@@ -1,0 +1,27 @@
+"""Public kernel wrappers and their launch counts.
+
+Each wrapper launches its hand-written kernel for CUDA tensors (raising
+if it cannot) and runs its plain PyTorch version for CPU tensors.  Each
+keeps ``launches``, a plain int it bumps only where it launched the
+kernel, so a run can show which kernels its path went through.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+from repro_torch.kernels.decode_attention import paged_decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.rmsnorm import rmsnorm
+
+KERNELS = {"paged_decode_attention": paged_decode_attention,
+           "flash_attention": flash_attention,
+           "rmsnorm": rmsnorm}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

@@ -1,0 +1,9 @@
+"""Plain PyTorch versions of every ported kernel (counterpart of
+``repro.kernels.ref``): what the CPU path runs and what the kernels are
+held against on the card."""
+from repro_torch.kernels.decode_attention import paged_decode_attention_plain
+from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.rmsnorm import rmsnorm_plain
+
+__all__ = ["paged_decode_attention_plain", "flash_attention_plain",
+           "rmsnorm_plain"]

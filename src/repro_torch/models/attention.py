@@ -1,0 +1,141 @@
+"""GQA attention over the stacked track dim: whole-prompt prefill through
+the flash-attention kernel, paged decode through the paged-decode kernel
+(counterpart of ``repro.models.attention``).
+
+Layout conventions (JAX layouts, with a leading track dim n):
+- activations: x [n, B, S, d]
+- weights    : wq [n, d, H, hd]; wk/wv [n, d, KH, hd]; wo [n, H, hd, d]
+- K/V pools  : [n, N, bs, KH, hd] (one layer's slice of the engine pool),
+               RoPE already applied to K.
+Every projection is one batched GEMM over the tracks, every attention
+call one kernel launch for all tracks.
+
+Not ported (each raises): sliding windows and ring caches, the
+contiguous cache, chunked prefill (``attention_chunk``), logit softcap
+on the paged decode path, qk-norm, M-RoPE, cross-attention.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.common.paged import PagedLeaf, is_paged, token_to_pool
+from repro_torch.common.types import LayerSpec, ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models import rope as rope_lib
+from repro_torch.models.mlp import track_matmul
+
+
+def attention_shapes(d_stream: int, n_heads: int, n_kv_heads: int,
+                     head_dim: int):
+    """Per-track weight shapes and init std (normal * std), as
+    ``repro.models.attention.attention_init`` draws them."""
+    s_in = 1.0 / d_stream ** 0.5
+    s_out = 1.0 / (n_heads * head_dim) ** 0.5
+    return {"wq": ((d_stream, n_heads, head_dim), s_in),
+            "wk": ((d_stream, n_kv_heads, head_dim), s_in),
+            "wv": ((d_stream, n_kv_heads, head_dim), s_in),
+            "wo": ((n_heads, head_dim, d_stream), s_out)}
+
+
+def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor):
+    """x [n, B, S, d] -> q [n, B, S, H, hd], k/v [n, B, S, KH, hd], RoPE
+    (theta = cfg.rope_theta) applied to q and k in fp32."""
+    n, B, S, d = x.shape
+    wq, wk, wv = params["wq"], params["wk"], params["wv"]
+    q = track_matmul(x, wq.reshape(n, d, -1)).reshape(n, B, S, *wq.shape[2:])
+    k = track_matmul(x, wk.reshape(n, d, -1)).reshape(n, B, S, *wk.shape[2:])
+    v = track_matmul(x, wv.reshape(n, d, -1)).reshape(n, B, S, *wv.shape[2:])
+    cos, sin = rope_lib.rope_cos_sin(positions, wq.shape[-1], cfg.rope_theta)
+    return rope_lib.apply_rope(q, cos, sin), rope_lib.apply_rope(k, cos, sin), v
+
+
+def _out_proj(params, ctx: torch.Tensor) -> torch.Tensor:
+    """ctx [n, ..., H, hd] -> [n, ..., d] (contracts heads and head dim)."""
+    wo = params["wo"]
+    n, H, hd, d = wo.shape
+    return track_matmul(ctx.reshape(*ctx.shape[:-2], H * hd),
+                        wo.reshape(n, H * hd, d))
+
+
+def attention_apply(params, x: torch.Tensor, *, spec: LayerSpec,
+                    cfg: ModelConfig, positions: torch.Tensor,
+                    return_cache: bool = False):
+    """Causal self-attention over x [n, B, S, d] through the flash kernel
+    (tracks flattened into its batch).  Returns (out [n, B, S, d],
+    (k, v) [n, B, S, KH, hd] with RoPE applied, or None)."""
+    if spec.window is not None:
+        raise NotImplementedError("sliding-window attention is not ported "
+                                  "(ROADMAP queue 1, item 8)")
+    n, B, S, _ = x.shape
+    q, k, v = _project_qkv(params, x, cfg, positions)
+    H, hd = q.shape[-2:]
+    KH = k.shape[-2]
+    ctx = ops.flash_attention(q.reshape(n * B, S, H, hd),
+                              k.reshape(n * B, S, KH, hd),
+                              v.reshape(n * B, S, KH, hd),
+                              causal=spec.causal,
+                              softcap=spec.attn_logit_softcap)
+    out = _out_proj(params, ctx.reshape(n, B, S, H, hd))
+    return out, ((k, v) if return_cache else None)
+
+
+def pool_write(leaf: PagedLeaf, rows: torch.Tensor,
+               w_idx: torch.Tensor) -> PagedLeaf:
+    """Write rows [n, M, KH, hd] into one layer's pool [n, N, bs, KH, hd]
+    at flat pool rows ``w_idx`` [M], in place (the JAX version returns a
+    new pool; updating in place saves a pool-sized copy per token)."""
+    pool = leaf.pool
+    flat = pool.view(pool.shape[0], -1, *pool.shape[3:])
+    flat[:, w_idx] = rows.to(pool.dtype)
+    return leaf
+
+
+def _paged_decode(params, q: torch.Tensor, k_new: torch.Tensor,
+                  v_new: torch.Tensor, k_leaf: PagedLeaf, v_leaf: PagedLeaf,
+                  *, spec: LayerSpec, pos: torch.Tensor,
+                  block_table: torch.Tensor, kv_max_len: Optional[int],
+                  out_dtype: torch.dtype):
+    """Decode step against block pools.  q [n, B, H, hd]; k_new/v_new
+    [n, B, KH, hd]; pools [n, N, bs, KH, hd]; block_table [B, nmax]
+    int32 shared by the tracks; pos [B] int32 (the new token's index).
+
+    Write-before-read, as in the reference: the new K/V rows land first
+    (inactive lanes carry zeroed table rows, so theirs land in the trash
+    block), then the kernel attends over ``lengths = pos + 1`` columns.
+    Returns (out [n, B, 1, d], (k_leaf, v_leaf))."""
+    if block_table is None:
+        raise ValueError("paged cache leaf but no block_table passed")
+    if spec.attn_logit_softcap is not None:
+        raise NotImplementedError("logit softcap on the paged decode path "
+                                  "is not ported (ROADMAP queue 1, item 8)")
+    bs = k_leaf.pool.shape[2]
+    w_idx = token_to_pool(block_table, pos[:, None], bs)[:, 0]
+    pool_write(k_leaf, k_new, w_idx)
+    pool_write(v_leaf, v_new, w_idx)
+    ctx = ops.paged_decode_attention(q, k_leaf.pool, v_leaf.pool,
+                                     block_table, (pos + 1).to(torch.int32),
+                                     max_len=kv_max_len)
+    out = _out_proj(params, ctx.to(out_dtype))[:, :, None]
+    return out, (k_leaf, v_leaf)
+
+
+def attention_decode(params, x: torch.Tensor,
+                     cache: Tuple[PagedLeaf, PagedLeaf], *, spec: LayerSpec,
+                     cfg: ModelConfig, pos: torch.Tensor,
+                     block_table: Optional[torch.Tensor] = None,
+                     kv_max_len: Optional[int] = None):
+    """x [n, B, 1, d]; cache: this layer's (k, v) block pools; pos [B]
+    int32.  ``kv_max_len`` (host-known bound on pos + 1) cuts the kernel's
+    block sweep to the live prefix.  Returns (out [n, B, 1, d], cache)."""
+    k_leaf, v_leaf = cache
+    if not is_paged(k_leaf):
+        raise NotImplementedError("the contiguous (non-paged) cache is not "
+                                  "ported (ROADMAP queue 1, item 7)")
+    q, k_new, v_new = _project_qkv(params, x, cfg, pos[:, None])
+    return _paged_decode(params, q[:, :, 0], k_new[:, :, 0], v_new[:, :, 0],
+                         k_leaf, v_leaf, spec=spec, pos=pos,
+                         block_table=block_table, kv_max_len=kv_max_len,
+                         out_dtype=x.dtype)

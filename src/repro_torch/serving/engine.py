@@ -1,0 +1,579 @@
+"""Continuous-batching serving engine: Scheduler + ModelRunner + Engine
+(counterpart of ``repro.serving.engine``), the synchronous loop.
+
+  Scheduler   — pure-Python FCFS admission over a fixed slot table,
+                budgeted by padded prefill tokens and free KV blocks.
+  ModelRunner — everything that touches the device: the paged K/V
+                pools, bucketed batched prefill and the decode step with
+                its fused sampling epilogue.
+  Engine      — submit / step / run / generate, streaming callbacks and
+                TTFT / TPOT / throughput metrics.
+
+One engine step: admit queued requests (bucketed, batched prefill that
+samples each request's first token), run ONE decode step for every
+decoding slot, and free the blocks of slots that finished.  A decode
+step makes exactly one device-to-host transfer: the packed [2, slots]
+(token, done) tensor of ``sampler.sample_step``.  The device block table
+is rebuilt only when the cache's table version or the active set
+changes.
+
+Greedy only, and the prefix cache is off by default (``prefix_cache=
+False``; the reference defaults to on).  Every feature of the reference
+engine this slice leaves out raises ``NotImplementedError`` naming its
+ROADMAP item when asked for, never silently ignored.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+import time
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.common.paged import PagedLeaf, token_to_pool
+from repro_torch.common.types import ModelConfig
+from repro_torch.core import track as pt_lib
+from repro_torch.models.layers import check_supported
+from repro_torch.serving.cache import PagedKVCache
+from repro_torch.serving.sampler import (SampleParams, require_greedy,
+                                         sample_rows, sample_step,
+                                         stack_params)
+
+
+def _unported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to repro_torch yet "
+                               f"(ROADMAP queue 1, item {item})")
+
+
+def _refuse(**knobs: Tuple[Any, Any, int]) -> None:
+    """knobs: name -> (value, off value, ROADMAP item)."""
+    for name, (value, off, item) in knobs.items():
+        if value != off:
+            raise _unported(f"{name}={value!r}", item)
+
+
+class RequestState(enum.Enum):
+    QUEUED = "queued"
+    PREFILL = "prefill"
+    DECODE = "decode"
+    DONE = "done"
+    REJECTED = "rejected"      # never ran: failed validation
+
+
+TERMINAL_STATES = (RequestState.DONE, RequestState.REJECTED)
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: List[int]
+    max_new_tokens: int = 32
+    eos_id: Optional[int] = None
+    params: SampleParams = dataclasses.field(default_factory=SampleParams)
+    on_token: Optional[Callable[["Request", int], None]] = None
+    # filled by the engine
+    state: RequestState = RequestState.QUEUED
+    output: List[int] = dataclasses.field(default_factory=list)
+    truncated: bool = False            # max_new_tokens clamped to capacity
+    finish_reason: Optional[str] = None
+    # monotonic (perf_counter) latency marks
+    t_submit: float = 0.0
+    t_first: float = 0.0
+    t_done: float = 0.0
+
+    @property
+    def ttft(self) -> float:
+        return self.t_first - self.t_submit
+
+    @property
+    def tpot(self) -> float:
+        n = max(1, len(self.output) - 1)
+        return (self.t_done - self.t_first) / n
+
+    @property
+    def seq_tokens(self) -> List[int]:
+        return self.prompt + self.output
+
+    @property
+    def finished(self) -> bool:
+        return self.state in TERMINAL_STATES
+
+
+class EngineMetrics:
+    """Aggregate serving metrics over completed requests."""
+
+    def __init__(self) -> None:
+        self.ttfts: List[float] = []
+        self.tpots: List[float] = []
+        self.prompt_tokens = 0
+        self.output_tokens = 0
+        self.max_active = 0
+        self.rejected = 0
+        self.t_start: Optional[float] = None
+        self.t_last: Optional[float] = None
+
+    def start(self) -> None:
+        if self.t_start is None:
+            self.t_start = time.perf_counter()
+
+    def observe(self, req: Request) -> None:
+        self.ttfts.append(req.ttft)
+        self.tpots.append(req.tpot)
+        self.prompt_tokens += len(req.prompt)
+        self.output_tokens += len(req.output)
+        self.t_last = req.t_done
+
+    def summary(self) -> Dict[str, Any]:
+        """TTFT / TPOT percentiles (ms) and output-token throughput; safe
+        on an engine that never finished a request."""
+        def pct(xs: List[float]) -> Dict[str, float]:
+            if not xs:
+                return {"p50": 0.0, "p90": 0.0, "p99": 0.0, "mean": 0.0}
+            a = np.asarray(xs, np.float64) * 1e3
+            return {"p50": float(np.percentile(a, 50)),
+                    "p90": float(np.percentile(a, 90)),
+                    "p99": float(np.percentile(a, 99)),
+                    "mean": float(np.mean(a))}
+
+        elapsed = ((self.t_last or time.perf_counter()) - self.t_start
+                   if self.t_start is not None else 0.0)
+        return {"requests": len(self.ttfts),
+                "prompt_tokens": self.prompt_tokens,
+                "output_tokens": self.output_tokens,
+                "max_active": self.max_active,
+                "rejected": self.rejected,
+                "elapsed_s": elapsed,
+                "throughput_tok_s": (self.output_tokens / elapsed
+                                     if elapsed > 0 else 0.0),
+                "ttft_ms": pct(self.ttfts),
+                "tpot_ms": pct(self.tpots)}
+
+
+class EngineStallError(RuntimeError):
+    """``Engine.run`` exhausted its step budget with work still pending."""
+
+
+# ---------------------------------------------------------------------------
+# scheduler
+# ---------------------------------------------------------------------------
+
+class Scheduler:
+    """FCFS admission over a fixed slot table, budgeted by prefill tokens.
+
+    ``plan_admission`` pops queued requests in order while free slots,
+    the per-round padded-token budget and free KV blocks last, grouping
+    the admitted set by prefill bucket so each group runs as one batched
+    prefill.  Strict FCFS: the first request that does not fit stops
+    admission for the round, except that one oversized request is always
+    admitted alone rather than livelocking."""
+
+    def __init__(self, max_slots: int, bucket_fn: Callable[[int], int],
+                 max_waiting_prefill_tokens: int = 4096,
+                 charge_fn: Optional[Callable[[Request], int]] = None):
+        self.max_slots = max_slots
+        self.bucket_fn = bucket_fn
+        self.charge_fn = charge_fn or (lambda r: bucket_fn(len(r.seq_tokens)))
+        self.max_waiting_prefill_tokens = max_waiting_prefill_tokens
+        self.queue: deque[Request] = deque()
+        self.slots: List[Optional[Request]] = [None] * max_slots
+
+    def submit(self, req: Request) -> None:
+        req.state = RequestState.QUEUED
+        self.queue.append(req)
+
+    def free_slots(self) -> List[int]:
+        return [i for i, r in enumerate(self.slots) if r is None]
+
+    def active_slots(self) -> List[Tuple[int, Request]]:
+        return [(i, r) for i, r in enumerate(self.slots) if r is not None]
+
+    def release(self, slot: int) -> None:
+        self.slots[slot] = None
+
+    def has_work(self) -> bool:
+        return bool(self.queue) or any(r is not None for r in self.slots)
+
+    def plan_admission(self, can_fit: Optional[Callable[[Request], bool]]
+                       = None) -> List[Tuple[int, List[Tuple[int, Request]]]]:
+        """[(bucket, [(slot, request), ...]), ...] for this round."""
+        free = self.free_slots()
+        budget = self.max_waiting_prefill_tokens
+        groups: Dict[int, List[Tuple[int, Request]]] = {}
+        admitted = 0
+        while free and self.queue:
+            head = self.queue[0]
+            if can_fit is not None and not can_fit(head):
+                break                      # wait for blocks, never skip
+            bucket = self.bucket_fn(len(head.seq_tokens))
+            if self.charge_fn(head) > budget and admitted:
+                break                      # strict FCFS: wait, don't skip
+            req = self.queue.popleft()
+            slot = free.pop(0)
+            self.slots[slot] = req
+            req.state = RequestState.PREFILL
+            groups.setdefault(bucket, []).append((slot, req))
+            budget -= self.charge_fn(req)
+            admitted += 1
+        return sorted(groups.items())
+
+
+# ---------------------------------------------------------------------------
+# model runner
+# ---------------------------------------------------------------------------
+
+class ModelRunner:
+    """Device side: the paged K/V pools, bucketed prefill and the decode
+    step.  ``params`` must already live on ``device``."""
+
+    def __init__(self, cfg: ModelConfig, params, *, max_slots: int,
+                 max_seq_len: int, min_bucket: int = 16,
+                 block_size: int = 16, num_blocks: Optional[int] = None,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        check_supported(cfg)
+        if params["embed"].device != self.device:
+            raise ValueError(f"params live on {params['embed'].device}, "
+                             f"the runner on {self.device}")
+        self.cfg = cfg
+        self.params = params
+        if cfg.logits_fp32 and "head" in params:
+            # the LM head runs in fp32 (as the reference does); an fp32
+            # copy is kept once instead of casting the head every step
+            self.params = dict(params, head=params["head"].float())
+        self.max_slots = max_slots
+        self.max_seq_len = max_seq_len
+        self.min_bucket = min_bucket
+        self.kv = PagedKVCache(cfg, max_slots=max_slots,
+                               max_seq_len=max_seq_len,
+                               block_size=block_size, num_blocks=num_blocks,
+                               device=self.device)
+        k_pool, v_pool = self.kv.data
+        self.cache = {"blocks": (PagedLeaf(k_pool), PagedLeaf(v_pool)),
+                      "tail": ()}
+        self._table_key = None             # (kv.version, active bytes)
+        self._table_dev: Optional[torch.Tensor] = None
+        self.prefill_shapes: set = set()   # observed (n_reqs, bucket)
+        self.prefill_calls = 0
+        self.decode_transfers = 0          # host transfers in decode steps
+
+    # -- bucket policy --------------------------------------------------
+    def bucket_for(self, length: int) -> int:
+        """Power-of-two padding bucket, capped at the engine capacity."""
+        if length > self.max_seq_len:
+            raise ValueError(f"prompt length {length} exceeds engine "
+                             f"capacity {self.max_seq_len}")
+        b = self.min_bucket
+        while b < length:
+            b *= 2
+        return min(b, self.max_seq_len)
+
+    def admission_charge(self, req: Request) -> int:
+        return self.bucket_for(len(req.seq_tokens))
+
+    # -- device steps ---------------------------------------------------
+    def _to_dev(self, a, dtype: torch.dtype) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a)).to(self.device, dtype)
+
+    @torch.no_grad()
+    def prefill(self, prompts: Sequence[Sequence[int]], bucket: int,
+                slots: Sequence[int],
+                params_list: Sequence[SampleParams]) -> np.ndarray:
+        """Batched prefill of ``prompts`` (right-padded to ``bucket``)
+        into cache ``slots``.  Returns the first sampled token of each
+        prompt [n].
+
+        The prefill K/V rows [0, bucket) of each request are scattered
+        through its block-table row into the pools, one indexed write
+        per pool, exactly as ``paged_insert_rows`` writes them: padded
+        rows past the allocation resolve to the trash block."""
+        temps, _, _ = stack_params(params_list)
+        require_greedy(temps)
+        n = len(prompts)
+        tokens = np.zeros((n, bucket), np.int64)
+        lengths = np.empty((n,), np.int64)
+        for i, p in enumerate(prompts):
+            tokens[i, :len(p)] = p
+            lengths[i] = len(p)
+        len_d = self._to_dev(lengths, torch.long)
+        logits, cache = pt_lib.pt_forward(
+            self.params, {"inputs": self._to_dev(tokens, torch.long)},
+            self.cfg, mode="prefill")
+        last = logits[torch.arange(n, device=self.device), len_d - 1]
+        toks = sample_rows(last, temps)
+        bs = self.kv.block_size
+        pos = torch.arange(bucket, device=self.device).expand(n, bucket)
+        idx = token_to_pool(self.kv.table_rows(slots), pos, bs).reshape(-1)
+        for pool, src in zip(self.kv.data, cache["blocks"]):
+            R, D, nt, N, _, KH, hd = pool.shape
+            flat = pool.view(R, D, nt, N * bs, KH, hd)
+            flat[:, :, :, idx] = src.reshape(R, D, nt, n * bucket, KH, hd)
+        self.prefill_shapes.add((n, bucket))
+        self.prefill_calls += 1
+        return toks.cpu().numpy()
+
+    def _masked_table(self, active: np.ndarray) -> torch.Tensor:
+        """Device block table with inactive lanes zeroed (their writes land
+        in the trash block).  Rebuilt only on allocate / free /
+        active-set changes."""
+        act = np.asarray(active, bool)
+        key_now = (self.kv.version, act.tobytes())
+        if key_now != self._table_key:
+            self._table_dev = self._to_dev(
+                self.kv.table_np * act.astype(np.int32)[:, None], torch.int32)
+            self._table_key = key_now
+        return self._table_dev
+
+    def _live_max_len(self, pos: np.ndarray, active: np.ndarray
+                      ) -> Optional[int]:
+        """Power-of-two-block bound on the live cache prefix of the
+        active lanes: the paged kernel sweeps no block past it."""
+        act = np.asarray(active, bool)
+        if not act.any():
+            return None
+        bs = self.kv.block_size
+        need = -(-(int(np.asarray(pos)[act].max()) + 1) // bs)
+        p2 = 1
+        while p2 < need:
+            p2 *= 2
+        return min(self.kv.blocks_per_seq, p2) * bs
+
+    @torch.no_grad()
+    def decode(self, toks, pos, active, temps, eos, remaining
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """One decode step for all slots plus the sampling epilogue.
+        Exactly one device-to-host transfer: the packed (token, done)
+        array."""
+        table = self._masked_table(active)
+        logits, self.cache = pt_lib.pt_decode_step(
+            self.params, self.cache, self._to_dev(toks, torch.long),
+            self._to_dev(pos, torch.int32), self.cfg, block_table=table,
+            kv_max_len=self._live_max_len(pos, active))
+        packed = sample_step(logits, temps, self._to_dev(active, torch.bool),
+                             self._to_dev(eos, torch.int32),
+                             self._to_dev(remaining, torch.int32))
+        host = packed.cpu().numpy()              # THE transfer
+        self.decode_transfers += 1
+        return host[0], host[1].astype(bool)
+
+
+# ---------------------------------------------------------------------------
+# engine
+# ---------------------------------------------------------------------------
+
+class Engine:
+    """The synchronous serving loop over one ``ModelRunner``.
+
+    Runs on CUDA unless ``device='cpu'`` is given; the knobs of reference
+    features not ported yet must stay at their off values."""
+
+    def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 4,
+                 max_seq_len: int = 256,
+                 max_waiting_prefill_tokens: int = 4096,
+                 min_bucket: int = 16, block_size: int = 16,
+                 num_blocks: Optional[int] = None,
+                 prefix_cache: bool = False, device: DeviceLike = None,
+                 paged: bool = True, prefill_chunk: int = 0,
+                 speculate_k: int = 0, draft_tracks: int = 0,
+                 kv_dtype: Optional[str] = None,
+                 weight_dtype: Optional[str] = None,
+                 pipeline_depth: int = 0, preplan: bool = False,
+                 max_queue: Optional[int] = None, fault_plan: Any = None):
+        _refuse(paged=(paged, True, 7), prefill_chunk=(prefill_chunk, 0, 2),
+                speculate_k=(speculate_k, 0, 4),
+                draft_tracks=(draft_tracks, 0, 4),
+                prefix_cache=(prefix_cache, False, 3),
+                kv_dtype=(kv_dtype, None, 6),
+                weight_dtype=(weight_dtype, None, 6),
+                pipeline_depth=(pipeline_depth, 0, 7),
+                preplan=(preplan, False, 7), max_queue=(max_queue, None, 7),
+                fault_plan=(fault_plan, None, 7))
+        self.cfg = cfg
+        self.max_slots = max_slots
+        self.max_seq_len = max_seq_len
+        self.runner = ModelRunner(cfg, params, max_slots=max_slots,
+                                  max_seq_len=max_seq_len,
+                                  min_bucket=min_bucket,
+                                  block_size=block_size,
+                                  num_blocks=num_blocks, device=device)
+        self.scheduler = Scheduler(max_slots, self.runner.bucket_for,
+                                   max_waiting_prefill_tokens,
+                                   charge_fn=self.runner.admission_charge)
+        self.metrics = EngineMetrics()
+        self._next_rid = 0
+        self.steps_run = 0
+        B = max_slots
+        self._tok = np.zeros((B,), np.int32)
+        self._pos = np.zeros((B,), np.int32)
+        self._active = np.zeros((B,), bool)
+        self._temps = np.zeros((B,), np.float32)
+        self._eos = np.full((B,), -1, np.int32)
+        self._remaining = np.zeros((B,), np.int32)
+
+    # ------------------------------------------------------------------
+    def _reserve_tokens(self, req: Request) -> int:
+        """Cache positions a request occupies over its lifetime: prompt
+        plus decode writes (the last sampled token is never written)."""
+        L = len(req.prompt)
+        cap = self.max_seq_len - L + 1
+        return L + min(req.max_new_tokens, cap) - 1
+
+    def submit(self, prompt: List[int], max_new_tokens: int = 32,
+               eos_id: Optional[int] = None,
+               params: SampleParams = SampleParams(),
+               on_token: Optional[Callable[[Request, int], None]] = None,
+               *, priority: int = 0,
+               deadline_s: Optional[float] = None,
+               on_event: Optional[Callable[[Request, str], None]] = None
+               ) -> Request:
+        """Queue a request.  Invalid requests (empty or overlong prompt,
+        non-positive token budget, a reservation larger than the whole
+        block pool) come back REJECTED with ``finish_reason`` set."""
+        require_greedy([params.temperature])
+        _refuse(priority=(priority, 0, 7), deadline_s=(deadline_s, None, 7),
+                on_event=(on_event, None, 7))
+        req = Request(self._next_rid, list(prompt), max_new_tokens, eos_id,
+                      params, on_token)
+        req.t_submit = time.perf_counter()
+        self._next_rid += 1
+        kv = self.runner.kv
+        reason = None
+        if not req.prompt:
+            reason = "empty prompt"
+        elif max_new_tokens <= 0:
+            reason = f"max_new_tokens must be positive, got {max_new_tokens}"
+        elif len(req.prompt) > self.max_seq_len:
+            reason = (f"prompt length {len(req.prompt)} exceeds engine "
+                      f"capacity {self.max_seq_len}")
+        elif kv.blocks_for(self._reserve_tokens(req)) > kv.num_blocks - 1:
+            reason = (f"request needs "
+                      f"{kv.blocks_for(self._reserve_tokens(req))} KV blocks "
+                      f"but the pool holds {kv.num_blocks - 1}")
+        if reason is not None:
+            req.state = RequestState.REJECTED
+            req.finish_reason = reason
+            req.t_done = time.perf_counter()
+            self.metrics.rejected += 1
+            return req
+        self.metrics.start()
+        self.scheduler.submit(req)
+        return req
+
+    def fork(self, *args, **kwargs):
+        raise _unported("Engine.fork (copy-on-write)", 3)
+
+    def cancel(self, *args, **kwargs):
+        raise _unported("Engine.cancel", 7)
+
+    # ------------------------------------------------------------------
+    def _emit(self, req: Request, tok: int) -> None:
+        req.output.append(tok)
+        if req.on_token is not None:
+            req.on_token(req, tok)
+
+    def _finish(self, slot: int, req: Request) -> None:
+        req.state = RequestState.DONE
+        req.t_done = time.perf_counter()
+        self._active[slot] = False
+        self.runner.kv.free_slot(slot)
+        self.scheduler.release(slot)
+        self.metrics.observe(req)
+
+    def _make_can_fit(self) -> Callable[[Request], bool]:
+        """Block-availability gate for one admission round; accumulates
+        the blocks already promised this round."""
+        kv = self.runner.kv
+        planned = 0
+
+        def can_fit(req: Request) -> bool:
+            nonlocal planned
+            need = kv.blocks_for(self._reserve_tokens(req))
+            if planned + need > kv.free_blocks:
+                return False
+            planned += need
+            return True
+
+        return can_fit
+
+    def _start_decode(self, slot: int, req: Request, tok: int) -> None:
+        """The prefill sampled the request's first token: move it into
+        the decode batch (or finish it when that was its last)."""
+        req.t_first = time.perf_counter()
+        req.state = RequestState.DECODE
+        L = len(req.prompt)
+        cap = self.max_seq_len - L + 1
+        req.truncated = req.max_new_tokens > cap
+        self._tok[slot] = tok
+        self._pos[slot] = L
+        self._active[slot] = True
+        self._remaining[slot] = min(req.max_new_tokens, cap) - 1
+        self._emit(req, int(tok))
+        if (self._remaining[slot] <= 0
+                or (req.eos_id is not None and tok == req.eos_id)):
+            self._finish(slot, req)
+
+    def _admit(self) -> int:
+        """Admit queued requests into free slots and prefill them, one
+        batched call per bucket.  Returns the number admitted."""
+        admitted = 0
+        for bucket, group in self.scheduler.plan_admission(
+                self._make_can_fit()):
+            for slot, req in group:
+                self.runner.kv.allocate(slot, self._reserve_tokens(req))
+                self._temps[slot] = req.params.temperature
+                self._eos[slot] = -1 if req.eos_id is None else req.eos_id
+            slots = [s for s, _ in group]
+            reqs = [r for _, r in group]
+            toks = self.runner.prefill([r.seq_tokens for r in reqs], bucket,
+                                       slots, [r.params for r in reqs])
+            for slot, req, tok in zip(slots, reqs, toks):
+                self._start_decode(slot, req, int(tok))
+            admitted += len(group)
+        return admitted
+
+    def step(self) -> int:
+        """Admit, then one decode step for every decoding slot.  Returns
+        the number of requests that made progress."""
+        progress = self._admit()
+        self.metrics.max_active = max(self.metrics.max_active,
+                                      len(self.scheduler.active_slots()))
+        active = [(s, r) for s, r in self.scheduler.active_slots()
+                  if r.state is RequestState.DECODE]
+        if active:
+            toks, done = self.runner.decode(self._tok, self._pos,
+                                            self._active, self._temps,
+                                            self._eos, self._remaining)
+            for slot, req in active:
+                tok = int(toks[slot])
+                self._emit(req, tok)
+                self._tok[slot] = tok
+                self._pos[slot] += 1
+                self._remaining[slot] -= 1
+                if done[slot]:
+                    self._finish(slot, req)
+            progress += len(active)
+        self.steps_run += 1
+        return progress
+
+    def run(self, max_steps: int = 10000) -> None:
+        """Drain queue and slots; raise EngineStallError when the step
+        budget runs out with work pending."""
+        for _ in range(max_steps):
+            if not self.scheduler.has_work():
+                return
+            self.step()
+        if self.scheduler.has_work():
+            raise EngineStallError(
+                f"engine stalled: {max_steps} steps exhausted with "
+                f"{len(self.scheduler.queue)} queued and "
+                f"{len(self.scheduler.active_slots())} active requests")
+
+    def generate(self, prompts: List[List[int]], max_new_tokens: int = 32,
+                 params: SampleParams = SampleParams()) -> List[List[int]]:
+        reqs = [self.submit(p, max_new_tokens, params=params)
+                for p in prompts]
+        self.run()
+        return [r.output for r in reqs]

@@ -1,0 +1,210 @@
+"""The port's kernels: plain PyTorch versions against the JAX package's
+Pallas kernels (interpret mode) and pure-jnp oracles, on the same numpy
+inputs, with the tolerances of tests/test_kernels.py (fp32 2e-5, bf16
+2e-2).  The wrappers run the plain versions for CPU tensors; the CUDA
+kernels themselves are held against the plain versions on the card
+(``tests/test_torch_gpu.py`` and ``chip_smoke.py``)."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels import build, ops, ref
+
+_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+_JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+_TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs on several pytest-xdist workers at once: one
+    intra-op thread keeps torch's idle pool threads off the cores the
+    other workers use (the shapes here are too small to gain from more)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """One fp32 numpy array as a JAX array and a torch tensor of dtype
+    (both round to nearest even, so bf16 inputs are bit-identical)."""
+    return (jnp.asarray(a).astype(_JDT[dtype]),
+            torch.from_numpy(a).to(_TDT[dtype]))
+
+
+def _close(t: torch.Tensor, j, dtype: str) -> None:
+    tol = _TOL[dtype]
+    np.testing.assert_allclose(t.float().numpy(),
+                               np.asarray(j, np.float32), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("shape,per_track", [((3, 2, 5, 32), True),
+                                             ((4, 48), False),
+                                             ((2, 6, 1408), True)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_plain_matches_pallas(shape, per_track, dtype):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal(shape).astype(np.float32) * 3
+    d = shape[-1]
+    scale = rng.standard_normal((shape[0], d) if per_track else (d,)
+                                ).astype(np.float32) * 0.2
+    xj, xt = _pair(x, dtype)
+    out = ref.rmsnorm_plain(xt, torch.from_numpy(scale))
+    if per_track:                   # one Pallas call per track
+        for i in range(shape[0]):
+            _close(out[i], jops.rmsnorm(xj[i], jnp.asarray(scale[i]),
+                                        block_rows=4), dtype)
+            _close(out[i], jref.rmsnorm_ref(xj[i], jnp.asarray(scale[i])),
+                   dtype)
+    else:
+        _close(out, jops.rmsnorm(xj, jnp.asarray(scale), block_rows=4), dtype)
+
+
+@pytest.mark.parametrize("B,S,H,KH,hd,dtype,causal", [
+    (2, 64, 4, 1, 32, "float32", True), (2, 64, 4, 1, 32, "bfloat16", False),
+    (1, 96, 4, 2, 64, "float32", False), (1, 96, 4, 2, 64, "bfloat16", True)])
+def test_flash_plain_matches_pallas(B, S, H, KH, hd, dtype, causal):
+    """GQA by head index: the port reads K/V [B,S,KH,hd]; the Pallas
+    kernel gets the expanded copy (h -> h // G), as attention.py builds."""
+    rng = np.random.default_rng(1)
+    q = rng.standard_normal((B, S, H, hd)).astype(np.float32)
+    k = rng.standard_normal((B, S, KH, hd)).astype(np.float32)
+    v = rng.standard_normal((B, S, KH, hd)).astype(np.float32)
+    G = H // KH
+    qj, qt = _pair(q, dtype)
+    kj, kt = _pair(np.repeat(k, G, axis=2), dtype)
+    vj, vt = _pair(np.repeat(v, G, axis=2), dtype)
+    out = ref.flash_attention_plain(qt, _pair(k, dtype)[1],
+                                    _pair(v, dtype)[1], causal=causal)
+    _close(out, jops.flash_attention(qj, kj, vj, causal=causal, block_q=32,
+                                     block_k=32), dtype)
+    _close(out, jref.flash_attention_ref(qj, kj, vj, causal=causal), dtype)
+
+
+def test_flash_plain_softcap_matches_pallas():
+    rng = np.random.default_rng(2)
+    q, k, v = (rng.standard_normal((2, 64, 2, 32)).astype(np.float32) * 4
+               for _ in range(3))
+    out = ref.flash_attention_plain(torch.from_numpy(q), torch.from_numpy(k),
+                                    torch.from_numpy(v), causal=True,
+                                    softcap=30.0)
+    want = jops.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal=True, softcap=30.0,
+                                block_q=32, block_k=32)
+    _close(out, want, "float32")
+
+
+def _paged_inputs(n, B, KH, G, hd, bs, nmax, seed=7):
+    """Shared pool with shuffled per-row tables and ragged lengths."""
+    rng = np.random.default_rng(seed)
+    N = B * nmax + 3                        # spare blocks + trash block 0
+    q = rng.standard_normal((n, B, KH * G, hd)).astype(np.float32)
+    kp = rng.standard_normal((n, N, bs, KH, hd)).astype(np.float32)
+    vp = rng.standard_normal((n, N, bs, KH, hd)).astype(np.float32)
+    table = (rng.permutation(N - 1)[:B * nmax].reshape(B, nmax) + 1
+             ).astype(np.int32)
+    lengths = np.asarray([1 + (11 * i + 5) % (nmax * bs) for i in range(B)],
+                         np.int32)
+    return q, kp, vp, table, lengths
+
+
+@pytest.mark.parametrize("n,B,KH,G,hd,bs,nmax,dtype", [
+    (3, 1, 1, 4, 64, 8, 8, "float32"), (3, 1, 1, 4, 64, 8, 8, "bfloat16"),
+    (1, 3, 4, 1, 128, 32, 2, "bfloat16"), (4, 2, 1, 2, 8, 16, 3, "float32")])
+def test_paged_decode_plain_matches_pallas(n, B, KH, G, hd, bs, nmax, dtype):
+    """Leading track dim: the port covers all tracks in one call, the
+    Pallas kernel runs per track with the shared table.  A ``max_len``
+    cut at the longest live row changes nothing."""
+    q, kp, vp, table, lengths = _paged_inputs(n, B, KH, G, hd, bs, nmax)
+    qj, qt = _pair(q, dtype)
+    kj, kt = _pair(kp, dtype)
+    vj, vt = _pair(vp, dtype)
+    tt, lt = torch.from_numpy(table), torch.from_numpy(lengths)
+    ml = int(lengths.max())
+    out = ref.paged_decode_attention_plain(qt, kt, vt, tt, lt)
+    cut = ref.paged_decode_attention_plain(qt, kt, vt, tt, lt, max_len=ml)
+    tj, lj = jnp.asarray(table), jnp.asarray(lengths)
+    kernel = jax.vmap(lambda q, k, v: jops.paged_decode_attention(
+        q, k, v, tj, lj, max_len=ml))(qj, kj, vj)
+    oracle = jax.jit(jax.vmap(lambda q, k, v: jref.paged_decode_attention_ref(
+        q, k, v, tj, lj)))(qj, kj, vj)
+    for mine in (out, cut):
+        _close(mine, kernel, dtype)
+        _close(mine, oracle, dtype)
+
+
+def test_paged_decode_max_len_cut_drops_columns_past_it():
+    """A ``max_len`` below a row's length sweeps only the first
+    ceil(max_len / bs) blocks, as the Pallas grid does."""
+    q, kp, vp, table, _ = _paged_inputs(1, 2, 1, 2, 16, 8, 4)
+    lengths = np.asarray([30, 20], np.int32)
+    out = ref.paged_decode_attention_plain(
+        torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
+        torch.from_numpy(table), torch.from_numpy(lengths), max_len=9)
+    want = jops.paged_decode_attention(
+        jnp.asarray(q[0]), jnp.asarray(kp[0]), jnp.asarray(vp[0]),
+        jnp.asarray(table), jnp.asarray(lengths), max_len=9)
+    _close(out[0], want, "float32")
+
+
+def test_wrappers_run_plain_on_cpu_without_counting():
+    q, kp, vp, table, lengths = _paged_inputs(2, 2, 1, 2, 16, 8, 3)
+    args = [torch.from_numpy(a) for a in (q, kp, vp, table, lengths)]
+    x = torch.randn(2, 3, 16)
+    s = torch.zeros(2, 16)
+    fq, fk = torch.randn(2, 16, 2, 8), torch.randn(2, 16, 1, 8)
+    before = ops.launch_counts()
+    assert set(before) == {"paged_decode_attention", "flash_attention",
+                           "rmsnorm"}
+    assert all(isinstance(v, int) for v in before.values())
+    assert torch.equal(ops.paged_decode_attention(*args, max_len=16),
+                       ref.paged_decode_attention_plain(*args, max_len=16))
+    assert torch.equal(ops.flash_attention(fq, fk, fk),
+                       ref.flash_attention_plain(fq, fk, fk))
+    assert torch.equal(ops.rmsnorm(x, s), ref.rmsnorm_plain(x, s))
+    # a launch count moves only where a kernel launched, never on the CPU
+    assert ops.launch_counts() == before
+
+
+def test_wrappers_refuse_what_no_kernel_takes():
+    q, kp, vp, table, lengths = (torch.from_numpy(a) for a in
+                                 _paged_inputs(1, 2, 1, 2, 16, 8, 3))
+    with pytest.raises(ValueError, match="int32"):
+        ops.paged_decode_attention(q, kp, vp, table.long(), lengths)
+    with pytest.raises(ValueError):
+        ops.paged_decode_attention(q[:, :1], kp, vp, table, lengths)
+    with pytest.raises(ValueError):
+        ops.flash_attention(torch.randn(1, 8, 3, 8), torch.randn(1, 8, 2, 8),
+                            torch.randn(1, 8, 2, 8))
+    with pytest.raises(ValueError):
+        ops.rmsnorm(torch.randn(3, 4, 8), torch.zeros(2, 8))
+    # a device that is neither the CPU nor CUDA is refused, not served
+    # by the plain version
+    meta = torch.empty(1, 8, 2, 8, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        ops.flash_attention(meta, meta[:, :, :1], meta[:, :, :1])
+
+
+def test_kernel_sources_build_into_ignored_hashed_dir():
+    """Each CUDA source builds into build/kernels under a content hash;
+    the directory is git-ignored, so a checkout builds it itself."""
+    for src in build.SOURCES:
+        assert (build.CSRC / src).is_file()
+        t = build._target(src)
+        assert t.parent == build.BUILD_DIR and len(t.stem.split("-")[-1]) == 16
+    assert "build/" in (build.BUILD_DIR.parents[1] / ".gitignore").read_text()
+    assert "sm_90a" in " ".join(build.NVCC_FLAGS)
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch):
+    """No fallback when the toolkit is missing: the build raises."""
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.setenv("CUDA_HOME", "/nonexistent")
+    monkeypatch.setattr(build.Path, "is_file", lambda self: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.nvcc_path()

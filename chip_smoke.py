@@ -7,25 +7,37 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
   2. build the hand-written CUDA kernels from the sources in the checkout
      (nvcc, one process per source, in parallel) and print ptxas's report;
   3. hold each kernel against its plain PyTorch version at the shapes of
-     the serving path below (bf16, tolerance 2e-2), and time kernel, plain
-     version and one PyTorch library call (yardstick only) with CUDA
-     events, beside the kernel's bound on an H100 (3.35 TB/s, 989 TFLOP/s
-     bf16, 67 TFLOP/s fp32 outside the tensor cores);
-  4. the reduced PT config in fp32: prefill logits, K/V and teacher-forced
-     paged decode steps on the card against the same weights on the CPU
-     (tolerance 1e-4), and whether the greedy token streams agree;
+     the serving paths below (tolerance bf16 2e-2, fp32 1e-4), and time
+     kernel, plain version and one PyTorch library call (yardstick only)
+     with CUDA events, beside the kernel's bound on an H100 (3.35 TB/s,
+     989 TFLOP/s bf16, 67 TFLOP/s fp32 outside the tensor cores); the
+     W8A16 matmul at three shapes (decode MLP, decode LM head with fp32
+     x, prefill MLP);
+  4. the reduced PT config in fp32, on the card against the same weights
+     on the CPU (tolerance 1e-4): prefill logits, K/V and teacher-forced
+     paged decode steps; then with int8 weights, int8 KV and chunked
+     prefill (chunk 8): int8 weight payloads bitwise, chunk and decode
+     logits, the int8 decode kernel on the CPU's pools; and whether the
+     greedy token streams agree;
   5. serve pt-6b-d4 at full width (random weights from a seeded
      generator): 8 slots, 8 greedy requests of 512 prompt tokens and 64
      new tokens, block size 16 — TTFT, TPOT, throughput, peak memory and
-     each kernel's launch count, which must all be non-zero;
+     each kernel's launch count, which must all be non-zero; once with
+     bf16 weights and KV (flash prefill, fp paged decode), then with int8
+     weights and int8 KV (every projection and the head through the W8A16
+     kernel, int8 paged decode, prompts through the chunk program), whose
+     launch counts must equal 7 per layer + 1 head per forward and one
+     int8 decode per layer per decode step;
   6. where the time goes: device time by kernel (torch.profiler) over the
      step that prefills 8 prompts and over three decode steps, and the
-     decode step's device busy share against its unprofiled TPOT.
+     decode step's device busy share against its unprofiled TPOT, for
+     both serve runs.
 Prints one ``{"kernels": [...]}`` JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -41,6 +53,7 @@ BF16_FLOP_S = 989e12
 FP32_FLOP_S = 67e12
 L2_BYTES = 50 * 2 ** 20
 KERNEL_TOL = 2e-2              # bf16, as the reference's kernel sweeps
+FP32_KERNEL_TOL = 1e-4         # the fp32 instantiations
 PARITY_TOL = 1e-4              # fp32 model on the card vs the CPU
 
 # the serving cell of phase 5, which fixes the kernel shapes of phase 3
@@ -100,10 +113,9 @@ def build_kernels() -> None:
 
 
 def _report(name, route, source, replaces, out, ref, ms, plain_ms, lib_ms,
-            bytes_, flops, flop_rate):
+            bytes_, flops, flop_rate, tol=KERNEL_TOL):
     err = (out.float() - ref.float()).abs().max().item()
-    ok = torch.allclose(out.float(), ref.float(), rtol=KERNEL_TOL,
-                        atol=KERNEL_TOL)
+    ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
     t_bytes = bytes_ / HBM_BYTES_S * 1e3
     t_ops = flops / flop_rate * 1e3
     row = {"name": name, "route": route, "source": source,
@@ -111,7 +123,7 @@ def _report(name, route, source, replaces, out, ref, ms, plain_ms, lib_ms,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": lib_ms, "bytes": bytes_, "ops": flops}
-    log(f"[kernel] {name}: max_abs_err {err:.3e} (tol {KERNEL_TOL}) "
+    log(f"[kernel] {name}: max_abs_err {err:.3e} (tol {tol}) "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
         f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
         f"({row['bound_by']})")
@@ -232,6 +244,122 @@ def check_kernels(dev: torch.device):
         nbytes(x, scale, out), 4.0 * x.numel(), FP32_FLOP_S))
     del sets, x, out, want
     torch.cuda.empty_cache()
+    rows += check_int8_kernels(dev, g)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_int8_kernels(dev: torch.device, g: torch.Generator):
+    """Phase 3 for the int8 serving path: the W8A16 matmul at three shapes
+    of the int8 serve run (its row reports the decode MLP shape and lists
+    all three) and the int8 branch of paged decode at the decode shape."""
+    from repro_torch.common.quant import quantize_rows
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+    cfg = get_config(ARCH)
+    n, H, KH, hd, d = (cfg.pt.n_tracks, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim, cfg.d_model)
+    bf, f32 = torch.bfloat16, torch.float32
+    shapes = []
+    for what, nn, M, K, N, xdt, iters, p_iters in (
+            ("decode MLP wi_gate", n, SLOTS, d, cfg.d_ff, bf, 200, 20),
+            ("decode LM head, fp32 x", 1, SLOTS, d, cfg.vocab_size, f32,
+             100, 10),
+            ("prefill MLP wi_gate", n, SLOTS * PROMPT, d, cfg.d_ff, bf, 10,
+             3)):
+        one = nn * K * N + nn * M * K * (2 if xdt == bf else 4)
+        sets = []
+        for _ in range(copies_for(one)):
+            w = torch.randint(-127, 128, (nn, K, N), generator=g,
+                              device=dev).to(torch.int8)
+            sets.append((torch.randn(nn, M, K, generator=g,
+                                     device=dev).to(xdt), w,
+                         torch.rand(nn, 1, N, generator=g, device=dev)
+                         * 1e-3 + 1e-4))
+        x, w, sc = sets[0]
+        out = ops.int8_matmul(x, w, sc)
+        want = ref.int8_matmul_plain(x, w, sc)
+        k_ms = time_ms(ops.int8_matmul, sets, iters)
+        p_ms = time_ms(ref.int8_matmul_plain, sets, p_iters)
+        # yardstick: torch.matmul on the weight dequantized beforehand
+        lib_sets = [(x, (w.float() * sc).to(xdt)) for x, w, sc in sets]
+        l_ms = time_ms(torch.matmul, lib_sets, iters)
+        del lib_sets
+        row = _report(
+            "int8_matmul", "cuda", "src/repro_torch/kernels/csrc/int8_matmul.cu",
+            "src/repro/kernels/quant_matmul.py:34", out, want, k_ms, p_ms,
+            l_ms, nbytes(x, w, sc, out), 2.0 * nn * M * K * N,
+            BF16_FLOP_S if xdt == bf else FP32_FLOP_S,
+            tol=KERNEL_TOL if xdt == bf else FP32_KERNEL_TOL)
+        row["at"] = (f"{what}: x [{nn},{M},{K}] {str(xdt)[6:]}, "
+                     f"w [{nn},{K},{N}] int8")
+        log(f"[kernel]   int8_matmul at {row['at']}")
+        shapes.append(row)
+        del sets, x, w, sc, out, want
+        torch.cuda.empty_cache()
+    rows = [dict(shapes[0], shapes=[dict(r) for r in shapes])]
+
+    # -- int8 paged decode: the decode step near the end of the run ----
+    cap = PROMPT + NEW + 8
+    nmax = -(-cap // BLOCK)
+    N = SLOTS * nmax + 1
+    L = PROMPT + NEW
+    perm = torch.randperm(N - 1, generator=torch.Generator().manual_seed(3))
+    table = (perm[:SLOTS * nmax].reshape(SLOTS, nmax) + 1).to(torch.int32)
+    table = table.to(dev)
+    lengths = torch.full((SLOTS,), L, dtype=torch.int32, device=dev)
+    p2 = 1
+    while p2 < -(-L // BLOCK):
+        p2 *= 2
+    max_len = min(nmax, p2) * BLOCK
+    pool = (n, N, BLOCK, KH, hd)
+    sets = []
+    for _ in range(copies_for(2 * n * N * BLOCK * KH * (hd + 4))):
+        k8, ks = quantize_rows(torch.randn(pool, generator=g, device=dev))
+        v8, vs = quantize_rows(torch.randn(pool, generator=g, device=dev))
+        sets.append((torch.randn(n, SLOTS, H, hd, generator=g,
+                                 device=dev).to(bf), k8, v8, ks, vs))
+    q, k8, v8, ks, vs = sets[0]
+
+    def kern(q, k, v, ks, vs):
+        return ops.paged_decode_attention(q, k, v, table, lengths,
+                                          max_len=max_len, k_scale=ks,
+                                          v_scale=vs)
+
+    def plain(q, k, v, ks, vs):
+        return ref.paged_decode_attention_plain(q, k, v, table, lengths,
+                                                max_len=max_len, k_scale=ks,
+                                                v_scale=vs)
+
+    out, want = kern(*sets[0]), plain(*sets[0])
+    k_ms = time_ms(kern, sets, 200)
+    p_ms = time_ms(plain, sets, 20)
+    # yardstick: SDPA on K/V gathered, dequantized to bf16 and expanded
+    # beforehand (untimed)
+    tbl = table.long()
+
+    def gathered(q, k, v, ks, vs):
+        def one(p, sc):
+            x = (p[:, tbl].float() * sc[:, tbl]).to(bf)
+            x = x.reshape(n * SLOTS, nmax * BLOCK, KH, hd)[:, :L]
+            return x.repeat_interleave(H // KH, 2).transpose(1, 2)
+        return (q.reshape(n * SLOTS, H, 1, hd), one(k, ks).contiguous(),
+                one(v, vs).contiguous())
+
+    lib_sets = [gathered(*st) for st in sets]
+    l_ms = time_ms(F.scaled_dot_product_attention, lib_sets, 200)
+    del lib_sets
+    live = n * SLOTS * L * KH * (hd + 4) * 2    # int8 K and V rows + scales
+    rows.append(_report(
+        "paged_decode_attention_int8", "cuda",
+        "src/repro_torch/kernels/csrc/paged_decode.cu",
+        "src/repro/kernels/decode_attention.py:187", out, want, k_ms,
+        p_ms, l_ms, live + nbytes(q, table, lengths, out),
+        4.0 * n * SLOTS * L * H * hd, FP32_FLOP_S))
+    rows[-1]["branch"] = ("int8 pools with scale pools (_paged_kernel :153, "
+                          "_online_softmax_step :34)")
+    del sets
     return rows
 
 
@@ -300,25 +428,143 @@ def check_reduced_parity(dev: torch.device) -> None:
         f"({sum(map(len, streams[dev]))} tokens)")
 
 
+def check_int8_parity(dev: torch.device) -> None:
+    """Phase 4, int8 path: the reduced fp32 config with int8 weights and
+    chunked prefill (chunk 8), with fp32 and with int8 KV, on the card
+    against the CPU: two prompt chunks then three teacher-forced decode
+    steps.  int8 weight payloads must be bitwise equal and every logit
+    within 1e-4.  With int8 KV each device quantizes the K/V rows it
+    computed itself, so a row element within fp32 noise of a rounding
+    boundary may land one int8 step apart, and the logits after it
+    legitimately differ by more than 1e-4; the script counts such
+    elements and holds the logits to 1e-4 when there are none.  The int8
+    decode kernel itself is held to 1e-4 on the CPU run's own pools."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.track import init_pt, pt_chunk_step, pt_decode_step
+    from repro_torch.kernels import ops, ref
+    from repro_torch.serving.engine import Engine, ModelRunner
+    cfg = reduced_config(ARCH)
+    cpu = torch.device("cpu")
+    params = {cpu: init_pt(torch.Generator().manual_seed(0), cfg, cpu)}
+    params[dev] = _to(params[cpu], dev)
+    knobs = dict(weight_dtype="int8", prefill_chunk=8)
+    rng = np.random.default_rng(1)
+    prompts = rng.integers(1, cfg.vocab_size, size=(2, 16))
+    teacher = rng.integers(1, cfg.vocab_size, size=(3, 2))
+    runs = {}
+    for kv in (None, "int8"):
+        for where, d in (("cpu", cpu), ("card", dev)):
+            r = ModelRunner(cfg, params[d], max_slots=2, max_seq_len=32,
+                            kv_dtype=kv, device=d, **knobs)
+            for slot in range(2):
+                r.kv.allocate(slot, 16 + teacher.shape[0])
+            table = r.kv.table()
+            lgs = []
+            with torch.no_grad():
+                for c in range(2):
+                    lg, _ = pt_chunk_step(
+                        r.params, r.cache,
+                        torch.as_tensor(prompts[:, 8 * c:8 * c + 8]).to(d),
+                        torch.full((2,), 8 * c, dtype=torch.int32,
+                                   device=d), cfg, block_table=table)
+                    lgs.append(lg)
+                for t in range(teacher.shape[0]):
+                    lg, _ = pt_decode_step(
+                        r.params, r.cache, torch.as_tensor(teacher[t]).to(d),
+                        torch.full((2,), 16 + t, dtype=torch.int32,
+                                   device=d), cfg, block_table=table,
+                        kv_max_len=32)
+                    lgs.append(lg[:, None])
+            runs[(kv, where)] = (r, torch.cat(lgs, dim=1))
+    mine, theirs = runs[(None, "card")][0], runs[(None, "cpu")][0]
+    for a, b in zip(_leaves(mine.params), _leaves(theirs.params)):
+        if not torch.equal(a.cpu(), b):
+            raise SystemExit("[parity] int8 weights: the card's "
+                             "quantization differs from the CPU's")
+    log(f"[parity] int8 weights: {mine.n_quantized} quantized leaves, "
+        f"payloads and scales bitwise equal card vs CPU")
+    _close("int8 weights, fp32 KV, chunk 8: chunk + decode logits",
+           runs[(None, "card")][1], runs[(None, "cpu")][1])
+    (rd, lgd), (rc, lgc) = runs[("int8", "card")], runs[("int8", "cpu")]
+    steps = sum(int((a.pool.cpu() != b.pool).sum())
+                for a, b in zip(rd.cache["blocks"], rc.cache["blocks"]))
+    elems = sum(b.pool.numel() for b in rc.cache["blocks"])
+    err = (lgd.cpu() - lgc).abs().max().item()
+    log(f"[parity] int8 weights + int8 KV, chunk 8: {steps} of {elems} "
+        f"K/V pool elements one int8 step apart card vs CPU; chunk + decode "
+        f"logits max_abs_err {err:.3e}")
+    if steps == 0:
+        _close("int8 weights + int8 KV, chunk 8: chunk + decode logits",
+               lgd, lgc)
+    # the int8 decode kernel (fp32 q) on the CPU run's own layer-0 pools
+    k_leaf, v_leaf = (leaf[0, 0] for leaf in rc.cache["blocks"])
+    g = torch.Generator().manual_seed(4)
+    q = torch.randn(cfg.pt.n_tracks, 2, cfg.n_heads, cfg.head_dim,
+                    generator=g)
+    lengths = torch.tensor([19, 17], dtype=torch.int32)
+    args = (q, k_leaf.pool, v_leaf.pool, rc.kv.table(), lengths)
+    scales = dict(k_scale=k_leaf.scale, v_scale=v_leaf.scale)
+    want = ref.paged_decode_attention_plain(*args, max_len=32, **scales)
+    got = ops.paged_decode_attention(*(a.to(dev) for a in args), max_len=32,
+                                     **{k: v.to(dev)
+                                        for k, v in scales.items()})
+    _close("int8 paged decode kernel (fp32) on the CPU run's pools", got,
+           want)
+    streams = {}
+    for d in (cpu, dev):
+        eng = Engine(cfg, params[d], max_slots=2, max_seq_len=48, device=d,
+                     kv_dtype="int8", **knobs)
+        streams[d] = eng.generate([p.tolist() for p in prompts]
+                                  + [prompts[0, :5].tolist()], 8)
+    log(f"[parity] greedy token streams, int8 weights + int8 KV + chunk 8, "
+        f"card vs CPU: "
+        f"{'identical' if streams[dev] == streams[cpu] else 'DIFFER'} "
+        f"({sum(map(len, streams[dev]))} tokens)")
+
+
 # ---------------------------------------------------------------------------
 # phase 5: serve pt-6b-d4 at full width
 # ---------------------------------------------------------------------------
 
-def serve_full(dev: torch.device, card: str):
+# the kernels each serve run must go through
+FP_PATH = ("paged_decode_attention", "flash_attention", "rmsnorm")
+INT8_PATH = ("int8_matmul", "paged_decode_attention_int8", "rmsnorm")
+
+
+def serve_full(dev: torch.device, card: str, int8: bool = False):
+    """Phase 5 (and 6): serve the cell with bf16 weights and KV, or with
+    int8 weights and int8 KV.  Returns the launch counts of the measured
+    run."""
     from repro_torch.configs import get_config
     from repro_torch.core.track import init_pt
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import Engine, EngineMetrics, RequestState
     cfg = get_config(ARCH)
+    tag = "int8 weights + int8 KV" if int8 else "bf16"
     t0 = time.perf_counter()
     params = init_pt(torch.Generator(device=dev).manual_seed(0), cfg, dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
-    w_bytes = sum(nbytes(t) for t in _leaves(params))
     log(f"[serve] {cfg.name}: {n_params / 1e9:.3f} B parameters, "
-        f"{w_bytes / 1e9:.3f} GB, init {time.perf_counter() - t0:.1f}s")
+        f"{sum(nbytes(t) for t in _leaves(params)) / 1e9:.3f} GB bf16, "
+        f"init {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    knobs = dict(weight_dtype="int8", kv_dtype="int8") if int8 else {}
     eng = Engine(cfg, params, max_slots=SLOTS, max_seq_len=PROMPT + NEW + 8,
-                 block_size=BLOCK, device=dev)
+                 block_size=BLOCK, device=dev, **knobs)
+    head_bf16 = params["head"]
+    if int8:
+        del params, head_bf16    # the engine holds its own int8 copy
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        st = eng.runner.cache_stats()
+        log(f"[serve] {tag}: {st['quantized_weight_leaves']} leaves "
+            f"quantized in {time.perf_counter() - t0:.1f}s; KV pool "
+            f"{st['pool_bytes'] / 1e9:.3f} GB ({st['kv_dtype']})")
+    # the decode step reads every weight once (the embedding table
+    # included, as in slice 1's figure; the LM head as the runner holds
+    # it): the least time a step can take
+    read = sum(nbytes(t) for t in _leaves(eng.runner.params))
     rng = np.random.default_rng(0)
     # warm-up: cuBLAS handles and the Triton specialisations of every
     # shape class the measured run meets (prefill and decode rows)
@@ -332,40 +578,58 @@ def serve_full(dev: torch.device, card: str):
     reqs = [eng.submit(rng.integers(1, cfg.vocab_size,
                                     size=(PROMPT,)).tolist(), NEW)
             for _ in range(SLOTS)]
-    steps0, transfers0 = eng.steps_run, eng.runner.decode_transfers
+    r = eng.runner
+    steps0, transfers0 = eng.steps_run, r.decode_transfers
+    calls0 = r.prefill_calls + r.chunk_calls
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     m = eng.metrics.summary()
     peak = torch.cuda.max_memory_allocated(dev)
-    done = sum(r.state is RequestState.DONE and len(r.output) == NEW
-               for r in reqs)
-    # the decode step reads every weight once (the LM head as the fp32
-    # copy the runner keeps): the least time a step can take
-    read = w_bytes + nbytes(eng.runner.params["head"]) - nbytes(params["head"])
-    log(f"[serve] {card}: {SLOTS} reqs x ({PROMPT} in / {NEW} out), "
+    done = sum(rq.state is RequestState.DONE and len(rq.output) == NEW
+               for rq in reqs)
+    decodes = r.decode_transfers - transfers0
+    forwards = r.prefill_calls + r.chunk_calls - calls0 + decodes
+    log(f"[serve] {card} | {tag}: {SLOTS} reqs x ({PROMPT} in / {NEW} out), "
         f"slots {SLOTS}, block {BLOCK}, {eng.steps_run - steps0} steps, "
         f"wall {wall:.3f}s")
-    log(f"[serve] {card}: TTFT ms p50 {m['ttft_ms']['p50']:.2f} "
+    log(f"[serve] {card} | {tag}: TTFT ms p50 {m['ttft_ms']['p50']:.2f} "
         f"p90 {m['ttft_ms']['p90']:.2f}; TPOT ms p50 "
         f"{m['tpot_ms']['p50']:.3f} p90 {m['tpot_ms']['p90']:.3f}; "
         f"throughput {m['throughput_tok_s']:.1f} tok/s")
-    log(f"[serve] weight-read bound of a decode step "
+    log(f"[serve] {tag}: weight-read bound of a decode step "
         f"{read / HBM_BYTES_S * 1e3:.3f} ms ({read / 1e9:.3f} GB at 3.35 TB/s)"
         f"; peak memory {peak / 1e9:.3f} GB")
-    log(f"[serve] kernel launches: {json.dumps(launches)}; decode transfers "
-        f"{eng.runner.decode_transfers - transfers0}; finished {done}/{len(reqs)}")
-    head_choice_ms(eng, params, dev)
+    log(f"[serve] {tag}: kernel launches: {json.dumps(launches)}; "
+        f"forwards {forwards} (prefill/chunk calls "
+        f"{forwards - decodes}, decode steps {decodes}); finished "
+        f"{done}/{len(reqs)}")
+    if not int8:
+        head_choice_ms(eng, head_bf16, dev)
     if done != len(reqs):
         raise SystemExit("[serve] not every request finished")
-    if not all(launches.values()):
-        raise SystemExit(f"[serve] a kernel never ran: {launches}")
-    profile_steps(eng, cfg.vocab_size, rng, m["tpot_ms"]["p50"])
+    path = INT8_PATH if int8 else FP_PATH
+    if not all(launches[k] for k in path):
+        raise SystemExit(f"[serve] a kernel of the {tag} path never ran: "
+                         f"{launches}")
+    if int8:
+        # every projection (7 per layer) and the LM head through the W8A16
+        # kernel in every forward; the int8 decode kernel in every layer
+        # of every decode step; no fp attention kernel anywhere
+        want = {"int8_matmul": forwards * (7 * cfg.n_layers + 1),
+                "paged_decode_attention_int8": decodes * cfg.n_layers,
+                "paged_decode_attention": 0, "flash_attention": 0}
+        got = {k: launches[k] for k in want}
+        log(f"[serve] {tag}: launch arithmetic {json.dumps(want)}: "
+            f"{'met' if got == want else 'NOT MET'}")
+        if got != want:
+            raise SystemExit(f"[serve] launch counts {got} != {want}")
+    profile_steps(eng, cfg.vocab_size, rng, m["tpot_ms"]["p50"], tag)
     return launches
 
 
-def profile_steps(eng, vocab: int, rng, tpot_ms: float) -> None:
+def profile_steps(eng, vocab: int, rng, tpot_ms: float, tag: str) -> None:
     """Where the time goes: device time by kernel (torch.profiler, CUPTI)
     over the step that admits and prefills SLOTS prompts and over three
     decode steps, beside the decode step's unprofiled time (TPOT)."""
@@ -388,38 +652,42 @@ def profile_steps(eng, vocab: int, rng, tpot_ms: float) -> None:
                        if e.device_type == DeviceType.CUDA
                        and e.self_device_time_total > 0), reverse=True)
         if not rows:
-            log(f"[profile] {what}: the profiler saw no device time "
+            log(f"[profile] {tag} {what}: the profiler saw no device time "
                 "(busy / idle share not measured)")
             continue
         busy = sum(r[0] for r in rows)
-        log(f"[profile] {what}: device busy {busy:.3f} ms in "
+        log(f"[profile] {tag} {what}: device busy {busy:.3f} ms in "
             f"{sum(r[1] for r in rows):.0f} kernels and copies per step")
         if what == "decode step":
-            log(f"[profile] decode step: busy {busy:.3f} ms of TPOT p50 "
+            log(f"[profile] {tag} decode step: busy {busy:.3f} ms of TPOT p50 "
                 f"{tpot_ms:.3f} ms unprofiled ({100 * busy / tpot_ms:.1f} % "
                 f"busy, {100 - 100 * busy / tpot_ms:.1f} % idle)")
         for ms, count, key in rows[:8]:
             log(f"[profile]   {ms:9.3f} ms {count:6.0f}x  {key[:90]}")
 
 
-def head_choice_ms(eng, params, dev) -> None:
+def head_choice_ms(eng, head, dev) -> None:
     """The LM head in fp32: the fp32 copy the runner keeps against a
     per-step cast of the bf16 head, at the decode shape."""
-    h = torch.randn(SLOTS, params["head"].shape[0], device=dev)
+    h = torch.randn(SLOTS, head.shape[0], device=dev)
     kept = eng.runner.params["head"]
     a = time_ms(lambda h: h @ kept, [(h,)], 50)
-    b = time_ms(lambda h: h @ params["head"].float(), [(h,)], 50)
+    b = time_ms(lambda h: h @ head.float(), [(h,)], 50)
     log(f"[serve] LM head per decode step: fp32 copy {a:.4f} ms, cast each "
         f"step {b:.4f} ms")
 
 
 def _leaves(tree):
+    """Tensors of a parameter tree; a QuantTensor gives payload, scale."""
     if isinstance(tree, dict):
         for v in tree.values():
             yield from _leaves(v)
     elif isinstance(tree, tuple):
         for v in tree:
             yield from _leaves(v)
+    elif hasattr(tree, "payload"):
+        yield tree.payload
+        yield tree.scale
     else:
         yield tree
 
@@ -440,9 +708,16 @@ def main() -> int:
     build_kernels()
     rows = check_kernels(dev)
     check_reduced_parity(dev)
-    launches = serve_full(dev, card)
+    check_int8_parity(dev)
+    runs = {"bf16": serve_full(dev, card)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["int8"] = serve_full(dev, card, int8=True)
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        # each kernel's count from the run of the path it belongs to
+        run = "bf16" if row["name"] in FP_PATH else "int8"
+        row["launches"] = runs[run][row["name"]]
+        row["launches_by_run"] = {k: v[row["name"]] for k, v in runs.items()}
         # the same two numbers under their longer key names as well
         row["kernel_ms"] = row["ms"]
         row["launches_in_serve"] = row["launches"]

@@ -4,25 +4,39 @@
 A paged engine cache replaces every full-length K/V leaf with a block
 pool ``[..., num_blocks, block_size, KH, hd]`` shared by all slots and
 indexed through a per-slot block table.  Block 0 is the trash block:
-unallocated table entries point at it.  The int8 scale pool of the
-quantized arm is not ported yet (ROADMAP queue 1, item 6).
+unallocated table entries point at it.  An int8 pool carries its fp32
+per-token-per-head scale pool beside it.
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
 
 class PagedLeaf:
     """Marks a cache leaf as a block pool (block axis where the dense
-    layout has batch, block-size axis where it has sequence)."""
+    layout has batch, block-size axis where it has sequence).
 
-    def __init__(self, pool: torch.Tensor):
+    An int8 pool also carries ``scale``: its fp32 per-token-per-head
+    scale pool, shaped like ``pool`` with the last axis collapsed to 1,
+    written and read through the same indices as the payload."""
+
+    def __init__(self, pool: torch.Tensor,
+                 scale: Optional[torch.Tensor] = None):
         self.pool = pool
+        self.scale = scale
+
+    def __getitem__(self, idx) -> "PagedLeaf":
+        """Index the leading (layer, track) dims of pool and scale."""
+        return PagedLeaf(self.pool[idx],
+                         None if self.scale is None else self.scale[idx])
 
     def __repr__(self) -> str:
-        return f"PagedLeaf({tuple(self.pool.shape)})"
+        if self.scale is None:
+            return f"PagedLeaf({tuple(self.pool.shape)})"
+        return (f"PagedLeaf({tuple(self.pool.shape)}, "
+                f"scale={tuple(self.scale.shape)})")
 
 
 def is_paged(leaf: Any) -> bool:

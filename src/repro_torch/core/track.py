@@ -229,6 +229,31 @@ def pt_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     return logits, {"blocks": (stacked(ks), stacked(vs)), "tail": ()}
 
 
+def _pt_step(params, cache, h: torch.Tensor, pos: torch.Tensor,
+             cfg: ModelConfig, mode: str, block_table: torch.Tensor,
+             kv_max_len: Optional[int]) -> torch.Tensor:
+    """Shared decode / chunk drive over the track blocks: fused h
+    [B, C, d] in, fused h out; every layer reads and writes its slice of
+    the paged pools (int8 pools with their scales) in place."""
+    pt = _pt(cfg)
+    spec = cfg.spec(cfg.pattern_unit[0])
+    R, _ = _block_counts(cfg)
+    k_leaf, v_leaf = cache["blocks"]
+    if not isinstance(k_leaf, PagedLeaf):
+        raise NotImplementedError("the contiguous (non-paged) cache is not "
+                                  "ported (ROADMAP queue 1, item 7)")
+    for r in range(R):
+        hh = _spread(h, cfg)
+        for j in range(pt.block_depth):
+            hh, _ = layer_apply(_layer(params["blocks"], r, j), hh, cfg=cfg,
+                                spec=spec, mode=mode, pos=pos,
+                                cache=(k_leaf[r, j], v_leaf[r, j]),
+                                block_table=block_table,
+                                kv_max_len=kv_max_len)
+        h = _fuse(hh, cfg)                                   # 1 sync / block
+    return h
+
+
 def pt_decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
                    cfg: ModelConfig, block_table: torch.Tensor,
                    kv_max_len: Optional[int] = None):
@@ -237,25 +262,34 @@ def pt_decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
     tokens [B]; pos [B] int32 (cache write index); block_table [B, nmax]
     int32.  The pools are updated in place.  Returns (logits [B, V],
     cache)."""
-    pt = _pt(cfg)
-    spec = cfg.spec(cfg.pattern_unit[0])
-    R, _ = _block_counts(cfg)
-    k_leaf, v_leaf = cache["blocks"]
-    if not isinstance(k_leaf, PagedLeaf):
-        raise NotImplementedError("the contiguous (non-paged) cache is not "
-                                  "ported (ROADMAP queue 1, item 7)")
     h = _embed(params, tokens[:, None], cfg)                 # [B, 1, d]
-    for r in range(R):
-        hh = _spread(h, cfg)
-        for j in range(pt.block_depth):
-            layer_cache = (PagedLeaf(k_leaf.pool[r, j]),
-                           PagedLeaf(v_leaf.pool[r, j]))
-            hh, _ = layer_apply(_layer(params["blocks"], r, j), hh, cfg=cfg,
-                                spec=spec, mode="decode", pos=pos,
-                                cache=layer_cache, block_table=block_table,
-                                kv_max_len=kv_max_len)
-        h = _fuse(hh, cfg)
+    h = _pt_step(params, cache, h, pos, cfg, "decode", block_table,
+                 kv_max_len)
     return _head(params, h[:, 0], cfg), cache
+
+
+def pt_chunk_hidden(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
+                    cfg: ModelConfig, block_table: torch.Tensor,
+                    kv_max_len: Optional[int] = None) -> torch.Tensor:
+    """``pt_chunk_step`` without the LM head: tokens [B, C] appended at
+    positions pos[:, None] + arange(C) -> fused hidden states [B, C, d].
+    The serving runner applies the head to each row's last real token
+    only; the head is row-wise, so those logits are the rows
+    ``pt_chunk_step`` returns."""
+    h = _embed(params, tokens, cfg)                          # [B, C, d]
+    return _pt_step(params, cache, h, pos, cfg, "chunk", block_table,
+                    kv_max_len)
+
+
+def pt_chunk_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
+                  cfg: ModelConfig, block_table: torch.Tensor,
+                  kv_max_len: Optional[int] = None):
+    """Chunked prefill: tokens [B, C] appended at positions pos[:, None] +
+    arange(C) against the paged cache (updated in place).  Returns
+    (logits [B, C, V], cache)."""
+    h = pt_chunk_hidden(params, cache, tokens, pos, cfg, block_table,
+                        kv_max_len)
+    return _head(params, h, cfg), cache
 
 
 def pt_cache_shape(cfg: ModelConfig, batch: int, seq_len: int

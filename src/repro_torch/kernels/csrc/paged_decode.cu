@@ -2,11 +2,16 @@
 // block-pool K/V cache, GQA-aware, all Parallel-Track tracks in one launch.
 //
 // Replaces the Pallas kernel repro/kernels/decode_attention.py
-// ::paged_decode_attention (_paged_kernel, _online_softmax_step).
+// ::paged_decode_attention (_paged_kernel, _online_softmax_step), both
+// its branches: fp pools, and int8 pools with fp32 per-token-per-head
+// scale pools [n, N, bs, KH, 1].  The int8 branch dequantizes each K and
+// V element as float(payload) * scale inside the 64-token loop, where
+// _online_softmax_step does it, so only int8 (plus one fp32 scale per
+// row) crosses device memory.
 //
-// Bound on the H100: bytes.  Each live K/V row is read once and feeds G
-// query heads with 2*G flops per element, far below the ~295 flop/byte
-// ridge, so the kernel can at best stream the live cache at 3.35 TB/s.
+// Bound on the H100: bytes.  Each live K/V row (and its scale) is read
+// once and feeds G query heads with 2*G flops per element, far below the
+// ~295 flop/byte ridge, so the kernel can at best stream the live cache at 3.35 TB/s.
 // Design:
 //   * grid (KH, B, n_tracks): one block per (track, row, KV head), so one
 //     launch covers every track of a layer (the JAX vmap over tracks);
@@ -21,6 +26,8 @@
 //     output column for P.V, so loads stay coalesced along the head dim.
 // A split-KV pass (more blocks in flight for short batches) and TMA
 // pipelining are left to a later optimisation.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -32,10 +39,13 @@ constexpr int kMaxG = 8;                         // query heads per KV head
 constexpr int kMaxHd = 256;
 constexpr int kDPerThread = kMaxHd / kThreads;   // output columns / thread
 
-template <typename T>
+// T: q / out type; P: pool type (T, or int8_t with scale pools)
+template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
-                    const T* __restrict__ v_pool,
+paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
+                    const P* __restrict__ v_pool,
+                    const float* __restrict__ k_scale,
+                    const float* __restrict__ v_scale,
                     const int* __restrict__ table,
                     const int* __restrict__ lengths, T* __restrict__ out,
                     int B, int H, int KH, int hd, int N, int bs, int nmax,
@@ -43,10 +53,12 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   const int kh = blockIdx.x, b = blockIdx.y, tr = blockIdx.z;
   const int G = H / KH;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr bool kQuant = std::is_same<P, int8_t>::value;
 
   __shared__ float q_s[kMaxG * kMaxHd];
   __shared__ float p_s[kMaxG * kTile];
   __shared__ long long row_s[kTile];   // element offset of a token's K/V row
+  __shared__ float vs_s[kTile];        // its V scale (int8 pools)
   __shared__ float m_s[kMaxG], l_s[kMaxG], alpha_s[kMaxG];
 
   // q rows of this KV head's G query heads, pre-scaled (as the Pallas
@@ -61,8 +73,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 
   const size_t track_off = (size_t)tr * N * bs * KH * hd;
-  const T* kp = k_pool + track_off;
-  const T* vp = v_pool + track_off;
+  const P* kp = k_pool + track_off;
+  const P* vp = v_pool + track_off;
+  const size_t strack_off = (size_t)tr * N * bs * KH;   // scale pools
   const int* trow = table + (size_t)b * nmax;
   const int L = lengths[b];
   const int n_blk = min((L + bs - 1) / bs, n_sweep);
@@ -83,12 +96,20 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) s[g] = 0.f;
       long long row = 0;
+      float vsc = 1.f;
       if (t < tlen) {
         const int i = t0 + t;
         const int blk = trow[i / bs];
-        row = ((long long)blk * bs + (i % bs)) * KH * hd + (long long)kh * hd;
+        const long long srow = ((long long)blk * bs + (i % bs)) * KH + kh;
+        row = srow * hd;
+        float ksc = 1.f;
+        if constexpr (kQuant) {
+          ksc = k_scale[strack_off + srow];
+          vsc = v_scale[strack_off + srow];
+        }
         for (int d = lane; d < hd; d += 32) {
-          const float kd = rt::to_f(kp[row + d]);
+          float kd = rt::to_f(kp[row + d]);
+          if constexpr (kQuant) kd *= ksc;
 #pragma unroll
           for (int g = 0; g < kMaxG; ++g)
             if (g < G) s[g] += q_s[g * hd + d] * kd;
@@ -99,6 +120,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         if (g < G) s[g] = rt::warp_sum(s[g]);
       if (lane == 0) {
         row_s[t] = row;
+        vs_s[t] = vsc;
         for (int g = 0; g < G; ++g)
           p_s[g * kTile + t] = (t < tlen) ? s[g] : -INFINITY;
       }
@@ -131,7 +153,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 #pragma unroll
         for (int g = 0; g < kMaxG; ++g) acc[j][g] *= alpha_s[g];
         for (int t = 0; t < tlen; ++t) {
-          const float vd = rt::to_f(vp[row_s[t] + d]);
+          float vd = rt::to_f(vp[row_s[t] + d]);
+          if constexpr (kQuant) vd *= vs_s[t];
 #pragma unroll
           for (int g = 0; g < kMaxG; ++g)
             if (g < G) acc[j][g] += p_s[g * kTile + t] * vd;
@@ -156,35 +179,55 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
+template <typename T, typename P>
+void launch(const dim3 grid, cudaStream_t s, const void* q, const void* k_pool,
+            const void* v_pool, const void* k_scale, const void* v_scale,
+            const void* table, const void* lengths, void* out, int B, int H,
+            int KH, int hd, int N, int bs, int nmax, int n_sweep,
+            float scale) {
+  paged_decode_kernel<T, P><<<grid, kThreads, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const P*>(k_pool),
+      static_cast<const P*>(v_pool), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(table),
+      static_cast<const int*>(lengths), static_cast<T*>(out), B, H, KH, hd, N,
+      bs, nmax, n_sweep, scale);
+}
+
 }  // namespace
 
-// q [n, B, H, hd]; k_pool/v_pool [n, N, bs, KH, hd]; table [B, nmax] int32;
-// lengths [B] int32; out [n, B, H, hd].  All contiguous, on one device.
-// Returns cudaGetLastError() after the launch.
+// q [n, B, H, hd]; k_pool/v_pool [n, N, bs, KH, hd] of q's dtype, or int8
+// (pool_dtype rt::kInt8) with k_scale/v_scale [n, N, bs, KH, 1] fp32
+// (null for fp pools); table [B, nmax] int32; lengths [B] int32; out
+// [n, B, H, hd] of q's dtype.  All contiguous, on one device.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int paged_decode_attention_launch(
-    const void* q, const void* k_pool, const void* v_pool, const void* table,
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* table,
     const void* lengths, void* out, int n, int B, int H, int KH, int hd,
     int N, int bs, int nmax, int n_sweep, float scale, int dtype,
-    void* stream) {
-  if (H % KH != 0 || H / KH > kMaxG || hd > kMaxHd) return (int)cudaErrorInvalidValue;
+    int pool_dtype, void* stream) {
+  if (H % KH != 0 || H / KH > kMaxG || hd > kMaxHd)
+    return (int)cudaErrorInvalidValue;
+  const bool quant = pool_dtype == rt::kInt8;
+  if (quant ? (k_scale == nullptr || v_scale == nullptr) : pool_dtype != dtype)
+    return (int)cudaErrorInvalidValue;
   const dim3 grid(KH, B, n);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == rt::kFloat32) {
-    paged_decode_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k_pool),
-        static_cast<const float*>(v_pool), static_cast<const int*>(table),
-        static_cast<const int*>(lengths), static_cast<float*>(out), B, H, KH,
-        hd, N, bs, nmax, n_sweep, scale);
-  } else if (dtype == rt::kBFloat16) {
-    paged_decode_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(q),
-        static_cast<const __nv_bfloat16*>(k_pool),
-        static_cast<const __nv_bfloat16*>(v_pool),
-        static_cast<const int*>(table), static_cast<const int*>(lengths),
-        static_cast<__nv_bfloat16*>(out), B, H, KH, hd, N, bs, nmax, n_sweep,
-        scale);
-  } else {
+  // tag values pick the (q type, pool type) instantiation
+  auto go = [&](auto t, auto p) {
+    launch<decltype(t), decltype(p)>(grid, s, q, k_pool, v_pool, k_scale,
+                                     v_scale, table, lengths, out, B, H, KH,
+                                     hd, N, bs, nmax, n_sweep, scale);
+  };
+  if (dtype == rt::kFloat32 && quant)
+    go(float{}, int8_t{});
+  else if (dtype == rt::kFloat32)
+    go(float{}, float{});
+  else if (dtype == rt::kBFloat16 && quant)
+    go(__nv_bfloat16{}, int8_t{});
+  else if (dtype == rt::kBFloat16)
+    go(__nv_bfloat16{}, __nv_bfloat16{});
+  else
     return (int)cudaErrorInvalidValue;
-  }
   return (int)cudaGetLastError();
 }

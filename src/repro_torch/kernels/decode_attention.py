@@ -2,15 +2,16 @@
 K/V cache, for every Parallel-Track track of a layer in one launch.
 
 Replaces ``repro/kernels/decode_attention.py::paged_decode_attention``
-(the Pallas ``_paged_kernel``).  The CUDA kernel is
-``csrc/paged_decode.cu``; what bounds it on the H100 (bytes: each live
-K/V row is read once for all G query heads) and how its design answers
-that is noted there.  ``paged_decode_attention_plain`` is the same
-function in plain PyTorch: the wrapper runs it for CPU tensors, and the
-on-card check holds the kernel against it.
-
-The int8 branch of the Pallas kernel (scale pools dequantized inside
-the softmax loop) comes with quantized serving (ROADMAP queue 2).
+(the Pallas ``_paged_kernel``), both branches: fp pools, and int8 pools
+whose fp32 per-token-per-head scale pools are dequantized inside the
+softmax loop (``_online_softmax_step``'s ``ks``/``vs``).  The CUDA
+kernel is ``csrc/paged_decode.cu``, one template for both; what bounds
+it on the H100 (bytes: each live K/V row is read once for all G query
+heads) and how its design answers that is noted there.
+``paged_decode_attention_plain`` is the same function in plain PyTorch:
+the wrappers run it for CPU tensors, and the on-card check holds the
+kernel against it.  The int8 branch keeps its own launch count, on
+``paged_decode_attention_int8``.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from repro_torch.kernels import build
 
 NEG_INF = -2.0e38
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_INT8 = 2                       # pool dtype code of the int8 branch
 
 
 def _sweep_blocks(nmax: int, bs: int, max_len: Optional[int]) -> int:
@@ -33,7 +35,8 @@ def _sweep_blocks(nmax: int, bs: int, max_len: Optional[int]) -> int:
     return max(1, min(nmax, -(-max_len // bs)))
 
 
-def _check(q, k_pool, v_pool, block_table, lengths) -> None:
+def _check(q, k_pool, v_pool, block_table, lengths, k_scale=None,
+           v_scale=None) -> None:
     if q.dim() != 4 or k_pool.dim() != 5 or v_pool.shape != k_pool.shape:
         raise ValueError(f"want q [n,B,H,hd] and pools [n,N,bs,KH,hd]; got "
                          f"{tuple(q.shape)}, {tuple(k_pool.shape)}, "
@@ -49,27 +52,50 @@ def _check(q, k_pool, v_pool, block_table, lengths) -> None:
                          f"{tuple(lengths.shape)} do not match batch {B}")
     if block_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError("block_table and lengths must be int32")
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise ValueError(f"dtype mismatch: q {q.dtype}, pools {k_pool.dtype}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    if k_scale is None:
+        if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+            raise ValueError(f"dtype mismatch: q {q.dtype}, pools "
+                             f"{k_pool.dtype}")
+        return
+    want = tuple(k_pool.shape[:-1]) + (1,)
+    if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+        raise ValueError(f"scale pools need int8 pools, got {k_pool.dtype}")
+    for s in (k_scale, v_scale):
+        if tuple(s.shape) != want or s.dtype != torch.float32:
+            raise ValueError(f"want fp32 scale pools {want}, got "
+                             f"{tuple(s.shape)} {s.dtype}")
 
 
 def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                                  v_pool: torch.Tensor,
                                  block_table: torch.Tensor,
                                  lengths: torch.Tensor, *,
-                                 max_len: Optional[int] = None
+                                 max_len: Optional[int] = None,
+                                 k_scale: Optional[torch.Tensor] = None,
+                                 v_scale: Optional[torch.Tensor] = None
                                  ) -> torch.Tensor:
-    """Plain PyTorch version: gather the table's blocks, masked fp32
-    softmax.  q [n, B, H, hd]; pools [n, N, bs, KH, hd]; block_table
-    [B, nmax] int32; lengths [B] int32 (columns >= length are masked).
-    Returns [n, B, H, hd] in q's dtype."""
+    """Plain PyTorch version: gather the table's blocks (dequantizing
+    int8 pools: payload * per-row scale), masked fp32 softmax.  q
+    [n, B, H, hd]; pools [n, N, bs, KH, hd] (int8 with fp32 scale pools
+    [n, N, bs, KH, 1]); block_table [B, nmax] int32; lengths [B] int32
+    (columns >= length are masked).  Returns [n, B, H, hd] in q's
+    dtype."""
     n, N, bs, KH, hd = k_pool.shape
     B, H = q.shape[1], q.shape[2]
     G = H // KH
     n_s = _sweep_blocks(block_table.shape[1], bs, max_len)
     tbl = block_table[:, :n_s].long()
-    k = k_pool[:, tbl].reshape(n, B, n_s * bs, KH, hd).float()
-    v = v_pool[:, tbl].reshape(n, B, n_s * bs, KH, hd).float()
+
+    def gather(pool, scale):
+        g = pool[:, tbl].reshape(n, B, n_s * bs, KH, -1).float()
+        if scale is not None:
+            g = g * scale[:, tbl].reshape(n, B, n_s * bs, KH, 1)
+        return g
+
+    k = gather(k_pool, k_scale)
+    v = gather(v_pool, v_scale)
     qf = q.float().reshape(n, B, KH, G, hd) * hd ** -0.5
     s = torch.einsum("nbkgd,nbskd->nbkgs", qf, k)
     cols = torch.arange(n_s * bs, device=q.device)
@@ -84,33 +110,23 @@ def _launcher():
     fn = build.library("paged_decode.cu").paged_decode_attention_launch
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i,
-                       ctypes.c_float, i, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i,
+                       i, i, ctypes.c_float, i, i, vp]
         fn.restype = ctypes.c_int
     return fn
 
 
-def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
-                           v_pool: torch.Tensor, block_table: torch.Tensor,
-                           lengths: torch.Tensor, *,
-                           max_len: Optional[int] = None) -> torch.Tensor:
-    """Flash-decode over a block pool, all tracks at once.
-
-    q [n, B, H, hd]; pools [n, N, bs, KH, hd] (one layer's slice of the
-    [R, D, n, N, bs, KH, hd] pool); block_table [B, nmax] int32 shared by
-    the tracks; lengths [B] int32 live tokens; ``max_len`` (host-known
-    bound on lengths) cuts the sweep to ceil(max_len / bs) blocks.
-    Returns [n, B, H, hd].  CPU tensors run the plain version; CUDA
-    tensors launch the kernel or raise."""
-    _check(q, k_pool, v_pool, block_table, lengths)
-    if q.device.type == "cpu":
-        return paged_decode_attention_plain(q, k_pool, v_pool, block_table,
-                                            lengths, max_len=max_len)
+def _launch(q, k_pool, v_pool, k_scale, v_scale, block_table, lengths,
+            max_len) -> torch.Tensor:
+    """Launch the CUDA kernel on checked operands (either branch)."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype not in _DTYPES:
         raise ValueError(f"unsupported dtype {q.dtype}")
-    for t in (q, k_pool, v_pool, block_table, lengths):
+    operands = [q, k_pool, v_pool, block_table, lengths]
+    if k_scale is not None:
+        operands += [k_scale, v_scale]
+    for t in operands:
         if t.device != q.device or not t.is_contiguous():
             raise ValueError("all operands must be contiguous on one device")
     n, B, H, hd = q.shape
@@ -120,14 +136,72 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"G={H // KH}, hd={hd}")
     nmax = block_table.shape[1]
     out = torch.empty_like(q)
+    quant = k_scale is not None
     err = _launcher()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                      k_scale.data_ptr() if quant else None,
+                      v_scale.data_ptr() if quant else None,
                       block_table.data_ptr(), lengths.data_ptr(),
                       out.data_ptr(), n, B, H, KH, hd, N, bs, nmax,
                       _sweep_blocks(nmax, bs, max_len), hd ** -0.5,
-                      _DTYPES[q.dtype], build.cuda_stream(q))
+                      _DTYPES[q.dtype],
+                      _INT8 if quant else _DTYPES[q.dtype],
+                      build.cuda_stream(q))
     build.check(err, "paged_decode_attention")
+    return out
+
+
+def paged_decode_attention_int8(q: torch.Tensor, k_pool: torch.Tensor,
+                                v_pool: torch.Tensor, k_scale: torch.Tensor,
+                                v_scale: torch.Tensor,
+                                block_table: torch.Tensor,
+                                lengths: torch.Tensor, *,
+                                max_len: Optional[int] = None
+                                ) -> torch.Tensor:
+    """The int8 branch: pools int8 [n, N, bs, KH, hd] with fp32 scale
+    pools [n, N, bs, KH, 1], dequantized per row inside the softmax
+    loop; otherwise as ``paged_decode_attention``.  CPU tensors run the
+    plain version; CUDA tensors launch the kernel or raise."""
+    _check(q, k_pool, v_pool, block_table, lengths, k_scale, v_scale)
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(
+            q, k_pool, v_pool, block_table, lengths, max_len=max_len,
+            k_scale=k_scale, v_scale=v_scale)
+    out = _launch(q, k_pool, v_pool, k_scale, v_scale, block_table, lengths,
+                  max_len)
+    paged_decode_attention_int8.launches += 1
+    return out
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, block_table: torch.Tensor,
+                           lengths: torch.Tensor, *,
+                           max_len: Optional[int] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Flash-decode over a block pool, all tracks at once.
+
+    q [n, B, H, hd]; pools [n, N, bs, KH, hd] (one layer's slice of the
+    [R, D, n, N, bs, KH, hd] pool); block_table [B, nmax] int32 shared by
+    the tracks; lengths [B] int32 live tokens; ``max_len`` (host-known
+    bound on lengths) cuts the sweep to ceil(max_len / bs) blocks.  int8
+    pools pass their ``k_scale``/``v_scale`` pools and go to
+    ``paged_decode_attention_int8``.  Returns [n, B, H, hd].  CPU
+    tensors run the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if k_scale is not None or v_scale is not None:
+        return paged_decode_attention_int8(q, k_pool, v_pool, k_scale,
+                                           v_scale, block_table, lengths,
+                                           max_len=max_len)
+    _check(q, k_pool, v_pool, block_table, lengths)
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, block_table,
+                                            lengths, max_len=max_len)
+    out = _launch(q, k_pool, v_pool, None, None, block_table, lengths,
+                  max_len)
     paged_decode_attention.launches += 1
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention_int8.launches = 0

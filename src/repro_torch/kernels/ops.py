@@ -3,19 +3,24 @@
 Each wrapper launches its hand-written kernel for CUDA tensors (raising
 if it cannot) and runs its plain PyTorch version for CPU tensors.  Each
 keeps ``launches``, a plain int it bumps only where it launched the
-kernel, so a run can show which kernels its path went through.
+kernel, so a run can show which kernels its path went through.  The
+int8 branch of paged decode counts apart from the fp branch.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.kernels.decode_attention import paged_decode_attention
+from repro_torch.kernels.decode_attention import (paged_decode_attention,
+                                                  paged_decode_attention_int8)
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.quant_matmul import int8_matmul
 from repro_torch.kernels.rmsnorm import rmsnorm
 
 KERNELS = {"paged_decode_attention": paged_decode_attention,
            "flash_attention": flash_attention,
-           "rmsnorm": rmsnorm}
+           "rmsnorm": rmsnorm,
+           "paged_decode_attention_int8": paged_decode_attention_int8,
+           "int8_matmul": int8_matmul}
 
 
 def launch_counts() -> Dict[str, int]:

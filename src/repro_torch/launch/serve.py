@@ -7,6 +7,9 @@ of each kernel.  Runs on the GPU unless ``--device cpu`` is given.
       --requests 8 --input-len 512 --output-len 64 --slots 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
       --reduced --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
+      --reduced --device cpu --weight-dtype int8 --kv-dtype int8 \
+      --prefill-chunk 8
 """
 from __future__ import annotations
 
@@ -36,6 +39,18 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="paged-cache tokens per KV block")
     ap.add_argument("--num-blocks", type=int, default=None,
                     help="paged-cache pool size (default slots*capacity)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="chunked prefill: prompt tokens fed per engine "
+                    "step (0 = whole-prompt prefill)")
+    ap.add_argument("--kv-dtype", default=None, choices=["float32", "int8"],
+                    help="paged KV storage dtype: int8 stores 8-bit "
+                    "payloads + per-token fp32 scales (dequant fused into "
+                    "the decode kernel)")
+    ap.add_argument("--weight-dtype", default=None,
+                    choices=["float32", "int8"],
+                    help="serving weight dtype: int8 quantizes the "
+                    "projection and head weights at engine load (norms "
+                    "and embeddings stay fp)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prefill-budget", type=int, default=4096,
                     help="max padded prefill tokens admitted per step")
@@ -52,7 +67,18 @@ def main(argv: Optional[List[str]] = None) -> int:
                  max_seq_len=args.input_len + args.output_len + 8,
                  max_waiting_prefill_tokens=args.prefill_budget,
                  block_size=args.block_size, num_blocks=args.num_blocks,
-                 device=device)
+                 prefill_chunk=args.prefill_chunk, kv_dtype=args.kv_dtype,
+                 weight_dtype=args.weight_dtype, device=device)
+    del params                 # an int8 engine holds its own copy
+    if eng.runner.kv_dtype or eng.runner.weight_dtype:
+        st = eng.runner.cache_stats()
+        print(f"[serve] quantized: kv={st['kv_dtype']} "
+              f"weights={st['weight_dtype']} "
+              f"({st['quantized_weight_leaves']} leaves), pool "
+              f"{st['pool_bytes'] / 1e6:.1f} MB "
+              f"({st['bytes_per_block']} B/block)")
+    for why in eng.runner.quant_fallbacks:
+        print(f"[serve] quantization fallback: {why}")
     rng = np.random.default_rng(args.seed)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -73,7 +99,8 @@ def main(argv: Optional[List[str]] = None) -> int:
           f"slots={args.slots}")
     print(f"[serve] throughput {m['throughput_tok_s']:.1f} tok/s   "
           f"wall {wall:.3f}s   engine steps {eng.steps_run}   "
-          f"prefill variants {len(eng.runner.prefill_shapes)}")
+          f"prefill variants {len(eng.runner.prefill_shapes)}   "
+          f"chunk calls {eng.runner.chunk_calls}")
     print(f"[serve] TTFT ms: p50 {m['ttft_ms']['p50']:.2f}  "
           f"p90 {m['ttft_ms']['p90']:.2f}  p99 {m['ttft_ms']['p99']:.2f}")
     print(f"[serve] TPOT ms: p50 {m['tpot_ms']['p50']:.2f}  "

@@ -1,5 +1,6 @@
 """GQA attention over the stacked track dim: whole-prompt prefill through
 the flash-attention kernel, paged decode through the paged-decode kernel
+(either branch: fp or int8 pools), chunked prefill against the pools
 (counterpart of ``repro.models.attention``).
 
 Layout conventions (JAX layouts, with a leading track dim n):
@@ -8,11 +9,15 @@ Layout conventions (JAX layouts, with a leading track dim n):
 - K/V pools  : [n, N, bs, KH, hd] (one layer's slice of the engine pool),
                RoPE already applied to K.
 Every projection is one batched GEMM over the tracks, every attention
-call one kernel launch for all tracks.
+call one kernel launch for all tracks.  int8 weights (``QuantTensor``)
+take the W8A16 kernel in every projection, ``wq``/``wk``/``wv`` and
+``wo`` too, where the reference dequantizes in jnp; the output stays in
+the activation dtype.  int8 pools (``PagedLeaf.scale``) quantize rows on
+write and dequantize on read.
 
 Not ported (each raises): sliding windows and ring caches, the
-contiguous cache, chunked prefill (``attention_chunk``), logit softcap
-on the paged decode path, qk-norm, M-RoPE, cross-attention.
+contiguous cache, logit softcap on the paged decode path, qk-norm,
+M-RoPE, cross-attention.
 """
 from __future__ import annotations
 
@@ -21,10 +26,12 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.common.paged import PagedLeaf, is_paged, token_to_pool
+from repro_torch.common.quant import (as_matrix, dequantize_rows, matmul,
+                                      quantize_rows)
 from repro_torch.common.types import LayerSpec, ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.decode_attention import NEG_INF
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.mlp import track_matmul
 
 
 def attention_shapes(d_stream: int, n_heads: int, n_kv_heads: int,
@@ -45,9 +52,9 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
     (theta = cfg.rope_theta) applied to q and k in fp32."""
     n, B, S, d = x.shape
     wq, wk, wv = params["wq"], params["wk"], params["wv"]
-    q = track_matmul(x, wq.reshape(n, d, -1)).reshape(n, B, S, *wq.shape[2:])
-    k = track_matmul(x, wk.reshape(n, d, -1)).reshape(n, B, S, *wk.shape[2:])
-    v = track_matmul(x, wv.reshape(n, d, -1)).reshape(n, B, S, *wv.shape[2:])
+    q = matmul(x, as_matrix(wq, d)).reshape(n, B, S, *wq.shape[2:])
+    k = matmul(x, as_matrix(wk, d)).reshape(n, B, S, *wk.shape[2:])
+    v = matmul(x, as_matrix(wv, d)).reshape(n, B, S, *wv.shape[2:])
     cos, sin = rope_lib.rope_cos_sin(positions, wq.shape[-1], cfg.rope_theta)
     return rope_lib.apply_rope(q, cos, sin), rope_lib.apply_rope(k, cos, sin), v
 
@@ -55,9 +62,9 @@ def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
 def _out_proj(params, ctx: torch.Tensor) -> torch.Tensor:
     """ctx [n, ..., H, hd] -> [n, ..., d] (contracts heads and head dim)."""
     wo = params["wo"]
-    n, H, hd, d = wo.shape
-    return track_matmul(ctx.reshape(*ctx.shape[:-2], H * hd),
-                        wo.reshape(n, H * hd, d))
+    _, H, hd, _ = wo.shape
+    return matmul(ctx.reshape(*ctx.shape[:-2], H * hd),
+                  as_matrix(wo, H * hd))
 
 
 def attention_apply(params, x: torch.Tensor, *, spec: LayerSpec,
@@ -86,11 +93,36 @@ def pool_write(leaf: PagedLeaf, rows: torch.Tensor,
                w_idx: torch.Tensor) -> PagedLeaf:
     """Write rows [n, M, KH, hd] into one layer's pool [n, N, bs, KH, hd]
     at flat pool rows ``w_idx`` [M], in place (the JAX version returns a
-    new pool; updating in place saves a pool-sized copy per token)."""
-    pool = leaf.pool
-    flat = pool.view(pool.shape[0], -1, *pool.shape[3:])
-    flat[:, w_idx] = rows.to(pool.dtype)
+    new pool; updating in place saves a pool-sized copy per token).  An
+    int8 leaf quantizes each row over hd and writes payload and scale
+    through the same indices."""
+    def put(pool, r):
+        flat = pool.view(pool.shape[0], -1, *pool.shape[3:])
+        flat[:, w_idx] = r.to(pool.dtype)
+
+    if leaf.scale is not None:
+        payload, scale = quantize_rows(rows.float())
+        put(leaf.pool, payload)
+        put(leaf.scale, scale)
+    else:
+        put(leaf.pool, rows)
     return leaf
+
+
+def pool_read(leaf: PagedLeaf, block_table: torch.Tensor) -> torch.Tensor:
+    """The contiguous per-slot view [n, B, nmax * bs, KH, hd] of one
+    layer's pool [n, N, bs, KH, hd] through block_table [B, nmax];
+    int8 leaves come back dequantized to fp32."""
+    n, _, bs = leaf.pool.shape[:3]
+    B, nmax = block_table.shape
+    tbl = block_table.long()
+
+    def gather(pool):
+        return pool[:, tbl].reshape(n, B, nmax * bs, *pool.shape[3:])
+
+    if leaf.scale is None:
+        return gather(leaf.pool)
+    return dequantize_rows(gather(leaf.pool), gather(leaf.scale))
 
 
 def _paged_decode(params, q: torch.Tensor, k_new: torch.Tensor,
@@ -117,7 +149,9 @@ def _paged_decode(params, q: torch.Tensor, k_new: torch.Tensor,
     pool_write(v_leaf, v_new, w_idx)
     ctx = ops.paged_decode_attention(q, k_leaf.pool, v_leaf.pool,
                                      block_table, (pos + 1).to(torch.int32),
-                                     max_len=kv_max_len)
+                                     max_len=kv_max_len,
+                                     k_scale=k_leaf.scale,
+                                     v_scale=v_leaf.scale)
     out = _out_proj(params, ctx.to(out_dtype))[:, :, None]
     return out, (k_leaf, v_leaf)
 
@@ -139,3 +173,62 @@ def attention_decode(params, x: torch.Tensor,
                          k_leaf, v_leaf, spec=spec, pos=pos,
                          block_table=block_table, kv_max_len=kv_max_len,
                          out_dtype=x.dtype)
+
+
+def attention_chunk(params, x: torch.Tensor,
+                    cache: Tuple[PagedLeaf, PagedLeaf], *, spec: LayerSpec,
+                    cfg: ModelConfig, pos: torch.Tensor,
+                    block_table: Optional[torch.Tensor] = None,
+                    kv_max_len: Optional[int] = None):
+    """Chunked prefill against the block pools: C new tokens per row.
+
+    x [n, B, C, d]; pos [B] int32 position of each row's first chunk
+    token; cache: this layer's (k, v) pools.  The chunk's K/V rows are
+    written through the block table first (rows past a prompt's end land
+    in owned or trash blocks and sit causally after every real query),
+    then every chunk row attends causally over the gathered (and, for
+    int8 pools, dequantized) per-slot view, as the reference computes it
+    in jnp: plain PyTorch, masked grouped softmax in fp32.
+    ``kv_max_len`` (host-known bound on pos + C) cuts the gather to the
+    live prefix.  Returns (out [n, B, C, d], cache)."""
+    k_leaf, v_leaf = cache
+    if not is_paged(k_leaf):
+        raise NotImplementedError("chunked prefill into the contiguous or "
+                                  "ring caches is not ported (ROADMAP "
+                                  "queue 1, items 7-8)")
+    if block_table is None:
+        raise ValueError("attention_chunk on a paged cache requires a "
+                         "block_table")
+    if spec.window is not None or spec.attn_logit_softcap is not None:
+        raise NotImplementedError("windows and logit softcap on the chunk "
+                                  "path are not ported (ROADMAP queue 1, "
+                                  "item 8)")
+    n, B, C, _ = x.shape
+    positions = pos[:, None].to(torch.int32) + torch.arange(
+        C, dtype=torch.int32, device=x.device)[None]             # [B, C]
+    q, k_new, v_new = _project_qkv(params, x, cfg, positions)
+    H, hd = q.shape[-2:]
+    KH = k_new.shape[-2]
+    G = H // KH
+    bs = k_leaf.pool.shape[2]
+    w_idx = token_to_pool(block_table, positions, bs).reshape(-1)
+    pool_write(k_leaf, k_new.reshape(n, B * C, KH, hd), w_idx)
+    pool_write(v_leaf, v_new.reshape(n, B * C, KH, hd), w_idx)
+    read_table = block_table
+    if kv_max_len is not None:
+        read_table = block_table[:, :-(-kv_max_len // bs)]
+    k_g = pool_read(k_leaf, read_table)                # [n, B, S, KH, hd]
+    v_g = pool_read(v_leaf, read_table)
+    S = k_g.shape[2]
+    qg = (q * hd ** -0.5).to(k_g.dtype).reshape(n, B, C, KH, G, hd)
+    s = torch.einsum("nbckgd,nbskd->nbckgs", qg.float(), k_g.float())
+    cols = torch.arange(S, device=x.device)
+    mask = cols[None, None, :] <= positions[:, :, None]          # [B, C, S]
+    # in place: at full width the scores are the chunk's largest transient
+    s.masked_fill_(~mask[None, :, :, None, None, :], NEG_INF)
+    s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
+    p = s.div_(s.sum(dim=-1, keepdim=True))
+    ctx = torch.einsum("nbckgs,nbskd->nbckgd", p.to(v_g.dtype).float(),
+                       v_g.float())
+    out = _out_proj(params, ctx.reshape(n, B, C, H, hd).to(x.dtype))
+    return out, (k_leaf, v_leaf)

@@ -4,6 +4,7 @@ track dim (counterpart of ``repro.models.layers``).
 ``layer_apply`` runs the modes the serving path needs:
   'prefill' — full-sequence forward, returns the layer's (k, v)
   'decode'  — one token per row against this layer's block pools
+  'chunk'   — C tokens per row appended to this layer's block pools
 """
 from __future__ import annotations
 
@@ -64,9 +65,10 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
                 ) -> Tuple[torch.Tensor, Any]:
     """One layer for all tracks: params leaves [n, ...], x [n, B, S, d].
     'prefill' takes ``positions`` [B, S] and returns (x, (k, v));
-    'decode' takes ``pos`` [B], this layer's pool ``cache`` and the
-    block table, and returns (x, cache).  (The reference also returns an
-    auxiliary MoE loss, always zero here.)"""
+    'decode' and 'chunk' take ``pos`` [B] (the row's first new
+    position), this layer's pool ``cache`` and the block table, and
+    return (x, cache).  (The reference also returns an auxiliary MoE
+    loss, always zero here.)"""
     h = _norm(cfg, params, "ln1", x)
     if mode == "prefill":
         h, new_cache = attn.attention_apply(params["mixer"], h, spec=spec,
@@ -77,10 +79,15 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
                                              spec=spec, cfg=cfg, pos=pos,
                                              block_table=block_table,
                                              kv_max_len=kv_max_len)
+    elif mode == "chunk":
+        h, new_cache = attn.attention_chunk(params["mixer"], h, cache,
+                                            spec=spec, cfg=cfg, pos=pos,
+                                            block_table=block_table,
+                                            kv_max_len=kv_max_len)
     else:
         raise NotImplementedError(
-            f"layer mode {mode!r} is not ported (chunk: ROADMAP queue 1, "
-            "item 2; train: item 10)")
+            f"layer mode {mode!r} is not ported (train: ROADMAP queue 1, "
+            "item 10)")
     x = x + h
     h = _norm(cfg, params, "ln2", x)
     x = x + mlp_apply(params["mlp"], h, spec.mlp)

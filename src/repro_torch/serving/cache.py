@@ -10,12 +10,17 @@ table entries of unallocated regions and released slots point at it,
 so stray writes (padded prefill rows, idle decode lanes) never reach a
 block another request owns.
 
+With ``kv_dtype="int8"`` the pools hold int8 payloads and ``scales``
+holds one fp32 scale pool per pool, ``[R, D, n, num_blocks, block_size,
+KH, 1]`` (one scale per token per KV head, so a decode write touches one
+row's scale and never re-quantizes a block); ``pool_bytes`` counts both.
+
 Not ported yet: the content-addressed prefix cache, ``fork`` and
-copy-on-write (ROADMAP queue 1, item 3), int8 pools (item 6).
+copy-on-write (ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,10 +44,15 @@ class PagedKVCache:
 
     def __init__(self, cfg: ModelConfig, *, max_slots: int, max_seq_len: int,
                  block_size: int = 16, num_blocks: Optional[int] = None,
-                 prefix_cache: bool = False, device: DeviceLike = None):
+                 prefix_cache: bool = False,
+                 kv_dtype: Optional[str] = None, device: DeviceLike = None):
         if prefix_cache:
             raise NotImplementedError("the prefix cache is not ported "
                                       "(ROADMAP queue 1, item 3)")
+        if kv_dtype not in (None, "int8"):
+            raise ValueError(f"unsupported kv_dtype {kv_dtype!r} "
+                             "(None or 'int8')")
+        self.kv_dtype = kv_dtype
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_slots = max_slots
@@ -53,9 +63,15 @@ class PagedKVCache:
             num_blocks = max_slots * self.blocks_per_seq
         self.num_blocks = num_blocks + 1            # +1: trash block 0
         shape = pt_cache_shape(cfg, self.num_blocks, block_size)
-        dtype = model_dtype(cfg)
+        dtype = torch.int8 if kv_dtype == "int8" else model_dtype(cfg)
         self.data = (torch.zeros(shape, dtype=dtype, device=self.device),
                      torch.zeros(shape, dtype=dtype, device=self.device))
+        self.scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        if kv_dtype == "int8":
+            sshape = shape[:-1] + (1,)
+            self.scales = tuple(torch.zeros(sshape, dtype=torch.float32,
+                                            device=self.device)
+                                for _ in range(2))
 
         self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
         self._blocks: List[List[int]] = [[] for _ in range(max_slots)]
@@ -152,7 +168,10 @@ class PagedKVCache:
 
     # -- stats ----------------------------------------------------------
     def pool_bytes(self) -> int:
-        return sum(t.numel() * t.element_size() for t in self.data)
+        """Device bytes of the pools, int8 payloads and their fp32 scale
+        pools both."""
+        return sum(t.numel() * t.element_size()
+                   for t in self.data + (self.scales or ()))
 
     def bytes_per_block(self) -> int:
         return self.pool_bytes() // self.num_blocks
@@ -168,6 +187,7 @@ class PagedKVCache:
             "tokens_stored": tokens,
             "token_utilization": (tokens / (used * self.block_size)
                                   if used else 0.0),
+            "kv_dtype": self.kv_dtype or "float32",
             "pool_bytes": self.pool_bytes(),
             "bytes_per_block": bpb,
             "used_bytes": used * bpb,

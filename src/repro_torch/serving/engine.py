@@ -10,15 +10,20 @@
                 TTFT / TPOT / throughput metrics.
 
 One engine step: admit queued requests (bucketed, batched prefill that
-samples each request's first token), run ONE decode step for every
-decoding slot, and free the blocks of slots that finished.  A decode
+samples each request's first token), advance every chunked prefill by
+one chunk (``prefill_chunk > 0``), run ONE decode step for every
+decoding slot, and free the blocks of slots that finished.  With int8
+KV (``kv_dtype="int8"``) every cold prompt runs through the chunk
+program, as in the reference, so its first token comes from attention
+over the quantized pool bytes; ``weight_dtype="int8"`` quantizes the
+projection weights once, when the runner is built.  A decode
 step makes exactly one device-to-host transfer: the packed [2, slots]
 (token, done) tensor of ``sampler.sample_step``.  The device block table
 is rebuilt only when the cache's table version or the active set
 changes.
 
-Greedy only, and the prefix cache is off by default (``prefix_cache=
-False``; the reference defaults to on).  Every feature of the reference
+Greedy only, and the prefix cache is off (``prefix_cache=False``; the
+reference defaults to on).  Every feature of the reference
 engine this slice leaves out raises ``NotImplementedError`` naming its
 ROADMAP item when asked for, never silently ignored.
 """
@@ -35,8 +40,10 @@ import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.paged import PagedLeaf, token_to_pool
+from repro_torch.common.quant import is_quantized, quantize_params
 from repro_torch.common.types import ModelConfig
 from repro_torch.core import track as pt_lib
+from repro_torch.models.decoder import _head
 from repro_torch.models.layers import check_supported
 from repro_torch.serving.cache import PagedKVCache
 from repro_torch.serving.sampler import (SampleParams, require_greedy,
@@ -80,6 +87,7 @@ class Request:
     output: List[int] = dataclasses.field(default_factory=list)
     truncated: bool = False            # max_new_tokens clamped to capacity
     finish_reason: Optional[str] = None
+    prefilled: int = 0                 # prompt tokens already in the cache
     # monotonic (perf_counter) latency marks
     t_submit: float = 0.0
     t_first: float = 0.0
@@ -226,38 +234,70 @@ class Scheduler:
 # ---------------------------------------------------------------------------
 
 class ModelRunner:
-    """Device side: the paged K/V pools, bucketed prefill and the decode
-    step.  ``params`` must already live on ``device``."""
+    """Device side: the paged K/V pools, bucketed prefill, the chunk
+    program and the decode step.  ``params`` must already live on
+    ``device``; with ``weight_dtype="int8"`` the runner holds its own
+    quantized copy (the caller may drop the fp tree)."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int,
                  max_seq_len: int, min_bucket: int = 16,
                  block_size: int = 16, num_blocks: Optional[int] = None,
+                 prefill_chunk: int = 0, kv_dtype: Optional[str] = None,
+                 weight_dtype: Optional[str] = None,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         check_supported(cfg)
+        if kv_dtype not in (None, "float32", "int8"):
+            raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
+        if weight_dtype not in (None, "float32", "int8"):
+            raise ValueError(f"unsupported weight_dtype {weight_dtype!r}")
+        if prefill_chunk < 0:
+            raise ValueError(f"prefill_chunk must be >= 0, got "
+                             f"{prefill_chunk}")
         if params["embed"].device != self.device:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the runner on {self.device}")
         self.cfg = cfg
         self.params = params
-        if cfg.logits_fp32 and "head" in params:
+        # effective dtypes (None = full precision) and, as in the
+        # reference, the reason for each requested int8 arm not taken
+        self.kv_dtype: Optional[str] = "int8" if kv_dtype == "int8" else None
+        self.weight_dtype: Optional[str] = None
+        self.quant_fallbacks: List[str] = []
+        self.n_quantized = 0
+        if weight_dtype == "int8":
+            self.params, self.n_quantized = quantize_params(params)
+            if self.n_quantized:
+                self.weight_dtype = "int8"
+            else:
+                self.quant_fallbacks.append(
+                    "weight_dtype=int8: no quantizable weight leaves in "
+                    "this architecture; serving fp weights")
+        head = self.params.get("head")
+        if cfg.logits_fp32 and head is not None and not is_quantized(head):
             # the LM head runs in fp32 (as the reference does); an fp32
             # copy is kept once instead of casting the head every step
-            self.params = dict(params, head=params["head"].float())
+            self.params = dict(self.params, head=head.float())
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
         self.min_bucket = min_bucket
+        self.prefill_chunk = prefill_chunk
         self.kv = PagedKVCache(cfg, max_slots=max_slots,
                                max_seq_len=max_seq_len,
                                block_size=block_size, num_blocks=num_blocks,
-                               device=self.device)
+                               kv_dtype=self.kv_dtype, device=self.device)
         k_pool, v_pool = self.kv.data
-        self.cache = {"blocks": (PagedLeaf(k_pool), PagedLeaf(v_pool)),
+        k_scale, v_scale = self.kv.scales or (None, None)
+        self.cache = {"blocks": (PagedLeaf(k_pool, k_scale),
+                                 PagedLeaf(v_pool, v_scale)),
                       "tail": ()}
         self._table_key = None             # (kv.version, active bytes)
         self._table_dev: Optional[torch.Tensor] = None
         self.prefill_shapes: set = set()   # observed (n_reqs, bucket)
+        self.chunk_shapes: set = set()     # observed (n_reqs, chunk)
         self.prefill_calls = 0
+        self.chunk_calls = 0               # chunk forwards (incl. int8-KV
+                                           # whole-prompt prefills)
         self.decode_transfers = 0          # host transfers in decode steps
 
     # -- bucket policy --------------------------------------------------
@@ -272,7 +312,21 @@ class ModelRunner:
         return min(b, self.max_seq_len)
 
     def admission_charge(self, req: Request) -> int:
-        return self.bucket_for(len(req.seq_tokens))
+        """Prefill tokens a request costs per admission round: its padded
+        bucket, or one chunk when chunked prefill spreads the rest over
+        later steps."""
+        bucket = self.bucket_for(len(req.seq_tokens))
+        return min(bucket, self.prefill_chunk) if self.prefill_chunk \
+            else bucket
+
+    def cache_stats(self) -> Dict[str, Any]:
+        """Pool occupancy and the quantization in effect."""
+        stats = dict(self.kv.utilization())
+        stats.update(mode="paged", block_size=self.kv.block_size,
+                     weight_dtype=self.weight_dtype or "float32",
+                     quantized_weight_leaves=self.n_quantized,
+                     quant_fallbacks=list(self.quant_fallbacks))
+        return stats
 
     # -- device steps ---------------------------------------------------
     def _to_dev(self, a, dtype: torch.dtype) -> torch.Tensor:
@@ -314,6 +368,59 @@ class ModelRunner:
         self.prefill_shapes.add((n, bucket))
         self.prefill_calls += 1
         return toks.cpu().numpy()
+
+    def _chunk(self, toks: np.ndarray, pos: np.ndarray,
+               table_rows: torch.Tensor, last_idx: np.ndarray,
+               temps: np.ndarray) -> np.ndarray:
+        """The chunk program for n rows: toks [n, C] appended at
+        pos[:, None] + arange(C) through ``table_rows`` (the whole table
+        row is gathered, as the reference's chunk call passes no
+        ``kv_max_len``).  Returns the token sampled at each row's
+        ``last_idx`` [n] -- meaningful only for a row's final chunk.  The
+        LM head runs on those n rows only (the reference takes them from
+        the logits of all n * C rows; the head is row-wise)."""
+        n = len(toks)
+        h = pt_lib.pt_chunk_hidden(
+            self.params, self.cache, self._to_dev(toks, torch.long),
+            self._to_dev(pos, torch.int32), self.cfg,
+            block_table=table_rows)
+        last = h[torch.arange(n, device=self.device),
+                 self._to_dev(last_idx, torch.long)]
+        cand = sample_rows(_head(self.params, last, self.cfg), temps)
+        self.chunk_shapes.add(tuple(np.shape(toks)))
+        self.chunk_calls += 1
+        return cand.cpu().numpy()
+
+    @torch.no_grad()
+    def chunk(self, toks: np.ndarray, pos: np.ndarray, slots: Sequence[int],
+              last_idx: np.ndarray,
+              params_list: Sequence[SampleParams]) -> np.ndarray:
+        """One chunk step for the requests prefilling in ``slots``."""
+        temps, _, _ = stack_params(params_list)
+        require_greedy(temps)
+        return self._chunk(toks, pos, self.kv.table_rows(slots), last_idx,
+                           temps)
+
+    @torch.no_grad()
+    def warm_prefill(self, prompts: Sequence[Sequence[int]],
+                     slots: Sequence[int],
+                     params_list: Sequence[SampleParams]) -> np.ndarray:
+        """Whole prompts through the chunk program, one call right-padded
+        to the bucket of the longest: the int8-KV route of cold prompts.
+        (The reference's ``warm_prefill`` also starts each prompt after a
+        matched cached prefix; with the prefix cache not ported that
+        prefix is always empty.)  Returns first tokens [n]."""
+        temps, _, _ = stack_params(params_list)
+        require_greedy(temps)
+        n = len(prompts)
+        bucket = self.bucket_for(max(len(p) for p in prompts))
+        toks = np.zeros((n, bucket), np.int64)
+        last_idx = np.empty((n,), np.int64)
+        for i, p in enumerate(prompts):
+            toks[i, :len(p)] = p
+            last_idx[i] = len(p) - 1
+        return self._chunk(toks, np.zeros((n,), np.int32),
+                           self.kv.table_rows(slots), last_idx, temps)
 
     def _masked_table(self, active: np.ndarray) -> torch.Tensor:
         """Device block table with inactive lanes zeroed (their writes land
@@ -382,12 +489,9 @@ class Engine:
                  weight_dtype: Optional[str] = None,
                  pipeline_depth: int = 0, preplan: bool = False,
                  max_queue: Optional[int] = None, fault_plan: Any = None):
-        _refuse(paged=(paged, True, 7), prefill_chunk=(prefill_chunk, 0, 2),
-                speculate_k=(speculate_k, 0, 4),
+        _refuse(paged=(paged, True, 7), speculate_k=(speculate_k, 0, 4),
                 draft_tracks=(draft_tracks, 0, 4),
                 prefix_cache=(prefix_cache, False, 3),
-                kv_dtype=(kv_dtype, None, 6),
-                weight_dtype=(weight_dtype, None, 6),
                 pipeline_depth=(pipeline_depth, 0, 7),
                 preplan=(preplan, False, 7), max_queue=(max_queue, None, 7),
                 fault_plan=(fault_plan, None, 7))
@@ -398,7 +502,10 @@ class Engine:
                                   max_seq_len=max_seq_len,
                                   min_bucket=min_bucket,
                                   block_size=block_size,
-                                  num_blocks=num_blocks, device=device)
+                                  num_blocks=num_blocks,
+                                  prefill_chunk=prefill_chunk,
+                                  kv_dtype=kv_dtype,
+                                  weight_dtype=weight_dtype, device=device)
         self.scheduler = Scheduler(max_slots, self.runner.bucket_for,
                                    max_waiting_prefill_tokens,
                                    charge_fn=self.runner.admission_charge)
@@ -516,8 +623,12 @@ class Engine:
             self._finish(slot, req)
 
     def _admit(self) -> int:
-        """Admit queued requests into free slots and prefill them, one
-        batched call per bucket.  Returns the number admitted."""
+        """Admit queued requests into free slots and prefill them: one
+        batched call per bucket, or (int8 KV) one chunk-program call for
+        the whole round; with chunked prefill the chunks run in
+        ``_prefill_chunks``.  Returns the number admitted."""
+        chunked = self.runner.prefill_chunk > 0
+        warm_rows: List[Tuple[int, Request]] = []
         admitted = 0
         for bucket, group in self.scheduler.plan_admission(
                 self._make_can_fit()):
@@ -525,19 +636,67 @@ class Engine:
                 self.runner.kv.allocate(slot, self._reserve_tokens(req))
                 self._temps[slot] = req.params.temperature
                 self._eos[slot] = -1 if req.eos_id is None else req.eos_id
+                req.prefilled = 0
+            admitted += len(group)
+            if chunked:
+                continue
+            if self.runner.kv_dtype == "int8":
+                # int8 KV: cold prompts run through the chunk program, as
+                # in the reference, so the first token comes from
+                # attention over the quantized pool bytes
+                warm_rows += group
+                continue
             slots = [s for s, _ in group]
             reqs = [r for _, r in group]
             toks = self.runner.prefill([r.seq_tokens for r in reqs], bucket,
                                        slots, [r.params for r in reqs])
             for slot, req, tok in zip(slots, reqs, toks):
+                req.prefilled = len(req.seq_tokens)
                 self._start_decode(slot, req, int(tok))
-            admitted += len(group)
+        if warm_rows:
+            toks = self.runner.warm_prefill(
+                [r.seq_tokens for _, r in warm_rows],
+                [s for s, _ in warm_rows], [r.params for _, r in warm_rows])
+            for (slot, req), tok in zip(warm_rows, toks):
+                req.prefilled = len(req.seq_tokens)
+                self._start_decode(slot, req, int(tok))
         return admitted
 
+    def _prefill_chunks(self) -> int:
+        """Advance every prefilling request by one chunk (one batched
+        call), starting the decode of rows whose prompt is now fully in
+        the cache.  Returns rows advanced."""
+        C = self.runner.prefill_chunk
+        rows = [(s, r) for s, r in self.scheduler.active_slots()
+                if r.state is RequestState.PREFILL
+                and r.prefilled < len(r.seq_tokens)]
+        if not rows:
+            return 0
+        n = len(rows)
+        toks = np.zeros((n, C), np.int64)
+        pos = np.empty((n,), np.int32)
+        last_idx = np.zeros((n,), np.int64)
+        for i, (_, req) in enumerate(rows):
+            seq = req.seq_tokens
+            chunk = seq[req.prefilled:req.prefilled + C]
+            toks[i, :len(chunk)] = chunk
+            pos[i] = req.prefilled
+            last_idx[i] = min(C - 1, len(seq) - 1 - req.prefilled)
+        cand = self.runner.chunk(toks, pos, [s for s, _ in rows], last_idx,
+                                 [r.params for _, r in rows])
+        for i, (slot, req) in enumerate(rows):
+            req.prefilled = min(req.prefilled + C, len(req.seq_tokens))
+            if req.prefilled == len(req.seq_tokens):
+                self._start_decode(slot, req, int(cand[i]))
+        return n
+
     def step(self) -> int:
-        """Admit, then one decode step for every decoding slot.  Returns
-        the number of requests that made progress."""
+        """Admit, advance chunked prefills by one chunk, then one decode
+        step for every decoding slot.  Returns the number of requests
+        that made progress."""
         progress = self._admit()
+        if self.runner.prefill_chunk:
+            progress += self._prefill_chunks()
         self.metrics.max_active = max(self.metrics.max_active,
                                       len(self.scheduler.active_slots()))
         active = [(s, r) for s, r in self.scheduler.active_slots()

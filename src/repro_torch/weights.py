@@ -7,6 +7,12 @@ embed [V, d], head [d, V], blocks leaves [R, D, n, ...] with
 wq [d, H, hd], wk/wv [d, KH, hd], wo [H, hd, d], mlp wi_gate/wi_up
 [d, ff], wo [ff, d], and fp32 norm scales.  Nothing here imports JAX:
 the caller hands over numpy arrays.
+
+A tree from the reference's ``quantize_params`` carries across too: each
+of its ``QuantTensor`` leaves given as a ``(payload, scale)`` numpy pair
+becomes a :class:`~repro_torch.common.quant.QuantTensor`, checked
+against the quantization rule of its name (int8 payload of the weight's
+shape, fp32 scale with the contraction axes collapsed to 1).
 """
 from __future__ import annotations
 
@@ -16,6 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.common.quant import QuantTensor, weight_axes
 from repro_torch.common.types import ModelConfig
 from repro_torch.core.track import param_specs
 from repro_torch.models.decoder import model_dtype
@@ -31,11 +38,30 @@ def _to_torch(a: Any, device: torch.device) -> torch.Tensor:
 
 def from_jax_params(tree: Any, cfg: ModelConfig,
                     device: DeviceLike = None) -> Any:
-    """Numpy-leaved JAX ``init_pt`` tree -> the port's parameters on
-    ``device``.  Raises when the tree's keys, shapes or dtypes differ
-    from what ``cfg`` describes."""
+    """Numpy-leaved JAX ``init_pt`` tree (optionally quantized, with
+    ``(payload, scale)`` pairs) -> the port's parameters on ``device``.
+    Raises when the tree's keys, shapes or dtypes differ from what
+    ``cfg`` describes."""
     device = resolve_device(device)
     dtype = model_dtype(cfg)
+
+    def quantized(shape, node, path):
+        keys = path.split(".")
+        axes = weight_axes(keys[-1], keys[-2] if len(keys) > 1 else "")
+        if axes is None:
+            raise ValueError(f"{path}: no int8 rule for this weight")
+        payload, scale = (_to_torch(a, device) for a in node)
+        want = tuple(1 if i - len(shape) in axes else s
+                     for i, s in enumerate(shape))
+        if tuple(payload.shape) != tuple(shape) \
+                or payload.dtype != torch.int8 \
+                or tuple(scale.shape) != want \
+                or scale.dtype != torch.float32:
+            raise ValueError(f"{path}: got payload {tuple(payload.shape)} "
+                             f"{payload.dtype}, scale {tuple(scale.shape)} "
+                             f"{scale.dtype}; want int8 {tuple(shape)}, "
+                             f"fp32 {want}")
+        return QuantTensor(payload, scale)
 
     def walk(spec, node, path):
         if isinstance(spec, dict):
@@ -49,6 +75,8 @@ def from_jax_params(tree: Any, cfg: ModelConfig,
                 raise ValueError(f"{path}: expected an empty tail")
             return ()
         shape, std = spec
+        if isinstance(node, tuple):
+            return quantized(shape, node, path)
         t = _to_torch(node, device)
         want = torch.float32 if std is None else dtype
         if tuple(t.shape) != tuple(shape) or t.dtype != want:

@@ -1,6 +1,7 @@
 """On the card: each hand-written kernel against its plain PyTorch version
-(tolerance fp32 2e-5, bf16 2e-2, as tests/test_kernels.py), and the
-launch counts the wrappers keep.  Imports no JAX, so it runs on a GPU
+(tolerance fp32 2e-5, bf16 2e-2, as tests/test_kernels.py; the W8A16
+matmul in fp32 1e-4, for its long fp32 sums), the launch counts the
+wrappers keep, and int8 quantization bitwise equal to the CPU's.  Imports no JAX, so it runs on a GPU
 machine without it:
 
   PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
@@ -94,3 +95,73 @@ def test_rmsnorm_kernel_matches_plain(shape, per_track, dtype):
                                rtol=tol, atol=tol)
     torch.cuda.synchronize()
     assert ops.launch_counts()["rmsnorm"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,M,K,N", [(2, 8, 1408, 520), (3, 8, 37, 100),
+                                     (1, 70, 200, 136), (2, 33, 72, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_matmul_kernel_matches_plain(n, M, K, N, dtype):
+    """Decode (M <= 16) and prefill tiles, N and K off the 64-wide
+    tiles, and K / N that rule out the 16-byte loads (37, 100)."""
+    from repro_torch.common.quant import quantize
+    # fp32: sums of up to 1408 products of |x q| ~ 50 taken in another
+    # order than cuBLAS's differ by ~1e-4 after the scale
+    dev, tol = _cuda(), {"float32": 1e-4, "bfloat16": 2e-2}[dtype]
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((n, M, K)).astype(np.float32)
+                         ).to(dev, _TDT[dtype])
+    qt = quantize(torch.from_numpy(
+        rng.standard_normal((n, K, N)).astype(np.float32)).to(dev), axes=-2)
+    before = ops.launch_counts()["int8_matmul"]
+    out = ops.int8_matmul(x, qt.payload, qt.scale)
+    assert out.dtype == torch.float32
+    torch.testing.assert_close(
+        out, ref.int8_matmul_plain(x, qt.payload, qt.scale),
+        rtol=tol, atol=tol)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["int8_matmul"] == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(3, 4, 1, 4, 128, 16, 6),
+                                   (2, 3, 2, 2, 64, 8, 5)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_paged_decode_kernel_matches_plain(shape, dtype):
+    """int8 pools with their fp32 scale pools, ragged lengths over a
+    shuffled table, with and without a ``max_len`` cut."""
+    from repro_torch.common.quant import quantize_rows
+    dev, tol = _cuda(), _TOL[dtype]
+    rng = np.random.default_rng(4)
+    q, kp, vp, table, lengths = _paged_inputs(*shape, rng)
+    (k8, ks), (v8, vs) = (quantize_rows(torch.from_numpy(a).to(dev))
+                          for a in (kp, vp))
+    args = (torch.from_numpy(q).to(dev, _TDT[dtype]), k8, v8,
+            torch.from_numpy(table).to(dev), torch.from_numpy(lengths).to(dev))
+    before = ops.launch_counts()
+    for max_len in (None, int(lengths.max()), 8):
+        torch.testing.assert_close(
+            ops.paged_decode_attention(*args, max_len=max_len, k_scale=ks,
+                                       v_scale=vs),
+            ref.paged_decode_attention_plain(*args, max_len=max_len,
+                                             k_scale=ks, v_scale=vs),
+            rtol=tol, atol=tol)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["paged_decode_attention_int8"] == \
+        before["paged_decode_attention_int8"] + 3
+    assert after["paged_decode_attention"] == before["paged_decode_attention"]
+
+
+@pytest.mark.gpu
+def test_quantize_on_the_card_matches_the_cpu_bitwise():
+    """int8 weights and KV rows quantize to the same payloads and scales
+    on the card as on the CPU (and so as the reference)."""
+    from repro_torch.common.quant import quantize
+    dev = _cuda()
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (4000, 64)).astype(np.float32) * 3)
+    for axes in (-1, -2):
+        a, b = quantize(x.to(dev), axes), quantize(x, axes)
+        assert torch.equal(a.payload.cpu(), b.payload)
+        assert torch.equal(a.scale.cpu(), b.scale)

@@ -160,7 +160,8 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     fq, fk = torch.randn(2, 16, 2, 8), torch.randn(2, 16, 1, 8)
     before = ops.launch_counts()
     assert set(before) == {"paged_decode_attention", "flash_attention",
-                           "rmsnorm"}
+                           "rmsnorm", "paged_decode_attention_int8",
+                           "int8_matmul"}
     assert all(isinstance(v, int) for v in before.values())
     assert torch.equal(ops.paged_decode_attention(*args, max_len=16),
                        ref.paged_decode_attention_plain(*args, max_len=16))

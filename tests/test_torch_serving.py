@@ -155,8 +155,7 @@ def test_engine_rejects_invalid_requests_and_unported_features(model):
     assert eng.submit([], 4).state is RequestState.REJECTED
     assert eng.submit([1] * 40, 4).state is RequestState.REJECTED
     assert eng.submit([1, 2], 0).state is RequestState.REJECTED
-    for kw in ({"prefill_chunk": 8}, {"speculate_k": 2},
-               {"prefix_cache": True}, {"kv_dtype": "int8"},
+    for kw in ({"speculate_k": 2}, {"prefix_cache": True},
                {"pipeline_depth": 1}, {"paged": False}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(cfg, params, device="cpu", **kw)
@@ -164,6 +163,10 @@ def test_engine_rejects_invalid_requests_and_unported_features(model):
         eng.submit([1, 2], 4, params=SampleParams(temperature=0.7))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.submit([1, 2], 4, priority=1)
+    for kw in ({"kv_dtype": "fp8"}, {"weight_dtype": "int4"},
+               {"prefill_chunk": -1}):
+        with pytest.raises(ValueError):
+            Engine(cfg, params, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.fork(None, 2)
     with pytest.raises(KeyError, match="ROADMAP"):

@@ -7,18 +7,24 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
   2. build the hand-written CUDA kernels from the sources in the checkout
      (nvcc, one process per source, in parallel) and print ptxas's report;
   3. hold each kernel against its plain PyTorch version at the shapes of
-     the serving paths below (tolerance bf16 2e-2, fp32 1e-4), and time
-     kernel, plain version and one PyTorch library call (yardstick only)
-     with CUDA events, beside the kernel's bound on an H100 (3.35 TB/s,
-     989 TFLOP/s bf16, 67 TFLOP/s fp32 outside the tensor cores); the
-     W8A16 matmul at three shapes (decode MLP, decode LM head with fp32
-     x, prefill MLP);
+     the serving paths below (tolerance bf16 2e-2, fp32 1e-4; the scan
+     with bf16 inputs 5e-2), and time kernel, plain version and one
+     PyTorch library call (yardstick only; none computes the scan) with
+     CUDA events, beside the kernel's bound on an H100 (3.35 TB/s, 989
+     TFLOP/s bf16, 67 TFLOP/s fp32 outside the tensor cores); the W8A16
+     matmul at three shapes (decode MLP, decode LM head with fp32 x,
+     prefill MLP); RMSNorm also at falcon-mamba's d 4096; ``ssm_scan``
+     at the falcon-mamba chunk shape, then at ragged S, d_state 1, bf16
+     inputs and an odd feature count;
   4. the reduced PT config in fp32, on the card against the same weights
      on the CPU (tolerance 1e-4): prefill logits, K/V and teacher-forced
      paged decode steps; then with int8 weights, int8 KV and chunked
      prefill (chunk 8): int8 weight payloads bitwise, chunk and decode
      logits, the int8 decode kernel on the CPU's pools; and whether the
-     greedy token streams agree;
+     greedy token streams agree; then reduced falcon-mamba in fp32, card
+     against CPU (1e-4): whole-prompt prefill then decode, chunked
+     prefill (chunk 8, a non-aligned last chunk) then decode, and
+     greedy streams, which must be identical;
   5. serve pt-6b-d4 at full width (random weights from a seeded
      generator): 8 slots, 8 greedy requests of 512 prompt tokens and 64
      new tokens, block size 16 — TTFT, TPOT, throughput, peak memory and
@@ -27,11 +33,14 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      weights and int8 KV (every projection and the head through the W8A16
      kernel, int8 paged decode, prompts through the chunk program), whose
      launch counts must equal 7 per layer + 1 head per forward and one
-     int8 decode per layer per decode step;
+     int8 decode per layer per decode step; then falcon-mamba-7b at full
+     width and depth, bf16, the same workload with chunked prefill of 256
+     tokens, whose launch counts must equal 64 ``ssm_scan`` per chunk
+     call, 65 ``rmsnorm`` per forward and no attention kernel;
   6. where the time goes: device time by kernel (torch.profiler) over the
-     step that prefills 8 prompts and over three decode steps, and the
+     step that admits 8 prompts and over three decode steps, and the
      decode step's device busy share against its unprofiled TPOT, for
-     both serve runs.
+     all three serve runs.
 Prints one ``{"kernels": [...]}`` JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -56,8 +65,9 @@ KERNEL_TOL = 2e-2              # bf16, as the reference's kernel sweeps
 FP32_KERNEL_TOL = 1e-4         # the fp32 instantiations
 PARITY_TOL = 1e-4              # fp32 model on the card vs the CPU
 
-# the serving cell of phase 5, which fixes the kernel shapes of phase 3
+# the serving cells of phase 5, which fix the kernel shapes of phase 3
 ARCH, SLOTS, PROMPT, NEW, BLOCK = "pt-6b-d4", 8, 512, 64, 16
+FM_ARCH, FM_SLOTS, FM_CHUNK, FM_D = "falcon-mamba-7b", 8, 256, 4096
 
 
 def log(msg: str) -> None:
@@ -112,10 +122,18 @@ def build_kernels() -> None:
             log(f"[build]   {ln}")
 
 
+def _agree(name, out, ref, tol):
+    """Max |out - ref| after a check within ``tol`` (rtol and atol)."""
+    err = (out.float() - ref.float()).abs().max().item()
+    if not torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol):
+        raise SystemExit(f"[kernel] {name} disagrees with its plain version "
+                         f"(max_abs_err {err:.3e}, tol {tol})")
+    return err
+
+
 def _report(name, route, source, replaces, out, ref, ms, plain_ms, lib_ms,
             bytes_, flops, flop_rate, tol=KERNEL_TOL):
     err = (out.float() - ref.float()).abs().max().item()
-    ok = torch.allclose(out.float(), ref.float(), rtol=tol, atol=tol)
     t_bytes = bytes_ / HBM_BYTES_S * 1e3
     t_ops = flops / flop_rate * 1e3
     row = {"name": name, "route": route, "source": source,
@@ -123,12 +141,11 @@ def _report(name, route, source, replaces, out, ref, ms, plain_ms, lib_ms,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "library_ms": lib_ms, "bytes": bytes_, "ops": flops}
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
     log(f"[kernel] {name}: max_abs_err {err:.3e} (tol {tol}) "
         f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-        f"{lib_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']})")
-    if not ok:
-        raise SystemExit(f"[kernel] {name} disagrees with its plain version")
+        f"{lib}, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    _agree(name, out, ref, tol)
     return row
 
 
@@ -243,10 +260,93 @@ def check_kernels(dev: torch.device):
         "src/repro/kernels/rmsnorm.py:20", out, want, k_ms, p_ms, l_ms,
         nbytes(x, scale, out), 4.0 * x.numel(), FP32_FLOP_S))
     del sets, x, out, want
+    rows[-1]["shapes"] = rmsnorm_d4096(dev, g)
     torch.cuda.empty_cache()
     rows += check_int8_kernels(dev, g)
     torch.cuda.empty_cache()
+    rows.append(check_ssm_scan(dev, g))
+    torch.cuda.empty_cache()
     return rows
+
+
+def rmsnorm_d4096(dev: torch.device, g: torch.Generator):
+    """RMSNorm at falcon-mamba's width (d 4096, one scale row, eps 1e-5):
+    a decode step's rows and a 256-token chunk of 8 prompts.  The Triton
+    kernel keeps a whole row in registers; slice 1 checked it at d 1408."""
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+    d, out_rows = FM_D, []
+    scale = torch.randn(d, generator=g, device=dev) * 0.1
+    w = (1.0 + scale).to(torch.bfloat16)
+    for rows_, iters in ((FM_SLOTS, 200), (FM_SLOTS * FM_CHUNK, 50)):
+        x0 = torch.randn(rows_, d, generator=g, device=dev).to(torch.bfloat16)
+        sets = [(torch.randn(rows_, d, generator=g, device=dev).to(
+            torch.bfloat16),) for _ in range(copies_for(2 * nbytes(x0)))]
+        x = sets[0][0]
+        row = _report("rmsnorm", "triton",
+                      "src/repro_torch/kernels/rmsnorm.py",
+                      "src/repro/kernels/rmsnorm.py:20",
+                      ops.rmsnorm(x, scale, eps=1e-5),
+                      ref.rmsnorm_plain(x, scale, eps=1e-5),
+                      time_ms(lambda x: ops.rmsnorm(x, scale, eps=1e-5),
+                              sets, iters),
+                      time_ms(lambda x: ref.rmsnorm_plain(x, scale, eps=1e-5),
+                              sets, iters // 5),
+                      time_ms(lambda x: F.rms_norm(x, (d,), weight=w,
+                                                   eps=1e-5), sets, iters),
+                      nbytes(x, scale) + nbytes(x), 4.0 * x.numel(),
+                      FP32_FLOP_S)
+        row["at"] = f"x [{rows_},{d}] bf16, scale [{d}] (falcon-mamba)"
+        log(f"[kernel]   rmsnorm at {row['at']}")
+        out_rows.append(row)
+        del sets, x0, x
+    return out_rows
+
+
+def check_ssm_scan(dev: torch.device, g: torch.Generator):
+    """Phase 3 for the falcon-mamba path: ``ssm_scan`` at the serve
+    run's chunk shape (a, b [8, 256, 8192, 16] fp32, nonzero h0; one
+    launch per layer per chunk call), timed against its plain version
+    and its bound (no single PyTorch call computes the recurrence, so no
+    library time); then ragged S, d_state 1, bf16 inputs and the scalar
+    path, checked only (tolerances as the reference's sweep)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    s = get_config(FM_ARCH).ssm
+    shape = (FM_SLOTS, FM_CHUNK, s.d_inner, s.d_state)
+    a = torch.sigmoid(torch.randn(shape, generator=g, device=dev))
+    b = torch.randn(shape, generator=g, device=dev)
+    h0 = torch.randn(FM_SLOTS, s.d_inner, s.d_state, generator=g, device=dev)
+    (h, hl), (rh, rhl) = ops.ssm_scan(a, b, h0), ref.ssm_scan_plain(a, b, h0)
+    _agree("ssm_scan h_last", hl, rhl, FP32_KERNEL_TOL)
+    k_ms = time_ms(ops.ssm_scan, [(a, b, h0)], 20)
+    p_ms = time_ms(ref.ssm_scan_plain, [(a, b, h0)], 3)
+    row = _report("ssm_scan", "cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu",
+                  "src/repro/kernels/ssm_scan.py:47", h, rh, k_ms, p_ms, None,
+                  nbytes(a, b, h0, h, hl), 2.0 * a.numel(), FP32_FLOP_S,
+                  tol=FP32_KERNEL_TOL)
+    row["at"] = (f"a, b [{FM_SLOTS},{FM_CHUNK},{s.d_inner},{s.d_state}] fp32, "
+                 "h0 [8,8192,16]")
+    row["library_ms_why"] = ("no single PyTorch call computes a linear "
+                             "recurrence over the sequence axis")
+    del a, b, h, hl, rh, rhl
+    torch.cuda.empty_cache()
+    for B, S, di, ds, dt in ((3, 37, s.d_inner, 1, torch.float32),
+                             (2, 100, 512, s.d_state, torch.bfloat16),
+                             (3, 37, 48, 3, torch.bfloat16),
+                             (2, 19, 33, 5, torch.float32)):
+        a = torch.sigmoid(torch.randn(B, S, di, ds, generator=g,
+                                      device=dev)).to(dt)
+        b = torch.randn(B, S, di, ds, generator=g, device=dev).to(dt)
+        h0 = torch.randn(B, di, ds, generator=g, device=dev)
+        tol = FP32_KERNEL_TOL if dt == torch.float32 else 5e-2
+        (h, hl), (rh, rhl) = ops.ssm_scan(a, b, h0), ref.ssm_scan_plain(a, b,
+                                                                       h0)
+        err = max(_agree("ssm_scan", h, rh, tol),
+                  _agree("ssm_scan h_last", hl, rhl, tol))
+        log(f"[kernel]   ssm_scan at [{B},{S},{di},{ds}] {str(dt)[6:]}: "
+            f"max_abs_err {err:.3e} (tol {tol})")
+    return row
 
 
 def check_int8_kernels(dev: torch.device, g: torch.Generator):
@@ -522,8 +622,78 @@ def check_int8_parity(dev: torch.device) -> None:
         f"({sum(map(len, streams[dev]))} tokens)")
 
 
+def check_mamba_parity(dev: torch.device) -> None:
+    """Phase 4, falcon-mamba: ``reduced_config("falcon-mamba-7b")`` in
+    fp32 (4 layers, d 64, d_inner 128) on the card against the same
+    weights on the CPU, within 1e-4: whole-prompt prefill then three
+    teacher-forced decode steps, and chunked prefill (chunk 8; the
+    second row's last chunk holds 3 of 8 tokens) then the same decode
+    steps, one lane frozen in the second; then the engine's greedy
+    streams, whole-prompt and chunk 8, which must be identical."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import decoder as dec
+    from repro_torch.serving.engine import Engine
+    cfg = reduced_config(FM_ARCH)
+    cpu = torch.device("cpu")
+    params = {cpu: dec.init_lm(torch.Generator().manual_seed(0), cfg, cpu)}
+    params[dev] = _to(params[cpu], dev)
+    rng = np.random.default_rng(2)
+    toks = rng.integers(1, cfg.vocab_size, size=(2, 13))
+    lens = np.asarray([13, 11])
+    teacher = rng.integers(1, cfg.vocab_size, size=(3, 2))
+    got = {}
+    with torch.no_grad():
+        for d in (cpu, dev):
+            t = lambda a, dt=torch.long: torch.as_tensor(  # noqa: E731
+                np.asarray(a)).to(d, dt)
+            logits, cache = dec.lm_forward(params[d], {"inputs": t(toks)},
+                                           cfg)
+            chunks, ccache = [], dec.init_cache(cfg, 2, 32, device=d)
+            for start in (0, 8):
+                chunk = np.zeros((2, 8), np.int64)
+                chunk[:, :min(8, 13 - start)] = toks[:, start:start + 8]
+                lg, _ = dec.lm_chunk_step(
+                    params[d], ccache, t(chunk),
+                    t(np.full(2, start), torch.int32), cfg,
+                    chunk_lens=t(np.clip(lens - start, 0, 8)))
+                chunks.append(lg)
+            steps = {"whole": [], "chunked": []}
+            for route, c in (("whole", cache), ("chunked", ccache)):
+                p0 = np.full(2, 13) if route == "whole" else lens
+                for k in range(teacher.shape[0]):
+                    lg, _ = dec.lm_decode_step(
+                        params[d], c, t(teacher[k]), t(p0 + k, torch.int32),
+                        cfg, active=t([True, k != 1], torch.bool))
+                    steps[route].append(lg)
+            got[d] = (logits, torch.cat(chunks, 1),
+                      torch.stack(steps["whole"]),
+                      torch.stack(steps["chunked"]), ccache)
+    _close("falcon-mamba whole-prompt prefill logits", got[dev][0],
+           got[cpu][0])
+    _close("falcon-mamba whole-prompt route: decode logits", got[dev][2],
+           got[cpu][2])
+    _close("falcon-mamba chunk-8 logits (non-aligned last chunk)",
+           got[dev][1], got[cpu][1])
+    _close("falcon-mamba chunked route: decode logits", got[dev][3],
+           got[cpu][3])
+    for a, b in zip(_leaves(got[dev][4]), _leaves(got[cpu][4])):
+        _close("falcon-mamba state rows after chunks and decode", a, b)
+    prompts = [rng.integers(1, cfg.vocab_size, size=(L,)).tolist()
+               for L in (13, 11, 5)]
+    for knobs in ({}, {"prefill_chunk": 8}):
+        streams = {d: Engine(cfg, params[d], max_slots=2, max_seq_len=48,
+                             device=d, **knobs).generate(prompts, 8)
+                   for d in (cpu, dev)}
+        same = streams[dev] == streams[cpu]
+        log(f"[parity] falcon-mamba greedy token streams {knobs or 'whole'}, "
+            f"card vs CPU: {'identical' if same else 'DIFFER'} "
+            f"({sum(map(len, streams[dev]))} tokens)")
+        if not same:
+            raise SystemExit("[parity] falcon-mamba greedy streams differ")
+
+
 # ---------------------------------------------------------------------------
-# phase 5: serve pt-6b-d4 at full width
+# phase 5: serve pt-6b-d4 and falcon-mamba-7b at full width
 # ---------------------------------------------------------------------------
 
 # the kernels each serve run must go through
@@ -629,16 +799,24 @@ def serve_full(dev: torch.device, card: str, int8: bool = False):
     return launches
 
 
-def profile_steps(eng, vocab: int, rng, tpot_ms: float, tag: str) -> None:
+def profile_steps(eng, vocab: int, rng, tpot_ms: float, tag: str,
+                  chunk_steps: int = 0) -> None:
     """Where the time goes: device time by kernel (torch.profiler, CUPTI)
-    over the step that admits and prefills SLOTS prompts and over three
-    decode steps, beside the decode step's unprofiled time (TPOT)."""
+    over the step that admits SLOTS prompts and over three decode steps,
+    beside the decode step's unprofiled time (TPOT).  With chunked
+    prefill the admission step runs the first chunk, and the other
+    ``chunk_steps - 1`` chunk steps run unprofiled before the decode
+    steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(SLOTS):
         eng.submit(rng.integers(1, vocab, size=(PROMPT,)).tolist(), 5)
-    for what, n in (("admission step (prefill + first decode)", 1),
-                    ("decode step", 3)):
+    first = ("admission step (first prompt chunk)" if chunk_steps else
+             "admission step (prefill + first decode)")
+    for what, n in ((first, 1), ("decode step", 3)):
+        if what == "decode step":
+            for _ in range(max(0, chunk_steps - 1)):
+                eng.step()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -664,6 +842,92 @@ def profile_steps(eng, vocab: int, rng, tpot_ms: float, tag: str) -> None:
                 f"busy, {100 - 100 * busy / tpot_ms:.1f} % idle)")
         for ms, count, key in rows[:8]:
             log(f"[profile]   {ms:9.3f} ms {count:6.0f}x  {key[:90]}")
+
+
+def serve_falcon(dev: torch.device, card: str):
+    """Phase 5 (and 6) for falcon-mamba-7b: full width and depth, bf16,
+    8 greedy requests of 512 prompt tokens and 64 new tokens, 8 slots,
+    block 16, chunked prefill of 256 tokens (two chunk calls per prompt,
+    the reference's Pallas scan route).  The launch counts must be
+    ``ssm_scan`` 64 per chunk call, ``rmsnorm`` 65 per forward (64 ln1 +
+    the final norm) and no attention kernel.  Returns the launch counts
+    of the measured run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.decoder import init_lm
+    from repro_torch.serving.engine import Engine, EngineMetrics, RequestState
+    cfg = get_config(FM_ARCH)
+    tag = "falcon-mamba bf16"
+    t0 = time.perf_counter()
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+    leaves = list(_leaves(params))
+    n_params = sum(t.numel() for t in leaves)
+    n_bf16 = sum(nbytes(t) for t in leaves if t.dtype == torch.bfloat16)
+    n_fp32 = sum(nbytes(t) for t in leaves if t.dtype == torch.float32)
+    log(f"[serve] {cfg.name}: {n_params / 1e9:.3f} B parameters, "
+        f"{n_bf16 / 1e9:.3f} GB bf16 + {n_fp32 / 1e9:.3f} GB fp32, init "
+        f"{time.perf_counter() - t0:.1f}s")
+    eng = Engine(cfg, params, max_slots=FM_SLOTS,
+                 max_seq_len=PROMPT + NEW + 8, block_size=BLOCK,
+                 prefill_chunk=FM_CHUNK, device=dev)
+    del params, leaves
+    r = eng.runner
+    st = r.cache_stats()
+    log(f"[serve] {tag}: cache leaves {st['leaf_kinds']}, pool "
+        f"{st['pool_bytes']} B, state rows {st['state_bytes'] / 1e6:.1f} MB "
+        f"({st['state_bytes'] / FM_SLOTS / 1e6:.2f} MB per slot), "
+        f"{st['num_blocks']} virtual blocks")
+    read = sum(nbytes(t) for t in _leaves(r.params))
+    rng = np.random.default_rng(0)
+    eng.generate([rng.integers(1, cfg.vocab_size, size=(16,)).tolist()
+                  for _ in range(FM_SLOTS)], 3)            # warm-up
+    eng.metrics = EngineMetrics()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(rng.integers(1, cfg.vocab_size,
+                                    size=(PROMPT,)).tolist(), NEW)
+            for _ in range(FM_SLOTS)]
+    steps0, transfers0, chunks0 = (eng.steps_run, r.decode_transfers,
+                                   r.chunk_calls)
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    m = eng.metrics.summary()
+    peak = torch.cuda.max_memory_allocated(dev)
+    done = sum(rq.state is RequestState.DONE and len(rq.output) == NEW
+               for rq in reqs)
+    decodes = r.decode_transfers - transfers0
+    chunks = r.chunk_calls - chunks0
+    log(f"[serve] {card} | {tag}: {FM_SLOTS} reqs x ({PROMPT} in / {NEW} "
+        f"out), slots {FM_SLOTS}, block {BLOCK}, chunk {FM_CHUNK}, "
+        f"{eng.steps_run - steps0} steps, wall {wall:.3f}s")
+    log(f"[serve] {card} | {tag}: TTFT ms p50 {m['ttft_ms']['p50']:.2f} "
+        f"p90 {m['ttft_ms']['p90']:.2f}; TPOT ms p50 "
+        f"{m['tpot_ms']['p50']:.3f} p90 {m['tpot_ms']['p90']:.3f}; "
+        f"throughput {m['throughput_tok_s']:.1f} tok/s")
+    log(f"[serve] {tag}: weight-read bound of a decode step "
+        f"{read / HBM_BYTES_S * 1e3:.3f} ms ({read / 1e9:.3f} GB at 3.35 TB/s, "
+        f"the fp32 LM-head copy included); peak memory {peak / 1e9:.3f} GB")
+    want = {"ssm_scan": cfg.n_layers * chunks,
+            "rmsnorm": (cfg.n_layers + 1) * (chunks + decodes),
+            "flash_attention": 0, "paged_decode_attention": 0,
+            "paged_decode_attention_int8": 0, "int8_matmul": 0}
+    got = {k: launches[k] for k in want}
+    log(f"[serve] {tag}: kernel launches {json.dumps(launches)}; chunk calls "
+        f"{chunks}, decode steps {decodes}; launch arithmetic "
+        f"{json.dumps(want)}: {'met' if got == want else 'NOT MET'}; "
+        f"finished {done}/{len(reqs)}")
+    if done != len(reqs):
+        raise SystemExit("[serve] not every falcon-mamba request finished")
+    if got != want or not chunks:
+        raise SystemExit(f"[serve] launch counts {got} != {want}")
+    profile_steps(eng, cfg.vocab_size, rng, m["tpot_ms"]["p50"], tag,
+                  chunk_steps=-(-PROMPT // FM_CHUNK))
+    return launches
 
 
 def head_choice_ms(eng, head, dev) -> None:
@@ -709,13 +973,18 @@ def main() -> int:
     rows = check_kernels(dev)
     check_reduced_parity(dev)
     check_int8_parity(dev)
+    check_mamba_parity(dev)
     runs = {"bf16": serve_full(dev, card)}
     gc.collect()
     torch.cuda.empty_cache()
     runs["int8"] = serve_full(dev, card, int8=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["falcon"] = serve_falcon(dev, card)
     for row in rows:
         # each kernel's count from the run of the path it belongs to
-        run = "bf16" if row["name"] in FP_PATH else "int8"
+        run = ("falcon" if row["name"] == "ssm_scan" else
+               "bf16" if row["name"] in FP_PATH else "int8")
         row["launches"] = runs[run][row["name"]]
         row["launches_by_run"] = {k: v[row["name"]] for k, v in runs.items()}
         # the same two numbers under their longer key names as well

@@ -1,10 +1,10 @@
 """Config dataclasses (the port's own copy of ``repro.common.types``).
 
-Only what the Parallel-Track serving path reads is kept: ``PTConfig``,
-``LayerSpec`` and ``ModelConfig`` with the fields ``pt_ify`` and the
-model touch.  The sub-configs of other mixers (MoE, MLA, SSM, RG-LRU,
-encoder-decoder) are not ported yet (ROADMAP queue 1, item 8); their
-fields stay so a config reads the same, and must be None.
+Only what the ported serving paths read is kept: ``PTConfig``,
+``SSMConfig``, ``LayerSpec`` and ``ModelConfig`` with the fields
+``pt_ify`` and the models touch.  The sub-configs of the other mixers
+(MoE, MLA, RG-LRU, encoder-decoder) are not ported yet (ROADMAP queue 1,
+item 3); their fields stay so a config reads the same, and must be None.
 """
 from __future__ import annotations
 
@@ -24,11 +24,22 @@ class PTConfig:
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba1 selective-state-space mixer."""
+
+    d_inner: int
+    d_state: int = 16
+    d_conv: int = 4
+    dt_rank: int = 0                   # 0 => ceil(d_model / 16)
+    chunk: int = 256                   # sequential chunk for the train scan
+
+
+@dataclass(frozen=True)
 class LayerSpec:
     """One transformer-layer flavour referenced by the layer pattern."""
 
-    mixer: str                         # only 'gqa' is ported
-    mlp: str                           # only 'swiglu' is ported
+    mixer: str                         # 'gqa' (PT) and 'mamba' are ported
+    mlp: str                           # 'swiglu' (PT) and 'none' are ported
     window: Optional[int] = None
     rope: str = "rope"
     attn_logit_softcap: Optional[float] = None
@@ -64,10 +75,10 @@ class ModelConfig:
 
     rope_theta: float = 10000.0
 
-    # sub-configs of architectures the port does not serve yet
+    # sub-configs; only ``ssm`` and ``pt`` are ported
     moe: Optional[Any] = None
     mla: Optional[Any] = None
-    ssm: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
     rglru: Optional[Any] = None
     pt: Optional[PTConfig] = None
     encdec: Optional[Any] = None

@@ -26,6 +26,7 @@ from repro_torch.common.types import ModelConfig, PTConfig
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.decoder import _embed, _head, model_dtype
 from repro_torch.models.layers import check_supported, layer_apply, layer_shapes
+from repro_torch.models.params import Leaf, make_params, stack
 
 
 # ---------------------------------------------------------------------------
@@ -70,7 +71,7 @@ def pt_ify(cfg: ModelConfig, n_tracks: int, block_depth: int,
     if cfg.moe is not None or cfg.ssm is not None or cfg.rglru is not None:
         raise NotImplementedError("PT-ification of MoE / SSM / RG-LRU "
                                   "configs is not ported (ROADMAP queue 1, "
-                                  "item 8)")
+                                  "item 3)")
     d_t = _round_mult(cfg.d_model / math.sqrt(n_tracks), width_mult)
     heads_t = max(1, cfg.n_heads // n_tracks)
     kv_t = max(1, cfg.n_kv_heads // n_tracks)
@@ -105,9 +106,9 @@ def _block_counts(cfg: ModelConfig) -> Tuple[int, int]:
 
 
 def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    """The parameter tree of ``repro.core.track.init_pt`` as (shape, std)
-    leaves: std is the normal draw's scale, None for norm scales (zeros,
-    fp32).  embed [V, d]; head [d, V]; blocks leaves [R, D, n, ...]."""
+    """The parameter tree of ``repro.core.track.init_pt`` as
+    :class:`~repro_torch.models.params.Leaf` specs.  embed [V, d]; head
+    [d, V]; blocks leaves [R, D, n, ...]."""
     check_supported(cfg)
     if len(cfg.pattern_unit) != 1 or cfg.pattern_prefix or cfg.pattern_suffix:
         raise ValueError("PT models use a uniform layer pattern")
@@ -115,21 +116,15 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     d = cfg.d_model
     R, _ = _block_counts(cfg)
     lead = (R, pt.block_depth, pt.n_tracks)
-
-    def stack(tree):
-        if isinstance(tree, dict):
-            return {k: stack(v) for k, v in tree.items()}
-        shape, std = tree
-        return (lead + tuple(shape), std)
-
     specs: Dict[str, Any] = {
-        "embed": ((cfg.vocab_size, d), 1.0 / math.sqrt(d)),
-        "final_norm": {"scale": ((d,), None)},
-        "blocks": stack(layer_shapes(cfg, d)),
+        "embed": Leaf((cfg.vocab_size, d), 1.0 / math.sqrt(d)),
+        "final_norm": {"scale": Leaf((d,))},
+        "blocks": stack(layer_shapes(cfg, cfg.spec(cfg.pattern_unit[0]), d),
+                        lead),
         "tail": (),
     }
     if not cfg.tie_embeddings:
-        specs["head"] = ((d, cfg.vocab_size), 1.0 / math.sqrt(d))
+        specs["head"] = Leaf((d, cfg.vocab_size), 1.0 / math.sqrt(d))
     return specs
 
 
@@ -141,21 +136,7 @@ def init_pt(generator: torch.Generator, cfg: ModelConfig,
     The numbers differ from the JAX init of the same seed; tests load one
     JAX tree into both packages through ``weights.from_jax_params``."""
     device = resolve_device(device)
-    dtype = model_dtype(cfg)
-
-    def make(tree):
-        if isinstance(tree, dict):
-            return {k: make(v) for k, v in tree.items()}
-        if tree == ():
-            return ()
-        shape, std = tree
-        if std is None:
-            return torch.zeros(shape, dtype=torch.float32, device=device)
-        t = torch.randn(shape, generator=generator, dtype=torch.float32,
-                        device=device)
-        return t.mul_(std).to(dtype)
-
-    return make(param_specs(cfg))
+    return make_params(param_specs(cfg), generator, model_dtype(cfg), device)
 
 
 def _layer(blocks, r: int, j: int):
@@ -198,10 +179,10 @@ def pt_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     {'blocks': (k, v) each [R, D, n, B, S, KH, hd], 'tail': ()}, the
     reference's prefill cache layout.  (The reference also returns an
     auxiliary loss, always zero here; training is ROADMAP queue 1,
-    item 10.)"""
+    item 9.)"""
     if mode != "prefill":
         raise NotImplementedError(f"pt_forward mode {mode!r} is not ported "
-                                  "(train: ROADMAP queue 1, item 10)")
+                                  "(train: ROADMAP queue 1, item 9)")
     pt = _pt(cfg)
     spec = cfg.spec(cfg.pattern_unit[0])
     inputs = batch["inputs"]
@@ -241,7 +222,7 @@ def _pt_step(params, cache, h: torch.Tensor, pos: torch.Tensor,
     k_leaf, v_leaf = cache["blocks"]
     if not isinstance(k_leaf, PagedLeaf):
         raise NotImplementedError("the contiguous (non-paged) cache is not "
-                                  "ported (ROADMAP queue 1, item 7)")
+                                  "ported (ROADMAP queue 1, item 1)")
     for r in range(R):
         hh = _spread(h, cfg)
         for j in range(pt.block_depth):
@@ -256,11 +237,14 @@ def _pt_step(params, cache, h: torch.Tensor, pos: torch.Tensor,
 
 def pt_decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
                    cfg: ModelConfig, block_table: torch.Tensor,
-                   kv_max_len: Optional[int] = None):
+                   kv_max_len: Optional[int] = None,
+                   active: Optional[torch.Tensor] = None):
     """One token per row against the paged cache.  cache {'blocks':
     (PagedLeaf k, PagedLeaf v) with pools [R, D, n, N, bs, KH, hd]};
     tokens [B]; pos [B] int32 (cache write index); block_table [B, nmax]
-    int32.  The pools are updated in place.  Returns (logits [B, V],
+    int32.  The pools are updated in place.  ``active`` is accepted for
+    the shared step signature and unused: inactive lanes write through
+    zeroed table rows into the trash block.  Returns (logits [B, V],
     cache)."""
     h = _embed(params, tokens[:, None], cfg)                 # [B, 1, d]
     h = _pt_step(params, cache, h, pos, cfg, "decode", block_table,
@@ -270,12 +254,17 @@ def pt_decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
 
 def pt_chunk_hidden(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
                     cfg: ModelConfig, block_table: torch.Tensor,
-                    kv_max_len: Optional[int] = None) -> torch.Tensor:
+                    kv_max_len: Optional[int] = None,
+                    slots: Optional[torch.Tensor] = None,
+                    chunk_lens: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
     """``pt_chunk_step`` without the LM head: tokens [B, C] appended at
     positions pos[:, None] + arange(C) -> fused hidden states [B, C, d].
     The serving runner applies the head to each row's last real token
     only; the head is row-wise, so those logits are the rows
-    ``pt_chunk_step`` returns."""
+    ``pt_chunk_step`` returns.  ``slots`` and ``chunk_lens`` are accepted
+    for the shared step signature and unused: a PT cache has no per-slot
+    state rows, and padded tail rows land past the row's live length."""
     h = _embed(params, tokens, cfg)                          # [B, C, d]
     return _pt_step(params, cache, h, pos, cfg, "chunk", block_table,
                     kv_max_len)

@@ -15,12 +15,14 @@ from repro_torch.kernels.decode_attention import (paged_decode_attention,
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.quant_matmul import int8_matmul
 from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.ssm_scan import ssm_scan
 
 KERNELS = {"paged_decode_attention": paged_decode_attention,
            "flash_attention": flash_attention,
            "rmsnorm": rmsnorm,
            "paged_decode_attention_int8": paged_decode_attention_int8,
-           "int8_matmul": int8_matmul}
+           "int8_matmul": int8_matmul,
+           "ssm_scan": ssm_scan}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -6,6 +6,7 @@ from repro_torch.kernels.decode_attention import paged_decode_attention_plain
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.quant_matmul import int8_matmul_plain
 from repro_torch.kernels.rmsnorm import rmsnorm_plain
+from repro_torch.kernels.ssm_scan import ssm_scan_plain
 
 __all__ = ["paged_decode_attention_plain", "flash_attention_plain",
-           "rmsnorm_plain", "int8_matmul_plain"]
+           "rmsnorm_plain", "int8_matmul_plain", "ssm_scan_plain"]

@@ -1,7 +1,8 @@
-"""Serving launcher of the port: builds a Parallel-Track model with random
-weights from ``--seed``, serves a synthetic greedy workload through the
-paged engine and reports TTFT / TPOT / throughput and the launch count
-of each kernel.  Runs on the GPU unless ``--device cpu`` is given.
+"""Serving launcher of the port: builds a model (a Parallel-Track model or
+falcon-mamba-7b) with random weights from ``--seed``, serves a synthetic
+greedy workload through the paged engine and reports TTFT / TPOT /
+throughput and the launch count of each kernel.  Runs on the GPU unless
+``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
       --requests 8 --input-len 512 --output-len 64 --slots 8
@@ -10,6 +11,8 @@ of each kernel.  Runs on the GPU unless ``--device cpu`` is given.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
       --reduced --device cpu --weight-dtype int8 --kv-dtype int8 \
       --prefill-chunk 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+      --reduced --device cpu --prefill-chunk 8
 """
 from __future__ import annotations
 
@@ -21,15 +24,15 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import resolve_device
-from repro_torch.configs import get_config, reduced_config
-from repro_torch.core.track import init_pt
+from repro_torch.configs import NAMES, get_config, reduced_config
 from repro_torch.kernels import ops
+from repro_torch.launch.steps import model_fns
 from repro_torch.serving.engine import Engine, RequestState
 
 
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="pt-6b-d4")
+    ap.add_argument("--arch", default="pt-6b-d4", choices=NAMES)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--input-len", type=int, default=64)
@@ -62,7 +65,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     device = resolve_device(args.device)
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = init_pt(gen, cfg, device)
+    params = model_fns(cfg)["init"](gen, cfg, device)
     eng = Engine(cfg, params, max_slots=args.slots,
                  max_seq_len=args.input_len + args.output_len + 8,
                  max_waiting_prefill_tokens=args.prefill_budget,
@@ -77,6 +80,11 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"({st['quantized_weight_leaves']} leaves), pool "
               f"{st['pool_bytes'] / 1e6:.1f} MB "
               f"({st['bytes_per_block']} B/block)")
+    st = eng.runner.cache_stats()
+    print(f"[serve] cache: leaves {st['leaf_kinds']}, pool "
+          f"{st['pool_bytes'] / 1e6:.1f} MB, state rows "
+          f"{st['state_bytes'] / 1e6:.1f} MB, {st['num_blocks']} blocks of "
+          f"{st['block_size']}")
     for why in eng.runner.quant_fallbacks:
         print(f"[serve] quantization fallback: {why}")
     rng = np.random.default_rng(args.seed)

@@ -32,6 +32,7 @@ from repro_torch.common.types import LayerSpec, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import NEG_INF
 from repro_torch.models import rope as rope_lib
+from repro_torch.models.params import Leaf
 
 
 def attention_shapes(d_stream: int, n_heads: int, n_kv_heads: int,
@@ -40,10 +41,10 @@ def attention_shapes(d_stream: int, n_heads: int, n_kv_heads: int,
     ``repro.models.attention.attention_init`` draws them."""
     s_in = 1.0 / d_stream ** 0.5
     s_out = 1.0 / (n_heads * head_dim) ** 0.5
-    return {"wq": ((d_stream, n_heads, head_dim), s_in),
-            "wk": ((d_stream, n_kv_heads, head_dim), s_in),
-            "wv": ((d_stream, n_kv_heads, head_dim), s_in),
-            "wo": ((n_heads, head_dim, d_stream), s_out)}
+    return {"wq": Leaf((d_stream, n_heads, head_dim), s_in),
+            "wk": Leaf((d_stream, n_kv_heads, head_dim), s_in),
+            "wv": Leaf((d_stream, n_kv_heads, head_dim), s_in),
+            "wo": Leaf((n_heads, head_dim, d_stream), s_out)}
 
 
 def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
@@ -75,7 +76,7 @@ def attention_apply(params, x: torch.Tensor, *, spec: LayerSpec,
     (k, v) [n, B, S, KH, hd] with RoPE applied, or None)."""
     if spec.window is not None:
         raise NotImplementedError("sliding-window attention is not ported "
-                                  "(ROADMAP queue 1, item 8)")
+                                  "(ROADMAP queue 1, item 3)")
     n, B, S, _ = x.shape
     q, k, v = _project_qkv(params, x, cfg, positions)
     H, hd = q.shape[-2:]
@@ -142,7 +143,7 @@ def _paged_decode(params, q: torch.Tensor, k_new: torch.Tensor,
         raise ValueError("paged cache leaf but no block_table passed")
     if spec.attn_logit_softcap is not None:
         raise NotImplementedError("logit softcap on the paged decode path "
-                                  "is not ported (ROADMAP queue 1, item 8)")
+                                  "is not ported (ROADMAP queue 1, item 3)")
     bs = k_leaf.pool.shape[2]
     w_idx = token_to_pool(block_table, pos[:, None], bs)[:, 0]
     pool_write(k_leaf, k_new, w_idx)
@@ -167,7 +168,7 @@ def attention_decode(params, x: torch.Tensor,
     k_leaf, v_leaf = cache
     if not is_paged(k_leaf):
         raise NotImplementedError("the contiguous (non-paged) cache is not "
-                                  "ported (ROADMAP queue 1, item 7)")
+                                  "ported (ROADMAP queue 1, item 1)")
     q, k_new, v_new = _project_qkv(params, x, cfg, pos[:, None])
     return _paged_decode(params, q[:, :, 0], k_new[:, :, 0], v_new[:, :, 0],
                          k_leaf, v_leaf, spec=spec, pos=pos,
@@ -195,14 +196,14 @@ def attention_chunk(params, x: torch.Tensor,
     if not is_paged(k_leaf):
         raise NotImplementedError("chunked prefill into the contiguous or "
                                   "ring caches is not ported (ROADMAP "
-                                  "queue 1, items 7-8)")
+                                  "queue 1, items 1 and 3)")
     if block_table is None:
         raise ValueError("attention_chunk on a paged cache requires a "
                          "block_table")
     if spec.window is not None or spec.attn_logit_softcap is not None:
         raise NotImplementedError("windows and logit softcap on the chunk "
                                   "path are not ported (ROADMAP queue 1, "
-                                  "item 8)")
+                                  "item 3)")
     n, B, C, _ = x.shape
     positions = pos[:, None].to(torch.int32) + torch.arange(
         C, dtype=torch.int32, device=x.device)[None]             # [B, C]

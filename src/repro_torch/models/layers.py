@@ -1,10 +1,23 @@
-"""Transformer-layer assembly: RMSNorm + GQA + SwiGLU over the stacked
-track dim (counterpart of ``repro.models.layers``).
+"""Layer assembly: RMSNorm + mixer (+ MLP) per LayerSpec (counterpart of
+``repro.models.layers``).
+
+Two flavours are ported:
+  * the Parallel-Track layer, GQA + SwiGLU over the stacked track dim
+    (x [n, B, S, d], every parameter [n, ...]);
+  * the Mamba layer of the dense ``lm_*`` decoder, mixer only
+    (``mlp="none"``, x [B, S, d]).
 
 ``layer_apply`` runs the modes the serving path needs:
-  'prefill' — full-sequence forward, returns the layer's (k, v)
-  'decode'  — one token per row against this layer's block pools
-  'chunk'   — C tokens per row appended to this layer's block pools
+  'prefill' — full-sequence forward, returns the layer's cache
+              ((k, v) for GQA, (conv window, h) for Mamba)
+  'decode'  — one token per row against the layer's cache
+  'chunk'   — C tokens per row appended to the layer's cache
+GQA caches are block pools written through the block table; Mamba
+caches are per-slot state rows, updated in place: the chunk batch
+gathers its rows at ``slots``, advances them by ``chunk_lens`` valid
+tokens and writes them back (``index_copy_``), and a decode step
+rewrites every row with ``active`` lanes frozen (the reference does the
+same functionally, on donated buffers).
 """
 from __future__ import annotations
 
@@ -14,46 +27,107 @@ import torch
 
 from repro_torch.common.types import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.mlp import mlp_apply
 from repro_torch.models.norms import apply_norm
+from repro_torch.models.params import Leaf
+
+_PT_LAYER = ("gqa", "swiglu")       # (mixer, mlp) of the PT path
+_LM_LAYERS = (("mamba", "none"),)   # (mixer, mlp) of the lm_* path
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless every layer is the ported GQA + SwiGLU flavour."""
+    """Raise unless every layer is a ported flavour: GQA + SwiGLU in a PT
+    model, Mamba alone in a dense ``lm_*`` model."""
     unported = []
     for nm in cfg.layer_names:
         s = cfg.spec(nm)
-        if s.mixer != "gqa" or s.mlp != "swiglu":
-            unported.append(f"mixer={s.mixer} mlp={s.mlp}")
-        if s.window is not None or s.rope != "rope" or s.cross_attn:
-            unported.append(f"window={s.window} rope={s.rope} "
-                            f"cross_attn={s.cross_attn}")
+        if cfg.pt is not None:
+            if (s.mixer, s.mlp) != _PT_LAYER:
+                unported.append(f"PT layer mixer={s.mixer} mlp={s.mlp}")
+            if s.window is not None or s.rope != "rope":
+                unported.append(f"window={s.window} rope={s.rope}")
+        elif (s.mixer, s.mlp) not in _LM_LAYERS:
+            unported.append(f"lm_* layer mixer={s.mixer} mlp={s.mlp}")
+        if s.cross_attn:
+            unported.append("cross-attention")
     if cfg.post_norm or cfg.qk_norm or cfg.norm != "rmsnorm":
         unported.append("post_norm / qk_norm / non-RMS norms")
-    if any(x is not None for x in (cfg.moe, cfg.mla, cfg.ssm, cfg.rglru,
-                                   cfg.encdec)):
-        unported.append("MoE / MLA / SSM / RG-LRU / encoder-decoder")
+    if any(x is not None for x in (cfg.moe, cfg.mla, cfg.rglru, cfg.encdec)):
+        unported.append("MoE / MLA / RG-LRU / encoder-decoder")
+    if cfg.ssm is not None and cfg.pt is not None:
+        unported.append("SSM in a PT model")
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: not ported to repro_torch yet ("
             + "; ".join(sorted(set(unported)))
-            + "); see ROADMAP queue 1, item 8")
+            + "); see ROADMAP queue 1, items 2-3")
 
 
-def layer_shapes(cfg: ModelConfig, d_stream: int) -> Dict[str, Any]:
-    """Per-track parameter shapes of one layer: (shape, std) for weights
-    drawn normal * std, (shape, None) for norm scales (zeros, fp32)."""
-    return {"ln1": {"scale": ((d_stream,), None)},
+def layer_shapes(cfg: ModelConfig, spec: LayerSpec,
+                 d_stream: int) -> Dict[str, Any]:
+    """Parameter specs of one layer (per track for a PT layer)."""
+    norm = {"scale": Leaf((d_stream,))}
+    if spec.mixer == "mamba":
+        return {"ln1": norm, "mixer": ssm_lib.ssm_shapes(cfg, d_stream)}
+    return {"ln1": norm,
             "mixer": attn.attention_shapes(d_stream, cfg.n_heads,
                                            cfg.n_kv_heads, cfg.head_dim),
-            "ln2": {"scale": ((d_stream,), None)},
-            "mlp": {"wi_gate": ((d_stream, cfg.d_ff), 1 / d_stream ** 0.5),
-                    "wi_up": ((d_stream, cfg.d_ff), 1 / d_stream ** 0.5),
-                    "wo": ((cfg.d_ff, d_stream), 1 / cfg.d_ff ** 0.5)}}
+            "ln2": {"scale": Leaf((d_stream,))},
+            "mlp": {"wi_gate": Leaf((d_stream, cfg.d_ff), 1 / d_stream ** 0.5),
+                    "wi_up": Leaf((d_stream, cfg.d_ff), 1 / d_stream ** 0.5),
+                    "wo": Leaf((cfg.d_ff, d_stream), 1 / cfg.d_ff ** 0.5)}}
 
 
 def _norm(cfg: ModelConfig, params, name: str, x: torch.Tensor):
     return apply_norm(cfg.norm, params[name], x, eps=cfg.norm_eps)
+
+
+def _write_rows(cache, new_rows, slots: Optional[torch.Tensor]):
+    """Write advanced state rows into the per-slot leaves in place: at
+    ``slots`` (a chunk batch), or every row when ``slots`` is None."""
+    for leaf, row in zip(cache, new_rows):
+        if slots is None:
+            leaf.copy_(row)
+        else:
+            leaf.index_copy_(0, slots, row.to(leaf.dtype))
+    return cache
+
+
+def _mamba(params, h: torch.Tensor, *, cfg: ModelConfig, mode: str,
+           cache: Any, slots: Optional[torch.Tensor],
+           chunk_lens: Optional[torch.Tensor],
+           active: Optional[torch.Tensor]):
+    if mode == "prefill":
+        return ssm_lib.ssm_apply(params, h, cfg=cfg, return_cache=True)
+    if mode == "decode":
+        out, new_rows = ssm_lib.ssm_decode(params, h, cache, cfg=cfg,
+                                           active=active)
+        return out, _write_rows(cache, new_rows, None)
+    if mode == "chunk":
+        rows = cache if slots is None else tuple(l[slots] for l in cache)
+        out, new_rows = ssm_lib.ssm_chunk(params, h, rows, cfg=cfg,
+                                          chunk_lens=chunk_lens)
+        return out, _write_rows(cache, new_rows, slots)
+    raise NotImplementedError(f"layer mode {mode!r} is not ported (train: "
+                              "ROADMAP queue 1, item 9)")
+
+
+def _gqa(params, h: torch.Tensor, *, cfg: ModelConfig, spec: LayerSpec,
+         mode: str, positions, pos, cache, block_table, kv_max_len):
+    if mode == "prefill":
+        return attn.attention_apply(params, h, spec=spec, cfg=cfg,
+                                    positions=positions, return_cache=True)
+    if mode == "decode":
+        return attn.attention_decode(params, h, cache, spec=spec, cfg=cfg,
+                                     pos=pos, block_table=block_table,
+                                     kv_max_len=kv_max_len)
+    if mode == "chunk":
+        return attn.attention_chunk(params, h, cache, spec=spec, cfg=cfg,
+                                    pos=pos, block_table=block_table,
+                                    kv_max_len=kv_max_len)
+    raise NotImplementedError(f"layer mode {mode!r} is not ported (train: "
+                              "ROADMAP queue 1, item 9)")
 
 
 def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
@@ -61,34 +135,33 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
                 positions: Optional[torch.Tensor] = None,
                 pos: Optional[torch.Tensor] = None, cache: Any = None,
                 block_table: Optional[torch.Tensor] = None,
-                kv_max_len: Optional[int] = None
+                kv_max_len: Optional[int] = None,
+                slots: Optional[torch.Tensor] = None,
+                chunk_lens: Optional[torch.Tensor] = None,
+                active: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Any]:
-    """One layer for all tracks: params leaves [n, ...], x [n, B, S, d].
-    'prefill' takes ``positions`` [B, S] and returns (x, (k, v));
-    'decode' and 'chunk' take ``pos`` [B] (the row's first new
-    position), this layer's pool ``cache`` and the block table, and
-    return (x, cache).  (The reference also returns an auxiliary MoE
+    """One layer.  A PT layer takes x [n, B, S, d] and params leaves
+    [n, ...]; a Mamba layer x [B, S, d].  'prefill' takes ``positions``
+    [B, S] and returns (x, cache); 'decode' and 'chunk' take ``pos`` [B]
+    (the row's first new position) and this layer's cache: a GQA layer's
+    pools with the block table, a Mamba layer's state rows with
+    ``slots`` [B] (chunk rows -> engine slots; None when the rows align
+    with the batch), ``chunk_lens`` [B] (valid tokens of a padded final
+    chunk) and ``active`` [B] (decode lanes whose state may change).
+    Returns (x, cache).  (The reference also returns an auxiliary MoE
     loss, always zero here.)"""
     h = _norm(cfg, params, "ln1", x)
-    if mode == "prefill":
-        h, new_cache = attn.attention_apply(params["mixer"], h, spec=spec,
-                                            cfg=cfg, positions=positions,
-                                            return_cache=True)
-    elif mode == "decode":
-        h, new_cache = attn.attention_decode(params["mixer"], h, cache,
-                                             spec=spec, cfg=cfg, pos=pos,
-                                             block_table=block_table,
-                                             kv_max_len=kv_max_len)
-    elif mode == "chunk":
-        h, new_cache = attn.attention_chunk(params["mixer"], h, cache,
-                                            spec=spec, cfg=cfg, pos=pos,
-                                            block_table=block_table,
-                                            kv_max_len=kv_max_len)
+    if spec.mixer == "mamba":
+        h, new_cache = _mamba(params["mixer"], h, cfg=cfg, mode=mode,
+                              cache=cache, slots=slots,
+                              chunk_lens=chunk_lens, active=active)
     else:
-        raise NotImplementedError(
-            f"layer mode {mode!r} is not ported (train: ROADMAP queue 1, "
-            "item 10)")
+        h, new_cache = _gqa(params["mixer"], h, cfg=cfg, spec=spec,
+                            mode=mode, positions=positions, pos=pos,
+                            cache=cache, block_table=block_table,
+                            kv_max_len=kv_max_len)
     x = x + h
-    h = _norm(cfg, params, "ln2", x)
-    x = x + mlp_apply(params["mlp"], h, spec.mlp)
+    if spec.mlp != "none":
+        h = _norm(cfg, params, "ln2", x)
+        x = x + mlp_apply(params["mlp"], h, spec.mlp)
     return x, new_cache

@@ -14,7 +14,7 @@ def mlp_apply(params, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
     -> [n, ..., d]: one batched product per weight for all tracks."""
     if kind != "swiglu":
         raise NotImplementedError(
-            f"mlp {kind!r} is not ported (ROADMAP queue 1, item 8)")
+            f"mlp {kind!r} is not ported (ROADMAP queue 1, item 3)")
     g = quant.matmul(x, params["wi_gate"])
     u = quant.matmul(x, params["wi_up"])
     return quant.matmul(F.silu(g) * u, params["wo"])

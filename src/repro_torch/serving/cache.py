@@ -1,14 +1,26 @@
-"""The block-pool paged K/V cache (counterpart of
+"""The block-pool paged cache (counterpart of
 ``repro.serving.cache.PagedKVCache``), block accounting only.
 
-The K and V pools are laid out as the reference lays out a PT model's
-pools: ``[R, D, n_tracks, num_blocks, block_size, KH, hd]`` (the dense
-cache's batch axis becomes the block axis, its sequence axis the
-in-block offset).  All layers share one block table, so a slot costs
-``ceil(tokens / block_size)`` blocks.  Block 0 is the trash block:
-table entries of unallocated regions and released slots point at it,
-so stray writes (padded prefill rows, idle decode lanes) never reach a
-block another request owns.
+Every cache leaf is one of two layouts (the reference classifies them by
+probing; the port knows them from the config):
+
+  * 'paged' — a PT model's K and V pools, laid out as the reference
+    lays them out: ``[R, D, n_tracks, num_blocks, block_size, KH, hd]``
+    (the dense cache's batch axis becomes the block axis, its sequence
+    axis the in-block offset).  All layers share one block table, so a
+    slot costs ``ceil(tokens / block_size)`` blocks.  Block 0 is the
+    trash block: table entries of unallocated regions and released
+    slots point at it, so stray writes (padded prefill rows, idle decode
+    lanes) never reach a block another request owns.
+  * 'state' — the per-slot rows of a recurrent layer (Mamba: the conv
+    window and h), the ``lm_*`` decoder's ``init_cache`` tree at
+    ``max_slots`` rows; a row belongs to whichever request holds the
+    slot.
+
+A config may have no pageable leaf at all (falcon-mamba: every leaf a
+state row).  The block table still exists and admission and reclamation
+still meter blocks, which are then virtual: no pools, ``pool_bytes() ==
+0``, and scheduling works the same for every architecture.
 
 With ``kv_dtype="int8"`` the pools hold int8 payloads and ``scales``
 holds one fp32 scale pool per pool, ``[R, D, n, num_blocks, block_size,
@@ -16,7 +28,7 @@ KH, 1]`` (one scale per token per KV head, so a decode write touches one
 row's scale and never re-quantizes a block); ``pool_bytes`` counts both.
 
 Not ported yet: the content-addressed prefix cache, ``fork`` and
-copy-on-write (ROADMAP queue 1, item 3).
+copy-on-write (ROADMAP queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -26,9 +38,27 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.common.paged import PagedLeaf, token_to_pool
 from repro_torch.common.types import ModelConfig
 from repro_torch.core.track import pt_cache_shape
-from repro_torch.models.decoder import model_dtype
+from repro_torch.models.decoder import init_cache, model_dtype
+
+
+def _state_leaves(tree: Any) -> List[Tuple[torch.Tensor, int]]:
+    """(leaf, batch axis) of every state leaf of an ``lm_*`` cache tree:
+    unit leaves are [R]-stacked, so their slot axis is 1."""
+    out = []
+
+    def walk(node, axis):
+        if isinstance(node, tuple):
+            for v in node:
+                walk(v, axis)
+        else:
+            out.append((node, axis))
+
+    for group in ("prefix", "unit", "suffix"):
+        walk(tree[group], 1 if group == "unit" else 0)
+    return out
 
 
 class PagedKVCache:
@@ -39,6 +69,8 @@ class PagedKVCache:
       append(slot, n)      -> grow the slot's allocation to [0, n)
       free_slot(slot)      -> blocks back to the pool; table row -> trash
       table() / table_rows(slots) -> device block-table views
+      insert_prefill(src, slots, table_rows) -> a prefill cache's rows in
+      reset_slots(slots)   -> zero the state rows of ``slots``
       check_invariants()   -> raise unless block accounting is consistent
     """
 
@@ -48,7 +80,7 @@ class PagedKVCache:
                  kv_dtype: Optional[str] = None, device: DeviceLike = None):
         if prefix_cache:
             raise NotImplementedError("the prefix cache is not ported "
-                                      "(ROADMAP queue 1, item 3)")
+                                      "(ROADMAP queue 1, item 5)")
         if kv_dtype not in (None, "int8"):
             raise ValueError(f"unsupported kv_dtype {kv_dtype!r} "
                              "(None or 'int8')")
@@ -62,16 +94,26 @@ class PagedKVCache:
         if num_blocks is None:          # same capacity as contiguous
             num_blocks = max_slots * self.blocks_per_seq
         self.num_blocks = num_blocks + 1            # +1: trash block 0
-        shape = pt_cache_shape(cfg, self.num_blocks, block_size)
-        dtype = torch.int8 if kv_dtype == "int8" else model_dtype(cfg)
-        self.data = (torch.zeros(shape, dtype=dtype, device=self.device),
-                     torch.zeros(shape, dtype=dtype, device=self.device))
+        self.data: Tuple[torch.Tensor, ...] = ()     # the pools
         self.scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-        if kv_dtype == "int8":
-            sshape = shape[:-1] + (1,)
-            self.scales = tuple(torch.zeros(sshape, dtype=torch.float32,
-                                            device=self.device)
-                                for _ in range(2))
+        self.state: Optional[Dict[str, Any]] = None  # lm_* state rows
+        if cfg.pt is not None:
+            shape = pt_cache_shape(cfg, self.num_blocks, block_size)
+            dtype = torch.int8 if kv_dtype == "int8" else model_dtype(cfg)
+            self.data = tuple(torch.zeros(shape, dtype=dtype,
+                                          device=self.device)
+                              for _ in range(2))
+            if kv_dtype == "int8":
+                sshape = shape[:-1] + (1,)
+                self.scales = tuple(torch.zeros(sshape, dtype=torch.float32,
+                                                device=self.device)
+                                    for _ in range(2))
+        else:
+            if kv_dtype == "int8":
+                raise ValueError("int8 KV needs pageable leaves; this "
+                                 "config has none")
+            self.state = init_cache(cfg, max_slots, max_seq_len,
+                                    device=self.device)
 
         self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
         self._blocks: List[List[int]] = [[] for _ in range(max_slots)]
@@ -159,6 +201,72 @@ class PagedKVCache:
         for slot, blks in enumerate(self._blocks):
             assert self._tokens[slot] <= len(blks) * self.block_size
 
+    # -- layouts ----------------------------------------------------------
+    def leaf_kinds(self) -> Dict[str, int]:
+        """Histogram of leaf layouts, e.g. {'paged': 2} or {'state': 2}."""
+        kinds = {}
+        if self.data:
+            kinds["paged"] = len(self.data)
+        if self.state is not None:
+            kinds["state"] = len(_state_leaves(self.state))
+        return kinds
+
+    @property
+    def any_pageable(self) -> bool:
+        return bool(self.data)
+
+    @property
+    def all_pageable(self) -> bool:
+        """True when every leaf is a block-pool leaf (no state rows)."""
+        return "state" not in self.leaf_kinds()
+
+    def engine_cache(self) -> Any:
+        """The cache tree the model functions take: a PT model's
+        ``{'blocks': (PagedLeaf k, PagedLeaf v), 'tail': ()}``, or the
+        ``lm_*`` state tree."""
+        if self.state is not None:
+            return self.state
+        k_scale, v_scale = self.scales or (None, None)
+        return {"blocks": (PagedLeaf(self.data[0], k_scale),
+                           PagedLeaf(self.data[1], v_scale)),
+                "tail": ()}
+
+    # -- row writes -----------------------------------------------------
+    def insert_prefill(self, src: Any, slots: Sequence[int],
+                       table_rows: torch.Tensor) -> None:
+        """Write a prefill cache of ``len(slots)`` rows into the engine
+        cache, as ``paged_insert_rows`` does: pool leaves take rows
+        [0, bucket) of each request through its block-table row, one
+        indexed write per pool (padded rows past the allocation resolve
+        to the trash block); state leaves take each request's row at its
+        slot (``index_copy_``)."""
+        if self.state is not None:
+            idx = torch.as_tensor(list(slots), dtype=torch.long,
+                                  device=self.device)
+            for (dst, axis), (row, _) in zip(_state_leaves(self.state),
+                                             _state_leaves(src)):
+                dst.index_copy_(axis, idx, row.to(dst.dtype))
+            return
+        n, bucket = len(slots), src["blocks"][0].shape[4]
+        bs = self.block_size
+        pos = torch.arange(bucket, device=self.device).expand(n, bucket)
+        idx = token_to_pool(table_rows, pos, bs).reshape(-1)
+        for pool, rows in zip(self.data, src["blocks"]):
+            R, D, nt, N, _, KH, hd = pool.shape
+            flat = pool.view(R, D, nt, N * bs, KH, hd)
+            flat[:, :, :, idx] = rows.reshape(R, D, nt, n * bucket, KH, hd)
+
+    def reset_slots(self, slots: Sequence[int]) -> None:
+        """Zero the state rows of ``slots``: a chunked admission appends to
+        its rows, so the previous tenant's state must not seed it.  Pool
+        leaves need nothing: the block table isolates them."""
+        if self.state is None or not slots:
+            return
+        idx = torch.as_tensor(list(slots), dtype=torch.long,
+                              device=self.device)
+        for leaf, axis in _state_leaves(self.state):
+            leaf.index_fill_(axis, idx, 0)
+
     # -- device views ---------------------------------------------------
     def table(self) -> torch.Tensor:
         return torch.as_tensor(self.table_np).to(self.device)
@@ -169,9 +277,16 @@ class PagedKVCache:
     # -- stats ----------------------------------------------------------
     def pool_bytes(self) -> int:
         """Device bytes of the pools, int8 payloads and their fp32 scale
-        pools both."""
+        pools both (0 when every leaf is a state row)."""
         return sum(t.numel() * t.element_size()
                    for t in self.data + (self.scales or ()))
+
+    def state_bytes(self) -> int:
+        """Device bytes of the per-slot state rows."""
+        if self.state is None:
+            return 0
+        return sum(t.numel() * t.element_size()
+                   for t, _ in _state_leaves(self.state))
 
     def bytes_per_block(self) -> int:
         return self.pool_bytes() // self.num_blocks
@@ -182,6 +297,7 @@ class PagedKVCache:
         bpb = self.bytes_per_block()
         return {
             "num_blocks": self.num_blocks - 1,
+            "leaf_kinds": self.leaf_kinds(),
             "used_blocks": used,
             "block_utilization": used / max(1, self.num_blocks - 1),
             "tokens_stored": tokens,

@@ -22,6 +22,17 @@ step makes exactly one device-to-host transfer: the packed [2, slots]
 is rebuilt only when the cache's table version or the active set
 changes.
 
+The runner serves through ``launch.steps.model_fns``: a PT model
+through ``core.track``, falcon-mamba through the dense ``lm_*`` decoder,
+whose cache is per-slot state rows under the same (virtual) block
+accounting.  Recurrent architectures prefill at exact prompt length (a
+padded token would run through the conv window and the SSM state), and
+a chunked admission zeroes its slot's state rows before the first
+chunk.  Which features an architecture supports, and why not, comes
+from ``arch_capabilities``, as in the reference: a requested feature it
+does not support falls back with the reference's reason
+(``quant_fallbacks``).
+
 Greedy only, and the prefix cache is off (``prefix_cache=False``; the
 reference defaults to on).  Every feature of the reference
 engine this slice leaves out raises ``NotImplementedError`` naming its
@@ -39,16 +50,18 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
-from repro_torch.common.paged import PagedLeaf, token_to_pool
 from repro_torch.common.quant import is_quantized, quantize_params
 from repro_torch.common.types import ModelConfig
-from repro_torch.core import track as pt_lib
+from repro_torch.launch.steps import model_fns
 from repro_torch.models.decoder import _head
 from repro_torch.models.layers import check_supported
 from repro_torch.serving.cache import PagedKVCache
 from repro_torch.serving.sampler import (SampleParams, require_greedy,
                                          sample_rows, sample_step,
                                          stack_params)
+
+
+RECURRENT_MIXERS = ("mamba", "rglru")
 
 
 def _unported(what: str, item: int) -> NotImplementedError:
@@ -233,11 +246,75 @@ class Scheduler:
 # model runner
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
+class Capability:
+    """One serving feature's static support verdict for an architecture:
+    ``supported`` plus a human-readable ``reason`` when it is not."""
+    supported: bool
+    reason: Optional[str] = None
+
+
+def arch_capabilities(cfg: ModelConfig) -> Dict[str, Capability]:
+    """Per-feature serving capabilities of an architecture, with recorded
+    reasons for every gate (the reference's table, word for word; the
+    port implements the verdicts of the features it has ported).
+
+    Features:
+      paged           — serve through the block-table cache (all decoder
+                        archs; ring/state leaves stay dense per-slot
+                        under the same block accounting)
+      chunked_prefill — feed prompts chunk-by-chunk through the cache
+      speculative     — track-speculative draft/verify decoding
+      prefix_cache    — content-addressed block sharing across prompts
+      int8_kv         — int8 block pools with fused dequant
+      fork            — n-way copy-on-write request cloning
+    """
+    specs = [cfg.spec(nm) for nm in cfg.layer_names]
+    has_moe = any(s.mlp == "moe" for s in specs)
+    has_window = any(s.window is not None for s in specs)
+    has_recurrent = any(s.mixer in RECURRENT_MIXERS for s in specs)
+    has_mla = any(s.mixer == "mla" for s in specs)
+    # every leaf a block-pool leaf: no per-slot ring/state rows at all
+    all_paged = not (has_window or has_recurrent)
+
+    def cap(ok: bool, why: Optional[str]) -> Capability:
+        return Capability(ok, None if ok else why)
+
+    paged = cap(cfg.encdec is None,
+                "encoder-decoder cross-attention caches are per-request "
+                "dense; served through the contiguous cache")
+    chunked = cap(paged.supported and not has_moe,
+                  paged.reason if not paged.supported else
+                  "capacity-based MoE routing is batch-global: a padded "
+                  "chunk row would steal expert capacity from real tokens")
+    dense_reason = ("sliding-window ring leaves are per-slot rows, not "
+                    "content-addressable blocks" if has_window else
+                    "recurrent state is a per-slot row, not a "
+                    "content-addressable block" if has_recurrent else None)
+    prefix = cap(chunked.supported and all_paged,
+                 dense_reason or chunked.reason)
+    speculative = cap(cfg.pt is not None and chunked.supported and all_paged,
+                      "track-speculative decoding needs the PT track "
+                      "structure to slice a drafter from"
+                      if cfg.pt is None else
+                      dense_reason and (dense_reason + "; rejected draft "
+                                        "tokens could not be rolled back")
+                      or chunked.reason)
+    int8_kv = cap(chunked.supported and all_paged and not has_mla,
+                  dense_reason or chunked.reason or
+                  "int8 quantization of MLA latent pools is unvalidated")
+    fork = cap(paged.supported, paged.reason)
+    return {"paged": paged, "chunked_prefill": chunked,
+            "speculative": speculative, "prefix_cache": prefix,
+            "int8_kv": int8_kv, "fork": fork}
+
+
 class ModelRunner:
-    """Device side: the paged K/V pools, bucketed prefill, the chunk
-    program and the decode step.  ``params`` must already live on
-    ``device``; with ``weight_dtype="int8"`` the runner holds its own
-    quantized copy (the caller may drop the fp tree)."""
+    """Device side: the paged cache (K/V pools or state rows), bucketed
+    or exact-length prefill, the chunk program and the decode step.
+    ``params`` must already live on ``device``; with
+    ``weight_dtype="int8"`` the runner holds its own quantized copy (the
+    caller may drop the fp tree)."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int,
                  max_seq_len: int, min_bucket: int = 16,
@@ -259,11 +336,24 @@ class ModelRunner:
                              f"the runner on {self.device}")
         self.cfg = cfg
         self.params = params
+        self.fns = model_fns(cfg)
+        self.capabilities = arch_capabilities(cfg)
+        caps = self.capabilities
+        # padded tokens would run through a recurrent layer's conv window
+        # and state: those architectures prefill at exact prompt length
+        self.exact_prefill = any(cfg.spec(nm).mixer in RECURRENT_MIXERS
+                                 for nm in cfg.layer_names)
         # effective dtypes (None = full precision) and, as in the
         # reference, the reason for each requested int8 arm not taken
-        self.kv_dtype: Optional[str] = "int8" if kv_dtype == "int8" else None
+        self.kv_dtype: Optional[str] = None
         self.weight_dtype: Optional[str] = None
         self.quant_fallbacks: List[str] = []
+        if kv_dtype == "int8":
+            if caps["int8_kv"].supported:
+                self.kv_dtype = "int8"
+            else:
+                self.quant_fallbacks.append(
+                    f"kv_dtype=int8: {caps['int8_kv'].reason}; serving fp KV")
         self.n_quantized = 0
         if weight_dtype == "int8":
             self.params, self.n_quantized = quantize_params(params)
@@ -281,16 +371,13 @@ class ModelRunner:
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
         self.min_bucket = min_bucket
-        self.prefill_chunk = prefill_chunk
+        self.prefill_chunk = (prefill_chunk
+                              if caps["chunked_prefill"].supported else 0)
         self.kv = PagedKVCache(cfg, max_slots=max_slots,
                                max_seq_len=max_seq_len,
                                block_size=block_size, num_blocks=num_blocks,
                                kv_dtype=self.kv_dtype, device=self.device)
-        k_pool, v_pool = self.kv.data
-        k_scale, v_scale = self.kv.scales or (None, None)
-        self.cache = {"blocks": (PagedLeaf(k_pool, k_scale),
-                                 PagedLeaf(v_pool, v_scale)),
-                      "tail": ()}
+        self.cache = self.kv.engine_cache()
         self._table_key = None             # (kv.version, active bytes)
         self._table_dev: Optional[torch.Tensor] = None
         self.prefill_shapes: set = set()   # observed (n_reqs, bucket)
@@ -302,10 +389,13 @@ class ModelRunner:
 
     # -- bucket policy --------------------------------------------------
     def bucket_for(self, length: int) -> int:
-        """Power-of-two padding bucket, capped at the engine capacity."""
+        """Power-of-two padding bucket, capped at the engine capacity
+        (the length itself for recurrent architectures)."""
         if length > self.max_seq_len:
             raise ValueError(f"prompt length {length} exceeds engine "
                              f"capacity {self.max_seq_len}")
+        if self.exact_prefill:
+            return length
         b = self.min_bucket
         while b < length:
             b *= 2
@@ -320,9 +410,10 @@ class ModelRunner:
             else bucket
 
     def cache_stats(self) -> Dict[str, Any]:
-        """Pool occupancy and the quantization in effect."""
+        """Pool occupancy, leaf layouts and the quantization in effect."""
         stats = dict(self.kv.utilization())
         stats.update(mode="paged", block_size=self.kv.block_size,
+                     state_bytes=self.kv.state_bytes(),
                      weight_dtype=self.weight_dtype or "float32",
                      quantized_weight_leaves=self.n_quantized,
                      quant_fallbacks=list(self.quant_fallbacks))
@@ -336,14 +427,10 @@ class ModelRunner:
     def prefill(self, prompts: Sequence[Sequence[int]], bucket: int,
                 slots: Sequence[int],
                 params_list: Sequence[SampleParams]) -> np.ndarray:
-        """Batched prefill of ``prompts`` (right-padded to ``bucket``)
-        into cache ``slots``.  Returns the first sampled token of each
-        prompt [n].
-
-        The prefill K/V rows [0, bucket) of each request are scattered
-        through its block-table row into the pools, one indexed write
-        per pool, exactly as ``paged_insert_rows`` writes them: padded
-        rows past the allocation resolve to the trash block."""
+        """Batched prefill of ``prompts`` (right-padded to ``bucket``; a
+        recurrent architecture's bucket is the prompts' one length) into
+        cache ``slots``.  Returns the first sampled token of each prompt
+        [n].  The prefill cache goes in through ``kv.insert_prefill``."""
         temps, _, _ = stack_params(params_list)
         require_greedy(temps)
         n = len(prompts)
@@ -353,37 +440,35 @@ class ModelRunner:
             tokens[i, :len(p)] = p
             lengths[i] = len(p)
         len_d = self._to_dev(lengths, torch.long)
-        logits, cache = pt_lib.pt_forward(
+        logits, cache = self.fns["forward"](
             self.params, {"inputs": self._to_dev(tokens, torch.long)},
             self.cfg, mode="prefill")
         last = logits[torch.arange(n, device=self.device), len_d - 1]
         toks = sample_rows(last, temps)
-        bs = self.kv.block_size
-        pos = torch.arange(bucket, device=self.device).expand(n, bucket)
-        idx = token_to_pool(self.kv.table_rows(slots), pos, bs).reshape(-1)
-        for pool, src in zip(self.kv.data, cache["blocks"]):
-            R, D, nt, N, _, KH, hd = pool.shape
-            flat = pool.view(R, D, nt, N * bs, KH, hd)
-            flat[:, :, :, idx] = src.reshape(R, D, nt, n * bucket, KH, hd)
+        self.kv.insert_prefill(cache, slots, self.kv.table_rows(slots))
         self.prefill_shapes.add((n, bucket))
         self.prefill_calls += 1
         return toks.cpu().numpy()
 
     def _chunk(self, toks: np.ndarray, pos: np.ndarray,
-               table_rows: torch.Tensor, last_idx: np.ndarray,
+               slots: Sequence[int], last_idx: np.ndarray,
                temps: np.ndarray) -> np.ndarray:
         """The chunk program for n rows: toks [n, C] appended at
-        pos[:, None] + arange(C) through ``table_rows`` (the whole table
-        row is gathered, as the reference's chunk call passes no
-        ``kv_max_len``).  Returns the token sampled at each row's
-        ``last_idx`` [n] -- meaningful only for a row's final chunk.  The
-        LM head runs on those n rows only (the reference takes them from
-        the logits of all n * C rows; the head is row-wise)."""
+        pos[:, None] + arange(C) through the block-table rows of
+        ``slots`` (the whole table row is gathered, as the reference's
+        chunk call passes no ``kv_max_len``); state rows advance at
+        ``slots`` by ``last_idx + 1`` valid tokens.  Returns the token
+        sampled at each row's ``last_idx`` [n] -- meaningful only for a
+        row's final chunk.  The LM head runs on those n rows only (the
+        reference takes them from the logits of all n * C rows; the head
+        is row-wise)."""
         n = len(toks)
-        h = pt_lib.pt_chunk_hidden(
+        h = self.fns["chunk_hidden"](
             self.params, self.cache, self._to_dev(toks, torch.long),
             self._to_dev(pos, torch.int32), self.cfg,
-            block_table=table_rows)
+            block_table=self.kv.table_rows(slots),
+            slots=self._to_dev(slots, torch.long),
+            chunk_lens=self._to_dev(np.asarray(last_idx) + 1, torch.long))
         last = h[torch.arange(n, device=self.device),
                  self._to_dev(last_idx, torch.long)]
         cand = sample_rows(_head(self.params, last, self.cfg), temps)
@@ -398,8 +483,7 @@ class ModelRunner:
         """One chunk step for the requests prefilling in ``slots``."""
         temps, _, _ = stack_params(params_list)
         require_greedy(temps)
-        return self._chunk(toks, pos, self.kv.table_rows(slots), last_idx,
-                           temps)
+        return self._chunk(toks, pos, slots, last_idx, temps)
 
     @torch.no_grad()
     def warm_prefill(self, prompts: Sequence[Sequence[int]],
@@ -419,8 +503,8 @@ class ModelRunner:
         for i, p in enumerate(prompts):
             toks[i, :len(p)] = p
             last_idx[i] = len(p) - 1
-        return self._chunk(toks, np.zeros((n,), np.int32),
-                           self.kv.table_rows(slots), last_idx, temps)
+        return self._chunk(toks, np.zeros((n,), np.int32), slots, last_idx,
+                           temps)
 
     def _masked_table(self, active: np.ndarray) -> torch.Tensor:
         """Device block table with inactive lanes zeroed (their writes land
@@ -452,14 +536,17 @@ class ModelRunner:
     def decode(self, toks, pos, active, temps, eos, remaining
                ) -> Tuple[np.ndarray, np.ndarray]:
         """One decode step for all slots plus the sampling epilogue.
-        Exactly one device-to-host transfer: the packed (token, done)
-        array."""
+        ``active`` threads into the model so the state rows of idle lanes
+        and of lanes mid-chunked-prefill stay frozen (pool leaves are
+        protected by the zeroed table rows).  Exactly one device-to-host
+        transfer: the packed (token, done) array."""
         table = self._masked_table(active)
-        logits, self.cache = pt_lib.pt_decode_step(
+        active_d = self._to_dev(active, torch.bool)
+        logits, self.cache = self.fns["decode"](
             self.params, self.cache, self._to_dev(toks, torch.long),
             self._to_dev(pos, torch.int32), self.cfg, block_table=table,
-            kv_max_len=self._live_max_len(pos, active))
-        packed = sample_step(logits, temps, self._to_dev(active, torch.bool),
+            kv_max_len=self._live_max_len(pos, active), active=active_d)
+        packed = sample_step(logits, temps, active_d,
                              self._to_dev(eos, torch.int32),
                              self._to_dev(remaining, torch.int32))
         host = packed.cpu().numpy()              # THE transfer
@@ -489,12 +576,12 @@ class Engine:
                  weight_dtype: Optional[str] = None,
                  pipeline_depth: int = 0, preplan: bool = False,
                  max_queue: Optional[int] = None, fault_plan: Any = None):
-        _refuse(paged=(paged, True, 7), speculate_k=(speculate_k, 0, 4),
-                draft_tracks=(draft_tracks, 0, 4),
-                prefix_cache=(prefix_cache, False, 3),
-                pipeline_depth=(pipeline_depth, 0, 7),
-                preplan=(preplan, False, 7), max_queue=(max_queue, None, 7),
-                fault_plan=(fault_plan, None, 7))
+        _refuse(paged=(paged, True, 1), speculate_k=(speculate_k, 0, 6),
+                draft_tracks=(draft_tracks, 0, 6),
+                prefix_cache=(prefix_cache, False, 5),
+                pipeline_depth=(pipeline_depth, 0, 8),
+                preplan=(preplan, False, 8), max_queue=(max_queue, None, 8),
+                fault_plan=(fault_plan, None, 8))
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
@@ -540,8 +627,8 @@ class Engine:
         non-positive token budget, a reservation larger than the whole
         block pool) come back REJECTED with ``finish_reason`` set."""
         require_greedy([params.temperature])
-        _refuse(priority=(priority, 0, 7), deadline_s=(deadline_s, None, 7),
-                on_event=(on_event, None, 7))
+        _refuse(priority=(priority, 0, 8), deadline_s=(deadline_s, None, 8),
+                on_event=(on_event, None, 8))
         req = Request(self._next_rid, list(prompt), max_new_tokens, eos_id,
                       params, on_token)
         req.t_submit = time.perf_counter()
@@ -570,10 +657,10 @@ class Engine:
         return req
 
     def fork(self, *args, **kwargs):
-        raise _unported("Engine.fork (copy-on-write)", 3)
+        raise _unported("Engine.fork (copy-on-write)", 5)
 
     def cancel(self, *args, **kwargs):
-        raise _unported("Engine.cancel", 7)
+        raise _unported("Engine.cancel", 8)
 
     # ------------------------------------------------------------------
     def _emit(self, req: Request, tok: int) -> None:
@@ -639,6 +726,9 @@ class Engine:
                 req.prefilled = 0
             admitted += len(group)
             if chunked:
+                # chunks run in _prefill_chunks; the slots' state rows
+                # belonged to their previous tenants: zero them first
+                self.runner.kv.reset_slots([s for s, _ in group])
                 continue
             if self.runner.kv_dtype == "int8":
                 # int8 KV: cold prompts run through the chunk program, as

@@ -2,7 +2,7 @@
 of ``repro.serving.sampler``).
 
 Sampling with ``temperature > 0`` needs keys bit-exact with JAX's
-threefry stream (``row_keys``) and is ROADMAP queue 1, item 1: every
+threefry stream (``row_keys``) and is ROADMAP queue 1, item 4: every
 entry point here checks the host-side temperatures and raises for it.
 """
 from __future__ import annotations
@@ -37,7 +37,7 @@ def require_greedy(temperature) -> None:
         raise NotImplementedError(
             "sampling with temperature > 0 is not ported: it needs keys "
             "bit-exact with the reference's threefry stream (ROADMAP "
-            "queue 1, item 1)")
+            "queue 1, item 4)")
 
 
 def sample_rows(logits: torch.Tensor, temperature) -> torch.Tensor:

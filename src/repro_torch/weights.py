@@ -1,12 +1,15 @@
 """Parameter bridge from the JAX package's trees (no JAX counterpart).
 
-``from_jax_params`` takes the tree ``repro.core.track.init_pt`` builds,
+``from_jax_params`` takes the tree ``repro.core.track.init_pt`` (a PT
+config) or ``repro.models.decoder.init_lm`` (any other config) builds,
 with its leaves turned into numpy arrays (``np.asarray``), and returns
-the port's parameters with the same nesting and the same layouts:
-embed [V, d], head [d, V], blocks leaves [R, D, n, ...] with
-wq [d, H, hd], wk/wv [d, KH, hd], wo [H, hd, d], mlp wi_gate/wi_up
-[d, ff], wo [ff, d], and fp32 norm scales.  Nothing here imports JAX:
-the caller hands over numpy arrays.
+the port's parameters with the same nesting and the same layouts.  PT:
+embed [V, d], head [d, V], blocks leaves [R, D, n, ...] with wq
+[d, H, hd], wk/wv [d, KH, hd], wo [H, hd, d], mlp wi_gate/wi_up [d, ff],
+wo [ff, d].  lm_*: embed, head, and the prefix / unit / suffix layer
+tuples, unit leaves stacked [R, ...]; a Mamba layer's conv_w, conv_b,
+dt_w, dt_bias, A_log and D stay fp32.  Norm scales are fp32 everywhere.
+Nothing here imports JAX: the caller hands over numpy arrays.
 
 A tree from the reference's ``quantize_params`` carries across too: each
 of its ``QuantTensor`` leaves given as a ``(payload, scale)`` numpy pair
@@ -25,7 +28,8 @@ from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.quant import QuantTensor, weight_axes
 from repro_torch.common.types import ModelConfig
 from repro_torch.core.track import param_specs
-from repro_torch.models.decoder import model_dtype
+from repro_torch.models.decoder import lm_param_specs, model_dtype
+from repro_torch.models.params import Leaf
 
 
 def _to_torch(a: Any, device: torch.device) -> torch.Tensor:
@@ -38,10 +42,10 @@ def _to_torch(a: Any, device: torch.device) -> torch.Tensor:
 
 def from_jax_params(tree: Any, cfg: ModelConfig,
                     device: DeviceLike = None) -> Any:
-    """Numpy-leaved JAX ``init_pt`` tree (optionally quantized, with
-    ``(payload, scale)`` pairs) -> the port's parameters on ``device``.
-    Raises when the tree's keys, shapes or dtypes differ from what
-    ``cfg`` describes."""
+    """Numpy-leaved JAX ``init_pt`` / ``init_lm`` tree (optionally
+    quantized, with ``(payload, scale)`` pairs) -> the port's parameters
+    on ``device``.  Raises when the tree's keys, shapes or dtypes differ
+    from what ``cfg`` describes."""
     device = resolve_device(device)
     dtype = model_dtype(cfg)
 
@@ -70,18 +74,20 @@ def from_jax_params(tree: Any, cfg: ModelConfig,
                                  f"{sorted(spec)}")
             return {k: walk(spec[k], node[k], f"{path}.{k}".lstrip("."))
                     for k in spec}
-        if spec == ():
-            if len(node):
-                raise ValueError(f"{path}: expected an empty tail")
-            return ()
-        shape, std = spec
+        if isinstance(spec, tuple):
+            if not isinstance(node, (tuple, list)) or len(node) != len(spec):
+                raise ValueError(f"{path}: want a sequence of {len(spec)}")
+            return tuple(walk(sp, nd, f"{path}.{i}")
+                         for i, (sp, nd) in enumerate(zip(spec, node)))
+        assert isinstance(spec, Leaf), spec
         if isinstance(node, tuple):
-            return quantized(shape, node, path)
+            return quantized(spec.shape, node, path)
         t = _to_torch(node, device)
-        want = torch.float32 if std is None else dtype
-        if tuple(t.shape) != tuple(shape) or t.dtype != want:
+        want = spec.dtype(dtype)
+        if tuple(t.shape) != tuple(spec.shape) or t.dtype != want:
             raise ValueError(f"{path}: got {tuple(t.shape)} {t.dtype}, "
-                             f"want {tuple(shape)} {want}")
+                             f"want {tuple(spec.shape)} {want}")
         return t
 
-    return walk(param_specs(cfg), tree, "")
+    specs = param_specs(cfg) if cfg.pt is not None else lm_param_specs(cfg)
+    return walk(specs, tree, "")

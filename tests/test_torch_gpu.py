@@ -1,7 +1,8 @@
 """On the card: each hand-written kernel against its plain PyTorch version
 (tolerance fp32 2e-5, bf16 2e-2, as tests/test_kernels.py; the W8A16
-matmul in fp32 1e-4, for its long fp32 sums), the launch counts the
-wrappers keep, and int8 quantization bitwise equal to the CPU's.  Imports no JAX, so it runs on a GPU
+matmul in fp32 1e-4, for its long fp32 sums; the scan as the reference's
+sweep), the launch counts the wrappers keep, and int8 quantization
+bitwise equal to the CPU's.  Imports no JAX, so it runs on a GPU
 machine without it:
 
   PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
@@ -165,3 +166,30 @@ def test_quantize_on_the_card_matches_the_cpu_bitwise():
         a, b = quantize(x.to(dev), axes), quantize(x, axes)
         assert torch.equal(a.payload.cpu(), b.payload)
         assert torch.equal(a.scale.cpu(), b.scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,di,ds", [(2, 64, 32, 4), (3, 37, 48, 16),
+                                       (2, 128, 64, 1), (1, 5, 7, 3)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_kernel_matches_plain(B, S, di, ds, dtype):
+    """The reference sweep's shapes, a ragged S, d_state 1 and an odd
+    feature count (the scalar path), nonzero h0; tolerances as the
+    reference sweep (fp32 1e-4, bf16 inputs 5e-2)."""
+    dev = _cuda()
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    rng = np.random.default_rng(6)
+    a = torch.from_numpy(1 / (1 + np.exp(-rng.standard_normal(
+        (B, S, di, ds)))).astype(np.float32)).to(dev, _TDT[dtype])
+    b = torch.from_numpy(rng.standard_normal((B, S, di, ds)).astype(
+        np.float32)).to(dev, _TDT[dtype])
+    h0 = torch.from_numpy(rng.standard_normal((B, di, ds)).astype(
+        np.float32)).to(dev)
+    before = ops.launch_counts()["ssm_scan"]
+    h, hl = ops.ssm_scan(a, b, h0)
+    want, want_last = ref.ssm_scan_plain(a, b, h0)
+    assert h.dtype == hl.dtype == torch.float32
+    torch.testing.assert_close(h, want, rtol=tol, atol=tol)
+    torch.testing.assert_close(hl, want_last, rtol=tol, atol=tol)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["ssm_scan"] == before + 1

@@ -161,13 +161,16 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     before = ops.launch_counts()
     assert set(before) == {"paged_decode_attention", "flash_attention",
                            "rmsnorm", "paged_decode_attention_int8",
-                           "int8_matmul"}
+                           "int8_matmul", "ssm_scan"}
     assert all(isinstance(v, int) for v in before.values())
     assert torch.equal(ops.paged_decode_attention(*args, max_len=16),
                        ref.paged_decode_attention_plain(*args, max_len=16))
     assert torch.equal(ops.flash_attention(fq, fk, fk),
                        ref.flash_attention_plain(fq, fk, fk))
     assert torch.equal(ops.rmsnorm(x, s), ref.rmsnorm_plain(x, s))
+    a, b, h0 = torch.rand(2, 5, 3, 4), torch.randn(2, 5, 3, 4), x[:, :3, :4]
+    for got, want in zip(ops.ssm_scan(a, b, h0), ref.ssm_scan_plain(a, b, h0)):
+        assert torch.equal(got, want)
     # a launch count moves only where a kernel launched, never on the CPU
     assert ops.launch_counts() == before
 

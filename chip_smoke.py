@@ -15,7 +15,8 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      matmul at three shapes (decode MLP, decode LM head with fp32 x,
      prefill MLP); RMSNorm also at falcon-mamba's d 4096; ``ssm_scan``
      at the falcon-mamba chunk shape, then at ragged S, d_state 1, bf16
-     inputs and an odd feature count;
+     inputs and an odd feature count; ``decode_attention`` (the
+     contiguous cache) at the dense-6b decode shape, bf16 and int8;
   4. the reduced PT config in fp32, on the card against the same weights
      on the CPU (tolerance 1e-4): prefill logits, K/V and teacher-forced
      paged decode steps; then with int8 weights, int8 KV and chunked
@@ -24,7 +25,11 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      greedy token streams agree; then reduced falcon-mamba in fp32, card
      against CPU (1e-4): whole-prompt prefill then decode, chunked
      prefill (chunk 8, a non-aligned last chunk) then decode, and
-     greedy streams, which must be identical;
+     greedy streams, which must be identical; then reduced dense-6b
+     (8 layers, d 64) in fp32, card against CPU (1e-4): prefill, paged
+     and contiguous decode, paged chunk-8 logits, and greedy streams on
+     both caches, which must all be identical; then the reduced PT model
+     on the contiguous cache: decode logits and greedy streams;
   5. serve pt-6b-d4 at full width (random weights from a seeded
      generator): 8 slots, 8 greedy requests of 512 prompt tokens and 64
      new tokens, block size 16 — TTFT, TPOT, throughput, peak memory and
@@ -36,11 +41,17 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      int8 decode per layer per decode step; then falcon-mamba-7b at full
      width and depth, bf16, the same workload with chunked prefill of 256
      tokens, whose launch counts must equal 64 ``ssm_scan`` per chunk
-     call, 65 ``rmsnorm`` per forward and no attention kernel;
+     call, 65 ``rmsnorm`` per forward and no attention kernel; then
+     dense-6b at full width and depth, bf16, the same workload, on the
+     paged cache and then on the contiguous cache, whose launch counts
+     must equal 32 ``flash_attention`` per prefill call, 65 ``rmsnorm``
+     per forward and 32 per decode step of the cache's decode kernel
+     (``paged_decode_attention`` or ``decode_attention``), the other
+     never;
   6. where the time goes: device time by kernel (torch.profiler) over the
      step that admits 8 prompts and over three decode steps, and the
      decode step's device busy share against its unprofiled TPOT, for
-     all three serve runs.
+     all five serve runs.
 Prints one ``{"kernels": [...]}`` JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -68,6 +79,7 @@ PARITY_TOL = 1e-4              # fp32 model on the card vs the CPU
 # the serving cells of phase 5, which fix the kernel shapes of phase 3
 ARCH, SLOTS, PROMPT, NEW, BLOCK = "pt-6b-d4", 8, 512, 64, 16
 FM_ARCH, FM_SLOTS, FM_CHUNK, FM_D = "falcon-mamba-7b", 8, 256, 4096
+DENSE_ARCH = "dense-6b"
 
 
 def log(msg: str) -> None:
@@ -266,6 +278,94 @@ def check_kernels(dev: torch.device):
     torch.cuda.empty_cache()
     rows.append(check_ssm_scan(dev, g))
     torch.cuda.empty_cache()
+    rows += check_decode_attention(dev, g)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_decode_attention(dev: torch.device, g: torch.Generator):
+    """Phase 3 for the contiguous cache: ``decode_attention`` at the
+    dense-6b serve run's decode shape near its end (q [8, 32, 128], the
+    engine's cache [8, 584, 8, 128], lengths 513-576, max_len 576), bf16
+    and int8 with fp32 per-token scales, each held against its plain
+    version (bf16 2e-2; the int8 branch with fp32 math inside, as the
+    paged int8 row).  Yardstick: SDPA on the same cache with K/V expanded
+    to the 32 query heads and the length mask built beforehand
+    (untimed).  The bound counts the live rows only."""
+    from repro_torch.common.quant import quantize_rows
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+    cfg = get_config(DENSE_ARCH)
+    H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    B, S, bf = SLOTS, PROMPT + NEW + 8, torch.bfloat16
+    lengths = torch.randint(PROMPT + 1, PROMPT + NEW + 1, (B,), generator=g,
+                            device=dev, dtype=torch.int32)
+    max_len = PROMPT + NEW
+    live = int(lengths.sum())
+    mask = (torch.arange(S, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]           # [B, 1, 1, S]
+
+    def expand(c):
+        return c.repeat_interleave(H // KH, 2).transpose(1, 2).contiguous()
+
+    rows = []
+    for branch in ("bf16", "int8"):
+        one = B * S * KH * (hd * 2 if branch == "bf16" else hd + 4) * 2
+        sets = []
+        for _ in range(copies_for(one)):
+            q = torch.randn(B, H, hd, generator=g, device=dev).to(bf)
+            k, v = (torch.randn(B, S, KH, hd, generator=g, device=dev)
+                    for _ in range(2))
+            if branch == "bf16":
+                sets.append((q, k.to(bf), v.to(bf), None, None))
+            else:
+                (k8, ks), (v8, vs) = quantize_rows(k), quantize_rows(v)
+                sets.append((q, k8, v8, ks, vs))
+            del k, v
+
+        def kern(q, k, v, ks, vs):
+            return ops.decode_attention(q, k, v, lengths, max_len=max_len,
+                                        k_scale=ks, v_scale=vs)
+
+        def plain(q, k, v, ks, vs):
+            return ref.decode_attention_plain(q, k, v, lengths,
+                                              max_len=max_len, k_scale=ks,
+                                              v_scale=vs)
+
+        out, want = kern(*sets[0]), plain(*sets[0])
+        k_ms = time_ms(kern, sets, 200)
+        p_ms = time_ms(plain, sets, 20)
+
+        def lib_args(q, k, v, ks, vs):
+            if ks is not None:
+                k, v = (k.float() * ks).to(bf), (v.float() * vs).to(bf)
+            return q[:, :, None], expand(k), expand(v)
+
+        lib_sets = [lib_args(*st) for st in sets]
+        l_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), lib_sets, 200)
+        del lib_sets
+        row_bytes = hd * 2 if branch == "bf16" else hd + 4
+        name = "decode_attention" + ("" if branch == "bf16" else "_int8")
+        row = _report(
+            name, "cuda", "src/repro_torch/kernels/csrc/paged_decode.cu",
+            "src/repro/kernels/decode_attention.py:92", out, want, k_ms,
+            p_ms, l_ms, live * KH * row_bytes * 2 + nbytes(sets[0][0],
+                                                           lengths, out),
+            4.0 * live * H * hd,
+            BF16_FLOP_S if branch == "bf16" else FP32_FLOP_S)
+        row["at"] = (f"q [{B},{H},{hd}] bf16, cache [{B},{S},{KH},{hd}] "
+                     f"{'bf16' if branch == 'bf16' else 'int8 + fp32 scales'}"
+                     f", lengths {int(lengths.min())}-{int(lengths.max())} "
+                     f"({live} live rows), max_len {max_len}")
+        if branch == "int8":
+            row["branch"] = ("int8 cache with fp32 scales (_kernel :60, "
+                             "_online_softmax_step :34)")
+        log(f"[kernel]   {name} at {row['at']}")
+        rows.append(row)
+        del sets, out, want
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -692,8 +792,147 @@ def check_mamba_parity(dev: torch.device) -> None:
             raise SystemExit("[parity] falcon-mamba greedy streams differ")
 
 
+def check_dense_parity(dev: torch.device) -> None:
+    """Phase 4, the dense baseline: ``reduced_config("dense-6b")`` in fp32
+    (8 layers, d 64, 8 heads, 2 KV heads) on the card against the same
+    weights on the CPU, within 1e-4: prefill logits (rows of 13 and 9
+    tokens right-padded to 16); the rows into the paged cache (block 8)
+    and into the contiguous cache, then three teacher-forced decode
+    steps on each (the contiguous one with a lane frozen in the second
+    step); chunked prefill (chunk 8, the second row's last chunk holding
+    3 real tokens) into the paged cache (the contiguous cache takes no
+    chunk: only the speculative drafter's would, not ported); then the
+    engine's greedy streams on both caches, which must be identical card
+    vs CPU and paged vs contiguous."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import decoder as dec
+    from repro_torch.serving.cache import PagedKVCache, insert_rows
+    from repro_torch.serving.engine import Engine
+    cfg = reduced_config(DENSE_ARCH)
+    cpu = torch.device("cpu")
+    params = {cpu: dec.init_lm(torch.Generator().manual_seed(0), cfg, cpu)}
+    params[dev] = _to(params[cpu], dev)
+    rng = np.random.default_rng(3)
+    lens = np.asarray([13, 9])
+    toks = np.zeros((2, 16), np.int64)
+    for i, L in enumerate(lens):
+        toks[i, :L] = rng.integers(1, cfg.vocab_size, size=(L,))
+    teacher = rng.integers(1, cfg.vocab_size, size=(3, 2))
+    got = {}
+    with torch.no_grad():
+        for d in (cpu, dev):
+            t = lambda a, dt=torch.long: torch.as_tensor(  # noqa: E731
+                np.asarray(a)).to(d, dt)
+            p = params[d]
+            logits, pre = dec.lm_forward(p, {"inputs": t(toks)}, cfg)
+            kv = PagedKVCache(cfg, max_slots=2, max_seq_len=32, block_size=8,
+                              device=d)
+            for slot in range(2):
+                kv.allocate(slot, 16 + teacher.shape[0])
+            kv.insert_prefill(pre, [0, 1], kv.table())
+            contig = dec.init_cache(cfg, 2, 32, device=d)
+            insert_rows(contig, pre, [0, 1])
+            paged_steps, contig_steps = [], []
+            for k in range(teacher.shape[0]):
+                pos = t(lens + k, torch.int32)
+                lg, _ = dec.lm_decode_step(p, kv.engine_cache(),
+                                           t(teacher[k]), pos, cfg,
+                                           block_table=kv.table(),
+                                           kv_max_len=32)
+                paged_steps.append(lg)
+                lg, _ = dec.lm_decode_step(p, contig, t(teacher[k]), pos,
+                                           cfg, kv_max_len=32,
+                                           active=t([True, k != 1],
+                                                    torch.bool))
+                contig_steps.append(lg)
+            ckv = PagedKVCache(cfg, max_slots=2, max_seq_len=32, block_size=8,
+                               device=d)
+            for slot in range(2):
+                ckv.allocate(slot, 16)
+            chunks = [dec.lm_chunk_step(p, ckv.engine_cache(),
+                                        t(toks[:, c:c + 8]),
+                                        t([c, c], torch.int32), cfg,
+                                        block_table=ckv.table())[0]
+                      for c in (0, 8)]
+            got[d] = (logits, torch.stack(paged_steps),
+                      torch.stack(contig_steps), torch.cat(chunks, 1),
+                      contig)
+    _close("dense prefill logits", got[dev][0], got[cpu][0])
+    _close("dense paged decode logits", got[dev][1], got[cpu][1])
+    _close("dense contiguous decode logits (a frozen lane)", got[dev][2],
+           got[cpu][2])
+    _close("dense contiguous cache after decode", got[dev][4]["unit"][0][0],
+           got[cpu][4]["unit"][0][0])
+    _close("dense paged chunk-8 logits (non-aligned last chunk)",
+           got[dev][3], got[cpu][3])
+    _close("dense paged vs contiguous decode logits, CPU", got[cpu][1][0],
+           got[cpu][2][0])
+    prompts = [rng.integers(1, cfg.vocab_size, size=(L,)).tolist()
+               for L in (13, 9, 5, 11)]
+    streams = {}
+    for d in (cpu, dev):
+        for paged in (True, False):
+            streams[(d, paged)] = Engine(
+                cfg, params[d], max_slots=2, max_seq_len=48, device=d,
+                paged=paged).generate(prompts, 8)
+    same = len({str(v) for v in streams.values()}) == 1
+    log(f"[parity] dense greedy token streams, card vs CPU x paged vs "
+        f"contiguous: {'identical' if same else 'DIFFER'} "
+        f"({sum(map(len, streams[(dev, False)]))} tokens per run)")
+    if not same:
+        raise SystemExit("[parity] dense greedy streams differ")
+
+
+def check_pt_contiguous_parity(dev: torch.device) -> None:
+    """Phase 4, the reduced PT model on the contiguous cache, fp32, card
+    against CPU (1e-4): prefill rows into [R, D, n, B, S, KH, hd], three
+    teacher-forced decode steps (a lane frozen in the second; the tracks
+    folded into the kernel's batch), then greedy streams, which must be
+    identical card vs CPU and equal the paged engine's."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.track import (init_pt, pt_decode_step, pt_forward,
+                                        pt_init_cache)
+    from repro_torch.serving.cache import insert_rows
+    from repro_torch.serving.engine import Engine
+    cfg = reduced_config(ARCH)
+    cpu = torch.device("cpu")
+    params = {cpu: init_pt(torch.Generator().manual_seed(0), cfg, cpu)}
+    params[dev] = _to(params[cpu], dev)
+    rng = np.random.default_rng(4)
+    toks = rng.integers(1, cfg.vocab_size, size=(2, 16))
+    teacher = rng.integers(1, cfg.vocab_size, size=(3, 2))
+    got = {}
+    with torch.no_grad():
+        for d in (cpu, dev):
+            t = lambda a, dt=torch.long: torch.as_tensor(  # noqa: E731
+                np.asarray(a)).to(d, dt)
+            _, pre = pt_forward(params[d], {"inputs": t(toks)}, cfg)
+            cache = pt_init_cache(cfg, 2, 24, device=d)
+            insert_rows(cache, pre, [1, 0])
+            steps = []
+            for k in range(teacher.shape[0]):
+                lg, _ = pt_decode_step(params[d], cache, t(teacher[k]),
+                                       t([16 + k] * 2, torch.int32), cfg,
+                                       kv_max_len=24,
+                                       active=t([True, k != 1], torch.bool))
+                steps.append(lg)
+            got[d] = torch.stack(steps)
+    _close("PT contiguous decode logits (a frozen lane)", got[dev], got[cpu])
+    prompts = [rng.integers(1, cfg.vocab_size, size=(L,)).tolist()
+               for L in (9, 16, 5)]
+    streams = {(d, paged): Engine(cfg, params[d], max_slots=2, max_seq_len=48,
+                                  device=d, paged=paged).generate(prompts, 8)
+               for d in (cpu, dev) for paged in (False, True)}
+    same = len({str(v) for v in streams.values()}) == 1
+    log(f"[parity] PT greedy token streams, contiguous card vs CPU (and the "
+        f"paged engine): {'identical' if same else 'DIFFER'} "
+        f"({sum(map(len, streams[(dev, False)]))} tokens per run)")
+    if not same:
+        raise SystemExit("[parity] PT contiguous greedy streams differ")
+
+
 # ---------------------------------------------------------------------------
-# phase 5: serve pt-6b-d4 and falcon-mamba-7b at full width
+# phase 5: serve pt-6b-d4, falcon-mamba-7b and dense-6b at full width
 # ---------------------------------------------------------------------------
 
 # the kernels each serve run must go through
@@ -789,7 +1028,8 @@ def serve_full(dev: torch.device, card: str, int8: bool = False):
         # of every decode step; no fp attention kernel anywhere
         want = {"int8_matmul": forwards * (7 * cfg.n_layers + 1),
                 "paged_decode_attention_int8": decodes * cfg.n_layers,
-                "paged_decode_attention": 0, "flash_attention": 0}
+                "paged_decode_attention": 0, "flash_attention": 0,
+                "decode_attention": 0}
         got = {k: launches[k] for k in want}
         log(f"[serve] {tag}: launch arithmetic {json.dumps(want)}: "
             f"{'met' if got == want else 'NOT MET'}")
@@ -915,7 +1155,8 @@ def serve_falcon(dev: torch.device, card: str):
     want = {"ssm_scan": cfg.n_layers * chunks,
             "rmsnorm": (cfg.n_layers + 1) * (chunks + decodes),
             "flash_attention": 0, "paged_decode_attention": 0,
-            "paged_decode_attention_int8": 0, "int8_matmul": 0}
+            "paged_decode_attention_int8": 0, "int8_matmul": 0,
+            "decode_attention": 0, "decode_attention_int8": 0}
     got = {k: launches[k] for k in want}
     log(f"[serve] {tag}: kernel launches {json.dumps(launches)}; chunk calls "
         f"{chunks}, decode steps {decodes}; launch arithmetic "
@@ -927,6 +1168,81 @@ def serve_falcon(dev: torch.device, card: str):
         raise SystemExit(f"[serve] launch counts {got} != {want}")
     profile_steps(eng, cfg.vocab_size, rng, m["tpot_ms"]["p50"], tag,
                   chunk_steps=-(-PROMPT // FM_CHUNK))
+    return launches
+
+
+def serve_dense(dev: torch.device, card: str, params, paged: bool):
+    """Phase 5 (and 6) for the dense baseline dense-6b: full width and
+    depth, bf16, 8 greedy requests of 512 prompt tokens and 64 new
+    tokens, 8 slots, on the paged cache (block 16) or the contiguous
+    cache.  The launch counts must be ``flash_attention`` 32 per prefill
+    call, ``rmsnorm`` 65 per forward, and 32 per decode step of the
+    cache's decode kernel (``paged_decode_attention`` or
+    ``decode_attention``), the other one never.  Returns the launch
+    counts of the measured run."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine, EngineMetrics, RequestState
+    cfg = get_config(DENSE_ARCH)
+    tag = f"dense-6b bf16 {'paged' if paged else 'contiguous'}"
+    eng = Engine(cfg, params, max_slots=SLOTS, max_seq_len=PROMPT + NEW + 8,
+                 block_size=BLOCK, paged=paged, device=dev)
+    r = eng.runner
+    kv_bytes = (r.kv.pool_bytes() if paged
+                else sum(nbytes(t) for t in _leaves(r.cache)))
+    log(f"[serve] {tag}: KV cache {kv_bytes / 1e9:.3f} GB "
+        f"({r.cache_stats()['mode']})")
+    read = sum(nbytes(t) for t in _leaves(r.params))
+    rng = np.random.default_rng(0)
+    eng.generate([rng.integers(1, cfg.vocab_size, size=(16,)).tolist()
+                  for _ in range(SLOTS)], 3)               # warm-up
+    eng.metrics = EngineMetrics()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(rng.integers(1, cfg.vocab_size,
+                                    size=(PROMPT,)).tolist(), NEW)
+            for _ in range(SLOTS)]
+    steps0, transfers0, prefills0 = (eng.steps_run, r.decode_transfers,
+                                     r.prefill_calls)
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    m = eng.metrics.summary()
+    peak = torch.cuda.max_memory_allocated(dev)
+    done = sum(rq.state is RequestState.DONE and len(rq.output) == NEW
+               for rq in reqs)
+    decodes = r.decode_transfers - transfers0
+    prefills = r.prefill_calls - prefills0
+    log(f"[serve] {card} | {tag}: {SLOTS} reqs x ({PROMPT} in / {NEW} out), "
+        f"slots {SLOTS}{f', block {BLOCK}' if paged else ''}, "
+        f"{eng.steps_run - steps0} steps, wall {wall:.3f}s")
+    log(f"[serve] {card} | {tag}: TTFT ms p50 {m['ttft_ms']['p50']:.2f} "
+        f"p90 {m['ttft_ms']['p90']:.2f}; TPOT ms p50 "
+        f"{m['tpot_ms']['p50']:.3f} p90 {m['tpot_ms']['p90']:.3f}; "
+        f"throughput {m['throughput_tok_s']:.1f} tok/s")
+    log(f"[serve] {tag}: weight-read bound of a decode step "
+        f"{read / HBM_BYTES_S * 1e3:.3f} ms ({read / 1e9:.3f} GB at 3.35 TB/s, "
+        f"the fp32 LM-head copy included); peak memory {peak / 1e9:.3f} GB")
+    mine, other = (("paged_decode_attention", "decode_attention") if paged
+                   else ("decode_attention", "paged_decode_attention"))
+    L = cfg.n_layers
+    want = {"flash_attention": L * prefills,
+            "rmsnorm": (2 * L + 1) * (prefills + decodes),
+            mine: L * decodes, other: 0, "paged_decode_attention_int8": 0,
+            "decode_attention_int8": 0, "int8_matmul": 0, "ssm_scan": 0}
+    got = {k: launches[k] for k in want}
+    log(f"[serve] {tag}: kernel launches {json.dumps(launches)}; prefill "
+        f"calls {prefills}, decode steps {decodes}; launch arithmetic "
+        f"{json.dumps(want)}: {'met' if got == want else 'NOT MET'}; "
+        f"finished {done}/{len(reqs)}")
+    if done != len(reqs):
+        raise SystemExit(f"[serve] not every {tag} request finished")
+    if got != want or not decodes or not prefills:
+        raise SystemExit(f"[serve] launch counts {got} != {want}")
+    profile_steps(eng, cfg.vocab_size, rng, m["tpot_ms"]["p50"], tag)
     return launches
 
 
@@ -974,6 +1290,8 @@ def main() -> int:
     check_reduced_parity(dev)
     check_int8_parity(dev)
     check_mamba_parity(dev)
+    check_dense_parity(dev)
+    check_pt_contiguous_parity(dev)
     runs = {"bf16": serve_full(dev, card)}
     gc.collect()
     torch.cuda.empty_cache()
@@ -981,10 +1299,29 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     runs["falcon"] = serve_falcon(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.configs import get_config
+    from repro_torch.models.decoder import init_lm
+    cfg = get_config(DENSE_ARCH)
+    t0 = time.perf_counter()
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+    log(f"[serve] {cfg.name}: "
+        f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B parameters, "
+        f"{sum(nbytes(t) for t in _leaves(params)) / 1e9:.3f} GB bf16, init "
+        f"{time.perf_counter() - t0:.1f}s")
+    for paged in (True, False):
+        runs["dense " + ("paged" if paged else "contiguous")] = serve_dense(
+            dev, card, params, paged)
+        gc.collect()
+        torch.cuda.empty_cache()
+    del params
     for row in rows:
         # each kernel's count from the run of the path it belongs to
         run = ("falcon" if row["name"] == "ssm_scan" else
-               "bf16" if row["name"] in FP_PATH else "int8")
+               "dense contiguous" if row["name"].startswith("decode_attention")
+               else "bf16" if row["name"] in FP_PATH else "int8")
         row["launches"] = runs[run][row["name"]]
         row["launches_by_run"] = {k: v[row["name"]] for k, v in runs.items()}
         # the same two numbers under their longer key names as well

@@ -1,20 +1,20 @@
-"""Config registry of the port: the paper's Parallel-Track models and
-falcon-mamba-7b.
+"""Config registry of the port: the paper's Parallel-Track models, its
+dense baselines, tinyllama-1.1b and falcon-mamba-7b.
 
   get_config(name)      — full-size config
   reduced_config(name)  — small same-family config (CPU tests)
 
-The ``pt-*`` names serve through ``core.track``, ``falcon-mamba-7b``
-through the dense ``lm_*`` decoder.  The dense baselines and the other
-assigned architectures wait on the GQA branch of that decoder and the
-other mixers (ROADMAP queue 1, items 2 and 3).
+The ``pt-*`` names serve through ``core.track``; ``dense-*``,
+``tinyllama-1.1b`` (GQA + SwiGLU) and ``falcon-mamba-7b`` (Mamba)
+through the dense ``lm_*`` decoder.  The other assigned architectures
+need mixers and layer features not ported yet (ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Tuple
 
 from repro_torch.common.types import ModelConfig
-from repro_torch.configs import falcon_mamba_7b, pt_paper
+from repro_torch.configs import falcon_mamba_7b, pt_paper, tinyllama_1_1b
 
 _PAPER: Dict[str, Callable[[], ModelConfig]] = {
     "pt-6b-d2": lambda: pt_paper.pt_6b(2),
@@ -30,6 +30,10 @@ _PAPER: Dict[str, Callable[[], ModelConfig]] = {
 
 PT_NAMES: List[str] = list(_PAPER)
 _LM: Dict[str, Tuple[Callable[[], ModelConfig], Callable[[], ModelConfig]]] = {
+    "dense-6b": (pt_paper.dense_6b, pt_paper.reduced_dense),
+    "dense-13b": (pt_paper.dense_13b, pt_paper.reduced_dense),
+    "dense-30b": (pt_paper.dense_30b, pt_paper.reduced_dense),
+    "tinyllama-1.1b": (tinyllama_1_1b.config, tinyllama_1_1b.reduced),
     "falcon-mamba-7b": (falcon_mamba_7b.config, falcon_mamba_7b.reduced),
 }
 NAMES: List[str] = PT_NAMES + list(_LM)
@@ -38,8 +42,8 @@ NAMES: List[str] = PT_NAMES + list(_LM)
 def _unported(name: str) -> KeyError:
     return KeyError(
         f"arch {name!r} is not ported to repro_torch yet: only {NAMES} are "
-        "(the GQA branch of the lm_* decoder with the dense baselines, and "
-        "the other architectures, are ROADMAP queue 1, items 2-3)")
+        "(the other architectures need mixers and layer features of "
+        "ROADMAP queue 1, item 3)")
 
 
 def get_config(name: str) -> ModelConfig:

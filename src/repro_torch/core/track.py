@@ -21,7 +21,6 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
-from repro_torch.common.paged import PagedLeaf
 from repro_torch.common.types import ModelConfig, PTConfig
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.decoder import _embed, _head, model_dtype
@@ -211,18 +210,18 @@ def pt_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 
 
 def _pt_step(params, cache, h: torch.Tensor, pos: torch.Tensor,
-             cfg: ModelConfig, mode: str, block_table: torch.Tensor,
-             kv_max_len: Optional[int]) -> torch.Tensor:
+             cfg: ModelConfig, mode: str,
+             block_table: Optional[torch.Tensor], kv_max_len: Optional[int],
+             active: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Shared decode / chunk drive over the track blocks: fused h
     [B, C, d] in, fused h out; every layer reads and writes its slice of
-    the paged pools (int8 pools with their scales) in place."""
+    the cache in place: the paged pools (int8 pools with their scales)
+    through ``block_table``, or the contiguous rows [n, B, S, KH, hd]
+    (``block_table`` None), whose inactive lanes keep their rows."""
     pt = _pt(cfg)
     spec = cfg.spec(cfg.pattern_unit[0])
     R, _ = _block_counts(cfg)
     k_leaf, v_leaf = cache["blocks"]
-    if not isinstance(k_leaf, PagedLeaf):
-        raise NotImplementedError("the contiguous (non-paged) cache is not "
-                                  "ported (ROADMAP queue 1, item 1)")
     for r in range(R):
         hh = _spread(h, cfg)
         for j in range(pt.block_depth):
@@ -230,30 +229,33 @@ def _pt_step(params, cache, h: torch.Tensor, pos: torch.Tensor,
                                 spec=spec, mode=mode, pos=pos,
                                 cache=(k_leaf[r, j], v_leaf[r, j]),
                                 block_table=block_table,
-                                kv_max_len=kv_max_len)
+                                kv_max_len=kv_max_len, active=active)
         h = _fuse(hh, cfg)                                   # 1 sync / block
     return h
 
 
 def pt_decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
-                   cfg: ModelConfig, block_table: torch.Tensor,
+                   cfg: ModelConfig,
+                   block_table: Optional[torch.Tensor] = None,
                    kv_max_len: Optional[int] = None,
                    active: Optional[torch.Tensor] = None):
-    """One token per row against the paged cache.  cache {'blocks':
-    (PagedLeaf k, PagedLeaf v) with pools [R, D, n, N, bs, KH, hd]};
-    tokens [B]; pos [B] int32 (cache write index); block_table [B, nmax]
-    int32.  The pools are updated in place.  ``active`` is accepted for
-    the shared step signature and unused: inactive lanes write through
-    zeroed table rows into the trash block.  Returns (logits [B, V],
-    cache)."""
+    """One token per row against the cache: the paged cache {'blocks':
+    (PagedLeaf k, PagedLeaf v) with pools [R, D, n, N, bs, KH, hd]} with
+    block_table [B, nmax] int32, or the contiguous cache {'blocks': (k,
+    v) each [R, D, n, B, S, KH, hd]} with none.  tokens [B]; pos [B]
+    int32 (cache write index).  The cache is updated in place.
+    ``active`` [B] bool keeps the contiguous rows of inactive lanes (in
+    the paged cache they write through zeroed table rows into the trash
+    block).  Returns (logits [B, V], cache)."""
     h = _embed(params, tokens[:, None], cfg)                 # [B, 1, d]
     h = _pt_step(params, cache, h, pos, cfg, "decode", block_table,
-                 kv_max_len)
+                 kv_max_len, active)
     return _head(params, h[:, 0], cfg), cache
 
 
 def pt_chunk_hidden(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
-                    cfg: ModelConfig, block_table: torch.Tensor,
+                    cfg: ModelConfig,
+                    block_table: Optional[torch.Tensor] = None,
                     kv_max_len: Optional[int] = None,
                     slots: Optional[torch.Tensor] = None,
                     chunk_lens: Optional[torch.Tensor] = None
@@ -271,7 +273,8 @@ def pt_chunk_hidden(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
 
 
 def pt_chunk_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
-                  cfg: ModelConfig, block_table: torch.Tensor,
+                  cfg: ModelConfig,
+                  block_table: Optional[torch.Tensor] = None,
                   kv_max_len: Optional[int] = None):
     """Chunked prefill: tokens [B, C] appended at positions pos[:, None] +
     arange(C) against the paged cache (updated in place).  Returns
@@ -294,7 +297,9 @@ def pt_cache_shape(cfg: ModelConfig, batch: int, seq_len: int
 
 def pt_init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                   device: DeviceLike = None) -> Dict[str, Any]:
-    """Zeroed dense cache {'blocks': (k, v), 'tail': ()}."""
+    """Zeroed contiguous cache {'blocks': (k, v), 'tail': ()}, each leaf
+    [R, D, n, batch, seq_len, KH, hd] in the model dtype (the reference's
+    ``pt_init_cache``)."""
     device = resolve_device(device)
     shape = pt_cache_shape(cfg, batch, seq_len)
     dtype = model_dtype(cfg)

@@ -1,23 +1,30 @@
-// Paged flash-decode for Hopper: one query token per sequence against a
-// block-pool K/V cache, GQA-aware, all Parallel-Track tracks in one launch.
-//
-// Replaces the Pallas kernel repro/kernels/decode_attention.py
-// ::paged_decode_attention (_paged_kernel, _online_softmax_step), both
-// its branches: fp pools, and int8 pools with fp32 per-token-per-head
-// scale pools [n, N, bs, KH, 1].  The int8 branch dequantizes each K and
-// V element as float(payload) * scale inside the 64-token loop, where
-// _online_softmax_step does it, so only int8 (plus one fp32 scale per
-// row) crosses device memory.
+// Flash-decode for Hopper: one query token per sequence against a K/V
+// cache, GQA-aware, in two layouts that share one kernel template:
+//   * paged: a block-pool cache read through a per-sequence block table,
+//     all Parallel-Track tracks in one launch.  Replaces the Pallas kernel
+//     repro/kernels/decode_attention.py::paged_decode_attention
+//     (_paged_kernel);
+//   * contiguous: a per-slot cache [B, S, KH, hd] (token t of row b at
+//     ((b*S + t)*KH + kh)*hd, no table).  Replaces the Pallas kernel
+//     repro/kernels/decode_attention.py::decode_attention (_kernel).
+// Both layouts have both branches of _online_softmax_step: fp caches, and
+// int8 caches with fp32 per-token-per-head scales ([..., KH, 1]).  The
+// int8 branch dequantizes each K and V element as float(payload) * scale
+// inside the 64-token loop, where _online_softmax_step does it, so only
+// int8 (plus one fp32 scale per row) crosses device memory.
 //
 // Bound on the H100: bytes.  Each live K/V row (and its scale) is read
 // once and feeds G query heads with 2*G flops per element, far below the
 // ~295 flop/byte ridge, so the kernel can at best stream the live cache at 3.35 TB/s.
 // Design:
 //   * grid (KH, B, n_tracks): one block per (track, row, KV head), so one
-//     launch covers every track of a layer (the JAX vmap over tracks);
-//   * the block reads its own block-table row (Hopper has no scalar
+//     launch covers every track of a layer (the JAX vmap over tracks; the
+//     contiguous layout folds the tracks into B instead);
+//   * a paged block reads its own block-table row (Hopper has no scalar
 //     prefetch) and visits only live tokens, min(length, ceil(max_len/bs)
-//     blocks) -- dead blocks are never read;
+//     blocks) -- dead blocks are never read; a contiguous block computes
+//     each row's offset and visits min(length, n_cols) tokens, n_cols the
+//     host's max_len cut;
 //   * each K/V row is loaded once for all G query heads of its KV head;
 //     the online-softmax state (m, l) lives in shared memory and the
 //     output accumulators in fp32 registers;
@@ -39,10 +46,12 @@ constexpr int kMaxG = 8;                         // query heads per KV head
 constexpr int kMaxHd = 256;
 constexpr int kDPerThread = kMaxHd / kThreads;   // output columns / thread
 
-// T: q / out type; P: pool type (T, or int8_t with scale pools)
-template <typename T, typename P>
+// T: q / out type; P: cache type (T, or int8_t with scale caches);
+// kPaged: block-pool layout through `table`, else the contiguous layout
+// (N = B, bs = S, n_sweep = columns to visit, table unused)
+template <typename T, typename P, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
+decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
                     const P* __restrict__ v_pool,
                     const float* __restrict__ k_scale,
                     const float* __restrict__ v_scale,
@@ -76,10 +85,11 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
   const P* kp = k_pool + track_off;
   const P* vp = v_pool + track_off;
   const size_t strack_off = (size_t)tr * N * bs * KH;   // scale pools
-  const int* trow = table + (size_t)b * nmax;
   const int L = lengths[b];
-  const int n_blk = min((L + bs - 1) / bs, n_sweep);
-  const int n_tok = max(0, min(L, n_blk * bs));   // columns >= L are masked
+  // columns >= L are masked; columns past the sweep are never visited
+  const int n_tok =
+      kPaged ? max(0, min(L, min((L + bs - 1) / bs, n_sweep) * bs))
+             : max(0, min(L, n_sweep));
 
   float acc[kDPerThread][kMaxG];
 #pragma unroll
@@ -99,8 +109,11 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
       float vsc = 1.f;
       if (t < tlen) {
         const int i = t0 + t;
-        const int blk = trow[i / bs];
-        const long long srow = ((long long)blk * bs + (i % bs)) * KH + kh;
+        // token row: through the table, or at (b, i) of the [B, S] cache
+        const long long srow =
+            kPaged ? ((long long)table[(size_t)b * nmax + i / bs] * bs +
+                      (i % bs)) * KH + kh
+                   : ((long long)b * bs + i) * KH + kh;
         row = srow * hd;
         float ksc = 1.f;
         if constexpr (kQuant) {
@@ -179,18 +192,51 @@ paged_decode_kernel(const T* __restrict__ q, const P* __restrict__ k_pool,
   }
 }
 
-template <typename T, typename P>
+template <typename T, typename P, bool kPaged>
 void launch(const dim3 grid, cudaStream_t s, const void* q, const void* k_pool,
             const void* v_pool, const void* k_scale, const void* v_scale,
             const void* table, const void* lengths, void* out, int B, int H,
             int KH, int hd, int N, int bs, int nmax, int n_sweep,
             float scale) {
-  paged_decode_kernel<T, P><<<grid, kThreads, 0, s>>>(
+  decode_kernel<T, P, kPaged><<<grid, kThreads, 0, s>>>(
       static_cast<const T*>(q), static_cast<const P*>(k_pool),
       static_cast<const P*>(v_pool), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int*>(table),
       static_cast<const int*>(lengths), static_cast<T*>(out), B, H, KH, hd, N,
       bs, nmax, n_sweep, scale);
+}
+
+// tag values pick the (q type, cache type) instantiation
+template <bool kPaged>
+int dispatch(const dim3 grid, const void* q, const void* k, const void* v,
+             const void* k_scale, const void* v_scale, const void* table,
+             const void* lengths, void* out, int B, int H, int KH, int hd,
+             int N, int bs, int nmax, int n_sweep, float scale, int dtype,
+             int cache_dtype, void* stream) {
+  if (H % KH != 0 || H / KH > kMaxG || hd > kMaxHd)
+    return (int)cudaErrorInvalidValue;
+  const bool quant = cache_dtype == rt::kInt8;
+  if (quant ? (k_scale == nullptr || v_scale == nullptr)
+            : cache_dtype != dtype)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto t, auto p) {
+    launch<decltype(t), decltype(p), kPaged>(grid, s, q, k, v, k_scale,
+                                             v_scale, table, lengths, out, B,
+                                             H, KH, hd, N, bs, nmax, n_sweep,
+                                             scale);
+  };
+  if (dtype == rt::kFloat32 && quant)
+    go(float{}, int8_t{});
+  else if (dtype == rt::kFloat32)
+    go(float{}, float{});
+  else if (dtype == rt::kBFloat16 && quant)
+    go(__nv_bfloat16{}, int8_t{});
+  else if (dtype == rt::kBFloat16)
+    go(__nv_bfloat16{}, __nv_bfloat16{});
+  else
+    return (int)cudaErrorInvalidValue;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -206,28 +252,22 @@ extern "C" int paged_decode_attention_launch(
     const void* lengths, void* out, int n, int B, int H, int KH, int hd,
     int N, int bs, int nmax, int n_sweep, float scale, int dtype,
     int pool_dtype, void* stream) {
-  if (H % KH != 0 || H / KH > kMaxG || hd > kMaxHd)
-    return (int)cudaErrorInvalidValue;
-  const bool quant = pool_dtype == rt::kInt8;
-  if (quant ? (k_scale == nullptr || v_scale == nullptr) : pool_dtype != dtype)
-    return (int)cudaErrorInvalidValue;
-  const dim3 grid(KH, B, n);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // tag values pick the (q type, pool type) instantiation
-  auto go = [&](auto t, auto p) {
-    launch<decltype(t), decltype(p)>(grid, s, q, k_pool, v_pool, k_scale,
-                                     v_scale, table, lengths, out, B, H, KH,
-                                     hd, N, bs, nmax, n_sweep, scale);
-  };
-  if (dtype == rt::kFloat32 && quant)
-    go(float{}, int8_t{});
-  else if (dtype == rt::kFloat32)
-    go(float{}, float{});
-  else if (dtype == rt::kBFloat16 && quant)
-    go(__nv_bfloat16{}, int8_t{});
-  else if (dtype == rt::kBFloat16)
-    go(__nv_bfloat16{}, __nv_bfloat16{});
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  return dispatch<true>(dim3(KH, B, n), q, k_pool, v_pool, k_scale, v_scale,
+                        table, lengths, out, B, H, KH, hd, N, bs, nmax,
+                        n_sweep, scale, dtype, pool_dtype, stream);
+}
+
+// q [B, H, hd]; k_cache/v_cache [B, S, KH, hd] of q's dtype, or int8
+// (cache_dtype rt::kInt8) with k_scale/v_scale [B, S, KH, 1] fp32 (null
+// for fp caches); lengths [B] int32; n_cols (1..S) the columns the sweep
+// may visit; out [B, H, hd] of q's dtype.  All contiguous, on one device.
+// Returns cudaGetLastError() after the launch.
+extern "C" int decode_attention_launch(
+    const void* q, const void* k_cache, const void* v_cache,
+    const void* k_scale, const void* v_scale, const void* lengths, void* out,
+    int B, int H, int KH, int hd, int S, int n_cols, float scale, int dtype,
+    int cache_dtype, void* stream) {
+  return dispatch<false>(dim3(KH, B, 1), q, k_cache, v_cache, k_scale,
+                         v_scale, nullptr, lengths, out, B, H, KH, hd, B, S,
+                         1, n_cols, scale, dtype, cache_dtype, stream);
 }

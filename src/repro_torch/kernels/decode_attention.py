@@ -1,17 +1,25 @@
-"""Paged flash-decode: one query token per sequence against a block-pool
-K/V cache, for every Parallel-Track track of a layer in one launch.
+"""Flash-decode: one query token per sequence against a K/V cache, in
+the two layouts of the reference.
 
-Replaces ``repro/kernels/decode_attention.py::paged_decode_attention``
-(the Pallas ``_paged_kernel``), both branches: fp pools, and int8 pools
-whose fp32 per-token-per-head scale pools are dequantized inside the
-softmax loop (``_online_softmax_step``'s ``ks``/``vs``).  The CUDA
-kernel is ``csrc/paged_decode.cu``, one template for both; what bounds
-it on the H100 (bytes: each live K/V row is read once for all G query
-heads) and how its design answers that is noted there.
-``paged_decode_attention_plain`` is the same function in plain PyTorch:
-the wrappers run it for CPU tensors, and the on-card check holds the
-kernel against it.  The int8 branch keeps its own launch count, on
-``paged_decode_attention_int8``.
+  * ``paged_decode_attention`` -- a block-pool cache read through a
+    block table, every Parallel-Track track of a layer in one launch;
+    replaces ``repro/kernels/decode_attention.py::paged_decode_attention``
+    (the Pallas ``_paged_kernel``).
+  * ``decode_attention`` -- a contiguous per-slot cache [B, S, KH, hd];
+    replaces ``repro/kernels/decode_attention.py::decode_attention`` (the
+    Pallas ``_kernel``).
+
+Both have both branches: fp caches, and int8 caches whose fp32
+per-token-per-head scales are dequantized inside the softmax loop
+(``_online_softmax_step``'s ``ks``/``vs``).  The CUDA kernel is
+``csrc/paged_decode.cu``, one template for both layouts and both
+branches; what bounds it on the H100 (bytes: each live K/V row is read
+once for all G query heads) and how its design answers that is noted
+there.  ``paged_decode_attention_plain`` and ``decode_attention_plain``
+are the same functions in plain PyTorch: the wrappers run them for CPU
+tensors, and the on-card checks hold the kernels against them.  Each
+int8 branch keeps its own launch count (``paged_decode_attention_int8``,
+``decode_attention_int8``), apart from its fp branch.
 """
 from __future__ import annotations
 
@@ -205,3 +213,176 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
 
 paged_decode_attention.launches = 0
 paged_decode_attention_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# contiguous layout
+# ---------------------------------------------------------------------------
+
+def _sweep_cols(S: int, block_s: int, max_len: Optional[int]) -> int:
+    """Cache columns the sweep may visit: all S, or the ``max_len`` cut
+    to ceil(max_len / block_s) tiles of ``min(block_s, S)`` (at least
+    one), as the Pallas kernel's grid.  Unlike the Pallas kernel, S need
+    not be a multiple of the tile."""
+    if max_len is None:
+        return S
+    block_s = min(block_s, S)
+    return min(S, max(1, -(-max_len // block_s)) * block_s)
+
+
+def _check_dense(q, k_cache, v_cache, lengths, k_scale=None,
+                 v_scale=None) -> None:
+    if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError(f"want q [B,H,hd] and caches [B,S,KH,hd]; got "
+                         f"{tuple(q.shape)}, {tuple(k_cache.shape)}, "
+                         f"{tuple(v_cache.shape)}")
+    B, H, hd = q.shape
+    if k_cache.shape[0] != B or k_cache.shape[3] != hd \
+            or H % k_cache.shape[2] or k_cache.shape[1] == 0:
+        raise ValueError(f"q {tuple(q.shape)} does not match caches "
+                         f"{tuple(k_cache.shape)}")
+    if tuple(lengths.shape) != (B,) or lengths.dtype != torch.int32:
+        raise ValueError(f"want int32 lengths [{B}], got "
+                         f"{tuple(lengths.shape)} {lengths.dtype}")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    if k_scale is None:
+        if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
+            raise ValueError(f"dtype mismatch: q {q.dtype}, caches "
+                             f"{k_cache.dtype}")
+        return
+    want = tuple(k_cache.shape[:-1]) + (1,)
+    if k_cache.dtype != torch.int8 or v_cache.dtype != torch.int8:
+        raise ValueError(f"scales need int8 caches, got {k_cache.dtype}")
+    for s in (k_scale, v_scale):
+        if tuple(s.shape) != want or s.dtype != torch.float32:
+            raise ValueError(f"want fp32 scales {want}, got "
+                             f"{tuple(s.shape)} {s.dtype}")
+
+
+def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                           block_s: int = 512,
+                           max_len: Optional[int] = None,
+                           k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Plain PyTorch version: the swept columns of the cache
+    (dequantizing int8 caches: payload * per-row scale), masked fp32
+    softmax.  q [B, H, hd]; caches [B, S, KH, hd] (int8 with fp32 scales
+    [B, S, KH, 1]); lengths [B] int32 (columns >= length are masked).
+    Returns [B, H, hd] in q's dtype."""
+    B, S, KH, hd = k_cache.shape
+    H = q.shape[1]
+    n_c = _sweep_cols(S, block_s, max_len)
+
+    def cols(cache, scale):
+        c = cache[:, :n_c].float()
+        return c if scale is None else c * scale[:, :n_c]
+
+    k = cols(k_cache, k_scale)
+    v = cols(v_cache, v_scale)
+    qf = q.float().reshape(B, KH, H // KH, hd) * hd ** -0.5
+    s = torch.einsum("bkgd,bskd->bkgs", qf, k)
+    live = (torch.arange(n_c, device=q.device)[None, :]
+            < lengths.to(q.device).long()[:, None])                # [B, S]
+    s = s.masked_fill(~live[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgs,bskd->bkgd", p, v)
+    return o.reshape(B, H, hd).to(q.dtype)
+
+
+def _dense_launcher():
+    fn = build.library("paged_decode.cu").decode_attention_launch
+    if fn.argtypes is None:
+        vp, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
+                       ctypes.c_float, i, i, vp]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _dense_launch(q, k_cache, v_cache, k_scale, v_scale, lengths, block_s,
+                  max_len) -> torch.Tensor:
+    """Launch the contiguous-layout kernel on checked operands (either
+    branch)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in _DTYPES:
+        raise ValueError(f"unsupported dtype {q.dtype}")
+    operands = [q, k_cache, v_cache, lengths]
+    if k_scale is not None:
+        operands += [k_scale, v_scale]
+    for t in operands:
+        if t.device != q.device or not t.is_contiguous():
+            raise ValueError("all operands must be contiguous on one device")
+    B, H, hd = q.shape
+    S, KH = k_cache.shape[1:3]
+    if H // KH > 8 or hd > 256:
+        raise ValueError(f"kernel takes G <= 8 and hd <= 256, got "
+                         f"G={H // KH}, hd={hd}")
+    out = torch.empty_like(q)
+    quant = k_scale is not None
+    err = _dense_launcher()(q.data_ptr(), k_cache.data_ptr(),
+                            v_cache.data_ptr(),
+                            k_scale.data_ptr() if quant else None,
+                            v_scale.data_ptr() if quant else None,
+                            lengths.data_ptr(), out.data_ptr(), B, H, KH,
+                            hd, S, _sweep_cols(S, block_s, max_len),
+                            hd ** -0.5, _DTYPES[q.dtype],
+                            _INT8 if quant else _DTYPES[q.dtype],
+                            build.cuda_stream(q))
+    build.check(err, "decode_attention")
+    return out
+
+
+def decode_attention_int8(q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor, k_scale: torch.Tensor,
+                          v_scale: torch.Tensor, lengths: torch.Tensor, *,
+                          block_s: int = 512,
+                          max_len: Optional[int] = None) -> torch.Tensor:
+    """The int8 branch: caches int8 [B, S, KH, hd] with fp32 scales
+    [B, S, KH, 1], dequantized per row inside the softmax loop; otherwise
+    as ``decode_attention``.  CPU tensors run the plain version; CUDA
+    tensors launch the kernel or raise."""
+    _check_dense(q, k_cache, v_cache, lengths, k_scale, v_scale)
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, lengths,
+                                      block_s=block_s, max_len=max_len,
+                                      k_scale=k_scale, v_scale=v_scale)
+    out = _dense_launch(q, k_cache, v_cache, k_scale, v_scale, lengths,
+                        block_s, max_len)
+    decode_attention_int8.launches += 1
+    return out
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                     block_s: int = 512, max_len: Optional[int] = None,
+                     k_scale: Optional[torch.Tensor] = None,
+                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Flash-decode over a contiguous cache, the reference's signature.
+
+    q [B, H, hd]; caches [B, S, KH, hd] (the tracks of a PT layer folded
+    into B); lengths [B] int32 live tokens; ``max_len`` (host-known
+    bound on lengths) cuts the sweep to ceil(max_len / block_s) tiles of
+    ``min(block_s, S)`` columns.  int8 caches pass their ``k_scale`` /
+    ``v_scale`` [B, S, KH, 1] and go to ``decode_attention_int8``.
+    Returns [B, H, hd].  CPU tensors run the plain version; CUDA tensors
+    launch the kernel or raise."""
+    if k_scale is not None or v_scale is not None:
+        return decode_attention_int8(q, k_cache, v_cache, k_scale, v_scale,
+                                     lengths, block_s=block_s,
+                                     max_len=max_len)
+    _check_dense(q, k_cache, v_cache, lengths)
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_cache, v_cache, lengths,
+                                      block_s=block_s, max_len=max_len)
+    out = _dense_launch(q, k_cache, v_cache, None, None, lengths, block_s,
+                        max_len)
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+decode_attention_int8.launches = 0

@@ -4,13 +4,15 @@ Each wrapper launches its hand-written kernel for CUDA tensors (raising
 if it cannot) and runs its plain PyTorch version for CPU tensors.  Each
 keeps ``launches``, a plain int it bumps only where it launched the
 kernel, so a run can show which kernels its path went through.  The
-int8 branch of paged decode counts apart from the fp branch.
+int8 branch of each decode kernel counts apart from its fp branch.
 """
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.kernels.decode_attention import (paged_decode_attention,
+from repro_torch.kernels.decode_attention import (decode_attention,
+                                                  decode_attention_int8,
+                                                  paged_decode_attention,
                                                   paged_decode_attention_int8)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.quant_matmul import int8_matmul
@@ -22,7 +24,9 @@ KERNELS = {"paged_decode_attention": paged_decode_attention,
            "rmsnorm": rmsnorm,
            "paged_decode_attention_int8": paged_decode_attention_int8,
            "int8_matmul": int8_matmul,
-           "ssm_scan": ssm_scan}
+           "ssm_scan": ssm_scan,
+           "decode_attention": decode_attention,
+           "decode_attention_int8": decode_attention_int8}
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,8 +1,9 @@
-"""Serving launcher of the port: builds a model (a Parallel-Track model or
-falcon-mamba-7b) with random weights from ``--seed``, serves a synthetic
-greedy workload through the paged engine and reports TTFT / TPOT /
-throughput and the launch count of each kernel.  Runs on the GPU unless
-``--device cpu`` is given.
+"""Serving launcher of the port: builds a model (a Parallel-Track model,
+a dense baseline, tinyllama-1.1b or falcon-mamba-7b) with random weights
+from ``--seed``, serves a synthetic greedy workload through the engine
+(the paged cache, or with ``--contiguous`` the contiguous one) and
+reports TTFT / TPOT / throughput and the launch count of each kernel.
+Runs on the GPU unless ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
       --requests 8 --input-len 512 --output-len 64 --slots 8
@@ -13,6 +14,8 @@ throughput and the launch count of each kernel.  Runs on the GPU unless
       --prefill-chunk 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
       --reduced --device cpu --prefill-chunk 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch dense-6b \
+      --reduced --device cpu --contiguous
 """
 from __future__ import annotations
 
@@ -38,6 +41,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--input-len", type=int, default=64)
     ap.add_argument("--output-len", type=int, default=32)
     ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--contiguous", action="store_true",
+                    help="serve through the contiguous per-slot cache "
+                    "instead of the paged cache")
     ap.add_argument("--block-size", type=int, default=16,
                     help="paged-cache tokens per KV block")
     ap.add_argument("--num-blocks", type=int, default=None,
@@ -69,22 +75,27 @@ def main(argv: Optional[List[str]] = None) -> int:
     eng = Engine(cfg, params, max_slots=args.slots,
                  max_seq_len=args.input_len + args.output_len + 8,
                  max_waiting_prefill_tokens=args.prefill_budget,
-                 block_size=args.block_size, num_blocks=args.num_blocks,
+                 paged=not args.contiguous, block_size=args.block_size,
+                 num_blocks=args.num_blocks,
                  prefill_chunk=args.prefill_chunk, kv_dtype=args.kv_dtype,
                  weight_dtype=args.weight_dtype, device=device)
     del params                 # an int8 engine holds its own copy
-    if eng.runner.kv_dtype or eng.runner.weight_dtype:
-        st = eng.runner.cache_stats()
-        print(f"[serve] quantized: kv={st['kv_dtype']} "
-              f"weights={st['weight_dtype']} "
-              f"({st['quantized_weight_leaves']} leaves), pool "
-              f"{st['pool_bytes'] / 1e6:.1f} MB "
-              f"({st['bytes_per_block']} B/block)")
     st = eng.runner.cache_stats()
-    print(f"[serve] cache: leaves {st['leaf_kinds']}, pool "
-          f"{st['pool_bytes'] / 1e6:.1f} MB, state rows "
-          f"{st['state_bytes'] / 1e6:.1f} MB, {st['num_blocks']} blocks of "
-          f"{st['block_size']}")
+    if st["mode"] == "contiguous":
+        print(f"[serve] cache: contiguous, {args.slots} rows of "
+              f"{eng.max_seq_len} positions, weights={st['weight_dtype']} "
+              f"({st['quantized_weight_leaves']} leaves quantized)")
+    else:
+        if eng.runner.kv_dtype or eng.runner.weight_dtype:
+            print(f"[serve] quantized: kv={st['kv_dtype']} "
+                  f"weights={st['weight_dtype']} "
+                  f"({st['quantized_weight_leaves']} leaves), pool "
+                  f"{st['pool_bytes'] / 1e6:.1f} MB "
+                  f"({st['bytes_per_block']} B/block)")
+        print(f"[serve] cache: leaves {st['leaf_kinds']}, pool "
+              f"{st['pool_bytes'] / 1e6:.1f} MB, state rows "
+              f"{st['state_bytes'] / 1e6:.1f} MB, {st['num_blocks']} "
+              f"blocks of {st['block_size']}")
     for why in eng.runner.quant_fallbacks:
         print(f"[serve] quantization fallback: {why}")
     rng = np.random.default_rng(args.seed)

@@ -8,7 +8,10 @@ arguments on both paths: a PT cache has no per-slot state rows, so
 ``active``, ``slots`` and ``chunk_lens`` change nothing there (in the
 reference they are dead code for it too).  ``chunk_hidden`` (no
 reference counterpart) is the chunk step without the LM head, which the
-runner applies to each request's last real row only.
+runner applies to each request's last real row only.  ``init_cache`` is
+the contiguous cache of either path, the engine cache of
+``Engine(paged=False)``: ``[R, D, n, B, S, KH, hd]`` K and V for a PT
+model, the ``lm_*`` tree of per-layer rows otherwise.
 """
 from __future__ import annotations
 

@@ -1,13 +1,17 @@
 """GQA attention over the stacked track dim: whole-prompt prefill through
-the flash-attention kernel, paged decode through the paged-decode kernel
-(either branch: fp or int8 pools), chunked prefill against the pools
+the flash-attention kernel, decode through the paged-decode kernel
+(either branch: fp or int8 pools) or, on the contiguous cache, through
+the contiguous-cache decode kernel, chunked prefill against the pools
 (counterpart of ``repro.models.attention``).
 
-Layout conventions (JAX layouts, with a leading track dim n):
+Layout conventions (JAX layouts, with a leading track dim n; a layer of
+the dense ``lm_*`` decoder comes here as n = 1 views):
 - activations: x [n, B, S, d]
 - weights    : wq [n, d, H, hd]; wk/wv [n, d, KH, hd]; wo [n, H, hd, d]
 - K/V pools  : [n, N, bs, KH, hd] (one layer's slice of the engine pool),
                RoPE already applied to K.
+- contiguous : [n, B, S, KH, hd] per-slot rows (one layer's slice of the
+               contiguous engine cache), RoPE already applied to K.
 Every projection is one batched GEMM over the tracks, every attention
 call one kernel launch for all tracks.  int8 weights (``QuantTensor``)
 take the W8A16 kernel in every projection, ``wq``/``wk``/``wv`` and
@@ -15,13 +19,13 @@ take the W8A16 kernel in every projection, ``wq``/``wk``/``wv`` and
 the activation dtype.  int8 pools (``PagedLeaf.scale``) quantize rows on
 write and dequantize on read.
 
-Not ported (each raises): sliding windows and ring caches, the
-contiguous cache, logit softcap on the paged decode path, qk-norm,
-M-RoPE, cross-attention.
+Not ported (each raises): sliding windows and ring caches, logit
+softcap on the decode paths, chunked prefill into a contiguous cache
+(the speculative drafter's), qk-norm, M-RoPE, cross-attention.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -142,8 +146,8 @@ def _paged_decode(params, q: torch.Tensor, k_new: torch.Tensor,
     if block_table is None:
         raise ValueError("paged cache leaf but no block_table passed")
     if spec.attn_logit_softcap is not None:
-        raise NotImplementedError("logit softcap on the paged decode path "
-                                  "is not ported (ROADMAP queue 1, item 3)")
+        raise NotImplementedError("logit softcap on the decode paths is "
+                                  "not ported (ROADMAP queue 1, item 3)")
     bs = k_leaf.pool.shape[2]
     w_idx = token_to_pool(block_table, pos[:, None], bs)[:, 0]
     pool_write(k_leaf, k_new, w_idx)
@@ -157,19 +161,62 @@ def _paged_decode(params, q: torch.Tensor, k_new: torch.Tensor,
     return out, (k_leaf, v_leaf)
 
 
-def attention_decode(params, x: torch.Tensor,
-                     cache: Tuple[PagedLeaf, PagedLeaf], *, spec: LayerSpec,
-                     cfg: ModelConfig, pos: torch.Tensor,
+def _dense_decode(params, q: torch.Tensor, k_new: torch.Tensor,
+                  v_new: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, *, spec: LayerSpec,
+                  pos: torch.Tensor, active: Optional[torch.Tensor],
+                  kv_max_len: Optional[int], out_dtype: torch.dtype):
+    """Decode step against contiguous per-slot rows (the reference's
+    dense branch with ``_scatter_cache``).  q [n, B, H, hd]; k_new/v_new
+    [n, B, KH, hd]; caches [n, B, S, KH, hd]; pos [B] int32.
+
+    The new K/V row lands in place at [:, b, pos[b]] first.  A lane
+    with ``active`` false keeps its old row, and so does a lane whose
+    pos lies past the cache (a finished slot's pos may reach S): the
+    reference's scatter drops that write.  Then the kernel attends, the
+    tracks folded into its batch, over ``lengths = pos + 1`` columns.
+    Returns (out [n, B, 1, d], (k_cache, v_cache))."""
+    if spec.attn_logit_softcap is not None:
+        raise NotImplementedError("logit softcap on the decode paths is "
+                                  "not ported (ROADMAP queue 1, item 3)")
+    n, B, S, KH, hd = k_cache.shape
+    H = q.shape[2]
+    b = torch.arange(B, device=pos.device)
+    slot = pos.long().clamp(max=S - 1)
+    keep = pos < S
+    if active is not None:
+        keep = keep & active
+    keep = keep[None, :, None, None]
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        cache[:, b, slot] = torch.where(keep, new.to(cache.dtype),
+                                        cache[:, b, slot])
+    lengths = (pos + 1).to(torch.int32).repeat(n)
+    ctx = ops.decode_attention(q.reshape(n * B, H, hd),
+                               k_cache.view(n * B, S, KH, hd),
+                               v_cache.view(n * B, S, KH, hd), lengths,
+                               max_len=kv_max_len)
+    out = _out_proj(params, ctx.reshape(n, B, H, hd).to(out_dtype))
+    return out[:, :, None], (k_cache, v_cache)
+
+
+def attention_decode(params, x: torch.Tensor, cache: Tuple[Any, Any], *,
+                     spec: LayerSpec, cfg: ModelConfig, pos: torch.Tensor,
                      block_table: Optional[torch.Tensor] = None,
-                     kv_max_len: Optional[int] = None):
-    """x [n, B, 1, d]; cache: this layer's (k, v) block pools; pos [B]
-    int32.  ``kv_max_len`` (host-known bound on pos + 1) cuts the kernel's
-    block sweep to the live prefix.  Returns (out [n, B, 1, d], cache)."""
+                     kv_max_len: Optional[int] = None,
+                     active: Optional[torch.Tensor] = None):
+    """x [n, B, 1, d]; cache: this layer's (k, v) block pools, or its
+    contiguous rows [n, B, S, KH, hd]; pos [B] int32.  ``kv_max_len``
+    (host-known bound on pos + 1) cuts the kernel's sweep to the live
+    prefix.  ``active`` [B] bool keeps the contiguous rows of inactive
+    lanes (pool leaves are protected by their zeroed table rows).
+    Returns (out [n, B, 1, d], cache)."""
     k_leaf, v_leaf = cache
-    if not is_paged(k_leaf):
-        raise NotImplementedError("the contiguous (non-paged) cache is not "
-                                  "ported (ROADMAP queue 1, item 1)")
     q, k_new, v_new = _project_qkv(params, x, cfg, pos[:, None])
+    if not is_paged(k_leaf):
+        return _dense_decode(params, q[:, :, 0], k_new[:, :, 0],
+                             v_new[:, :, 0], k_leaf, v_leaf, spec=spec,
+                             pos=pos, active=active, kv_max_len=kv_max_len,
+                             out_dtype=x.dtype)
     return _paged_decode(params, q[:, :, 0], k_new[:, :, 0], v_new[:, :, 0],
                          k_leaf, v_leaf, spec=spec, pos=pos,
                          block_table=block_table, kv_max_len=kv_max_len,
@@ -194,9 +241,9 @@ def attention_chunk(params, x: torch.Tensor,
     live prefix.  Returns (out [n, B, C, d], cache)."""
     k_leaf, v_leaf = cache
     if not is_paged(k_leaf):
-        raise NotImplementedError("chunked prefill into the contiguous or "
-                                  "ring caches is not ported (ROADMAP "
-                                  "queue 1, items 1 and 3)")
+        raise NotImplementedError("chunked prefill into a contiguous cache "
+                                  "(the speculative drafter's) is not "
+                                  "ported (ROADMAP queue 1, item 6)")
     if block_table is None:
         raise ValueError("attention_chunk on a paged cache requires a "
                          "block_table")

@@ -4,9 +4,9 @@ with the embedding and LM head the Parallel-Track model shares.
 The layer stack is (prefix, unit × R, suffix) per ModelConfig, as in the
 reference; the repeated unit's parameters and cache leaves are stacked
 on a leading [R] axis, and the layers run as a Python loop over it (the
-reference scans).  Only the Mamba layer is ported on this path
-(falcon-mamba-7b); the GQA branch with the dense baselines is ROADMAP
-queue 1, item 2.
+reference scans).  Two layers are ported on this path: GQA + SwiGLU
+(the paper's dense baselines, tinyllama-1.1b) and Mamba
+(falcon-mamba-7b).
 
   init_lm(generator, cfg, device)               -> params
   lm_forward(params, batch, cfg, mode)          -> (logits, cache)
@@ -15,10 +15,13 @@ queue 1, item 2.
   lm_chunk_hidden(...)                          -> hidden states (no head)
   init_cache(cfg, batch, seq_len, device)       -> zeroed cache
 
-The cache is the reference's tree {"prefix", "unit", "suffix"}; a Mamba
-layer's entry is (conv window [.., B, dc-1, di] in the model dtype,
-h [.., B, di, ds] fp32): per-slot state rows, updated in place by the
-decode and chunk steps.  (The reference's prefill also returns an
+The cache is the reference's tree {"prefix", "unit", "suffix"} (unit
+leaves stacked [R, ...]).  A GQA layer's entry is (k, v), each
+[.., B, S, KH, hd] in the model dtype (the contiguous cache), or the
+paged engine's (PagedLeaf k, PagedLeaf v) pools [.., N, bs, KH, hd]; a
+Mamba layer's entry is (conv window [.., B, dc-1, di] in the model
+dtype, h [.., B, di, ds] fp32): per-slot state rows.  The decode and
+chunk steps update every leaf in place.  (The reference's prefill also returns an
 auxiliary loss, always zero here; training is ROADMAP queue 1, item 9.)
 """
 from __future__ import annotations
@@ -32,6 +35,7 @@ from repro_torch.common import quant
 from repro_torch.common.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.common.types import ModelConfig
 from repro_torch.models.layers import check_supported, layer_apply, layer_shapes
+from repro_torch.models import rope as rope_lib
 from repro_torch.models.norms import apply_norm
 from repro_torch.models.params import Leaf, make_params, stack
 
@@ -153,15 +157,25 @@ def _stacked(caches: List[Any]) -> Any:
 
 def lm_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                mode: str = "prefill"):
-    """Whole-prompt prefill.  batch: {'inputs': [B, S] token ids}.
+    """Whole-prompt prefill.  batch: {'inputs': [B, S] token ids,
+    'positions'?: [B, S]}.
     Returns (logits [B, S, V], cache) in the reference's prefill layout
-    (unit leaves stacked [R, B, ...]).  Recurrent layers carry every
-    position into their state, so rows must not be right-padded: the
-    engine prefills them at exact length."""
+    (a GQA layer's (k, v) [B, S, KH, hd] with RoPE applied, unit leaves
+    stacked [R, B, ...]).  Right-padded rows are safe for full
+    attention: a padded key lies causally after every real query (the
+    reference's ``lengths`` only shapes ring caches, not ported).
+    Recurrent layers carry every position into their state, so their
+    rows must not be right-padded: the engine prefills them at exact
+    length."""
     if mode != "prefill":
         raise NotImplementedError(f"lm_forward mode {mode!r} is not ported "
                                   "(train: ROADMAP queue 1, item 9)")
-    h = _embed(params, batch["inputs"], cfg)
+    inputs = batch["inputs"]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = rope_lib.positions_default(*inputs.shape[:2],
+                                               device=inputs.device)
+    h = _embed(params, inputs, cfg)
     caches: Dict[str, Any] = {"prefix": [], "unit": [[] for _ in
                                                      cfg.pattern_unit],
                               "suffix": []}
@@ -169,7 +183,7 @@ def lm_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         lp = (params[group][i] if r is None
               else _at(params["unit"][i], r))
         h, c = layer_apply(lp, h, cfg=cfg, spec=cfg.spec(nm),
-                           mode="prefill")
+                           mode="prefill", positions=positions)
         (caches[group] if r is None else caches["unit"][i]).append(c)
     cache = {"prefix": tuple(caches["prefix"]),
              "unit": (tuple(_stacked(cs) for cs in caches["unit"])
@@ -244,29 +258,40 @@ def lm_chunk_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
     return _head(params, h, cfg), cache
 
 
-def _layer_cache(cfg: ModelConfig, nm: str, lead, device) -> Any:
-    spec = cfg.spec(nm)
-    if spec.mixer != "mamba":
-        raise NotImplementedError(f"a {spec.mixer} cache on the lm_* path "
-                                  "is not ported (ROADMAP queue 1, items "
-                                  "1-2)")
+def layer_cache(cfg: ModelConfig, nm: str, lead, batch: int, seq_len: int,
+                device, kv_dtype: Optional[torch.dtype] = None) -> Any:
+    """Zeroed cache entry of layer ``nm`` with stacking dims ``lead``: a
+    GQA layer's (k, v) [*lead, batch, seq_len, KH, hd] (in ``kv_dtype``,
+    default the model dtype; the paged engine asks for (num_blocks,
+    block_size) in place of (batch, seq_len)), a Mamba layer's state
+    rows for ``batch`` slots."""
+    if cfg.spec(nm).mixer == "gqa":
+        shape = (*lead, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
+        dtype = kv_dtype or model_dtype(cfg)
+        return tuple(torch.zeros(shape, dtype=dtype, device=device)
+                     for _ in range(2))
     s = cfg.ssm
-    return (torch.zeros(*lead, s.d_conv - 1, s.d_inner,
+    return (torch.zeros(*lead, batch, s.d_conv - 1, s.d_inner,
                         dtype=model_dtype(cfg), device=device),
-            torch.zeros(*lead, s.d_inner, s.d_state, dtype=torch.float32,
-                        device=device))
+            torch.zeros(*lead, batch, s.d_inner, s.d_state,
+                        dtype=torch.float32, device=device))
+
+
+def map_layers(cfg: ModelConfig, fn) -> Dict[str, Any]:
+    """The {"prefix", "unit", "suffix"} tree of ``fn(name, lead)`` over
+    the layer pattern; ``lead`` is (R,) in the unit, () elsewhere."""
+    R = cfg.pattern_repeat
+    return {"prefix": tuple(fn(nm, ()) for nm in cfg.pattern_prefix),
+            "unit": tuple(fn(nm, (R,)) for nm in cfg.pattern_unit)
+            if R else (),
+            "suffix": tuple(fn(nm, ()) for nm in cfg.pattern_suffix)}
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
                device: DeviceLike = None) -> Dict[str, Any]:
-    """Zeroed cache for ``batch`` rows (``seq_len`` does not change the
-    size of state leaves)."""
+    """Zeroed contiguous cache for ``batch`` rows of ``seq_len``
+    positions (``seq_len`` does not change the size of state leaves)."""
     check_supported(cfg)
     device = resolve_device(device)
-    R = cfg.pattern_repeat
-    return {"prefix": tuple(_layer_cache(cfg, nm, (batch,), device)
-                            for nm in cfg.pattern_prefix),
-            "unit": tuple(_layer_cache(cfg, nm, (R, batch), device)
-                          for nm in cfg.pattern_unit) if R else (),
-            "suffix": tuple(_layer_cache(cfg, nm, (batch,), device)
-                            for nm in cfg.pattern_suffix)}
+    return map_layers(cfg, lambda nm, lead: layer_cache(
+        cfg, nm, lead, batch, seq_len, device))

@@ -2,8 +2,11 @@
 ``repro.models.layers``).
 
 Two flavours are ported:
-  * the Parallel-Track layer, GQA + SwiGLU over the stacked track dim
-    (x [n, B, S, d], every parameter [n, ...]);
+  * the GQA + SwiGLU layer: over the stacked track dim in a
+    Parallel-Track model (x [n, B, S, d], every parameter [n, ...]), and
+    in the dense ``lm_*`` decoder (x [B, S, d]), where the layer views x
+    as [1, B, S, d] and every parameter and cache leaf with a leading
+    track dim of 1 (views, no copies) and runs the same code;
   * the Mamba layer of the dense ``lm_*`` decoder, mixer only
     (``mlp="none"``, x [B, S, d]).
 
@@ -12,8 +15,10 @@ Two flavours are ported:
               ((k, v) for GQA, (conv window, h) for Mamba)
   'decode'  — one token per row against the layer's cache
   'chunk'   — C tokens per row appended to the layer's cache
-GQA caches are block pools written through the block table; Mamba
-caches are per-slot state rows, updated in place: the chunk batch
+GQA caches are block pools written through the block table, or
+contiguous per-slot rows [.., B, S, KH, hd] written at each row's
+position (inactive decode lanes keep their rows); Mamba caches are
+per-slot state rows, updated in place: the chunk batch
 gathers its rows at ``slots``, advances them by ``chunk_lens`` valid
 tokens and writes them back (``index_copy_``), and a decode step
 rewrites every row with ``active`` lanes frozen (the reference does the
@@ -25,6 +30,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.common.paged import PagedLeaf
+from repro_torch.common.quant import QuantTensor
 from repro_torch.common.types import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_lib
@@ -33,22 +40,23 @@ from repro_torch.models.norms import apply_norm
 from repro_torch.models.params import Leaf
 
 _PT_LAYER = ("gqa", "swiglu")       # (mixer, mlp) of the PT path
-_LM_LAYERS = (("mamba", "none"),)   # (mixer, mlp) of the lm_* path
+_LM_LAYERS = (("gqa", "swiglu"), ("mamba", "none"))   # of the lm_* path
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless every layer is a ported flavour: GQA + SwiGLU in a PT
-    model, Mamba alone in a dense ``lm_*`` model."""
+    model; GQA + SwiGLU or Mamba alone in a dense ``lm_*`` model.  GQA
+    layers take full attention with RoPE (no window, no M-RoPE)."""
     unported = []
     for nm in cfg.layer_names:
         s = cfg.spec(nm)
         if cfg.pt is not None:
             if (s.mixer, s.mlp) != _PT_LAYER:
                 unported.append(f"PT layer mixer={s.mixer} mlp={s.mlp}")
-            if s.window is not None or s.rope != "rope":
-                unported.append(f"window={s.window} rope={s.rope}")
         elif (s.mixer, s.mlp) not in _LM_LAYERS:
             unported.append(f"lm_* layer mixer={s.mixer} mlp={s.mlp}")
+        if s.mixer == "gqa" and (s.window is not None or s.rope != "rope"):
+            unported.append(f"window={s.window} rope={s.rope}")
         if s.cross_attn:
             unported.append("cross-attention")
     if cfg.post_norm or cfg.qk_norm or cfg.norm != "rmsnorm":
@@ -61,7 +69,7 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: not ported to repro_torch yet ("
             + "; ".join(sorted(set(unported)))
-            + "); see ROADMAP queue 1, items 2-3")
+            + "); see ROADMAP queue 1, item 3")
 
 
 def layer_shapes(cfg: ModelConfig, spec: LayerSpec,
@@ -114,20 +122,52 @@ def _mamba(params, h: torch.Tensor, *, cfg: ModelConfig, mode: str,
 
 
 def _gqa(params, h: torch.Tensor, *, cfg: ModelConfig, spec: LayerSpec,
-         mode: str, positions, pos, cache, block_table, kv_max_len):
+         mode: str, positions, pos, cache, block_table, kv_max_len, active):
     if mode == "prefill":
         return attn.attention_apply(params, h, spec=spec, cfg=cfg,
                                     positions=positions, return_cache=True)
     if mode == "decode":
         return attn.attention_decode(params, h, cache, spec=spec, cfg=cfg,
                                      pos=pos, block_table=block_table,
-                                     kv_max_len=kv_max_len)
+                                     kv_max_len=kv_max_len, active=active)
     if mode == "chunk":
         return attn.attention_chunk(params, h, cache, spec=spec, cfg=cfg,
                                     pos=pos, block_table=block_table,
                                     kv_max_len=kv_max_len)
     raise NotImplementedError(f"layer mode {mode!r} is not ported (train: "
                               "ROADMAP queue 1, item 9)")
+
+
+def _track1(tree):
+    """An lm_* GQA layer's parameters or cache with a leading track dim
+    of 1: views of every tensor, QuantTensor and PagedLeaf."""
+    if isinstance(tree, dict):
+        return {k: _track1(v) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_track1(v) for v in tree)
+    if isinstance(tree, (torch.Tensor, QuantTensor, PagedLeaf)):
+        return tree[None]
+    return tree
+
+
+def _apply(params, x: torch.Tensor, *, cfg: ModelConfig, spec: LayerSpec,
+           mode: str, positions, pos, cache, block_table, kv_max_len, slots,
+           chunk_lens, active) -> Tuple[torch.Tensor, Any]:
+    h = _norm(cfg, params, "ln1", x)
+    if spec.mixer == "mamba":
+        h, new_cache = _mamba(params["mixer"], h, cfg=cfg, mode=mode,
+                              cache=cache, slots=slots,
+                              chunk_lens=chunk_lens, active=active)
+    else:
+        h, new_cache = _gqa(params["mixer"], h, cfg=cfg, spec=spec,
+                            mode=mode, positions=positions, pos=pos,
+                            cache=cache, block_table=block_table,
+                            kv_max_len=kv_max_len, active=active)
+    x = x + h
+    if spec.mlp != "none":
+        h = _norm(cfg, params, "ln2", x)
+        x = x + mlp_apply(params["mlp"], h, spec.mlp)
+    return x, new_cache
 
 
 def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
@@ -141,27 +181,22 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
                 active: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Any]:
     """One layer.  A PT layer takes x [n, B, S, d] and params leaves
-    [n, ...]; a Mamba layer x [B, S, d].  'prefill' takes ``positions``
+    [n, ...]; an lm_* layer x [B, S, d].  'prefill' takes ``positions``
     [B, S] and returns (x, cache); 'decode' and 'chunk' take ``pos`` [B]
     (the row's first new position) and this layer's cache: a GQA layer's
-    pools with the block table, a Mamba layer's state rows with
-    ``slots`` [B] (chunk rows -> engine slots; None when the rows align
-    with the batch), ``chunk_lens`` [B] (valid tokens of a padded final
-    chunk) and ``active`` [B] (decode lanes whose state may change).
-    Returns (x, cache).  (The reference also returns an auxiliary MoE
-    loss, always zero here.)"""
-    h = _norm(cfg, params, "ln1", x)
-    if spec.mixer == "mamba":
-        h, new_cache = _mamba(params["mixer"], h, cfg=cfg, mode=mode,
-                              cache=cache, slots=slots,
-                              chunk_lens=chunk_lens, active=active)
-    else:
-        h, new_cache = _gqa(params["mixer"], h, cfg=cfg, spec=spec,
-                            mode=mode, positions=positions, pos=pos,
-                            cache=cache, block_table=block_table,
-                            kv_max_len=kv_max_len)
-    x = x + h
-    if spec.mlp != "none":
-        h = _norm(cfg, params, "ln2", x)
-        x = x + mlp_apply(params["mlp"], h, spec.mlp)
-    return x, new_cache
+    pools with the block table, or its contiguous rows; a Mamba layer's
+    state rows with ``slots`` [B] (chunk rows -> engine slots; None when
+    the rows align with the batch) and ``chunk_lens`` [B] (valid tokens
+    of a padded final chunk).  ``active`` [B] marks the decode lanes
+    whose contiguous rows or state may change.  Returns (x, cache).
+    (The reference also returns an auxiliary MoE loss, always zero
+    here.)"""
+    kw = dict(cfg=cfg, spec=spec, mode=mode, positions=positions, pos=pos,
+              block_table=block_table, kv_max_len=kv_max_len, slots=slots,
+              chunk_lens=chunk_lens, active=active)
+    if cfg.pt is None and spec.mixer == "gqa":
+        # an lm_* GQA layer runs the PT layer's code at n = 1, on views
+        x1, c1 = _apply(_track1(params), x[None], cache=_track1(cache), **kw)
+        return x1[0], (tuple(c[0] for c in c1) if mode == "prefill"
+                       else cache)
+    return _apply(params, x, cache=cache, **kw)

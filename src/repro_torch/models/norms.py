@@ -18,5 +18,5 @@ def apply_norm(kind: str, params, x: torch.Tensor, *,
                eps: float) -> torch.Tensor:
     if kind != "rmsnorm":
         raise NotImplementedError(
-            f"norm {kind!r} is not ported (ROADMAP queue 1, items 2-3)")
+            f"norm {kind!r} is not ported (ROADMAP queue 1, item 3)")
     return rmsnorm(params, x, eps=eps)

@@ -1,21 +1,25 @@
-"""The block-pool paged cache (counterpart of
-``repro.serving.cache.PagedKVCache``), block accounting only.
+"""The serving caches (counterpart of ``repro.serving.cache``): the
+block-pool ``PagedKVCache`` with its block accounting, and the row
+insert of the contiguous cache, ``insert_rows``.
 
-Every cache leaf is one of two layouts (the reference classifies them by
-probing; the port knows them from the config):
+Every leaf of a paged engine cache is one of two layouts (the reference
+classifies them by probing; the port knows them from the config):
 
-  * 'paged' — a PT model's K and V pools, laid out as the reference
-    lays them out: ``[R, D, n_tracks, num_blocks, block_size, KH, hd]``
-    (the dense cache's batch axis becomes the block axis, its sequence
-    axis the in-block offset).  All layers share one block table, so a
-    slot costs ``ceil(tokens / block_size)`` blocks.  Block 0 is the
-    trash block: table entries of unallocated regions and released
-    slots point at it, so stray writes (padded prefill rows, idle decode
-    lanes) never reach a block another request owns.
+  * 'paged' — a GQA layer's K and V pools, laid out as the reference
+    lays them out: the dense cache's batch axis becomes the block axis,
+    its sequence axis the in-block offset.  A PT model's pools are
+    ``[R, D, n_tracks, num_blocks, block_size, KH, hd]``; an ``lm_*``
+    model's are ``[num_blocks, block_size, KH, hd]`` per prefix / suffix
+    layer and ``[R, num_blocks, block_size, KH, hd]`` per unit layer.
+    All layers share one block table, so a slot costs ``ceil(tokens /
+    block_size)`` blocks.  Block 0 is the trash block: table entries of
+    unallocated regions and released slots point at it, so stray writes
+    (padded prefill rows, idle decode lanes) never reach a block another
+    request owns.
   * 'state' — the per-slot rows of a recurrent layer (Mamba: the conv
-    window and h), the ``lm_*`` decoder's ``init_cache`` tree at
-    ``max_slots`` rows; a row belongs to whichever request holds the
-    slot.
+    window and h), ``max_slots`` rows as the ``lm_*`` decoder's
+    ``init_cache`` lays them out; a row belongs to whichever request
+    holds the slot.
 
 A config may have no pageable leaf at all (falcon-mamba: every leaf a
 state row).  The block table still exists and admission and reclamation
@@ -23,9 +27,14 @@ still meter blocks, which are then virtual: no pools, ``pool_bytes() ==
 0``, and scheduling works the same for every architecture.
 
 With ``kv_dtype="int8"`` the pools hold int8 payloads and ``scales``
-holds one fp32 scale pool per pool, ``[R, D, n, num_blocks, block_size,
-KH, 1]`` (one scale per token per KV head, so a decode write touches one
-row's scale and never re-quantizes a block); ``pool_bytes`` counts both.
+holds one fp32 scale pool per pool, shaped like it with the last axis
+collapsed to 1 (one scale per token per KV head, so a decode write
+touches one row's scale and never re-quantizes a block); ``pool_bytes``
+counts both.
+
+The contiguous cache is the model's own ``init_cache`` tree at
+``max_slots`` rows of ``max_seq_len`` positions, with no block
+accounting; ``insert_rows`` writes a prefill cache into it.
 
 Not ported yet: the content-addressed prefix cache, ``fork`` and
 copy-on-write (ROADMAP queue 1, item 5).
@@ -39,14 +48,21 @@ import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.paged import PagedLeaf, token_to_pool
+from repro_torch.common.quant import quantize_rows
 from repro_torch.common.types import ModelConfig
 from repro_torch.core.track import pt_cache_shape
-from repro_torch.models.decoder import init_cache, model_dtype
+from repro_torch.models.decoder import layer_cache, map_layers, model_dtype
 
 
-def _state_leaves(tree: Any) -> List[Tuple[torch.Tensor, int]]:
-    """(leaf, batch axis) of every state leaf of an ``lm_*`` cache tree:
-    unit leaves are [R]-stacked, so their slot axis is 1."""
+def _leaves(tree: Any) -> List[Tuple[Any, int]]:
+    """(leaf, batch axis) of every leaf of an engine or prefill cache
+    tree, in order.  A PT tree {'blocks': (k, v)} has leaves [R, D, n,
+    B, ...] (batch axis 3); an ``lm_*`` tree {'prefix', 'unit', 'suffix'}
+    has leaves [B, ...], the unit's stacked [R, B, ...] (batch axis 1).
+    A pool (``PagedLeaf``) counts as one leaf, its block axis in place of
+    the batch axis."""
+    if "blocks" in tree:
+        return [(leaf, 3) for leaf in tree["blocks"]]
     out = []
 
     def walk(node, axis):
@@ -59,6 +75,25 @@ def _state_leaves(tree: Any) -> List[Tuple[torch.Tensor, int]]:
     for group in ("prefix", "unit", "suffix"):
         walk(tree[group], 1 if group == "unit" else 0)
     return out
+
+
+def insert_rows(dst: Any, src: Any, slots: Sequence[int]) -> None:
+    """Write the rows of a prefill cache ``src`` (``len(slots)`` rows on
+    each leaf's batch axis) into rows ``slots`` of the contiguous engine
+    cache ``dst``, in place, one ``index_copy_`` per leaf (the
+    reference's ``insert_rows``).  A leaf of ``src`` shorter than ``dst``
+    past its batch axis (a bucketed prefill covers positions [0, bucket)
+    of [0, capacity)) is zero-padded first, as the reference pads."""
+    idx = None
+    for (d, ax), (s, _) in zip(_leaves(dst), _leaves(src)):
+        if idx is None:
+            idx = torch.as_tensor(list(slots), dtype=torch.long,
+                                  device=d.device)
+        if s.shape[ax + 1:] != d.shape[ax + 1:]:
+            full = s.new_zeros(s.shape[:ax + 1] + d.shape[ax + 1:])
+            full[tuple(slice(0, k) for k in s.shape)] = s
+            s = full
+        d.index_copy_(ax, idx, s.to(d.dtype))
 
 
 class PagedKVCache:
@@ -94,26 +129,47 @@ class PagedKVCache:
         if num_blocks is None:          # same capacity as contiguous
             num_blocks = max_slots * self.blocks_per_seq
         self.num_blocks = num_blocks + 1            # +1: trash block 0
-        self.data: Tuple[torch.Tensor, ...] = ()     # the pools
-        self.scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-        self.state: Optional[Dict[str, Any]] = None  # lm_* state rows
+        pools: List[torch.Tensor] = []
+        scales: List[torch.Tensor] = []
+        pool_dtype = torch.int8 if kv_dtype == "int8" else None
+
+        def paged(kv: Tuple[torch.Tensor, torch.Tensor]):
+            leaves = []
+            for pool in kv:
+                pools.append(pool)
+                scale = None
+                if kv_dtype == "int8":
+                    scale = torch.zeros(pool.shape[:-1] + (1,),
+                                        dtype=torch.float32,
+                                        device=self.device)
+                    scales.append(scale)
+                leaves.append(PagedLeaf(pool, scale))
+            return tuple(leaves)
+
         if cfg.pt is not None:
             shape = pt_cache_shape(cfg, self.num_blocks, block_size)
-            dtype = torch.int8 if kv_dtype == "int8" else model_dtype(cfg)
-            self.data = tuple(torch.zeros(shape, dtype=dtype,
-                                          device=self.device)
-                              for _ in range(2))
-            if kv_dtype == "int8":
-                sshape = shape[:-1] + (1,)
-                self.scales = tuple(torch.zeros(sshape, dtype=torch.float32,
-                                                device=self.device)
-                                    for _ in range(2))
+            dtype = pool_dtype or model_dtype(cfg)
+            self.tree: Dict[str, Any] = {
+                "blocks": paged(tuple(torch.zeros(shape, dtype=dtype,
+                                                  device=self.device)
+                                      for _ in range(2))),
+                "tail": ()}
         else:
-            if kv_dtype == "int8":
-                raise ValueError("int8 KV needs pageable leaves; this "
-                                 "config has none")
-            self.state = init_cache(cfg, max_slots, max_seq_len,
-                                    device=self.device)
+            def entry(nm, lead):
+                if cfg.spec(nm).mixer == "gqa":
+                    return paged(layer_cache(cfg, nm, lead, self.num_blocks,
+                                             block_size, self.device,
+                                             kv_dtype=pool_dtype))
+                return layer_cache(cfg, nm, lead, max_slots, max_seq_len,
+                                   self.device)
+
+            self.tree = map_layers(cfg, entry)
+        if kv_dtype == "int8" and not pools:
+            raise ValueError("int8 KV needs pageable leaves; this config "
+                             "has none")
+        self.data: Tuple[torch.Tensor, ...] = tuple(pools)
+        self.scales: Optional[Tuple[torch.Tensor, ...]] = (
+            tuple(scales) if scales else None)
 
         self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
         self._blocks: List[List[int]] = [[] for _ in range(max_slots)]
@@ -202,13 +258,17 @@ class PagedKVCache:
             assert self._tokens[slot] <= len(blks) * self.block_size
 
     # -- layouts ----------------------------------------------------------
+    def _state_leaves(self) -> List[Tuple[torch.Tensor, int]]:
+        return [(leaf, ax) for leaf, ax in _leaves(self.tree)
+                if not isinstance(leaf, PagedLeaf)]
+
     def leaf_kinds(self) -> Dict[str, int]:
         """Histogram of leaf layouts, e.g. {'paged': 2} or {'state': 2}."""
         kinds = {}
         if self.data:
             kinds["paged"] = len(self.data)
-        if self.state is not None:
-            kinds["state"] = len(_state_leaves(self.state))
+        if self._state_leaves():
+            kinds["state"] = len(self._state_leaves())
         return kinds
 
     @property
@@ -223,13 +283,9 @@ class PagedKVCache:
     def engine_cache(self) -> Any:
         """The cache tree the model functions take: a PT model's
         ``{'blocks': (PagedLeaf k, PagedLeaf v), 'tail': ()}``, or the
-        ``lm_*`` state tree."""
-        if self.state is not None:
-            return self.state
-        k_scale, v_scale = self.scales or (None, None)
-        return {"blocks": (PagedLeaf(self.data[0], k_scale),
-                           PagedLeaf(self.data[1], v_scale)),
-                "tail": ()}
+        ``lm_*`` tree with (PagedLeaf k, PagedLeaf v) for each GQA layer
+        and state rows for each Mamba layer (updated in place)."""
+        return self.tree
 
     # -- row writes -----------------------------------------------------
     def insert_prefill(self, src: Any, slots: Sequence[int],
@@ -238,33 +294,42 @@ class PagedKVCache:
         cache, as ``paged_insert_rows`` does: pool leaves take rows
         [0, bucket) of each request through its block-table row, one
         indexed write per pool (padded rows past the allocation resolve
-        to the trash block); state leaves take each request's row at its
-        slot (``index_copy_``)."""
-        if self.state is not None:
-            idx = torch.as_tensor(list(slots), dtype=torch.long,
-                                  device=self.device)
-            for (dst, axis), (row, _) in zip(_state_leaves(self.state),
-                                             _state_leaves(src)):
-                dst.index_copy_(axis, idx, row.to(dst.dtype))
-            return
-        n, bucket = len(slots), src["blocks"][0].shape[4]
-        bs = self.block_size
-        pos = torch.arange(bucket, device=self.device).expand(n, bucket)
-        idx = token_to_pool(table_rows, pos, bs).reshape(-1)
-        for pool, rows in zip(self.data, src["blocks"]):
-            R, D, nt, N, _, KH, hd = pool.shape
-            flat = pool.view(R, D, nt, N * bs, KH, hd)
-            flat[:, :, :, idx] = rows.reshape(R, D, nt, n * bucket, KH, hd)
+        to the trash block; int8 pools take each row quantized, payload
+        and scale); state leaves take each request's row at its slot
+        (``index_copy_``)."""
+        n, bs = len(slots), self.block_size
+        idx = torch.as_tensor(list(slots), dtype=torch.long,
+                              device=self.device)
+        rows_at: Dict[int, torch.Tensor] = {}     # bucket -> pool rows
+        for (dst, ax), (rows, _) in zip(_leaves(self.tree), _leaves(src)):
+            if not isinstance(dst, PagedLeaf):
+                dst.index_copy_(ax, idx, rows.to(dst.dtype))
+                continue
+            bucket = rows.shape[ax + 1]
+            if bucket not in rows_at:
+                pos = torch.arange(bucket, device=self.device).expand(
+                    n, bucket)
+                rows_at[bucket] = token_to_pool(table_rows, pos,
+                                                bs).reshape(-1)
+            at = (slice(None),) * ax + (rows_at[bucket],)
+            rows = rows.reshape(*rows.shape[:ax], n * bucket,
+                                *rows.shape[ax + 2:])
+            parts = ((dst.pool, rows),) if dst.scale is None else tuple(
+                zip((dst.pool, dst.scale), quantize_rows(rows.float())))
+            for pool, r in parts:
+                flat = pool.view(*pool.shape[:ax], -1, *pool.shape[ax + 2:])
+                flat[at] = r.to(pool.dtype)
 
     def reset_slots(self, slots: Sequence[int]) -> None:
         """Zero the state rows of ``slots``: a chunked admission appends to
         its rows, so the previous tenant's state must not seed it.  Pool
         leaves need nothing: the block table isolates them."""
-        if self.state is None or not slots:
+        state = self._state_leaves()
+        if not state or not slots:
             return
         idx = torch.as_tensor(list(slots), dtype=torch.long,
                               device=self.device)
-        for leaf, axis in _state_leaves(self.state):
+        for leaf, axis in state:
             leaf.index_fill_(axis, idx, 0)
 
     # -- device views ---------------------------------------------------
@@ -283,10 +348,8 @@ class PagedKVCache:
 
     def state_bytes(self) -> int:
         """Device bytes of the per-slot state rows."""
-        if self.state is None:
-            return 0
         return sum(t.numel() * t.element_size()
-                   for t, _ in _state_leaves(self.state))
+                   for t, _ in self._state_leaves())
 
     def bytes_per_block(self) -> int:
         return self.pool_bytes() // self.num_blocks

@@ -3,9 +3,10 @@
 
   Scheduler   — pure-Python FCFS admission over a fixed slot table,
                 budgeted by padded prefill tokens and free KV blocks.
-  ModelRunner — everything that touches the device: the paged K/V
-                pools, bucketed batched prefill and the decode step with
-                its fused sampling epilogue.
+  ModelRunner — everything that touches the device: the cache (paged
+                K/V pools, or the contiguous per-slot cache), bucketed
+                batched prefill and the decode step with its fused
+                sampling epilogue.
   Engine      — submit / step / run / generate, streaming callbacks and
                 TTFT / TPOT / throughput metrics.
 
@@ -22,10 +23,17 @@ step makes exactly one device-to-host transfer: the packed [2, slots]
 is rebuilt only when the cache's table version or the active set
 changes.
 
+``paged=False`` serves through the contiguous cache instead, as the
+reference does: the model's ``init_cache`` at ``max_slots`` rows of
+``max_seq_len`` positions, prefill rows written in by
+``cache.insert_rows``, decode with no block table (the contiguous-cache
+decode kernel), admission with no block metering; chunked prefill and
+int8 KV need the paged cache and fall back, as in the reference.
+
 The runner serves through ``launch.steps.model_fns``: a PT model
-through ``core.track``, falcon-mamba through the dense ``lm_*`` decoder,
-whose cache is per-slot state rows under the same (virtual) block
-accounting.  Recurrent architectures prefill at exact prompt length (a
+through ``core.track``, the dense baselines and falcon-mamba through
+the dense ``lm_*`` decoder (falcon-mamba's cache is per-slot state rows
+under the same, virtual, block accounting).  Recurrent architectures prefill at exact prompt length (a
 padded token would run through the conv window and the SSM state), and
 a chunked admission zeroes its slot's state rows before the first
 chunk.  Which features an architecture supports, and why not, comes
@@ -55,7 +63,7 @@ from repro_torch.common.types import ModelConfig
 from repro_torch.launch.steps import model_fns
 from repro_torch.models.decoder import _head
 from repro_torch.models.layers import check_supported
-from repro_torch.serving.cache import PagedKVCache
+from repro_torch.serving.cache import PagedKVCache, insert_rows
 from repro_torch.serving.sampler import (SampleParams, require_greedy,
                                          sample_rows, sample_step,
                                          stack_params)
@@ -186,7 +194,8 @@ class Scheduler:
     """FCFS admission over a fixed slot table, budgeted by prefill tokens.
 
     ``plan_admission`` pops queued requests in order while free slots,
-    the per-round padded-token budget and free KV blocks last, grouping
+    the per-round padded-token budget and (paged cache) free KV blocks
+    last, grouping
     the admitted set by prefill bucket so each group runs as one batched
     prefill.  Strict FCFS: the first request that does not fit stops
     admission for the round, except that one oversized request is always
@@ -310,14 +319,15 @@ def arch_capabilities(cfg: ModelConfig) -> Dict[str, Capability]:
 
 
 class ModelRunner:
-    """Device side: the paged cache (K/V pools or state rows), bucketed
-    or exact-length prefill, the chunk program and the decode step.
-    ``params`` must already live on ``device``; with
-    ``weight_dtype="int8"`` the runner holds its own quantized copy (the
-    caller may drop the fp tree)."""
+    """Device side: the paged cache (K/V pools or state rows) or the
+    contiguous cache (``paged=False``), bucketed or exact-length
+    prefill, the chunk program and the decode step.  ``params`` must
+    already live on ``device``; with ``weight_dtype="int8"`` the runner
+    holds its own quantized copy (the caller may drop the fp tree)."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int,
                  max_seq_len: int, min_bucket: int = 16,
+                 paged: bool = True,
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefill_chunk: int = 0, kv_dtype: Optional[str] = None,
                  weight_dtype: Optional[str] = None,
@@ -343,17 +353,21 @@ class ModelRunner:
         # and state: those architectures prefill at exact prompt length
         self.exact_prefill = any(cfg.spec(nm).mixer in RECURRENT_MIXERS
                                  for nm in cfg.layer_names)
+        self.paged = paged and caps["paged"].supported
         # effective dtypes (None = full precision) and, as in the
         # reference, the reason for each requested int8 arm not taken
         self.kv_dtype: Optional[str] = None
         self.weight_dtype: Optional[str] = None
         self.quant_fallbacks: List[str] = []
         if kv_dtype == "int8":
-            if caps["int8_kv"].supported:
+            if self.paged and caps["int8_kv"].supported:
                 self.kv_dtype = "int8"
             else:
+                why = (caps["int8_kv"].reason
+                       if self.paged and caps["int8_kv"].reason
+                       else "needs the paged cache")
                 self.quant_fallbacks.append(
-                    f"kv_dtype=int8: {caps['int8_kv'].reason}; serving fp KV")
+                    f"kv_dtype=int8: {why}; serving fp KV")
         self.n_quantized = 0
         if weight_dtype == "int8":
             self.params, self.n_quantized = quantize_params(params)
@@ -371,13 +385,20 @@ class ModelRunner:
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
         self.min_bucket = min_bucket
-        self.prefill_chunk = (prefill_chunk
-                              if caps["chunked_prefill"].supported else 0)
-        self.kv = PagedKVCache(cfg, max_slots=max_slots,
-                               max_seq_len=max_seq_len,
-                               block_size=block_size, num_blocks=num_blocks,
-                               kv_dtype=self.kv_dtype, device=self.device)
-        self.cache = self.kv.engine_cache()
+        self.prefill_chunk = (prefill_chunk if self.paged
+                              and caps["chunked_prefill"].supported else 0)
+        self.kv: Optional[PagedKVCache] = None
+        if self.paged:
+            self.kv = PagedKVCache(cfg, max_slots=max_slots,
+                                   max_seq_len=max_seq_len,
+                                   block_size=block_size,
+                                   num_blocks=num_blocks,
+                                   kv_dtype=self.kv_dtype,
+                                   device=self.device)
+            self.cache = self.kv.engine_cache()
+        else:
+            self.cache = self.fns["init_cache"](cfg, max_slots, max_seq_len,
+                                                device=self.device)
         self._table_key = None             # (kv.version, active bytes)
         self._table_dev: Optional[torch.Tensor] = None
         self.prefill_shapes: set = set()   # observed (n_reqs, bucket)
@@ -410,13 +431,16 @@ class ModelRunner:
             else bucket
 
     def cache_stats(self) -> Dict[str, Any]:
-        """Pool occupancy, leaf layouts and the quantization in effect."""
+        """Cache mode, the quantization in effect and (paged cache) pool
+        occupancy and leaf layouts."""
+        quant = {"weight_dtype": self.weight_dtype or "float32",
+                 "quantized_weight_leaves": self.n_quantized,
+                 "quant_fallbacks": list(self.quant_fallbacks)}
+        if not self.paged:
+            return {"mode": "contiguous", **quant}
         stats = dict(self.kv.utilization())
         stats.update(mode="paged", block_size=self.kv.block_size,
-                     state_bytes=self.kv.state_bytes(),
-                     weight_dtype=self.weight_dtype or "float32",
-                     quantized_weight_leaves=self.n_quantized,
-                     quant_fallbacks=list(self.quant_fallbacks))
+                     state_bytes=self.kv.state_bytes(), **quant)
         return stats
 
     # -- device steps ---------------------------------------------------
@@ -430,7 +454,8 @@ class ModelRunner:
         """Batched prefill of ``prompts`` (right-padded to ``bucket``; a
         recurrent architecture's bucket is the prompts' one length) into
         cache ``slots``.  Returns the first sampled token of each prompt
-        [n].  The prefill cache goes in through ``kv.insert_prefill``."""
+        [n].  The prefill cache goes in through ``kv.insert_prefill``
+        (paged) or ``insert_rows`` (contiguous)."""
         temps, _, _ = stack_params(params_list)
         require_greedy(temps)
         n = len(prompts)
@@ -445,7 +470,10 @@ class ModelRunner:
             self.cfg, mode="prefill")
         last = logits[torch.arange(n, device=self.device), len_d - 1]
         toks = sample_rows(last, temps)
-        self.kv.insert_prefill(cache, slots, self.kv.table_rows(slots))
+        if self.paged:
+            self.kv.insert_prefill(cache, slots, self.kv.table_rows(slots))
+        else:
+            insert_rows(self.cache, cache, slots)
         self.prefill_shapes.add((n, bucket))
         self.prefill_calls += 1
         return toks.cpu().numpy()
@@ -520,27 +548,29 @@ class ModelRunner:
 
     def _live_max_len(self, pos: np.ndarray, active: np.ndarray
                       ) -> Optional[int]:
-        """Power-of-two-block bound on the live cache prefix of the
-        active lanes: the paged kernel sweeps no block past it."""
+        """Power-of-two bound on the live cache prefix of the active
+        lanes, in blocks (paged) or positions (contiguous), capped at
+        the capacity: the decode kernel sweeps nothing past it."""
         act = np.asarray(active, bool)
         if not act.any():
             return None
-        bs = self.kv.block_size
-        need = -(-(int(np.asarray(pos)[act].max()) + 1) // bs)
+        unit, cap = ((self.kv.block_size, self.kv.blocks_per_seq)
+                     if self.paged else (1, self.max_seq_len))
+        need = -(-(int(np.asarray(pos)[act].max()) + 1) // unit)
         p2 = 1
         while p2 < need:
             p2 *= 2
-        return min(self.kv.blocks_per_seq, p2) * bs
+        return min(cap, p2) * unit
 
     @torch.no_grad()
     def decode(self, toks, pos, active, temps, eos, remaining
                ) -> Tuple[np.ndarray, np.ndarray]:
         """One decode step for all slots plus the sampling epilogue.
-        ``active`` threads into the model so the state rows of idle lanes
-        and of lanes mid-chunked-prefill stay frozen (pool leaves are
-        protected by the zeroed table rows).  Exactly one device-to-host
-        transfer: the packed (token, done) array."""
-        table = self._masked_table(active)
+        ``active`` threads into the model so the contiguous and state rows
+        of idle lanes and of lanes mid-chunked-prefill stay frozen (pool
+        leaves are protected by the zeroed table rows).  Exactly one
+        device-to-host transfer: the packed (token, done) array."""
+        table = self._masked_table(active) if self.paged else None
         active_d = self._to_dev(active, torch.bool)
         logits, self.cache = self.fns["decode"](
             self.params, self.cache, self._to_dev(toks, torch.long),
@@ -562,7 +592,8 @@ class Engine:
     """The synchronous serving loop over one ``ModelRunner``.
 
     Runs on CUDA unless ``device='cpu'`` is given; the knobs of reference
-    features not ported yet must stay at their off values."""
+    features not ported yet must stay at their off values.  ``paged``
+    picks the paged cache (the default) or the contiguous one."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 4,
                  max_seq_len: int = 256,
@@ -576,7 +607,7 @@ class Engine:
                  weight_dtype: Optional[str] = None,
                  pipeline_depth: int = 0, preplan: bool = False,
                  max_queue: Optional[int] = None, fault_plan: Any = None):
-        _refuse(paged=(paged, True, 1), speculate_k=(speculate_k, 0, 6),
+        _refuse(speculate_k=(speculate_k, 0, 6),
                 draft_tracks=(draft_tracks, 0, 6),
                 prefix_cache=(prefix_cache, False, 5),
                 pipeline_depth=(pipeline_depth, 0, 8),
@@ -587,7 +618,7 @@ class Engine:
         self.max_seq_len = max_seq_len
         self.runner = ModelRunner(cfg, params, max_slots=max_slots,
                                   max_seq_len=max_seq_len,
-                                  min_bucket=min_bucket,
+                                  min_bucket=min_bucket, paged=paged,
                                   block_size=block_size,
                                   num_blocks=num_blocks,
                                   prefill_chunk=prefill_chunk,
@@ -624,8 +655,9 @@ class Engine:
                on_event: Optional[Callable[[Request, str], None]] = None
                ) -> Request:
         """Queue a request.  Invalid requests (empty or overlong prompt,
-        non-positive token budget, a reservation larger than the whole
-        block pool) come back REJECTED with ``finish_reason`` set."""
+        non-positive token budget, on the paged cache a reservation
+        larger than the whole block pool) come back REJECTED with
+        ``finish_reason`` set."""
         require_greedy([params.temperature])
         _refuse(priority=(priority, 0, 8), deadline_s=(deadline_s, None, 8),
                 on_event=(on_event, None, 8))
@@ -642,7 +674,8 @@ class Engine:
         elif len(req.prompt) > self.max_seq_len:
             reason = (f"prompt length {len(req.prompt)} exceeds engine "
                       f"capacity {self.max_seq_len}")
-        elif kv.blocks_for(self._reserve_tokens(req)) > kv.num_blocks - 1:
+        elif kv is not None and \
+                kv.blocks_for(self._reserve_tokens(req)) > kv.num_blocks - 1:
             reason = (f"request needs "
                       f"{kv.blocks_for(self._reserve_tokens(req))} KV blocks "
                       f"but the pool holds {kv.num_blocks - 1}")
@@ -672,14 +705,18 @@ class Engine:
         req.state = RequestState.DONE
         req.t_done = time.perf_counter()
         self._active[slot] = False
-        self.runner.kv.free_slot(slot)
+        if self.runner.paged:
+            self.runner.kv.free_slot(slot)
         self.scheduler.release(slot)
         self.metrics.observe(req)
 
-    def _make_can_fit(self) -> Callable[[Request], bool]:
+    def _make_can_fit(self) -> Optional[Callable[[Request], bool]]:
         """Block-availability gate for one admission round; accumulates
-        the blocks already promised this round."""
+        the blocks already promised this round.  None (no gate) on the
+        contiguous cache, whose every slot holds ``max_seq_len``."""
         kv = self.runner.kv
+        if kv is None:
+            return None
         planned = 0
 
         def can_fit(req: Request) -> bool:
@@ -720,7 +757,8 @@ class Engine:
         for bucket, group in self.scheduler.plan_admission(
                 self._make_can_fit()):
             for slot, req in group:
-                self.runner.kv.allocate(slot, self._reserve_tokens(req))
+                if self.runner.paged:
+                    self.runner.kv.allocate(slot, self._reserve_tokens(req))
                 self._temps[slot] = req.params.temperature
                 self._eos[slot] = -1 if req.eos_id is None else req.eos_id
                 req.prefilled = 0

@@ -193,3 +193,123 @@ def test_ssm_scan_kernel_matches_plain(B, S, di, ds, dtype):
     torch.testing.assert_close(hl, want_last, rtol=tol, atol=tol)
     torch.cuda.synchronize()
     assert ops.launch_counts()["ssm_scan"] == before + 1
+
+
+def _dense_inputs(B, S, KH, G, hd, rng):
+    lengths = np.asarray([1 + (13 * i + 7) % S for i in range(B)], np.int32)
+    return (rng.standard_normal((B, KH * G, hd)).astype(np.float32),
+            rng.standard_normal((B, S, KH, hd)).astype(np.float32),
+            rng.standard_normal((B, S, KH, hd)).astype(np.float32), lengths)
+
+
+# (B, S, KH, G, hd): G 4 at hd 128 (dense-6b), G 1 with an S no tile
+# divides, G 8, hd 256
+_DENSE_SHAPES = [(3, 72, 2, 4, 128), (5, 37, 1, 1, 64), (2, 100, 2, 8, 16),
+                 (2, 40, 1, 2, 256)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _DENSE_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_contiguous_decode_kernel_matches_plain(shape, dtype):
+    """The contiguous-cache decode kernel against its plain version, with
+    no cut, a cut at the longest row and cuts shorter than some rows (in
+    tiles of 16 and of 512 columns)."""
+    dev, tol = _cuda(), _TOL[dtype]
+    rng = np.random.default_rng(7)
+    q, k, v, lengths = _dense_inputs(*shape, rng)
+    cast = lambda a: torch.from_numpy(a).to(dev, _TDT[dtype])   # noqa: E731
+    args = (cast(q), cast(k), cast(v), torch.from_numpy(lengths).to(dev))
+    before = ops.launch_counts()
+    cuts = ((512, None), (16, int(lengths.max())), (16, 9), (512, 3))
+    for block_s, max_len in cuts:
+        torch.testing.assert_close(
+            ops.decode_attention(*args, block_s=block_s, max_len=max_len),
+            ref.decode_attention_plain(*args, block_s=block_s,
+                                       max_len=max_len),
+            rtol=tol, atol=tol)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["decode_attention"] == before["decode_attention"] + 4
+    assert after["paged_decode_attention"] == before["paged_decode_attention"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _DENSE_SHAPES[:3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_contiguous_decode_kernel_matches_plain(shape, dtype):
+    """int8 caches with their fp32 per-token-per-head scales."""
+    from repro_torch.common.quant import quantize_rows
+    dev, tol = _cuda(), _TOL[dtype]
+    rng = np.random.default_rng(8)
+    q, k, v, lengths = _dense_inputs(*shape, rng)
+    (k8, ks), (v8, vs) = (quantize_rows(torch.from_numpy(a).to(dev))
+                          for a in (k, v))
+    args = (torch.from_numpy(q).to(dev, _TDT[dtype]), k8, v8,
+            torch.from_numpy(lengths).to(dev))
+    before = ops.launch_counts()
+    for max_len in (None, int(lengths.max()), 9):
+        torch.testing.assert_close(
+            ops.decode_attention(*args, block_s=16, max_len=max_len,
+                                 k_scale=ks, v_scale=vs),
+            ref.decode_attention_plain(*args, block_s=16, max_len=max_len,
+                                       k_scale=ks, v_scale=vs),
+            rtol=tol, atol=tol)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["decode_attention_int8"] == \
+        before["decode_attention_int8"] + 3
+    assert after["decode_attention"] == before["decode_attention"]
+
+
+@pytest.mark.gpu
+def test_contiguous_model_decode_on_card_matches_cpu():
+    """The reduced dense model's contiguous decode step (the kernel in
+    every layer, a frozen lane) on the card against the CPU, fp32: the
+    logits of the active lanes and the whole cache after the step."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import decoder
+    dev, cpu = _cuda(), torch.device("cpu")
+    cfg = reduced_config("dense-6b")
+    params = decoder.init_lm(torch.Generator().manual_seed(0), cfg, cpu)
+    rng = np.random.default_rng(9)
+    init = [torch.from_numpy(rng.standard_normal(tuple(leaf.shape))
+                             .astype(np.float32))
+            for leaf in _leaves(decoder.init_cache(cfg, 3, 24, device=cpu))]
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, size=(3,)))
+    pos = torch.tensor([5, 0, 17], dtype=torch.int32)
+    act = torch.tensor([True, False, True])
+    out = {}
+    for d in (cpu, dev):
+        cache = decoder.init_cache(cfg, 3, 24, device=d)
+        for leaf, x in zip(_leaves(cache), init):
+            leaf.copy_(x)
+        before = ops.launch_counts()["decode_attention"]
+        logits, cache = decoder.lm_decode_step(
+            _tree_to(params, d), cache, toks.to(d), pos.to(d), cfg,
+            active=act.to(d), kv_max_len=24)
+        out[d] = (logits[act.to(d)].cpu(),
+                  [leaf.cpu() for leaf in _leaves(cache)])
+        if d == dev:
+            torch.cuda.synchronize()
+            assert ops.launch_counts()["decode_attention"] == \
+                before + cfg.n_layers
+    torch.testing.assert_close(out[dev][0], out[cpu][0], rtol=1e-4, atol=1e-4)
+    for a, b in zip(out[dev][1], out[cpu][1]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_tree_to(v, dev) for v in tree)
+    return tree.to(dev)

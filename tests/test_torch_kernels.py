@@ -161,7 +161,8 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     before = ops.launch_counts()
     assert set(before) == {"paged_decode_attention", "flash_attention",
                            "rmsnorm", "paged_decode_attention_int8",
-                           "int8_matmul", "ssm_scan"}
+                           "int8_matmul", "ssm_scan", "decode_attention",
+                           "decode_attention_int8"}
     assert all(isinstance(v, int) for v in before.values())
     assert torch.equal(ops.paged_decode_attention(*args, max_len=16),
                        ref.paged_decode_attention_plain(*args, max_len=16))
@@ -171,6 +172,10 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     a, b, h0 = torch.rand(2, 5, 3, 4), torch.randn(2, 5, 3, 4), x[:, :3, :4]
     for got, want in zip(ops.ssm_scan(a, b, h0), ref.ssm_scan_plain(a, b, h0)):
         assert torch.equal(got, want)
+    dk = args[1][0, 1:3].contiguous()
+    assert torch.equal(ops.decode_attention(args[0][0], dk, dk, args[4]),
+                       ref.decode_attention_plain(args[0][0], dk, dk,
+                                                  args[4]))
     # a launch count moves only where a kernel launched, never on the CPU
     assert ops.launch_counts() == before
 

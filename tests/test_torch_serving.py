@@ -156,7 +156,7 @@ def test_engine_rejects_invalid_requests_and_unported_features(model):
     assert eng.submit([1] * 40, 4).state is RequestState.REJECTED
     assert eng.submit([1, 2], 0).state is RequestState.REJECTED
     for kw in ({"speculate_k": 2}, {"prefix_cache": True},
-               {"pipeline_depth": 1}, {"paged": False}):
+               {"pipeline_depth": 1}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(cfg, params, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -170,7 +170,7 @@ def test_engine_rejects_invalid_requests_and_unported_features(model):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.fork(None, 2)
     with pytest.raises(KeyError, match="ROADMAP"):
-        reduced_config("tinyllama-1.1b")
+        reduced_config("gemma2-2b")
 
 
 def test_entry_points_without_device_refuse_to_run_on_cpu(model):

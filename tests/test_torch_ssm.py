@@ -359,7 +359,7 @@ def test_cache_state_leaves_meter_virtual_blocks(model):
     kv.allocate(0, 20)
     assert kv.free_blocks == kv.num_blocks - 1 - 3
     assert not kv.can_allocate(32 * 2)
-    conv, h = kv.state["unit"][0]
+    conv, h = kv.engine_cache()["unit"][0]
     conv.fill_(1.0)
     h.fill_(2.0)
     kv.reset_slots([1])
@@ -447,7 +447,7 @@ def test_chunked_admission_resets_reused_slot_state(model):
     eng = Engine(cfg, params, device="cpu", max_slots=1, max_seq_len=32,
                  prefill_chunk=4)
     eng.generate([first], 4)
-    assert torch.any(eng.runner.kv.state["unit"][0][1] != 0)
+    assert torch.any(eng.runner.kv.engine_cache()["unit"][0][1] != 0)
     out = eng.generate([second], 4)
     fresh = Engine(cfg, params, device="cpu", max_slots=1, max_seq_len=32,
                    prefill_chunk=4).generate([second], 4)

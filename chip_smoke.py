@@ -16,7 +16,12 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      prefill MLP); RMSNorm also at falcon-mamba's d 4096; ``ssm_scan``
      at the falcon-mamba chunk shape, then at ragged S, d_state 1, bf16
      inputs and an odd feature count; ``decode_attention`` (the
-     contiguous cache) at the dense-6b decode shape, bf16 and int8;
+     contiguous cache) at the dense-6b decode shape, bf16 and int8.  The
+     four decode rows (the split-KV template, paged and contiguous, fp and
+     int8) are timed as device work (their calls replayed from a CUDA
+     graph, as their library calls; the eager loop's time beside it), with
+     each row's split plan and share of its bound, and the fp rows over a
+     short sweep of B 1 and 8 by live length 64, 576 and 4096;
   4. the reduced PT config in fp32, on the card against the same weights
      on the CPU (tolerance 1e-4): prefill logits, K/V and teacher-forced
      paged decode steps; then with int8 weights, int8 KV and chunked
@@ -110,6 +115,58 @@ def time_ms(fn, arg_sets, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, arg_sets, iters: int) -> float:
+    """Mean ms per call of the device work alone: ``iters`` calls (the
+    sets cycled, as ``time_ms``) captured in one CUDA graph after a
+    warm-up, replayed once and timed with CUDA events.  For calls whose
+    launch costs the host more than the kernel takes, an eager loop times
+    the host; this times the kernels."""
+    for a in arg_sets:
+        fn(*a)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def decode_timing(kern, lib, sets, lib_sets, iters: int = 200):
+    """The decode rows' times: kernel and library call as device work
+    (``graph_ms``), and both eager loops (``time_ms``)."""
+    return {"ms": graph_ms(kern, sets, iters),
+            "library_ms": graph_ms(lib, lib_sets, iters),
+            "eager_ms": time_ms(kern, sets, iters),
+            "library_eager_ms": time_ms(lib, lib_sets, iters)}
+
+
+def decode_extras(row, t, sweep: int, base: int, page):
+    """Beside a decode row: its eager times, its split plan (as the
+    wrapper makes it on this card from the tokens it sweeps) and its share
+    of the bound."""
+    from repro_torch.kernels import decode_attention as da
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    splits, per = da.split_plan(sweep, base, page, sms)
+    row.update(eager_ms=t["eager_ms"], library_eager_ms=t["library_eager_ms"],
+               split_plan={"splits": splits, "tokens_per_split": per,
+                           "blocks": splits * base, "swept": sweep},
+               bound_share=row["bound_ms"] / row["ms"],
+               timing="ms and library_ms: device work (CUDA graph replay)")
+    log(f"[kernel]   {row['name']}: {splits} split(s) of {per} tokens, "
+        f"{splits * base} blocks; {100 * row['bound_share']:.1f} % of its "
+        f"bound; eager loop {t['eager_ms']:.4f} ms (library "
+        f"{t['library_eager_ms']:.4f} ms)")
+
+
 def copies_for(nbytes: int) -> int:
     return max(1, math.ceil(2 * L2_BYTES / max(1, nbytes)))
 
@@ -197,8 +254,6 @@ def check_kernels(dev: torch.device):
                                      max_len=max_len)
     want = ref.paged_decode_attention_plain(q, kp, vp, table, lengths,
                                             max_len=max_len)
-    k_ms = time_ms(lambda q, k, v: ops.paged_decode_attention(
-        q, k, v, table, lengths, max_len=max_len), sets, 200)
     p_ms = time_ms(lambda q, k, v: ref.paged_decode_attention_plain(
         q, k, v, table, lengths, max_len=max_len), sets, 20)
     # yardstick: SDPA on K/V gathered and expanded beforehand (untimed)
@@ -212,16 +267,21 @@ def check_kernels(dev: torch.device):
                 vv.repeat_interleave(H // KH, 2).transpose(1, 2).contiguous())
 
     lib_sets = [gathered(*s) for s in sets]
-    l_ms = time_ms(F.scaled_dot_product_attention, lib_sets, 200)
+    t = decode_timing(lambda q, k, v: ops.paged_decode_attention(
+        q, k, v, table, lengths, max_len=max_len),
+        F.scaled_dot_product_attention, sets, lib_sets)
     del lib_sets
     live = n * SLOTS * L * KH * hd * 2 * 2           # K and V rows, bf16
     rows.append(_report(
         "paged_decode_attention", "cuda",
         "src/repro_torch/kernels/csrc/paged_decode.cu",
-        "src/repro/kernels/decode_attention.py:187", out, want, k_ms, p_ms,
-        l_ms, live + nbytes(q, table, lengths, out),
+        "src/repro/kernels/decode_attention.py:187", out, want, t["ms"], p_ms,
+        t["library_ms"], live + nbytes(q, table, lengths, out),
         4.0 * n * SLOTS * L * H * hd, BF16_FLOP_S))
+    decode_extras(rows[-1], t, max_len, n * SLOTS * KH, BLOCK)  # whole blocks
     del sets, q, kp, vp, out, want
+    torch.cuda.empty_cache()
+    rows[-1]["shapes"] = decode_shapes(dev, g, paged=True)
 
     # -- flash prefill: the batched prefill of all 8 prompts -----------
     Bn, S = n * SLOTS, PROMPT
@@ -294,6 +354,7 @@ def check_decode_attention(dev: torch.device, g: torch.Generator):
     (untimed).  The bound counts the live rows only."""
     from repro_torch.common.quant import quantize_rows
     from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops, ref
     F = torch.nn.functional
     cfg = get_config(DENSE_ARCH)
@@ -334,7 +395,6 @@ def check_decode_attention(dev: torch.device, g: torch.Generator):
                                               v_scale=vs)
 
         out, want = kern(*sets[0]), plain(*sets[0])
-        k_ms = time_ms(kern, sets, 200)
         p_ms = time_ms(plain, sets, 20)
 
         def lib_args(q, k, v, ks, vs):
@@ -343,18 +403,19 @@ def check_decode_attention(dev: torch.device, g: torch.Generator):
             return q[:, :, None], expand(k), expand(v)
 
         lib_sets = [lib_args(*st) for st in sets]
-        l_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask), lib_sets, 200)
+        t = decode_timing(kern, lambda q, k, v: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask), sets, lib_sets)
         del lib_sets
         row_bytes = hd * 2 if branch == "bf16" else hd + 4
         name = "decode_attention" + ("" if branch == "bf16" else "_int8")
         row = _report(
             name, "cuda", "src/repro_torch/kernels/csrc/paged_decode.cu",
-            "src/repro/kernels/decode_attention.py:92", out, want, k_ms,
-            p_ms, l_ms, live * KH * row_bytes * 2 + nbytes(sets[0][0],
-                                                           lengths, out),
+            "src/repro/kernels/decode_attention.py:92", out, want, t["ms"],
+            p_ms, t["library_ms"],
+            live * KH * row_bytes * 2 + nbytes(sets[0][0], lengths, out),
             4.0 * live * H * hd,
             BF16_FLOP_S if branch == "bf16" else FP32_FLOP_S)
+        decode_extras(row, t, da._sweep_cols(S, 512, max_len), B * KH, None)
         row["at"] = (f"q [{B},{H},{hd}] bf16, cache [{B},{S},{KH},{hd}] "
                      f"{'bf16' if branch == 'bf16' else 'int8 + fp32 scales'}"
                      f", lengths {int(lengths.min())}-{int(lengths.max())} "
@@ -366,7 +427,108 @@ def check_decode_attention(dev: torch.device, g: torch.Generator):
         rows.append(row)
         del sets, out, want
         torch.cuda.empty_cache()
+        if branch == "bf16":
+            row["shapes"] = decode_shapes(dev, g, paged=False)
     return rows
+
+
+def decode_shapes(dev: torch.device, g: torch.Generator, paged: bool):
+    """The fp decode rows over B 1 and 8 by live length 64, 576 and 4096
+    (every row of a batch at that length): pt-6b-d4's paged shape (8
+    tracks, G 4 over one KV head, block 16) or dense-6b's contiguous one
+    (8 KV heads of G 4, S = length + 8), ``max_len`` as the engine buckets
+    it.  Kernel and library call (SDPA on K/V gathered and expanded
+    beforehand) as device work; each held against the plain version
+    (bf16 2e-2), beside its split plan and bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+    cfg = get_config(ARCH if paged else DENSE_ARCH)
+    n = cfg.pt.n_tracks if paged else 1
+    H, KH, hd, bf = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, torch.bfloat16
+    out_rows = []
+    for B in (1, SLOTS):
+        for L in (64, PROMPT + NEW, 4096):
+            S = L + 8
+            lengths = torch.full((B,), L, dtype=torch.int32, device=dev)
+            if paged:
+                nmax = -(-S // BLOCK)
+                N = B * nmax + 1
+                table = (torch.randperm(N - 1, generator=torch.Generator()
+                                        .manual_seed(L))[:B * nmax]
+                         .reshape(B, nmax) + 1).to(torch.int32).to(dev)
+                p2 = 1
+                while p2 < -(-L // BLOCK):
+                    p2 *= 2
+                max_len = min(nmax, p2) * BLOCK
+                shape = (n, N, BLOCK, KH, hd)
+                sweep = max_len                    # whole blocks
+            else:
+                max_len, shape = L, (B, S, KH, hd)
+                sweep = da._sweep_cols(S, 512, max_len)
+            one = 2 * math.prod(shape) * 2
+            sets = [(torch.randn(n, B, H, hd, generator=g, device=dev)
+                     .to(bf).reshape((n, B, H, hd) if paged else (B, H, hd)),
+                     torch.randn(shape, generator=g, device=dev).to(bf),
+                     torch.randn(shape, generator=g, device=dev).to(bf))
+                    for _ in range(min(100, copies_for(one)))]
+            if paged:
+                tbl = table.long()
+
+                def kern(q, k, v):
+                    return ops.paged_decode_attention(q, k, v, table, lengths,
+                                                      max_len=max_len)
+
+                def plain(q, k, v):
+                    return ref.paged_decode_attention_plain(
+                        q, k, v, table, lengths, max_len=max_len)
+
+                def lib_args(q, k, v):
+                    def one_(c):
+                        c = c[:, tbl].reshape(n * B, nmax * BLOCK, KH, hd)
+                        return c[:, :L].repeat_interleave(H // KH, 2) \
+                            .transpose(1, 2).contiguous()
+                    return q.reshape(n * B, H, 1, hd), one_(k), one_(v)
+            else:
+                def kern(q, k, v):
+                    return ops.decode_attention(q, k, v, lengths,
+                                                max_len=max_len)
+
+                def plain(q, k, v):
+                    return ref.decode_attention_plain(q, k, v, lengths,
+                                                      max_len=max_len)
+
+                def lib_args(q, k, v):
+                    def one_(c):
+                        return c[:, :L].repeat_interleave(H // KH, 2) \
+                            .transpose(1, 2).contiguous()
+                    return q[:, :, None], one_(k), one_(v)
+            out, want = kern(*sets[0]), plain(*sets[0])
+            lib_sets = [lib_args(*st) for st in sets]
+            t = {"ms": graph_ms(kern, sets, 100),
+                 "library_ms": graph_ms(F.scaled_dot_product_attention,
+                                        lib_sets, 100),
+                 "eager_ms": time_ms(kern, sets, 100),
+                 "library_eager_ms": time_ms(F.scaled_dot_product_attention,
+                                             lib_sets, 100)}
+            del lib_sets
+            name = "paged_decode_attention" if paged else "decode_attention"
+            row = _report(
+                name, "cuda", "src/repro_torch/kernels/csrc/paged_decode.cu",
+                "src/repro/kernels/decode_attention.py:"
+                + ("187" if paged else "92"), out, want, t["ms"],
+                time_ms(plain, sets[:1], 3), t["library_ms"],
+                n * B * L * KH * hd * 2 * 2 + nbytes(sets[0][0], lengths, out),
+                4.0 * n * B * L * H * hd, BF16_FLOP_S)
+            layout = "paged, 8 tracks" if paged else "contiguous"
+            row["at"] = f"B {B}, live {L} ({layout}, max_len {max_len})"
+            log(f"[kernel]   {name} at {row['at']}")
+            decode_extras(row, t, sweep, n * B * KH, BLOCK if paged else None)
+            out_rows.append(row)
+            del sets, out, want
+            torch.cuda.empty_cache()
+    return out_rows
 
 
 def rmsnorm_d4096(dev: torch.device, g: torch.Generator):
@@ -533,7 +695,6 @@ def check_int8_kernels(dev: torch.device, g: torch.Generator):
                                                 v_scale=vs)
 
     out, want = kern(*sets[0]), plain(*sets[0])
-    k_ms = time_ms(kern, sets, 200)
     p_ms = time_ms(plain, sets, 20)
     # yardstick: SDPA on K/V gathered, dequantized to bf16 and expanded
     # beforehand (untimed)
@@ -548,15 +709,16 @@ def check_int8_kernels(dev: torch.device, g: torch.Generator):
                 one(v, vs).contiguous())
 
     lib_sets = [gathered(*st) for st in sets]
-    l_ms = time_ms(F.scaled_dot_product_attention, lib_sets, 200)
+    t = decode_timing(kern, F.scaled_dot_product_attention, sets, lib_sets)
     del lib_sets
     live = n * SLOTS * L * KH * (hd + 4) * 2    # int8 K and V rows + scales
     rows.append(_report(
         "paged_decode_attention_int8", "cuda",
         "src/repro_torch/kernels/csrc/paged_decode.cu",
-        "src/repro/kernels/decode_attention.py:187", out, want, k_ms,
-        p_ms, l_ms, live + nbytes(q, table, lengths, out),
+        "src/repro/kernels/decode_attention.py:187", out, want, t["ms"],
+        p_ms, t["library_ms"], live + nbytes(q, table, lengths, out),
         4.0 * n * SLOTS * L * H * hd, FP32_FLOP_S))
+    decode_extras(rows[-1], t, max_len, n * SLOTS * KH, BLOCK)
     rows[-1]["branch"] = ("int8 pools with scale pools (_paged_kernel :153, "
                           "_online_softmax_step :34)")
     del sets

@@ -12,19 +12,21 @@ the two layouts of the reference.
 Both have both branches: fp caches, and int8 caches whose fp32
 per-token-per-head scales are dequantized inside the softmax loop
 (``_online_softmax_step``'s ``ks``/``vs``).  The CUDA kernel is
-``csrc/paged_decode.cu``, one template for both layouts and both
+``csrc/paged_decode.cu``, one split-KV template for both layouts and both
 branches; what bounds it on the H100 (bytes: each live K/V row is read
 once for all G query heads) and how its design answers that is noted
-there.  ``paged_decode_attention_plain`` and ``decode_attention_plain``
-are the same functions in plain PyTorch: the wrappers run them for CPU
-tensors, and the on-card checks hold the kernels against them.  Each
-int8 branch keeps its own launch count (``paged_decode_attention_int8``,
-``decode_attention_int8``), apart from its fp branch.
+there.  ``split_plan`` is its host-side split of the swept tokens over
+blocks, shared by the two layouts.  ``paged_decode_attention_plain`` and
+``decode_attention_plain`` are the same functions in plain PyTorch: the
+wrappers run them for CPU tensors, and the on-card checks hold the
+kernels against them.  Each int8 branch keeps its own launch count
+(``paged_decode_attention_int8``, ``decode_attention_int8``), apart from
+its fp branch.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -33,6 +35,80 @@ from repro_torch.kernels import build
 NEG_INF = -2.0e38
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8 = 2                       # pool dtype code of the int8 branch
+
+# split-KV plan (the kernel's kMaxSplits / kMaxPages bound the first two)
+_MAX_SPLITS = 64                # splits of one (track, row, KV head)
+_MAX_PAGES = 256                # table entries one paged split holds
+_SPLIT_MIN = 64                 # tokens: below it a split's fixed cost rules
+_BLOCKS_PER_SM = 2              # blocks the plan aims to put on each SM
+H100_SMS = 132
+
+
+def split_plan(sweep: int, base: int, page: Optional[int] = None,
+               sms: int = H100_SMS) -> Tuple[int, int]:
+    """How the kernel splits the swept tokens over blocks: returns
+    (splits, tokens per split).  ``sweep`` is the tokens the sweep may
+    visit (the host's ``max_len`` cut), ``base`` the blocks without a
+    split (tracks x rows x KV heads), ``page`` the block size of a paged
+    cache (None for the contiguous one), ``sms`` the card's SM count.
+    Split s covers tokens [s * c, (s + 1) * c): c is ``page`` (or 1) times
+    a power of two, at least ``_SPLIT_MIN``, as small as gives about
+    ``_BLOCKS_PER_SM`` blocks per SM, so paged splits are whole pages and
+    the two layouts get the same plan from the same sweep.  Host ints
+    only: no device sync."""
+    if sweep < 1 or base < 1:
+        raise ValueError(f"want sweep >= 1 and base >= 1, got {sweep}, "
+                         f"{base}")
+    want = max(1, -(-_BLOCKS_PER_SM * sms // base))
+    per = -(-sweep // want)
+    c = page or 1
+    while c < _SPLIT_MIN or c < per:
+        c *= 2
+    if page is not None:
+        c = min(c, _MAX_PAGES * page)
+    while -(-sweep // c) > _MAX_SPLITS:
+        c *= 2
+    if page is not None and c > _MAX_PAGES * page:
+        raise ValueError(f"a sweep of {sweep} tokens in pages of {page} "
+                         f"needs more than {_MAX_SPLITS} splits of "
+                         f"{_MAX_PAGES} pages")
+    return -(-sweep // c), c
+
+
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+_SMS: Dict[torch.device, int] = {}
+
+
+def _split_args(dev: torch.device, sweep: int, base: int,
+                page: Optional[int], G: int, hd: int):
+    """(splits, tokens per split, workspace, counters) of one launch.  The
+    workspace (partial m, l, acc in fp32) is fresh; the ticket counters
+    are one zero-initialised int32 buffer per device that every launch
+    leaves at zero, grown (the only ``torch.zeros``) when a launch needs
+    more."""
+    if dev not in _SMS:
+        _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    n_split, c = split_plan(sweep, base, page, _SMS[dev])
+    if n_split == 1:
+        return n_split, c, None, None
+    cnt = _COUNTERS.get(dev)
+    if cnt is None or cnt.numel() < base:
+        cnt = torch.zeros(max(base, 2 * (0 if cnt is None else cnt.numel())),
+                          dtype=torch.int32, device=dev)
+        _COUNTERS[dev] = cnt
+    ws = torch.empty(base * n_split * G * (hd + 2), dtype=torch.float32,
+                     device=dev)
+    return n_split, c, ws, cnt
+
+
+def _vector_rows(hd: int, *caches) -> int:
+    """1 when the caches' rows are a power-of-two number of 16-byte
+    words, at most 512 bytes, from 16-byte aligned bases (the kernel's
+    vector path), else 0 (its scalar path)."""
+    row = hd * caches[0].element_size()
+    words = row // 16
+    return int(row % 16 == 0 and 0 < words <= 32 and not words & (words - 1)
+               and all(c.data_ptr() % 16 == 0 for c in caches))
 
 
 def _sweep_blocks(nmax: int, bs: int, max_len: Optional[int]) -> int:
@@ -111,6 +187,8 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     s = s.masked_fill(~live[None, :, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("nbkgs,nbskd->nbkgd", p, v)
+    # a row with no live column stores zeros, as the Pallas kernel
+    o = o * (lengths.to(q.device) > 0)[None, :, None, None, None]
     return o.reshape(n, B, H, hd).to(q.dtype)
 
 
@@ -118,8 +196,8 @@ def _launcher():
     fn = build.library("paged_decode.cu").paged_decode_attention_launch
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i,
-                       i, i, ctypes.c_float, i, i, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i,
+                       i, i, i, i, i, i, ctypes.c_float, i, i, i, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -143,17 +221,21 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, block_table, lengths,
         raise ValueError(f"kernel takes G <= 8 and hd <= 256, got "
                          f"G={H // KH}, hd={hd}")
     nmax = block_table.shape[1]
+    n_sweep = _sweep_blocks(nmax, bs, max_len)
+    n_split, c, ws, cnt = _split_args(q.device, n_sweep * bs, n * B * KH, bs,
+                                      H // KH, hd)
     out = torch.empty_like(q)
     quant = k_scale is not None
     err = _launcher()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                       k_scale.data_ptr() if quant else None,
                       v_scale.data_ptr() if quant else None,
                       block_table.data_ptr(), lengths.data_ptr(),
-                      out.data_ptr(), n, B, H, KH, hd, N, bs, nmax,
-                      _sweep_blocks(nmax, bs, max_len), hd ** -0.5,
+                      out.data_ptr(), ws.data_ptr() if n_split > 1 else None,
+                      cnt.data_ptr() if n_split > 1 else None, n, B, H, KH,
+                      hd, N, bs, nmax, n_sweep, n_split, c, hd ** -0.5,
                       _DTYPES[q.dtype],
                       _INT8 if quant else _DTYPES[q.dtype],
-                      build.cuda_stream(q))
+                      _vector_rows(hd, k_pool, v_pool), build.cuda_stream(q))
     build.check(err, "paged_decode_attention")
     return out
 
@@ -289,6 +371,7 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     s = s.masked_fill(~live[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v)
+    o = o * (lengths.to(q.device) > 0)[:, None, None, None]   # empty rows
     return o.reshape(B, H, hd).to(q.dtype)
 
 
@@ -296,8 +379,8 @@ def _dense_launcher():
     fn = build.library("paged_decode.cu").decode_attention_launch
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
-                       ctypes.c_float, i, i, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
+                       i, i, ctypes.c_float, i, i, i, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -321,16 +404,22 @@ def _dense_launch(q, k_cache, v_cache, k_scale, v_scale, lengths, block_s,
     if H // KH > 8 or hd > 256:
         raise ValueError(f"kernel takes G <= 8 and hd <= 256, got "
                          f"G={H // KH}, hd={hd}")
+    n_cols = _sweep_cols(S, block_s, max_len)
+    n_split, c, ws, cnt = _split_args(q.device, n_cols, B * KH, None,
+                                      H // KH, hd)
     out = torch.empty_like(q)
     quant = k_scale is not None
     err = _dense_launcher()(q.data_ptr(), k_cache.data_ptr(),
                             v_cache.data_ptr(),
                             k_scale.data_ptr() if quant else None,
                             v_scale.data_ptr() if quant else None,
-                            lengths.data_ptr(), out.data_ptr(), B, H, KH,
-                            hd, S, _sweep_cols(S, block_s, max_len),
-                            hd ** -0.5, _DTYPES[q.dtype],
+                            lengths.data_ptr(), out.data_ptr(),
+                            ws.data_ptr() if n_split > 1 else None,
+                            cnt.data_ptr() if n_split > 1 else None, B, H,
+                            KH, hd, S, n_cols, n_split, c, hd ** -0.5,
+                            _DTYPES[q.dtype],
                             _INT8 if quant else _DTYPES[q.dtype],
+                            _vector_rows(hd, k_cache, v_cache),
                             build.cuda_stream(q))
     build.check(err, "decode_attention")
     return out

@@ -2,8 +2,11 @@
 (tolerance fp32 2e-5, bf16 2e-2, as tests/test_kernels.py; the W8A16
 matmul in fp32 1e-4, for its long fp32 sums; the scan as the reference's
 sweep), the launch counts the wrappers keep, and int8 quantization
-bitwise equal to the CPU's.  Imports no JAX, so it runs on a GPU
-machine without it:
+bitwise equal to the CPU's.  The split-KV decode kernels also at rows of
+no, one, one split's and one split + 1 live tokens, one split and many,
+the vector and the scalar path, bitwise repeatable with their ticket
+counters back at zero, one device kernel per call.  Imports no JAX, so
+it runs on a GPU machine without it:
 
   PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
@@ -12,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import decode_attention as da
 from repro_torch.kernels import ops, ref
 
 _TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -24,38 +28,68 @@ def _cuda():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _paged_inputs(n, B, KH, G, hd, bs, nmax, rng):
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _edge_lengths(lengths, sweep, base, page, sms):
+    """Rows 0-3 (of batches of 5 or more) get no, one, exactly one
+    split's and one split + 1 live tokens under the kernel's plan for
+    the whole sweep; the rest stay ragged."""
+    if len(lengths) >= 5:
+        c = da.split_plan(sweep, base, page, sms)[1]
+        lengths[:4] = np.minimum([0, 1, c, c + 1], sweep)
+    return lengths
+
+
+def _paged_inputs(n, B, KH, G, hd, bs, nmax, rng, sms=132):
     N = B * nmax + 3
     table = (rng.permutation(N - 1)[:B * nmax].reshape(B, nmax) + 1
              ).astype(np.int32)
     lengths = np.asarray([1 + (11 * i + 5) % (nmax * bs) for i in range(B)],
                          np.int32)
+    lengths = _edge_lengths(lengths, nmax * bs, n * B * KH, bs, sms)
     return (rng.standard_normal((n, B, KH * G, hd)).astype(np.float32),
             rng.standard_normal((n, N, bs, KH, hd)).astype(np.float32),
             rng.standard_normal((n, N, bs, KH, hd)).astype(np.float32),
             table, lengths)
 
 
+# (n, B, KH, G, hd, bs, nmax): the serve shapes' G 4 at hd 128 over many
+# splits, G 2 at the reduced models' hd 8, G 2 at hd 64 (block 8), G 1 at
+# hd 64, G 8 at hd 256 (the scalar path in fp32)
+_PAGED_SHAPES = [(3, 4, 1, 4, 128, 16, 6), (4, 2, 1, 2, 8, 16, 3),
+                 (2, 3, 2, 2, 64, 8, 5), (3, 6, 1, 4, 128, 16, 40),
+                 (2, 5, 2, 1, 64, 8, 24), (1, 5, 1, 8, 256, 16, 12),
+                 (4, 5, 1, 2, 8, 16, 30)]
+
+
+def _paged_cuts(lengths, bs):
+    """max_len: none, the longest row, one block (one split) and a cut
+    inside the rows."""
+    return (None, int(lengths.max()), 8, max(bs + 1, int(lengths.max()) // 2))
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(3, 4, 1, 4, 128, 16, 6),
-                                   (4, 2, 1, 2, 8, 16, 3),
-                                   (2, 3, 2, 2, 64, 8, 5)])
+@pytest.mark.parametrize("shape", _PAGED_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_paged_decode_kernel_matches_plain(shape, dtype):
     dev, tol = _cuda(), _TOL[dtype]
     rng = np.random.default_rng(0)
-    q, kp, vp, table, lengths = _paged_inputs(*shape, rng)
+    q, kp, vp, table, lengths = _paged_inputs(*shape, rng, _sms(dev))
     cast = lambda a: torch.from_numpy(a).to(dev, _TDT[dtype])   # noqa: E731
     args = (cast(q), cast(kp), cast(vp), torch.from_numpy(table).to(dev),
             torch.from_numpy(lengths).to(dev))
     before = ops.launch_counts()["paged_decode_attention"]
-    for max_len in (None, int(lengths.max()), 8):
+    cuts = _paged_cuts(lengths, shape[5])
+    for max_len in cuts:
         torch.testing.assert_close(
             ops.paged_decode_attention(*args, max_len=max_len),
             ref.paged_decode_attention_plain(*args, max_len=max_len),
             rtol=tol, atol=tol)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["paged_decode_attention"] == before + 3
+    assert ops.launch_counts()["paged_decode_attention"] == \
+        before + len(cuts)
 
 
 @pytest.mark.gpu
@@ -125,22 +159,23 @@ def test_int8_matmul_kernel_matches_plain(n, M, K, N, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", [(3, 4, 1, 4, 128, 16, 6),
-                                   (2, 3, 2, 2, 64, 8, 5)])
+@pytest.mark.parametrize("shape", _PAGED_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_int8_paged_decode_kernel_matches_plain(shape, dtype):
     """int8 pools with their fp32 scale pools, ragged lengths over a
-    shuffled table, with and without a ``max_len`` cut."""
+    shuffled table, with and without a ``max_len`` cut (hd 8 int8 rows
+    take the scalar path)."""
     from repro_torch.common.quant import quantize_rows
     dev, tol = _cuda(), _TOL[dtype]
     rng = np.random.default_rng(4)
-    q, kp, vp, table, lengths = _paged_inputs(*shape, rng)
+    q, kp, vp, table, lengths = _paged_inputs(*shape, rng, _sms(dev))
     (k8, ks), (v8, vs) = (quantize_rows(torch.from_numpy(a).to(dev))
                           for a in (kp, vp))
     args = (torch.from_numpy(q).to(dev, _TDT[dtype]), k8, v8,
             torch.from_numpy(table).to(dev), torch.from_numpy(lengths).to(dev))
     before = ops.launch_counts()
-    for max_len in (None, int(lengths.max()), 8):
+    cuts = _paged_cuts(lengths, shape[5])
+    for max_len in cuts:
         torch.testing.assert_close(
             ops.paged_decode_attention(*args, max_len=max_len, k_scale=ks,
                                        v_scale=vs),
@@ -150,7 +185,7 @@ def test_int8_paged_decode_kernel_matches_plain(shape, dtype):
     torch.cuda.synchronize()
     after = ops.launch_counts()
     assert after["paged_decode_attention_int8"] == \
-        before["paged_decode_attention_int8"] + 3
+        before["paged_decode_attention_int8"] + len(cuts)
     assert after["paged_decode_attention"] == before["paged_decode_attention"]
 
 
@@ -195,17 +230,20 @@ def test_ssm_scan_kernel_matches_plain(B, S, di, ds, dtype):
     assert ops.launch_counts()["ssm_scan"] == before + 1
 
 
-def _dense_inputs(B, S, KH, G, hd, rng):
+def _dense_inputs(B, S, KH, G, hd, rng, sms=132):
     lengths = np.asarray([1 + (13 * i + 7) % S for i in range(B)], np.int32)
+    lengths = _edge_lengths(lengths, S, B * KH, None, sms)
     return (rng.standard_normal((B, KH * G, hd)).astype(np.float32),
             rng.standard_normal((B, S, KH, hd)).astype(np.float32),
             rng.standard_normal((B, S, KH, hd)).astype(np.float32), lengths)
 
 
 # (B, S, KH, G, hd): G 4 at hd 128 (dense-6b), G 1 with an S no tile
-# divides, G 8, hd 256
+# divides, G 8, hd 256; then many splits at G 4 / hd 128, G 1 / hd 64,
+# G 8 / hd 8
 _DENSE_SHAPES = [(3, 72, 2, 4, 128), (5, 37, 1, 1, 64), (2, 100, 2, 8, 16),
-                 (2, 40, 1, 2, 256)]
+                 (2, 40, 1, 2, 256), (6, 700, 2, 4, 128), (5, 300, 1, 1, 64),
+                 (5, 260, 1, 8, 8)]
 
 
 @pytest.mark.gpu
@@ -217,11 +255,12 @@ def test_contiguous_decode_kernel_matches_plain(shape, dtype):
     tiles of 16 and of 512 columns)."""
     dev, tol = _cuda(), _TOL[dtype]
     rng = np.random.default_rng(7)
-    q, k, v, lengths = _dense_inputs(*shape, rng)
+    q, k, v, lengths = _dense_inputs(*shape, rng, _sms(dev))
     cast = lambda a: torch.from_numpy(a).to(dev, _TDT[dtype])   # noqa: E731
     args = (cast(q), cast(k), cast(v), torch.from_numpy(lengths).to(dev))
     before = ops.launch_counts()
-    cuts = ((512, None), (16, int(lengths.max())), (16, 9), (512, 3))
+    cuts = ((512, None), (16, int(lengths.max())), (16, 9), (512, 3),
+            (16, max(17, int(lengths.max()) // 2)))
     for block_s, max_len in cuts:
         torch.testing.assert_close(
             ops.decode_attention(*args, block_s=block_s, max_len=max_len),
@@ -230,25 +269,26 @@ def test_contiguous_decode_kernel_matches_plain(shape, dtype):
             rtol=tol, atol=tol)
     torch.cuda.synchronize()
     after = ops.launch_counts()
-    assert after["decode_attention"] == before["decode_attention"] + 4
+    assert after["decode_attention"] == before["decode_attention"] + len(cuts)
     assert after["paged_decode_attention"] == before["paged_decode_attention"]
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", _DENSE_SHAPES[:3])
+@pytest.mark.parametrize("shape", _DENSE_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_int8_contiguous_decode_kernel_matches_plain(shape, dtype):
     """int8 caches with their fp32 per-token-per-head scales."""
     from repro_torch.common.quant import quantize_rows
     dev, tol = _cuda(), _TOL[dtype]
     rng = np.random.default_rng(8)
-    q, k, v, lengths = _dense_inputs(*shape, rng)
+    q, k, v, lengths = _dense_inputs(*shape, rng, _sms(dev))
     (k8, ks), (v8, vs) = (quantize_rows(torch.from_numpy(a).to(dev))
                           for a in (k, v))
     args = (torch.from_numpy(q).to(dev, _TDT[dtype]), k8, v8,
             torch.from_numpy(lengths).to(dev))
     before = ops.launch_counts()
-    for max_len in (None, int(lengths.max()), 9):
+    cuts = (None, int(lengths.max()), 9, max(17, int(lengths.max()) // 2))
+    for max_len in cuts:
         torch.testing.assert_close(
             ops.decode_attention(*args, block_s=16, max_len=max_len,
                                  k_scale=ks, v_scale=vs),
@@ -258,8 +298,105 @@ def test_int8_contiguous_decode_kernel_matches_plain(shape, dtype):
     torch.cuda.synchronize()
     after = ops.launch_counts()
     assert after["decode_attention_int8"] == \
-        before["decode_attention_int8"] + 3
+        before["decode_attention_int8"] + len(cuts)
     assert after["decode_attention"] == before["decode_attention"]
+
+
+def _decode_calls(dev, dtype, int8):
+    """A multi-split call of each layout (the serve shapes' G 4, hd 128),
+    and a call of another shape (one split, other counters)."""
+    from repro_torch.common.quant import quantize_rows
+    rng = np.random.default_rng(10)
+    t = lambda a: torch.from_numpy(a).to(dev)            # noqa: E731
+    q, kp, vp, table, lengths = _paged_inputs(3, 6, 1, 4, 128, 16, 40, rng,
+                                              _sms(dev))
+    dq, dk, dv, dl = _dense_inputs(6, 700, 2, 4, 128, rng, _sms(dev))
+    if int8:
+        (kp, kps), (vp, vps) = (quantize_rows(t(a)) for a in (kp, vp))
+        (dk, dks), (dv, dvs) = (quantize_rows(t(a)) for a in (dk, dv))
+    else:
+        kp, vp, dk, dv = (t(a).to(_TDT[dtype]) for a in (kp, vp, dk, dv))
+        kps = vps = dks = dvs = None
+    paged = (t(q).to(_TDT[dtype]), kp, vp, t(table), t(lengths))
+    dense = (t(dq).to(_TDT[dtype]), dk, dv, t(dl))
+    return [lambda: ops.paged_decode_attention(*paged, k_scale=kps,
+                                               v_scale=vps),
+            lambda: ops.decode_attention(*dense, k_scale=dks, v_scale=dvs),
+            lambda: ops.paged_decode_attention(*paged, max_len=8,
+                                               k_scale=kps, v_scale=vps)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,int8", [("float32", False),
+                                        ("bfloat16", False),
+                                        ("bfloat16", True)])
+def test_decode_kernels_are_bitwise_repeatable(dtype, int8):
+    """Two calls on the same inputs give the same bits (the splits merge
+    in split order, no float atomics), with calls of another shape in
+    between; every launch leaves the ticket counters at zero."""
+    dev = _cuda()
+    paged, dense, short = _decode_calls(dev, dtype, int8)
+    assert da.split_plan(16 * 40, 3 * 6, 16, _sms(dev))[0] > 1
+    first = (paged(), dense())
+    short()
+    second = (dense(), paged())
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], second[1])
+    assert torch.equal(first[1], second[0])
+    assert not da._COUNTERS[dev].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_kernels_launch_one_device_kernel_per_call(int8):
+    """One launch per call, the combine inside it: the profiler sees one
+    device kernel (and no memset or copy) for a multi-split call of
+    each layout."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dev = _cuda()
+    for call in _decode_calls(dev, "bfloat16", int8)[:2]:
+        call()                                 # counters, build: warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        assert len(names) == 1 and "decode_kernel" in names[0], names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernels_take_unaligned_rows(dtype):
+    """Caches whose base is not 16-byte aligned (views one element into
+    a buffer) take the scalar path, in both layouts, and agree with the
+    plain versions."""
+    dev, tol = _cuda(), _TOL[dtype]
+    rng = np.random.default_rng(11)
+
+    def unaligned(a):
+        buf = torch.empty(a.size + 1, dtype=_TDT[dtype], device=dev)
+        x = buf[1:].view(a.shape)
+        x.copy_(torch.from_numpy(a))
+        assert x.data_ptr() % 16 and x.is_contiguous()
+        return x
+
+    q, kp, vp, table, lengths = _paged_inputs(3, 6, 1, 4, 128, 16, 40, rng,
+                                              _sms(dev))
+    args = (torch.from_numpy(q).to(dev, _TDT[dtype]), unaligned(kp),
+            unaligned(vp), torch.from_numpy(table).to(dev),
+            torch.from_numpy(lengths).to(dev))
+    assert da._vector_rows(128, *args[1:3]) == 0
+    torch.testing.assert_close(ops.paged_decode_attention(*args),
+                               ref.paged_decode_attention_plain(*args),
+                               rtol=tol, atol=tol)
+    q, k, v, lengths = _dense_inputs(6, 700, 2, 4, 128, rng, _sms(dev))
+    args = (torch.from_numpy(q).to(dev, _TDT[dtype]), unaligned(k),
+            unaligned(v), torch.from_numpy(lengths).to(dev))
+    torch.testing.assert_close(ops.decode_attention(*args),
+                               ref.decode_attention_plain(*args),
+                               rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu

@@ -13,6 +13,7 @@ import torch
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import decode_attention as da
 
 _TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 _JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
@@ -150,6 +151,65 @@ def test_paged_decode_max_len_cut_drops_columns_past_it():
         jnp.asarray(q[0]), jnp.asarray(kp[0]), jnp.asarray(vp[0]),
         jnp.asarray(table), jnp.asarray(lengths), max_len=9)
     _close(out[0], want, "float32")
+
+
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+def test_decode_plain_stores_zeros_for_an_empty_row(layout):
+    """A row with no live token stores zeros, as the Pallas kernels (and
+    the CUDA kernel) do; the other rows are untouched."""
+    q, kp, vp, table, _ = _paged_inputs(1, 3, 1, 2, 16, 8, 4)
+    lengths = np.asarray([0, 5, 30], np.int32)
+    if layout == "paged":
+        out = ref.paged_decode_attention_plain(
+            *(torch.from_numpy(a) for a in (q, kp, vp, table, lengths)))[0]
+        want = jops.paged_decode_attention(
+            jnp.asarray(q[0]), jnp.asarray(kp[0]), jnp.asarray(vp[0]),
+            jnp.asarray(table), jnp.asarray(lengths))
+    else:
+        k, v = kp[0, 1:4], vp[0, 1:4]              # [B 3, S 8, KH 1, hd]
+        out = ref.decode_attention_plain(
+            *(torch.from_numpy(a) for a in (q[0], k, v, lengths)))
+        want = jops.decode_attention(jnp.asarray(q[0]), jnp.asarray(k),
+                                     jnp.asarray(v), jnp.asarray(lengths),
+                                     block_s=8)
+    assert not out[0].any()
+    _close(out, want, "float32")
+
+
+# (sweep, base, page): the serve shapes (592 paged / 584 contiguous swept
+# tokens over 64 base blocks), short and long contexts, batches of one,
+# a page size of 32, a sweep past one split per SM-pair's worth
+@pytest.mark.parametrize("sweep,base,page", [
+    (592, 64, 16), (584, 64, None), (64, 8, 16), (4096, 8, 16),
+    (4096, 64, 16), (16, 18, 16), (72, 8, None), (100_000, 1, 8),
+    (37, 3, None), (640, 18, 32)])
+def test_split_plan_covers_each_swept_token_once(sweep, base, page):
+    """The decode kernel's split of the swept tokens over blocks: each
+    token in exactly one split, no split empty, paged splits whole pages
+    (at most the kernel's page cache), between 1 and the kernel's split
+    bound, made from host ints alone; the same sweep gives the same plan
+    on either layout, and a card with more SMs never fewer splits."""
+    n, c = da.split_plan(sweep, base, page)
+    assert type(n) is int and type(c) is int
+    assert 1 <= n <= da._MAX_SPLITS and c >= 1
+    covered = [t for s in range(n) for t in range(s * c, min((s + 1) * c,
+                                                            sweep))]
+    assert covered == list(range(sweep))
+    assert (n - 1) * c < sweep
+    if page is not None:
+        assert c % page == 0 and c // page <= da._MAX_PAGES
+        assert da.split_plan(sweep, base, None) == (n, c)
+    assert da.split_plan(sweep, base, page) == (n, c)
+    assert da.split_plan(sweep, base, page, sms=2 * da.H100_SMS)[0] >= n
+
+
+def test_split_plan_refuses_what_the_kernel_cannot_hold():
+    """Past the split bound in pages of the kernel's page cache, and for
+    an empty sweep, the planner raises instead of planning."""
+    with pytest.raises(ValueError, match="splits"):
+        da.split_plan(da._MAX_SPLITS * da._MAX_PAGES * 4 + 1, 1, 4)
+    with pytest.raises(ValueError):
+        da.split_plan(0, 8, 16)
 
 
 def test_wrappers_run_plain_on_cpu_without_counting():

@@ -12,9 +12,12 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      PyTorch library call (yardstick only; none computes the scan) with
      CUDA events, beside the kernel's bound on an H100 (3.35 TB/s, 989
      TFLOP/s bf16, 67 TFLOP/s fp32 outside the tensor cores); the W8A16
-     matmul at three shapes (decode MLP, decode LM head with fp32 x,
-     prefill MLP); RMSNorm also at falcon-mamba's d 4096; ``ssm_scan``
-     at the falcon-mamba chunk shape, then at ragged S, d_state 1, bf16
+     matmul at seven shapes (decode MLP, decode LM head with fp32 x, the
+     five prefill products), each with fp32 and with bf16 output (which
+     must be bitwise the fp32 output's cast) and the route it took, timed
+     as device work (CUDA graph replays, as its library call);
+     RMSNorm also at falcon-mamba's d 4096; ``ssm_scan`` at the
+     falcon-mamba chunk shape, then at ragged S, d_state 1, bf16
      inputs and an odd feature count; ``decode_attention`` (the
      contiguous cache) at the dense-6b decode shape, bf16 and int8.  The
      four decode rows (the split-KV template, paged and contiguous, fp and
@@ -43,10 +46,13 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      weights and int8 KV (every projection and the head through the W8A16
      kernel, int8 paged decode, prompts through the chunk program), whose
      launch counts must equal 7 per layer + 1 head per forward and one
-     int8 decode per layer per decode step; then falcon-mamba-7b at full
-     width and depth, bf16, the same workload with chunked prefill of 256
-     tokens, whose launch counts must equal 64 ``ssm_scan`` per chunk
-     call, 65 ``rmsnorm`` per forward and no attention kernel; then
+     int8 decode per layer per decode step, the prefill products all on
+     the W8A16 kernel's wgmma route, the decode products on its bf16
+     decode route and the heads on its fp32 decode-row route; then
+     falcon-mamba-7b at full width and depth, bf16, the same workload
+     with chunked prefill of 256 tokens, whose launch counts must equal
+     64 ``ssm_scan`` per chunk call, 65 ``rmsnorm`` per forward and no
+     attention kernel; then
      dense-6b at full width and depth, bf16, the same workload, on the
      paged cache and then on the contiguous cache, whose launch counts
      must equal 32 ``flash_attention`` per prefill call, 65 ``rmsnorm``
@@ -612,24 +618,31 @@ def check_ssm_scan(dev: torch.device, g: torch.Generator):
 
 
 def check_int8_kernels(dev: torch.device, g: torch.Generator):
-    """Phase 3 for the int8 serving path: the W8A16 matmul at three shapes
-    of the int8 serve run (its row reports the decode MLP shape and lists
-    all three) and the int8 branch of paged decode at the decode shape."""
+    """Phase 3 for the int8 serving path: the W8A16 matmul at the shapes of
+    the int8 serve run (its row reports the decode MLP shape and lists all
+    seven: the decode MLP, the fp32 LM head and the five prefill products),
+    each with fp32 and bf16 output and the route it took, and the int8
+    branch of paged decode at the decode shape."""
     from repro_torch.common.quant import quantize_rows
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.quant_matmul import route
     F = torch.nn.functional
     cfg = get_config(ARCH)
     n, H, KH, hd, d = (cfg.pt.n_tracks, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim, cfg.d_model)
     bf, f32 = torch.bfloat16, torch.float32
+    P = SLOTS * PROMPT                  # prefill rows per track
     shapes = []
     for what, nn, M, K, N, xdt, iters, p_iters in (
             ("decode MLP wi_gate", n, SLOTS, d, cfg.d_ff, bf, 200, 20),
             ("decode LM head, fp32 x", 1, SLOTS, d, cfg.vocab_size, f32,
              100, 10),
-            ("prefill MLP wi_gate", n, SLOTS * PROMPT, d, cfg.d_ff, bf, 10,
-             3)):
+            ("prefill wq", n, P, d, H * hd, bf, 20, 3),
+            ("prefill wk / wv", n, P, d, KH * hd, bf, 40, 3),
+            ("prefill attention wo", n, P, H * hd, d, bf, 20, 3),
+            ("prefill MLP wi_gate / wi_up", n, P, d, cfg.d_ff, bf, 10, 3),
+            ("prefill MLP wo", n, P, cfg.d_ff, d, bf, 10, 3)):
         one = nn * K * N + nn * M * K * (2 if xdt == bf else 4)
         sets = []
         for _ in range(copies_for(one)):
@@ -640,13 +653,34 @@ def check_int8_kernels(dev: torch.device, g: torch.Generator):
                          torch.rand(nn, 1, N, generator=g, device=dev)
                          * 1e-3 + 1e-4))
         x, w, sc = sets[0]
+        routes0 = dict(ops.int8_matmul.routes)
         out = ops.int8_matmul(x, w, sc)
+        out16 = ops.int8_matmul(x, w, sc, out_dtype=bf)
+        torch.cuda.synchronize()
+        took = {r for r, c in ops.int8_matmul.routes.items()
+                if c != routes0[r]}
+        want_route = route(M, K, N, xdt, x.data_ptr() % 16 == 0
+                           and w.data_ptr() % 16 == 0)
+        if took != {want_route}:
+            raise SystemExit(f"[kernel] int8_matmul at [{nn},{M},{K},{N}] "
+                             f"took routes {took}, not {want_route}")
+        if not torch.equal(out16, out.to(bf)):
+            raise SystemExit(f"[kernel] int8_matmul bf16 output at "
+                             f"[{nn},{M},{K},{N}] is not the fp32 output's "
+                             f"cast")
         want = ref.int8_matmul_plain(x, w, sc)
-        k_ms = time_ms(ops.int8_matmul, sets, iters)
+        # kernel and library as device work (a decode-row call is shorter
+        # than its launch on the host, so an eager loop times the host);
+        # the kernel's eager loop beside them
+        k_ms = graph_ms(ops.int8_matmul, sets, iters)
+        k16_ms = graph_ms(lambda a, b, c: ops.int8_matmul(a, b, c,
+                                                          out_dtype=bf),
+                          sets, iters)
+        eager_ms = time_ms(ops.int8_matmul, sets, iters)
         p_ms = time_ms(ref.int8_matmul_plain, sets, p_iters)
         # yardstick: torch.matmul on the weight dequantized beforehand
         lib_sets = [(x, (w.float() * sc).to(xdt)) for x, w, sc in sets]
-        l_ms = time_ms(torch.matmul, lib_sets, iters)
+        l_ms = graph_ms(torch.matmul, lib_sets, iters)
         del lib_sets
         row = _report(
             "int8_matmul", "cuda", "src/repro_torch/kernels/csrc/int8_matmul.cu",
@@ -654,11 +688,24 @@ def check_int8_kernels(dev: torch.device, g: torch.Generator):
             l_ms, nbytes(x, w, sc, out), 2.0 * nn * M * K * N,
             BF16_FLOP_S if xdt == bf else FP32_FLOP_S,
             tol=KERNEL_TOL if xdt == bf else FP32_KERNEL_TOL)
-        row["at"] = (f"{what}: x [{nn},{M},{K}] {str(xdt)[6:]}, "
-                     f"w [{nn},{K},{N}] int8")
-        log(f"[kernel]   int8_matmul at {row['at']}")
+        # the bf16-output form moves half the output bytes
+        b16 = max(nbytes(x, w, sc, out16) / HBM_BYTES_S * 1e3,
+                  row["ops"] / (BF16_FLOP_S if xdt == bf else FP32_FLOP_S)
+                  * 1e3)
+        row.update(at=(f"{what}: x [{nn},{M},{K}] {str(xdt)[6:]}, "
+                       f"w [{nn},{K},{N}] int8"), route=want_route,
+                   bound_share=row["bound_ms"] / k_ms,
+                   bf16_out_ms=k16_ms, bf16_out_bound_ms=b16,
+                   bf16_out_bound_share=b16 / k16_ms, eager_ms=eager_ms,
+                   timing="ms, bf16_out_ms and library_ms: device work "
+                          "(CUDA graph replay)")
+        log(f"[kernel]   int8_matmul at {row['at']}: route {want_route}; "
+            f"fp32 out {k_ms:.4f} ms ({100 * row['bound_share']:.1f} % of "
+            f"{row['bound_ms']:.4f}), bf16 out {k16_ms:.4f} ms "
+            f"({100 * b16 / k16_ms:.1f} % of {b16:.4f}, bitwise the fp32 "
+            f"cast); library {l_ms:.4f} ms; eager loop {eager_ms:.4f} ms")
         shapes.append(row)
-        del sets, x, w, sc, out, want
+        del sets, x, w, sc, out, out16, want
         torch.cuda.empty_cache()
     rows = [dict(shapes[0], shapes=[dict(r) for r in shapes])]
 
@@ -1100,6 +1147,7 @@ def check_pt_contiguous_parity(dev: torch.device) -> None:
 # the kernels each serve run must go through
 FP_PATH = ("paged_decode_attention", "flash_attention", "rmsnorm")
 INT8_PATH = ("int8_matmul", "paged_decode_attention_int8", "rmsnorm")
+INT8_ROUTES = {}      # the W8A16 launches of the int8 serve run, by route
 
 
 def serve_full(dev: torch.device, card: str, int8: bool = False):
@@ -1156,6 +1204,7 @@ def serve_full(dev: torch.device, card: str, int8: bool = False):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
+    routes = dict(ops.int8_matmul.routes)
     m = eng.metrics.summary()
     peak = torch.cuda.max_memory_allocated(dev)
     done = sum(rq.state is RequestState.DONE and len(rq.output) == NEW
@@ -1197,6 +1246,17 @@ def serve_full(dev: torch.device, card: str, int8: bool = False):
             f"{'met' if got == want else 'NOT MET'}")
         if got != want:
             raise SystemExit(f"[serve] launch counts {got} != {want}")
+        # every prefill / chunk product on the wgmma route, every decode
+        # product (M = SLOTS rows) on the bf16 decode route, every LM head
+        # (fp32 x, SLOTS rows) on the fp32 decode-row route
+        want = dict.fromkeys(routes, 0)
+        want.update(wgmma_tma=(forwards - decodes) * 7 * cfg.n_layers,
+                    mma_m16=decodes * 7 * cfg.n_layers, fma_rows=forwards)
+        log(f"[serve] {tag}: W8A16 routes {json.dumps(routes)}: "
+            f"{'met' if routes == want else 'NOT MET'}")
+        if routes != want:
+            raise SystemExit(f"[serve] W8A16 routes {routes} != {want}")
+        INT8_ROUTES.update(routes)
     profile_steps(eng, cfg.vocab_size, rng, m["tpot_ms"]["p50"], tag)
     return launches
 
@@ -1298,6 +1358,7 @@ def serve_falcon(dev: torch.device, card: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
+    routes = dict(ops.int8_matmul.routes)
     m = eng.metrics.summary()
     peak = torch.cuda.max_memory_allocated(dev)
     done = sum(rq.state is RequestState.DONE and len(rq.output) == NEW
@@ -1372,6 +1433,7 @@ def serve_dense(dev: torch.device, card: str, params, paged: bool):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
+    routes = dict(ops.int8_matmul.routes)
     m = eng.metrics.summary()
     peak = torch.cuda.max_memory_allocated(dev)
     done = sum(rq.state is RequestState.DONE and len(rq.output) == NEW
@@ -1486,6 +1548,8 @@ def main() -> int:
                else "bf16" if row["name"] in FP_PATH else "int8")
         row["launches"] = runs[run][row["name"]]
         row["launches_by_run"] = {k: v[row["name"]] for k, v in runs.items()}
+        if row["name"] == "int8_matmul":
+            row["routes_in_serve"] = dict(INT8_ROUTES)
         # the same two numbers under their longer key names as well
         row["kernel_ms"] = row["ms"]
         row["launches_in_serve"] = row["launches"]

@@ -13,8 +13,9 @@ payload (keepdims over the quantized axes), so indexing the stacked
 leading dims ([R, D, n, ...]) slices payload and scale together.
 
 ``matmul`` sends every int8 product through the W8A16 kernel
-(``ops.int8_matmul``); its output is cast back to the activation dtype,
-as the reference's kernel route does.  Unlike the reference, which
+(``ops.int8_matmul``), which writes the activation dtype (the kernel
+rounds acc * scale once in its epilogue: the bits the reference's cast
+of the fp32 product gives).  Unlike the reference, which
 dequantizes the attention projections in jnp, every projection here
 takes the kernel (``PERF.md`` notes why).
 """
@@ -187,8 +188,8 @@ def matmul(x: torch.Tensor, w: Any) -> torch.Tensor:
     n, K = x.shape[0], x.shape[-1]
     xm = x.reshape(n, -1, K)
     if isinstance(w, QuantTensor):
-        out = ops.int8_matmul(xm.contiguous(), w.payload, w.scale)
-        out = out.to(x.dtype)
+        out = ops.int8_matmul(xm.contiguous(), w.payload, w.scale,
+                              out_dtype=x.dtype)
     else:
         out = torch.matmul(xm, w)
     return out.reshape(*x.shape[:-1], w.shape[-1])

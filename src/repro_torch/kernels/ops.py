@@ -4,7 +4,8 @@ Each wrapper launches its hand-written kernel for CUDA tensors (raising
 if it cannot) and runs its plain PyTorch version for CPU tensors.  Each
 keeps ``launches``, a plain int it bumps only where it launched the
 kernel, so a run can show which kernels its path went through.  The
-int8 branch of each decode kernel counts apart from its fp branch.
+int8 branch of each decode kernel counts apart from its fp branch, and
+``int8_matmul.routes`` counts the W8A16 launches by route.
 """
 from __future__ import annotations
 
@@ -34,5 +35,8 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Every launch count to 0, and ``int8_matmul.routes``' counts too."""
     for fn in KERNELS.values():
         fn.launches = 0
+    for r in int8_matmul.routes:
+        int8_matmul.routes[r] = 0

@@ -2,11 +2,15 @@
 (tolerance fp32 2e-5, bf16 2e-2, as tests/test_kernels.py; the W8A16
 matmul in fp32 1e-4, for its long fp32 sums; the scan as the reference's
 sweep), the launch counts the wrappers keep, and int8 quantization
-bitwise equal to the CPU's.  The split-KV decode kernels also at rows of
-no, one, one split's and one split + 1 live tokens, one split and many,
-the vector and the scalar path, bitwise repeatable with their ticket
-counters back at zero, one device kernel per call.  Imports no JAX, so
-it runs on a GPU machine without it:
+bitwise equal to the CPU's.  The W8A16 matmul also on each route (the
+wgmma + TMA prefill route at pt-6b-d4's five prefill products and ragged
+M, N and K, the shapes TMA cannot take, the fp32 decode-row route at
+the LM head), with bf16 output bitwise the fp32 output's cast, bitwise
+repeatable, one device kernel per call.  The split-KV decode kernels
+also at rows of no, one, one split's and one split + 1 live tokens, one
+split and many, the vector and the scalar path, bitwise repeatable with
+their ticket counters back at zero, one device kernel per call.
+Imports no JAX, so it runs on a GPU machine without it:
 
   PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
@@ -156,6 +160,135 @@ def test_int8_matmul_kernel_matches_plain(n, M, K, N, dtype):
         rtol=tol, atol=tol)
     torch.cuda.synchronize()
     assert ops.launch_counts()["int8_matmul"] == before + 1
+
+
+def _int8_operands(dev, n, M, K, N, dtype, seed):
+    """x [n, M, K] and a quantized weight whose rows and columns all
+    differ (a wrong operand layout or descriptor shows as a mismatch)."""
+    from repro_torch.common.quant import quantize
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((n, M, K)).astype(np.float32)
+                         ).to(dev, _TDT[dtype])
+    qt = quantize(torch.from_numpy(
+        rng.standard_normal((n, K, N)).astype(np.float32)).to(dev), axes=-2)
+    return x, qt.payload, qt.scale
+
+
+def _routed(x, w, s, out_dtype=torch.float32):
+    """One call, and the route its launch was counted under."""
+    from repro_torch.kernels import quant_matmul as qm
+    before = dict(qm.int8_matmul.routes)
+    out = ops.int8_matmul(x, w, s, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    moved = [r for r, c in qm.int8_matmul.routes.items() if c != before[r]]
+    assert len(moved) == 1 and \
+        qm.int8_matmul.routes[moved[0]] == before[moved[0]] + 1, moved
+    return out, moved[0]
+
+
+# pt-6b-d4's five prefill products (K, N) at M = 8 prompts x 512 rows; the
+# same with M off the 256-row tile; N off the 128-column tile; K off the
+# 64-deep stage, and with an odd stage count (the kernel adds a stage of
+# zeros past K)
+_PREFILL = [(4096, 1408, 512), (4096, 1408, 128), (4096, 512, 1408),
+            (4096, 1408, 3968), (4096, 3968, 1408), (130, 1408, 3968),
+            (4000, 3968, 1408), (130, 512, 144), (4000, 3968, 144),
+            (17, 72, 16), (300, 136, 272), (257, 8, 48)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", _PREFILL)
+def test_int8_matmul_wgmma_route_matches_plain(M, K, N):
+    """The wgmma + TMA route at the prefill shapes and ragged edges: fp32
+    out within bf16's 2e-2 of the plain version, bf16 out bitwise the
+    fp32 output's cast, a second call bitwise the first."""
+    dev = _cuda()
+    x, w, s = _int8_operands(dev, 8, M, K, N, "bfloat16", M + K + N)
+    out, r = _routed(x, w, s)
+    assert r == "wgmma_tma" and out.dtype == torch.float32
+    torch.testing.assert_close(out, ref.int8_matmul_plain(x, w, s),
+                               rtol=2e-2, atol=2e-2)
+    out16, r16 = _routed(x, w, s, torch.bfloat16)
+    assert r16 == "wgmma_tma" and out16.dtype == torch.bfloat16
+    assert torch.equal(out16, out.to(torch.bfloat16))
+    assert torch.equal(_routed(x, w, s)[0], out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K,N,offset,want", [(1404, 512, 0, "mma_m64"),
+                                             (1408, 136, 0, "mma_m64"),
+                                             (1408, 520, 0, "mma_m64"),
+                                             (1408, 512, 1, "mma_m64")])
+def test_int8_matmul_prefill_shapes_tma_cannot_take(K, N, offset, want):
+    """K % 8, N % 16 and a base off 16 bytes rule out TMA: the
+    register-staged route runs, named by ``int8_matmul.routes``."""
+    dev = _cuda()
+    x, w, s = _int8_operands(dev, 2, 300, K, N, "bfloat16", 5)
+    if offset:          # x one element into its storage: 2-byte aligned
+        x = torch.cat([x.new_zeros(1), x.reshape(-1)])[offset:].view(x.shape)
+        assert x.data_ptr() % 16
+    out, r = _routed(x, w, s)
+    assert r == want
+    torch.testing.assert_close(out, ref.int8_matmul_plain(x, w, s),
+                               rtol=2e-2, atol=2e-2)
+    out16, _ = _routed(x, w, s, torch.bfloat16)
+    assert torch.equal(out16, out.to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,M,K,N", [(1, 8, 1408, 100352), (2, 13, 200, 1040),
+                                     (1, 3, 4096, 64)])
+def test_int8_matmul_fp32_rows_route_matches_plain(n, M, K, N):
+    """fp32 x at the decode rows (the int8 LM head at M = 8, and 16-row
+    and ragged-K cases) on the streaming route, at 1e-4."""
+    dev = _cuda()
+    x, w, s = _int8_operands(dev, n, M, K, N, "float32", 7)
+    out, r = _routed(x, w, s)
+    assert r == "fma_rows"
+    torch.testing.assert_close(out, ref.int8_matmul_plain(x, w, s),
+                               rtol=1e-4, atol=1e-4)
+    out16, _ = _routed(x, w, s, torch.bfloat16)
+    assert torch.equal(out16, out.to(torch.bfloat16))
+    assert torch.equal(_routed(x, w, s)[0], out)
+
+
+@pytest.mark.gpu
+def test_int8_matmul_decode_route_bitwise():
+    """The bf16 decode route (x [8, 8, 1408] @ [8, 1408, 3968]): two calls
+    bitwise equal, bf16 out bitwise the fp32 output's cast."""
+    dev = _cuda()
+    x, w, s = _int8_operands(dev, 8, 8, 1408, 3968, "bfloat16", 9)
+    out, r = _routed(x, w, s)
+    assert r == "mma_m16"
+    torch.testing.assert_close(out, ref.int8_matmul_plain(x, w, s),
+                               rtol=2e-2, atol=2e-2)
+    assert torch.equal(_routed(x, w, s)[0], out)
+    assert torch.equal(_routed(x, w, s, torch.bfloat16)[0],
+                       out.to(torch.bfloat16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,M,K,N,dtype", [(8, 4096, 1408, 3968, "bfloat16"),
+                                           (8, 8, 1408, 3968, "bfloat16"),
+                                           (1, 8, 1408, 100352, "float32")])
+def test_int8_matmul_launches_one_device_kernel_per_call(n, M, K, N, dtype):
+    """bf16 out is written by the kernel itself: the profiler sees one
+    device kernel per call, no cast or copy after it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dev = _cuda()
+    x, w, s = _int8_operands(dev, n, M, K, N, dtype, 11)
+    ops.int8_matmul(x, w, s, out_dtype=torch.bfloat16)      # build: warm
+    torch.cuda.synchronize()
+    for _ in range(3):          # a window the tracer returned empty is retaken
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ops.int8_matmul(x, w, s, out_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    assert len(names) == 1 and "int8_matmul" in names[0], names
 
 
 @pytest.mark.gpu

@@ -240,6 +240,63 @@ def test_wrappers_run_plain_on_cpu_without_counting():
     assert ops.launch_counts() == before
 
 
+# (M, K, N, dtype, aligned) -> the W8A16 route: bf16 prefill rows on wgmma
+# + TMA where the 16-byte strides and bases allow it, the decode rows (M <=
+# 16) on the register-staged kernels, fp32 decode rows (the LM head)
+# streaming when N % 16 == 0 and w is aligned
+_ROUTES = [((4096, 1408, 3968, "bfloat16", True), "wgmma_tma"),
+           ((17, 72, 16, "bfloat16", True), "wgmma_tma"),
+           ((16, 1408, 3968, "bfloat16", True), "mma_m16"),
+           ((4096, 1404, 3968, "bfloat16", True), "mma_m64"),
+           ((4096, 1408, 136, "bfloat16", True), "mma_m64"),
+           ((4096, 1408, 3968, "bfloat16", False), "mma_m64"),
+           ((8, 1408, 100352, "float32", True), "fma_rows"),
+           ((8, 1408, 100344, "float32", True), "fma_m16"),
+           ((8, 1408, 100352, "float32", False), "fma_m16"),
+           ((17, 1408, 100352, "float32", True), "fma_m64")]
+
+
+@pytest.mark.parametrize("args,want", _ROUTES)
+def test_int8_matmul_route_by_shape_and_alignment(args, want):
+    from repro_torch.kernels import quant_matmul as qm
+    M, K, N, dtype, aligned = args
+    assert qm.route(M, K, N, _TDT[dtype], aligned) == want
+    assert want in qm.ROUTES and set(qm.int8_matmul.routes) == set(qm.ROUTES)
+
+
+def test_int8_matmul_route_refuses_other_dtypes():
+    from repro_torch.kernels import quant_matmul as qm
+    with pytest.raises(ValueError):
+        qm.route(8, 16, 16, torch.float16, True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_matmul_out_dtype_on_cpu(dtype):
+    """bf16 out is the fp32 output rounded once (what the caller's cast
+    did); the CPU runs the plain version and counts no launch or route."""
+    from repro_torch.common import quant
+    from repro_torch.kernels import quant_matmul as qm
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((2, 5, 24)).astype(np.float32)
+                         ).to(_TDT[dtype])
+    qt = quant.quantize(torch.from_numpy(
+        rng.standard_normal((2, 24, 40)).astype(np.float32)), axes=-2)
+    before, routes = ops.launch_counts(), dict(qm.int8_matmul.routes)
+    full = ops.int8_matmul(x, qt.payload, qt.scale)
+    half = ops.int8_matmul(x, qt.payload, qt.scale, out_dtype=torch.bfloat16)
+    assert full.dtype == torch.float32 and half.dtype == torch.bfloat16
+    assert torch.equal(half, full.to(torch.bfloat16))
+    assert torch.equal(half, ref.int8_matmul_plain(
+        x, qt.payload, qt.scale, out_dtype=torch.bfloat16))
+    # the projection helper writes the activation dtype directly
+    got = quant.matmul(x, qt)
+    assert got.dtype == x.dtype and torch.equal(got, full.to(x.dtype))
+    assert ops.launch_counts() == before
+    assert qm.int8_matmul.routes == routes
+    with pytest.raises(ValueError):
+        ops.int8_matmul(x, qt.payload, qt.scale, out_dtype=torch.float16)
+
+
 def test_wrappers_refuse_what_no_kernel_takes():
     q, kp, vp, table, lengths = (torch.from_numpy(a) for a in
                                  _paged_inputs(1, 2, 1, 2, 16, 8, 3))

@@ -14,17 +14,19 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      TFLOP/s bf16, 67 TFLOP/s fp32 outside the tensor cores); the W8A16
      matmul at seven shapes (decode MLP, decode LM head with fp32 x, the
      five prefill products), each with fp32 and with bf16 output (which
-     must be bitwise the fp32 output's cast) and the route it took, timed
-     as device work (CUDA graph replays, as its library call);
-     RMSNorm also at falcon-mamba's d 4096; ``ssm_scan`` at the
-     falcon-mamba chunk shape, then at ragged S, d_state 1, bf16
-     inputs and an odd feature count; ``decode_attention`` (the
-     contiguous cache) at the dense-6b decode shape, bf16 and int8.  The
-     four decode rows (the split-KV template, paged and contiguous, fp and
+     must be bitwise the fp32 output's cast) and the route it took;
+     flash prefill at the pt-6b-d4 and the dense-6b layouts, each with
+     the route it took (which must be the one ``route`` names); RMSNorm
+     also at falcon-mamba's d 4096; ``ssm_scan`` at the falcon-mamba
+     chunk shape, then at ragged S, d_state 1, bf16 inputs and an odd
+     feature count; ``decode_attention`` (the contiguous cache) at the
+     dense-6b decode shape, bf16 and int8.  The W8A16, flash, RMSNorm and
+     decode rows (the split-KV template, paged and contiguous, fp and
      int8) are timed as device work (their calls replayed from a CUDA
-     graph, as their library calls; the eager loop's time beside it), with
-     each row's split plan and share of its bound, and the fp rows over a
-     short sweep of B 1 and 8 by live length 64, 576 and 4096;
+     graph, as their library calls; the eager loops' times beside them),
+     each with its share of the bound; the decode rows with their split
+     plan, and the fp decode rows over a short sweep of B 1 and 8 by live
+     length 64, 576 and 4096;
   4. the reduced PT config in fp32, on the card against the same weights
      on the CPU (tolerance 1e-4): prefill logits, K/V and teacher-forced
      paged decode steps; then with int8 weights, int8 KV and chunked
@@ -42,9 +44,11 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      generator): 8 slots, 8 greedy requests of 512 prompt tokens and 64
      new tokens, block size 16 — TTFT, TPOT, throughput, peak memory and
      each kernel's launch count, which must all be non-zero; once with
-     bf16 weights and KV (flash prefill, fp paged decode), then with int8
-     weights and int8 KV (every projection and the head through the W8A16
-     kernel, int8 paged decode, prompts through the chunk program), whose
+     bf16 weights and KV (flash prefill, one launch per layer per
+     prefill call, every one on the ``wgmma_tma`` route; fp paged
+     decode), then with int8 weights and int8 KV (every projection and
+     the head through the W8A16 kernel, int8 paged decode, prompts
+     through the chunk program), whose
      launch counts must equal 7 per layer + 1 head per forward and one
      int8 decode per layer per decode step, the prefill products all on
      the W8A16 kernel's wgmma route, the decode products on its bf16
@@ -55,10 +59,10 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      attention kernel; then
      dense-6b at full width and depth, bf16, the same workload, on the
      paged cache and then on the contiguous cache, whose launch counts
-     must equal 32 ``flash_attention`` per prefill call, 65 ``rmsnorm``
-     per forward and 32 per decode step of the cache's decode kernel
-     (``paged_decode_attention`` or ``decode_attention``), the other
-     never;
+     must equal 32 ``flash_attention`` per prefill call (every one on
+     the ``wgmma_tma`` route), 65 ``rmsnorm`` per forward and 32 per
+     decode step of the cache's decode kernel (``paged_decode_attention``
+     or ``decode_attention``), the other never;
   6. where the time goes: device time by kernel (torch.profiler) over the
      step that admits 8 prompts and over three decode steps, and the
      decode step's device busy share against its unprofiled TPOT, for
@@ -146,8 +150,8 @@ def graph_ms(fn, arg_sets, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def decode_timing(kern, lib, sets, lib_sets, iters: int = 200):
-    """The decode rows' times: kernel and library call as device work
+def device_timing(kern, lib, sets, lib_sets, iters: int = 200):
+    """A row's times: kernel and library call as device work
     (``graph_ms``), and both eager loops (``time_ms``)."""
     return {"ms": graph_ms(kern, sets, iters),
             "library_ms": graph_ms(lib, lib_sets, iters),
@@ -170,6 +174,18 @@ def decode_extras(row, t, sweep: int, base: int, page):
     log(f"[kernel]   {row['name']}: {splits} split(s) of {per} tokens, "
         f"{splits * base} blocks; {100 * row['bound_share']:.1f} % of its "
         f"bound; eager loop {t['eager_ms']:.4f} ms (library "
+        f"{t['library_eager_ms']:.4f} ms)")
+
+
+def timed_extras(row, t, at: str) -> None:
+    """Beside a row timed by ``device_timing``: where it was taken, its
+    eager times and its share of the bound."""
+    row.update(at=at, eager_ms=t["eager_ms"],
+               library_eager_ms=t["library_eager_ms"],
+               bound_share=row["bound_ms"] / row["ms"],
+               timing="ms and library_ms: device work (CUDA graph replay)")
+    log(f"[kernel]   {row['name']} at {at}: {100 * row['bound_share']:.1f} "
+        f"% of its bound; eager loop {t['eager_ms']:.4f} ms (library "
         f"{t['library_eager_ms']:.4f} ms)")
 
 
@@ -273,7 +289,7 @@ def check_kernels(dev: torch.device):
                 vv.repeat_interleave(H // KH, 2).transpose(1, 2).contiguous())
 
     lib_sets = [gathered(*s) for s in sets]
-    t = decode_timing(lambda q, k, v: ops.paged_decode_attention(
+    t = device_timing(lambda q, k, v: ops.paged_decode_attention(
         q, k, v, table, lengths, max_len=max_len),
         F.scaled_dot_product_attention, sets, lib_sets)
     del lib_sets
@@ -289,35 +305,14 @@ def check_kernels(dev: torch.device):
     torch.cuda.empty_cache()
     rows[-1]["shapes"] = decode_shapes(dev, g, paged=True)
 
-    # -- flash prefill: the batched prefill of all 8 prompts -----------
-    Bn, S = n * SLOTS, PROMPT
-    one = nbytes(randn(Bn, S, H, hd)) * 2 + nbytes(randn(Bn, S, KH, hd)) * 2
-    sets = [(randn(Bn, S, H, hd), randn(Bn, S, KH, hd), randn(Bn, S, KH, hd))
-            for _ in range(copies_for(one))]
-    q, k, v = sets[0]
-    out = ops.flash_attention(q, k, v, causal=True)
-    want = ref.flash_attention_plain(q, k, v, causal=True)
-    k_ms = time_ms(lambda q, k, v: ops.flash_attention(q, k, v, causal=True),
-                   sets, 10)
-    p_ms = time_ms(lambda q, k, v: ref.flash_attention_plain(
-        q, k, v, causal=True), sets, 4)
-
-    def bhsd(q, k, v):
-        return (q.transpose(1, 2).contiguous(),
-                k.repeat_interleave(H // KH, 2).transpose(1, 2).contiguous(),
-                v.repeat_interleave(H // KH, 2).transpose(1, 2).contiguous())
-
-    lib_sets = [bhsd(*s) for s in sets]
-    l_ms = time_ms(lambda q, k, v: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), lib_sets, 10)
-    del lib_sets
-    rows.append(_report(
-        "flash_attention", "cuda",
-        "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention.py:79", out, want, k_ms, p_ms,
-        l_ms, nbytes(q, k, v, out),
-        4.0 * Bn * H * hd * S * (S + 1) / 2, BF16_FLOP_S))
-    del sets, q, k, v, out, want
+    # -- flash prefill: the batched prefill of all 8 prompts, at the
+    # pt-6b-d4 layout (8 tracks x 8 prompts) and at dense-6b's ----------
+    dcfg = get_config(DENSE_ARCH)
+    rows.append(flash_row(dev, g, n * SLOTS, H, KH, hd, ARCH))
+    rows[-1]["shapes"] = [flash_row(dev, g, SLOTS, dcfg.n_heads,
+                                    dcfg.n_kv_heads, dcfg.head_dim,
+                                    DENSE_ARCH)]
+    torch.cuda.empty_cache()
 
     # -- RMSNorm: ln1 / ln2 of the prefill, all tracks in one launch ---
     shape = (n, SLOTS, PROMPT, d)
@@ -328,15 +323,18 @@ def check_kernels(dev: torch.device):
     x = sets[0][0]
     out = ops.rmsnorm(x, scale)
     want = ref.rmsnorm_plain(x, scale)
-    k_ms = time_ms(lambda x: ops.rmsnorm(x, scale), sets, 50)
-    p_ms = time_ms(lambda x: ref.rmsnorm_plain(x, scale), sets, 20)
     w = (1.0 + srow).to(bf)
-    l_ms = time_ms(lambda x: F.rms_norm(x, (d,), weight=w, eps=1e-6),
-                   sets, 50)
+    t = device_timing(lambda x: ops.rmsnorm(x, scale),
+                      lambda x: F.rms_norm(x, (d,), weight=w, eps=1e-6),
+                      sets, sets, 50)
+    p_ms = time_ms(lambda x: ref.rmsnorm_plain(x, scale), sets, 20)
     rows.append(_report(
         "rmsnorm", "triton", "src/repro_torch/kernels/rmsnorm.py",
-        "src/repro/kernels/rmsnorm.py:20", out, want, k_ms, p_ms, l_ms,
-        nbytes(x, scale, out), 4.0 * x.numel(), FP32_FLOP_S))
+        "src/repro/kernels/rmsnorm.py:20", out, want, t["ms"], p_ms,
+        t["library_ms"], nbytes(x, scale, out), 4.0 * x.numel(),
+        FP32_FLOP_S))
+    timed_extras(rows[-1], t, f"x [{n},{SLOTS},{PROMPT},{d}] bf16, scale "
+                              f"[{n},{d}] ({ARCH} prefill)")
     del sets, x, out, want
     rows[-1]["shapes"] = rmsnorm_d4096(dev, g)
     torch.cuda.empty_cache()
@@ -347,6 +345,62 @@ def check_kernels(dev: torch.device):
     rows += check_decode_attention(dev, g)
     torch.cuda.empty_cache()
     return rows
+
+
+def flash_row(dev: torch.device, g: torch.Generator, B: int, H: int,
+              KH: int, hd: int, arch: str):
+    """Phase 3 for flash prefill at one cell's layout: q [B, PROMPT, H,
+    hd], k, v [B, PROMPT, KH, hd] bf16, causal; the kernel and SDPA (on
+    K / V expanded and transposed beforehand, untimed) as device work with
+    their eager loops beside; the route the launch took, which must be
+    the one ``route`` names."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+    S, bf = PROMPT, torch.bfloat16
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+
+    one = 2 * B * S * (H + KH) * hd * 2
+    sets = [(randn(B, S, H, hd), randn(B, S, KH, hd), randn(B, S, KH, hd))
+            for _ in range(copies_for(one))]
+    q, k, v = sets[0]
+    routes0 = dict(fa.flash_attention.routes)
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    took = {r for r, c in fa.flash_attention.routes.items()
+            if c != routes0[r]}
+    want_route = fa.route(bf, hd, True)
+    if took != {want_route}:
+        raise SystemExit(f"[kernel] flash_attention at {arch}'s layout took "
+                         f"routes {took}, not {want_route}")
+    want = ref.flash_attention_plain(q, k, v, causal=True)
+
+    def bhsd(q, k, v):
+        return (q.transpose(1, 2).contiguous(),
+                k.repeat_interleave(H // KH, 2).transpose(1, 2).contiguous(),
+                v.repeat_interleave(H // KH, 2).transpose(1, 2).contiguous())
+
+    lib_sets = [bhsd(*s) for s in sets]
+    t = device_timing(lambda q, k, v: ops.flash_attention(q, k, v,
+                                                          causal=True),
+                      lambda q, k, v: F.scaled_dot_product_attention(
+                          q, k, v, is_causal=True), sets, lib_sets, 50)
+    del lib_sets
+    p_ms = time_ms(lambda q, k, v: ref.flash_attention_plain(
+        q, k, v, causal=True), sets, 4)
+    row = _report(
+        "flash_attention", "cuda",
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:79", out, want, t["ms"], p_ms,
+        t["library_ms"], nbytes(q, k, v, out),
+        4.0 * B * H * hd * S * (S + 1) / 2, BF16_FLOP_S)
+    row["kernel_route"] = want_route
+    timed_extras(row, t, f"q [{B},{S},{H},{hd}], k, v [{B},{S},{KH},{hd}] "
+                         f"bf16, causal ({arch}); route {want_route}")
+    del sets, q, k, v, out, want
+    return row
 
 
 def check_decode_attention(dev: torch.device, g: torch.Generator):
@@ -409,7 +463,7 @@ def check_decode_attention(dev: torch.device, g: torch.Generator):
             return q[:, :, None], expand(k), expand(v)
 
         lib_sets = [lib_args(*st) for st in sets]
-        t = decode_timing(kern, lambda q, k, v: F.scaled_dot_product_attention(
+        t = device_timing(kern, lambda q, k, v: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask), sets, lib_sets)
         del lib_sets
         row_bytes = hd * 2 if branch == "bf16" else hd + 4
@@ -551,21 +605,20 @@ def rmsnorm_d4096(dev: torch.device, g: torch.Generator):
         sets = [(torch.randn(rows_, d, generator=g, device=dev).to(
             torch.bfloat16),) for _ in range(copies_for(2 * nbytes(x0)))]
         x = sets[0][0]
+        tm = device_timing(lambda x: ops.rmsnorm(x, scale, eps=1e-5),
+                           lambda x: F.rms_norm(x, (d,), weight=w, eps=1e-5),
+                           sets, sets, iters)
         row = _report("rmsnorm", "triton",
                       "src/repro_torch/kernels/rmsnorm.py",
                       "src/repro/kernels/rmsnorm.py:20",
                       ops.rmsnorm(x, scale, eps=1e-5),
-                      ref.rmsnorm_plain(x, scale, eps=1e-5),
-                      time_ms(lambda x: ops.rmsnorm(x, scale, eps=1e-5),
-                              sets, iters),
+                      ref.rmsnorm_plain(x, scale, eps=1e-5), tm["ms"],
                       time_ms(lambda x: ref.rmsnorm_plain(x, scale, eps=1e-5),
                               sets, iters // 5),
-                      time_ms(lambda x: F.rms_norm(x, (d,), weight=w,
-                                                   eps=1e-5), sets, iters),
-                      nbytes(x, scale) + nbytes(x), 4.0 * x.numel(),
-                      FP32_FLOP_S)
-        row["at"] = f"x [{rows_},{d}] bf16, scale [{d}] (falcon-mamba)"
-        log(f"[kernel]   rmsnorm at {row['at']}")
+                      tm["library_ms"], nbytes(x, scale) + nbytes(x),
+                      4.0 * x.numel(), FP32_FLOP_S)
+        timed_extras(row, tm, f"x [{rows_},{d}] bf16, scale [{d}] "
+                              f"(falcon-mamba)")
         out_rows.append(row)
         del sets, x0, x
     return out_rows
@@ -693,7 +746,7 @@ def check_int8_kernels(dev: torch.device, g: torch.Generator):
                   row["ops"] / (BF16_FLOP_S if xdt == bf else FP32_FLOP_S)
                   * 1e3)
         row.update(at=(f"{what}: x [{nn},{M},{K}] {str(xdt)[6:]}, "
-                       f"w [{nn},{K},{N}] int8"), route=want_route,
+                       f"w [{nn},{K},{N}] int8"), kernel_route=want_route,
                    bound_share=row["bound_ms"] / k_ms,
                    bf16_out_ms=k16_ms, bf16_out_bound_ms=b16,
                    bf16_out_bound_share=b16 / k16_ms, eager_ms=eager_ms,
@@ -756,7 +809,7 @@ def check_int8_kernels(dev: torch.device, g: torch.Generator):
                 one(v, vs).contiguous())
 
     lib_sets = [gathered(*st) for st in sets]
-    t = decode_timing(kern, F.scaled_dot_product_attention, sets, lib_sets)
+    t = device_timing(kern, F.scaled_dot_product_attention, sets, lib_sets)
     del lib_sets
     live = n * SLOTS * L * KH * (hd + 4) * 2    # int8 K and V rows + scales
     rows.append(_report(
@@ -1148,6 +1201,7 @@ def check_pt_contiguous_parity(dev: torch.device) -> None:
 FP_PATH = ("paged_decode_attention", "flash_attention", "rmsnorm")
 INT8_PATH = ("int8_matmul", "paged_decode_attention_int8", "rmsnorm")
 INT8_ROUTES = {}      # the W8A16 launches of the int8 serve run, by route
+FLASH_ROUTES = {}     # the flash launches of each bf16 serve run, by route
 
 
 def serve_full(dev: torch.device, card: str, int8: bool = False):
@@ -1199,17 +1253,19 @@ def serve_full(dev: torch.device, card: str, int8: bool = False):
             for _ in range(SLOTS)]
     r = eng.runner
     steps0, transfers0 = eng.steps_run, r.decode_transfers
-    calls0 = r.prefill_calls + r.chunk_calls
+    calls0, prefills0 = r.prefill_calls + r.chunk_calls, r.prefill_calls
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     routes = dict(ops.int8_matmul.routes)
+    flash_routes = dict(ops.flash_attention.routes)
     m = eng.metrics.summary()
     peak = torch.cuda.max_memory_allocated(dev)
     done = sum(rq.state is RequestState.DONE and len(rq.output) == NEW
                for rq in reqs)
     decodes = r.decode_transfers - transfers0
+    prefills = r.prefill_calls - prefills0
     forwards = r.prefill_calls + r.chunk_calls - calls0 + decodes
     log(f"[serve] {card} | {tag}: {SLOTS} reqs x ({PROMPT} in / {NEW} out), "
         f"slots {SLOTS}, block {BLOCK}, {eng.steps_run - steps0} steps, "
@@ -1233,6 +1289,16 @@ def serve_full(dev: torch.device, card: str, int8: bool = False):
     if not all(launches[k] for k in path):
         raise SystemExit(f"[serve] a kernel of the {tag} path never ran: "
                          f"{launches}")
+    if not int8:
+        # one flash launch per layer per prefill call (all tracks in one)
+        want = cfg.n_layers * prefills
+        log(f"[serve] {tag}: flash_attention {launches['flash_attention']} "
+            f"launches in {prefills} prefill calls, {cfg.n_layers} layers: "
+            f"{'met' if launches['flash_attention'] == want else 'NOT MET'}")
+        if launches["flash_attention"] != want or not prefills:
+            raise SystemExit(f"[serve] flash_attention launches "
+                             f"{launches['flash_attention']} != {want}")
+        check_flash_routes(tag, launches, flash_routes)
     if int8:
         # every projection (7 per layer) and the LM head through the W8A16
         # kernel in every forward; the int8 decode kernel in every layer
@@ -1259,6 +1325,17 @@ def serve_full(dev: torch.device, card: str, int8: bool = False):
         INT8_ROUTES.update(routes)
     profile_steps(eng, cfg.vocab_size, rng, m["tpot_ms"]["p50"], tag)
     return launches
+
+
+def check_flash_routes(tag: str, launches, routes) -> None:
+    """Every flash launch of a bf16 serve run on the wgmma + TMA route."""
+    want = dict.fromkeys(routes, 0)
+    want["wgmma_tma"] = launches["flash_attention"]
+    log(f"[serve] {tag}: flash_attention routes {json.dumps(routes)}: "
+        f"{'met' if routes == want else 'NOT MET'}")
+    if routes != want:
+        raise SystemExit(f"[serve] flash_attention routes {routes} != {want}")
+    FLASH_ROUTES[tag] = routes
 
 
 def profile_steps(eng, vocab: int, rng, tpot_ms: float, tag: str,
@@ -1302,7 +1379,9 @@ def profile_steps(eng, vocab: int, rng, tpot_ms: float, tag: str,
             log(f"[profile] {tag} decode step: busy {busy:.3f} ms of TPOT p50 "
                 f"{tpot_ms:.3f} ms unprofiled ({100 * busy / tpot_ms:.1f} % "
                 f"busy, {100 - 100 * busy / tpot_ms:.1f} % idle)")
-        for ms, count, key in rows[:8]:
+        # the top eight, and flash prefill wherever it ranks
+        for ms, count, key in rows[:8] + [r for r in rows[8:]
+                                          if "flash_attention" in r[2]]:
             log(f"[profile]   {ms:9.3f} ms {count:6.0f}x  {key[:90]}")
 
 
@@ -1466,6 +1545,7 @@ def serve_dense(dev: torch.device, card: str, params, paged: bool):
         raise SystemExit(f"[serve] not every {tag} request finished")
     if got != want or not decodes or not prefills:
         raise SystemExit(f"[serve] launch counts {got} != {want}")
+    check_flash_routes(tag, launches, dict(ops.flash_attention.routes))
     profile_steps(eng, cfg.vocab_size, rng, m["tpot_ms"]["p50"], tag)
     return launches
 
@@ -1550,6 +1630,8 @@ def main() -> int:
         row["launches_by_run"] = {k: v[row["name"]] for k, v in runs.items()}
         if row["name"] == "int8_matmul":
             row["routes_in_serve"] = dict(INT8_ROUTES)
+        if row["name"] == "flash_attention":
+            row["routes_in_serve"] = dict(FLASH_ROUTES)
         # the same two numbers under their longer key names as well
         row["kernel_ms"] = row["ms"]
         row["launches_in_serve"] = row["launches"]

@@ -37,7 +37,8 @@ class Built:
     lib: ctypes.CDLL
     path: Path
     seconds: float        # compile wall time (0.0 when reused from disk)
-    ptxas: List[str]      # the -Xptxas -v report (empty when reused)
+    ptxas: List[str]      # the -Xptxas -v report, spills included (empty
+                          # when reused)
 
 
 _LOADED: Dict[str, Built] = {}
@@ -103,7 +104,8 @@ def build_all() -> Dict[str, Built]:
         seconds, log = logs.get(src, (0.0, []))
         path = _target(src)
         _LOADED[src] = Built(ctypes.CDLL(str(path)), path, seconds,
-                             [ln for ln in log if "ptxas" in ln])
+                             [ln for ln in log
+                              if "ptxas" in ln or "spill" in ln])
     return dict(_LOADED)
 
 

@@ -62,8 +62,11 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 // ---------------------------------------------------------------------------
 // widening
@@ -550,63 +553,6 @@ constexpr int kSmem = kStages * (kXBytes + kWBytes) + kOBytes +
                       2 * kStages * 8 + 1024;   // + barriers, alignment
 }  // namespace wg
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
-                                            uint64_t* bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor of a K-major operand with 128-byte rows,
-// 128-byte swizzle: SBO = the 1024 bytes between 8-row groups (LBO unused).
-__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
-  constexpr uint32_t lbo = 16, sbo = 1024;
-  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) |
-         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)1 << 62);
-}
-
 // d[128] = A (64 x 16, bf16 pairs in registers) * B (16 x 256, K-major in
 // shared memory) + (acc ? d : 0)
 __device__ __forceinline__ void wgmma_m64n256k16_rs(float* d, const uint32_t* a,
@@ -689,16 +635,6 @@ __device__ __forceinline__ void widen_a(const uint32_t (&h)[16],
     a[4 * kk] = lo.x, a[4 * kk + 1] = lo.y;
     a[4 * kk + 2] = hi.x, a[4 * kk + 3] = hi.y;
   }
-}
-
-__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
-                                             const void* src, int c0, int c1,
-                                             int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
-      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
-      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
 }
 
 template <typename OutT>
@@ -852,52 +788,17 @@ int8_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &q);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &q);
-#endif
-    if (q == cudaDriverEntryPointSuccess) fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A 3-D map over [n][rows][inner] with a [1][box_rows][box_inner] box,
 // 128-byte swizzle, zeros outside the tensor.
 bool tensor_map(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
                 const void* base, int n, int rows, int inner, int box_inner,
                 int box_rows) {
-  EncodeTiled enc = encode_tiled();
-  if (enc == nullptr) return false;
   const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows,
                               (cuuint64_t)n};
   const cuuint64_t strides[2] = {(cuuint64_t)inner * elem_bytes,
                                  (cuuint64_t)inner * rows * elem_bytes};
   const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows, 1};
-  const cuuint32_t estr[3] = {1, 1, 1};
-  return enc(map, type, 3, const_cast<void*>(base), dims, strides, box, estr,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  return hopper::tensor_map(map, type, 3, base, dims, strides, box);
 }
 
 // route codes, as quant_matmul.py::ROUTES

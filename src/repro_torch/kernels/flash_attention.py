@@ -5,12 +5,15 @@ Pallas ``_kernel``).  The CUDA kernel is ``csrc/flash_attention.cu``;
 what bounds it on the H100 and how its design answers that is noted
 there.  Unlike the Pallas kernel it takes K/V with their KV heads
 un-expanded ([B, S, KH, hd]) and maps query head h to KV head h // G
-itself, so no G-fold copy of K/V is written or read.  bf16 with head dim
-64 or 128 (the serving path) runs on the tensor cores (``mma.sync``);
-fp32 and other head dims run a CUDA-core kernel of the same contract.
-``flash_attention_plain`` is the same function in plain PyTorch: the
-wrapper runs it for CPU tensors, and the on-card check holds the kernel
-against it.
+itself, so no G-fold copy of K/V is written or read.  ``route`` picks
+the kernel's route from dtype, head dim and alignment, on the host: bf16
+with head dim 64 or 128 and 16-byte-aligned bases (the serving path)
+runs ``wgmma_tma`` (wgmma fed by TMA, warp-specialised); fp32, other
+head dims and unaligned bases run ``cuda_core``, a CUDA-core kernel of
+the same contract.  The wrapper counts each launch under its route in
+``flash_attention.routes``.  ``flash_attention_plain`` is the same
+function in plain PyTorch: the wrapper runs it for CPU tensors, and the
+on-card check holds the kernel against it.
 
 Causal masking follows the Pallas kernel: query row i sees key columns
 j <= i (rows and columns both counted from 0).
@@ -25,6 +28,22 @@ import torch
 from repro_torch.kernels import build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's routes, in the order of csrc/flash_attention.cu's route codes
+ROUTES = ("wgmma_tma", "cuda_core")
+_CODES = {r: i for i, r in enumerate(ROUTES)}
+
+
+def route(dtype: torch.dtype, hd: int, aligned: bool) -> str:
+    """The kernel route for q of ``dtype`` and head dim ``hd``;
+    ``aligned``: q, k, v and the output start on 16-byte boundaries.
+    TMA needs 16-byte bases and row strides (hd * 2 bytes) and wgmma
+    tiles of 64 columns: bf16 at hd 64 or 128.  Everything else takes
+    the CUDA-core kernel."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"unsupported dtype {dtype}")
+    if dtype == torch.bfloat16 and hd in (64, 128) and aligned:
+        return "wgmma_tma"
+    return "cuda_core"
 
 
 def _check(q, k, v) -> None:
@@ -65,7 +84,7 @@ def _launcher():
     fn = build.library("flash_attention.cu").flash_attention_launch
     if fn.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, f, f, i, vp]
+        fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, f, f, i, i, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -94,13 +113,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
     out = torch.empty_like(q)
-    err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), B, Sq, Sk, H, KH, hd, int(causal),
+    if out.numel() == 0:
+        return out
+    if Sk == 0:                 # no key: the plain version's empty sum
+        return out.zero_()
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    r = route(q.dtype, hd, all(p % 16 == 0 for p in ptrs))
+    err = _launcher()(*ptrs, B, Sq, Sk, H, KH, hd, int(causal),
                       0.0 if softcap is None else float(softcap),
-                      hd ** -0.5, _DTYPES[q.dtype], build.cuda_stream(q))
-    build.check(err, "flash_attention")
+                      hd ** -0.5, _DTYPES[q.dtype], _CODES[r],
+                      build.cuda_stream(q))
+    build.check(err, f"flash_attention ({r})")
     flash_attention.launches += 1
+    flash_attention.routes[r] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.routes = dict.fromkeys(ROUTES, 0)

@@ -5,7 +5,8 @@ if it cannot) and runs its plain PyTorch version for CPU tensors.  Each
 keeps ``launches``, a plain int it bumps only where it launched the
 kernel, so a run can show which kernels its path went through.  The
 int8 branch of each decode kernel counts apart from its fp branch, and
-``int8_matmul.routes`` counts the W8A16 launches by route.
+``int8_matmul.routes`` and ``flash_attention.routes`` count the W8A16
+and the flash launches by route.
 """
 from __future__ import annotations
 
@@ -35,8 +36,10 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Every launch count to 0, and ``int8_matmul.routes``' counts too."""
+    """Every launch count to 0, and the route counts of ``int8_matmul``
+    and ``flash_attention`` too."""
     for fn in KERNELS.values():
         fn.launches = 0
-    for r in int8_matmul.routes:
-        int8_matmul.routes[r] = 0
+    for fn in (int8_matmul, flash_attention):
+        for r in fn.routes:
+            fn.routes[r] = 0

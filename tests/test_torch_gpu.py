@@ -9,7 +9,10 @@ the LM head), with bf16 output bitwise the fp32 output's cast, bitwise
 repeatable, one device kernel per call.  The split-KV decode kernels
 also at rows of no, one, one split's and one split + 1 live tokens, one
 split and many, the vector and the scalar path, bitwise repeatable with
-their ticket counters back at zero, one device kernel per call.
+their ticket counters back at zero, one device kernel per call.  Flash
+prefill on each route (wgmma + TMA for bf16 at hd 64 / 128, the CUDA
+cores otherwise) at the serve layouts and ragged S, Sq != Sk, an
+unaligned view, bitwise repeatable, one device kernel per call.
 Imports no JAX, so it runs on a GPU machine without it:
 
   PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
@@ -96,25 +99,105 @@ def test_paged_decode_kernel_matches_plain(shape, dtype):
         before + len(cuts)
 
 
+def _flash_inputs(dev, dtype, B, Sq, Sk, H, KH, hd, seed=1):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 .to(dev, _TDT[dtype])
+                 for s in ((B, Sq, H, hd), (B, Sk, KH, hd), (B, Sk, KH, hd)))
+
+
+def _flash_routed(q, k, v, **kw):
+    """One call, and the route the launch was counted under."""
+    from repro_torch.kernels import flash_attention as fa
+    before = dict(fa.flash_attention.routes)
+    out = ops.flash_attention(q, k, v, **kw)
+    moved = [r for r in fa.ROUTES if fa.flash_attention.routes[r] != before[r]]
+    assert len(moved) == 1, moved
+    return out, moved[0]
+
+
+# (B, S, H, KH, hd): the reduced shapes, then the serve layouts at small B
+# (pt-6b-d4: H / KH 4 / 1, dense-6b: 32 / 8, both hd 128; 4 / 1 at hd 64)
+# at S below one tile, ragged, one tile, one past it, two tiles and more
+_FLASH_SHAPES = [(3, 100, 4, 1, 64), (2, 64, 2, 2, 8), (1, 130, 4, 2, 128),
+                 (2, 200, 4, 1, 128), (2, 16, 4, 1, 128), (2, 128, 4, 1, 128),
+                 (2, 513, 4, 1, 128), (1, 512, 32, 8, 128),
+                 (1, 100, 32, 8, 128), (1, 130, 32, 8, 128),
+                 (2, 16, 4, 1, 64), (2, 200, 4, 1, 64), (1, 513, 4, 1, 64),
+                 (2, 512, 4, 1, 64)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,S,H,KH,hd", [(3, 100, 4, 1, 64), (2, 64, 2, 2, 8),
-                                         (1, 130, 4, 2, 128),
-                                         (2, 200, 4, 1, 128)])
+@pytest.mark.parametrize("B,S,H,KH,hd", _FLASH_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_kernel_matches_plain(B, S, H, KH, hd, dtype):
+    """Causal, full and softcapped, each on the route ``route`` names:
+    bf16 at hd 64 / 128 on wgmma_tma, the rest on the CUDA cores."""
+    from repro_torch.kernels import flash_attention as fa
     dev, tol = _cuda(), _TOL[dtype]
-    rng = np.random.default_rng(1)
-    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
-               .to(dev, _TDT[dtype])
-               for s in ((B, S, H, hd), (B, S, KH, hd), (B, S, KH, hd)))
+    q, k, v = _flash_inputs(dev, dtype, B, S, S, H, KH, hd)
+    want_route = fa.route(_TDT[dtype], hd, True)
+    fast = dtype == "bfloat16" and hd in (64, 128)
+    assert want_route == ("wgmma_tma" if fast else "cuda_core")
     before = ops.launch_counts()["flash_attention"]
     for causal, softcap in ((True, None), (False, None), (True, 5.0)):
+        out, r = _flash_routed(q, k, v, causal=causal, softcap=softcap)
+        assert r == want_route
         torch.testing.assert_close(
-            ops.flash_attention(q, k, v, causal=causal, softcap=softcap),
-            ref.flash_attention_plain(q, k, v, causal=causal,
-                                      softcap=softcap), rtol=tol, atol=tol)
+            out, ref.flash_attention_plain(q, k, v, causal=causal,
+                                           softcap=softcap),
+            rtol=tol, atol=tol)
     torch.cuda.synchronize()
     assert ops.launch_counts()["flash_attention"] == before + 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq,Sk,hd", [(100, 300, 128), (300, 100, 128),
+                                      (16, 513, 64), (130, 7, 128)])
+@pytest.mark.parametrize("softcap", [None, 5.0])
+def test_flash_attention_wgmma_route_takes_sq_unlike_sk(Sq, Sk, hd, softcap):
+    """Full attention with Sq != Sk on the wgmma route (Sk below one key
+    tile too), and causal at Sq != Sk (row i sees columns j <= i)."""
+    dev = _cuda()
+    q, k, v = _flash_inputs(dev, "bfloat16", 2, Sq, Sk, 8, 2, hd, seed=3)
+    for causal in (False, True):
+        out, r = _flash_routed(q, k, v, causal=causal, softcap=softcap)
+        assert r == "wgmma_tma"
+        torch.testing.assert_close(
+            out, ref.flash_attention_plain(q, k, v, causal=causal,
+                                           softcap=softcap),
+            rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_attention_unaligned_view_takes_the_cuda_core_route(which):
+    """A bf16 operand one element into its storage (2-byte aligned) rules
+    out TMA: the CUDA-core route runs, named by ``flash_attention.routes``."""
+    dev = _cuda()
+    q, k, v = _flash_inputs(dev, "bfloat16", 2, 200, 200, 4, 1, 128, seed=4)
+    args = {"q": q, "k": k, "v": v}
+    t = args[which]
+    args[which] = torch.cat([t.new_zeros(1), t.reshape(-1)])[1:].view(t.shape)
+    assert args[which].data_ptr() % 16
+    out, r = _flash_routed(args["q"], args["k"], args["v"], causal=True)
+    assert r == "cuda_core"
+    torch.testing.assert_close(out, ref.flash_attention_plain(
+        args["q"], args["k"], args["v"], causal=True), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_flash_attention_wgmma_route_is_bitwise_repeatable():
+    """Two calls on the same inputs give the same bits (each output tile
+    is one block's, summed in a fixed order), with another shape between."""
+    dev = _cuda()
+    q, k, v = _flash_inputs(dev, "bfloat16", 8, 512, 512, 32, 8, 128, seed=5)
+    first = ops.flash_attention(q, k, v, causal=True)
+    other = _flash_inputs(dev, "bfloat16", 2, 100, 100, 4, 1, 64, seed=6)
+    ops.flash_attention(*other, causal=False, softcap=5.0)
+    second = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
 
 
 @pytest.mark.gpu
@@ -289,6 +372,34 @@ def test_int8_matmul_launches_one_device_kernel_per_call(n, M, K, N, dtype):
         if names:
             break
     assert len(names) == 1 and "int8_matmul" in names[0], names
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KH", [(64, 512, 4, 1), (8, 512, 32, 8)])
+def test_flash_attention_launches_one_device_kernel_per_call(B, S, H, KH):
+    """At the serve shapes (pt-6b-d4, dense-6b) the profiler sees one
+    device kernel per call (no memset, copy or cast), on the wgmma route.
+    It stays after the W8A16 one-kernel tests: placed with the other
+    flash tests, so that the process's first profiler session was this
+    one, it left the later profiler sessions of a whole-file run without
+    device events (cause unknown: every profiler test passes alone and
+    all of them pass together)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dev = _cuda()
+    q, k, v = _flash_inputs(dev, "bfloat16", B, S, S, H, KH, 128, seed=7)
+    ops.flash_attention(q, k, v)                 # build, attributes: warm
+    torch.cuda.synchronize()
+    for _ in range(3):          # a window the tracer returned empty is retaken
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, r = _flash_routed(q, k, v)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    assert r == "wgmma_tma"
+    assert len(names) == 1 and "flash_attention_wgmma" in names[0], names
 
 
 @pytest.mark.gpu

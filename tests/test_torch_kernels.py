@@ -270,6 +270,53 @@ def test_int8_matmul_route_refuses_other_dtypes():
         qm.route(8, 16, 16, torch.float16, True)
 
 
+# (dtype, hd, aligned) -> the flash route: bf16 at hd 64 / 128 with
+# 16-byte bases on wgmma + TMA, everything else on the CUDA cores
+_FLASH_ROUTES = [(("bfloat16", 128, True), "wgmma_tma"),
+                 (("bfloat16", 64, True), "wgmma_tma"),
+                 (("bfloat16", 128, False), "cuda_core"),
+                 (("bfloat16", 96, True), "cuda_core"),
+                 (("bfloat16", 8, True), "cuda_core"),
+                 (("float32", 128, True), "cuda_core"),
+                 (("float32", 64, False), "cuda_core")]
+
+
+@pytest.mark.parametrize("args,want", _FLASH_ROUTES)
+def test_flash_attention_route_by_dtype_hd_and_alignment(args, want):
+    from repro_torch.kernels import flash_attention as fa
+    dtype, hd, aligned = args
+    assert fa.route(_TDT[dtype], hd, aligned) == want
+    assert set(fa.flash_attention.routes) == set(fa.ROUTES)
+    with pytest.raises(ValueError):
+        fa.route(torch.float16, hd, aligned)
+
+
+def test_reset_launch_counts_zeroes_the_route_counts():
+    """``reset_launch_counts`` zeroes every launch count and both route
+    counters (set by hand here: the CPU launches nothing), and
+    ``launch_counts`` keeps its key set."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import quant_matmul as qm
+    keys = set(ops.launch_counts())
+    saved = (ops.launch_counts(), dict(fa.flash_attention.routes),
+             dict(qm.int8_matmul.routes))
+    try:
+        for fn in ops.KERNELS.values():
+            fn.launches = 3
+        fa.flash_attention.routes["wgmma_tma"] = 2
+        qm.int8_matmul.routes["mma_m16"] = 5
+        ops.reset_launch_counts()
+        assert set(ops.launch_counts()) == keys
+        assert not any(ops.launch_counts().values())
+        assert not any(fa.flash_attention.routes.values())
+        assert not any(qm.int8_matmul.routes.values())
+    finally:
+        for name, n in saved[0].items():
+            ops.KERNELS[name].launches = n
+        fa.flash_attention.routes.update(saved[1])
+        qm.int8_matmul.routes.update(saved[2])
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_int8_matmul_out_dtype_on_cpu(dtype):
     """bf16 out is the fp32 output rounded once (what the caller's cast

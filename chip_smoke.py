@@ -20,7 +20,9 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      also at falcon-mamba's d 4096; ``ssm_scan`` at the falcon-mamba
      chunk shape, then at ragged S, d_state 1, bf16 inputs and an odd
      feature count; ``decode_attention`` (the contiguous cache) at the
-     dense-6b decode shape, bf16 and int8.  The W8A16, flash, RMSNorm and
+     dense-6b decode shape, bf16 and int8, and at the speculative runs'
+     drafter shape (4 tracks x 8 slots folded: q [32, 4, 128], cache
+     [32, 584, 1, 128]), bf16.  The W8A16, flash, RMSNorm and
      decode rows (the split-KV template, paged and contiguous, fp and
      int8) are timed as device work (their calls replayed from a CUDA
      graph, as their library calls; the eager loops' times beside them),
@@ -39,7 +41,12 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      (8 layers, d 64) in fp32, card against CPU (1e-4): prefill, paged
      and contiguous decode, paged chunk-8 logits, and greedy streams on
      both caches, which must all be identical; then the reduced PT model
-     on the contiguous cache: decode logits and greedy streams;
+     on the contiguous cache: decode logits and greedy streams; then the
+     speculative arm (speculate_k=3, draft_tracks=2): the drafter's
+     draft-step logits and the verify logits (1e-4), greedy streams
+     identical card vs CPU and to plain decode with whole-prompt prefill,
+     chunk 8 and int8 weights + int8 KV, and acceptance 1.0 with the
+     tracks tied;
   5. serve pt-6b-d4 at full width (random weights from a seeded
      generator): 8 slots, 8 greedy requests of 512 prompt tokens and 64
      new tokens, block size 16 — TTFT, TPOT, throughput, peak memory and
@@ -62,11 +69,26 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      must equal 32 ``flash_attention`` per prefill call (every one on
      the ``wgmma_tma`` route), 65 ``rmsnorm`` per forward and 32 per
      decode step of the cache's decode kernel (``paged_decode_attention``
-     or ``decode_attention``), the other never;
+     or ``decode_attention``), the other never; and pt-6b-d4 bf16 with
+     speculate_k=4, draft_tracks=4 on the plain bf16 run's prompts, once
+     with its seeded weights (a) and once with the tracks tied in place
+     (b): TTFT, TPOT, throughput, peak memory, acceptance rate, spec
+     steps, tokens per slot per spec step and each request's stream
+     against the plain run's (on the tied weights for (b)); gates: all
+     finish, 0 <= acceptance (a) <= 1, 0 < acceptance (b) <= 1 and (b)
+     >= (a), one host transfer per step, and the launch arithmetic of
+     ``serve_spec``; then, per run, the target's logits teacher-forced
+     along the plain streams by plain decode, the verify, the drafter
+     and the prefill, whose gates (``check_spec_logits``) hold the
+     verify (and the tied drafter) as close to decode as the prefill is,
+     and each stream's first divergence to a near-tie;
   6. where the time goes: device time by kernel (torch.profiler) over the
      step that admits 8 prompts and over three decode steps, and the
      decode step's device busy share against its unprofiled TPOT, for
-     all five serve runs.
+     the five plain serve runs; for the two speculative runs, one spec
+     step's device busy time split between the K + 1 draft forwards and
+     the verify, its device ops and its busy share against the
+     unprofiled step.
 Prints one ``{"kernels": [...]}`` JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -79,6 +101,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -95,6 +118,7 @@ PARITY_TOL = 1e-4              # fp32 model on the card vs the CPU
 ARCH, SLOTS, PROMPT, NEW, BLOCK = "pt-6b-d4", 8, 512, 64, 16
 FM_ARCH, FM_SLOTS, FM_CHUNK, FM_D = "falcon-mamba-7b", 8, 256, 4096
 DENSE_ARCH = "dense-6b"
+SPEC_K, SPEC_TRACKS = 4, 4      # the speculative serve runs of phase 5
 
 
 def log(msg: str) -> None:
@@ -403,26 +427,44 @@ def flash_row(dev: torch.device, g: torch.Generator, B: int, H: int,
     return row
 
 
-def check_decode_attention(dev: torch.device, g: torch.Generator):
+def check_decode_attention(dev: torch.device, g: torch.Generator,
+                           drafter: bool = False):
     """Phase 3 for the contiguous cache: ``decode_attention`` at the
     dense-6b serve run's decode shape near its end (q [8, 32, 128], the
     engine's cache [8, 584, 8, 128], lengths 513-576, max_len 576), bf16
     and int8 with fp32 per-token scales, each held against its plain
     version (bf16 2e-2; the int8 branch with fp32 math inside, as the
-    paged int8 row).  Yardstick: SDPA on the same cache with K/V expanded
-    to the 32 query heads and the length mask built beforehand
-    (untimed).  The bound counts the live rows only."""
+    paged int8 row).  With ``drafter``, at the shape the speculative
+    serve runs give it instead, bf16 only: the drafter's SPEC_TRACKS
+    tracks folded into the batch (q [32, 4, 128], cache [32, 584, 1,
+    128]), each slot's length pos + 1 + j of a draft step j <= SPEC_K
+    (513-580) on all its tracks, max_len as ``_live_max_len(extra=K,
+    paged=False)`` makes it (the next power of two, capped at S = 584).
+    Yardstick: SDPA on the same cache with K/V expanded to the query
+    heads and the length mask built beforehand (untimed).  The bound
+    counts the live rows only."""
     from repro_torch.common.quant import quantize_rows
     from repro_torch.configs import get_config
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import ops, ref
     F = torch.nn.functional
-    cfg = get_config(DENSE_ARCH)
+    cfg = get_config(ARCH if drafter else DENSE_ARCH)
     H, KH, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    B, S, bf = SLOTS, PROMPT + NEW + 8, torch.bfloat16
-    lengths = torch.randint(PROMPT + 1, PROMPT + NEW + 1, (B,), generator=g,
-                            device=dev, dtype=torch.int32)
-    max_len = PROMPT + NEW
+    S, bf = PROMPT + NEW + 8, torch.bfloat16
+    if drafter:
+        B = SPEC_TRACKS * SLOTS
+        lengths = torch.randint(PROMPT + 1, PROMPT + NEW + SPEC_K + 1,
+                                (SLOTS,), generator=g, device=dev,
+                                dtype=torch.int32).repeat(SPEC_TRACKS)
+        max_len = 1
+        while max_len < int(lengths.max()):
+            max_len *= 2
+        max_len = min(S, max_len)
+    else:
+        B = SLOTS
+        lengths = torch.randint(PROMPT + 1, PROMPT + NEW + 1, (B,),
+                                generator=g, device=dev, dtype=torch.int32)
+        max_len = PROMPT + NEW
     live = int(lengths.sum())
     mask = (torch.arange(S, device=dev)[None, :]
             < lengths[:, None])[:, None, None, :]           # [B, 1, 1, S]
@@ -431,7 +473,7 @@ def check_decode_attention(dev: torch.device, g: torch.Generator):
         return c.repeat_interleave(H // KH, 2).transpose(1, 2).contiguous()
 
     rows = []
-    for branch in ("bf16", "int8"):
+    for branch in (("bf16",) if drafter else ("bf16", "int8")):
         one = B * S * KH * (hd * 2 if branch == "bf16" else hd + 4) * 2
         sets = []
         for _ in range(copies_for(one)):
@@ -480,6 +522,10 @@ def check_decode_attention(dev: torch.device, g: torch.Generator):
                      f"{'bf16' if branch == 'bf16' else 'int8 + fp32 scales'}"
                      f", lengths {int(lengths.min())}-{int(lengths.max())} "
                      f"({live} live rows), max_len {max_len}")
+        if drafter:
+            row["at"] += (f" ({ARCH} spec drafter, {SPEC_TRACKS} of "
+                          f"{cfg.pt.n_tracks} tracks folded)")
+            row["run"] = "spec a"      # main() takes its launches from there
         if branch == "int8":
             row["branch"] = ("int8 cache with fp32 scales (_kernel :60, "
                              "_online_softmax_step :34)")
@@ -487,8 +533,9 @@ def check_decode_attention(dev: torch.device, g: torch.Generator):
         rows.append(row)
         del sets, out, want
         torch.cuda.empty_cache()
-        if branch == "bf16":
-            row["shapes"] = decode_shapes(dev, g, paged=False)
+        if branch == "bf16" and not drafter:
+            row["shapes"] = (check_decode_attention(dev, g, drafter=True)
+                             + decode_shapes(dev, g, paged=False))
     return rows
 
 
@@ -1193,6 +1240,88 @@ def check_pt_contiguous_parity(dev: torch.device) -> None:
         raise SystemExit("[parity] PT contiguous greedy streams differ")
 
 
+def _tie_tracks(blocks) -> None:
+    """Every track of every block leaf [R, D, n, ...] a copy of track 0,
+    written in place (no memory added)."""
+    for leaf in _leaves(blocks):
+        leaf[:, :, 1:] = leaf[:, :, :1]
+
+
+def check_spec_parity(dev: torch.device) -> None:
+    """Phase 4, the speculative arm: the reduced PT model in fp32 with
+    speculate_k=3, draft_tracks=2, card against CPU on the same weights.
+    Gates: the drafter's draft-step logits (three steps on its contiguous
+    cache, after its prefill) and the target's 4-token verify logits (the
+    chunk program on the paged cache) within 1e-4; greedy streams
+    identical on card and CPU and to the same engine's without
+    speculation, with whole-prompt prefill, with ``prefill_chunk=8`` and
+    with int8 weights + int8 KV; with the tracks tied (in place),
+    acceptance exactly 1.0 on both."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.track import init_pt, pt_chunk_step, pt_draft_step
+    from repro_torch.serving.engine import Engine, ModelRunner
+    from repro_torch.serving.sampler import SampleParams
+    cfg = reduced_config(ARCH)
+    cpu = torch.device("cpu")
+    params = {cpu: init_pt(torch.Generator().manual_seed(0), cfg, cpu)}
+    params[dev] = _to(params[cpu], dev)
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(1, cfg.vocab_size, size=(L,)).tolist()
+               for L in (9, 16)]
+    seq = rng.integers(1, cfg.vocab_size, size=(2, 4))
+    got = {}
+    with torch.no_grad():
+        for d in (cpu, dev):
+            r = ModelRunner(cfg, params[d], max_slots=2, max_seq_len=32,
+                            speculate_k=3, draft_tracks=2, device=d)
+            for slot, p in enumerate(prompts):
+                r.kv.allocate(slot, len(p) + 4)
+            r.prefill(prompts, 16, [0, 1], [SampleParams()] * 2)
+            r.draft_prefill(prompts, 16, [0, 1])
+            pos = torch.as_tensor([len(p) for p in prompts],
+                                  dtype=torch.int32).to(d)
+            dl = [pt_draft_step(r.draft_params, r.draft_cache,
+                                torch.as_tensor(seq[:, j]).to(d), pos + j,
+                                r.draft_cfg, kv_max_len=32)[0]
+                  for j in range(3)]
+            vl, _ = pt_chunk_step(r.params, r.cache, torch.as_tensor(seq)
+                                  .to(d), pos, cfg, block_table=r.kv.table(),
+                                  kv_max_len=32)
+            got[d] = (torch.stack(dl, dim=1), vl)
+    _close("drafter (2 of 4 tracks) draft-step logits, 3 steps",
+           got[dev][0], got[cpu][0])
+    _close("4-token verify logits", got[dev][1], got[cpu][1])
+    work = prompts + [prompts[0][:5]]
+    for name, knobs in (("whole-prompt prefill", {}),
+                        ("prefill_chunk=8", {"prefill_chunk": 8}),
+                        ("int8 weights + int8 KV",
+                         {"weight_dtype": "int8", "kv_dtype": "int8"})):
+        out, acc = {}, {}
+        for where, d in (("CPU", cpu), ("card", dev)):
+            for k in (0, 3):
+                eng = Engine(cfg, params[d], max_slots=2, max_seq_len=48,
+                             device=d, speculate_k=k, draft_tracks=2,
+                             **knobs)
+                out[(where, k)] = eng.generate(work, 8)
+                acc[where] = eng.metrics.summary()["acceptance_rate"]
+        same = len({str(v) for v in out.values()}) == 1
+        log(f"[parity] spec K=3 d=2, {name}: greedy streams card vs CPU x "
+            f"spec vs plain {'identical' if same else 'DIFFER'} "
+            f"({sum(map(len, out[('card', 3)]))} tokens per run); "
+            f"acceptance card {acc['card']:.4f}, CPU {acc['CPU']:.4f}")
+        if not same:
+            raise SystemExit(f"[parity] spec streams differ ({name}): {out}")
+    for where, d in (("CPU", cpu), ("card", dev)):
+        _tie_tracks(params[d]["blocks"])
+        eng = Engine(cfg, params[d], max_slots=2, max_seq_len=48, device=d,
+                     speculate_k=3, draft_tracks=2)
+        eng.generate(work, 8)
+        rate = eng.metrics.summary()["acceptance_rate"]
+        log(f"[parity] spec, tracks tied, {where}: acceptance {rate}")
+        if rate != 1.0:
+            raise SystemExit(f"[parity] tied tracks: acceptance {rate} != 1")
+
+
 # ---------------------------------------------------------------------------
 # phase 5: serve pt-6b-d4, falcon-mamba-7b and dense-6b at full width
 # ---------------------------------------------------------------------------
@@ -1204,10 +1333,12 @@ INT8_ROUTES = {}      # the W8A16 launches of the int8 serve run, by route
 FLASH_ROUTES = {}     # the flash launches of each bf16 serve run, by route
 
 
-def serve_full(dev: torch.device, card: str, int8: bool = False):
+def serve_full(dev: torch.device, card: str, int8: bool = False,
+               keep: Optional[dict] = None):
     """Phase 5 (and 6): serve the cell with bf16 weights and KV, or with
     int8 weights and int8 KV.  Returns the launch counts of the measured
-    run."""
+    run; ``keep`` (bf16 only) receives the parameters, the measured run's
+    prompts and its token streams, for the speculative runs."""
     from repro_torch.configs import get_config
     from repro_torch.core.track import init_pt
     from repro_torch.kernels import ops
@@ -1324,6 +1455,9 @@ def serve_full(dev: torch.device, card: str, int8: bool = False):
             raise SystemExit(f"[serve] W8A16 routes {routes} != {want}")
         INT8_ROUTES.update(routes)
     profile_steps(eng, cfg.vocab_size, rng, m["tpot_ms"]["p50"], tag)
+    if keep is not None:
+        keep.update(params=params, prompts=[rq.prompt for rq in reqs],
+                    streams=[rq.output for rq in reqs])
     return launches
 
 
@@ -1383,6 +1517,306 @@ def profile_steps(eng, vocab: int, rng, tpot_ms: float, tag: str,
         for ms, count, key in rows[:8] + [r for r in rows[8:]
                                           if "flash_attention" in r[2]]:
             log(f"[profile]   {ms:9.3f} ms {count:6.0f}x  {key[:90]}")
+
+
+def _divergence(a, b) -> int:
+    """First index where two token streams differ (-1: equal)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return -1 if len(a) == len(b) else min(len(a), len(b))
+
+
+def serve_spec(dev: torch.device, card: str, params, prompts, plain,
+               tag: str, tied: bool):
+    """Phase 5 (and 6), a speculative run of the pt-6b-d4 cell: bf16,
+    speculate_k=SPEC_K, draft_tracks=SPEC_TRACKS, the plain bf16 run's 8
+    prompts, each stream compared with ``plain`` (reported, not gated:
+    the verify, the reference's chunk program, rounds its probabilities
+    to bf16 before P V, as flash prefill does, where the split-KV decode
+    kernel keeps them in fp32, so a near-tie can flip a token;
+    ``check_spec_logits`` gates how far apart the programs' logits lie).
+
+    Launch arithmetic, from the code, with L = 32 layers, K = SPEC_K, P
+    admission (prefill) calls and T speculative steps (= the step's one
+    host transfer each):
+      flash_attention  2 L P: the target's prefill and the drafter's
+                       batched prefill, one launch per layer each;
+      decode_attention L (K + 1) T: the drafter's K draft steps and the
+                       one at pos + K, one launch per layer each (its d
+                       tracks folded into the kernel's batch);
+      rmsnorm          (4 L + 1) P + ((K + 2)(2 L + 1) - 1) T: 2 L + 1
+                       per forward (ln1, ln2, the final norm), except the
+                       drafter's prefill and its step at pos + K, which
+                       skip the head and so the final norm;
+      paged_decode_attention, its int8 branch, decode_attention_int8,
+      int8_matmul, ssm_scan: 0 (the verify is the chunk program).
+    Gates: every request finishes with NEW tokens, acceptance in [0, 1]
+    and, with the tracks ``tied``, above 0 (with independent random
+    tracks the drafter's argmax over 100352 tokens need never meet the
+    target's: 0 of ~1900 proposals on an H100), one host transfer per
+    engine step, the arithmetic above.  Returns (launch counts,
+    acceptance rate)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine, EngineMetrics, RequestState
+    cfg = get_config(ARCH)
+    K = SPEC_K
+    eng = Engine(cfg, params, max_slots=SLOTS, max_seq_len=PROMPT + NEW + 8,
+                 block_size=BLOCK, device=dev, speculate_k=K,
+                 draft_tracks=SPEC_TRACKS)
+    r = eng.runner
+    draft_bytes = sum(nbytes(t) for t in _leaves(r.draft_params["blocks"]))
+    log(f"[serve] {tag}: drafter {r.draft_tracks} of {cfg.pt.n_tracks} "
+        f"tracks, {draft_bytes / 1e9:.3f} GB of block parameters as views of "
+        f"the target's (no copy), contiguous cache "
+        f"{sum(nbytes(t) for t in r.draft_cache['blocks']) / 1e9:.3f} GB")
+    rng = np.random.default_rng(0)
+    eng.generate([rng.integers(1, cfg.vocab_size, size=(16,)).tolist()
+                  for _ in range(SLOTS)], 3)               # warm-up
+    eng.metrics = EngineMetrics()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    steps0, transfers0, prefills0 = (eng.steps_run, r.decode_transfers,
+                                     r.prefill_calls)
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, NEW) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    m = eng.metrics.summary()
+    peak = torch.cuda.max_memory_allocated(dev)
+    done = sum(rq.state is RequestState.DONE and len(rq.output) == NEW
+               for rq in reqs)
+    steps = eng.steps_run - steps0
+    T = r.decode_transfers - transfers0
+    P = r.prefill_calls - prefills0
+    div = [_divergence(rq.output, p) for rq, p in zip(reqs, plain)]
+    log(f"[serve] {card} | {tag}: {SLOTS} reqs x ({PROMPT} in / {NEW} out), "
+        f"slots {SLOTS}, block {BLOCK}, K {K}, {steps} steps, wall "
+        f"{wall:.3f}s")
+    log(f"[serve] {card} | {tag}: TTFT ms p50 {m['ttft_ms']['p50']:.2f} "
+        f"p90 {m['ttft_ms']['p90']:.2f}; TPOT ms p50 "
+        f"{m['tpot_ms']['p50']:.3f} p90 {m['tpot_ms']['p90']:.3f}; "
+        f"throughput {m['throughput_tok_s']:.1f} tok/s; peak memory "
+        f"{peak / 1e9:.3f} GB")
+    log(f"[serve] {tag}: acceptance rate {m['acceptance_rate']:.4f} (EMA "
+        f"{m['acceptance_ema']:.4f}), spec steps {m['spec_steps']}, tokens "
+        f"per slot per spec step {m['tokens_per_slot_step']:.3f}; streams "
+        f"equal to the plain bf16 run's: {div.count(-1)}/{len(div)} (first "
+        f"divergence per request: {div})")
+    L = cfg.n_layers
+    want = {"flash_attention": 2 * L * P, "decode_attention": L * (K + 1) * T,
+            "rmsnorm": (4 * L + 1) * P + ((K + 2) * (2 * L + 1) - 1) * T,
+            "paged_decode_attention": 0, "paged_decode_attention_int8": 0,
+            "decode_attention_int8": 0, "int8_matmul": 0, "ssm_scan": 0}
+    got = {k: launches[k] for k in want}
+    log(f"[serve] {tag}: kernel launches {json.dumps(launches)}; prefill "
+        f"calls {P}, spec steps (host transfers) {T} in {steps} engine "
+        f"steps; launch arithmetic {json.dumps(want)}: "
+        f"{'met' if got == want else 'NOT MET'}; finished {done}/{len(reqs)}")
+    if done != len(reqs):
+        raise SystemExit(f"[serve] not every {tag} request finished")
+    lo_ok = m["acceptance_rate"] > 0.0 if tied else \
+        m["acceptance_rate"] >= 0.0
+    if not (lo_ok and m["acceptance_rate"] <= 1.0):
+        raise SystemExit(f"[serve] {tag}: acceptance rate "
+                         f"{m['acceptance_rate']} not in "
+                         f"{'(0, 1]' if tied else '[0, 1]'}")
+    if T != steps:
+        raise SystemExit(f"[serve] {tag}: {T} host transfers in {steps} "
+                         "engine steps")
+    if got != want or not P or not T:
+        raise SystemExit(f"[serve] launch counts {got} != {want}")
+    check_flash_routes(tag, launches, dict(ops.flash_attention.routes))
+    check_spec_logits(eng, prompts, plain, [rq.output for rq in reqs], tag,
+                      tied)
+    profile_spec_step(eng, cfg.vocab_size, rng, tag)
+    return launches, m["acceptance_rate"]
+
+
+def check_spec_logits(eng, prompts, plain, spec, tag: str,
+                      tied: bool) -> None:
+    """Phase 5, after a speculative run: the target's logits teacher-
+    forced along the plain run's streams (their first T = 60 tokens, 12
+    verify calls of K + 1), at full width on the same weights, by four
+    programs: plain decode (the paged split-KV kernel, one token a step:
+    a replay of the plain run), the verify (the chunk program along the
+    all-accepted chain, fp32 softmax over the bf16 K/V it wrote), the
+    drafter's decode steps (with ``tied`` tracks the target model) and
+    the whole-sequence prefill (flash).  Reports each program's mean and
+    max |logits - decode's| beside decode's logit std, its argmax
+    agreement with decode, and, at each request's first divergence in
+    the speculative run, decode's top-1 / top-2 gap and the two tokens'
+    logit gaps under decode and under the verify.
+    Gates: the verify's mean |difference| from decode is at most twice
+    the prefill's, or the bf16 kernel tolerance (2e-2) times decode's
+    logit std where that is larger (the prefill is the model's own
+    program over the same tokens, and rounds the probabilities to bf16
+    before P V as the verify does: a fault of cut, position or cache
+    state puts the difference at the scale of the logits, bf16
+    arithmetic at the prefill's scale), and with ``tied`` tracks the
+    drafter's too; and at every first divergence inside the window the
+    plain token leads the speculative one under decode by at most twice
+    the max |verify - decode| at that position (a near-tie that the two
+    programs' bf16 arithmetic can flip)."""
+    from repro_torch.core.track import pt_draft_step
+    from repro_torch.serving.sampler import SampleParams
+    r, cfg, K = eng.runner, eng.runner.cfg, eng.runner.speculate_k
+    n, T, dev = len(prompts), (NEW - 1) // (K + 1) * (K + 1), r.device
+    slots = list(range(n))
+    for s_ in slots:
+        r.kv.allocate(s_, PROMPT + NEW)
+    active = np.ones((n,), bool)
+    act_d = torch.ones((n,), dtype=torch.bool, device=dev)
+    pos = np.full((n,), PROMPT, np.int32)
+    pos_d = torch.as_tensor(pos, device=dev)
+    toks = torch.as_tensor([p[:T] for p in plain], dtype=torch.int32,
+                           device=dev)                          # [n, T]
+    with torch.no_grad():
+        bucket = r.bucket_for(PROMPT)
+        first = r.prefill(prompts, bucket, slots, [SampleParams()] * n)
+        r.draft_prefill(prompts, bucket, slots)
+        ver = torch.cat([r.fns["chunk"](
+            r.params, r.cache, toks[:, c:c + K + 1], pos_d + c, cfg,
+            block_table=r._masked_table(active),
+            kv_max_len=r._live_max_len(pos + c, active, extra=K))[0].float()
+            for c in range(0, T, K + 1)], dim=1)                # [n, T, V]
+        dec, drf = [], []
+        for i in range(T):
+            dec.append(r.fns["decode"](
+                r.params, r.cache, toks[:, i].long(), pos_d + i, cfg,
+                block_table=r._masked_table(active),
+                kv_max_len=r._live_max_len(pos + i, active),
+                active=act_d)[0].float())
+            drf.append(pt_draft_step(
+                r.draft_params, r.draft_cache, toks[:, i], pos_d + i,
+                r.draft_cfg, active=act_d,
+                kv_max_len=r._live_max_len(pos + i, active, extra=K,
+                                           paged=False))[0].float())
+        dec, drf = torch.stack(dec, dim=1), torch.stack(drf, dim=1)
+        seq = torch.cat([torch.as_tensor(prompts, device=dev),
+                         toks.long()], dim=1)
+        pre = r.fns["forward"](r.params, {"inputs": seq}, cfg,
+                               mode="prefill")[0][:, PROMPT:PROMPT + T]
+        pre = pre.float()
+    for s_ in slots:
+        r.kv.free_slot(s_)
+    a_dec = dec.argmax(-1)
+    want = torch.as_tensor([p[1:T + 1] for p in plain], device=dev)
+    replay = int((a_dec == want).sum()) + int(
+        (torch.as_tensor(first) == torch.as_tensor([p[0] for p in plain]))
+        .sum())
+    stat = {}
+    for name, x in (("verify", ver), ("drafter", drf), ("prefill", pre)):
+        diff = (x - dec).abs()
+        stat[name] = (diff.mean().item(), diff.max().item(),
+                      int((x.argmax(-1) == a_dec).sum()))
+    top2 = dec.topk(2, dim=-1).values
+    gap12 = (top2[..., 0] - top2[..., 1]).flatten()
+    log(f"[serve] {tag}: logits teacher-forced along the plain streams "
+        f"({n} x {T} positions): decode replays the plain run at "
+        f"{replay}/{n * (T + 1)} tokens; decode logit std "
+        f"{dec.std().item():.4f}, top-1 - top-2 gap median "
+        f"{gap12.median().item():.4f}, min {gap12.min().item():.3e}")
+    for name, (mean, mx, agree) in stat.items():
+        log(f"[serve] {tag}:   {name} vs decode: mean |diff| {mean:.4e}, "
+            f"max {mx:.4e}, argmax equal {agree}/{n * T}")
+    bad = []
+    for b, (sp, pl) in enumerate(zip(spec, plain)):
+        i = _divergence(sp, pl)
+        if i < 1 or i > T or i >= min(len(sp), len(pl)):
+            log(f"[serve] {tag}:   request {b}: first divergence {i} "
+                f"(-1: none; the window is 1-{T})")
+            continue
+        t_pl, t_sp, j = pl[i], sp[i], i - 1
+        g_dec = (dec[b, j, t_pl] - dec[b, j, t_sp]).item()
+        g_ver = (ver[b, j, t_sp] - ver[b, j, t_pl]).item()
+        dmax = (ver[b, j] - dec[b, j]).abs().max().item()
+        log(f"[serve] {tag}:   request {b}: diverges at {i} (plain {t_pl}, "
+            f"spec {t_sp}): decode gap plain - spec {g_dec:.4e} (its top-1 "
+            f"- top-2 {(top2[b, j, 0] - top2[b, j, 1]).item():.4e}), "
+            f"verify gap spec - plain {g_ver:.4e}, verify argmax "
+            f"{int(ver[b, j].argmax())}; max |verify - decode| there "
+            f"{dmax:.4e}")
+        if g_dec > 2 * dmax:
+            bad.append(b)
+    # the bf16 kernel tolerance, relative to the logits' spread, as a
+    # floor where the prefill's arithmetic coincides with decode's
+    limit = max(2 * stat["prefill"][0], KERNEL_TOL * dec.std().item())
+    gates = {"verify": stat["verify"][0] <= limit}
+    if tied:
+        gates["drafter"] = stat["drafter"][0] <= limit
+    gates["near-ties"] = not bad
+    log(f"[serve] {tag}: logit gates {json.dumps(gates)}")
+    if not all(gates.values()):
+        raise SystemExit(f"[serve] {tag}: logit gates {gates} (requests "
+                         f"whose divergence is no near-tie: {bad})")
+
+
+def profile_spec_step(eng, vocab: int, rng, tag: str) -> None:
+    """Phase 6 for a speculative run: one admission of SLOTS prompts, then
+    three engine steps timed unprofiled (wall, synchronized) and three
+    profiled.  Device busy time per step, split between the K + 1 draft
+    forwards and the verify (each wrapped in a ``record_function`` range
+    for the profiled steps only, whose kernels' device time it sums), the
+    device-op count, and the busy share against the unprofiled step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.serving import engine as engine_mod
+    for _ in range(SLOTS):
+        eng.submit(rng.integers(1, vocab, size=(PROMPT,)).tolist(), NEW)
+    eng.step()                                 # admission + first spec step
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 3 * 1e3
+    r = eng.runner
+    draft_fn, fns = engine_mod.pt_draft_step, r.fns
+
+    def draft(*a, **k):
+        with record_function("spec: draft forward"):
+            return draft_fn(*a, **k)
+
+    def verify(*a, **k):
+        with record_function("spec: verify"):
+            return fns["chunk"](*a, **k)
+
+    engine_mod.pt_draft_step = draft
+    r.fns = dict(fns, chunk=verify)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                eng.step()
+            torch.cuda.synchronize()
+    finally:
+        engine_mod.pt_draft_step, r.fns = draft_fn, fns
+    avg = prof.key_averages()
+    rows = sorted(((e.self_device_time_total / 3 / 1e3, e.count / 3, e.key)
+                   for e in avg if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0
+                   and not e.key.startswith("spec: ")), reverse=True)
+    if not rows:
+        log(f"[profile] {tag} spec step: the profiler saw no device time "
+            "(busy / idle share not measured)")
+        return
+    busy = sum(x[0] for x in rows)
+    split = {e.key: e.device_time_total / 3 / 1e3 for e in avg
+             if e.key.startswith("spec: ") and e.device_type == DeviceType.CPU}
+    log(f"[profile] {tag} spec step: device busy {busy:.3f} ms in "
+        f"{sum(x[1] for x in rows):.0f} kernels and copies per step; "
+        f"K + 1 draft forwards {split.get('spec: draft forward', 0.0):.3f} "
+        f"ms, verify {split.get('spec: verify', 0.0):.3f} ms (the rest: "
+        f"embedding, accept, host copies); unprofiled step {step_ms:.3f} ms "
+        f"({100 * busy / step_ms:.1f} % busy, "
+        f"{100 - 100 * busy / step_ms:.1f} % idle)")
+    for ms, count, key in rows[:8]:
+        log(f"[profile]   {ms:9.3f} ms {count:6.0f}x  {key[:90]}")
 
 
 def serve_falcon(dev: torch.device, card: str):
@@ -1596,7 +2030,35 @@ def main() -> int:
     check_mamba_parity(dev)
     check_dense_parity(dev)
     check_pt_contiguous_parity(dev)
-    runs = {"bf16": serve_full(dev, card)}
+    check_spec_parity(dev)
+    keep = {}
+    runs = {"bf16": serve_full(dev, card, keep=keep)}
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = keep["params"]
+    runs["spec a"], rate_a = serve_spec(dev, card, params, keep["prompts"],
+                                        keep["streams"], "bf16 spec (a)",
+                                        tied=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # run (b): the same tree with its tracks tied in place, so the drafter
+    # is the target model but for attention arithmetic; its plain stream
+    # on the tied weights is one more plain run
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import Engine
+    _tie_tracks(params["blocks"])
+    eng = Engine(get_config(ARCH), params, max_slots=SLOTS,
+                 max_seq_len=PROMPT + NEW + 8, block_size=BLOCK, device=dev)
+    tied_plain = eng.generate(keep["prompts"], NEW)
+    del eng
+    runs["spec b"], rate_b = serve_spec(
+        dev, card, params, keep["prompts"], tied_plain,
+        "bf16 spec (b), tracks tied", tied=True)
+    log(f"[serve] acceptance: (a) {rate_a:.4f}, (b) tied {rate_b:.4f}: "
+        f"{'met' if rate_b >= rate_a else 'NOT MET'} (b >= a)")
+    if rate_b < rate_a:
+        raise SystemExit("[serve] tied tracks accepted less than run (a)")
+    del params, keep
     gc.collect()
     torch.cuda.empty_cache()
     runs["int8"] = serve_full(dev, card, int8=True)
@@ -1605,7 +2067,6 @@ def main() -> int:
     runs["falcon"] = serve_falcon(dev, card)
     gc.collect()
     torch.cuda.empty_cache()
-    from repro_torch.configs import get_config
     from repro_torch.models.decoder import init_lm
     cfg = get_config(DENSE_ARCH)
     t0 = time.perf_counter()
@@ -1628,6 +2089,9 @@ def main() -> int:
                else "bf16" if row["name"] in FP_PATH else "int8")
         row["launches"] = runs[run][row["name"]]
         row["launches_by_run"] = {k: v[row["name"]] for k, v in runs.items()}
+        for shape in row.get("shapes", []):
+            if "run" in shape:      # a shape of its own run's path
+                shape["launches"] = runs[shape["run"]][row["name"]]
         if row["name"] == "int8_matmul":
             row["routes_in_serve"] = dict(INT8_ROUTES)
         if row["name"] == "flash_attention":

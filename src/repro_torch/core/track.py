@@ -15,6 +15,7 @@ tracks.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -172,11 +173,14 @@ def _spread(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def pt_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-               mode: str = "prefill"):
+               mode: str = "prefill", head: bool = True):
     """Whole-prompt prefill.  batch: {'inputs': [B, S] token ids,
     'positions'?: [B, S]}.  Returns (logits [B, S, V], cache) with cache
     {'blocks': (k, v) each [R, D, n, B, S, KH, hd], 'tail': ()}, the
-    reference's prefill cache layout.  (The reference also returns an
+    reference's prefill cache layout; ``head=False`` skips the final
+    norm and the LM head and returns (None, cache), for a caller that
+    reads only the cache (the drafter's prefill, whose logits the
+    reference computes and drops).  (The reference also returns an
     auxiliary loss, always zero here; training is ROADMAP queue 1,
     item 9.)"""
     if mode != "prefill":
@@ -201,7 +205,7 @@ def pt_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
             ks.append(k)
             vs.append(v)
         h = _fuse(hh, cfg)                                   # 1 sync / block
-    logits = _head(params, h, cfg)
+    logits = _head(params, h, cfg) if head else None
 
     def stacked(xs):
         return torch.stack(xs).reshape(R, pt.block_depth, *xs[0].shape)
@@ -238,7 +242,7 @@ def pt_decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
                    cfg: ModelConfig,
                    block_table: Optional[torch.Tensor] = None,
                    kv_max_len: Optional[int] = None,
-                   active: Optional[torch.Tensor] = None):
+                   active: Optional[torch.Tensor] = None, head: bool = True):
     """One token per row against the cache: the paged cache {'blocks':
     (PagedLeaf k, PagedLeaf v) with pools [R, D, n, N, bs, KH, hd]} with
     block_table [B, nmax] int32, or the contiguous cache {'blocks': (k,
@@ -246,11 +250,12 @@ def pt_decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
     int32 (cache write index).  The cache is updated in place.
     ``active`` [B] bool keeps the contiguous rows of inactive lanes (in
     the paged cache they write through zeroed table rows into the trash
-    block).  Returns (logits [B, V], cache)."""
+    block).  ``head=False`` skips the final norm and the LM head.
+    Returns (logits [B, V] or None, cache)."""
     h = _embed(params, tokens[:, None], cfg)                 # [B, 1, d]
     h = _pt_step(params, cache, h, pos, cfg, "decode", block_table,
                  kv_max_len, active)
-    return _head(params, h[:, 0], cfg), cache
+    return (_head(params, h[:, 0], cfg) if head else None), cache
 
 
 def pt_chunk_hidden(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
@@ -276,12 +281,67 @@ def pt_chunk_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
                   cfg: ModelConfig,
                   block_table: Optional[torch.Tensor] = None,
                   kv_max_len: Optional[int] = None):
-    """Chunked prefill: tokens [B, C] appended at positions pos[:, None] +
-    arange(C) against the paged cache (updated in place).  Returns
-    (logits [B, C, V], cache)."""
+    """Chunked prefill or the K+1-token speculative verify: tokens [B, C]
+    appended at positions pos[:, None] + arange(C) against the cache,
+    updated in place: the paged cache through ``block_table``, or (with
+    none) contiguous rows aligned with the batch, the drafter's cache
+    filled chunk by chunk.  Returns (logits [B, C, V], cache)."""
     h = pt_chunk_hidden(params, cache, tokens, pos, cfg, block_table,
                         kv_max_len)
     return _head(params, h, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# track-subset drafter (speculative decoding)
+# ---------------------------------------------------------------------------
+
+def pt_draft_config(cfg: ModelConfig, draft_tracks: int) -> ModelConfig:
+    """Config of the track-subset drafter: the same PT stack restricted
+    to its first ``draft_tracks`` tracks.  Per-track widths and heads are
+    unchanged (only the fusion mean runs over fewer tracks), so sliced
+    parameters drive it directly."""
+    pt = _pt(cfg)
+    if not 1 <= draft_tracks <= pt.n_tracks:
+        raise ValueError(f"draft_tracks={draft_tracks} not in "
+                         f"[1, {pt.n_tracks}]")
+    return cfg.replace(name=f"{cfg.name}-draft{draft_tracks}",
+                       pt=dataclasses.replace(pt, n_tracks=draft_tracks))
+
+
+def pt_draft_params(params, cfg: ModelConfig, draft_tracks: int):
+    """The first ``draft_tracks`` tracks of stacked PT params: blocks
+    leaves [R, D, n, ...] -> [R, D, d, ...]; embed, final_norm and head
+    are shared as they are.  The slices are views, so the drafter costs
+    no parameter memory: layer (r, j)'s [d, ...] is a contiguous prefix
+    of its [n, ...], and every product over it is one batched GEMM.
+    (The reference also slices a ragged tail [rem, n, ...]; the port
+    has none, see ``_block_counts``.)"""
+    d = draft_tracks
+    if not 1 <= d <= _pt(cfg).n_tracks:
+        raise ValueError(f"draft_tracks={d} not in [1, {_pt(cfg).n_tracks}]")
+    _block_counts(cfg)
+
+    def cut(tree):
+        if isinstance(tree, dict):
+            return {k: cut(v) for k, v in tree.items()}
+        return tree[:, :, :d]
+
+    return dict(params, blocks=cut(params["blocks"]))
+
+
+def pt_draft_step(draft_params, cache, tokens: torch.Tensor,
+                  pos: torch.Tensor, cfg_draft: ModelConfig,
+                  active: Optional[torch.Tensor] = None,
+                  kv_max_len: Optional[int] = None, head: bool = True):
+    """One decode step of the track-subset drafter on its contiguous
+    cache: ``pt_decode_step`` on ``cfg_draft = pt_draft_config(cfg, d)``
+    with the matching ``pt_draft_params`` slice.  It has no cross-track
+    collective: the d tracks are local, and the fusion mean is plain
+    compute.  ``head=False`` only writes the step's K/V (the speculative
+    step's last draft step, whose logits are dropped).  Returns (logits
+    [B, V] or None, cache)."""
+    return pt_decode_step(draft_params, cache, tokens, pos, cfg_draft,
+                          kv_max_len=kv_max_len, active=active, head=head)
 
 
 def pt_cache_shape(cfg: ModelConfig, batch: int, seq_len: int

@@ -16,6 +16,8 @@ Runs on the GPU unless ``--device cpu`` is given.
       --reduced --device cpu --prefill-chunk 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dense-6b \
       --reduced --device cpu --contiguous
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
+      --reduced --device cpu --speculate-k 3 --draft-tracks 2
 """
 from __future__ import annotations
 
@@ -60,6 +62,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="serving weight dtype: int8 quantizes the "
                     "projection and head weights at engine load (norms "
                     "and embeddings stay fp)")
+    ap.add_argument("--speculate-k", type=int, default=0,
+                    help="track-speculative decoding: draft tokens per "
+                    "verify step (PT models on the paged cache; 0 = off)")
+    ap.add_argument("--draft-tracks", type=int, default=0,
+                    help="tracks of the drafter (0 = n_tracks // 2)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prefill-budget", type=int, default=4096,
                     help="max padded prefill tokens admitted per step")
@@ -78,7 +85,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                  paged=not args.contiguous, block_size=args.block_size,
                  num_blocks=args.num_blocks,
                  prefill_chunk=args.prefill_chunk, kv_dtype=args.kv_dtype,
-                 weight_dtype=args.weight_dtype, device=device)
+                 weight_dtype=args.weight_dtype,
+                 speculate_k=args.speculate_k,
+                 draft_tracks=args.draft_tracks, device=device)
     del params                 # an int8 engine holds its own copy
     st = eng.runner.cache_stats()
     if st["mode"] == "contiguous":
@@ -97,7 +106,10 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"{st['state_bytes'] / 1e6:.1f} MB, {st['num_blocks']} "
               f"blocks of {st['block_size']}")
     for why in eng.runner.quant_fallbacks:
-        print(f"[serve] quantization fallback: {why}")
+        print(f"[serve] fallback: {why}")
+    if eng.runner.speculate_k:
+        print(f"[serve] speculative: K={eng.runner.speculate_k}, drafter of "
+              f"{eng.runner.draft_tracks}/{cfg.pt.n_tracks} tracks")
     rng = np.random.default_rng(args.seed)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -124,6 +136,10 @@ def main(argv: Optional[List[str]] = None) -> int:
           f"p90 {m['ttft_ms']['p90']:.2f}  p99 {m['ttft_ms']['p99']:.2f}")
     print(f"[serve] TPOT ms: p50 {m['tpot_ms']['p50']:.2f}  "
           f"p90 {m['tpot_ms']['p90']:.2f}  p99 {m['tpot_ms']['p99']:.2f}")
+    if eng.runner.speculate_k:
+        print(f"[serve] spec steps {m['spec_steps']}   acceptance rate "
+              f"{m['acceptance_rate']:.4f}   tokens per slot per spec "
+              f"step {m['tokens_per_slot_step']:.3f}")
     print("[serve] kernel launches: " + ", ".join(
         f"{k} {v}" for k, v in ops.launch_counts().items()))
     done = sum(r.state is RequestState.DONE for r in reqs)

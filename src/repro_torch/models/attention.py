@@ -1,8 +1,9 @@
 """GQA attention over the stacked track dim: whole-prompt prefill through
 the flash-attention kernel, decode through the paged-decode kernel
 (either branch: fp or int8 pools) or, on the contiguous cache, through
-the contiguous-cache decode kernel, chunked prefill against the pools
-(counterpart of ``repro.models.attention``).
+the contiguous-cache decode kernel, chunked prefill and the speculative
+verify against the pools, and the drafter's chunk fill of its
+contiguous rows (counterpart of ``repro.models.attention``).
 
 Layout conventions (JAX layouts, with a leading track dim n; a layer of
 the dense ``lm_*`` decoder comes here as n = 1 views):
@@ -20,8 +21,8 @@ the activation dtype.  int8 pools (``PagedLeaf.scale``) quantize rows on
 write and dequantize on read.
 
 Not ported (each raises): sliding windows and ring caches, logit
-softcap on the decode paths, chunked prefill into a contiguous cache
-(the speculative drafter's), qk-norm, M-RoPE, cross-attention.
+softcap on the decode and chunk paths, qk-norm, M-RoPE,
+cross-attention.
 """
 from __future__ import annotations
 
@@ -223,28 +224,71 @@ def attention_decode(params, x: torch.Tensor, cache: Tuple[Any, Any], *,
                          out_dtype=x.dtype)
 
 
-def attention_chunk(params, x: torch.Tensor,
-                    cache: Tuple[PagedLeaf, PagedLeaf], *, spec: LayerSpec,
-                    cfg: ModelConfig, pos: torch.Tensor,
+def _causal_ctx(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                positions: torch.Tensor, round_dtype: torch.dtype
+                ) -> torch.Tensor:
+    """Masked grouped softmax in fp32, the reference's jnp chunk
+    attention: q [n, B, C, H, hd]; k, v [n, B, S, KH, hd]; query (b, c)
+    sees columns <= positions[b, c].  The scaled q and the probabilities
+    are rounded to ``round_dtype`` before their products, as the
+    reference's branch does (the paged branch to the cache dtype, the
+    contiguous one to fp32).  Returns ctx [n, B, C, H, hd] fp32."""
+    n, B, C, H, hd = q.shape
+    S, KH = k.shape[2:4]
+    qg = (q * hd ** -0.5).to(round_dtype).reshape(n, B, C, KH, H // KH, hd)
+    s = torch.einsum("nbckgd,nbskd->nbckgs", qg.float(), k.float())
+    cols = torch.arange(S, device=q.device)
+    mask = cols[None, None, :] <= positions[:, :, None]          # [B, C, S]
+    # in place: at full width the scores are the chunk's largest transient
+    s.masked_fill_(~mask[None, :, :, None, None, :], NEG_INF)
+    s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
+    p = s.div_(s.sum(dim=-1, keepdim=True))
+    ctx = torch.einsum("nbckgs,nbskd->nbckgd", p.to(round_dtype).float(),
+                       v.float())
+    return ctx.reshape(n, B, C, H, hd)
+
+
+def _dense_chunk_write(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                       k_new: torch.Tensor, v_new: torch.Tensor,
+                       positions: torch.Tensor) -> None:
+    """The chunk's K/V rows [n, B, C, KH, hd] into contiguous rows
+    [n, B, S, KH, hd] at [:, b, positions[b, c]], in place; a row whose
+    position is >= S is dropped (the reference's ``mode="drop"``).  Each
+    row's chunk is contiguous from positions[b, 0], so column s takes
+    chunk row s - positions[b, 0] where that lies in [0, C): a select
+    over the rows, with no host sync and no colliding scatter indices."""
+    n, B, S = k_cache.shape[:3]
+    C = positions.shape[1]
+    off = (torch.arange(S, device=positions.device)[None, :]
+           - positions[:, :1].long())                          # [B, S]
+    hit = ((off >= 0) & (off < C))[None, :, :, None, None]
+    idx = off.clamp(0, C - 1)[None, :, :, None, None].expand(
+        n, B, S, *k_cache.shape[3:])
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        rows = torch.gather(new.to(cache.dtype), 2, idx)
+        cache.copy_(torch.where(hit, rows, cache))
+
+
+def attention_chunk(params, x: torch.Tensor, cache: Tuple[Any, Any], *,
+                    spec: LayerSpec, cfg: ModelConfig, pos: torch.Tensor,
                     block_table: Optional[torch.Tensor] = None,
                     kv_max_len: Optional[int] = None):
-    """Chunked prefill against the block pools: C new tokens per row.
+    """Chunked prefill or the K+1-token verify: C new tokens per row.
 
     x [n, B, C, d]; pos [B] int32 position of each row's first chunk
-    token; cache: this layer's (k, v) pools.  The chunk's K/V rows are
-    written through the block table first (rows past a prompt's end land
-    in owned or trash blocks and sit causally after every real query),
-    then every chunk row attends causally over the gathered (and, for
-    int8 pools, dequantized) per-slot view, as the reference computes it
-    in jnp: plain PyTorch, masked grouped softmax in fp32.
-    ``kv_max_len`` (host-known bound on pos + C) cuts the gather to the
-    live prefix.  Returns (out [n, B, C, d], cache)."""
+    token; cache: this layer's (k, v) pools, or its contiguous rows
+    [n, B, S, KH, hd] aligned with the batch (the speculative drafter's
+    cache; the reference's ``_dense_chunk``).  The chunk's K/V rows are
+    written first: through the block table (rows past a prompt's end land
+    in owned or trash blocks and sit causally after every real query), or
+    at [:, b, pos[b] + c] in the rows (dropped at or past S).  Then every
+    chunk row attends causally over the gathered (and, for int8 pools,
+    dequantized) per-slot view, or over the whole of its rows, as the
+    reference computes it in jnp: plain PyTorch, masked grouped softmax
+    in fp32.  ``kv_max_len`` (host-known bound on pos + C) cuts the
+    paged gather to the live prefix.  Returns (out [n, B, C, d], cache)."""
     k_leaf, v_leaf = cache
-    if not is_paged(k_leaf):
-        raise NotImplementedError("chunked prefill into a contiguous cache "
-                                  "(the speculative drafter's) is not "
-                                  "ported (ROADMAP queue 1, item 6)")
-    if block_table is None:
+    if is_paged(k_leaf) and block_table is None:
         raise ValueError("attention_chunk on a paged cache requires a "
                          "block_table")
     if spec.window is not None or spec.attn_logit_softcap is not None:
@@ -257,7 +301,10 @@ def attention_chunk(params, x: torch.Tensor,
     q, k_new, v_new = _project_qkv(params, x, cfg, positions)
     H, hd = q.shape[-2:]
     KH = k_new.shape[-2]
-    G = H // KH
+    if not is_paged(k_leaf):
+        _dense_chunk_write(k_leaf, v_leaf, k_new, v_new, positions)
+        ctx = _causal_ctx(q, k_leaf, v_leaf, positions, torch.float32)
+        return _out_proj(params, ctx.to(x.dtype)), (k_leaf, v_leaf)
     bs = k_leaf.pool.shape[2]
     w_idx = token_to_pool(block_table, positions, bs).reshape(-1)
     pool_write(k_leaf, k_new.reshape(n, B * C, KH, hd), w_idx)
@@ -267,16 +314,6 @@ def attention_chunk(params, x: torch.Tensor,
         read_table = block_table[:, :-(-kv_max_len // bs)]
     k_g = pool_read(k_leaf, read_table)                # [n, B, S, KH, hd]
     v_g = pool_read(v_leaf, read_table)
-    S = k_g.shape[2]
-    qg = (q * hd ** -0.5).to(k_g.dtype).reshape(n, B, C, KH, G, hd)
-    s = torch.einsum("nbckgd,nbskd->nbckgs", qg.float(), k_g.float())
-    cols = torch.arange(S, device=x.device)
-    mask = cols[None, None, :] <= positions[:, :, None]          # [B, C, S]
-    # in place: at full width the scores are the chunk's largest transient
-    s.masked_fill_(~mask[None, :, :, None, None, :], NEG_INF)
-    s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
-    p = s.div_(s.sum(dim=-1, keepdim=True))
-    ctx = torch.einsum("nbckgs,nbskd->nbckgd", p.to(v_g.dtype).float(),
-                       v_g.float())
-    out = _out_proj(params, ctx.reshape(n, B, C, H, hd).to(x.dtype))
+    ctx = _causal_ctx(q, k_g, v_g, positions, k_g.dtype)
+    out = _out_proj(params, ctx.to(x.dtype))
     return out, (k_leaf, v_leaf)

@@ -41,6 +41,16 @@ from ``arch_capabilities``, as in the reference: a requested feature it
 does not support falls back with the reference's reason
 (``quant_fallbacks``).
 
+Track-speculative decoding (``speculate_k=K``, ``draft_tracks=d``; a
+PT config on the paged cache, else it falls back to plain decode with
+the reference's reason): the first d of the n tracks, as views of the
+target's blocks, are a narrow drafter with a contiguous cache of its
+own, filled at admission (or chunk by chunk).  Each engine step then
+runs K + 1 draft steps, ONE (K+1)-token verify of the target through
+the chunk program, and ``sampler.accept_step``, whose packed [K+2,
+slots] result is the step's one host transfer; every decoding slot
+advances by 1..K+1 tokens, the same tokens plain greedy decode emits.
+
 Greedy only, and the prefix cache is off (``prefix_cache=False``; the
 reference defaults to on).  Every feature of the reference
 engine this slice leaves out raises ``NotImplementedError`` naming its
@@ -60,13 +70,16 @@ import torch
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.quant import is_quantized, quantize_params
 from repro_torch.common.types import ModelConfig
+from repro_torch.core.track import (pt_chunk_hidden, pt_draft_config,
+                                    pt_draft_params, pt_draft_step,
+                                    pt_forward, pt_init_cache)
 from repro_torch.launch.steps import model_fns
 from repro_torch.models.decoder import _head
 from repro_torch.models.layers import check_supported
 from repro_torch.serving.cache import PagedKVCache, insert_rows
-from repro_torch.serving.sampler import (SampleParams, require_greedy,
-                                         sample_rows, sample_step,
-                                         stack_params)
+from repro_torch.serving.sampler import (SampleParams, accept_step,
+                                         require_greedy, sample_rows,
+                                         sample_step, stack_params)
 
 
 RECURRENT_MIXERS = ("mamba", "rglru")
@@ -109,6 +122,9 @@ class Request:
     truncated: bool = False            # max_new_tokens clamped to capacity
     finish_reason: Optional[str] = None
     prefilled: int = 0                 # prompt tokens already in the cache
+    draft_filled: int = 0              # drafter cache tokens (chunked+spec)
+    pending_first: Optional[int] = None  # first token parked until the
+                                       # drafter catches up (chunked+spec)
     # monotonic (perf_counter) latency marks
     t_submit: float = 0.0
     t_first: float = 0.0
@@ -144,6 +160,13 @@ class EngineMetrics:
         self.rejected = 0
         self.t_start: Optional[float] = None
         self.t_last: Optional[float] = None
+        # speculative decoding
+        self.spec_steps = 0
+        self.draft_proposed = 0        # usable drafts per slot per step
+        self.draft_accepted = 0        # drafts the verify forward kept
+        self.acceptance_ema: Optional[float] = None
+        self.spec_tokens = 0           # tokens the spec steps emitted
+        self.spec_slot_steps = 0       # decoding slots summed over them
 
     def start(self) -> None:
         if self.t_start is None:
@@ -155,6 +178,23 @@ class EngineMetrics:
         self.prompt_tokens += len(req.prompt)
         self.output_tokens += len(req.output)
         self.t_last = req.t_done
+
+    def observe_spec(self, accepted: int, proposed: int,
+                     alpha: float = 0.2, emitted: int = 0,
+                     slots: int = 0) -> None:
+        """One speculative step's acceptance, summed over active slots,
+        and the tokens it emitted over its ``slots`` decoding slots."""
+        self.spec_tokens += emitted
+        self.spec_slot_steps += slots
+        if proposed <= 0:
+            return
+        self.spec_steps += 1
+        self.draft_accepted += accepted
+        self.draft_proposed += proposed
+        rate = accepted / proposed
+        self.acceptance_ema = (rate if self.acceptance_ema is None
+                               else (1 - alpha) * self.acceptance_ema
+                               + alpha * rate)
 
     def summary(self) -> Dict[str, Any]:
         """TTFT / TPOT percentiles (ms) and output-token throughput; safe
@@ -179,7 +219,16 @@ class EngineMetrics:
                 "throughput_tok_s": (self.output_tokens / elapsed
                                      if elapsed > 0 else 0.0),
                 "ttft_ms": pct(self.ttfts),
-                "tpot_ms": pct(self.tpots)}
+                "tpot_ms": pct(self.tpots),
+                "spec_steps": self.spec_steps,
+                "acceptance_rate": (self.draft_accepted / self.draft_proposed
+                                    if self.draft_proposed else 0.0),
+                "acceptance_ema": (self.acceptance_ema
+                                   if self.acceptance_ema is not None
+                                   else 0.0),
+                "tokens_per_slot_step": (self.spec_tokens
+                                         / self.spec_slot_steps
+                                         if self.spec_slot_steps else 0.0)}
 
 
 class EngineStallError(RuntimeError):
@@ -321,9 +370,19 @@ def arch_capabilities(cfg: ModelConfig) -> Dict[str, Capability]:
 class ModelRunner:
     """Device side: the paged cache (K/V pools or state rows) or the
     contiguous cache (``paged=False``), bucketed or exact-length
-    prefill, the chunk program and the decode step.  ``params`` must
-    already live on ``device``; with ``weight_dtype="int8"`` the runner
-    holds its own quantized copy (the caller may drop the fp tree)."""
+    prefill, the chunk program, the decode step and the speculative
+    step.  ``params`` must already live on ``device``; with
+    ``weight_dtype="int8"`` the runner holds its own quantized copy (the
+    caller may drop the fp tree).
+
+    ``speculate_k > 0`` (a PT config on the paged cache; elsewhere it
+    falls back to 0 with the capability table's reason in
+    ``quant_fallbacks``) adds the track-subset drafter: the first
+    ``draft_tracks`` tracks (default ``max(1, n_tracks // 2)``) as views
+    of the runner's blocks, sharing its embedding, final norm and head,
+    with a contiguous cache of its own (``pt_init_cache(draft_cfg,
+    max_slots, max_seq_len)``).  With int8 weights the drafter's blocks
+    are quantized after the slice, on their own."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int,
                  max_seq_len: int, min_bucket: int = 16,
@@ -331,6 +390,7 @@ class ModelRunner:
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefill_chunk: int = 0, kv_dtype: Optional[str] = None,
                  weight_dtype: Optional[str] = None,
+                 speculate_k: int = 0, draft_tracks: int = 0,
                  device: DeviceLike = None):
         self.device = resolve_device(device)
         check_supported(cfg)
@@ -368,11 +428,36 @@ class ModelRunner:
                        else "needs the paged cache")
                 self.quant_fallbacks.append(
                     f"kv_dtype=int8: {why}; serving fp KV")
+        # track-speculative decoding, gated as in the reference
+        self.speculate_k = 0
+        self.draft_tracks = 0
+        draft_blocks = None
+        if speculate_k > 0:
+            if self.paged and caps["speculative"].supported:
+                self.speculate_k = speculate_k
+                d = draft_tracks or max(1, cfg.pt.n_tracks // 2)
+                self.draft_tracks = min(d, cfg.pt.n_tracks)
+                self.draft_cfg = pt_draft_config(cfg, self.draft_tracks)
+                draft_blocks = pt_draft_params(params, cfg,
+                                               self.draft_tracks)["blocks"]
+                self.draft_cache = pt_init_cache(self.draft_cfg, max_slots,
+                                                 max_seq_len,
+                                                 device=self.device)
+                self.draft_prefill_shapes: set = set()
+                self.draft_chunk_shapes: set = set()
+            else:
+                why = caps["speculative"].reason or "needs the paged cache"
+                self.quant_fallbacks.append(
+                    f"speculate_k={speculate_k}: {why}; serving plain "
+                    "decode")
         self.n_quantized = 0
         if weight_dtype == "int8":
             self.params, self.n_quantized = quantize_params(params)
             if self.n_quantized:
                 self.weight_dtype = "int8"
+                if draft_blocks is not None:
+                    draft_blocks = quantize_params(
+                        {"blocks": draft_blocks})[0]["blocks"]
             else:
                 self.quant_fallbacks.append(
                     "weight_dtype=int8: no quantizable weight leaves in "
@@ -382,6 +467,11 @@ class ModelRunner:
             # the LM head runs in fp32 (as the reference does); an fp32
             # copy is kept once instead of casting the head every step
             self.params = dict(self.params, head=head.float())
+        if draft_blocks is not None:
+            # embed, final norm and head: the runner's own (its fp32 or
+            # int8 head; quantizing the drafter's copy would give the same
+            # bytes)
+            self.draft_params = dict(self.params, blocks=draft_blocks)
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
         self.min_bucket = min_bucket
@@ -546,17 +636,22 @@ class ModelRunner:
             self._table_key = key_now
         return self._table_dev
 
-    def _live_max_len(self, pos: np.ndarray, active: np.ndarray
+    def _live_max_len(self, pos: np.ndarray, active: np.ndarray,
+                      extra: int = 0, paged: Optional[bool] = None
                       ) -> Optional[int]:
         """Power-of-two bound on the live cache prefix of the active
         lanes, in blocks (paged) or positions (contiguous), capped at
-        the capacity: the decode kernel sweeps nothing past it."""
+        the capacity: the decode kernel sweeps nothing past it.
+        ``extra`` widens it by positions a step writes past ``pos`` (the
+        speculative step's K); ``paged`` picks the cache (default: the
+        engine's; the drafter's is contiguous)."""
         act = np.asarray(active, bool)
         if not act.any():
             return None
+        paged = self.paged if paged is None else paged
         unit, cap = ((self.kv.block_size, self.kv.blocks_per_seq)
-                     if self.paged else (1, self.max_seq_len))
-        need = -(-(int(np.asarray(pos)[act].max()) + 1) // unit)
+                     if paged else (1, self.max_seq_len))
+        need = -(-(int(np.asarray(pos)[act].max()) + 1 + extra) // unit)
         p2 = 1
         while p2 < need:
             p2 *= 2
@@ -583,6 +678,86 @@ class ModelRunner:
         self.decode_transfers += 1
         return host[0], host[1].astype(bool)
 
+    # -- the track-subset drafter and the speculative step ---------------
+    @torch.no_grad()
+    def draft_prefill(self, prompts: Sequence[Sequence[int]], bucket: int,
+                      slots: Sequence[int]) -> None:
+        """Fill the drafter's contiguous cache rows ``slots`` with the
+        prompts (one batched narrow forward, right-padded to ``bucket``,
+        no LM head: the first token comes from the target's prefill), in
+        through ``insert_rows``.  The bucketed-admission path; chunked
+        admissions use ``draft_chunk``."""
+        n = len(prompts)
+        tokens = np.zeros((n, bucket), np.int64)
+        for i, p in enumerate(prompts):
+            tokens[i, :len(p)] = p
+        _, cache = pt_forward(self.draft_params,
+                              {"inputs": self._to_dev(tokens, torch.long)},
+                              self.draft_cfg, head=False)
+        insert_rows(self.draft_cache, cache, slots)
+        self.draft_prefill_shapes.add((n, bucket))
+
+    @torch.no_grad()
+    def draft_chunk(self, toks: np.ndarray, pos: np.ndarray,
+                    slots: Sequence[int]) -> None:
+        """Advance the drafter's cache one chunk per prefilling row
+        (``toks`` [n, C] at positions ``pos[:, None] + arange(C)``): the
+        rows at ``slots`` are gathered (a copy), run through the chunk
+        program with no block table and no head, and written back.
+        Positions past a row's tokens write pad K/V that decode's causal
+        mask never reads before it is overwritten."""
+        idx = self._to_dev(slots, torch.long)
+        rows = {"blocks": tuple(leaf.index_select(3, idx)
+                                for leaf in self.draft_cache["blocks"]),
+                "tail": ()}
+        pt_chunk_hidden(self.draft_params, rows,
+                        self._to_dev(toks, torch.long),
+                        self._to_dev(pos, torch.int32), self.draft_cfg)
+        insert_rows(self.draft_cache, rows, slots)
+        self.draft_chunk_shapes.add(tuple(np.shape(toks)))
+
+    @torch.no_grad()
+    def draft_verify(self, toks, pos, active, temps
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+        """One speculative step for all slots: K draft steps of the
+        drafter, one more at pos + K (no head) so that d_K's K/V lands
+        there too (on the all-accepted path the next step starts at
+        pos + K + 1), then ONE (K+1)-token verify of the target through
+        the chunk program on the paged cache, then ``accept_step``.
+        ``active`` freezes the drafter rows of idle lanes and of lanes
+        whose drafter is being chunk-filled; the target's idle lanes
+        write through zeroed table rows, and verify rows past a slot's
+        reservation fall through its zeroed table columns, into trash
+        block 0.  Exactly one device-to-host transfer: the packed
+        [K+2, slots] result.  Returns (tokens [slots, K+1], emitted
+        counts [slots])."""
+        require_greedy(temps)
+        K = self.speculate_k
+        active_d = self._to_dev(active, torch.bool)
+        pos_d = self._to_dev(pos, torch.int32)
+        tok0 = self._to_dev(toks, torch.int32)
+        draft_len = self._live_max_len(pos, active, extra=K, paged=False)
+        tok, d_toks, d_logits = tok0, [], []
+        for j in range(K + 1):
+            logits, _ = pt_draft_step(self.draft_params, self.draft_cache,
+                                      tok, pos_d + j, self.draft_cfg,
+                                      active=active_d, kv_max_len=draft_len,
+                                      head=j < K)
+            if j < K:
+                tok = sample_rows(logits, temps)
+                d_toks.append(tok)
+                d_logits.append(logits)
+        seq = torch.stack([tok0] + d_toks, dim=1)               # [B, K+1]
+        tgt, self.cache = self.fns["chunk"](
+            self.params, self.cache, seq, pos_d, self.cfg,
+            block_table=self._masked_table(active),
+            kv_max_len=self._live_max_len(pos, active, extra=K))
+        packed = accept_step(tgt, torch.stack(d_logits, dim=1),
+                             torch.stack(d_toks, dim=1), temps, active_d)
+        host = packed.cpu().numpy()              # THE transfer
+        self.decode_transfers += 1
+        return host[:-1].T, host[-1]
+
 
 # ---------------------------------------------------------------------------
 # engine
@@ -607,9 +782,7 @@ class Engine:
                  weight_dtype: Optional[str] = None,
                  pipeline_depth: int = 0, preplan: bool = False,
                  max_queue: Optional[int] = None, fault_plan: Any = None):
-        _refuse(speculate_k=(speculate_k, 0, 6),
-                draft_tracks=(draft_tracks, 0, 6),
-                prefix_cache=(prefix_cache, False, 5),
+        _refuse(prefix_cache=(prefix_cache, False, 5),
                 pipeline_depth=(pipeline_depth, 0, 8),
                 preplan=(preplan, False, 8), max_queue=(max_queue, None, 8),
                 fault_plan=(fault_plan, None, 8))
@@ -623,7 +796,9 @@ class Engine:
                                   num_blocks=num_blocks,
                                   prefill_chunk=prefill_chunk,
                                   kv_dtype=kv_dtype,
-                                  weight_dtype=weight_dtype, device=device)
+                                  weight_dtype=weight_dtype,
+                                  speculate_k=speculate_k,
+                                  draft_tracks=draft_tracks, device=device)
         self.scheduler = Scheduler(max_slots, self.runner.bucket_for,
                                    max_waiting_prefill_tokens,
                                    charge_fn=self.runner.admission_charge)
@@ -731,7 +906,9 @@ class Engine:
 
     def _start_decode(self, slot: int, req: Request, tok: int) -> None:
         """The prefill sampled the request's first token: move it into
-        the decode batch (or finish it when that was its last)."""
+        the decode batch (or finish it when that was its last).  When
+        speculating, the caller fills the drafter's cache: batched at
+        admission (``_fill_drafter``) or chunk by chunk."""
         req.t_first = time.perf_counter()
         req.state = RequestState.DECODE
         L = len(req.prompt)
@@ -745,6 +922,15 @@ class Engine:
         if (self._remaining[slot] <= 0
                 or (req.eos_id is not None and tok == req.eos_id)):
             self._finish(slot, req)
+
+    def _fill_drafter(self, rows: Sequence[Tuple[int, Request]],
+                      bucket: int) -> None:
+        """When speculating, one batched narrow forward fills the
+        drafter's cache for every admitted row still decoding."""
+        started = [(s, r) for s, r in rows if r.state is RequestState.DECODE]
+        if self.runner.speculate_k and started:
+            self.runner.draft_prefill([r.prompt for _, r in started], bucket,
+                                      [s for s, _ in started])
 
     def _admit(self) -> int:
         """Admit queued requests into free slots and prefill them: one
@@ -764,8 +950,9 @@ class Engine:
                 req.prefilled = 0
             admitted += len(group)
             if chunked:
-                # chunks run in _prefill_chunks; the slots' state rows
-                # belonged to their previous tenants: zero them first
+                # chunks run in _prefill_chunks (the drafter's too, from
+                # position 0); the slots' state rows belonged to their
+                # previous tenants: zero them first
                 self.runner.kv.reset_slots([s for s, _ in group])
                 continue
             if self.runner.kv_dtype == "int8":
@@ -781,6 +968,7 @@ class Engine:
             for slot, req, tok in zip(slots, reqs, toks):
                 req.prefilled = len(req.seq_tokens)
                 self._start_decode(slot, req, int(tok))
+            self._fill_drafter(group, bucket)
         if warm_rows:
             toks = self.runner.warm_prefill(
                 [r.seq_tokens for _, r in warm_rows],
@@ -788,40 +976,101 @@ class Engine:
             for (slot, req), tok in zip(warm_rows, toks):
                 req.prefilled = len(req.seq_tokens)
                 self._start_decode(slot, req, int(tok))
+            self._fill_drafter(warm_rows, self.runner.bucket_for(
+                max(len(r.prompt) for _, r in warm_rows)))
         return admitted
 
     def _prefill_chunks(self) -> int:
         """Advance every prefilling request by one chunk (one batched
         call), starting the decode of rows whose prompt is now fully in
-        the cache.  Returns rows advanced."""
+        the cache.  When speculating, the drafter's cache fills chunk by
+        chunk in step (its own batched call): a row whose target prompt
+        is in first parks its token in ``pending_first``, and joins the
+        decode batch only when both cursors have caught up.  Returns rows
+        advanced."""
         C = self.runner.prefill_chunk
+        spec = self.runner.speculate_k > 0
         rows = [(s, r) for s, r in self.scheduler.active_slots()
-                if r.state is RequestState.PREFILL
-                and r.prefilled < len(r.seq_tokens)]
-        if not rows:
-            return 0
-        n = len(rows)
-        toks = np.zeros((n, C), np.int64)
-        pos = np.empty((n,), np.int32)
-        last_idx = np.zeros((n,), np.int64)
-        for i, (_, req) in enumerate(rows):
-            seq = req.seq_tokens
-            chunk = seq[req.prefilled:req.prefilled + C]
-            toks[i, :len(chunk)] = chunk
-            pos[i] = req.prefilled
-            last_idx[i] = min(C - 1, len(seq) - 1 - req.prefilled)
-        cand = self.runner.chunk(toks, pos, [s for s, _ in rows], last_idx,
-                                 [r.params for _, r in rows])
-        for i, (slot, req) in enumerate(rows):
-            req.prefilled = min(req.prefilled + C, len(req.seq_tokens))
-            if req.prefilled == len(req.seq_tokens):
-                self._start_decode(slot, req, int(cand[i]))
-        return n
+                if r.state is RequestState.PREFILL]
+        tgt = [(s, r) for s, r in rows if r.prefilled < len(r.seq_tokens)]
+        if tgt:
+            n = len(tgt)
+            toks = np.zeros((n, C), np.int64)
+            pos = np.empty((n,), np.int32)
+            last_idx = np.zeros((n,), np.int64)
+            for i, (_, req) in enumerate(tgt):
+                seq = req.seq_tokens
+                chunk = seq[req.prefilled:req.prefilled + C]
+                toks[i, :len(chunk)] = chunk
+                pos[i] = req.prefilled
+                last_idx[i] = min(C - 1, len(seq) - 1 - req.prefilled)
+            cand = self.runner.chunk(toks, pos, [s for s, _ in tgt],
+                                     last_idx, [r.params for _, r in tgt])
+            for i, (slot, req) in enumerate(tgt):
+                req.prefilled = min(req.prefilled + C, len(req.seq_tokens))
+                if req.prefilled == len(req.seq_tokens):
+                    if spec:
+                        req.pending_first = int(cand[i])
+                    else:
+                        self._start_decode(slot, req, int(cand[i]))
+        if not spec:
+            return len(tgt)
+        drows = [(s, r) for s, r in rows
+                 if r.draft_filled < len(r.seq_tokens)]
+        if drows:
+            dtoks = np.zeros((len(drows), C), np.int64)
+            dpos = np.empty((len(drows),), np.int32)
+            for i, (_, req) in enumerate(drows):
+                chunk = req.seq_tokens[req.draft_filled:req.draft_filled + C]
+                dtoks[i, :len(chunk)] = chunk
+                dpos[i] = req.draft_filled
+            self.runner.draft_chunk(dtoks, dpos, [s for s, _ in drows])
+            for _, req in drows:
+                req.draft_filled = min(req.draft_filled + C,
+                                       len(req.seq_tokens))
+        for slot, req in rows:
+            if (req.pending_first is not None
+                    and req.draft_filled >= len(req.seq_tokens)):
+                tok, req.pending_first = req.pending_first, None
+                self._start_decode(slot, req, tok)
+        return len({s for s, _ in tgt} | {s for s, _ in drows})
+
+    def _apply_spec(self, active: List[Tuple[int, Request]], toks_mat,
+                    counts) -> None:
+        """Emit each slot's 1..K+1 tokens of a speculative step, stopping
+        at EOS or at the slot's remaining budget, as plain decode would.
+        Acceptance charges only the proposals a slot could use: the
+        budget caps the window up front, and an EOS stop drops the
+        proposals after it, so an early finish does not drag the rate
+        below its true value."""
+        acc = prop = out = 0
+        K = self.runner.speculate_k
+        for slot, req in active:
+            m = int(counts[slot])
+            usable = min(K, int(self._remaining[slot]))
+            emitted = 0
+            eos_stop = False
+            for j in range(m):
+                tok = int(toks_mat[slot, j])
+                self._emit(req, tok)
+                self._tok[slot] = tok
+                self._pos[slot] += 1
+                self._remaining[slot] -= 1
+                emitted += 1
+                eos_stop = req.eos_id is not None and tok == req.eos_id
+                if self._remaining[slot] <= 0 or eos_stop:
+                    self._finish(slot, req)
+                    break
+            prop_eff = min(usable, emitted) if eos_stop else usable
+            acc += min(emitted, m - 1, prop_eff)
+            prop += prop_eff
+            out += emitted
+        self.metrics.observe_spec(acc, prop, emitted=out, slots=len(active))
 
     def step(self) -> int:
         """Admit, advance chunked prefills by one chunk, then one decode
-        step for every decoding slot.  Returns the number of requests
-        that made progress."""
+        step (or one speculative draft + verify step) for every decoding
+        slot.  Returns the number of requests that made progress."""
         progress = self._admit()
         if self.runner.prefill_chunk:
             progress += self._prefill_chunks()
@@ -829,7 +1078,13 @@ class Engine:
                                       len(self.scheduler.active_slots()))
         active = [(s, r) for s, r in self.scheduler.active_slots()
                   if r.state is RequestState.DECODE]
-        if active:
+        if active and self.runner.speculate_k:
+            # every decoding slot advances by 1..K+1 tokens
+            toks_mat, counts = self.runner.draft_verify(
+                self._tok, self._pos, self._active, self._temps)
+            self._apply_spec(active, toks_mat, counts)
+            progress += len(active)
+        elif active:
             toks, done = self.runner.decode(self._tok, self._pos,
                                             self._active, self._temps,
                                             self._eos, self._remaining)

@@ -1,5 +1,6 @@
-"""Greedy token sampling and the fused decode-step epilogue (counterpart
-of ``repro.serving.sampler``).
+"""Greedy token sampling, the fused decode-step epilogue and the
+speculative step's greedy accept (counterpart of
+``repro.serving.sampler``).
 
 Sampling with ``temperature > 0`` needs keys bit-exact with JAX's
 threefry stream (``row_keys``) and is ROADMAP queue 1, item 4: every
@@ -58,3 +59,33 @@ def sample_step(logits: torch.Tensor, temperature, active: torch.Tensor,
     new = torch.where(active, new, torch.zeros_like(new))
     done = active & ((remaining <= 1) | ((eos >= 0) & (new == eos)))
     return torch.stack([new, done.to(torch.int32)])
+
+
+def accept_step(target_logits: torch.Tensor, draft_logits: torch.Tensor,
+                draft_toks: torch.Tensor, temperature,
+                active: torch.Tensor) -> torch.Tensor:
+    """The speculative step's greedy accept on device, one packed result.
+
+    target_logits [B, K+1, V] (row j scores the token at pos + j + 1);
+    draft_logits [B, K, V] and draft_toks [B, K], the drafter's.  A draft
+    token is accepted iff it equals the target argmax at its position;
+    ``n_acc`` is the length of the accepted prefix, and the token after
+    it is the target argmax at ``n_acc`` (the bonus token when all K are
+    accepted), so every emitted token is the one plain greedy decode
+    emits.  (The reference's rejection sampling reduces to exactly this
+    on its one-hot greedy rows; sampled acceptance needs ROADMAP queue 1,
+    item 4, so ``draft_logits`` is unused here.)
+
+    Returns packed int32 [K+2, B]: rows 0..K the emitted tokens, padded
+    with 0, row K+1 the emitted count m = n_acc + 1, 0 for an inactive
+    slot: the speculative step's one host transfer."""
+    require_greedy(temperature)
+    K = draft_toks.shape[1]
+    best = torch.argmax(target_logits, dim=-1).to(torch.int32)  # [B, K+1]
+    agree = (draft_toks.to(torch.int32) == best[:, :K]).to(torch.int32)
+    n_acc = torch.cumprod(agree, dim=1).sum(dim=1)               # [B]
+    j = torch.arange(K + 1, device=best.device)[None]
+    toks = torch.where(j <= n_acc[:, None], best, torch.zeros_like(best))
+    toks = torch.where(active[:, None], toks, torch.zeros_like(toks))
+    m = torch.where(active, n_acc + 1, torch.zeros_like(n_acc))
+    return torch.cat([toks.T, m[None].to(torch.int32)]).to(torch.int32)

@@ -12,7 +12,9 @@ split and many, the vector and the scalar path, bitwise repeatable with
 their ticket counters back at zero, one device kernel per call.  Flash
 prefill on each route (wgmma + TMA for bf16 at hd 64 / 128, the CUDA
 cores otherwise) at the serve layouts and ragged S, Sq != Sk, an
-unaligned view, bitwise repeatable, one device kernel per call.
+unaligned view, bitwise repeatable, one device kernel per call.  The contiguous decode
+kernel at the speculative drafter's shapes, and a reduced speculative
+engine run, card against CPU.
 Imports no JAX, so it runs on a GPU machine without it:
 
   PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
@@ -678,6 +680,73 @@ def test_contiguous_model_decode_on_card_matches_cpu():
     torch.testing.assert_close(out[dev][0], out[cpu][0], rtol=1e-4, atol=1e-4)
     for a, b in zip(out[dev][1], out[cpu][1]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_kernel_at_the_drafters_shapes(dtype):
+    """The contiguous decode kernel as the speculative drafter calls it at
+    pt-6b-d4: its d = 4 tracks of 8 slots folded into 32 rows, 4 query
+    heads on 1 KV head, hd 128, 584 cache columns; rows at the K + 1 draft
+    positions of a 512-token prompt, and rows whose length runs past the
+    cache (a draft position at or past S, whose write is dropped), under
+    the engine's power-of-two cuts."""
+    dev, tol = _cuda(), _TOL[dtype]
+    rng = np.random.default_rng(11)
+    B, S, KH, G, hd = 32, 584, 1, 4, 128
+    q = rng.standard_normal((B, KH * G, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((B, S, KH, hd)).astype(np.float32)
+            for _ in range(2))
+    lengths = np.asarray([513 + i % 5 for i in range(B)], np.int32)
+    lengths[-3:] = [S, S + 1, S + 4]
+    cast = lambda a: torch.from_numpy(a).to(dev, _TDT[dtype])   # noqa: E731
+    args = (cast(q), cast(k), cast(v), torch.from_numpy(lengths).to(dev))
+    before = ops.launch_counts()["decode_attention"]
+    cuts = (None, 512, S, 1024)
+    for max_len in cuts:
+        torch.testing.assert_close(
+            ops.decode_attention(*args, max_len=max_len),
+            ref.decode_attention_plain(*args, max_len=max_len),
+            rtol=tol, atol=tol)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == before + len(cuts)
+
+
+@pytest.mark.gpu
+def test_speculative_engine_on_card_matches_cpu():
+    """The reduced PT model in fp32 with speculate_k=3, draft_tracks=2:
+    greedy streams on the card equal the CPU's and plain decode's, with
+    one host transfer per step, the drafter's decode kernel launched
+    once per layer in each of the K + 1 draft steps of every engine step,
+    and no paged decode launch (the verify is the chunk program)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.core.track import init_pt
+    from repro_torch.serving.engine import Engine
+    dev, cpu = _cuda(), torch.device("cpu")
+    cfg = reduced_config("pt-6b-d4")
+    params = init_pt(torch.Generator().manual_seed(0), cfg, cpu)
+    rng = np.random.default_rng(12)
+    prompts = [rng.integers(1, cfg.vocab_size, size=(L,)).tolist()
+               for L in (9, 16, 5)]
+    kw = dict(max_slots=2, max_seq_len=48)
+    plain = Engine(cfg, params, device=cpu, **kw).generate(prompts, 8)
+    out = {}
+    for d in (cpu, dev):
+        eng = Engine(cfg, _tree_to(params, d), device=d, speculate_k=3,
+                     draft_tracks=2, **kw)
+        before = ops.launch_counts()
+        out[d] = eng.generate(prompts, 8)
+        assert eng.runner.decode_transfers == eng.steps_run
+        if d == dev:
+            torch.cuda.synchronize()
+            after = ops.launch_counts()
+            spec_steps = eng.metrics.summary()["spec_steps"]
+            assert after["decode_attention"] - before["decode_attention"] \
+                == cfg.n_layers * 4 * eng.steps_run >= cfg.n_layers * 4 \
+                * spec_steps > 0
+            assert after["paged_decode_attention"] == \
+                before["paged_decode_attention"]
+    assert out[dev] == out[cpu] == plain
 
 
 def _leaves(tree):

@@ -155,8 +155,7 @@ def test_engine_rejects_invalid_requests_and_unported_features(model):
     assert eng.submit([], 4).state is RequestState.REJECTED
     assert eng.submit([1] * 40, 4).state is RequestState.REJECTED
     assert eng.submit([1, 2], 0).state is RequestState.REJECTED
-    for kw in ({"speculate_k": 2}, {"prefix_cache": True},
-               {"pipeline_depth": 1}):
+    for kw in ({"prefix_cache": True}, {"pipeline_depth": 1}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(cfg, params, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

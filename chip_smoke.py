@@ -81,14 +81,27 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      along the plain streams by plain decode, the verify, the drafter
      and the prefill, whose gates (``check_spec_logits``) hold the
      verify (and the tied drafter) as close to decode as the prefill is,
-     and each stream's first divergence to a near-tie;
+     and each stream's first divergence to a near-tie; after each of
+     these seven sync runs, the same prompts served again by
+     ``Engine(pipeline_depth=1, preplan=True)`` (one CUDA graph per
+     live-length bucket of the decode or spec step, replayed; step N + 1
+     dispatched before step N's transfer is waited on), gated by
+     ``serve_planned``: all finish, every decode / spec step a replay
+     with one host transfer, the sync run's launch and route arithmetic
+     with the replays counted, plain streams equal to the sync run's
+     (speculative ones equal, or split from plain decode at near-ties
+     only), one replayed step bitwise equal to the eager step (logits,
+     packed result, cache bytes); with each pair's TTFT, TPOT,
+     throughput, peak memory, graph count, capture time and dispatch
+     gaps;
   6. where the time goes: device time by kernel (torch.profiler) over the
      step that admits 8 prompts and over three decode steps, and the
      decode step's device busy share against its unprofiled TPOT, for
      the five plain serve runs; for the two speculative runs, one spec
      step's device busy time split between the K + 1 draft forwards and
      the verify, its device ops and its busy share against the
-     unprofiled step.
+     unprofiled step; for each planned run, one replayed step's device
+     busy time, device ops and busy share against the unprofiled step.
 Prints one ``{"kernels": [...]}`` JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -1458,6 +1471,14 @@ def serve_full(dev: torch.device, card: str, int8: bool = False,
     if keep is not None:
         keep.update(params=params, prompts=[rq.prompt for rq in reqs],
                     streams=[rq.output for rq in reqs])
+    sync = {"m": m, "peak": peak, "streams": [rq.output for rq in reqs]}
+    del eng, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_planned(dev, card, tag, "int8" if int8 else "bf16", cfg,
+                  (lambda: init_pt(torch.Generator(device=dev).manual_seed(0),
+                                   cfg, dev)) if int8 else params, knobs,
+                  [rq.prompt for rq in reqs], sync)
     return launches
 
 
@@ -1634,6 +1655,13 @@ def serve_spec(dev: torch.device, card: str, params, prompts, plain,
     check_spec_logits(eng, prompts, plain, [rq.output for rq in reqs], tag,
                       tied)
     profile_spec_step(eng, cfg.vocab_size, rng, tag)
+    sync = {"m": m, "peak": peak, "streams": [rq.output for rq in reqs]}
+    del eng, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_planned(dev, card, tag, "spec", cfg, params,
+                  dict(speculate_k=K, draft_tracks=SPEC_TRACKS), prompts,
+                  sync, plain=plain, tied=tied)
     return launches, m["acceptance_rate"]
 
 
@@ -1904,6 +1932,14 @@ def serve_falcon(dev: torch.device, card: str):
         raise SystemExit(f"[serve] launch counts {got} != {want}")
     profile_steps(eng, cfg.vocab_size, rng, m["tpot_ms"]["p50"], tag,
                   chunk_steps=-(-PROMPT // FM_CHUNK))
+    sync = {"m": m, "peak": peak, "streams": [rq.output for rq in reqs]}
+    del eng, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_planned(dev, card, tag, "falcon", cfg,
+                  lambda: init_lm(torch.Generator(device=dev).manual_seed(0),
+                                  cfg, dev), {"prefill_chunk": FM_CHUNK},
+                  [rq.prompt for rq in reqs], sync)
     return launches
 
 
@@ -1981,6 +2017,295 @@ def serve_dense(dev: torch.device, card: str, params, paged: bool):
         raise SystemExit(f"[serve] launch counts {got} != {want}")
     check_flash_routes(tag, launches, dict(ops.flash_attention.routes))
     profile_steps(eng, cfg.vocab_size, rng, m["tpot_ms"]["p50"], tag)
+    sync = {"m": m, "peak": peak, "streams": [rq.output for rq in reqs]}
+    del eng, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_planned(dev, card, tag, "dense paged" if paged else "dense",
+                  cfg, params, {"paged": paged}, [rq.prompt for rq in reqs],
+                  sync)
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 5 (and 6), pipelined and preplanned: each sync run's prompts again
+# through Engine(pipeline_depth=1, preplan=True)
+# ---------------------------------------------------------------------------
+
+def _arith(kind: str, cfg, c: dict):
+    """The launch (and route) counts the sync run's arithmetic gives for
+    a run of ``c["P"]`` prefill calls, ``c["C"]`` chunk calls and
+    ``c["T"]`` decode or spec steps (host transfers): (launches, W8A16
+    routes or None)."""
+    L, P, C, T = cfg.n_layers, c["P"], c["C"], c["T"]
+    zero = {"flash_attention": 0, "paged_decode_attention": 0,
+            "paged_decode_attention_int8": 0, "int8_matmul": 0,
+            "decode_attention": 0, "decode_attention_int8": 0,
+            "ssm_scan": 0}
+    if kind == "bf16":
+        return dict(zero, flash_attention=L * P,
+                    paged_decode_attention=L * T,
+                    rmsnorm=(2 * L + 1) * (P + T)), None
+    if kind == "int8":
+        fwd = P + C + T
+        want = dict(zero, int8_matmul=fwd * (7 * L + 1),
+                    paged_decode_attention_int8=L * T)
+        del want["ssm_scan"], want["decode_attention_int8"]
+        return want, {"wgmma_tma": (fwd - T) * 7 * L, "mma_m16": T * 7 * L,
+                      "fma_rows": fwd}
+    if kind == "spec":
+        K = SPEC_K
+        return dict(zero, flash_attention=2 * L * P,
+                    decode_attention=L * (K + 1) * T,
+                    rmsnorm=(4 * L + 1) * P + ((K + 2) * (2 * L + 1) - 1)
+                    * T), None
+    if kind == "falcon":
+        return dict(zero, ssm_scan=L * C, rmsnorm=(L + 1) * (C + T)), None
+    mine = "paged_decode_attention" if kind == "dense paged" else \
+        "decode_attention"
+    return dict(zero, flash_attention=L * P, rmsnorm=(2 * L + 1) * (P + T),
+                **{mine: L * T}), None
+
+
+def _cache_tensors(r):
+    """Every tensor of the runner's cache (pools with their scales,
+    state rows, contiguous rows) and of the drafter's."""
+    def walk(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                yield from walk(v)
+        elif isinstance(tree, tuple):
+            for v in tree:
+                yield from walk(v)
+        elif hasattr(tree, "pool"):
+            yield from (t for t in (tree.pool, tree.scale) if t is not None)
+        else:
+            yield tree
+
+    return list(walk(r.cache)) + (list(r.draft_cache["blocks"])
+                                  if r.speculate_k else [])
+
+
+def check_replay(eng, prompts, tag: str) -> bool:
+    """One decode (or spec) step replayed from its CUDA graph against the
+    same step run eagerly, from the same cache bytes and inputs: the
+    logits (the verify's, for a spec step), the packed result and every
+    cache byte afterwards must be bitwise equal.  The step is taken with
+    SLOTS fresh requests decoding; the engine is spent afterwards."""
+    from repro_torch.serving.engine import RequestState
+    r = eng.runner
+    reqs = [eng.submit(p, NEW) for p in prompts]
+    while any(q.state is not RequestState.DECODE for q in reqs):
+        eng.step()
+    eng._drain_inflight()
+    cache = _cache_tensors(r)
+    saved = [t.clone() for t in cache]
+
+    def one_step():
+        if r.speculate_k:
+            h = r.dispatch_spec(eng._tok, eng._pos, eng._active, eng._temps,
+                                eng._counts)
+            out = r.wait_spec(h)
+        else:
+            h = r.dispatch_decode(eng._tok, eng._pos, eng._active,
+                                  eng._temps, eng._eos, eng._remaining,
+                                  eng._counts)
+            out = r.wait_decode(h)
+        return (h["key"], h["logits"].float().clone(),
+                [np.asarray(o).copy() for o in out],
+                [t.clone() for t in cache])
+
+    programs, r.programs = r.programs, {}
+    try:
+        eager = one_step()
+    finally:
+        r.programs = programs
+    for t, s_ in zip(cache, saved):
+        t.copy_(s_)
+    hits = r.planned_hits
+    replay = one_step()
+    replayed = r.planned_hits == hits + 1
+    same_logits = torch.equal(eager[1], replay[1])
+    same_out = all(np.array_equal(a, b) for a, b in zip(eager[2], replay[2]))
+    same_cache = all(torch.equal(a, b) for a, b in zip(eager[3], replay[3]))
+    dmax = (eager[1] - replay[1]).abs().max().item()
+    log(f"[planned] {tag}: one step at {replay[0]} replayed against the "
+        f"eager step: logits {list(replay[1].shape)} bitwise "
+        f"{'equal' if same_logits else 'NOT equal'} (max |diff| {dmax:.3e}),"
+        f" packed result {'equal' if same_out else 'NOT equal'}, cache "
+        f"bytes {'equal' if same_cache else 'NOT equal'}; replayed "
+        f"{replayed}")
+    return replayed and same_logits and same_out and same_cache
+
+
+def profile_planned(eng, vocab: int, rng, tag: str) -> None:
+    """Phase 6 for a planned run: SLOTS requests admitted and decoding,
+    then three engine steps timed unprofiled (wall, synchronized; each
+    dispatches one replay and waits on the one before) and three
+    profiled: device busy per step, device ops per step (the graph's
+    kernels and the step's copies), and the busy share against the
+    unprofiled step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import RequestState
+    reqs = [eng.submit(rng.integers(1, vocab, size=(PROMPT,)).tolist(), NEW)
+            for _ in range(SLOTS)]
+    while any(q.state is not RequestState.DECODE for q in reqs):
+        eng.step()
+    for _ in range(2):
+        eng.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 3 * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            eng.step()
+        torch.cuda.synchronize()
+    rows = sorted(((e.self_device_time_total / 3 / 1e3, e.count / 3, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+    eng.run()
+    if not rows:
+        log(f"[profile] {tag} planned step: the profiler saw no device time "
+            f"(busy / idle share not measured); unprofiled step "
+            f"{step_ms:.3f} ms")
+        return
+    busy = sum(x[0] for x in rows)
+    log(f"[profile] {tag} planned step (replayed): device busy {busy:.3f} ms "
+        f"in {sum(x[1] for x in rows):.0f} kernels and copies per step; "
+        f"unprofiled step {step_ms:.3f} ms ({100 * busy / step_ms:.1f} % "
+        f"busy, {100 - 100 * busy / step_ms:.1f} % idle)")
+    for ms, count, key in rows[:6]:
+        log(f"[profile]   {ms:9.3f} ms {count:6.0f}x  {key[:90]}")
+
+
+PLANNED = {}      # tag -> the figures of each planned run, for the JSON
+
+
+def serve_planned(dev, card: str, tag: str, kind: str, cfg, params, knobs,
+                  prompts, sync: dict, plain=None, tied: bool = False):
+    """Phase 5 (and 6): the sync run's prompts served again with
+    ``Engine(pipeline_depth=1, preplan=True)`` and the sync run's knobs
+    (``params`` a tree, or a function that makes one).  Gates: every
+    request finishes with NEW tokens; every decode / spec step of the run
+    is a replay (``planned_hits``) with one host transfer (transfers =
+    dispatches); the sync run's launch and route arithmetic
+    (``_arith``) holds with the replays' launches counted; plain decode
+    emits the sync run's streams token for token; a speculative run the
+    sync spec run's, or streams whose every first divergence from plain
+    decode is a near-tie (``check_spec_logits``, with ``plain`` the
+    plain streams); one replayed step equals the eager step bitwise
+    (``check_replay``).  Prints the pair's TTFT, TPOT, throughput, peak
+    memory, the graph count and capture seconds, the dispatch gaps.
+    Returns the launch counts of the measured run."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine, EngineMetrics, RequestState
+    if callable(params):
+        params = params()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = Engine(cfg, params, max_slots=SLOTS, max_seq_len=PROMPT + NEW + 8,
+                 block_size=BLOCK, device=dev, pipeline_depth=1,
+                 preplan=True, **knobs)
+    del params
+    r = eng.runner
+    torch.cuda.synchronize()
+    plan_peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[planned] {tag}: {len(r.programs)} CUDA graphs "
+        f"({', '.join(str(k[1:]) for k in sorted(r.programs))}) captured in "
+        f"{r.plan_seconds:.3f}s; peak memory while planning "
+        f"{plan_peak / 1e9:.3f} GB, reserved {torch.cuda.memory_reserved(dev) / 1e9:.3f} GB")
+    rng = np.random.default_rng(0)
+    eng.generate([rng.integers(1, cfg.vocab_size, size=(16,)).tolist()
+                  for _ in range(SLOTS)], 3)               # warm-up
+    eng.metrics = EngineMetrics()
+    eng._last_dispatch_t = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    base = (eng.steps_run, r.decode_transfers, r.planned_hits,
+            r.prefill_calls, r.chunk_calls)
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, NEW) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    routes = dict(ops.int8_matmul.routes)
+    flash_routes = dict(ops.flash_attention.routes)
+    m = eng.metrics.summary()
+    peak = torch.cuda.max_memory_allocated(dev)
+    c = {"steps": eng.steps_run - base[0], "T": r.decode_transfers - base[1],
+         "hits": r.planned_hits - base[2], "P": r.prefill_calls - base[3],
+         "C": r.chunk_calls - base[4]}
+    dispatches = len(eng.metrics.dispatch_gaps) + 1
+    done = sum(q.state is RequestState.DONE and len(q.output) == NEW
+               for q in reqs)
+    streams = [q.output for q in reqs]
+    div = [_divergence(a, b) for a, b in zip(streams, sync["streams"])]
+    sm, gap = sync["m"], m["dispatch_gap_ms"]
+    log(f"[planned] {card} | {tag}: {SLOTS} reqs x ({PROMPT} in / {NEW} out),"
+        f" pipeline depth 1, {c['steps']} engine steps, {dispatches} "
+        f"dispatches, {c['T']} host transfers, {c['hits']} replays, wall "
+        f"{wall:.3f}s")
+    log(f"[pair] {card} | {tag}: sync -> planned: TTFT ms p50 "
+        f"{sm['ttft_ms']['p50']:.2f} -> {m['ttft_ms']['p50']:.2f}, p90 "
+        f"{sm['ttft_ms']['p90']:.2f} -> {m['ttft_ms']['p90']:.2f}; TPOT ms "
+        f"p50 {sm['tpot_ms']['p50']:.3f} -> {m['tpot_ms']['p50']:.3f}, p90 "
+        f"{sm['tpot_ms']['p90']:.3f} -> {m['tpot_ms']['p90']:.3f}; "
+        f"throughput {sm['throughput_tok_s']:.1f} -> "
+        f"{m['throughput_tok_s']:.1f} tok/s; peak memory "
+        f"{sync['peak'] / 1e9:.3f} -> {peak / 1e9:.3f} GB; graphs "
+        f"{len(r.programs)}, capture {r.plan_seconds:.3f}s; dispatch gap ms "
+        f"p50 {gap['p50']:.3f} p90 {gap['p90']:.3f}; steps in flight "
+        f"{m['steps_in_flight']}")
+    if r.speculate_k:
+        log(f"[planned] {tag}: acceptance {m['acceptance_rate']:.4f} (sync "
+            f"{sm['acceptance_rate']:.4f}), tokens per slot per spec step "
+            f"{m['tokens_per_slot_step']:.3f}")
+    want, want_routes = _arith(kind, cfg, c)
+    got = {k: launches[k] for k in want}
+    gates = {"finished": done == len(reqs),
+             "every step replayed": c["hits"] == c["T"] > 0,
+             "one transfer per step": c["T"] == dispatches,
+             "launch arithmetic": got == want and (c["P"] + c["C"]) > 0}
+    if want_routes is not None:
+        gates["W8A16 routes"] = routes == dict(
+            dict.fromkeys(routes, 0), **want_routes)
+    if kind != "int8" and kind != "falcon":
+        gates["flash routes"] = flash_routes == dict(
+            dict.fromkeys(flash_routes, 0),
+            wgmma_tma=launches["flash_attention"])
+    log(f"[planned] {tag}: kernel launches {json.dumps(launches)}; "
+        f"arithmetic {json.dumps(want)}: {'met' if got == want else 'NOT MET'}")
+    log(f"[planned] {tag}: streams equal to the sync run's: "
+        f"{div.count(-1)}/{len(div)} (first divergence per request: {div})")
+    if not r.speculate_k:
+        gates["streams equal sync"] = div.count(-1) == len(div)
+    elif div.count(-1) != len(div):
+        check_spec_logits(eng, prompts, plain, streams, tag + " planned",
+                          tied)      # raises unless every split is a near-tie
+    profile_planned(eng, cfg.vocab_size, rng, tag)
+    gates["replay == eager, bitwise"] = check_replay(eng, prompts[:SLOTS],
+                                                     tag)
+    log(f"[planned] {tag}: gates {json.dumps(gates)}")
+    PLANNED[tag] = {"launches": launches, "graphs": len(r.programs),
+                    "capture_s": r.plan_seconds, "ttft_ms": m["ttft_ms"],
+                    "tpot_ms": m["tpot_ms"],
+                    "throughput_tok_s": m["throughput_tok_s"],
+                    "peak_gb": peak / 1e9, "dispatch_gap_ms": gap,
+                    "sync_tpot_ms": sm["tpot_ms"], "sync_peak_gb":
+                    sync["peak"] / 1e9}
+    del eng, r
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(gates.values()):
+        raise SystemExit(f"[planned] {tag}: gates {gates}")
     return launches
 
 
@@ -2089,6 +2414,9 @@ def main() -> int:
                else "bf16" if row["name"] in FP_PATH else "int8")
         row["launches"] = runs[run][row["name"]]
         row["launches_by_run"] = {k: v[row["name"]] for k, v in runs.items()}
+        row["launches_by_run"].update({
+            f"{tag} planned": p["launches"][row["name"]]
+            for tag, p in PLANNED.items()})
         for shape in row.get("shapes", []):
             if "run" in shape:      # a shape of its own run's path
                 shape["launches"] = runs[shape["run"]][row["name"]]
@@ -2099,6 +2427,9 @@ def main() -> int:
         # the same two numbers under their longer key names as well
         row["kernel_ms"] = row["ms"]
         row["launches_in_serve"] = row["launches"]
+    log("[planned] summary " + json.dumps(
+        {tag: {k: v for k, v in p.items() if k != "launches"}
+         for tag, p in PLANNED.items()}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,7 @@ its fp branch.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -76,26 +76,46 @@ def split_plan(sweep: int, base: int, page: Optional[int] = None,
 
 
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
+_RETIRED: List[torch.Tensor] = []    # replaced buffers a graph may hold
 _SMS: Dict[torch.device, int] = {}
+
+
+def reserve_counters(dev: torch.device, base: int) -> torch.Tensor:
+    """The device's ticket counter buffer, grown to at least ``base``
+    counters.  A buffer it replaces stays allocated (a CUDA graph
+    captured over it goes on using it; every launch leaves its counters
+    at zero, and one stream runs the launches one after another), and a
+    growth while a graph is being captured raises: call this, for the
+    largest ``base`` of every program, before the first capture."""
+    cnt = _COUNTERS.get(dev)
+    if cnt is not None and cnt.numel() >= base:
+        return cnt
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"the decode kernels' ticket counters must grow to {base} "
+            f"during a CUDA graph capture (they hold "
+            f"{0 if cnt is None else cnt.numel()}): reserve_counters() "
+            "before capturing")
+    if cnt is not None:
+        _RETIRED.append(cnt)
+    cnt = torch.zeros(max(base, 2 * (0 if cnt is None else cnt.numel())),
+                      dtype=torch.int32, device=dev)
+    _COUNTERS[dev] = cnt
+    return cnt
 
 
 def _split_args(dev: torch.device, sweep: int, base: int,
                 page: Optional[int], G: int, hd: int):
     """(splits, tokens per split, workspace, counters) of one launch.  The
-    workspace (partial m, l, acc in fp32) is fresh; the ticket counters
-    are one zero-initialised int32 buffer per device that every launch
-    leaves at zero, grown (the only ``torch.zeros``) when a launch needs
-    more."""
+    workspace (partial m, l, acc in fp32) is fresh (under a capture, from
+    the graph's pool); the ticket counters are ``reserve_counters``'
+    buffer."""
     if dev not in _SMS:
         _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
     n_split, c = split_plan(sweep, base, page, _SMS[dev])
     if n_split == 1:
         return n_split, c, None, None
-    cnt = _COUNTERS.get(dev)
-    if cnt is None or cnt.numel() < base:
-        cnt = torch.zeros(max(base, 2 * (0 if cnt is None else cnt.numel())),
-                          dtype=torch.int32, device=dev)
-        _COUNTERS[dev] = cnt
+    cnt = reserve_counters(dev, base)
     ws = torch.empty(base * n_split * G * (hd + 2), dtype=torch.float32,
                      device=dev)
     return n_split, c, ws, cnt
@@ -165,12 +185,16 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     [n, B, H, hd]; pools [n, N, bs, KH, hd] (int8 with fp32 scale pools
     [n, N, bs, KH, 1]); block_table [B, nmax] int32; lengths [B] int32
     (columns >= length are masked).  Returns [n, B, H, hd] in q's
-    dtype."""
+    dtype.  The ``max_len`` cut masks the columns past it: the sums run
+    over the whole table row whatever the cut, so a row within the cut
+    gets the same bits from any cut (the pipelined engine's steps may
+    take a wider one than the sync engine's)."""
     n, N, bs, KH, hd = k_pool.shape
     B, H = q.shape[1], q.shape[2]
     G = H // KH
-    n_s = _sweep_blocks(block_table.shape[1], bs, max_len)
-    tbl = block_table[:, :n_s].long()
+    n_s = block_table.shape[1]
+    cut = _sweep_blocks(n_s, bs, max_len) * bs
+    tbl = block_table.long()
 
     def gather(pool, scale):
         g = pool[:, tbl].reshape(n, B, n_s * bs, KH, -1).float()
@@ -183,7 +207,8 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     qf = q.float().reshape(n, B, KH, G, hd) * hd ** -0.5
     s = torch.einsum("nbkgd,nbskd->nbkgs", qf, k)
     cols = torch.arange(n_s * bs, device=q.device)
-    live = cols[None, :] < lengths.to(q.device).long()[:, None]     # [B, S]
+    live = ((cols[None, :] < lengths.to(q.device).long()[:, None])
+            & (cols[None, :] < cut))                                # [B, S]
     s = s.masked_fill(~live[None, :, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("nbkgs,nbskd->nbkgd", p, v)
@@ -353,21 +378,23 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     (dequantizing int8 caches: payload * per-row scale), masked fp32
     softmax.  q [B, H, hd]; caches [B, S, KH, hd] (int8 with fp32 scales
     [B, S, KH, 1]); lengths [B] int32 (columns >= length are masked).
-    Returns [B, H, hd] in q's dtype."""
+    Returns [B, H, hd] in q's dtype.  The ``max_len`` cut masks the
+    columns past it: the sums run over all S columns whatever the cut,
+    so a row within the cut gets the same bits from any cut."""
     B, S, KH, hd = k_cache.shape
     H = q.shape[1]
-    n_c = _sweep_cols(S, block_s, max_len)
+    cut = _sweep_cols(S, block_s, max_len)
 
     def cols(cache, scale):
-        c = cache[:, :n_c].float()
-        return c if scale is None else c * scale[:, :n_c]
+        c = cache.float()
+        return c if scale is None else c * scale
 
     k = cols(k_cache, k_scale)
     v = cols(v_cache, v_scale)
     qf = q.float().reshape(B, KH, H // KH, hd) * hd ** -0.5
     s = torch.einsum("bkgd,bskd->bkgs", qf, k)
-    live = (torch.arange(n_c, device=q.device)[None, :]
-            < lengths.to(q.device).long()[:, None])                # [B, S]
+    c = torch.arange(S, device=q.device)[None, :]
+    live = (c < lengths.to(q.device).long()[:, None]) & (c < cut)  # [B, S]
     s = s.masked_fill(~live[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgs,bskd->bkgd", p, v)

@@ -7,6 +7,12 @@ kernel, so a run can show which kernels its path went through.  The
 int8 branch of each decode kernel counts apart from its fp branch, and
 ``int8_matmul.routes`` and ``flash_attention.routes`` count the W8A16
 and the flash launches by route.
+
+A CUDA graph's replay runs no Python, so no wrapper counts it: the
+graph records the change of ``counters()`` over its capture, puts the
+counters back as they were (``set_counters``), and adds that change at
+every replay (``add_counters``), so the counts stay the launches the
+device ran (``launch.steps.StepGraph``).
 """
 from __future__ import annotations
 
@@ -35,11 +41,36 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+_ROUTED = ("int8_matmul", "flash_attention")
+
+
+def counters() -> Dict[str, int]:
+    """Every launch count (under the kernel's name) and every route count
+    (under ``name/route``), flat."""
+    out = launch_counts()
+    for name in _ROUTED:
+        out.update({f"{name}/{r}": n
+                    for r, n in KERNELS[name].routes.items()})
+    return out
+
+
+def set_counters(values: Dict[str, int]) -> None:
+    """Set the counts named in ``values`` (keys as ``counters()``)."""
+    for key, n in values.items():
+        name, _, route = key.partition("/")
+        if route:
+            KERNELS[name].routes[route] = n
+        else:
+            KERNELS[name].launches = n
+
+
+def add_counters(delta: Dict[str, int]) -> None:
+    """Add ``delta`` (keys as ``counters()``) to the counts."""
+    now = counters()
+    set_counters({k: now[k] + n for k, n in delta.items()})
+
+
 def reset_launch_counts() -> None:
     """Every launch count to 0, and the route counts of ``int8_matmul``
     and ``flash_attention`` too."""
-    for fn in KERNELS.values():
-        fn.launches = 0
-    for fn in (int8_matmul, flash_attention):
-        for r in fn.routes:
-            fn.routes[r] = 0
+    set_counters(dict.fromkeys(counters(), 0))

@@ -18,6 +18,8 @@ Runs on the GPU unless ``--device cpu`` is given.
       --reduced --device cpu --contiguous
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
       --reduced --device cpu --speculate-k 3 --draft-tracks 2
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
+      --reduced --device cpu --pipeline-depth 1 --preplan
 """
 from __future__ import annotations
 
@@ -67,6 +69,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                     "verify step (PT models on the paged cache; 0 = off)")
     ap.add_argument("--draft-tracks", type=int, default=0,
                     help="tracks of the drafter (0 = n_tracks // 2)")
+    ap.add_argument("--pipeline-depth", type=int, default=0,
+                    help="pipelined stepping: dispatch up to this many "
+                    "steps ahead of the packed device-to-host transfer "
+                    "(0 = the synchronous loop)")
+    ap.add_argument("--preplan", action="store_true",
+                    help="capture one CUDA graph per live-length bucket of "
+                    "the decode / speculative step when the engine is "
+                    "built, and replay them")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prefill-budget", type=int, default=4096,
                     help="max padded prefill tokens admitted per step")
@@ -87,7 +97,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                  prefill_chunk=args.prefill_chunk, kv_dtype=args.kv_dtype,
                  weight_dtype=args.weight_dtype,
                  speculate_k=args.speculate_k,
-                 draft_tracks=args.draft_tracks, device=device)
+                 draft_tracks=args.draft_tracks,
+                 pipeline_depth=args.pipeline_depth, preplan=args.preplan,
+                 device=device)
     del params                 # an int8 engine holds its own copy
     st = eng.runner.cache_stats()
     if st["mode"] == "contiguous":
@@ -110,6 +122,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     if eng.runner.speculate_k:
         print(f"[serve] speculative: K={eng.runner.speculate_k}, drafter of "
               f"{eng.runner.draft_tracks}/{cfg.pt.n_tracks} tracks")
+    if args.preplan:
+        print(f"[serve] step programs: {len(eng.runner.programs)} planned "
+              f"in {eng.runner.plan_seconds:.3f}s")
     rng = np.random.default_rng(args.seed)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -140,6 +155,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"[serve] spec steps {m['spec_steps']}   acceptance rate "
               f"{m['acceptance_rate']:.4f}   tokens per slot per spec "
               f"step {m['tokens_per_slot_step']:.3f}")
+    if args.preplan or args.pipeline_depth:
+        r = eng.runner
+        print(f"[serve] step programs: {len(r.programs)} planned, "
+              f"replayed {r.planned_hits} of {r.decode_transfers} steps; "
+              f"pipeline depth {args.pipeline_depth}, steps in flight "
+              f"{m['steps_in_flight']}, dispatch gap ms p50 "
+              f"{m['dispatch_gap_ms']['p50']:.3f}")
     print("[serve] kernel launches: " + ", ".join(
         f"{k} {v}" for k, v in ops.launch_counts().items()))
     done = sum(r.state is RequestState.DONE for r in reqs)

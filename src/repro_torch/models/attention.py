@@ -285,8 +285,11 @@ def attention_chunk(params, x: torch.Tensor, cache: Tuple[Any, Any], *,
     chunk row attends causally over the gathered (and, for int8 pools,
     dequantized) per-slot view, or over the whole of its rows, as the
     reference computes it in jnp: plain PyTorch, masked grouped softmax
-    in fp32.  ``kv_max_len`` (host-known bound on pos + C) cuts the
-    paged gather to the live prefix.  Returns (out [n, B, C, d], cache)."""
+    in fp32, over the whole table row: ``kv_max_len`` (host-known bound
+    on pos + C) cuts nothing, so that a row's result does not depend on
+    the bound (the pipelined engine's speculative steps take a wider one
+    than the sync engine's), as on the reference's jnp path, which is
+    given none.  Returns (out [n, B, C, d], cache)."""
     k_leaf, v_leaf = cache
     if is_paged(k_leaf) and block_table is None:
         raise ValueError("attention_chunk on a paged cache requires a "
@@ -309,11 +312,8 @@ def attention_chunk(params, x: torch.Tensor, cache: Tuple[Any, Any], *,
     w_idx = token_to_pool(block_table, positions, bs).reshape(-1)
     pool_write(k_leaf, k_new.reshape(n, B * C, KH, hd), w_idx)
     pool_write(v_leaf, v_new.reshape(n, B * C, KH, hd), w_idx)
-    read_table = block_table
-    if kv_max_len is not None:
-        read_table = block_table[:, :-(-kv_max_len // bs)]
-    k_g = pool_read(k_leaf, read_table)                # [n, B, S, KH, hd]
-    v_g = pool_read(v_leaf, read_table)
+    k_g = pool_read(k_leaf, block_table)               # [n, B, S, KH, hd]
+    v_g = pool_read(v_leaf, block_table)
     ctx = _causal_ctx(q, k_g, v_g, positions, k_g.dtype)
     out = _out_proj(params, ctx.to(x.dtype))
     return out, (k_leaf, v_leaf)

@@ -1,5 +1,5 @@
 """Continuous-batching serving engine: Scheduler + ModelRunner + Engine
-(counterpart of ``repro.serving.engine``), the synchronous loop.
+(counterpart of ``repro.serving.engine``), synchronous or pipelined.
 
   Scheduler   — pure-Python FCFS admission over a fixed slot table,
                 budgeted by padded prefill tokens and free KV blocks.
@@ -8,7 +8,9 @@
                 batched prefill and the decode step with its fused
                 sampling epilogue.
   Engine      — submit / step / run / generate, streaming callbacks and
-                TTFT / TPOT / throughput metrics.
+                TTFT / TPOT / throughput metrics; with
+                ``pipeline_depth > 0`` it dispatches step N + 1 before
+                it waits on step N's transfer.
 
 One engine step: admit queued requests (bucketed, batched prefill that
 samples each request's first token), advance every chunked prefill by
@@ -20,8 +22,19 @@ over the quantized pool bytes; ``weight_dtype="int8"`` quantizes the
 projection weights once, when the runner is built.  A decode
 step makes exactly one device-to-host transfer: the packed [2, slots]
 (token, done) tensor of ``sampler.sample_step``.  The device block table
-is rebuilt only when the cache's table version or the active set
+is copied in only when the cache's table version or the active set
 changes.
+
+Every decode or speculative step is a step program over the runner's
+static tensors (the packed inputs, the block table, the packed result
+with the inputs as carried): a dispatch stages the host inputs, runs
+the program and queues the result's copy to the host; a wait takes that
+one transfer.  The pipelined engine composes step N + 1's inputs on the
+device from step N's result (``sampler.advance_decode`` /
+``advance_spec``), the host's values only for lanes it rewrote.  With
+``preplan`` the runner captures each program once per live-length
+bucket as a CUDA graph (``launch.steps.StepGraph``) and a dispatch
+replays it; an unplanned bucket runs the same program eagerly.
 
 ``paged=False`` serves through the contiguous cache instead, as the
 reference does: the model's ``init_cache`` at ``max_slots`` rows of
@@ -52,15 +65,18 @@ slots] result is the step's one host transfer; every decoding slot
 advances by 1..K+1 tokens, the same tokens plain greedy decode emits.
 
 Greedy only, and the prefix cache is off (``prefix_cache=False``; the
-reference defaults to on).  Every feature of the reference
-engine this slice leaves out raises ``NotImplementedError`` naming its
-ROADMAP item when asked for, never silently ignored.
+reference defaults to on); the pipelined engine has no transfer faults,
+watchdog, deadlines or preemption (ROADMAP queue 1, item 8b).  Every
+feature of the reference engine this slice leaves out raises
+``NotImplementedError`` naming its ROADMAP item when asked for, never
+silently ignored.
 """
 from __future__ import annotations
 
 import dataclasses
 import enum
 import time
+import weakref
 from collections import deque
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -73,11 +89,13 @@ from repro_torch.common.types import ModelConfig
 from repro_torch.core.track import (pt_chunk_hidden, pt_draft_config,
                                     pt_draft_params, pt_draft_step,
                                     pt_forward, pt_init_cache)
-from repro_torch.launch.steps import model_fns
+from repro_torch.kernels.decode_attention import reserve_counters
+from repro_torch.launch.steps import StepGraph, model_fns, plan_graphs
 from repro_torch.models.decoder import _head
 from repro_torch.models.layers import check_supported
 from repro_torch.serving.cache import PagedKVCache, insert_rows
 from repro_torch.serving.sampler import (SampleParams, accept_step,
+                                         advance_decode, advance_spec,
                                          require_greedy, sample_rows,
                                          sample_step, stack_params)
 
@@ -167,6 +185,9 @@ class EngineMetrics:
         self.acceptance_ema: Optional[float] = None
         self.spec_tokens = 0           # tokens the spec steps emitted
         self.spec_slot_steps = 0       # decoding slots summed over them
+        # pipelined stepping
+        self.dispatch_gaps: List[float] = []   # s between step dispatches
+        self.steps_in_flight = 0       # peak dispatched-but-unfetched steps
 
     def start(self) -> None:
         if self.t_start is None:
@@ -228,7 +249,9 @@ class EngineMetrics:
                                    else 0.0),
                 "tokens_per_slot_step": (self.spec_tokens
                                          / self.spec_slot_steps
-                                         if self.spec_slot_steps else 0.0)}
+                                         if self.spec_slot_steps else 0.0),
+                "dispatch_gap_ms": pct(self.dispatch_gaps),
+                "steps_in_flight": self.steps_in_flight}
 
 
 class EngineStallError(RuntimeError):
@@ -367,6 +390,23 @@ def arch_capabilities(cfg: ModelConfig) -> Dict[str, Capability]:
             "int8_kv": int8_kv, "fork": fork}
 
 
+# rows of the step programs' packed int32 input (``ModelRunner.step_in``)
+STEP_ROWS = ("tok", "pos", "active", "eos", "remaining", "counts",
+             "override")
+
+
+@dataclasses.dataclass
+class _Stage:
+    """Pinned host buffers of one step in flight: its packed input, its
+    block table, the packed result's copy and the event that marks it
+    landed (None on the CPU, where every copy is synchronous)."""
+    inp: torch.Tensor
+    table: Optional[torch.Tensor]
+    out: torch.Tensor
+    event: Any
+    busy: bool = False
+
+
 class ModelRunner:
     """Device side: the paged cache (K/V pools or state rows) or the
     contiguous cache (``paged=False``), bucketed or exact-length
@@ -382,7 +422,8 @@ class ModelRunner:
     of the runner's blocks, sharing its embedding, final norm and head,
     with a contiguous cache of its own (``pt_init_cache(draft_cfg,
     max_slots, max_seq_len)``).  With int8 weights the drafter's blocks
-    are quantized after the slice, on their own."""
+    are quantized after the slice, on their own.  ``pipeline_depth`` is
+    the engine's: it sizes the host staging for the steps in flight."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int,
                  max_seq_len: int, min_bucket: int = 16,
@@ -391,7 +432,7 @@ class ModelRunner:
                  prefill_chunk: int = 0, kv_dtype: Optional[str] = None,
                  weight_dtype: Optional[str] = None,
                  speculate_k: int = 0, draft_tracks: int = 0,
-                 device: DeviceLike = None):
+                 pipeline_depth: int = 0, device: DeviceLike = None):
         self.device = resolve_device(device)
         check_supported(cfg)
         if kv_dtype not in (None, "float32", "int8"):
@@ -490,7 +531,25 @@ class ModelRunner:
             self.cache = self.fns["init_cache"](cfg, max_slots, max_seq_len,
                                                 device=self.device)
         self._table_key = None             # (kv.version, active bytes)
-        self._table_dev: Optional[torch.Tensor] = None
+        # the step programs' static tensors, which every decode or spec
+        # step of this runner (replayed or eager) reads and writes: the
+        # packed host inputs (STEP_ROWS), the masked block table, and
+        # the packed result followed by the step's inputs as carried
+        B, K = max_slots, self.speculate_k
+        i32 = dict(dtype=torch.int32, device=self.device)
+        self.step_in = torch.zeros((len(STEP_ROWS), B), **i32)
+        self.step_table = (torch.zeros((B, self.kv.blocks_per_seq), **i32)
+                           if self.paged else None)
+        self.step_out = torch.zeros((K + 5 if K else 6, B), **i32)
+        self._greedy = np.zeros((B,), np.float32)
+        # host staging, one slot per step that may be in flight: a
+        # non-blocking copy reads its pinned source after the host moved on
+        self._stages = [self._new_stage() for _ in range(pipeline_depth + 1)]
+        self._stage_at = 0
+        self.programs: Dict[tuple, StepGraph] = {}   # (kind, bounds) ->
+        self._pool = None                  # their one memory pool
+        self.planned_hits = 0              # steps run as a replay
+        self.plan_seconds = 0.0            # wall time of plan_programs
         self.prefill_shapes: set = set()   # observed (n_reqs, bucket)
         self.chunk_shapes: set = set()     # observed (n_reqs, chunk)
         self.prefill_calls = 0
@@ -624,59 +683,282 @@ class ModelRunner:
         return self._chunk(toks, np.zeros((n,), np.int32), slots, last_idx,
                            temps)
 
-    def _masked_table(self, active: np.ndarray) -> torch.Tensor:
-        """Device block table with inactive lanes zeroed (their writes land
-        in the trash block).  Rebuilt only on allocate / free /
-        active-set changes."""
+    def _table_rows(self, active) -> Optional[np.ndarray]:
+        """The block table with inactive lanes' rows zeroed (their writes
+        land in the trash block), when it differs from what
+        ``step_table`` holds (allocate / free / active-set changes), else
+        None."""
         act = np.asarray(active, bool)
-        key_now = (self.kv.version, act.tobytes())
-        if key_now != self._table_key:
-            self._table_dev = self._to_dev(
-                self.kv.table_np * act.astype(np.int32)[:, None], torch.int32)
-            self._table_key = key_now
-        return self._table_dev
-
-    def _live_max_len(self, pos: np.ndarray, active: np.ndarray,
-                      extra: int = 0, paged: Optional[bool] = None
-                      ) -> Optional[int]:
-        """Power-of-two bound on the live cache prefix of the active
-        lanes, in blocks (paged) or positions (contiguous), capped at
-        the capacity: the decode kernel sweeps nothing past it.
-        ``extra`` widens it by positions a step writes past ``pos`` (the
-        speculative step's K); ``paged`` picks the cache (default: the
-        engine's; the drafter's is contiguous)."""
-        act = np.asarray(active, bool)
-        if not act.any():
+        key = (self.kv.version, act.tobytes())
+        if key == self._table_key:
             return None
-        paged = self.paged if paged is None else paged
+        self._table_key = key
+        return self.kv.table_np * act.astype(np.int32)[:, None]
+
+    def _masked_table(self, active) -> torch.Tensor:
+        """``step_table`` holding the masked table of ``active``, copied
+        in (synchronously) when it changed; the steps stage theirs."""
+        rows = self._table_rows(active)
+        if rows is not None:
+            self.step_table.copy_(torch.from_numpy(rows))
+        return self.step_table
+
+    def _bound(self, length: int, paged: bool) -> int:
+        """Power-of-two bound on ``length`` positions, in blocks (paged)
+        or positions (contiguous), capped at the capacity, in
+        positions."""
         unit, cap = ((self.kv.block_size, self.kv.blocks_per_seq)
                      if paged else (1, self.max_seq_len))
-        need = -(-(int(np.asarray(pos)[act].max()) + 1 + extra) // unit)
+        need = -(-length // unit)
         p2 = 1
         while p2 < need:
             p2 *= 2
         return min(cap, p2) * unit
 
-    @torch.no_grad()
-    def decode(self, toks, pos, active, temps, eos, remaining
-               ) -> Tuple[np.ndarray, np.ndarray]:
-        """One decode step for all slots plus the sampling epilogue.
-        ``active`` threads into the model so the contiguous and state rows
-        of idle lanes and of lanes mid-chunked-prefill stay frozen (pool
-        leaves are protected by the zeroed table rows).  Exactly one
-        device-to-host transfer: the packed (token, done) array."""
-        table = self._masked_table(active) if self.paged else None
-        active_d = self._to_dev(active, torch.bool)
-        logits, self.cache = self.fns["decode"](
-            self.params, self.cache, self._to_dev(toks, torch.long),
-            self._to_dev(pos, torch.int32), self.cfg, block_table=table,
-            kv_max_len=self._live_max_len(pos, active), active=active_d)
-        packed = sample_step(logits, temps, active_d,
-                             self._to_dev(eos, torch.int32),
-                             self._to_dev(remaining, torch.int32))
-        host = packed.cpu().numpy()              # THE transfer
+    def _live_max_len(self, pos: np.ndarray, active: np.ndarray,
+                      extra=0, paged: Optional[bool] = None
+                      ) -> Optional[int]:
+        """Power-of-two bound on the live cache prefix of the active
+        lanes, in blocks (paged) or positions (contiguous), capped at
+        the capacity: the decode kernel sweeps nothing past it.
+        ``extra`` (an int, or one per lane) widens it by positions a
+        step writes past ``pos``: the speculative step's K, and the
+        steps still in flight of a pipelined engine, whose positions
+        the host mirror lags; ``paged`` picks the cache (default: the
+        engine's; the drafter's is contiguous)."""
+        act = np.asarray(active, bool)
+        if not act.any():
+            return None
+        paged = self.paged if paged is None else paged
+        far = int((np.asarray(pos, np.int64) + extra)[act].max()) + 1
+        return self._bound(far, paged)
+
+    # -- the decode and speculative steps: dispatch, wait, programs -----
+    #
+    # A step is a DISPATCH, which stages the host inputs, runs the step
+    # program (a replayed CUDA graph when one is planned for its bounds,
+    # else the same function eagerly) and enqueues the copy of its packed
+    # result to the host, and a WAIT, the one host transfer.  The sync
+    # engine waits right away; the pipelined one dispatches step N + 1
+    # first, whose inputs the program composes on the device from step
+    # N's result (``carry``), but for lanes marked in ``override``.
+
+    def _new_stage(self) -> "_Stage":
+        pin = self.device.type == "cuda"
+
+        def host(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+            return None if t is None else torch.zeros(
+                t.shape, dtype=t.dtype, pin_memory=pin)
+
+        return _Stage(host(self.step_in), host(self.step_table),
+                      host(self.step_out),
+                      torch.cuda.Event() if pin else None)
+
+    def _decode_body(self, max_len: Optional[int]) -> torch.Tensor:
+        """The decode step program over the static tensors: the carry,
+        the model's decode step (``active`` keeps the contiguous and
+        state rows of idle lanes and of lanes mid-chunked-prefill; pool
+        leaves are protected by the zeroed table rows) and the sampling
+        epilogue.  Returns the logits."""
+        tok, pos, act, eos, rem, cnt, ovr = self.step_in.unbind(0)
+        out = self.step_out
+        tok, pos, cnt, rem = advance_decode(out[:2], out[2], out[3], out[4],
+                                            out[5], ovr.bool(), tok, pos,
+                                            cnt, rem)
+        active = act.bool()
+        logits, _ = self.fns["decode"](
+            self.params, self.cache, tok.long(), pos, self.cfg,
+            block_table=self.step_table, kv_max_len=max_len, active=active)
+        packed = sample_step(logits, self._greedy, active, eos, rem)
+        out.copy_(torch.cat([packed, torch.stack([tok, pos, cnt, rem])]))
+        return logits
+
+    def _spec_body(self, draft_len: Optional[int],
+                   verify_len: Optional[int]) -> torch.Tensor:
+        """The speculative step program over the static tensors: the
+        carry, K draft steps of the drafter, one more at pos + K (no head)
+        so that d_K's K/V lands there too (on the all-accepted path the
+        next step starts at pos + K + 1), ONE (K+1)-token verify of the
+        target through the chunk program on the paged cache, and
+        ``accept_step``.  ``active`` freezes the drafter rows of idle
+        lanes and of lanes whose drafter is being chunk-filled; the
+        target's idle lanes write through zeroed table rows, and verify
+        rows past a slot's reservation fall through its zeroed table
+        columns, into trash block 0.  Returns the verify's logits."""
+        K = self.speculate_k
+        tok, pos, act, _, _, cnt, ovr = self.step_in.unbind(0)
+        out = self.step_out
+        tok, pos, cnt = advance_spec(out[:K + 2], out[K + 2], out[K + 3],
+                                     out[K + 4], ovr.bool(), tok, pos, cnt)
+        active = act.bool()
+        t, d_toks, d_logits = tok, [], []
+        for j in range(K + 1):
+            logits, _ = pt_draft_step(self.draft_params, self.draft_cache,
+                                      t, pos + j, self.draft_cfg,
+                                      active=active, kv_max_len=draft_len,
+                                      head=j < K)
+            if j < K:
+                t = sample_rows(logits, self._greedy)
+                d_toks.append(t)
+                d_logits.append(logits)
+        seq = torch.stack([tok] + d_toks, dim=1)                # [B, K+1]
+        tgt, _ = self.fns["chunk"](self.params, self.cache, seq, pos,
+                                   self.cfg, block_table=self.step_table,
+                                   kv_max_len=verify_len)
+        packed = accept_step(tgt, torch.stack(d_logits, dim=1),
+                             torch.stack(d_toks, dim=1), self._greedy, active)
+        out.copy_(torch.cat([packed, torch.stack([tok, pos, cnt])]))
+        return tgt
+
+    def _body(self, key: tuple) -> Callable[[], torch.Tensor]:
+        # through a weak reference: a graph that held its runner would
+        # make a cycle, left to the garbage collector to free
+        me = weakref.ref(self)
+        if key[0] == "decode":
+            return lambda: me()._decode_body(key[1])
+        return lambda: me()._spec_body(key[1], key[2])
+
+    def _dispatch_step(self, key: tuple, toks, pos, active, eos, remaining,
+                       counts, carry, override) -> Dict[str, Any]:
+        st = self._stages[self._stage_at]
+        if st.busy:
+            raise RuntimeError("more steps in flight than the runner's "
+                               f"pipeline_depth + 1 = {len(self._stages)} "
+                               "staging slots")
+        self._stage_at = (self._stage_at + 1) % len(self._stages)
+        rows = st.inp.numpy()
+        for i, v in enumerate((toks, pos, active,
+                               -1 if eos is None else eos,
+                               0 if remaining is None else remaining,
+                               0 if counts is None else counts,
+                               1 if carry is None else override)):
+            rows[i] = v
+        nb = st.event is not None
+        self.step_in.copy_(st.inp, non_blocking=nb)
+        table = self._table_rows(active) if self.paged else None
+        if table is not None:
+            st.table.numpy()[:] = table
+            self.step_table.copy_(st.table, non_blocking=nb)
+        prog = self.programs.get(key)
+        if prog is not None:
+            result = prog.replay()
+            self.planned_hits += 1
+        else:
+            result = self._body(key)()
+        st.out.copy_(self.step_out, non_blocking=nb)
+        if nb:
+            st.event.record()
+        st.busy = True
+        return {"key": key, "stage": st, "logits": result,
+                "active": np.asarray(active, bool).copy()}
+
+    def _wait(self, handle: Dict[str, Any]) -> np.ndarray:
+        st = handle["stage"]
+        if st.event is not None:
+            st.event.synchronize()
+        host = st.out.numpy().copy()             # THE transfer
+        st.busy = False
         self.decode_transfers += 1
+        return host
+
+    @torch.no_grad()
+    def dispatch_decode(self, toks, pos, active, temps, eos, remaining,
+                        counts=None, *, carry=None, override=None,
+                        extra_len=0) -> Dict[str, Any]:
+        """Dispatch one decode step for all slots; no host transfer.
+        ``carry`` (the previous step's handle) feeds that step's result
+        in on the device, but for lanes marked in ``override``;
+        ``extra_len`` (an int or one per lane) widens the sweep bound by
+        the positions the steps in flight advanced past ``pos``."""
+        require_greedy(temps)
+        key = ("decode", self._live_max_len(pos, active, extra=extra_len))
+        return self._dispatch_step(key, toks, pos, active, eos, remaining,
+                                   counts, carry, override)
+
+    def wait_decode(self, handle: Dict[str, Any]
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+        """The one host transfer of a dispatched decode step: the packed
+        (token, done) array."""
+        host = self._wait(handle)
         return host[0], host[1].astype(bool)
+
+    @torch.no_grad()
+    def dispatch_spec(self, toks, pos, active, temps, counts=None, *,
+                      carry=None, override=None, extra_len=0
+                      ) -> Dict[str, Any]:
+        """Dispatch one speculative step (``_spec_body``) for all slots;
+        no host transfer.  ``carry``, ``override``, ``extra_len`` as in
+        ``dispatch_decode``; the drafter's and the verify's bounds widen
+        by K beside ``extra_len``."""
+        require_greedy(temps)
+        extra = self.speculate_k + np.asarray(extra_len)
+        key = ("spec", self._live_max_len(pos, active, extra, paged=False),
+               self._live_max_len(pos, active, extra))
+        return self._dispatch_step(key, toks, pos, active, None, None,
+                                   counts, carry, override)
+
+    def wait_spec(self, handle: Dict[str, Any]
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+        """The one host transfer of a dispatched speculative step: the
+        packed [K+2, slots] result.  Returns (tokens [slots, K+1],
+        emitted counts [slots])."""
+        host = self._wait(handle)
+        K = self.speculate_k
+        return host[:K + 1].T, host[K + 1]
+
+    def _program_keys(self) -> List[tuple]:
+        """The (kind, bounds) of every step program a run may dispatch:
+        decode, one per power-of-two bound of the engine's cache (blocks
+        up to ``blocks_per_seq`` paged, positions up to ``max_seq_len``
+        contiguous); speculative, one per pair (drafter's contiguous
+        bound, verify's paged bound) that one live length gives."""
+        top = self.max_seq_len
+        if self.paged:
+            top = max(top, self.kv.blocks_per_seq * self.kv.block_size)
+        lengths = range(1, top + 1)
+        if self.speculate_k:
+            return sorted({("spec", self._bound(n, False),
+                            self._bound(n, True)) for n in lengths})
+        return sorted({("decode", self._bound(n, self.paged))
+                       for n in lengths})
+
+    @torch.no_grad()
+    def plan_programs(self) -> int:
+        """Capture one CUDA graph per step program (``_program_keys``),
+        all in one memory pool, so that a dispatch replays a ready
+        program with no Python launch on the hot path; a shape with no
+        program runs eagerly.  Warm-up and capture run with every lane
+        idle: pool writes go through zeroed table rows into trash block
+        0, and the contiguous, state and drafter rows are kept by
+        ``active``, so no live cache byte changes.  The decode kernels'
+        ticket counters are sized first, for the most (track, row, KV
+        head) bases any program launches.  On the CPU the programs are
+        run once each and replayed as eager calls.  Returns the number
+        of programs."""
+        if any(st.busy for st in self._stages):
+            raise RuntimeError("plan_programs with steps in flight")
+        todo = {k: self._body(k) for k in self._program_keys()
+                if k not in self.programs}
+        if not todo:
+            return len(self.programs)
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            tracks = self.cfg.pt.n_tracks if self.cfg.pt else 1
+            reserve_counters(self.device,
+                             tracks * self.max_slots * self.cfg.n_kv_heads)
+        self.step_in.zero_()
+        self.step_in[STEP_ROWS.index("eos")] = -1
+        self.step_in[STEP_ROWS.index("override")] = 1
+        if self.paged:
+            self.step_table.zero_()
+            self._table_key = None
+        graphs = plan_graphs(todo, self.device, self._pool)
+        self._pool = next(iter(graphs.values())).pool
+        self.programs.update(graphs)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.plan_seconds += time.perf_counter() - t0
+        return len(self.programs)
 
     # -- the track-subset drafter and the speculative step ---------------
     @torch.no_grad()
@@ -716,55 +998,16 @@ class ModelRunner:
         insert_rows(self.draft_cache, rows, slots)
         self.draft_chunk_shapes.add(tuple(np.shape(toks)))
 
-    @torch.no_grad()
-    def draft_verify(self, toks, pos, active, temps
-                     ) -> Tuple[np.ndarray, np.ndarray]:
-        """One speculative step for all slots: K draft steps of the
-        drafter, one more at pos + K (no head) so that d_K's K/V lands
-        there too (on the all-accepted path the next step starts at
-        pos + K + 1), then ONE (K+1)-token verify of the target through
-        the chunk program on the paged cache, then ``accept_step``.
-        ``active`` freezes the drafter rows of idle lanes and of lanes
-        whose drafter is being chunk-filled; the target's idle lanes
-        write through zeroed table rows, and verify rows past a slot's
-        reservation fall through its zeroed table columns, into trash
-        block 0.  Exactly one device-to-host transfer: the packed
-        [K+2, slots] result.  Returns (tokens [slots, K+1], emitted
-        counts [slots])."""
-        require_greedy(temps)
-        K = self.speculate_k
-        active_d = self._to_dev(active, torch.bool)
-        pos_d = self._to_dev(pos, torch.int32)
-        tok0 = self._to_dev(toks, torch.int32)
-        draft_len = self._live_max_len(pos, active, extra=K, paged=False)
-        tok, d_toks, d_logits = tok0, [], []
-        for j in range(K + 1):
-            logits, _ = pt_draft_step(self.draft_params, self.draft_cache,
-                                      tok, pos_d + j, self.draft_cfg,
-                                      active=active_d, kv_max_len=draft_len,
-                                      head=j < K)
-            if j < K:
-                tok = sample_rows(logits, temps)
-                d_toks.append(tok)
-                d_logits.append(logits)
-        seq = torch.stack([tok0] + d_toks, dim=1)               # [B, K+1]
-        tgt, self.cache = self.fns["chunk"](
-            self.params, self.cache, seq, pos_d, self.cfg,
-            block_table=self._masked_table(active),
-            kv_max_len=self._live_max_len(pos, active, extra=K))
-        packed = accept_step(tgt, torch.stack(d_logits, dim=1),
-                             torch.stack(d_toks, dim=1), temps, active_d)
-        host = packed.cpu().numpy()              # THE transfer
-        self.decode_transfers += 1
-        return host[:-1].T, host[-1]
-
 
 # ---------------------------------------------------------------------------
 # engine
 # ---------------------------------------------------------------------------
 
 class Engine:
-    """The synchronous serving loop over one ``ModelRunner``.
+    """The serving loop over one ``ModelRunner``: synchronous, or with
+    ``pipeline_depth > 0`` pipelined (step N + 1 is dispatched before
+    step N's host transfer is waited on); ``preplan`` captures the step
+    programs (``ModelRunner.plan_programs``) when the engine is built.
 
     Runs on CUDA unless ``device='cpu'`` is given; the knobs of reference
     features not ported yet must stay at their off values.  ``paged``
@@ -783,9 +1026,11 @@ class Engine:
                  pipeline_depth: int = 0, preplan: bool = False,
                  max_queue: Optional[int] = None, fault_plan: Any = None):
         _refuse(prefix_cache=(prefix_cache, False, 5),
-                pipeline_depth=(pipeline_depth, 0, 8),
-                preplan=(preplan, False, 8), max_queue=(max_queue, None, 8),
+                max_queue=(max_queue, None, 8),
                 fault_plan=(fault_plan, None, 8))
+        if pipeline_depth < 0:
+            raise ValueError(f"pipeline_depth must be >= 0, got "
+                             f"{pipeline_depth}")
         self.cfg = cfg
         self.max_slots = max_slots
         self.max_seq_len = max_seq_len
@@ -798,7 +1043,11 @@ class Engine:
                                   kv_dtype=kv_dtype,
                                   weight_dtype=weight_dtype,
                                   speculate_k=speculate_k,
-                                  draft_tracks=draft_tracks, device=device)
+                                  draft_tracks=draft_tracks,
+                                  pipeline_depth=pipeline_depth,
+                                  device=device)
+        if preplan:
+            self.runner.plan_programs()
         self.scheduler = Scheduler(max_slots, self.runner.bucket_for,
                                    max_waiting_prefill_tokens,
                                    charge_fn=self.runner.admission_charge)
@@ -812,6 +1061,24 @@ class Engine:
         self._temps = np.zeros((B,), np.float32)
         self._eos = np.full((B,), -1, np.int32)
         self._remaining = np.zeros((B,), np.int32)
+        self._counts = np.zeros((B,), np.int32)    # tokens emitted so far
+
+        # pipelined stepping (pipeline_depth >= 1): dispatched steps whose
+        # transfer has not been waited on yet, oldest first.
+        # ``_host_fresh[slot]`` marks lanes whose host-side inputs are
+        # authoritative for the next dispatch (newly admitted); carried
+        # lanes advance on the device from the previous step's result.
+        # ``_slot_gen`` counts slot reassignments, so that an in-flight
+        # result for a previous tenant of the slot is discarded.
+        # ``_ahead[slot]`` counts the tenant's steps in flight: the
+        # positions (a plain step's exactly, a speculative step's at
+        # least) that the device is ahead of the host mirror.
+        self.pipeline_depth = pipeline_depth
+        self._inflight: deque = deque()
+        self._host_fresh = np.ones((B,), bool)
+        self._slot_gen = np.zeros((B,), np.int64)
+        self._ahead = np.zeros((B,), np.int32)
+        self._last_dispatch_t: Optional[float] = None
 
     # ------------------------------------------------------------------
     def _reserve_tokens(self, req: Request) -> int:
@@ -882,6 +1149,7 @@ class Engine:
         self._active[slot] = False
         if self.runner.paged:
             self.runner.kv.free_slot(slot)
+        self._slot_gen[slot] += 1      # in-flight results: discard
         self.scheduler.release(slot)
         self.metrics.observe(req)
 
@@ -918,6 +1186,9 @@ class Engine:
         self._pos[slot] = L
         self._active[slot] = True
         self._remaining[slot] = min(req.max_new_tokens, cap) - 1
+        self._counts[slot] = 1
+        self._host_fresh[slot] = True  # host lanes authoritative again
+        self._ahead[slot] = 0
         self._emit(req, int(tok))
         if (self._remaining[slot] <= 0
                 or (req.eos_id is not None and tok == req.eos_id)):
@@ -1035,17 +1306,57 @@ class Engine:
                 self._start_decode(slot, req, tok)
         return len({s for s, _ in tgt} | {s for s, _ in drows})
 
-    def _apply_spec(self, active: List[Tuple[int, Request]], toks_mat,
-                    counts) -> None:
+    # -- applying step results -----------------------------------------
+    #
+    # One routine per kind applies a decode / speculative step's result
+    # to host state, shared by the synchronous and the pipelined loop.
+    # ``rows`` is the (slot, request, slot generation) snapshot taken at
+    # dispatch: a row whose slot was released since (its request
+    # finished, in an earlier step's result) is discarded.
+
+    def _snap_rows(self, active: List[Tuple[int, Request]]
+                   ) -> List[Tuple[int, Request, int]]:
+        return [(s, r, int(self._slot_gen[s])) for s, r in active]
+
+    def _landed(self, slot: int, req: Request, gen: int) -> bool:
+        """Whether a step's row for (slot, req, gen) still applies; the
+        tenant's count of steps in flight drops either way."""
+        if gen != self._slot_gen[slot]:
+            return False
+        self._ahead[slot] -= 1
+        return (self.scheduler.slots[slot] is req
+                and req.state is RequestState.DECODE)
+
+    def _apply_decode(self, rows: List[Tuple[int, Request, int]], toks,
+                      done) -> int:
+        n = 0
+        for slot, req, gen in rows:
+            if not self._landed(slot, req, gen):
+                continue
+            tok = int(toks[slot])
+            self._emit(req, tok)
+            self._tok[slot] = tok
+            self._pos[slot] += 1
+            self._counts[slot] += 1
+            self._remaining[slot] -= 1
+            if done[slot]:
+                self._finish(slot, req)
+            n += 1
+        return n
+
+    def _apply_spec(self, rows: List[Tuple[int, Request, int]], toks_mat,
+                    counts) -> int:
         """Emit each slot's 1..K+1 tokens of a speculative step, stopping
         at EOS or at the slot's remaining budget, as plain decode would.
         Acceptance charges only the proposals a slot could use: the
         budget caps the window up front, and an EOS stop drops the
         proposals after it, so an early finish does not drag the rate
         below its true value."""
-        acc = prop = out = 0
+        acc = prop = out = n = 0
         K = self.runner.speculate_k
-        for slot, req in active:
+        for slot, req, gen in rows:
+            if not self._landed(slot, req, gen):
+                continue
             m = int(counts[slot])
             usable = min(K, int(self._remaining[slot]))
             emitted = 0
@@ -1055,6 +1366,7 @@ class Engine:
                 self._emit(req, tok)
                 self._tok[slot] = tok
                 self._pos[slot] += 1
+                self._counts[slot] += 1
                 self._remaining[slot] -= 1
                 emitted += 1
                 eos_stop = req.eos_id is not None and tok == req.eos_id
@@ -1065,12 +1377,82 @@ class Engine:
             acc += min(emitted, m - 1, prop_eff)
             prop += prop_eff
             out += emitted
-        self.metrics.observe_spec(acc, prop, emitted=out, slots=len(active))
+            n += 1
+        self.metrics.observe_spec(acc, prop, emitted=out, slots=n)
+        return n
+
+    # -- stepping: dispatch, then wait ----------------------------------
+
+    def _dispatch(self, active: List[Tuple[int, Request]]) -> bool:
+        """Dispatch the next decode / speculative step, no host transfer.
+        With a step in flight, this one's inputs are composed on the
+        device from that step's still-unfetched result (``carry``); lanes
+        the host rewrote since (fresh admissions) or that were idle in
+        the carried step take the host values (``override``).  A lane
+        whose budget runs out in a step in flight has finished there: it
+        runs idle, as the sync engine would run it, so that the sweep
+        bound is the sync engine's (a plain step advances each lane by
+        exactly one).  Returns False when no lane is left to run."""
+        r = self.runner
+        K = r.speculate_k
+        lanes = self._active & (self._remaining > self._ahead)
+        if not lanes.any():
+            return False
+        carry = self._inflight[-1]["handle"] if self._inflight else None
+        override = (None if carry is None
+                    else self._host_fresh | ~carry["active"])
+        rows = self._snap_rows([(s, q) for s, q in active if lanes[s]])
+        if K:
+            handle = r.dispatch_spec(self._tok, self._pos, lanes,
+                                     self._temps, self._counts, carry=carry,
+                                     override=override,
+                                     extra_len=(K + 1) * self._ahead)
+        else:
+            handle = r.dispatch_decode(self._tok, self._pos, lanes,
+                                       self._temps, self._eos,
+                                       self._remaining, self._counts,
+                                       carry=carry, override=override,
+                                       extra_len=self._ahead)
+        self._inflight.append({"handle": handle, "rows": rows,
+                               "spec": bool(K)})
+        if self.pipeline_depth:
+            now = time.perf_counter()
+            if self._last_dispatch_t is not None:
+                self.metrics.dispatch_gaps.append(now - self._last_dispatch_t)
+            self._last_dispatch_t = now
+            self.metrics.steps_in_flight = max(self.metrics.steps_in_flight,
+                                               len(self._inflight))
+        for s, _, _ in rows:
+            # from here the device carry is the truth for these lanes;
+            # the host mirror catches up when the result is applied
+            self._host_fresh[s] = False
+            self._ahead[s] += 1
+        return True
+
+    def _process_oldest(self) -> int:
+        """Wait on the oldest step in flight and apply it.  Returns the
+        number of rows applied.  TTFT and TPOT marks are taken here, when
+        the transfer has landed, never at dispatch."""
+        entry = self._inflight.popleft()
+        if entry["spec"]:
+            toks_mat, counts = self.runner.wait_spec(entry["handle"])
+            return self._apply_spec(entry["rows"], toks_mat, counts)
+        toks, done = self.runner.wait_decode(entry["handle"])
+        return self._apply_decode(entry["rows"], toks, done)
+
+    def _drain_inflight(self) -> None:
+        """Apply every step in flight."""
+        while self._inflight:
+            self._process_oldest()
 
     def step(self) -> int:
-        """Admit, advance chunked prefills by one chunk, then one decode
-        step (or one speculative draft + verify step) for every decoding
-        slot.  Returns the number of requests that made progress."""
+        """Admit, advance chunked prefills by one chunk, then dispatch one
+        decode step (or one speculative draft + verify step) for every
+        decoding slot, and wait on the oldest step in flight once more
+        than ``pipeline_depth`` are queued: at once in the synchronous
+        engine (depth 0); with depth > 0 admission, chunked prefill and
+        the next dispatch overlap the steps still on the device.
+        Returns the number of requests that made progress."""
         progress = self._admit()
         if self.runner.prefill_chunk:
             progress += self._prefill_chunks()
@@ -1078,40 +1460,35 @@ class Engine:
                                       len(self.scheduler.active_slots()))
         active = [(s, r) for s, r in self.scheduler.active_slots()
                   if r.state is RequestState.DECODE]
-        if active and self.runner.speculate_k:
-            # every decoding slot advances by 1..K+1 tokens
-            toks_mat, counts = self.runner.draft_verify(
-                self._tok, self._pos, self._active, self._temps)
-            self._apply_spec(active, toks_mat, counts)
-            progress += len(active)
-        elif active:
-            toks, done = self.runner.decode(self._tok, self._pos,
-                                            self._active, self._temps,
-                                            self._eos, self._remaining)
-            for slot, req in active:
-                tok = int(toks[slot])
-                self._emit(req, tok)
-                self._tok[slot] = tok
-                self._pos[slot] += 1
-                self._remaining[slot] -= 1
-                if done[slot]:
-                    self._finish(slot, req)
-            progress += len(active)
+        dispatched = False
+        if active and len(self._inflight) <= self.pipeline_depth:
+            dispatched = self._dispatch(active)
+            if dispatched:
+                progress += len(active)
+        processed_any = False
+        while len(self._inflight) > self.pipeline_depth:
+            n = self._process_oldest()
+            processed_any = True
+            if not dispatched:
+                progress += n
+        if not dispatched and not processed_any and self._inflight:
+            progress += self._process_oldest()   # the tail: drain
         self.steps_run += 1
         return progress
 
     def run(self, max_steps: int = 10000) -> None:
-        """Drain queue and slots; raise EngineStallError when the step
-        budget runs out with work pending."""
+        """Drain queue, slots and steps in flight; raise EngineStallError
+        when the step budget runs out with work pending."""
         for _ in range(max_steps):
-            if not self.scheduler.has_work():
+            if not self.scheduler.has_work() and not self._inflight:
                 return
             self.step()
-        if self.scheduler.has_work():
+        if self.scheduler.has_work() or self._inflight:
             raise EngineStallError(
                 f"engine stalled: {max_steps} steps exhausted with "
-                f"{len(self.scheduler.queue)} queued and "
-                f"{len(self.scheduler.active_slots())} active requests")
+                f"{len(self.scheduler.queue)} queued, "
+                f"{len(self.scheduler.active_slots())} active requests "
+                f"and {len(self._inflight)} steps in flight")
 
     def generate(self, prompts: List[List[int]], max_new_tokens: int = 32,
                  params: SampleParams = SampleParams()) -> List[List[int]]:

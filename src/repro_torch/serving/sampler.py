@@ -1,6 +1,7 @@
 """Greedy token sampling, the fused decode-step epilogue and the
-speculative step's greedy accept (counterpart of
-``repro.serving.sampler``).
+speculative step's greedy accept, and the pipelined engine's device-side
+carry of the next step's inputs (``advance_decode`` / ``advance_spec``)
+(counterpart of ``repro.serving.sampler``).
 
 Sampling with ``temperature > 0`` needs keys bit-exact with JAX's
 threefry stream (``row_keys``) and is ROADMAP queue 1, item 4: every
@@ -59,6 +60,43 @@ def sample_step(logits: torch.Tensor, temperature, active: torch.Tensor,
     new = torch.where(active, new, torch.zeros_like(new))
     done = active & ((remaining <= 1) | ((eos >= 0) & (new == eos)))
     return torch.stack([new, done.to(torch.int32)])
+
+
+def advance_decode(packed: torch.Tensor, tok: torch.Tensor, pos: torch.Tensor,
+                   counts: torch.Tensor, remaining: torch.Tensor,
+                   override: torch.Tensor, h_tok: torch.Tensor,
+                   h_pos: torch.Tensor, h_counts: torch.Tensor,
+                   h_remaining: torch.Tensor
+                   ) -> Tuple[torch.Tensor, ...]:
+    """The pipelined engine's device-side carry: the next plain-decode
+    inputs from the previous step's ``packed`` [2, B] result, with no
+    host round trip.  A carried lane feeds packed[0] (its sampled token)
+    back and advances pos and counts by one, remaining by minus one, as
+    the host will once the transfer lands; a lane with ``override`` set
+    (newly admitted, or idle in the previous step) takes the host
+    values.  All int32 [B]; ``tok`` is unused, as in the reference."""
+    return (torch.where(override, h_tok, packed[0]),
+            torch.where(override, h_pos, pos + 1),
+            torch.where(override, h_counts, counts + 1),
+            torch.where(override, h_remaining, remaining - 1))
+
+
+def advance_spec(packed: torch.Tensor, tok: torch.Tensor, pos: torch.Tensor,
+                 counts: torch.Tensor, override: torch.Tensor,
+                 h_tok: torch.Tensor, h_pos: torch.Tensor,
+                 h_counts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The same carry after a speculative step's ``packed`` [K+2, B]
+    result (rows 0..K the emitted tokens, row K+1 the count m): a
+    carried lane takes its last emitted token packed[m-1] and advances
+    pos and counts by m; a lane with m == 0 (inactive in that step)
+    keeps its token.  All int32 [B]."""
+    m = packed[-1]
+    idx = (m - 1).clamp(0, packed.shape[0] - 2).long()
+    last = packed[:-1].gather(0, idx[None])[0]
+    c_tok = torch.where(m > 0, last, tok)
+    return (torch.where(override, h_tok, c_tok),
+            torch.where(override, h_pos, pos + m),
+            torch.where(override, h_counts, counts + m))
 
 
 def accept_step(target_logits: torch.Tensor, draft_logits: torch.Tensor,

@@ -14,7 +14,11 @@ prefill on each route (wgmma + TMA for bf16 at hd 64 / 128, the CUDA
 cores otherwise) at the serve layouts and ragged S, Sq != Sk, an
 unaligned view, bitwise repeatable, one device kernel per call.  The contiguous decode
 kernel at the speculative drafter's shapes, and a reduced speculative
-engine run, card against CPU.
+engine run, card against CPU.  The step programs' CUDA graphs (reduced
+configs): a replayed decode or spec step bitwise equal to the eager step
+(logits, packed result, cache bytes, launch counts), capture leaving
+every live cache byte, and a decode launch that would grow the ticket
+counters under capture raising.
 Imports no JAX, so it runs on a GPU machine without it:
 
   PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
@@ -763,3 +767,160 @@ def _tree_to(tree, dev):
     if isinstance(tree, tuple):
         return tuple(_tree_to(v, dev) for v in tree)
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# the pre-planned step programs: CUDA graphs against eager steps
+# ---------------------------------------------------------------------------
+
+# arm -> (arch, dtype, engine knobs), reduced configs
+_PLAN_ARMS = {"paged bf16": ("pt-6b-d4", "bfloat16", {}),
+              "int8 kv": ("pt-6b-d4", "bfloat16", {"kv_dtype": "int8"}),
+              "contiguous": ("dense-6b", "bfloat16", {"paged": False}),
+              "mamba state rows": ("falcon-mamba-7b", "bfloat16",
+                                   {"prefill_chunk": 8}),
+              "spec": ("pt-6b-d4", "float32",
+                       {"speculate_k": 3, "draft_tracks": 2})}
+
+
+def _plan_engine(arm, dev, preplan=True):
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.steps import model_fns
+    from repro_torch.serving.engine import Engine
+    arch, dtype, knobs = _PLAN_ARMS[arm]
+    cfg = reduced_config(arch).replace(dtype=dtype)
+    params = model_fns(cfg)["init"](
+        torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    return Engine(cfg, params, max_slots=3, max_seq_len=64, block_size=8,
+                  device=dev, preplan=preplan, **knobs)
+
+
+def _decoding(eng, n=3):
+    """n requests admitted and decoding, nothing in flight."""
+    from repro_torch.serving.engine import RequestState
+    rng = np.random.default_rng(5)
+    reqs = [eng.submit(rng.integers(1, eng.cfg.vocab_size,
+                                    size=(7 + 9 * i,)).tolist(), 20)
+            for i in range(n)]
+    while any(q.state is not RequestState.DECODE for q in reqs):
+        eng.step()
+    return reqs
+
+
+def _cache_tensors(r):
+    def walk(tree):
+        if isinstance(tree, dict):
+            for v in tree.values():
+                yield from walk(v)
+        elif isinstance(tree, tuple):
+            for v in tree:
+                yield from walk(v)
+        elif hasattr(tree, "pool"):
+            yield from (t for t in (tree.pool, tree.scale) if t is not None)
+        else:
+            yield tree
+
+    return list(walk(r.cache)) + (list(r.draft_cache["blocks"])
+                                  if r.speculate_k else [])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arm", list(_PLAN_ARMS))
+def test_graph_replay_equals_the_eager_step_bitwise(arm):
+    """One decode (spec) step replayed from its CUDA graph against the
+    same step run eagerly from the same cache bytes: logits, packed
+    result and every cache byte after it bitwise equal, and the replay
+    adds the capture's launches to the counters."""
+    dev = _cuda()
+    eng = _plan_engine(arm, dev)
+    r = eng.runner
+    _decoding(eng)
+    cache = _cache_tensors(r)
+    saved = [t.clone() for t in cache]
+
+    def step():
+        if r.speculate_k:
+            h = r.dispatch_spec(eng._tok, eng._pos, eng._active, eng._temps,
+                                eng._counts)
+            out = r.wait_spec(h)
+        else:
+            h = r.dispatch_decode(eng._tok, eng._pos, eng._active,
+                                  eng._temps, eng._eos, eng._remaining,
+                                  eng._counts)
+            out = r.wait_decode(h)
+        return (h["logits"].clone(), [np.asarray(o).copy() for o in out],
+                [t.clone() for t in cache], ops.launch_counts())
+
+    programs, r.programs = r.programs, {}
+    before = ops.launch_counts()
+    eager = step()
+    r.programs = programs
+    for t, s in zip(cache, saved):
+        t.copy_(s)
+    hits = r.planned_hits
+    replay = step()
+    assert r.planned_hits == hits + 1
+    assert torch.equal(eager[0], replay[0])
+    assert all(np.array_equal(a, b) for a, b in zip(eager[1], replay[1]))
+    assert all(torch.equal(a, b) for a, b in zip(eager[2], replay[2]))
+    assert {k: replay[3][k] - eager[3][k] for k in before} == \
+        {k: eager[3][k] - before[k] for k in before}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arm", list(_PLAN_ARMS))
+def test_capture_leaves_the_cache_unchanged(arm):
+    """``plan_programs`` on an engine with requests decoding: warm-up and
+    capture run every lane idle, so no byte of any live block, state row,
+    contiguous row or drafter row changes (block 0, the trash block,
+    takes the idle lanes' writes); the run then finishes."""
+    dev = _cuda()
+    eng = _plan_engine(arm, dev, preplan=False)
+    r = eng.runner
+    reqs = _decoding(eng)
+    live = None
+    if r.paged:
+        live = torch.as_tensor(sorted(set(r.kv.table_np.ravel()) - {0}),
+                               dtype=torch.long, device=dev)
+
+    def snap():
+        out = []
+        for t in _cache_tensors(r):
+            pooled = live is not None and t.dim() >= 4 and \
+                t.shape[-4] == r.kv.num_blocks and t.shape[-3] == \
+                r.kv.block_size
+            out.append(t.index_select(t.dim() - 4, live).clone() if pooled
+                       else t.clone())
+        return out
+
+    before = snap()
+    assert r.plan_programs() == len(r.programs) > 0
+    torch.cuda.synchronize()
+    for a, b in zip(before, snap()):
+        assert torch.equal(a, b)
+    eng.run()
+    assert all(len(q.output) == 20 for q in reqs)
+    assert r.planned_hits > 0
+
+
+@pytest.mark.gpu
+def test_decode_launch_that_grows_the_counters_under_capture_raises(
+        monkeypatch):
+    """The ticket counters are sized before any capture: a launch that
+    would grow them while a graph is being captured raises, and the
+    buffer a graph may hold is never replaced."""
+    dev = _cuda()
+    small = torch.zeros(1, dtype=torch.int32, device=dev)
+    monkeypatch.setitem(da._COUNTERS, dev, small)
+    rng = np.random.default_rng(2)
+    q, kp, vp, table, lengths = _paged_inputs(2, 4, 1, 4, 128, 16, 40, rng,
+                                              _sms(dev))
+    args = [torch.from_numpy(a).to(dev) for a in (q, kp, vp, table, lengths)]
+    assert da.split_plan(40 * 16, 2 * 4, 16, _sms(dev))[0] > 1
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream(dev)
+    with pytest.raises(RuntimeError, match="reserve_counters"):
+        with torch.cuda.graph(graph, stream=stream):
+            ops.paged_decode_attention(*args)
+    assert da._COUNTERS[dev] is small
+    grown = da.reserve_counters(dev, 8)
+    assert grown.numel() >= 8 and any(t is small for t in da._RETIRED)

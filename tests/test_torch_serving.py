@@ -140,12 +140,14 @@ def test_decode_table_is_cached_until_the_table_or_active_set_changes(model):
     r.kv.allocate(0, 20)
     act = np.asarray([True, False])
     t1 = r._masked_table(act)
-    assert r._masked_table(act) is t1
+    assert t1 is r.step_table               # the step programs' one table
+    assert r._table_rows(act) is None       # unchanged: nothing to copy
     assert t1[1].abs().sum() == 0 and t1[0, 0] == r.kv.table_np[0, 0]
-    assert r._masked_table(np.asarray([True, True])) is not t1
-    r.kv.allocate(1, 5)
-    assert r._masked_table(np.asarray([True, True]))[1, 0] == \
-        r.kv.table_np[1, 0]
+    both = np.asarray([True, True])
+    assert r._masked_table(both) is t1 and t1[1].abs().sum() == 0
+    assert r._table_rows(both) is None
+    r.kv.allocate(1, 5)                     # a new table version
+    assert r._masked_table(both) is t1 and t1[1, 0] == r.kv.table_np[1, 0]
     assert r._live_max_len(np.asarray([17, 3]), act) == 32
 
 
@@ -155,7 +157,7 @@ def test_engine_rejects_invalid_requests_and_unported_features(model):
     assert eng.submit([], 4).state is RequestState.REJECTED
     assert eng.submit([1] * 40, 4).state is RequestState.REJECTED
     assert eng.submit([1, 2], 0).state is RequestState.REJECTED
-    for kw in ({"prefix_cache": True}, {"pipeline_depth": 1}):
+    for kw in ({"prefix_cache": True}, {"max_queue": 4}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(cfg, params, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -17,7 +17,9 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      must be bitwise the fp32 output's cast) and the route it took;
      flash prefill at the pt-6b-d4 and the dense-6b layouts, each with
      the route it took (which must be the one ``route`` names); RMSNorm
-     also at falcon-mamba's d 4096; ``ssm_scan`` at the falcon-mamba
+     by route (``norm``, ``add_norm``, ``fuse_norm``) at the pt-6b-d4 and
+     dense-6b decode and prefill shapes (``check_rmsnorm``), each beside
+     a yardstick of PyTorch calls; ``ssm_scan`` at the falcon-mamba
      chunk shape, then at ragged S, d_state 1, bf16 inputs and an odd
      feature count; ``decode_attention`` (the contiguous cache) at the
      dense-6b decode shape, bf16 and int8, and at the speculative runs'
@@ -50,7 +52,9 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
   5. serve pt-6b-d4 at full width (random weights from a seeded
      generator): 8 slots, 8 greedy requests of 512 prompt tokens and 64
      new tokens, block size 16 — TTFT, TPOT, throughput, peak memory and
-     each kernel's launch count, which must all be non-zero; once with
+     each kernel's launch count, which must all be non-zero, and in
+     every serve run below the RMSNorm launches by route, which must
+     equal ``norm_routes``'s arithmetic; once with
      bf16 weights and KV (flash prefill, one launch per layer per
      prefill call, every one on the ``wgmma_tma`` route; fp paged
      decode), then with int8 weights and int8 KV (every projection and
@@ -129,7 +133,7 @@ PARITY_TOL = 1e-4              # fp32 model on the card vs the CPU
 
 # the serving cells of phase 5, which fix the kernel shapes of phase 3
 ARCH, SLOTS, PROMPT, NEW, BLOCK = "pt-6b-d4", 8, 512, 64, 16
-FM_ARCH, FM_SLOTS, FM_CHUNK, FM_D = "falcon-mamba-7b", 8, 256, 4096
+FM_ARCH, FM_SLOTS, FM_CHUNK = "falcon-mamba-7b", 8, 256
 DENSE_ARCH = "dense-6b"
 SPEC_K, SPEC_TRACKS = 4, 4      # the speculative serve runs of phase 5
 
@@ -351,29 +355,7 @@ def check_kernels(dev: torch.device):
                                     DENSE_ARCH)]
     torch.cuda.empty_cache()
 
-    # -- RMSNorm: ln1 / ln2 of the prefill, all tracks in one launch ---
-    shape = (n, SLOTS, PROMPT, d)
-    srow = torch.randn(d, generator=g, device=dev) * 0.1
-    scale = srow[None].expand(n, d).contiguous()   # same row: library-able
-    sets = [(randn(*shape),)
-            for _ in range(copies_for(2 * nbytes(randn(*shape))))]
-    x = sets[0][0]
-    out = ops.rmsnorm(x, scale)
-    want = ref.rmsnorm_plain(x, scale)
-    w = (1.0 + srow).to(bf)
-    t = device_timing(lambda x: ops.rmsnorm(x, scale),
-                      lambda x: F.rms_norm(x, (d,), weight=w, eps=1e-6),
-                      sets, sets, 50)
-    p_ms = time_ms(lambda x: ref.rmsnorm_plain(x, scale), sets, 20)
-    rows.append(_report(
-        "rmsnorm", "triton", "src/repro_torch/kernels/rmsnorm.py",
-        "src/repro/kernels/rmsnorm.py:20", out, want, t["ms"], p_ms,
-        t["library_ms"], nbytes(x, scale, out), 4.0 * x.numel(),
-        FP32_FLOP_S))
-    timed_extras(rows[-1], t, f"x [{n},{SLOTS},{PROMPT},{d}] bf16, scale "
-                              f"[{n},{d}] ({ARCH} prefill)")
-    del sets, x, out, want
-    rows[-1]["shapes"] = rmsnorm_d4096(dev, g)
+    rows.append(check_rmsnorm(dev, g))
     torch.cuda.empty_cache()
     rows += check_int8_kernels(dev, g)
     torch.cuda.empty_cache()
@@ -651,37 +633,118 @@ def decode_shapes(dev: torch.device, g: torch.Generator, paged: bool):
     return out_rows
 
 
-def rmsnorm_d4096(dev: torch.device, g: torch.Generator):
-    """RMSNorm at falcon-mamba's width (d 4096, one scale row, eps 1e-5):
-    a decode step's rows and a 256-token chunk of 8 prompts.  The Triton
-    kernel keeps a whole row in registers; slice 1 checked it at d 1408."""
+def check_rmsnorm(dev: torch.device, g: torch.Generator):
+    """Phase 3 for the RMSNorm kernel (``csrc/rmsnorm.cu``): each route at
+    the shapes the serve runs give it, bf16: pt-6b-d4 decode x [8,8,1,1408]
+    and prefill [8,8,512,1408] (``norm`` on one fused row broadcast to the
+    8 tracks, as the first ln1 reads the embedding; ``add_norm``;
+    ``fuse_norm`` at a block boundary, per-track scale rows), dense-6b
+    decode [8,1,4096] and prefill [8,512,4096] (``norm``, ``add_norm``;
+    one scale row).  Each is held against its plain version and timed as
+    device work beside its eager loop, its bytes bound and share, and a
+    yardstick of PyTorch calls on the same inputs: ``F.rms_norm`` for
+    ``norm`` (the library call), for the others the sequence they replace
+    (the add, the fp32 mean and cast, then ``F.rms_norm``; the per-track
+    scale rows are one row repeated, so its weight is that row).  Returns
+    the row of ``add_norm`` at the pt-6b-d4 decode shape (56 of the 65
+    launches of each forward, 63 forwards of 64) with the others under
+    ``shapes``."""
+    from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
     F = torch.nn.functional
-    d, out_rows = FM_D, []
-    scale = torch.randn(d, generator=g, device=dev) * 0.1
-    w = (1.0 + scale).to(torch.bfloat16)
-    for rows_, iters in ((FM_SLOTS, 200), (FM_SLOTS * FM_CHUNK, 50)):
-        x0 = torch.randn(rows_, d, generator=g, device=dev).to(torch.bfloat16)
-        sets = [(torch.randn(rows_, d, generator=g, device=dev).to(
-            torch.bfloat16),) for _ in range(copies_for(2 * nbytes(x0)))]
-        x = sets[0][0]
-        tm = device_timing(lambda x: ops.rmsnorm(x, scale, eps=1e-5),
-                           lambda x: F.rms_norm(x, (d,), weight=w, eps=1e-5),
-                           sets, sets, iters)
-        row = _report("rmsnorm", "triton",
-                      "src/repro_torch/kernels/rmsnorm.py",
-                      "src/repro/kernels/rmsnorm.py:20",
-                      ops.rmsnorm(x, scale, eps=1e-5),
-                      ref.rmsnorm_plain(x, scale, eps=1e-5), tm["ms"],
-                      time_ms(lambda x: ref.rmsnorm_plain(x, scale, eps=1e-5),
-                              sets, iters // 5),
-                      tm["library_ms"], nbytes(x, scale) + nbytes(x),
-                      4.0 * x.numel(), FP32_FLOP_S)
-        timed_extras(row, tm, f"x [{rows_},{d}] bf16, scale [{d}] "
-                              f"(falcon-mamba)")
-        out_rows.append(row)
-        del sets, x0, x
-    return out_rows
+    bf = torch.bfloat16
+    pcfg, dcfg = get_config(ARCH), get_config(DENSE_ARCH)
+    n = pcfg.pt.n_tracks
+    cells = [(n, pcfg, "decode", (SLOTS, 1), 200),
+             (None, dcfg, "decode", (SLOTS, 1), 200),
+             (n, pcfg, "prefill", (SLOTS, PROMPT), 30),
+             (None, dcfg, "prefill", (SLOTS, PROMPT), 30)]
+    out_rows = []
+    for tracks, cfg, phase, bs, iters in cells:
+        d, eps = cfg.d_model, cfg.norm_eps
+        lead = ((tracks,) if tracks else ()) + bs
+        srow = torch.randn(d, generator=g, device=dev) * 0.1
+        s = srow[None].expand(tracks, d).contiguous() if tracks else srow
+        w = (1.0 + srow).to(bf)
+        one = 2 * nbytes(torch.empty(*lead, d, dtype=bf))
+        sets = [(torch.randn(*bs, d, generator=g, device=dev).to(bf),
+                 torch.randn(*lead, d, generator=g, device=dev).to(bf),
+                 torch.randn(*lead, d, generator=g, device=dev).to(bf))
+                for _ in range(copies_for(2 * one))]
+        routes = ["norm", "add_norm"] + (["fuse_norm"] if tracks else [])
+        for route in routes:
+            if route == "norm":
+                # the fused row (spread when the model has tracks)
+                def args(f, x, dl):
+                    return ((f[None].expand(tracks, *f.shape),) if tracks
+                            else (f,))
+                kern = lambda x: ops.rmsnorm(x, s, eps=eps)
+                plain = lambda x: ref.rmsnorm_plain(x, s, eps=eps)
+                lib = lambda x: F.rms_norm(x, (d,), weight=w, eps=eps)
+                what = "F.rms_norm (library call)"
+            elif route == "add_norm":
+                def args(f, x, dl):
+                    return x, dl
+                kern = lambda x, dl: ops.add_rmsnorm(x, dl, s, eps=eps)
+                plain = lambda x, dl: ref.add_rmsnorm_plain(x, dl, s,
+                                                            eps=eps)
+
+                def lib(x, dl):
+                    xn = x + dl
+                    return xn, F.rms_norm(xn, (d,), weight=w, eps=eps)
+                what = "x + delta, then F.rms_norm"
+            else:
+                def args(f, x, dl):
+                    return x, dl
+                kern = lambda x, dl: ops.fuse_rmsnorm(x, dl, s, eps=eps)
+                plain = lambda x, dl: ref.fuse_rmsnorm_plain(x, dl, s,
+                                                             eps=eps)
+
+                def lib(x, dl):
+                    xn = x + dl
+                    f = torch.mean(xn, dim=0, dtype=torch.float32).to(bf)
+                    return f, F.rms_norm(f[None].expand(xn.shape), (d,),
+                                         weight=w, eps=eps)
+                what = ("x + delta, the fp32 track mean and its cast, then "
+                        "F.rms_norm on the broadcast")
+            rsets = [args(*a) for a in sets]
+            got = kern(*rsets[0])
+            got = got if isinstance(got, tuple) else (got,)
+            want = plain(*rsets[0])
+            want = want if isinstance(want, tuple) else (want,)
+            for a, b in zip(got, want):
+                _agree(f"rmsnorm {route}", a, b, KERNEL_TOL)
+            t = device_timing(kern, lib, rsets, rsets, iters)
+            x0 = rsets[0][0]
+            ins = (sets[0][0] if route == "norm" and tracks else x0,) + \
+                tuple(rsets[0][1:]) + (s,)
+            row = _report("rmsnorm", "cuda",
+                          "src/repro_torch/kernels/csrc/rmsnorm.cu",
+                          "src/repro/kernels/rmsnorm.py:20", got[-1],
+                          want[-1], t["ms"],
+                          time_ms(plain, rsets, max(5, iters // 10)),
+                          t["library_ms"] if route == "norm" else None,
+                          nbytes(*ins, *got),
+                          4.0 * got[-1].numel() + 2.0 * x0.numel(),
+                          FP32_FLOP_S)
+            shape = "x [" + ",".join(map(str, x0.shape)) + "]"
+            timed_extras(row, t, f"{route}: {shape} bf16"
+                                 f"{' (one row broadcast)' if route == 'norm' and tracks else ''}"
+                                 f", scale [{','.join(map(str, s.shape))}] "
+                                 f"({ARCH if tracks else DENSE_ARCH} "
+                                 f"{phase})")
+            row.update(kernel_route=route, yardstick=what,
+                       yardstick_ms=t["library_ms"],
+                       yardstick_eager_ms=t["library_eager_ms"],
+                       run="bf16" if tracks else "dense paged")
+            log(f"[kernel]   rmsnorm {route}: yardstick ({what}) "
+                f"{t['library_ms']:.4f} ms as device work")
+            out_rows.append(row)
+        del sets
+        torch.cuda.empty_cache()
+    main = out_rows.pop(1)                 # add_norm at the PT decode shape
+    main["shapes"] = out_rows
+    return main
 
 
 def check_ssm_scan(dev: torch.device, g: torch.Generator):
@@ -1344,6 +1407,43 @@ FP_PATH = ("paged_decode_attention", "flash_attention", "rmsnorm")
 INT8_PATH = ("int8_matmul", "paged_decode_attention_int8", "rmsnorm")
 INT8_ROUTES = {}      # the W8A16 launches of the int8 serve run, by route
 FLASH_ROUTES = {}     # the flash launches of each bf16 serve run, by route
+NORM_ROUTES = {}      # the RMSNorm launches of each serve run, by route
+
+
+def norm_routes(kind: str, cfg, c: dict) -> dict:
+    """The RMSNorm launches by route of a run of ``c["P"]`` prefill calls
+    (the head on every row), ``c["C"]`` chunk calls (a bare fusion or a
+    bare residual add at the end, then the head's norm on one row per
+    prompt) and ``c["T"]`` decode or spec steps, from the code: a forward
+    runs ``norm`` once (the first ln1), folds every residual add into the
+    next norm (``add_norm``) and, in a PT model of R = L / D blocks, each
+    block's end into ``fuse_norm`` (the last one with the final norm);
+    the drafter's prefill and its step at pos + K skip the head, so their
+    last block ends on a bare fusion.  Per forward the routes add up to
+    2 L + 1 (L + 1 for Mamba), 2 L for a forward without a head."""
+    L, P, C, T = cfg.n_layers, c["P"], c.get("C", 0), c["T"]
+    if cfg.pt is None:
+        A = L if kind == "falcon" else 2 * L         # adds per forward
+        return {"norm": P + 2 * C + T, "add_norm": A * (P + T) + (A - 1) * C,
+                "fuse_norm": 0}
+    R = L // cfg.pt.block_depth
+    if kind == "spec":
+        Fw = (SPEC_K + 2) * T      # the K + 1 draft steps and the verify
+        return {"norm": 2 * P + Fw, "add_norm": (2 * L - R) * (2 * P + Fw),
+                "fuse_norm": (2 * R - 1) * P + R * Fw - T}
+    return {"norm": P + 2 * C + T, "add_norm": (2 * L - R) * (P + C + T),
+            "fuse_norm": R * (P + T) + (R - 1) * C}
+
+
+def check_norm_routes(tag: str, kind: str, cfg, c: dict, routes) -> None:
+    """A sync serve run's RMSNorm launches by route against
+    ``norm_routes``; raises when they differ."""
+    want = norm_routes(kind, cfg, c)
+    log(f"[serve] {tag}: RMSNorm routes {json.dumps(routes)}, arithmetic "
+        f"{json.dumps(want)}: {'met' if routes == want else 'NOT MET'}")
+    NORM_ROUTES[tag] = routes
+    if routes != want:
+        raise SystemExit(f"[serve] {tag}: RMSNorm routes {routes} != {want}")
 
 
 def serve_full(dev: torch.device, card: str, int8: bool = False,
@@ -1383,7 +1483,7 @@ def serve_full(dev: torch.device, card: str, int8: bool = False,
     # it): the least time a step can take
     read = sum(nbytes(t) for t in _leaves(eng.runner.params))
     rng = np.random.default_rng(0)
-    # warm-up: cuBLAS handles and the Triton specialisations of every
+    # warm-up: cuBLAS handles and the kernels' first launches for every
     # shape class the measured run meets (prefill and decode rows)
     eng.generate([rng.integers(1, cfg.vocab_size, size=(16,)).tolist()
                   for _ in range(SLOTS)], 3)
@@ -1404,6 +1504,7 @@ def serve_full(dev: torch.device, card: str, int8: bool = False,
     launches = ops.launch_counts()
     routes = dict(ops.int8_matmul.routes)
     flash_routes = dict(ops.flash_attention.routes)
+    rms_routes = dict(ops.rmsnorm.routes)
     m = eng.metrics.summary()
     peak = torch.cuda.max_memory_allocated(dev)
     done = sum(rq.state is RequestState.DONE and len(rq.output) == NEW
@@ -1429,6 +1530,9 @@ def serve_full(dev: torch.device, card: str, int8: bool = False,
         head_choice_ms(eng, head_bf16, dev)
     if done != len(reqs):
         raise SystemExit("[serve] not every request finished")
+    check_norm_routes(tag, "int8" if int8 else "bf16", cfg,
+                      {"P": prefills, "C": forwards - decodes - prefills,
+                       "T": decodes}, rms_routes)
     path = INT8_PATH if int8 else FP_PATH
     if not all(launches[k] for k in path):
         raise SystemExit(f"[serve] a kernel of the {tag} path never ran: "
@@ -1614,6 +1718,7 @@ def serve_spec(dev: torch.device, card: str, params, prompts, plain,
     steps = eng.steps_run - steps0
     T = r.decode_transfers - transfers0
     P = r.prefill_calls - prefills0
+    rms_routes = dict(ops.rmsnorm.routes)
     div = [_divergence(rq.output, p) for rq, p in zip(reqs, plain)]
     log(f"[serve] {card} | {tag}: {SLOTS} reqs x ({PROMPT} in / {NEW} out), "
         f"slots {SLOTS}, block {BLOCK}, K {K}, {steps} steps, wall "
@@ -1651,6 +1756,7 @@ def serve_spec(dev: torch.device, card: str, params, prompts, plain,
                          "engine steps")
     if got != want or not P or not T:
         raise SystemExit(f"[serve] launch counts {got} != {want}")
+    check_norm_routes(tag, "spec", cfg, {"P": P, "T": T}, rms_routes)
     check_flash_routes(tag, launches, dict(ops.flash_attention.routes))
     check_spec_logits(eng, prompts, plain, [rq.output for rq in reqs], tag,
                       tied)
@@ -1895,11 +2001,12 @@ def serve_falcon(dev: torch.device, card: str):
             for _ in range(FM_SLOTS)]
     steps0, transfers0, chunks0 = (eng.steps_run, r.decode_transfers,
                                    r.chunk_calls)
+    prefills0 = r.prefill_calls
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
-    routes = dict(ops.int8_matmul.routes)
+    rms_routes = dict(ops.rmsnorm.routes)
     m = eng.metrics.summary()
     peak = torch.cuda.max_memory_allocated(dev)
     done = sum(rq.state is RequestState.DONE and len(rq.output) == NEW
@@ -1930,6 +2037,9 @@ def serve_falcon(dev: torch.device, card: str):
         raise SystemExit("[serve] not every falcon-mamba request finished")
     if got != want or not chunks:
         raise SystemExit(f"[serve] launch counts {got} != {want}")
+    check_norm_routes(tag, "falcon", cfg,
+                      {"P": r.prefill_calls - prefills0, "C": chunks,
+                       "T": decodes}, rms_routes)
     profile_steps(eng, cfg.vocab_size, rng, m["tpot_ms"]["p50"], tag,
                   chunk_steps=-(-PROMPT // FM_CHUNK))
     sync = {"m": m, "peak": peak, "streams": [rq.output for rq in reqs]}
@@ -1982,7 +2092,7 @@ def serve_dense(dev: torch.device, card: str, params, paged: bool):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
-    routes = dict(ops.int8_matmul.routes)
+    rms_routes = dict(ops.rmsnorm.routes)
     m = eng.metrics.summary()
     peak = torch.cuda.max_memory_allocated(dev)
     done = sum(rq.state is RequestState.DONE and len(rq.output) == NEW
@@ -2015,6 +2125,8 @@ def serve_dense(dev: torch.device, card: str, params, paged: bool):
         raise SystemExit(f"[serve] not every {tag} request finished")
     if got != want or not decodes or not prefills:
         raise SystemExit(f"[serve] launch counts {got} != {want}")
+    check_norm_routes(tag, "dense", cfg, {"P": prefills, "T": decodes},
+                      rms_routes)
     check_flash_routes(tag, launches, dict(ops.flash_attention.routes))
     profile_steps(eng, cfg.vocab_size, rng, m["tpot_ms"]["p50"], tag)
     sync = {"m": m, "peak": peak, "streams": [rq.output for rq in reqs]}
@@ -2238,6 +2350,7 @@ def serve_planned(dev, card: str, tag: str, kind: str, cfg, params, knobs,
     launches = ops.launch_counts()
     routes = dict(ops.int8_matmul.routes)
     flash_routes = dict(ops.flash_attention.routes)
+    rms_routes = dict(ops.rmsnorm.routes)
     m = eng.metrics.summary()
     peak = torch.cuda.max_memory_allocated(dev)
     c = {"steps": eng.steps_run - base[0], "T": r.decode_transfers - base[1],
@@ -2277,6 +2390,11 @@ def serve_planned(dev, card: str, tag: str, kind: str, cfg, params, knobs,
     if want_routes is not None:
         gates["W8A16 routes"] = routes == dict(
             dict.fromkeys(routes, 0), **want_routes)
+    want_norm = norm_routes(kind, cfg, c)
+    gates["RMSNorm routes"] = rms_routes == want_norm
+    NORM_ROUTES[tag + " planned"] = rms_routes
+    log(f"[planned] {tag}: RMSNorm routes {json.dumps(rms_routes)}, "
+        f"arithmetic {json.dumps(want_norm)}")
     if kind != "int8" and kind != "falcon":
         gates["flash routes"] = flash_routes == dict(
             dict.fromkeys(flash_routes, 0),
@@ -2424,6 +2542,13 @@ def main() -> int:
             row["routes_in_serve"] = dict(INT8_ROUTES)
         if row["name"] == "flash_attention":
             row["routes_in_serve"] = dict(FLASH_ROUTES)
+        if row["name"] == "rmsnorm":
+            # each route row: its route's launches in its run
+            row["routes_in_serve"] = dict(NORM_ROUTES)
+            for r_ in [row] + row["shapes"]:
+                r_["route_launches"] = NORM_ROUTES[
+                    "bf16" if r_["run"] == "bf16" else
+                    "dense-6b bf16 paged"][r_["kernel_route"]]
         # the same two numbers under their longer key names as well
         row["kernel_ms"] = row["ms"]
         row["launches_in_serve"] = row["launches"]

@@ -11,7 +11,12 @@ On one GPU the tracks are a stacked leading dim of every parameter and
 activation ([R, D, n, ...] parameters, [n, B, S, d] activations), and
 each op of a layer covers all tracks in one launch: batched GEMMs, one
 RMSNorm launch, one attention launch.  There is no Python loop over
-tracks.
+tracks.  Each residual add runs inside the next norm's launch, and a
+track-block boundary (the last residual add, the fusion mean and the
+next block's ln1, or the final norm) is one launch of the RMSNorm
+kernel's ``fuse_norm`` route; its fused value f [B, S, d] is the
+block's sync point, read by every track of the next block as a
+broadcast view, not a copy.
 """
 from __future__ import annotations
 
@@ -24,8 +29,10 @@ import torch
 from repro_torch.common.device import DeviceLike, resolve_device
 from repro_torch.common.types import ModelConfig, PTConfig
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.decoder import _embed, _head, model_dtype
-from repro_torch.models.layers import check_supported, layer_apply, layer_shapes
+from repro_torch.models.decoder import _embed, _logits, model_dtype
+from repro_torch.models.layers import (check_supported, layer_shapes,
+                                       layer_step, norm_in)
+from repro_torch.models.norms import fuse_norm
 from repro_torch.models.params import Leaf, make_params, stack
 
 
@@ -162,10 +169,39 @@ def _fuse(h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _spread(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Fused [B, S, d] -> [n, B, S, d] for every track.  Free in the
-    reference; here a copy of n * B * S * d elements, so the kernels get
-    contiguous operands."""
-    return x[None].expand(_pt(cfg).n_tracks, *x.shape).contiguous()
+    """Fused [B, S, d] -> [n, B, S, d] for every track: a broadcast view
+    (track stride 0), free as in the reference; the norm kernel's routes
+    read it as it is."""
+    return x[None].expand(_pt(cfg).n_tracks, *x.shape)
+
+
+def _blocks(params, h: torch.Tensor, cfg: ModelConfig, layer,
+            final: bool) -> torch.Tensor:
+    """The track blocks over the embedded input h [B, S, d]:
+    ``layer(lp, x, y, r, j) -> (x, delta)`` runs layer j of block r
+    (parameters ``lp``, stream x, ln1 output y) and leaves its last
+    residual add pending; the next norm folds it in, and a block
+    boundary (``fuse_norm``) also the fusion and the next block's ln1.
+    Returns the final norm's output [B, S, d] (``final``), or the fused
+    hidden states without it: the last block's bare fuse."""
+    pt = _pt(cfg)
+    R, _ = _block_counts(cfg)
+    blocks = params["blocks"]
+    x = _spread(h, cfg)
+    _, y = norm_in(cfg, _layer(blocks["ln1"], 0, 0), x, None)
+    for r in range(R):
+        for j in range(pt.block_depth):
+            lp = _layer(blocks, r, j)
+            if j:
+                x, y = norm_in(cfg, lp["ln1"], x, delta)
+            x, delta = layer(lp, x, y, r, j)
+        if r + 1 < R or final:
+            nxt = (_layer(blocks["ln1"], r + 1, 0) if r + 1 < R
+                   else params["final_norm"])
+            f, y = fuse_norm(cfg.norm, nxt, x, delta, eps=cfg.norm_eps,
+                             fusion_op=pt.fusion_op)       # 1 sync / block
+            x = _spread(f, cfg)
+    return y if final else _fuse(x + delta, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -194,18 +230,17 @@ def pt_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     if positions is None:
         positions = rope_lib.positions_default(B, S, device=inputs.device)
     R, _ = _block_counts(cfg)
-    h = _embed(params, inputs, cfg)                          # [B, S, d]
     ks, vs = [], []
-    for r in range(R):
-        hh = _spread(h, cfg)
-        for j in range(pt.block_depth):
-            hh, (k, v) = layer_apply(_layer(params["blocks"], r, j), hh,
-                                     cfg=cfg, spec=spec, mode="prefill",
-                                     positions=positions)
-            ks.append(k)
-            vs.append(v)
-        h = _fuse(hh, cfg)                                   # 1 sync / block
-    logits = _head(params, h, cfg) if head else None
+
+    def layer(lp, x, y, r, j):
+        x, delta, (k, v) = layer_step(lp, x, y, cfg=cfg, spec=spec,
+                                      mode="prefill", positions=positions)
+        ks.append(k)
+        vs.append(v)
+        return x, delta
+
+    h = _blocks(params, _embed(params, inputs, cfg), cfg, layer, head)
+    logits = _logits(params, h, cfg) if head else None
 
     def stacked(xs):
         return torch.stack(xs).reshape(R, pt.block_depth, *xs[0].shape)
@@ -216,26 +251,25 @@ def pt_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 def _pt_step(params, cache, h: torch.Tensor, pos: torch.Tensor,
              cfg: ModelConfig, mode: str,
              block_table: Optional[torch.Tensor], kv_max_len: Optional[int],
-             active: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Shared decode / chunk drive over the track blocks: fused h
-    [B, C, d] in, fused h out; every layer reads and writes its slice of
+             active: Optional[torch.Tensor] = None,
+             final: bool = True) -> torch.Tensor:
+    """Shared decode / chunk drive over the track blocks: embedded h
+    [B, C, d] in; out the final norm's output (``final``) or the fused
+    hidden states [B, C, d]; every layer reads and writes its slice of
     the cache in place: the paged pools (int8 pools with their scales)
     through ``block_table``, or the contiguous rows [n, B, S, KH, hd]
     (``block_table`` None), whose inactive lanes keep their rows."""
-    pt = _pt(cfg)
     spec = cfg.spec(cfg.pattern_unit[0])
-    R, _ = _block_counts(cfg)
     k_leaf, v_leaf = cache["blocks"]
-    for r in range(R):
-        hh = _spread(h, cfg)
-        for j in range(pt.block_depth):
-            hh, _ = layer_apply(_layer(params["blocks"], r, j), hh, cfg=cfg,
-                                spec=spec, mode=mode, pos=pos,
-                                cache=(k_leaf[r, j], v_leaf[r, j]),
-                                block_table=block_table,
-                                kv_max_len=kv_max_len, active=active)
-        h = _fuse(hh, cfg)                                   # 1 sync / block
-    return h
+
+    def layer(lp, x, y, r, j):
+        x, delta, _ = layer_step(lp, x, y, cfg=cfg, spec=spec, mode=mode,
+                                 pos=pos, cache=(k_leaf[r, j], v_leaf[r, j]),
+                                 block_table=block_table,
+                                 kv_max_len=kv_max_len, active=active)
+        return x, delta
+
+    return _blocks(params, h, cfg, layer, final)
 
 
 def pt_decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
@@ -254,8 +288,8 @@ def pt_decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
     Returns (logits [B, V] or None, cache)."""
     h = _embed(params, tokens[:, None], cfg)                 # [B, 1, d]
     h = _pt_step(params, cache, h, pos, cfg, "decode", block_table,
-                 kv_max_len, active)
-    return (_head(params, h[:, 0], cfg) if head else None), cache
+                 kv_max_len, active, final=head)
+    return (_logits(params, h[:, 0], cfg) if head else None), cache
 
 
 def pt_chunk_hidden(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
@@ -274,7 +308,7 @@ def pt_chunk_hidden(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
     state rows, and padded tail rows land past the row's live length."""
     h = _embed(params, tokens, cfg)                          # [B, C, d]
     return _pt_step(params, cache, h, pos, cfg, "chunk", block_table,
-                    kv_max_len)
+                    kv_max_len, final=False)
 
 
 def pt_chunk_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
@@ -286,9 +320,9 @@ def pt_chunk_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
     updated in place: the paged cache through ``block_table``, or (with
     none) contiguous rows aligned with the batch, the drafter's cache
     filled chunk by chunk.  Returns (logits [B, C, V], cache)."""
-    h = pt_chunk_hidden(params, cache, tokens, pos, cfg, block_table,
-                        kv_max_len)
-    return _head(params, h, cfg), cache
+    h = _pt_step(params, cache, _embed(params, tokens, cfg), pos, cfg,
+                 "chunk", block_table, kv_max_len)
+    return _logits(params, h, cfg), cache
 
 
 # ---------------------------------------------------------------------------

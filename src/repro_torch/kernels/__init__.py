@@ -1,2 +1,2 @@
-"""Hand-written Hopper kernels of the port (CUDA C++ and Triton), each
+"""Hand-written Hopper kernels of the port (CUDA C++), each
 beside its plain PyTorch version.  ``ops`` is the public surface."""

@@ -5,8 +5,10 @@ if it cannot) and runs its plain PyTorch version for CPU tensors.  Each
 keeps ``launches``, a plain int it bumps only where it launched the
 kernel, so a run can show which kernels its path went through.  The
 int8 branch of each decode kernel counts apart from its fp branch, and
-``int8_matmul.routes`` and ``flash_attention.routes`` count the W8A16
-and the flash launches by route.
+``int8_matmul.routes``, ``flash_attention.routes`` and
+``rmsnorm.routes`` count the W8A16, the flash and the RMSNorm launches
+by route (``add_rmsnorm`` and ``fuse_rmsnorm`` are RMSNorm routes: they
+count under ``rmsnorm``).
 
 A CUDA graph's replay runs no Python, so no wrapper counts it: the
 graph records the change of ``counters()`` over its capture, puts the
@@ -24,7 +26,7 @@ from repro_torch.kernels.decode_attention import (decode_attention,
                                                   paged_decode_attention_int8)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.quant_matmul import int8_matmul
-from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.rmsnorm import add_rmsnorm, fuse_rmsnorm, rmsnorm
 from repro_torch.kernels.ssm_scan import ssm_scan
 
 KERNELS = {"paged_decode_attention": paged_decode_attention,
@@ -41,7 +43,7 @@ def launch_counts() -> Dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
-_ROUTED = ("int8_matmul", "flash_attention")
+_ROUTED = ("int8_matmul", "flash_attention", "rmsnorm")
 
 
 def counters() -> Dict[str, int]:
@@ -71,6 +73,6 @@ def add_counters(delta: Dict[str, int]) -> None:
 
 
 def reset_launch_counts() -> None:
-    """Every launch count to 0, and the route counts of ``int8_matmul``
-    and ``flash_attention`` too."""
+    """Every launch count to 0, and the route counts of ``int8_matmul``,
+    ``flash_attention`` and ``rmsnorm`` too."""
     set_counters(dict.fromkeys(counters(), 0))

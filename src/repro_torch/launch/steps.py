@@ -62,9 +62,8 @@ class StepGraph:
     counterpart of the reference's ``aot_compile`` per live-length
     bucket, "the CUDA-graph-per-batch-size pattern".
 
-    ``warm_up`` runs ``fn`` for real on a side stream (Triton compiles
-    there, the kernels ask for their shared memory, cuBLAS sets up its
-    workspace), and ``capture`` records it on that stream into a graph
+    ``warm_up`` runs ``fn`` for real on a side stream (the kernels ask
+    for their shared memory, cuBLAS sets up its workspace), and ``capture`` records it on that stream into a graph
     whose allocations come from ``pool``.  The graphs of a runner share
     one pool: each graph's temporaries die inside it and one stream runs
     the replays one after another, so they may reuse each other's

@@ -27,14 +27,15 @@ auxiliary loss, always zero here; training is ROADMAP queue 1, item 9.)
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.common import quant
 from repro_torch.common.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.common.types import ModelConfig
-from repro_torch.models.layers import check_supported, layer_apply, layer_shapes
+from repro_torch.models.layers import (check_supported, layer_shapes,
+                                       layer_step, norm_in)
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.norms import apply_norm
 from repro_torch.models.params import Leaf, make_params, stack
@@ -100,17 +101,21 @@ def _embed(params, inputs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _head(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Final norm + LM head: h [..., d] -> logits [..., V].
+    """Final norm + LM head: h [..., d] -> logits [..., V]."""
+    return _logits(params, apply_norm(cfg.norm, params["final_norm"], h,
+                                      eps=cfg.norm_eps), cfg)
+
+
+def _logits(params, y: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The LM head on the final norm's output y [..., d] -> [..., V].
 
     With ``cfg.logits_fp32`` the product runs in fp32 on the fp32 cast
     of both operands, as the reference does.  ``head.float()`` is free
     when the caller already holds an fp32 copy of the head (the serving
     runner does, so no step re-casts the bf16 head).  An int8 head
-    (``QuantTensor`` [d, V]) goes through the W8A16 kernel, in h's
+    (``QuantTensor`` [d, V]) goes through the W8A16 kernel, in y's
     dtype."""
-    h = apply_norm(cfg.norm, params["final_norm"], h, eps=cfg.norm_eps)
-    if cfg.logits_fp32:
-        h = h.float()
+    h = y.float() if cfg.logits_fp32 else y
     w = params["embed"].t() if cfg.tie_embeddings else params["head"]
     if quant.is_quantized(w):
         logits = quant.matmul(h.reshape(1, -1, h.shape[-1]), w[None])
@@ -121,6 +126,13 @@ def _head(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         c = cfg.final_logit_softcap
         logits = c * torch.tanh(logits / c)
     return logits
+
+
+def _final(params, x: torch.Tensor, delta: torch.Tensor,
+           cfg: ModelConfig) -> torch.Tensor:
+    """The last residual add folded into the final norm: the normed
+    hidden states [..., d] the LM head reads."""
+    return norm_in(cfg, params["final_norm"], x, delta)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -175,21 +187,22 @@ def lm_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     if positions is None:
         positions = rope_lib.positions_default(*inputs.shape[:2],
                                                device=inputs.device)
-    h = _embed(params, inputs, cfg)
+    x, delta = _embed(params, inputs, cfg), None
     caches: Dict[str, Any] = {"prefix": [], "unit": [[] for _ in
                                                      cfg.pattern_unit],
                               "suffix": []}
     for group, i, r, nm in _layers(cfg):
         lp = (params[group][i] if r is None
               else _at(params["unit"][i], r))
-        h, c = layer_apply(lp, h, cfg=cfg, spec=cfg.spec(nm),
-                           mode="prefill", positions=positions)
+        x, y = norm_in(cfg, lp["ln1"], x, delta)
+        x, delta, c = layer_step(lp, x, y, cfg=cfg, spec=cfg.spec(nm),
+                                 mode="prefill", positions=positions)
         (caches[group] if r is None else caches["unit"][i]).append(c)
     cache = {"prefix": tuple(caches["prefix"]),
              "unit": (tuple(_stacked(cs) for cs in caches["unit"])
                       if cfg.pattern_repeat else ()),
              "suffix": tuple(caches["suffix"])}
-    return _head(params, h, cfg), cache
+    return _logits(params, _final(params, x, delta, cfg), cfg), cache
 
 
 def _step_layers(params, cache, h: torch.Tensor, pos: torch.Tensor,
@@ -198,19 +211,25 @@ def _step_layers(params, cache, h: torch.Tensor, pos: torch.Tensor,
                  kv_max_len: Optional[int],
                  slots: Optional[torch.Tensor] = None,
                  chunk_lens: Optional[torch.Tensor] = None,
-                 active: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 active: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the (prefix, unit × R, suffix) stack in decode or chunk mode;
-    every layer updates its cache entry in place."""
+    every layer updates its cache entry in place.  Returns (x, delta):
+    the hidden states are x + delta, the last residual add left for the
+    final norm to fold in."""
+    x, delta = h, None
     for group, i, r, nm in _layers(cfg):
         if r is None:
             lp, lc = params[group][i], cache[group][i]
         else:
             lp, lc = _at(params["unit"][i], r), _at(cache["unit"][i], r)
-        h, _ = layer_apply(lp, h, cfg=cfg, spec=cfg.spec(nm), mode=mode,
-                           pos=pos, cache=lc, block_table=block_table,
-                           kv_max_len=kv_max_len, slots=slots,
-                           chunk_lens=chunk_lens, active=active)
-    return h
+        x, y = norm_in(cfg, lp["ln1"], x, delta)
+        x, delta, _ = layer_step(lp, x, y, cfg=cfg, spec=cfg.spec(nm),
+                                 mode=mode, pos=pos, cache=lc,
+                                 block_table=block_table,
+                                 kv_max_len=kv_max_len, slots=slots,
+                                 chunk_lens=chunk_lens, active=active)
+    return x, delta
 
 
 def lm_decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
@@ -222,9 +241,9 @@ def lm_decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
     bool freezes the state rows of inactive lanes.  The cache is updated
     in place.  Returns (logits [B, V], cache)."""
     h = _embed(params, tokens[:, None], cfg)
-    h = _step_layers(params, cache, h, pos, cfg, "decode", block_table,
-                     kv_max_len, active=active)
-    return _head(params, h[:, 0], cfg), cache
+    x, delta = _step_layers(params, cache, h, pos, cfg, "decode",
+                            block_table, kv_max_len, active=active)
+    return _logits(params, _final(params, x, delta, cfg)[:, 0], cfg), cache
 
 
 def lm_chunk_hidden(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
@@ -241,8 +260,10 @@ def lm_chunk_hidden(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
     the head is row-wise, so those logits are the rows ``lm_chunk_step``
     returns."""
     h = _embed(params, tokens, cfg)
-    return _step_layers(params, cache, h, pos, cfg, "chunk", block_table,
-                        kv_max_len, slots=slots, chunk_lens=chunk_lens)
+    x, delta = _step_layers(params, cache, h, pos, cfg, "chunk",
+                            block_table, kv_max_len, slots=slots,
+                            chunk_lens=chunk_lens)
+    return x + delta
 
 
 def lm_chunk_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
@@ -253,9 +274,11 @@ def lm_chunk_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
                   chunk_lens: Optional[torch.Tensor] = None):
     """Chunked prefill: tokens [B, C] appended against the cache (updated
     in place).  Returns (logits [B, C, V], cache)."""
-    h = lm_chunk_hidden(params, cache, tokens, pos, cfg, block_table,
-                        kv_max_len, slots=slots, chunk_lens=chunk_lens)
-    return _head(params, h, cfg), cache
+    h = _embed(params, tokens, cfg)
+    x, delta = _step_layers(params, cache, h, pos, cfg, "chunk",
+                            block_table, kv_max_len, slots=slots,
+                            chunk_lens=chunk_lens)
+    return _logits(params, _final(params, x, delta, cfg), cfg), cache
 
 
 def layer_cache(cfg: ModelConfig, nm: str, lead, batch: int, seq_len: int,

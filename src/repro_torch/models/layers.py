@@ -10,7 +10,12 @@ Two flavours are ported:
   * the Mamba layer of the dense ``lm_*`` decoder, mixer only
     (``mlp="none"``, x [B, S, d]).
 
-``layer_apply`` runs the modes the serving path needs:
+``layer_step`` is what the model loops run: its caller applies ln1 (the
+norm of the residual stream, with the previous layer's pending residual
+add, or a track fusion, folded into the same launch: ``norm_in`` and
+``models/norms.py``), and it leaves its own last residual add pending
+for the next norm; ``layer_apply`` is the whole layer, residuals added.
+Both run the modes the serving path needs:
   'prefill' — full-sequence forward, returns the layer's cache
               ((k, v) for GQA, (conv window, h) for Mamba)
   'decode'  — one token per row against the layer's cache
@@ -36,7 +41,7 @@ from repro_torch.common.types import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.mlp import mlp_apply
-from repro_torch.models.norms import apply_norm
+from repro_torch.models.norms import add_norm, apply_norm
 from repro_torch.models.params import Leaf
 
 _PT_LAYER = ("gqa", "swiglu")       # (mixer, mlp) of the PT path
@@ -87,8 +92,15 @@ def layer_shapes(cfg: ModelConfig, spec: LayerSpec,
                     "wo": Leaf((cfg.d_ff, d_stream), 1 / cfg.d_ff ** 0.5)}}
 
 
-def _norm(cfg: ModelConfig, params, name: str, x: torch.Tensor):
-    return apply_norm(cfg.norm, params[name], x, eps=cfg.norm_eps)
+def norm_in(cfg: ModelConfig, params, x: torch.Tensor,
+            delta: Optional[torch.Tensor]
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x, y): the residual stream with the pending residual ``delta``
+    added (None: none pending) and its norm under ``params`` (a
+    ``{"scale": ...}`` node), in one launch."""
+    if delta is None:
+        return x, apply_norm(cfg.norm, params, x, eps=cfg.norm_eps)
+    return add_norm(cfg.norm, params, x, delta, eps=cfg.norm_eps)
 
 
 def _write_rows(cache, new_rows, slots: Optional[torch.Tensor]):
@@ -150,24 +162,48 @@ def _track1(tree):
     return tree
 
 
-def _apply(params, x: torch.Tensor, *, cfg: ModelConfig, spec: LayerSpec,
-           mode: str, positions, pos, cache, block_table, kv_max_len, slots,
-           chunk_lens, active) -> Tuple[torch.Tensor, Any]:
-    h = _norm(cfg, params, "ln1", x)
+def _step(params, x: torch.Tensor, y: torch.Tensor, *, cfg: ModelConfig,
+          spec: LayerSpec, mode: str, positions, pos, cache, block_table,
+          kv_max_len, slots, chunk_lens, active
+          ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
     if spec.mixer == "mamba":
-        h, new_cache = _mamba(params["mixer"], h, cfg=cfg, mode=mode,
+        h, new_cache = _mamba(params["mixer"], y, cfg=cfg, mode=mode,
                               cache=cache, slots=slots,
                               chunk_lens=chunk_lens, active=active)
-    else:
-        h, new_cache = _gqa(params["mixer"], h, cfg=cfg, spec=spec,
-                            mode=mode, positions=positions, pos=pos,
-                            cache=cache, block_table=block_table,
-                            kv_max_len=kv_max_len, active=active)
-    x = x + h
-    if spec.mlp != "none":
-        h = _norm(cfg, params, "ln2", x)
-        x = x + mlp_apply(params["mlp"], h, spec.mlp)
-    return x, new_cache
+        return x, h, new_cache
+    h, new_cache = _gqa(params["mixer"], y, cfg=cfg, spec=spec, mode=mode,
+                        positions=positions, pos=pos, cache=cache,
+                        block_table=block_table, kv_max_len=kv_max_len,
+                        active=active)
+    x, y = norm_in(cfg, params["ln2"], x, h)
+    return x, mlp_apply(params["mlp"], y, spec.mlp), new_cache
+
+
+def layer_step(params, x: torch.Tensor, y: torch.Tensor, *,
+               cfg: ModelConfig, spec: LayerSpec, mode: str,
+               positions: Optional[torch.Tensor] = None,
+               pos: Optional[torch.Tensor] = None, cache: Any = None,
+               block_table: Optional[torch.Tensor] = None,
+               kv_max_len: Optional[int] = None,
+               slots: Optional[torch.Tensor] = None,
+               chunk_lens: Optional[torch.Tensor] = None,
+               active: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
+    """One layer whose ln1 the caller applied: x the residual stream (in a
+    PT model possibly one fused row broadcast to every track), y =
+    ln1(x).  Returns (x, delta, cache): the layer's output is x + delta,
+    the add left for the next norm to fold in (``norm_in``).  Arguments
+    and cache as ``layer_apply``."""
+    kw = dict(cfg=cfg, spec=spec, mode=mode, positions=positions, pos=pos,
+              block_table=block_table, kv_max_len=kv_max_len, slots=slots,
+              chunk_lens=chunk_lens, active=active)
+    if cfg.pt is None and spec.mixer == "gqa":
+        # an lm_* GQA layer runs the PT layer's code at n = 1, on views
+        x1, d1, c1 = _step(_track1(params), x[None], y[None],
+                           cache=_track1(cache), **kw)
+        return x1[0], d1[0], (tuple(c[0] for c in c1) if mode == "prefill"
+                              else cache)
+    return _step(params, x, y, cache=cache, **kw)
 
 
 def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
@@ -191,12 +227,10 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
     whose contiguous rows or state may change.  Returns (x, cache).
     (The reference also returns an auxiliary MoE loss, always zero
     here.)"""
-    kw = dict(cfg=cfg, spec=spec, mode=mode, positions=positions, pos=pos,
-              block_table=block_table, kv_max_len=kv_max_len, slots=slots,
-              chunk_lens=chunk_lens, active=active)
-    if cfg.pt is None and spec.mixer == "gqa":
-        # an lm_* GQA layer runs the PT layer's code at n = 1, on views
-        x1, c1 = _apply(_track1(params), x[None], cache=_track1(cache), **kw)
-        return x1[0], (tuple(c[0] for c in c1) if mode == "prefill"
-                       else cache)
-    return _apply(params, x, cache=cache, **kw)
+    x, y = norm_in(cfg, params["ln1"], x, None)
+    x, delta, cache = layer_step(params, x, y, cfg=cfg, spec=spec,
+                                 mode=mode, positions=positions, pos=pos,
+                                 cache=cache, block_table=block_table,
+                                 kv_max_len=kv_max_len, slots=slots,
+                                 chunk_lens=chunk_lens, active=active)
+    return x + delta, cache

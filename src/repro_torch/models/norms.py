@@ -1,11 +1,21 @@
 """RMSNorm (counterpart of ``repro.models.norms``): gemma-style
 ``(1 + scale)`` weight, fp32 math, routed through the RMSNorm kernel
-wrapper so every track of a layer is normalised in one launch."""
+wrapper so every track of a layer is normalised in one launch.  The
+residual add before a norm, and at a track-block boundary the fusion
+mean, go into the same launch (``add_norm``, ``fuse_norm``)."""
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import ops
+
+
+def _rms_only(kind: str) -> None:
+    if kind != "rmsnorm":
+        raise NotImplementedError(
+            f"norm {kind!r} is not ported (ROADMAP queue 1, item 3)")
 
 
 def rmsnorm(params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
@@ -16,7 +26,24 @@ def rmsnorm(params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
 
 def apply_norm(kind: str, params, x: torch.Tensor, *,
                eps: float) -> torch.Tensor:
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {kind!r} is not ported (ROADMAP queue 1, item 3)")
+    _rms_only(kind)
     return rmsnorm(params, x, eps=eps)
+
+
+def add_norm(kind: str, params, x: torch.Tensor, delta: torch.Tensor, *,
+             eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The residual add and the norm of its result: (x + delta,
+    norm(x + delta)), the sum rounded to x's dtype first."""
+    _rms_only(kind)
+    return ops.add_rmsnorm(x, delta, params["scale"], eps=eps)
+
+
+def fuse_norm(kind: str, params, x: torch.Tensor, delta: torch.Tensor, *,
+              eps: float, fusion_op: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A track-block boundary: x, delta [n, ..., d] -> (f, norm(f)) with f
+    [..., d] the fusion of x + delta over the tracks; the norm under the
+    next layer's per-track scale [n, d] (y [n, ..., d]) or the final
+    scale [d] (y [..., d])."""
+    _rms_only(kind)
+    return ops.fuse_rmsnorm(x, delta, params["scale"], eps=eps,
+                            fusion_op=fusion_op)

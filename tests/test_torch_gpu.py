@@ -12,7 +12,9 @@ split and many, the vector and the scalar path, bitwise repeatable with
 their ticket counters back at zero, one device kernel per call.  Flash
 prefill on each route (wgmma + TMA for bf16 at hd 64 / 128, the CUDA
 cores otherwise) at the serve layouts and ragged S, Sq != Sk, an
-unaligned view, bitwise repeatable, one device kernel per call.  The contiguous decode
+unaligned view, bitwise repeatable, one device kernel per call.  RMSNorm
+on each route (``norm``, ``add_norm``, ``fuse_norm``; a fused row
+broadcast to the tracks among the inputs), bitwise repeatable.  The contiguous decode
 kernel at the speculative drafter's shapes, and a reduced speculative
 engine run, card against CPU.  The step programs' CUDA graphs (reduced
 configs): a replayed decode or spec step bitwise equal to the eager step
@@ -207,22 +209,44 @@ def test_flash_attention_wgmma_route_is_bitwise_repeatable():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,per_track", [((8, 2, 5, 1408), True),
-                                             ((7, 32), False)])
+@pytest.mark.parametrize("route", ["norm", "add_norm", "fuse_norm"])
+@pytest.mark.parametrize("shape,per_track,bcast", [
+    ((8, 2, 5, 1408), True, False), ((7, 32), False, False),
+    ((8, 8, 1, 1408), True, True), ((4, 3, 4096), False, False)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_rmsnorm_kernel_matches_plain(shape, per_track, dtype):
+def test_rmsnorm_kernel_matches_plain(route, shape, per_track, bcast, dtype):
+    """Each route of csrc/rmsnorm.cu against its plain version: per-track
+    and shared scale rows, x a fused row broadcast to every track (stride
+    0), d 32 / 1408 / 4096; bitwise repeatable, one launch counted under
+    ``rmsnorm`` and its route."""
+    from repro_torch.kernels import rmsnorm as rn
     dev, tol = _cuda(), _TOL[dtype]
     rng = np.random.default_rng(2)
-    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32) * 3
-                         ).to(dev, _TDT[dtype])
+    x = torch.from_numpy(rng.standard_normal(
+        shape[1:] if bcast else shape).astype(np.float32) * 3
+    ).to(dev, _TDT[dtype])
+    x = x[None].expand(shape) if bcast else x
+    delta = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             ).to(dev, _TDT[dtype])
     s = torch.from_numpy(rng.standard_normal(
         (shape[0], shape[-1]) if per_track else (shape[-1],)
     ).astype(np.float32) * 0.2).to(dev)
-    before = ops.launch_counts()["rmsnorm"]
-    torch.testing.assert_close(ops.rmsnorm(x, s), ref.rmsnorm_plain(x, s),
-                               rtol=tol, atol=tol)
+    call = {"norm": lambda: (ops.rmsnorm(x, s),),
+            "add_norm": lambda: ops.add_rmsnorm(x, delta, s),
+            "fuse_norm": lambda: ops.fuse_rmsnorm(x, delta, s)}[route]
+    want = {"norm": lambda: (ref.rmsnorm_plain(x, s),),
+            "add_norm": lambda: ref.add_rmsnorm_plain(x, delta, s),
+            "fuse_norm": lambda: ref.fuse_rmsnorm_plain(x, delta, s)}[route]
+    before = (ops.launch_counts()["rmsnorm"], rn.rmsnorm.routes[route])
+    got = call()
+    for g, w in zip(got, want()):
+        assert g.shape == w.shape and g.is_contiguous()
+        torch.testing.assert_close(g, w, rtol=tol, atol=tol)
     torch.cuda.synchronize()
-    assert ops.launch_counts()["rmsnorm"] == before + 1
+    assert (ops.launch_counts()["rmsnorm"], rn.rmsnorm.routes[route]) == \
+        (before[0] + 1, before[1] + 1)
+    for g, again in zip(got, call()):
+        assert torch.equal(g, again)
 
 
 @pytest.mark.gpu

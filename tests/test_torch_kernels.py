@@ -66,6 +66,144 @@ def test_rmsnorm_plain_matches_pallas(shape, per_track, dtype):
         _close(out, jops.rmsnorm(xj, jnp.asarray(scale), block_rows=4), dtype)
 
 
+# (route, x shape, per-track scale, x a fused row broadcast to every
+# track): the residual add before a norm, and a track-block boundary under
+# the next layer's per-track scales or the final norm's one row
+_NORM_ROUTES = [("add_norm", (3, 2, 5, 32), True, False),
+                ("add_norm", (4, 48), False, False),
+                ("add_norm", (3, 2, 5, 32), True, True),
+                ("fuse_norm", (4, 2, 3, 32), True, False),
+                ("fuse_norm", (4, 2, 3, 32), False, False),
+                ("fuse_norm", (2, 6, 1408), True, True)]
+
+
+def _route_inputs(shape, per_track, bcast, seed=0):
+    """x (fp32 numpy, [n, ...] or one row broadcast over n), delta and
+    the scale rows of one route's call."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape[1:] if bcast else shape).astype(
+        np.float32) * 3
+    x = np.broadcast_to(x, shape) if bcast else x
+    delta = rng.standard_normal(shape).astype(np.float32) * 2
+    d = shape[-1]
+    scale = rng.standard_normal((shape[0], d) if per_track else (d,)
+                                ).astype(np.float32) * 0.2
+    return x, delta, scale
+
+
+def _torch_x(x: np.ndarray, dtype: str) -> torch.Tensor:
+    """x as a torch tensor; a broadcast numpy row stays a broadcast view
+    (track stride 0), as the PT model hands its fused rows over."""
+    if x.strides[0] == 0:
+        return torch.from_numpy(np.array(x[0])).to(
+            _TDT[dtype])[None].expand(x.shape)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(_TDT[dtype])
+
+
+@pytest.mark.parametrize("route,shape,per_track,bcast", _NORM_ROUTES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_add_and_fuse_rmsnorm_plain_match_jax(route, shape, per_track,
+                                              bcast, dtype):
+    """The routes' plain versions against the JAX composition they fold:
+    jnp ``x + h`` then ``repro.models.norms.rmsnorm``; and
+    ``repro.core.track._fuse`` of ``x + h`` then ``rmsnorm`` under each
+    track's scale row (or the final [d])."""
+    from repro.configs import reduced_config as j_reduced_config
+    from repro.core import track as jtrack
+    from repro.models import norms as jnorms
+    from repro.runtime.parallel import Parallelism
+    x, delta, scale = _route_inputs(shape, per_track, bcast)
+    xj = jnp.asarray(np.ascontiguousarray(x)).astype(_JDT[dtype])
+    dj, dt = _pair(delta, dtype)
+    xn = xj + dj
+    s = torch.from_numpy(scale)
+
+    def jnorm(v, i=None):
+        row = scale if i is None else scale[i]
+        return jnorms.rmsnorm({"scale": jnp.asarray(row)}, v)
+
+    if route == "add_norm":
+        got_x, y = ref.add_rmsnorm_plain(_torch_x(x, dtype), dt, s)
+        _close(got_x, xn, dtype)
+        want = ([jnorm(xn[i], i) for i in range(shape[0])] if per_track
+                else [jnorm(xn)])
+    else:
+        f, y = ref.fuse_rmsnorm_plain(_torch_x(x, dtype), dt, s)
+        fj = jtrack._fuse(xn, j_reduced_config("pt-6b-d4"), Parallelism())
+        _close(f, fj, dtype)
+        want = ([jnorm(fj, i) for i in range(shape[0])] if per_track
+                else [jnorm(fj)])
+    for i, w in enumerate(want):
+        _close(y[i] if len(want) > 1 else y, w, dtype)
+
+
+@pytest.mark.parametrize("route,shape,per_track,bcast", _NORM_ROUTES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_routes_equal_the_unfused_sequence_bitwise(
+        route, shape, per_track, bcast, dtype):
+    """On the CPU each route is the sequence of PyTorch ops it replaces,
+    bit for bit: a fused row spread by a contiguous copy, the residual add
+    in the activation dtype, the track mean accumulated in fp32 and cast
+    back, then ``rmsnorm_plain``; the wrappers count no launch."""
+    from repro_torch.kernels import rmsnorm as rn
+    x, delta, scale = _route_inputs(shape, per_track, bcast, seed=3)
+    xt, dt = _torch_x(x, dtype), torch.from_numpy(delta).to(_TDT[dtype])
+    s = torch.from_numpy(scale)
+    xn = xt.contiguous() + dt
+    before = (ops.launch_counts(), dict(rn.rmsnorm.routes))
+    if route == "add_norm":
+        got = ops.add_rmsnorm(xt, dt, s)
+        want = (xn, ref.rmsnorm_plain(xn, s))
+    else:
+        got = ops.fuse_rmsnorm(xt, dt, s)
+        f = torch.mean(xn, dim=0, dtype=torch.float32).to(xn.dtype)
+        spread = f[None].expand(xn.shape).contiguous()
+        want = (f, ref.rmsnorm_plain(spread if per_track else f, s))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+    assert (ops.launch_counts(), rn.rmsnorm.routes) == before
+
+
+# (d, element bytes) -> (threads per CTA, vectors per thread): the serve
+# widths of pt-6b-d4 (d 1408) and dense-6b / falcon-mamba (d 4096) in
+# bf16 and fp32, and small rows
+_NORM_PLANS = [((1408, 2), (192, 1)), ((4096, 2), (512, 1)),
+               ((1408, 4), (352, 1)), ((4096, 4), (512, 2)),
+               ((32, 4), (32, 1)), ((8192, 2), (512, 2))]
+
+
+@pytest.mark.parametrize("args,want", _NORM_PLANS)
+def test_rmsnorm_launch_plan(args, want):
+    from repro_torch.kernels import rmsnorm as rn
+    assert rn.launch_plan(*args) == want
+    threads, vpt = want
+    d, size = args
+    assert threads % 32 == 0 and threads <= 512 and vpt in (1, 2)
+    assert threads * vpt * 16 >= d * size > (threads * vpt - 32) * 16
+
+
+def test_rmsnorm_routes_refuse_what_the_kernel_cannot_take():
+    from repro_torch.kernels import rmsnorm as rn
+    x, d = torch.randn(2, 3, 16), torch.randn(2, 3, 16)
+    s = torch.zeros(2, 16)
+    for bad in ((36, 2), (16384, 2), (0, 4), (4100, 4)):
+        with pytest.raises(ValueError):
+            rn.launch_plan(*bad)
+    with pytest.raises(ValueError, match="delta"):
+        ops.add_rmsnorm(x, d.transpose(1, 2).contiguous().transpose(1, 2),
+                        s)
+    with pytest.raises(ValueError, match="delta"):
+        ops.fuse_rmsnorm(x, d[:, :2], s)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.add_rmsnorm(torch.randn(2, 3, 32)[..., :16], d, s)
+    with pytest.raises(ValueError):
+        ops.fuse_rmsnorm(x, d, torch.zeros(3, 16))
+    with pytest.raises(ValueError, match="fusion_op"):
+        ops.fuse_rmsnorm(x, d, s, fusion_op="max")
+    with pytest.raises(ValueError):
+        ops.add_rmsnorm(x, d, torch.zeros(3, 16))
+
+
 @pytest.mark.parametrize("B,S,H,KH,hd,dtype,causal", [
     (2, 64, 4, 1, 32, "float32", True), (2, 64, 4, 1, 32, "bfloat16", False),
     (1, 96, 4, 2, 64, "float32", False), (1, 96, 4, 2, 64, "bfloat16", True)])
@@ -292,29 +430,33 @@ def test_flash_attention_route_by_dtype_hd_and_alignment(args, want):
 
 
 def test_reset_launch_counts_zeroes_the_route_counts():
-    """``reset_launch_counts`` zeroes every launch count and both route
+    """``reset_launch_counts`` zeroes every launch count and the route
     counters (set by hand here: the CPU launches nothing), and
     ``launch_counts`` keeps its key set."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quant_matmul as qm
+    from repro_torch.kernels import rmsnorm as rn
     keys = set(ops.launch_counts())
     saved = (ops.launch_counts(), dict(fa.flash_attention.routes),
-             dict(qm.int8_matmul.routes))
+             dict(qm.int8_matmul.routes), dict(rn.rmsnorm.routes))
     try:
         for fn in ops.KERNELS.values():
             fn.launches = 3
         fa.flash_attention.routes["wgmma_tma"] = 2
         qm.int8_matmul.routes["mma_m16"] = 5
+        rn.rmsnorm.routes["fuse_norm"] = 4
         ops.reset_launch_counts()
         assert set(ops.launch_counts()) == keys
         assert not any(ops.launch_counts().values())
         assert not any(fa.flash_attention.routes.values())
         assert not any(qm.int8_matmul.routes.values())
+        assert not any(rn.rmsnorm.routes.values())
     finally:
         for name, n in saved[0].items():
             ops.KERNELS[name].launches = n
         fa.flash_attention.routes.update(saved[1])
         qm.int8_matmul.routes.update(saved[2])
+        rn.rmsnorm.routes.update(saved[3])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

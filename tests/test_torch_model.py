@@ -330,3 +330,91 @@ def test_sync_accounting_matches_reference():
             (b.n_layers, b.d_model, b.n_heads, b.n_kv_heads, b.head_dim,
              b.d_ff, b.vocab_size, b.rope_theta, b.pt.n_tracks,
              b.pt.block_depth)
+
+
+# ---------------------------------------------------------------------------
+# the fused norms against the unfused layer loop they replaced
+# ---------------------------------------------------------------------------
+
+def _unfused(params, cfg, tokens, mode, cache=None, pos=None):
+    """Logits of the sequence the port ran before its norms took in the
+    residual adds and the track fusion: whole layers (``layer_apply``:
+    norm, mixer, add, norm, MLP, add), in a PT model each block's input
+    spread to the tracks by a contiguous copy and ``_fuse`` (fp32 mean,
+    cast back) at its end, then ``_head`` (final norm, LM head).  tokens
+    [B] (decode) or [B, S]; caches updated in place."""
+    from repro_torch.models import decoder as dec
+    tok = tokens[:, None] if mode == "decode" else tokens
+    h = dec._embed(params, tok, cfg)
+    kw = (dict(positions=rope.positions_default(*tok.shape, device="cpu"))
+          if mode == "prefill" else dict(pos=pos))
+    if cfg.pt is not None:
+        R, D = cfg.n_layers // cfg.pt.block_depth, cfg.pt.block_depth
+        spec = cfg.spec(cfg.pattern_unit[0])
+        for r in range(R):
+            hh = h[None].expand(cfg.pt.n_tracks, *h.shape).contiguous()
+            for j in range(D):
+                lc = (None if cache is None else
+                      tuple(c[r, j] for c in cache["blocks"]))
+                hh, _ = layers.layer_apply(track._layer(params["blocks"], r,
+                                                        j), hh, cfg=cfg,
+                                           spec=spec, mode=mode, cache=lc,
+                                           **kw)
+            h = track._fuse(hh, cfg)
+    else:
+        for group, i, r, nm in dec._layers(cfg):
+            lp, lc = ((params[group][i], None if cache is None
+                       else cache[group][i]) if r is None else
+                      (dec._at(params["unit"][i], r), None if cache is None
+                       else dec._at(cache["unit"][i], r)))
+            h, _ = layers.layer_apply(lp, h, cfg=cfg, spec=cfg.spec(nm),
+                                      mode=mode, cache=lc, **kw)
+    return dec._head(params, h[:, 0] if mode == "decode" else h, cfg)
+
+
+@pytest.mark.parametrize("arch", ["pt-6b-d4", "dense-6b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_norm_loop_equals_the_unfused_loop_bitwise(arch, dtype):
+    """Reduced PT, dense ``lm_*`` and falcon-mamba models: prefill, two
+    decode steps and a chunk of 3 on the contiguous cache give the same
+    logits bit for bit, and leave the same cache bytes, whether the
+    residual adds and the fusion run inside the norms (the model entry
+    points) or as the ops they replaced (``_unfused``); so the greedy
+    streams are those of before too."""
+    from repro_torch.launch.steps import model_fns
+    cfg = reduced_config(arch).replace(dtype=dtype)
+    fns = model_fns(cfg)
+    params = fns["init"](torch.Generator().manual_seed(0), cfg, "cpu")
+    rng = np.random.default_rng(7)
+
+    def perturb(tree):           # norm scales are drawn as zeros
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                perturb(v)
+            elif isinstance(v, tuple):
+                for u in v:
+                    perturb(u)
+            elif k == "scale":
+                v.copy_(torch.from_numpy(rng.standard_normal(
+                    tuple(v.shape)).astype(np.float32) * 0.1))
+
+    perturb(params)
+    B, S = 2, 5
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, S)))
+    got, _ = fns["forward"](params, {"inputs": toks}, cfg)
+    assert torch.equal(got, _unfused(params, cfg, toks, "prefill"))
+    new = fns["init_cache"](cfg, B, 8, "cpu")
+    old = jax.tree_util.tree_map(torch.clone, new)
+    for p in range(2):
+        tok = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B,)))
+        pos = torch.full((B,), p, dtype=torch.int32)
+        got, _ = fns["decode"](params, new, tok, pos, cfg)
+        assert torch.equal(got, _unfused(params, cfg, tok, "decode", old,
+                                         pos)), p
+    chunk = torch.from_numpy(rng.integers(1, cfg.vocab_size, (B, 3)))
+    pos = torch.full((B,), 2, dtype=torch.int32)
+    got, _ = fns["chunk"](params, new, chunk, pos, cfg)
+    assert torch.equal(got, _unfused(params, cfg, chunk, "chunk", old, pos))
+    for a, b in zip(jax.tree_util.tree_leaves(new),
+                    jax.tree_util.tree_leaves(old)):
+        assert torch.equal(a, b)

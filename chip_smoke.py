@@ -92,9 +92,10 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      dispatched before step N's transfer is waited on), gated by
      ``serve_planned``: all finish, every decode / spec step a replay
      with one host transfer, the sync run's launch and route arithmetic
-     with the replays counted, plain streams equal to the sync run's
-     (speculative ones equal, or split from plain decode at near-ties
-     only), one replayed step bitwise equal to the eager step (logits,
+     with the replays counted, streams bitwise equal to the sync run's
+     (speculative ones too: the decode kernels' split size follows the
+     cache's capacity, so the pipelined step's wider bound changes no
+     bit), one replayed step bitwise equal to the eager step (logits,
      packed result, cache bytes); with each pair's TTFT, TPOT,
      throughput, peak memory, graph count, capture time and dispatch
      gaps;
@@ -105,7 +106,26 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      step's device busy time split between the K + 1 draft forwards and
      the verify, its device ops and its busy share against the
      unprofiled step; for each planned run, one replayed step's device
-     busy time, device ops and busy share against the unprofiled step.
+     busy time, device ops and busy share against the unprofiled step;
+  7. sampled serving, pt-6b-d4 bf16 (``serve_sampling``,
+     ``spec_boundary``, ``serve_spec_sampled``): the threefry keys, bits
+     and uniforms on the card bitwise the CPU port's (gated; the Gumbel
+     noise's ulp distance and 64 categorical draws reported); the
+     sampling epilogue alone, greedy against sampled, for the decode
+     step and the spec step's accept (device work and device ops); phase
+     5's prompts served with every request sampled (temperature 0.8,
+     top-k 50, top-p 0.95, seeds 0-7), sync then planned with the greedy
+     and the sampled programs captured (``serve_planned``'s gates:
+     streams bitwise equal to sync, every step a replay, one replay
+     bitwise its eager step; each variant's graphs, capture seconds and
+     memory); a mixed batch (lanes 0-3 greedy) whose greedy lanes must
+     emit phase 5's greedy streams bitwise; greedy speculation (seeded
+     tracks) on prompts of 496-503 tokens, whose farthest lane passes
+     within K positions below 512, sync against pipelined (the
+     drafter's logits bitwise at every step) and planned (streams
+     bitwise), gated on at least one step taking another bound; and,
+     on the tied tracks, the speculative arm with every request
+     sampled (rejection-sampling accept), sync against planned.
 Prints one ``{"kernels": [...]}`` JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -200,16 +220,18 @@ def device_timing(kern, lib, sets, lib_sets, iters: int = 200):
             "library_eager_ms": time_ms(lib, lib_sets, iters)}
 
 
-def decode_extras(row, t, sweep: int, base: int, page):
+def decode_extras(row, t, sweep: int, base: int, page, capacity: int):
     """Beside a decode row: its eager times, its split plan (as the
-    wrapper makes it on this card from the tokens it sweeps) and its share
-    of the bound."""
+    wrapper makes it on this card: the split size from the cache's
+    capacity, the splits from the tokens it sweeps) and its share of the
+    bound."""
     from repro_torch.kernels import decode_attention as da
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    splits, per = da.split_plan(sweep, base, page, sms)
+    splits, per = da.split_plan(sweep, base, page, sms, capacity)
     row.update(eager_ms=t["eager_ms"], library_eager_ms=t["library_eager_ms"],
                split_plan={"splits": splits, "tokens_per_split": per,
-                           "blocks": splits * base, "swept": sweep},
+                           "blocks": splits * base, "swept": sweep,
+                           "capacity": capacity},
                bound_share=row["bound_ms"] / row["ms"],
                timing="ms and library_ms: device work (CUDA graph replay)")
     log(f"[kernel]   {row['name']}: {splits} split(s) of {per} tokens, "
@@ -341,7 +363,8 @@ def check_kernels(dev: torch.device):
         "src/repro/kernels/decode_attention.py:187", out, want, t["ms"], p_ms,
         t["library_ms"], live + nbytes(q, table, lengths, out),
         4.0 * n * SLOTS * L * H * hd, BF16_FLOP_S))
-    decode_extras(rows[-1], t, max_len, n * SLOTS * KH, BLOCK)  # whole blocks
+    decode_extras(rows[-1], t, max_len, n * SLOTS * KH, BLOCK,  # whole blocks
+                  nmax * BLOCK)
     del sets, q, kp, vp, out, want
     torch.cuda.empty_cache()
     rows[-1]["shapes"] = decode_shapes(dev, g, paged=True)
@@ -512,7 +535,8 @@ def check_decode_attention(dev: torch.device, g: torch.Generator,
             live * KH * row_bytes * 2 + nbytes(sets[0][0], lengths, out),
             4.0 * live * H * hd,
             BF16_FLOP_S if branch == "bf16" else FP32_FLOP_S)
-        decode_extras(row, t, da._sweep_cols(S, 512, max_len), B * KH, None)
+        decode_extras(row, t, da._sweep_cols(S, 512, max_len), B * KH, None,
+                      S)
         row["at"] = (f"q [{B},{H},{hd}] bf16, cache [{B},{S},{KH},{hd}] "
                      f"{'bf16' if branch == 'bf16' else 'int8 + fp32 scales'}"
                      f", lengths {int(lengths.min())}-{int(lengths.max())} "
@@ -626,7 +650,8 @@ def decode_shapes(dev: torch.device, g: torch.Generator, paged: bool):
             layout = "paged, 8 tracks" if paged else "contiguous"
             row["at"] = f"B {B}, live {L} ({layout}, max_len {max_len})"
             log(f"[kernel]   {name} at {row['at']}")
-            decode_extras(row, t, sweep, n * B * KH, BLOCK if paged else None)
+            decode_extras(row, t, sweep, n * B * KH, BLOCK if paged else None,
+                          nmax * BLOCK if paged else S)
             out_rows.append(row)
             del sets, out, want
             torch.cuda.empty_cache()
@@ -941,7 +966,7 @@ def check_int8_kernels(dev: torch.device, g: torch.Generator):
         "src/repro/kernels/decode_attention.py:187", out, want, t["ms"],
         p_ms, t["library_ms"], live + nbytes(q, table, lengths, out),
         4.0 * n * SLOTS * L * H * hd, FP32_FLOP_S))
-    decode_extras(rows[-1], t, max_len, n * SLOTS * KH, BLOCK)
+    decode_extras(rows[-1], t, max_len, n * SLOTS * KH, BLOCK, nmax * BLOCK)
     rows[-1]["branch"] = ("int8 pools with scale pools (_paged_kernel :153, "
                           "_online_softmax_step :34)")
     del sets
@@ -989,7 +1014,8 @@ def check_reduced_parity(dev: torch.device) -> None:
                         device=d)
         for s, p in enumerate(prompts):
             r.kv.allocate(s, len(p) + 4)
-        first = r.prefill(prompts, 16, [0, 1], [SampleParams()] * 2)
+        first = r.prefill(prompts, 16, [0, 1], [0, 0], [0, 0],
+                          [SampleParams()] * 2)
         steps = []
         pos = np.asarray([len(p) for p in prompts], np.int32)
         for t in range(teacher.shape[0]):
@@ -1352,7 +1378,8 @@ def check_spec_parity(dev: torch.device) -> None:
                             speculate_k=3, draft_tracks=2, device=d)
             for slot, p in enumerate(prompts):
                 r.kv.allocate(slot, len(p) + 4)
-            r.prefill(prompts, 16, [0, 1], [SampleParams()] * 2)
+            r.prefill(prompts, 16, [0, 1], [0, 0], [0, 0],
+                      [SampleParams()] * 2)
             r.draft_prefill(prompts, 16, [0, 1])
             pos = torch.as_tensor([len(p) for p in prompts],
                                   dtype=torch.int32).to(d)
@@ -1574,7 +1601,7 @@ def serve_full(dev: torch.device, card: str, int8: bool = False,
     profile_steps(eng, cfg.vocab_size, rng, m["tpot_ms"]["p50"], tag)
     if keep is not None:
         keep.update(params=params, prompts=[rq.prompt for rq in reqs],
-                    streams=[rq.output for rq in reqs])
+                    streams=[rq.output for rq in reqs], m=m)
     sync = {"m": m, "peak": peak, "streams": [rq.output for rq in reqs]}
     del eng, r
     gc.collect()
@@ -1767,7 +1794,7 @@ def serve_spec(dev: torch.device, card: str, params, prompts, plain,
     torch.cuda.empty_cache()
     serve_planned(dev, card, tag, "spec", cfg, params,
                   dict(speculate_k=K, draft_tracks=SPEC_TRACKS), prompts,
-                  sync, plain=plain, tied=tied)
+                  sync)
     return launches, m["acceptance_rate"]
 
 
@@ -1811,7 +1838,8 @@ def check_spec_logits(eng, prompts, plain, spec, tag: str,
                            device=dev)                          # [n, T]
     with torch.no_grad():
         bucket = r.bucket_for(PROMPT)
-        first = r.prefill(prompts, bucket, slots, [SampleParams()] * n)
+        first = r.prefill(prompts, bucket, slots, [0] * n, [0] * n,
+                          [SampleParams()] * n)
         r.draft_prefill(prompts, bucket, slots)
         ver = torch.cat([r.fns["chunk"](
             r.params, r.cache, toks[:, c:c + K + 1], pos_d + c, cfg,
@@ -2198,15 +2226,18 @@ def _cache_tensors(r):
                                   if r.speculate_k else [])
 
 
-def check_replay(eng, prompts, tag: str) -> bool:
+def check_replay(eng, prompts, tag: str, submit_kws=None) -> bool:
     """One decode (or spec) step replayed from its CUDA graph against the
     same step run eagerly, from the same cache bytes and inputs: the
     logits (the verify's, for a spec step), the packed result and every
     cache byte afterwards must be bitwise equal.  The step is taken with
-    SLOTS fresh requests decoding; the engine is spent afterwards."""
+    SLOTS fresh requests decoding (each submitted with its entry of
+    ``submit_kws``: a sampled run replays its sampled program); the
+    engine is spent afterwards."""
     from repro_torch.serving.engine import RequestState
     r = eng.runner
-    reqs = [eng.submit(p, NEW) for p in prompts]
+    kws = submit_kws or [{}] * len(prompts)
+    reqs = [eng.submit(p, NEW, **kw) for p, kw in zip(prompts, kws)]
     while any(q.state is not RequestState.DECODE for q in reqs):
         eng.step()
     eng._drain_inflight()
@@ -2214,14 +2245,15 @@ def check_replay(eng, prompts, tag: str) -> bool:
     saved = [t.clone() for t in cache]
 
     def one_step():
+        kw = dict(seeds=eng._seeds, top_k=eng._topks, top_p=eng._topps)
         if r.speculate_k:
             h = r.dispatch_spec(eng._tok, eng._pos, eng._active, eng._temps,
-                                eng._counts)
+                                eng._counts, **kw)
             out = r.wait_spec(h)
         else:
             h = r.dispatch_decode(eng._tok, eng._pos, eng._active,
                                   eng._temps, eng._eos, eng._remaining,
-                                  eng._counts)
+                                  eng._counts, **kw)
             out = r.wait_decode(h)
         return (h["key"], h["logits"].float().clone(),
                 [np.asarray(o).copy() for o in out],
@@ -2250,18 +2282,19 @@ def check_replay(eng, prompts, tag: str) -> bool:
     return replayed and same_logits and same_out and same_cache
 
 
-def profile_planned(eng, vocab: int, rng, tag: str) -> None:
-    """Phase 6 for a planned run: SLOTS requests admitted and decoding,
-    then three engine steps timed unprofiled (wall, synchronized; each
-    dispatches one replay and waits on the one before) and three
-    profiled: device busy per step, device ops per step (the graph's
-    kernels and the step's copies), and the busy share against the
-    unprofiled step."""
+def profile_planned(eng, vocab: int, rng, tag: str, submit_kws=None) -> None:
+    """Phase 6 for a planned run: SLOTS requests admitted and decoding
+    (each submitted with its entry of ``submit_kws``), then three engine
+    steps timed unprofiled (wall, synchronized; each dispatches one
+    replay and waits on the one before) and three profiled: device busy
+    per step, device ops per step (the graph's kernels and the step's
+    copies), and the busy share against the unprofiled step."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import RequestState
-    reqs = [eng.submit(rng.integers(1, vocab, size=(PROMPT,)).tolist(), NEW)
-            for _ in range(SLOTS)]
+    kws = submit_kws or [{}] * SLOTS
+    reqs = [eng.submit(rng.integers(1, vocab, size=(PROMPT,)).tolist(), NEW,
+                       **kw) for kw in kws]
     while any(q.state is not RequestState.DECODE for q in reqs):
         eng.step()
     for _ in range(2):
@@ -2288,50 +2321,70 @@ def profile_planned(eng, vocab: int, rng, tag: str) -> None:
             f"{step_ms:.3f} ms")
         return
     busy = sum(x[0] for x in rows)
+    ops_ = sum(x[1] for x in rows)
     log(f"[profile] {tag} planned step (replayed): device busy {busy:.3f} ms "
-        f"in {sum(x[1] for x in rows):.0f} kernels and copies per step; "
+        f"in {ops_:.0f} kernels and copies per step; "
         f"unprofiled step {step_ms:.3f} ms ({100 * busy / step_ms:.1f} % "
         f"busy, {100 - 100 * busy / step_ms:.1f} % idle)")
     for ms, count, key in rows[:6]:
         log(f"[profile]   {ms:9.3f} ms {count:6.0f}x  {key[:90]}")
+    PROFILED[tag] = {"busy_ms": busy, "device_ops": ops_,
+                     "step_ms": step_ms}
 
 
 PLANNED = {}      # tag -> the figures of each planned run, for the JSON
+PROFILED = {}     # tag -> one planned step's device busy ms and ops
 
 
 def serve_planned(dev, card: str, tag: str, kind: str, cfg, params, knobs,
-                  prompts, sync: dict, plain=None, tied: bool = False):
-    """Phase 5 (and 6): the sync run's prompts served again with
-    ``Engine(pipeline_depth=1, preplan=True)`` and the sync run's knobs
-    (``params`` a tree, or a function that makes one).  Gates: every
-    request finishes with NEW tokens; every decode / spec step of the run
-    is a replay (``planned_hits``) with one host transfer (transfers =
+                  prompts, sync: dict, submit_kws=None,
+                  variants=(False,)):
+    """Phase 5 (and 6): the sync run's prompts (each submitted with its
+    entry of ``submit_kws``) served again with ``Engine(pipeline_depth=1)``
+    and the sync run's knobs (``params`` a tree, or a function that makes
+    one), its step programs captured by ``plan_programs`` for the
+    ``variants`` asked (greedy, sampled), greedy first, each stage's
+    graphs, capture seconds and memory reported.  Gates: every request
+    finishes with NEW tokens; every decode / spec step of the run is a
+    replay (``planned_hits``) with one host transfer (transfers =
     dispatches); the sync run's launch and route arithmetic
-    (``_arith``) holds with the replays' launches counted; plain decode
-    emits the sync run's streams token for token; a speculative run the
-    sync spec run's, or streams whose every first divergence from plain
-    decode is a near-tie (``check_spec_logits``, with ``plain`` the
-    plain streams); one replayed step equals the eager step bitwise
-    (``check_replay``).  Prints the pair's TTFT, TPOT, throughput, peak
-    memory, the graph count and capture seconds, the dispatch gaps.
-    Returns the launch counts of the measured run."""
+    (``_arith``) holds with the replays' launches counted; the streams
+    are the sync run's token for token, plain and speculative alike
+    (the decode kernels' split size follows the capacity, so a wider
+    sweep bound in a pipelined step changes no bit); one replayed step
+    equals the eager step bitwise (``check_replay``).  Prints the pair's
+    TTFT, TPOT, throughput, peak memory, the graph count and capture
+    seconds, the dispatch gaps.  Returns the launch counts of the
+    measured run."""
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import Engine, EngineMetrics, RequestState
     if callable(params):
         params = params()
+    kws = submit_kws or [{}] * len(prompts)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     eng = Engine(cfg, params, max_slots=SLOTS, max_seq_len=PROMPT + NEW + 8,
-                 block_size=BLOCK, device=dev, pipeline_depth=1,
-                 preplan=True, **knobs)
+                 block_size=BLOCK, device=dev, pipeline_depth=1, **knobs)
     del params
     r = eng.runner
-    torch.cuda.synchronize()
+    stages = {}
+    for v in variants:
+        torch.cuda.synchronize()
+        before = (len(r.programs), r.plan_seconds,
+                  torch.cuda.memory_reserved(dev))
+        r.plan_programs(sampled=(v,))
+        torch.cuda.synchronize()
+        stages["sampled" if v else "greedy"] = {
+            "graphs": len(r.programs) - before[0],
+            "capture_s": r.plan_seconds - before[1],
+            "reserved_gb": (torch.cuda.memory_reserved(dev) - before[2])
+            / 1e9}
     plan_peak = torch.cuda.max_memory_allocated(dev)
     log(f"[planned] {tag}: {len(r.programs)} CUDA graphs "
         f"({', '.join(str(k[1:]) for k in sorted(r.programs))}) captured in "
-        f"{r.plan_seconds:.3f}s; peak memory while planning "
-        f"{plan_peak / 1e9:.3f} GB, reserved {torch.cuda.memory_reserved(dev) / 1e9:.3f} GB")
+        f"{r.plan_seconds:.3f}s; by variant {json.dumps(stages)}; peak "
+        f"memory while planning {plan_peak / 1e9:.3f} GB, reserved "
+        f"{torch.cuda.memory_reserved(dev) / 1e9:.3f} GB")
     rng = np.random.default_rng(0)
     eng.generate([rng.integers(1, cfg.vocab_size, size=(16,)).tolist()
                   for _ in range(SLOTS)], 3)               # warm-up
@@ -2343,7 +2396,7 @@ def serve_planned(dev, card: str, tag: str, kind: str, cfg, params, knobs,
     base = (eng.steps_run, r.decode_transfers, r.planned_hits,
             r.prefill_calls, r.chunk_calls)
     t0 = time.perf_counter()
-    reqs = [eng.submit(p, NEW) for p in prompts]
+    reqs = [eng.submit(p, NEW, **kw) for p, kw in zip(prompts, kws)]
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2403,16 +2456,13 @@ def serve_planned(dev, card: str, tag: str, kind: str, cfg, params, knobs,
         f"arithmetic {json.dumps(want)}: {'met' if got == want else 'NOT MET'}")
     log(f"[planned] {tag}: streams equal to the sync run's: "
         f"{div.count(-1)}/{len(div)} (first divergence per request: {div})")
-    if not r.speculate_k:
-        gates["streams equal sync"] = div.count(-1) == len(div)
-    elif div.count(-1) != len(div):
-        check_spec_logits(eng, prompts, plain, streams, tag + " planned",
-                          tied)      # raises unless every split is a near-tie
-    profile_planned(eng, cfg.vocab_size, rng, tag)
+    gates["streams equal sync"] = div.count(-1) == len(div)
+    profile_planned(eng, cfg.vocab_size, rng, tag, kws[:SLOTS])
     gates["replay == eager, bitwise"] = check_replay(eng, prompts[:SLOTS],
-                                                     tag)
+                                                     tag, kws[:SLOTS])
     log(f"[planned] {tag}: gates {json.dumps(gates)}")
     PLANNED[tag] = {"launches": launches, "graphs": len(r.programs),
+                    "graphs_by_variant": stages,
                     "capture_s": r.plan_seconds, "ttft_ms": m["ttft_ms"],
                     "tpot_ms": m["tpot_ms"],
                     "throughput_tok_s": m["throughput_tok_s"],
@@ -2425,6 +2475,323 @@ def serve_planned(dev, card: str, tag: str, kind: str, cfg, params, knobs,
     if not all(gates.values()):
         raise SystemExit(f"[planned] {tag}: gates {gates}")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: sampled serving (threefry keys on the card, the sampled step
+# programs) and the split plan at a bound boundary
+# ---------------------------------------------------------------------------
+
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+SAMPLING = {}     # the figures of phase 7, for the summary line
+
+
+def sampled_kws(lanes=range(SLOTS)):
+    """Per-request submit arguments: SAMPLED with seed i on the lanes
+    given, greedy (seed i) on the others."""
+    from repro_torch.serving.sampler import SampleParams
+    return [dict(params=SampleParams(**SAMPLED) if i in lanes
+                 else SampleParams(), seed=i) for i in range(SLOTS)]
+
+
+def check_prng(dev: torch.device, vocab: int) -> None:
+    """The threefry stream on the card against the CPU port's: row_keys
+    of seeds 0-7 (and 2**31 - 1, 2**32 - 1) by counters 0-300 in each
+    salt, the 32-bit words and the uniforms of [8, vocab] draws,
+    bitwise (gated); the Gumbel noise's largest difference in units of
+    the last place of max(|g|, 1), and how many of 64 categorical draws
+    over the same logits agree (reported: ``log`` may differ in its
+    last bit between the card's and the CPU's implementation)."""
+    from repro_torch.common import prng
+    from repro_torch.serving import sampler
+    seeds = torch.tensor([0, 1, 2, 3, 4, 5, 6, 7, 2 ** 31 - 1, 2 ** 32 - 1],
+                         dtype=torch.int64)
+    cnt = torch.arange(301, dtype=torch.int64)
+    s, c = seeds.repeat_interleave(len(cnt)), cnt.repeat(len(seeds))
+    keys_ok = all(torch.equal(
+        sampler.row_keys(s.to(dev), c.to(dev), salt).cpu(),
+        sampler.row_keys(s, c, salt)) for salt in (0, 1, 2))
+    keys = sampler.row_keys(seeds[:8], torch.full((8,), 5), 0)
+    kd = keys.to(dev)
+    bits_ok = torch.equal(prng.random_bits(kd, (vocab,)).cpu(),
+                          prng.random_bits(keys, (vocab,)))
+    uni_ok = torch.equal(prng.uniform(kd, (vocab,)).cpu(),
+                         prng.uniform(keys, (vocab,)))
+    g_card = prng.gumbel(kd, (vocab,)).cpu().double()
+    g_cpu = prng.gumbel(keys, (vocab,)).double()
+    ulp = np.spacing(np.maximum(g_cpu.abs().numpy(), 1.0).astype(np.float32))
+    g_ulp = float(((g_card - g_cpu).abs().numpy() / ulp).max())
+    logits = torch.randn(64, vocab, generator=torch.Generator()
+                         .manual_seed(0)) * 3
+    k64 = sampler.row_keys(torch.arange(64), torch.zeros(64), 0)
+    agree = int((prng.categorical(k64.to(dev), logits.to(dev)).cpu()
+                 == prng.categorical(k64, logits)).sum())
+    log(f"[sampling] threefry on the card against the CPU port: row_keys "
+        f"(10 seeds x 301 counters x 3 salts) bitwise {keys_ok}; random "
+        f"bits [8, {vocab}] bitwise {bits_ok}; uniforms bitwise {uni_ok}; "
+        f"Gumbel max |diff| {g_ulp:.2f} ulp of max(|g|, 1); categorical "
+        f"draws over [64, {vocab}] logits equal {agree}/64")
+    SAMPLING.update(keys_bitwise=keys_ok, bits_bitwise=bits_ok,
+                    uniform_bitwise=uni_ok, gumbel_max_ulp=g_ulp,
+                    categorical_equal=agree)
+    if not (keys_ok and bits_ok and uni_ok):
+        raise SystemExit("[sampling] threefry keys or bits differ between "
+                         "the card and the CPU")
+
+
+def serve_sync(dev, card: str, tag: str, cfg, params, knobs, prompts,
+               submit_kws) -> dict:
+    """One sync run of the cell's shape (SLOTS slots, capacity PROMPT +
+    NEW + 8, block BLOCK) on ``prompts``, each submitted with its entry
+    of ``submit_kws``, after a warm-up: every request must finish with
+    NEW tokens.  Returns {"m", "peak", "streams", "wall"}."""
+    from repro_torch.serving.engine import Engine, EngineMetrics, RequestState
+    eng = Engine(cfg, params, max_slots=SLOTS, max_seq_len=PROMPT + NEW + 8,
+                 block_size=BLOCK, device=dev, **knobs)
+    rng = np.random.default_rng(0)
+    eng.generate([rng.integers(1, cfg.vocab_size, size=(16,)).tolist()
+                  for _ in range(SLOTS)], 3)               # warm-up
+    eng.metrics = EngineMetrics()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, NEW, **kw) for p, kw in zip(prompts, submit_kws)]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = eng.metrics.summary()
+    done = sum(q.state is RequestState.DONE and len(q.output) == NEW
+               for q in reqs)
+    log(f"[sampling] {card} | {tag}: {len(reqs)} reqs x ({PROMPT} in / "
+        f"{NEW} out), wall {wall:.3f}s; TTFT ms p50 "
+        f"{m['ttft_ms']['p50']:.2f}; TPOT ms p50 {m['tpot_ms']['p50']:.3f} "
+        f"p90 {m['tpot_ms']['p90']:.3f}; throughput "
+        f"{m['throughput_tok_s']:.1f} tok/s"
+        + (f"; acceptance rate {m['acceptance_rate']:.4f}, tokens per slot "
+           f"per spec step {m['tokens_per_slot_step']:.3f}"
+           if eng.runner.speculate_k else ""))
+    out = {"m": m, "peak": torch.cuda.max_memory_allocated(dev),
+           "streams": [q.output for q in reqs], "wall": wall}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    if done != len(reqs):
+        raise SystemExit(f"[sampling] {tag}: not every request finished")
+    return out
+
+
+def epilogue_cost(dev: torch.device, vocab: int) -> None:
+    """The sampling epilogue alone at the serve shape (logits [SLOTS,
+    vocab] fp32, as the fp32 head gives them): the decode step's greedy
+    ``sample_step`` against its sampled one (``row_keys`` + filter +
+    Gumbel-max), and the speculative step's greedy against its sampled
+    ``accept_step`` (K = SPEC_K), as device work (a CUDA graph of the
+    calls) and device ops per call (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import sampler
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, K = SLOTS, SPEC_K
+    logits = torch.randn(B, vocab, generator=g, device=dev) * 3
+    tgt = torch.randn(B, K + 1, vocab, generator=g, device=dev) * 3
+    dlg = tgt[:, :K] + torch.randn(B, K, vocab, generator=g, device=dev)
+    drafts = torch.argmax(dlg, -1).to(torch.int32)
+    i32 = dict(dtype=torch.int32, device=dev)
+    seeds, cnt = torch.arange(B, **i32), torch.full((B,), 9, **i32)
+    temp = torch.full((B,), SAMPLED["temperature"], device=dev)
+    top_k = torch.full((B,), SAMPLED["top_k"], **i32)
+    top_p = torch.full((B,), SAMPLED["top_p"], device=dev)
+    act = torch.ones(B, dtype=torch.bool, device=dev)
+    eos, rem = torch.full((B,), -1, **i32), torch.full((B,), 9, **i32)
+    fns = {
+        "decode greedy": lambda: sampler.sample_step(
+            logits, None, None, None, None, act, eos, rem),
+        "decode sampled": lambda: sampler.sample_step(
+            logits, sampler.row_keys(seeds, cnt, sampler.SALT_SAMPLE), temp,
+            top_k, top_p, act, eos, rem),
+        "spec accept greedy": lambda: sampler.accept_step(
+            tgt, dlg, drafts, None, None, None, None, None, act),
+        "spec accept sampled": lambda: sampler.accept_step(
+            tgt, dlg, drafts, seeds, cnt, temp, top_k, top_p, act)}
+    cost = {}
+    for name, fn in fns.items():
+        ms = graph_ms(lambda: fn(), [()], 20)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        n_ops = sum(e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        cost[name] = {"ms": ms, "device_ops": n_ops}
+    log(f"[sampling] epilogue alone ({B} rows, vocab {vocab}, device work): "
+        + "; ".join(f"{k} {v['ms']:.4f} ms in {v['device_ops']} device ops"
+                    for k, v in cost.items()))
+    SAMPLING["epilogue"] = cost
+
+
+def serve_sampling(dev, card: str, params, prompts, greedy: dict) -> None:
+    """Phase 7a: pt-6b-d4 bf16 on phase 5's prompts, every request
+    sampled (SAMPLED, seeds 0-7): the sync run, then the planned run
+    (``serve_planned`` with greedy and sampled programs: its streams
+    bitwise the sync run's, every step a replay of a sampled program,
+    one replay bitwise its eager step); then a mixed batch (lanes 0-3
+    greedy, 4-7 sampled) by the sync engine, whose greedy lanes must
+    emit phase 5's all-greedy streams bitwise (``greedy`` the bf16 sync
+    run's result).  Prints each run's TTFT / TPOT beside the greedy
+    runs' and the epilogue's cost."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    check_prng(dev, cfg.vocab_size)
+    epilogue_cost(dev, cfg.vocab_size)
+    kws = sampled_kws()
+    sync = serve_sync(dev, card, "bf16 sampled", cfg, params, {}, prompts,
+                      kws)
+    serve_planned(dev, card, "bf16 sampled", "bf16", cfg, params, {},
+                  prompts, sync, submit_kws=kws, variants=(False, True))
+    mixed = serve_sync(dev, card, "bf16 mixed (lanes 0-3 greedy)", cfg,
+                       params, {}, prompts, sampled_kws(range(4, SLOTS)))
+    same = [mixed["streams"][i] == greedy["streams"][i] for i in range(4)]
+    differ = sum(mixed["streams"][i] != greedy["streams"][i]
+                 for i in range(4, SLOTS))
+    log(f"[sampling] mixed batch: greedy lanes 0-3 equal the all-greedy "
+        f"run's streams {sum(same)}/4; sampled lanes 4-7 differ from greedy "
+        f"{differ}/4")
+    gm, pm = greedy["m"], PLANNED["bf16"]
+    sm, spm = sync["m"], PLANNED["bf16 sampled"]
+    log(f"[sampling] TTFT / TPOT p50 ms, greedy -> sampled: sync "
+        f"{gm['ttft_ms']['p50']:.2f} / {gm['tpot_ms']['p50']:.3f} -> "
+        f"{sm['ttft_ms']['p50']:.2f} / {sm['tpot_ms']['p50']:.3f}; planned "
+        f"{pm['ttft_ms']['p50']:.2f} / {pm['tpot_ms']['p50']:.3f} -> "
+        f"{spm['ttft_ms']['p50']:.2f} / {spm['tpot_ms']['p50']:.3f}")
+    SAMPLING.update(mixed_greedy_equal=sum(same), mixed_sampled_differ=differ,
+                    sync_ttft_ms=sm["ttft_ms"], sync_tpot_ms=sm["tpot_ms"])
+    if not all(same):
+        raise SystemExit("[sampling] a greedy lane of the mixed batch left "
+                         "the all-greedy stream")
+
+
+def _record_spec_keys(eng, store: list) -> None:
+    """Wrap the runner's spec dispatch: each step's program key."""
+    r = eng.runner
+    inner = r.dispatch_spec
+
+    def dispatch(*a, **k):
+        h = inner(*a, **k)
+        store.append(h["key"])
+        return h
+
+    r.dispatch_spec = dispatch
+
+
+def serve_spec_sampled(dev, card: str, params) -> None:
+    """Phase 7b, on the tied tracks: the speculative arm (K SPEC_K,
+    SPEC_TRACKS tracks) with every request sampled (SAMPLED, seeds 0-7):
+    the drafter samples under SALT_DRAFT keys, the accept is rejection
+    sampling; the sync run, then the planned one, whose streams must be
+    the sync run's bitwise."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    knobs = dict(speculate_k=SPEC_K, draft_tracks=SPEC_TRACKS)
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(1, cfg.vocab_size, size=(PROMPT,)).tolist()
+               for _ in range(SLOTS)]
+    kws = sampled_kws()
+    tag = "bf16 spec sampled, tracks tied"
+    sync = serve_sync(dev, card, tag, cfg, params, knobs, prompts, kws)
+    serve_planned(dev, card, tag, "spec", cfg, params, knobs, prompts, sync,
+                  submit_kws=kws, variants=(False, True))
+    SAMPLING["spec_acceptance_rate"] = sync["m"]["acceptance_rate"]
+
+
+BOUNDARY_NEW = 24        # tokens of the bound-boundary runs
+
+
+def spec_boundary(dev, card: str, params) -> None:
+    """Phase 7c: greedy speculation (K SPEC_K, SPEC_TRACKS tracks, the
+    seeded tracks: no draft is accepted, so every lane moves one token a
+    step) on 8 prompts of 496-503 tokens, BOUNDARY_NEW new tokens, at the
+    serve cell's capacity.  The farthest lane passes the positions
+    within K below 512, where a pipelined step's bounds (the host's
+    positions, one step behind, plus K + (K + 1) per step in flight) lie
+    in the next bucket (the drafter's contiguous 584, the verify's 37
+    blocks) while the sync step's do not: the drafter's decode kernel
+    then sweeps more splits.  Three runs: sync, pipelined (depth 1,
+    eager programs) and planned (depth 1, CUDA graphs).  Gates: the
+    pipelined run's drafter logits bitwise the sync run's at every step
+    (recorded eagerly: a graph replay runs no Python), both runs'
+    streams bitwise the sync run's, and at least one step with another
+    bound (which the split plan sized from the bound summed in another
+    order)."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving import engine as engine_mod
+    from repro_torch.serving.engine import Engine
+    cfg = get_config(ARCH)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, cfg.vocab_size, size=(496 + i,)).tolist()
+               for i in range(SLOTS)]
+    inner = engine_mod.pt_draft_step
+    out = {}
+    try:
+        for name, extra in (("sync", {}), ("pipelined",
+                                           dict(pipeline_depth=1)),
+                            ("planned", dict(pipeline_depth=1))):
+            rows, keys = [], []
+
+            def draft_step(*a, **k):
+                logits, c = inner(*a, **k)
+                if logits is not None:
+                    rows.append(logits.float().clone())
+                return logits, c
+
+            # the planned run's steps are graph replays: no recording
+            engine_mod.pt_draft_step = (inner if name == "planned"
+                                        else draft_step)
+            eng = Engine(cfg, params, max_slots=SLOTS,
+                         max_seq_len=PROMPT + NEW + 8, block_size=BLOCK,
+                         device=dev, speculate_k=SPEC_K,
+                         draft_tracks=SPEC_TRACKS, **extra)
+            if name == "planned":
+                eng.runner.plan_programs(sampled=(False,))   # greedy runs
+            _record_spec_keys(eng, keys)
+            reqs = [eng.submit(p, BOUNDARY_NEW) for p in prompts]
+            eng.run()
+            torch.cuda.synchronize()
+            out[name] = {"rows": rows, "keys": keys,
+                         "streams": [q.output for q in reqs],
+                         "hits": eng.runner.planned_hits,
+                         "steps": eng.runner.decode_transfers}
+            del eng
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        engine_mod.pt_draft_step = inner
+    s_, p_, q_ = out["sync"], out["pipelined"], out["planned"]
+    other = [(x, y) for x, y in zip(s_["keys"], p_["keys"])
+             if x[1:3] != y[1:3]]
+    n = min(len(s_["rows"]), len(p_["rows"]))
+    diffs = [(a - b).abs().max().item()
+             for a, b in zip(s_["rows"][:n], p_["rows"][:n])]
+    div_p = [_divergence(a, b) for a, b in zip(s_["streams"], p_["streams"])]
+    div_q = [_divergence(a, b) for a, b in zip(s_["streams"], q_["streams"])]
+    gates = {"drafter logits bitwise": n > 0 and not any(diffs),
+             "pipelined streams equal sync": div_p.count(-1) == SLOTS,
+             "planned streams equal sync": div_q.count(-1) == SLOTS,
+             "planned every step replayed": q_["hits"] == q_["steps"] > 0,
+             "a step took another bound": bool(other)}
+    log(f"[boundary] {card} | spec K {SPEC_K} at the bound boundary "
+        f"(prompts 496-503, {BOUNDARY_NEW} new): {len(s_['keys'])} sync / "
+        f"{len(p_['keys'])} pipelined / {len(q_['keys'])} planned steps; "
+        f"{len(other)} pipelined steps with another (drafter, verify) "
+        f"bound than the sync step (first: {other[:1]}); drafter logits "
+        f"compared over {n} draft steps, max |diff| "
+        f"{max(diffs, default=0.0):.3e}; streams equal to sync: pipelined "
+        f"{div_p.count(-1)}/{SLOTS}, planned {div_q.count(-1)}/{SLOTS}")
+    log(f"[boundary] gates {json.dumps(gates)}")
+    SAMPLING.update(boundary_steps_other_bound=len(other),
+                    boundary_draft_steps_compared=n,
+                    boundary_gates=gates)
+    if not all(gates.values()):
+        raise SystemExit(f"[boundary] gates {gates}")
 
 
 def head_choice_ms(eng, head, dev) -> None:
@@ -2484,6 +2851,8 @@ def main() -> int:
                                         tied=False)
     gc.collect()
     torch.cuda.empty_cache()
+    serve_sampling(dev, card, params, keep["prompts"], keep)
+    spec_boundary(dev, card, params)
     # run (b): the same tree with its tracks tied in place, so the drafter
     # is the target model but for attention arithmetic; its plain stream
     # on the tied weights is one more plain run
@@ -2501,6 +2870,7 @@ def main() -> int:
         f"{'met' if rate_b >= rate_a else 'NOT MET'} (b >= a)")
     if rate_b < rate_a:
         raise SystemExit("[serve] tied tracks accepted less than run (a)")
+    serve_spec_sampled(dev, card, params)
     del params, keep
     gc.collect()
     torch.cuda.empty_cache()
@@ -2555,6 +2925,8 @@ def main() -> int:
     log("[planned] summary " + json.dumps(
         {tag: {k: v for k, v in p.items() if k != "launches"}
          for tag, p in PLANNED.items()}))
+    log("[profile] planned steps " + json.dumps(PROFILED))
+    log("[sampling] summary " + json.dumps(SAMPLING))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -19,11 +19,13 @@
 // ~295 flop/byte ridge, so the kernel can at best stream the live cache at
 // 3.35 TB/s.  Design:
 //   * a split over the sequence: grid (split, KV head, track x row).  The
-//     host plans the split (decode_attention.py::split_plan) from its
-//     max_len bucket and the base block count, with no device sync: at the
-//     serve shapes (64 base blocks, ~590 swept tokens) 5 splits of 128
-//     tokens, 320 blocks on 132 SMs.  Paged splits are whole pages, so a
-//     block reads its split's table entries once, into shared memory;
+//     host plans the split (decode_attention.py::split_plan) with no device
+//     sync: the split size from the cache's capacity and the base block
+//     count, the number of splits from its max_len bucket.  At the serve
+//     shapes (64 base blocks, capacity 592) splits of 128 tokens, 5 of them
+//     (320 blocks on 132 SMs) at the full sweep.  Paged splits are whole
+//     pages, so a block reads its split's table entries once, into shared
+//     memory;
 //   * no block-wide barrier in the sweep.  Each warp streams its own tiles
 //     of K and V rows through a ring of shared-memory stages filled by
 //     16-byte cp.async copies (4 KB of K per warp, one to three tiles ahead
@@ -45,6 +47,13 @@
 //     The counters are one zero-initialised buffer per device that every
 //     launch leaves at zero; the port launches on one stream, so no two
 //     launches share it at once.  One split writes out directly;
+//   * the bits do not follow the sweep bound.  A split past a row's live
+//     tokens has m = -inf, l = 0 and acc = 0: its merge weight is
+//     exp2(-inf) = 0 and it adds exact zeros, after the live splits, in
+//     split order.  With one live split the merge computes A * 1 + 0 and
+//     L * 1 + 0, which are A and L (A starts at +0, so it is never -0):
+//     the one-split path's A / L.  So for the same live tokens and split
+//     size, any number of launched splits gives the same bits;
 //   * rows whose width is not a multiple of 16 bytes (or not a power-of-two
 //     number of 16-byte words up to 512 bytes), or whose base is not 16-byte
 //     aligned, take the scalar instantiation of the same template: a whole

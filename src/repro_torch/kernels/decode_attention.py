@@ -45,32 +45,42 @@ H100_SMS = 132
 
 
 def split_plan(sweep: int, base: int, page: Optional[int] = None,
-               sms: int = H100_SMS) -> Tuple[int, int]:
+               sms: int = H100_SMS, capacity: Optional[int] = None
+               ) -> Tuple[int, int]:
     """How the kernel splits the swept tokens over blocks: returns
     (splits, tokens per split).  ``sweep`` is the tokens the sweep may
-    visit (the host's ``max_len`` cut), ``base`` the blocks without a
-    split (tracks x rows x KV heads), ``page`` the block size of a paged
-    cache (None for the contiguous one), ``sms`` the card's SM count.
-    Split s covers tokens [s * c, (s + 1) * c): c is ``page`` (or 1) times
-    a power of two, at least ``_SPLIT_MIN``, as small as gives about
-    ``_BLOCKS_PER_SM`` blocks per SM, so paged splits are whole pages and
-    the two layouts get the same plan from the same sweep.  Host ints
-    only: no device sync."""
-    if sweep < 1 or base < 1:
-        raise ValueError(f"want sweep >= 1 and base >= 1, got {sweep}, "
-                         f"{base}")
+    visit (the host's ``max_len`` cut), ``capacity`` the tokens the cache
+    holds per row (a paged table row's blocks x block size, a contiguous
+    cache's S; default ``sweep``), ``base`` the blocks without a split
+    (tracks x rows x KV heads), ``page`` the block size of a paged cache
+    (None for the contiguous one), ``sms`` the card's SM count.
+
+    Split s covers tokens [s * c, (s + 1) * c).  The split size c depends
+    on the capacity, never on the sweep: c is ``page`` (or 1) times a
+    power of two, at least ``_SPLIT_MIN``, as small as gives about
+    ``_BLOCKS_PER_SM`` blocks per SM when the whole capacity is swept.
+    The sweep only sets how many splits launch, ceil(sweep / c); so a
+    wider sweep bound adds splits after the same boundaries, splits that
+    hold no live token and add exact zeros to the merge (the kernel's sum
+    order, hence its bits, does not follow the bound).  Paged splits are
+    whole pages, and the two layouts get the same plan from the same
+    capacity.  Host ints only: no device sync."""
+    capacity = sweep if capacity is None else capacity
+    if sweep < 1 or base < 1 or capacity < sweep:
+        raise ValueError(f"want 1 <= sweep <= capacity and base >= 1, got "
+                         f"sweep {sweep}, capacity {capacity}, base {base}")
     want = max(1, -(-_BLOCKS_PER_SM * sms // base))
-    per = -(-sweep // want)
+    per = -(-capacity // want)
     c = page or 1
     while c < _SPLIT_MIN or c < per:
         c *= 2
     if page is not None:
         c = min(c, _MAX_PAGES * page)
-    while -(-sweep // c) > _MAX_SPLITS:
+    while -(-capacity // c) > _MAX_SPLITS:
         c *= 2
     if page is not None and c > _MAX_PAGES * page:
-        raise ValueError(f"a sweep of {sweep} tokens in pages of {page} "
-                         f"needs more than {_MAX_SPLITS} splits of "
+        raise ValueError(f"a capacity of {capacity} tokens in pages of "
+                         f"{page} needs more than {_MAX_SPLITS} splits of "
                          f"{_MAX_PAGES} pages")
     return -(-sweep // c), c
 
@@ -104,15 +114,16 @@ def reserve_counters(dev: torch.device, base: int) -> torch.Tensor:
     return cnt
 
 
-def _split_args(dev: torch.device, sweep: int, base: int,
+def _split_args(dev: torch.device, sweep: int, capacity: int, base: int,
                 page: Optional[int], G: int, hd: int):
-    """(splits, tokens per split, workspace, counters) of one launch.  The
+    """(splits, tokens per split, workspace, counters) of one launch, the
+    split size from the cache's ``capacity`` (``split_plan``).  The
     workspace (partial m, l, acc in fp32) is fresh (under a capture, from
     the graph's pool); the ticket counters are ``reserve_counters``'
     buffer."""
     if dev not in _SMS:
         _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_split, c = split_plan(sweep, base, page, _SMS[dev])
+    n_split, c = split_plan(sweep, base, page, _SMS[dev], capacity)
     if n_split == 1:
         return n_split, c, None, None
     cnt = reserve_counters(dev, base)
@@ -247,8 +258,8 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, block_table, lengths,
                          f"G={H // KH}, hd={hd}")
     nmax = block_table.shape[1]
     n_sweep = _sweep_blocks(nmax, bs, max_len)
-    n_split, c, ws, cnt = _split_args(q.device, n_sweep * bs, n * B * KH, bs,
-                                      H // KH, hd)
+    n_split, c, ws, cnt = _split_args(q.device, n_sweep * bs, nmax * bs,
+                                      n * B * KH, bs, H // KH, hd)
     out = torch.empty_like(q)
     quant = k_scale is not None
     err = _launcher()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -432,7 +443,7 @@ def _dense_launch(q, k_cache, v_cache, k_scale, v_scale, lengths, block_s,
         raise ValueError(f"kernel takes G <= 8 and hd <= 256, got "
                          f"G={H // KH}, hd={hd}")
     n_cols = _sweep_cols(S, block_s, max_len)
-    n_split, c, ws, cnt = _split_args(q.device, n_cols, B * KH, None,
+    n_split, c, ws, cnt = _split_args(q.device, n_cols, S, B * KH, None,
                                       H // KH, hd)
     out = torch.empty_like(q)
     quant = k_scale is not None

@@ -1,9 +1,10 @@
 """Serving launcher of the port: builds a model (a Parallel-Track model,
 a dense baseline, tinyllama-1.1b or falcon-mamba-7b) with random weights
-from ``--seed``, serves a synthetic greedy workload through the engine
-(the paged cache, or with ``--contiguous`` the contiguous one) and
-reports TTFT / TPOT / throughput and the launch count of each kernel.
-Runs on the GPU unless ``--device cpu`` is given.
+from ``--seed``, serves a synthetic workload through the engine (the
+paged cache, or with ``--contiguous`` the contiguous one), greedy or
+with ``--temperature`` sampled (each request under its own seed, the
+engine's default), and reports TTFT / TPOT / throughput and the launch
+count of each kernel.  Runs on the GPU unless ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
       --requests 8 --input-len 512 --output-len 64 --slots 8
@@ -20,6 +21,8 @@ Runs on the GPU unless ``--device cpu`` is given.
       --reduced --device cpu --speculate-k 3 --draft-tracks 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
       --reduced --device cpu --pipeline-depth 1 --preplan
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
+      --reduced --device cpu --temperature 0.8
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from repro_torch.configs import NAMES, get_config, reduced_config
 from repro_torch.kernels import ops
 from repro_torch.launch.steps import model_fns
 from repro_torch.serving.engine import Engine, RequestState
+from repro_torch.serving.sampler import SampleParams
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -77,6 +81,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="capture one CUDA graph per live-length bucket of "
                     "the decode / speculative step when the engine is "
                     "built, and replay them")
+    ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prefill-budget", type=int, default=4096,
                     help="max padded prefill tokens admitted per step")
@@ -126,11 +131,12 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"[serve] step programs: {len(eng.runner.programs)} planned "
               f"in {eng.runner.plan_seconds:.3f}s")
     rng = np.random.default_rng(args.seed)
+    sp = SampleParams(temperature=args.temperature)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     reqs = [eng.submit(rng.integers(1, cfg.vocab_size,
                                     size=(args.input_len,)).tolist(),
-                       args.output_len)
+                       args.output_len, params=sp)
             for _ in range(args.requests)]
     eng.run()
     if device.type == "cuda":
@@ -142,7 +148,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             else "cpu")
     print(f"[serve] {cfg.name} on {name}: {args.requests} reqs x "
           f"({args.input_len} in / {args.output_len} out), "
-          f"slots={args.slots}")
+          f"slots={args.slots}, temperature {args.temperature}")
     print(f"[serve] throughput {m['throughput_tok_s']:.1f} tok/s   "
           f"wall {wall:.3f}s   engine steps {eng.steps_run}   "
           f"prefill variants {len(eng.runner.prefill_shapes)}   "

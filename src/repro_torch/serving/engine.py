@@ -62,9 +62,20 @@ own, filled at admission (or chunk by chunk).  Each engine step then
 runs K + 1 draft steps, ONE (K+1)-token verify of the target through
 the chunk program, and ``sampler.accept_step``, whose packed [K+2,
 slots] result is the step's one host transfer; every decoding slot
-advances by 1..K+1 tokens, the same tokens plain greedy decode emits.
+advances by 1..K+1 tokens: for a greedy request the tokens plain greedy
+decode emits, for a sampled one draws from the target's distribution
+(rejection sampling).
 
-Greedy only, and the prefix cache is off (``prefix_cache=False``; the
+Each request samples under its own ``SampleParams`` (temperature, top-k,
+top-p) and its own seed: every draw is keyed by (request seed, token
+counter, salt) (``sampler.row_keys``), the prefill's last row by
+``prefill_keys``, a decode step's rows by ``SALT_SAMPLE`` and the
+drafter's by ``SALT_DRAFT``, the keys derived on the device inside the
+step program.  A step whose lanes are all greedy runs the greedy
+program (the argmax alone); one with a sampled lane runs the sampled
+variant of the same program, whose greedy lanes take the same argmax.
+
+The prefix cache is off (``prefix_cache=False``; the
 reference defaults to on); the pipelined engine has no transfer faults,
 watchdog, deadlines or preemption (ROADMAP queue 1, item 8b).  Every
 feature of the reference engine this slice leaves out raises
@@ -94,10 +105,12 @@ from repro_torch.launch.steps import StepGraph, model_fns, plan_graphs
 from repro_torch.models.decoder import _head
 from repro_torch.models.layers import check_supported
 from repro_torch.serving.cache import PagedKVCache, insert_rows
-from repro_torch.serving.sampler import (SampleParams, accept_step,
+from repro_torch.serving.sampler import (SALT_DRAFT, SALT_SAMPLE,
+                                         SampleParams, accept_step,
                                          advance_decode, advance_spec,
-                                         require_greedy, sample_rows,
-                                         sample_step, stack_params)
+                                         prefill_keys, row_keys,
+                                         sample_rows, sample_step,
+                                         stack_params)
 
 
 RECURRENT_MIXERS = ("mamba", "rglru")
@@ -134,6 +147,7 @@ class Request:
     eos_id: Optional[int] = None
     params: SampleParams = dataclasses.field(default_factory=SampleParams)
     on_token: Optional[Callable[["Request", int], None]] = None
+    seed: int = 0                      # per-request PRNG seed (sampling)
     # filled by the engine
     state: RequestState = RequestState.QUEUED
     output: List[int] = dataclasses.field(default_factory=list)
@@ -390,9 +404,11 @@ def arch_capabilities(cfg: ModelConfig) -> Dict[str, Capability]:
             "int8_kv": int8_kv, "fork": fork}
 
 
-# rows of the step programs' packed int32 input (``ModelRunner.step_in``)
+# rows of the step programs' packed int32 input (``ModelRunner.step_in``):
+# the sampling rows hold each slot's request seed (its 32-bit pattern),
+# temperature and top-p (float32 bit patterns) and top-k
 STEP_ROWS = ("tok", "pos", "active", "eos", "remaining", "counts",
-             "override")
+             "override", "seed", "temp", "top_k", "top_p")
 
 
 @dataclasses.dataclass
@@ -541,7 +557,6 @@ class ModelRunner:
         self.step_table = (torch.zeros((B, self.kv.blocks_per_seq), **i32)
                            if self.paged else None)
         self.step_out = torch.zeros((K + 5 if K else 6, B), **i32)
-        self._greedy = np.zeros((B,), np.float32)
         # host staging, one slot per step that may be in flight: a
         # non-blocking copy reads its pinned source after the host moved on
         self._stages = [self._new_stage() for _ in range(pipeline_depth + 1)]
@@ -596,17 +611,34 @@ class ModelRunner:
     def _to_dev(self, a, dtype: torch.dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a)).to(self.device, dtype)
 
+    def _sample_first(self, last: torch.Tensor, seeds: Sequence[int],
+                      counters: Sequence[int],
+                      params_list: Sequence[SampleParams]) -> torch.Tensor:
+        """The token each prompt's last row samples [n]: draw
+        ``counters[i]`` of its request's stream (``prefill_keys``; 0 for
+        a fresh prompt); an all-greedy batch takes the argmax alone."""
+        temps, tks, tps = stack_params(params_list)
+        if not (temps > 0).any():
+            return sample_rows(last, None)
+        keys = prefill_keys(self._to_dev(np.asarray(seeds, np.int64),
+                                         torch.long),
+                            self._to_dev(np.asarray(counters, np.int64),
+                                         torch.long))
+        return sample_rows(last, keys, self._to_dev(temps, torch.float32),
+                           self._to_dev(tks, torch.int32),
+                           self._to_dev(tps, torch.float32))
+
     @torch.no_grad()
     def prefill(self, prompts: Sequence[Sequence[int]], bucket: int,
-                slots: Sequence[int],
+                slots: Sequence[int], seeds: Sequence[int],
+                counters: Sequence[int],
                 params_list: Sequence[SampleParams]) -> np.ndarray:
         """Batched prefill of ``prompts`` (right-padded to ``bucket``; a
         recurrent architecture's bucket is the prompts' one length) into
         cache ``slots``.  Returns the first sampled token of each prompt
-        [n].  The prefill cache goes in through ``kv.insert_prefill``
-        (paged) or ``insert_rows`` (contiguous)."""
-        temps, _, _ = stack_params(params_list)
-        require_greedy(temps)
+        [n] (each row's draw ``counters[i]`` of the stream of
+        ``seeds[i]``).  The prefill cache goes in through
+        ``kv.insert_prefill`` (paged) or ``insert_rows`` (contiguous)."""
         n = len(prompts)
         tokens = np.zeros((n, bucket), np.int64)
         lengths = np.empty((n,), np.int64)
@@ -618,7 +650,7 @@ class ModelRunner:
             self.params, {"inputs": self._to_dev(tokens, torch.long)},
             self.cfg, mode="prefill")
         last = logits[torch.arange(n, device=self.device), len_d - 1]
-        toks = sample_rows(last, temps)
+        toks = self._sample_first(last, seeds, counters, params_list)
         if self.paged:
             self.kv.insert_prefill(cache, slots, self.kv.table_rows(slots))
         else:
@@ -629,14 +661,16 @@ class ModelRunner:
 
     def _chunk(self, toks: np.ndarray, pos: np.ndarray,
                slots: Sequence[int], last_idx: np.ndarray,
-               temps: np.ndarray) -> np.ndarray:
+               seeds: Sequence[int], counters: Sequence[int],
+               params_list: Sequence[SampleParams]) -> np.ndarray:
         """The chunk program for n rows: toks [n, C] appended at
         pos[:, None] + arange(C) through the block-table rows of
         ``slots`` (the whole table row is gathered, as the reference's
         chunk call passes no ``kv_max_len``); state rows advance at
         ``slots`` by ``last_idx + 1`` valid tokens.  Returns the token
-        sampled at each row's ``last_idx`` [n] -- meaningful only for a
-        row's final chunk.  The LM head runs on those n rows only (the
+        sampled at each row's ``last_idx`` [n] (draw ``counters[i]`` of
+        the stream of ``seeds[i]``) -- meaningful only for a row's final
+        chunk.  The LM head runs on those n rows only (the
         reference takes them from the logits of all n * C rows; the head
         is row-wise)."""
         n = len(toks)
@@ -648,31 +682,31 @@ class ModelRunner:
             chunk_lens=self._to_dev(np.asarray(last_idx) + 1, torch.long))
         last = h[torch.arange(n, device=self.device),
                  self._to_dev(last_idx, torch.long)]
-        cand = sample_rows(_head(self.params, last, self.cfg), temps)
+        cand = self._sample_first(_head(self.params, last, self.cfg), seeds,
+                                  counters, params_list)
         self.chunk_shapes.add(tuple(np.shape(toks)))
         self.chunk_calls += 1
         return cand.cpu().numpy()
 
     @torch.no_grad()
     def chunk(self, toks: np.ndarray, pos: np.ndarray, slots: Sequence[int],
-              last_idx: np.ndarray,
+              last_idx: np.ndarray, seeds: Sequence[int],
+              counters: Sequence[int],
               params_list: Sequence[SampleParams]) -> np.ndarray:
         """One chunk step for the requests prefilling in ``slots``."""
-        temps, _, _ = stack_params(params_list)
-        require_greedy(temps)
-        return self._chunk(toks, pos, slots, last_idx, temps)
+        return self._chunk(toks, pos, slots, last_idx, seeds, counters,
+                           params_list)
 
     @torch.no_grad()
     def warm_prefill(self, prompts: Sequence[Sequence[int]],
-                     slots: Sequence[int],
+                     slots: Sequence[int], seeds: Sequence[int],
+                     counters: Sequence[int],
                      params_list: Sequence[SampleParams]) -> np.ndarray:
         """Whole prompts through the chunk program, one call right-padded
         to the bucket of the longest: the int8-KV route of cold prompts.
         (The reference's ``warm_prefill`` also starts each prompt after a
         matched cached prefix; with the prefix cache not ported that
         prefix is always empty.)  Returns first tokens [n]."""
-        temps, _, _ = stack_params(params_list)
-        require_greedy(temps)
         n = len(prompts)
         bucket = self.bucket_for(max(len(p) for p in prompts))
         toks = np.zeros((n, bucket), np.int64)
@@ -681,7 +715,7 @@ class ModelRunner:
             toks[i, :len(p)] = p
             last_idx[i] = len(p) - 1
         return self._chunk(toks, np.zeros((n,), np.int32), slots, last_idx,
-                           temps)
+                           seeds, counters, params_list)
 
     def _table_rows(self, active) -> Optional[np.ndarray]:
         """The block table with inactive lanes' rows zeroed (their writes
@@ -754,13 +788,24 @@ class ModelRunner:
                       host(self.step_out),
                       torch.cuda.Event() if pin else None)
 
-    def _decode_body(self, max_len: Optional[int]) -> torch.Tensor:
+    def _sampling_rows(self) -> Tuple[torch.Tensor, ...]:
+        """The staged (seed, temperature, top-k, top-p) rows of
+        ``step_in``, as views of their dtypes."""
+        seed, temp, top_k, top_p = self.step_in[len(STEP_ROWS) - 4:]
+        return (seed, temp.view(torch.float32), top_k,
+                top_p.view(torch.float32))
+
+    def _decode_body(self, max_len: Optional[int],
+                     sampled: bool) -> torch.Tensor:
         """The decode step program over the static tensors: the carry,
         the model's decode step (``active`` keeps the contiguous and
         state rows of idle lanes and of lanes mid-chunked-prefill; pool
         leaves are protected by the zeroed table rows) and the sampling
-        epilogue.  Returns the logits."""
-        tok, pos, act, eos, rem, cnt, ovr = self.step_in.unbind(0)
+        epilogue: the argmax alone (``sampled`` False), or each row's
+        draw under ``row_keys(seed, counts, SALT_SAMPLE)``, its keys
+        derived here, on the device, from the staged seeds and the
+        carried counts.  Returns the logits."""
+        tok, pos, act, eos, rem, cnt, ovr = self.step_in.unbind(0)[:7]
         out = self.step_out
         tok, pos, cnt, rem = advance_decode(out[:2], out[2], out[3], out[4],
                                             out[5], ovr.bool(), tok, pos,
@@ -769,24 +814,32 @@ class ModelRunner:
         logits, _ = self.fns["decode"](
             self.params, self.cache, tok.long(), pos, self.cfg,
             block_table=self.step_table, kv_max_len=max_len, active=active)
-        packed = sample_step(logits, self._greedy, active, eos, rem)
+        seed, temp, top_k, top_p = (self._sampling_rows() if sampled
+                                    else (None,) * 4)
+        keys = row_keys(seed, cnt, SALT_SAMPLE) if sampled else None
+        packed = sample_step(logits, keys, temp, top_k, top_p, active, eos,
+                             rem)
         out.copy_(torch.cat([packed, torch.stack([tok, pos, cnt, rem])]))
         return logits
 
     def _spec_body(self, draft_len: Optional[int],
-                   verify_len: Optional[int]) -> torch.Tensor:
+                   verify_len: Optional[int], sampled: bool) -> torch.Tensor:
         """The speculative step program over the static tensors: the
         carry, K draft steps of the drafter, one more at pos + K (no head)
         so that d_K's K/V lands there too (on the all-accepted path the
         next step starts at pos + K + 1), ONE (K+1)-token verify of the
         target through the chunk program on the paged cache, and
-        ``accept_step``.  ``active`` freezes the drafter rows of idle
-        lanes and of lanes whose drafter is being chunk-filled; the
+        ``accept_step``: greedy, or (``sampled``) the drafter's tokens
+        drawn under ``row_keys(seed, counts + j, SALT_DRAFT)`` and the
+        rejection-sampling accept.  ``active`` freezes the drafter rows
+        of idle lanes and of lanes whose drafter is being chunk-filled; the
         target's idle lanes write through zeroed table rows, and verify
         rows past a slot's reservation fall through its zeroed table
         columns, into trash block 0.  Returns the verify's logits."""
         K = self.speculate_k
-        tok, pos, act, _, _, cnt, ovr = self.step_in.unbind(0)
+        tok, pos, act, _, _, cnt, ovr = self.step_in.unbind(0)[:7]
+        seed, temp, top_k, top_p = (self._sampling_rows() if sampled
+                                    else (None,) * 4)
         out = self.step_out
         tok, pos, cnt = advance_spec(out[:K + 2], out[K + 2], out[K + 3],
                                      out[K + 4], ovr.bool(), tok, pos, cnt)
@@ -798,7 +851,9 @@ class ModelRunner:
                                       active=active, kv_max_len=draft_len,
                                       head=j < K)
             if j < K:
-                t = sample_rows(logits, self._greedy)
+                keys = (row_keys(seed, cnt + j, SALT_DRAFT) if sampled
+                        else None)
+                t = sample_rows(logits, keys, temp, top_k, top_p)
                 d_toks.append(t)
                 d_logits.append(logits)
         seq = torch.stack([tok] + d_toks, dim=1)                # [B, K+1]
@@ -806,7 +861,9 @@ class ModelRunner:
                                    self.cfg, block_table=self.step_table,
                                    kv_max_len=verify_len)
         packed = accept_step(tgt, torch.stack(d_logits, dim=1),
-                             torch.stack(d_toks, dim=1), self._greedy, active)
+                             torch.stack(d_toks, dim=1),
+                             seed if sampled else None, cnt, temp, top_k,
+                             top_p, active)
         out.copy_(torch.cat([packed, torch.stack([tok, pos, cnt])]))
         return tgt
 
@@ -815,11 +872,11 @@ class ModelRunner:
         # make a cycle, left to the garbage collector to free
         me = weakref.ref(self)
         if key[0] == "decode":
-            return lambda: me()._decode_body(key[1])
-        return lambda: me()._spec_body(key[1], key[2])
+            return lambda: me()._decode_body(key[1], key[2])
+        return lambda: me()._spec_body(key[1], key[2], key[3])
 
     def _dispatch_step(self, key: tuple, toks, pos, active, eos, remaining,
-                       counts, carry, override) -> Dict[str, Any]:
+                       counts, carry, override, sampling) -> Dict[str, Any]:
         st = self._stages[self._stage_at]
         if st.busy:
             raise RuntimeError("more steps in flight than the runner's "
@@ -831,7 +888,8 @@ class ModelRunner:
                                -1 if eos is None else eos,
                                0 if remaining is None else remaining,
                                0 if counts is None else counts,
-                               1 if carry is None else override)):
+                               1 if carry is None else override)
+                              + sampling):
             rows[i] = v
         nb = st.event is not None
         self.step_in.copy_(st.inp, non_blocking=nb)
@@ -861,19 +919,40 @@ class ModelRunner:
         self.decode_transfers += 1
         return host
 
+    def _sampling(self, active, temps, seeds, top_k, top_p
+                  ) -> Tuple[bool, tuple]:
+        """Whether a step runs the sampled program (an active lane with
+        temperature > 0), and its staged sampling rows: the seeds' and
+        the float rows' 32-bit patterns (defaults: seed 0, top-k 0,
+        top-p 1)."""
+        B = self.max_slots
+        temps = np.asarray(temps, np.float32)
+        sampled = bool((temps[np.asarray(active, bool)] > 0).any())
+        bits = lambda a, dt, fill: (np.full((B,), fill, dt) if a is None
+                                    else np.asarray(a).astype(dt))
+        return sampled, (bits(seeds, np.uint32, 0).view(np.int32),
+                         temps.view(np.int32),
+                         bits(top_k, np.int32, 0),
+                         bits(top_p, np.float32, 1.0).view(np.int32))
+
     @torch.no_grad()
     def dispatch_decode(self, toks, pos, active, temps, eos, remaining,
-                        counts=None, *, carry=None, override=None,
+                        counts=None, *, seeds=None, top_k=None, top_p=None,
+                        carry=None, override=None,
                         extra_len=0) -> Dict[str, Any]:
         """Dispatch one decode step for all slots; no host transfer.
+        ``temps`` / ``top_k`` / ``top_p`` are the slots' sampling
+        parameters and ``seeds`` their request seeds (host arrays); a
+        step with no active sampled lane runs the greedy program.
         ``carry`` (the previous step's handle) feeds that step's result
         in on the device, but for lanes marked in ``override``;
         ``extra_len`` (an int or one per lane) widens the sweep bound by
         the positions the steps in flight advanced past ``pos``."""
-        require_greedy(temps)
-        key = ("decode", self._live_max_len(pos, active, extra=extra_len))
+        sampled, rows = self._sampling(active, temps, seeds, top_k, top_p)
+        key = ("decode", self._live_max_len(pos, active, extra=extra_len),
+               sampled)
         return self._dispatch_step(key, toks, pos, active, eos, remaining,
-                                   counts, carry, override)
+                                   counts, carry, override, rows)
 
     def wait_decode(self, handle: Dict[str, Any]
                     ) -> Tuple[np.ndarray, np.ndarray]:
@@ -884,18 +963,19 @@ class ModelRunner:
 
     @torch.no_grad()
     def dispatch_spec(self, toks, pos, active, temps, counts=None, *,
-                      carry=None, override=None, extra_len=0
-                      ) -> Dict[str, Any]:
+                      seeds=None, top_k=None, top_p=None, carry=None,
+                      override=None, extra_len=0) -> Dict[str, Any]:
         """Dispatch one speculative step (``_spec_body``) for all slots;
-        no host transfer.  ``carry``, ``override``, ``extra_len`` as in
-        ``dispatch_decode``; the drafter's and the verify's bounds widen
-        by K beside ``extra_len``."""
-        require_greedy(temps)
+        no host transfer.  The sampling arguments, ``carry``,
+        ``override``, ``extra_len`` as in ``dispatch_decode``; the
+        drafter's and the verify's bounds widen by K beside
+        ``extra_len``."""
+        sampled, rows = self._sampling(active, temps, seeds, top_k, top_p)
         extra = self.speculate_k + np.asarray(extra_len)
         key = ("spec", self._live_max_len(pos, active, extra, paged=False),
-               self._live_max_len(pos, active, extra))
+               self._live_max_len(pos, active, extra), sampled)
         return self._dispatch_step(key, toks, pos, active, None, None,
-                                   counts, carry, override)
+                                   counts, carry, override, rows)
 
     def wait_spec(self, handle: Dict[str, Any]
                   ) -> Tuple[np.ndarray, np.ndarray]:
@@ -907,38 +987,42 @@ class ModelRunner:
         return host[:K + 1].T, host[K + 1]
 
     def _program_keys(self) -> List[tuple]:
-        """The (kind, bounds) of every step program a run may dispatch:
-        decode, one per power-of-two bound of the engine's cache (blocks
-        up to ``blocks_per_seq`` paged, positions up to ``max_seq_len``
-        contiguous); speculative, one per pair (drafter's contiguous
-        bound, verify's paged bound) that one live length gives."""
+        """The (kind, bounds, sampled) of every step program a run may
+        dispatch: decode, one per power-of-two bound of the engine's
+        cache (blocks up to ``blocks_per_seq`` paged, positions up to
+        ``max_seq_len`` contiguous); speculative, one per pair (drafter's
+        contiguous bound, verify's paged bound) that one live length
+        gives; each greedy and sampled."""
         top = self.max_seq_len
         if self.paged:
             top = max(top, self.kv.blocks_per_seq * self.kv.block_size)
         lengths = range(1, top + 1)
         if self.speculate_k:
-            return sorted({("spec", self._bound(n, False),
-                            self._bound(n, True)) for n in lengths})
-        return sorted({("decode", self._bound(n, self.paged))
-                       for n in lengths})
+            bounds = {("spec", self._bound(n, False), self._bound(n, True))
+                      for n in lengths}
+        else:
+            bounds = {("decode", self._bound(n, self.paged))
+                      for n in lengths}
+        return sorted(b + (s,) for b in bounds for s in (False, True))
 
     @torch.no_grad()
-    def plan_programs(self) -> int:
-        """Capture one CUDA graph per step program (``_program_keys``),
-        all in one memory pool, so that a dispatch replays a ready
-        program with no Python launch on the hot path; a shape with no
-        program runs eagerly.  Warm-up and capture run with every lane
-        idle: pool writes go through zeroed table rows into trash block
-        0, and the contiguous, state and drafter rows are kept by
-        ``active``, so no live cache byte changes.  The decode kernels'
-        ticket counters are sized first, for the most (track, row, KV
-        head) bases any program launches.  On the CPU the programs are
-        run once each and replayed as eager calls.  Returns the number
-        of programs."""
+    def plan_programs(self, sampled: Sequence[bool] = (False, True)) -> int:
+        """Capture one CUDA graph per step program (``_program_keys``;
+        of the variants in ``sampled``: the greedy ones, the sampled
+        ones, or both), all in one memory pool, so that a dispatch
+        replays a ready program with no Python launch on the hot path; a
+        shape with no program runs eagerly.  Warm-up and capture run
+        with every lane idle: pool writes go through zeroed table rows
+        into trash block 0, and the contiguous, state and drafter rows
+        are kept by ``active``, so no live cache byte changes.  The
+        decode kernels' ticket counters are sized first, for the most
+        (track, row, KV head) bases any program launches.  On the CPU the
+        programs are run once each and replayed as eager calls.  Returns
+        the number of programs."""
         if any(st.busy for st in self._stages):
             raise RuntimeError("plan_programs with steps in flight")
         todo = {k: self._body(k) for k in self._program_keys()
-                if k not in self.programs}
+                if k not in self.programs and k[-1] in sampled}
         if not todo:
             return len(self.programs)
         t0 = time.perf_counter()
@@ -949,6 +1033,8 @@ class ModelRunner:
         self.step_in.zero_()
         self.step_in[STEP_ROWS.index("eos")] = -1
         self.step_in[STEP_ROWS.index("override")] = 1
+        self.step_in[STEP_ROWS.index("top_p")] = int(
+            np.float32(1.0).view(np.int32))
         if self.paged:
             self.step_table.zero_()
             self._table_key = None
@@ -1024,7 +1110,8 @@ class Engine:
                  kv_dtype: Optional[str] = None,
                  weight_dtype: Optional[str] = None,
                  pipeline_depth: int = 0, preplan: bool = False,
-                 max_queue: Optional[int] = None, fault_plan: Any = None):
+                 seed: int = 0, max_queue: Optional[int] = None,
+                 fault_plan: Any = None):
         _refuse(prefix_cache=(prefix_cache, False, 5),
                 max_queue=(max_queue, None, 8),
                 fault_plan=(fault_plan, None, 8))
@@ -1052,6 +1139,7 @@ class Engine:
                                    max_waiting_prefill_tokens,
                                    charge_fn=self.runner.admission_charge)
         self.metrics = EngineMetrics()
+        self.seed = seed               # base for derived per-request seeds
         self._next_rid = 0
         self.steps_run = 0
         B = max_slots
@@ -1059,6 +1147,9 @@ class Engine:
         self._pos = np.zeros((B,), np.int32)
         self._active = np.zeros((B,), bool)
         self._temps = np.zeros((B,), np.float32)
+        self._topks = np.zeros((B,), np.int32)
+        self._topps = np.ones((B,), np.float32)
+        self._seeds = np.zeros((B,), np.uint32)    # per-request PRNG seed
         self._eos = np.full((B,), -1, np.int32)
         self._remaining = np.zeros((B,), np.int32)
         self._counts = np.zeros((B,), np.int32)    # tokens emitted so far
@@ -1092,19 +1183,24 @@ class Engine:
                eos_id: Optional[int] = None,
                params: SampleParams = SampleParams(),
                on_token: Optional[Callable[[Request, int], None]] = None,
-               *, priority: int = 0,
+               seed: Optional[int] = None, *, priority: int = 0,
                deadline_s: Optional[float] = None,
                on_event: Optional[Callable[[Request, str], None]] = None
                ) -> Request:
-        """Queue a request.  Invalid requests (empty or overlong prompt,
+        """Queue a request.  ``params`` sets its sampling (greedy by
+        default); ``seed`` keys its sampling stream, so that with the same
+        seed it draws the same tokens whatever shares its batch (default:
+        ``(engine seed * 1_000_003 + request id) & 0x7FFFFFFF``, as in the
+        reference).  Invalid requests (empty or overlong prompt,
         non-positive token budget, on the paged cache a reservation
         larger than the whole block pool) come back REJECTED with
         ``finish_reason`` set."""
-        require_greedy([params.temperature])
         _refuse(priority=(priority, 0, 8), deadline_s=(deadline_s, None, 8),
                 on_event=(on_event, None, 8))
+        if seed is None:
+            seed = (self.seed * 1_000_003 + self._next_rid) & 0x7FFFFFFF
         req = Request(self._next_rid, list(prompt), max_new_tokens, eos_id,
-                      params, on_token)
+                      params, on_token, seed=seed)
         req.t_submit = time.perf_counter()
         self._next_rid += 1
         kv = self.runner.kv
@@ -1217,6 +1313,9 @@ class Engine:
                 if self.runner.paged:
                     self.runner.kv.allocate(slot, self._reserve_tokens(req))
                 self._temps[slot] = req.params.temperature
+                self._topks[slot] = req.params.top_k
+                self._topps[slot] = req.params.top_p
+                self._seeds[slot] = req.seed & 0xFFFFFFFF
                 self._eos[slot] = -1 if req.eos_id is None else req.eos_id
                 req.prefilled = 0
             admitted += len(group)
@@ -1235,7 +1334,9 @@ class Engine:
             slots = [s for s, _ in group]
             reqs = [r for _, r in group]
             toks = self.runner.prefill([r.seq_tokens for r in reqs], bucket,
-                                       slots, [r.params for r in reqs])
+                                       slots, [r.seed for r in reqs],
+                                       [len(r.output) for r in reqs],
+                                       [r.params for r in reqs])
             for slot, req, tok in zip(slots, reqs, toks):
                 req.prefilled = len(req.seq_tokens)
                 self._start_decode(slot, req, int(tok))
@@ -1243,7 +1344,9 @@ class Engine:
         if warm_rows:
             toks = self.runner.warm_prefill(
                 [r.seq_tokens for _, r in warm_rows],
-                [s for s, _ in warm_rows], [r.params for _, r in warm_rows])
+                [s for s, _ in warm_rows], [r.seed for _, r in warm_rows],
+                [len(r.output) for _, r in warm_rows],
+                [r.params for _, r in warm_rows])
             for (slot, req), tok in zip(warm_rows, toks):
                 req.prefilled = len(req.seq_tokens)
                 self._start_decode(slot, req, int(tok))
@@ -1276,7 +1379,9 @@ class Engine:
                 pos[i] = req.prefilled
                 last_idx[i] = min(C - 1, len(seq) - 1 - req.prefilled)
             cand = self.runner.chunk(toks, pos, [s for s, _ in tgt],
-                                     last_idx, [r.params for _, r in tgt])
+                                     last_idx, [r.seed for _, r in tgt],
+                                     [len(r.output) for _, r in tgt],
+                                     [r.params for _, r in tgt])
             for i, (slot, req) in enumerate(tgt):
                 req.prefilled = min(req.prefilled + C, len(req.seq_tokens))
                 if req.prefilled == len(req.seq_tokens):
@@ -1402,17 +1507,17 @@ class Engine:
         override = (None if carry is None
                     else self._host_fresh | ~carry["active"])
         rows = self._snap_rows([(s, q) for s, q in active if lanes[s]])
+        kw = dict(seeds=self._seeds, top_k=self._topks, top_p=self._topps,
+                  carry=carry, override=override)
         if K:
             handle = r.dispatch_spec(self._tok, self._pos, lanes,
-                                     self._temps, self._counts, carry=carry,
-                                     override=override,
-                                     extra_len=(K + 1) * self._ahead)
+                                     self._temps, self._counts,
+                                     extra_len=(K + 1) * self._ahead, **kw)
         else:
             handle = r.dispatch_decode(self._tok, self._pos, lanes,
                                        self._temps, self._eos,
                                        self._remaining, self._counts,
-                                       carry=carry, override=override,
-                                       extra_len=self._ahead)
+                                       extra_len=self._ahead, **kw)
         self._inflight.append({"handle": handle, "rows": rows,
                                "spec": bool(K)})
         if self.pipeline_depth:
@@ -1492,6 +1597,8 @@ class Engine:
 
     def generate(self, prompts: List[List[int]], max_new_tokens: int = 32,
                  params: SampleParams = SampleParams()) -> List[List[int]]:
+        """Submit every prompt (default seeds), run to the end, return
+        the streams."""
         reqs = [self.submit(p, max_new_tokens, params=params)
                 for p in prompts]
         self.run()

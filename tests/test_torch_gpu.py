@@ -9,7 +9,10 @@ the LM head), with bf16 output bitwise the fp32 output's cast, bitwise
 repeatable, one device kernel per call.  The split-KV decode kernels
 also at rows of no, one, one split's and one split + 1 live tokens, one
 split and many, the vector and the scalar path, bitwise repeatable with
-their ticket counters back at zero, one device kernel per call.  Flash
+their ticket counters back at zero, one device kernel per call, and
+bitwise equal across every sweep bound from 64 to the capacity that
+covers the same live tokens (the split size follows the capacity).  The
+sampler's threefry keys and bits on the card bitwise the CPU's.  Flash
 prefill on each route (wgmma + TMA for bf16 at hd 64 / 128, the CUDA
 cores otherwise) at the serve layouts and ragged S, Sq != Sk, an
 unaligned view, bitwise repeatable, one device kernel per call.  RMSNorm
@@ -620,6 +623,131 @@ def test_decode_kernels_are_bitwise_repeatable(dtype, int8):
     assert not da._COUNTERS[dev].any()
 
 
+# (layout, capacity, base shape): pt-6b-d4's paged cache (8 tracks x 8
+# slots, G 4, hd 128, block 16) at the serve capacities; dense-6b's
+# contiguous one (8 slots x 8 KV heads); the drafter's (32 rows, G 4 on 1
+# KV head)
+_SWEEP_CASES = [("paged", 592), ("paged", 1104), ("contiguous", 1096),
+                ("drafter", 584)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout,capacity", _SWEEP_CASES)
+@pytest.mark.parametrize("many", [False, True], ids=["one_split",
+                                                     "many_splits"])
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_kernels_bitwise_across_sweeps(layout, capacity, many, int8):
+    """The split size follows the cache's capacity, so every sweep bound
+    from 64 to the capacity that covers the same live tokens gives the
+    same bits: rows whose live tokens fit in one split (the bound one
+    split or many: the one-split path against the merge of a live split
+    with empty ones) and rows spread over several splits (more empty
+    splits after the same boundaries)."""
+    from repro_torch.common.quant import quantize_rows
+    if int8 and layout == "drafter":
+        pytest.skip("the drafter's cache is bf16")
+    dev = _cuda()
+    rng = np.random.default_rng(capacity + many)
+    t = lambda a: torch.from_numpy(a).to(dev)            # noqa: E731
+    bf = torch.bfloat16
+    if layout == "paged":
+        n, B, KH, G, bs = 8, 8, 1, 4, 16
+        nmax = capacity // bs
+        base = n * B * KH
+    else:
+        n, B, KH, G, bs = 1, (8 if layout == "contiguous" else 32), \
+            (8 if layout == "contiguous" else 1), 4, None
+        base = B * KH
+    c = da.split_plan(capacity, base, bs, _sms(dev), capacity)[1]
+    assert c < capacity                      # more than one split at full
+    top = (3 * c) if many else c
+    lengths = rng.integers(max(1, top // 2), min(top, capacity) + 1,
+                           B).astype(np.int32)
+    hd = 128
+    if layout == "paged":
+        N = B * nmax + 1
+        table = (rng.permutation(N - 1)[:B * nmax].reshape(B, nmax) + 1
+                 ).astype(np.int32)
+        q = t(rng.standard_normal((n, B, KH * G, hd)).astype(np.float32))
+        shape = (n, N, bs, KH, hd)
+    else:
+        q = t(rng.standard_normal((B, KH * G, hd)).astype(np.float32))
+        shape = (B, capacity, KH, hd)
+    k, v = (t(rng.standard_normal(shape).astype(np.float32))
+            for _ in range(2))
+    if int8:
+        (k, ks), (v, vs) = quantize_rows(k), quantize_rows(v)
+    else:
+        k, v, ks, vs = k.to(bf), v.to(bf), None, None
+    q, lens = q.to(bf), t(lengths)
+
+    def call(max_len):
+        if layout == "paged":
+            return ops.paged_decode_attention(q, k, v, t(table), lens,
+                                              max_len=max_len, k_scale=ks,
+                                              v_scale=vs)
+        return ops.decode_attention(q, k, v, lens, max_len=max_len,
+                                    k_scale=ks, v_scale=vs)
+
+    sweeps = sorted({m for m in (64, 128, 256, 512, 1024, capacity)
+                     if int(lengths.max()) <= m <= capacity})
+    outs = [call(m) for m in sweeps]
+    plans = [da.split_plan(da._sweep_blocks(nmax, bs, m) * bs if bs else
+                           da._sweep_cols(capacity, 512, m), base, bs,
+                           _sms(dev), capacity) for m in sweeps]
+    torch.cuda.synchronize()
+    assert len({p[1] for p in plans}) == 1 and len(sweeps) >= 2
+    assert plans[-1][0] > 1                  # the widest sweep: many splits
+    if not many and layout == "paged":
+        assert plans[0][0] == 1              # the one-split path too
+    for m, o in zip(sweeps[1:], outs[1:]):
+        assert torch.equal(o, outs[0]), (m, (o.float() - outs[0].float())
+                                         .abs().max().item())
+    want = (ref.paged_decode_attention_plain(q, k, v, t(table), lens,
+                                             k_scale=ks, v_scale=vs)
+            if layout == "paged" else
+            ref.decode_attention_plain(q, k, v, lens, k_scale=ks,
+                                       v_scale=vs))
+    torch.testing.assert_close(outs[-1].float(), want.float(), rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_threefry_on_the_card_matches_the_cpu():
+    """The sampler's threefry stream on the card: row_keys (seeds 0, 1,
+    2**31 - 1, 2**32 - 1 by counters 0-300, every salt), random bits and
+    uniforms of [8, 100352] draws bitwise the CPU port's; the Gumbel
+    noise within 2 ulp of max(|g|, 1) (``log`` may differ in its last
+    bit); a sampled ``sample_rows`` over the serve vocabulary."""
+    from repro_torch.common import prng
+    from repro_torch.serving import sampler
+    dev = _cuda()
+    seeds = torch.tensor([0, 1, 2 ** 31 - 1, 2 ** 32 - 1])
+    cnt = torch.arange(301)
+    s, c = seeds.repeat_interleave(301), cnt.repeat(4)
+    for salt in (sampler.SALT_SAMPLE, sampler.SALT_ACCEPT,
+                 sampler.SALT_DRAFT):
+        assert torch.equal(sampler.row_keys(s.to(dev), c.to(dev), salt).cpu(),
+                           sampler.row_keys(s, c, salt))
+    keys = sampler.row_keys(torch.arange(8), torch.full((8,), 3), 0)
+    V = 100352
+    assert torch.equal(prng.random_bits(keys.to(dev), (V,)).cpu(),
+                       prng.random_bits(keys, (V,)))
+    assert torch.equal(prng.uniform(keys.to(dev), (V,)).cpu(),
+                       prng.uniform(keys, (V,)))
+    g, want = prng.gumbel(keys.to(dev), (V,)).cpu(), prng.gumbel(keys, (V,))
+    ulp = torch.from_numpy(np.spacing(np.maximum(want.abs().numpy(), 1.0)
+                                      .astype(np.float32)))
+    assert ((g.double() - want.double()).abs() <= 2 * ulp).all()
+    logits = torch.randn(8, V, generator=torch.Generator().manual_seed(0))
+    par = (torch.full((8,), 0.8), torch.full((8,), 50, dtype=torch.int32),
+           torch.full((8,), 0.95))
+    got = sampler.sample_rows(logits.to(dev), keys.to(dev),
+                              *(x.to(dev) for x in par)).cpu()
+    assert got.dtype == torch.int32 and ((got >= 0) & (got < V)).all()
+    assert (got == sampler.sample_rows(logits, keys, *par)).sum() >= 7
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("int8", [False, True])
 def test_decode_kernels_launch_one_device_kernel_per_call(int8):
@@ -797,14 +925,19 @@ def _tree_to(tree, dev):
 # the pre-planned step programs: CUDA graphs against eager steps
 # ---------------------------------------------------------------------------
 
-# arm -> (arch, dtype, engine knobs), reduced configs
+# arm -> (arch, dtype, engine knobs), reduced configs; a "sampled" arm's
+# requests sample (temperature 0.8, top-k 50, top-p 0.95), so its steps
+# run the sampled programs
 _PLAN_ARMS = {"paged bf16": ("pt-6b-d4", "bfloat16", {}),
+              "paged bf16 sampled": ("pt-6b-d4", "bfloat16", {}),
               "int8 kv": ("pt-6b-d4", "bfloat16", {"kv_dtype": "int8"}),
               "contiguous": ("dense-6b", "bfloat16", {"paged": False}),
               "mamba state rows": ("falcon-mamba-7b", "bfloat16",
                                    {"prefill_chunk": 8}),
               "spec": ("pt-6b-d4", "float32",
-                       {"speculate_k": 3, "draft_tracks": 2})}
+                       {"speculate_k": 3, "draft_tracks": 2}),
+              "spec sampled": ("pt-6b-d4", "float32",
+                               {"speculate_k": 3, "draft_tracks": 2})}
 
 
 def _plan_engine(arm, dev, preplan=True):
@@ -819,12 +952,16 @@ def _plan_engine(arm, dev, preplan=True):
                   device=dev, preplan=preplan, **knobs)
 
 
-def _decoding(eng, n=3):
-    """n requests admitted and decoding, nothing in flight."""
+def _decoding(eng, n=3, sampled=False):
+    """n requests admitted and decoding (sampled ones with seeds 0..n-1),
+    nothing in flight."""
     from repro_torch.serving.engine import RequestState
+    from repro_torch.serving.sampler import SampleParams
     rng = np.random.default_rng(5)
+    sp = SampleParams(0.8, 50, 0.95) if sampled else SampleParams()
     reqs = [eng.submit(rng.integers(1, eng.cfg.vocab_size,
-                                    size=(7 + 9 * i,)).tolist(), 20)
+                                    size=(7 + 9 * i,)).tolist(), 20,
+                       params=sp, seed=i)
             for i in range(n)]
     while any(q.state is not RequestState.DECODE for q in reqs):
         eng.step()
@@ -858,22 +995,23 @@ def test_graph_replay_equals_the_eager_step_bitwise(arm):
     dev = _cuda()
     eng = _plan_engine(arm, dev)
     r = eng.runner
-    _decoding(eng)
+    _decoding(eng, sampled=arm.endswith("sampled"))
     cache = _cache_tensors(r)
     saved = [t.clone() for t in cache]
 
     def step():
+        kw = dict(seeds=eng._seeds, top_k=eng._topks, top_p=eng._topps)
         if r.speculate_k:
             h = r.dispatch_spec(eng._tok, eng._pos, eng._active, eng._temps,
-                                eng._counts)
+                                eng._counts, **kw)
             out = r.wait_spec(h)
         else:
             h = r.dispatch_decode(eng._tok, eng._pos, eng._active,
                                   eng._temps, eng._eos, eng._remaining,
-                                  eng._counts)
+                                  eng._counts, **kw)
             out = r.wait_decode(h)
         return (h["logits"].clone(), [np.asarray(o).copy() for o in out],
-                [t.clone() for t in cache], ops.launch_counts())
+                [t.clone() for t in cache], ops.launch_counts(), h["key"])
 
     programs, r.programs = r.programs, {}
     before = ops.launch_counts()
@@ -884,6 +1022,7 @@ def test_graph_replay_equals_the_eager_step_bitwise(arm):
     hits = r.planned_hits
     replay = step()
     assert r.planned_hits == hits + 1
+    assert replay[4] == eager[4] and replay[4][-1] == arm.endswith("sampled")
     assert torch.equal(eager[0], replay[0])
     assert all(np.array_equal(a, b) for a, b in zip(eager[1], replay[1]))
     assert all(torch.equal(a, b) for a, b in zip(eager[2], replay[2]))

@@ -160,8 +160,8 @@ def test_engine_rejects_invalid_requests_and_unported_features(model):
     for kw in ({"prefix_cache": True}, {"max_queue": 4}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Engine(cfg, params, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit([1, 2], 4, params=SampleParams(temperature=0.7))
+    sampled = eng.submit([1, 2], 4, params=SampleParams(temperature=0.7))
+    assert sampled.state is RequestState.QUEUED   # sampling is ported
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         eng.submit([1, 2], 4, priority=1)
     for kw in ({"kv_dtype": "fp8"}, {"weight_dtype": "int4"},

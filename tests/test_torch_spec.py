@@ -238,8 +238,8 @@ def test_accept_step_matches_reference(case):
               "inactive": best[:, :K]}[case].astype(np.int32)
     active = np.asarray([True, case != "inactive", True, case != "inactive"])
     mine = sampler.accept_step(torch.from_numpy(tgt), torch.from_numpy(dlg),
-                               torch.from_numpy(drafts), np.zeros(B),
-                               torch.from_numpy(active))
+                               torch.from_numpy(drafts), None, None, None,
+                               None, None, torch.from_numpy(active))
     z = jnp.zeros((B,), jnp.float32)
     want = jsampler.accept_step(
         jnp.asarray(tgt), jnp.asarray(dlg), jnp.asarray(drafts),
@@ -252,10 +252,19 @@ def test_accept_step_matches_reference(case):
     assert {"all": (m == K + 1).all(), "none": (m == 1).all(),
             "mid": (m == np.arange(B) % K + 1).all(),
             "inactive": list(m) == [K + 1, 0, K + 1, 0]}[case]
-    with pytest.raises(NotImplementedError, match="item 4"):
-        sampler.accept_step(torch.from_numpy(tgt), torch.from_numpy(dlg),
-                            torch.from_numpy(drafts), np.full(B, 0.5),
-                            torch.from_numpy(active))
+    # with temperature 0.5 the rejection sampler, against the reference's
+    seeds, counts = np.arange(B, dtype=np.uint32), np.full(B, 3, np.int32)
+    half, top_k, top_p = (np.full(B, 0.5, np.float32),
+                          np.zeros(B, np.int32), np.ones(B, np.float32))
+    mine = sampler.accept_step(
+        *(torch.from_numpy(a) for a in (tgt, dlg, drafts)),
+        torch.from_numpy(seeds.astype(np.int64)),
+        *(torch.from_numpy(a) for a in (counts, half, top_k, top_p, active)))
+    want = jsampler.accept_step(
+        jnp.asarray(tgt), jnp.asarray(dlg), jnp.asarray(drafts),
+        jnp.asarray(seeds), jnp.asarray(counts), jnp.asarray(half),
+        jnp.asarray(top_k), jnp.asarray(top_p), jnp.asarray(active))
+    assert np.array_equal(mine.numpy(), np.asarray(want))
 
 
 # ---------------------------------------------------------------------------
@@ -415,8 +424,9 @@ def test_spec_gating_falls_back_with_reasons(small):
     eng = Engine(cfg, params, device="cpu", max_slots=1, max_seq_len=32,
                  speculate_k=2)
     assert eng.runner.draft_tracks == cfg.pt.n_tracks // 2
-    with pytest.raises(NotImplementedError, match="item 4"):
-        eng.submit([1, 2], 4, params=SampleParams(temperature=0.7))
+    sampled = eng.submit([1, 2], 4, params=SampleParams(temperature=0.7))
+    eng.run()
+    assert sampled.state is RequestState.DONE and len(sampled.output) == 4
 
 
 def test_serve_cli_speculative_on_cpu(capsys):

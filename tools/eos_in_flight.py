@@ -8,16 +8,17 @@ pt-6b-d4 at full width, bf16, seeded random weights, 8 slots, block 16,
 64 new tokens: lane 0 gets a 520-token prompt and lanes 1-7 400-token
 prompts, so lane 0 alone sets the decode kernels' sweep bound: 592
 positions (the serve cell's capacity of 584) or 1024 (a capacity of
-1096) against 512 for the others; the decode kernels split both of the
-first two sweeps into splits of 128 tokens, the third into splits of
-256 (``split_plan``).  For each capacity: a sync run
+1096) against 512 for the others.  The decode kernels size their splits
+from the cache's capacity (``split_plan``: 128 tokens at capacity 584,
+256 at 1096), so a wider bound only adds splits that hold no live token
+of the other lanes.  For each capacity: a sync run
 without EOS picks the EOS token: the first token of lane 0's stream,
 from its 8th on, that no other stream and no earlier token of its own
 holds.  Then the same prompts with that EOS, by the sync engine and by
 ``Engine(pipeline_depth=1, preplan=True)``: the pipelined engine has
 dispatched the step after the EOS before it reads the EOS, so that step
 still counts lane 0 and takes the wider bound, where the sync step takes
-the narrower one (another split plan of the decode kernels).  Every
+the narrower one (more splits of the decode kernels).  Every
 decode step's logits are kept per request (a device copy taken right
 after the step, before the next one runs).  The same pair again without
 the EOS is the control: the bounds then agree at every step.  Reported

@@ -1,7 +1,7 @@
 """The seven planned serve configurations of ``chip_smoke.py`` phase 5 on
 this checkout and on another one, in turns, on one card.
 
-  python3 tools/serve_ab.py OTHER_CHECKOUT [--json FILE]
+  python3 tools/serve_ab.py OTHER_CHECKOUT [--json FILE] [--only TAGS]
 
 Each side runs in its own process (both checkouts hold a package named
 ``repro_torch``), in the order other, this, this, other; each process
@@ -14,9 +14,13 @@ preplan=True)``, 8 slots, block 16, 8 greedy requests of 512 prompt
 tokens and 64 new ones (the same prompts on both sides), after a
 warm-up.  Per configuration: TTFT and TPOT p50 of the run, then one
 decode (or spec) step's device busy time and device ops (kernels and
-copies, ``torch.profiler``, the mean of 3 replayed steps) against the
-unprofiled step's wall time.  Needs one CUDA GPU.  Prints the card line
-and one JSON object with both sides' runs.
+copies, ``torch.profiler``, the mean of 3 replayed steps, whose window
+may catch part of the step before it) against the unprofiled step's
+wall time, and the device ops of one replay of the widest greedy step
+program alone.  ``--only`` takes a comma-separated list
+of configuration tags (say "PT bf16,dense-6b paged") and serves those
+alone.  Needs one CUDA GPU.  Prints the card line and one JSON object
+with both sides' runs.
 """
 from __future__ import annotations
 
@@ -40,6 +44,26 @@ CONFIGS = (("PT bf16", "pt-6b-d4", {}, False),
             False),
            ("dense-6b paged", "dense-6b", {}, False),
            ("dense-6b contiguous", "dense-6b", dict(paged=False), False))
+
+
+def _graph_ops(eng) -> int:
+    """Device ops of one replay of the widest greedy step program (the
+    graph's kernels and copies, counted by ``torch.profiler`` around the
+    replay alone, so no other step's work falls into the window).  Run
+    once the engine is done: the replay rewrites its static buffers."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    progs = eng.runner.programs
+    key = max(k for k in progs if k[-1] is not True)
+    progs[key].replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        progs[key].replay()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA)
 
 
 def _step_profile(eng, rng, vocab: int):
@@ -73,9 +97,9 @@ def _step_profile(eng, rng, vocab: int):
             sum(e.count for e in ev) / 3, wall)
 
 
-def worker(src: Path) -> None:
-    """Serve every configuration with the package under ``src``; print
-    one JSON line per configuration."""
+def worker(src: Path, only) -> None:
+    """Serve every configuration (of ``only``, when given) with the
+    package under ``src``; print one JSON line per configuration."""
     sys.path.insert(0, str(src))
     import numpy as np
     import torch
@@ -85,6 +109,8 @@ def worker(src: Path) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", torch.cuda.current_device())
     for tag, arch, knobs, tied in CONFIGS:
+        if only and tag not in only:
+            continue
         cfg = get_config(arch)
         params = model_fns(cfg)["init"](
             torch.Generator(device=dev).manual_seed(0), cfg, dev)
@@ -115,6 +141,7 @@ def worker(src: Path) -> None:
         print(json.dumps({"config": tag, "ttft_ms_p50": m["ttft_ms"]["p50"],
                           "tpot_ms_p50": m["tpot_ms"]["p50"],
                           "step_busy_ms": busy, "step_device_ops": ops,
+                          "graph_device_ops": _graph_ops(eng),
                           "step_wall_ms": wall,
                           "finished": sum(len(q.output) == NEW
                                           for q in reqs)}), flush=True)
@@ -126,11 +153,17 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("other", type=Path, nargs="?")
     ap.add_argument("--json", type=Path, default=None)
+    ap.add_argument("--only", default="",
+                    help="comma-separated configuration tags to serve")
     ap.add_argument("--worker", type=Path, default=None,
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
+    only = [t for t in args.only.split(",") if t]
+    unknown = set(only) - {c[0] for c in CONFIGS}
+    if unknown:
+        raise SystemExit(f"serve_ab: unknown configurations {unknown}")
     if args.worker is not None:
-        worker(args.worker)
+        worker(args.worker, only)
         return 0
     import torch
     if not torch.cuda.is_available():
@@ -143,8 +176,9 @@ def main() -> int:
     runs = {"other": [], "this": []}
     for side in ("other", "this", "this", "other"):
         out = subprocess.run([sys.executable, __file__, "--worker",
-                              str(sides[side])], stdout=subprocess.PIPE,
-                             text=True, check=True).stdout
+                              str(sides[side]), "--only", args.only],
+                             stdout=subprocess.PIPE, text=True,
+                             check=True).stdout
         rows = [json.loads(ln) for ln in out.splitlines()
                 if ln.startswith("{")]
         runs[side].append(rows)

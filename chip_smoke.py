@@ -125,7 +125,17 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      drafter's logits bitwise at every step) and planned (streams
      bitwise), gated on at least one step taking another bound; and,
      on the tied tracks, the speculative arm with every request
-     sampled (rejection-sampling accept), sync against planned.
+     sampled (rejection-sampling accept), sync against planned;
+  8. pt-6b-d4 bf16 on 2 track ranks of the one card (``serve_ranks``:
+     spawned processes, gloo; each rank 4 of the 8 tracks, the paged
+     cache, phase 5's prompts, the sync engine): per rank TTFT, TPOT,
+     peak memory and the collective's share of a decode step's host
+     clock; gates: (a) ranks bitwise equal to each other, (b) 8
+     collectives per prefill call and per decode step (a wrapper on
+     ``torch.distributed``) and no other, launches and routes equal to
+     phase 5's, (c) logits teacher-forced along phase 5's streams and
+     the free streams bitwise phase 5's, or else the logits within
+     ``check_spec_logits``'s limit.
 Prints one ``{"kernels": [...]}`` JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -665,9 +675,12 @@ def check_rmsnorm(dev: torch.device, g: torch.Generator):
     8 tracks, as the first ln1 reads the embedding; ``add_norm``;
     ``fuse_norm`` at a block boundary, per-track scale rows), dense-6b
     decode [8,1,4096] and prefill [8,512,4096] (``norm``, ``add_norm``;
-    one scale row).  Each is held against its plain version and timed as
-    device work beside its eager loop, its bytes bound and share, and a
-    yardstick of PyTorch calls on the same inputs: ``F.rms_norm`` for
+    one scale row); and ``fuse_norm`` at a track rank's decode boundary
+    (phase 8): the 8 tracks' x + delta gathered [8,8,1,1408], no delta,
+    the rank's 4 scale rows [4,1408].  Each is held against its plain
+    version and timed as device work beside its eager loop, its bytes
+    bound and share, and a yardstick of PyTorch calls on the same
+    inputs: ``F.rms_norm`` for
     ``norm`` (the library call), for the others the sequence they replace
     (the add, the fp32 mean and cast, then ``F.rms_norm``; the per-track
     scale rows are one row repeated, so its weight is that row).  Returns
@@ -696,7 +709,8 @@ def check_rmsnorm(dev: torch.device, g: torch.Generator):
                  torch.randn(*lead, d, generator=g, device=dev).to(bf),
                  torch.randn(*lead, d, generator=g, device=dev).to(bf))
                 for _ in range(copies_for(2 * one))]
-        routes = ["norm", "add_norm"] + (["fuse_norm"] if tracks else [])
+        routes = ["norm", "add_norm"] + (["fuse_norm"] if tracks else []) \
+            + (["fuse_norm rank"] if tracks and phase == "decode" else [])
         for route in routes:
             if route == "norm":
                 # the fused row (spread when the model has tracks)
@@ -718,6 +732,23 @@ def check_rmsnorm(dev: torch.device, g: torch.Generator):
                     xn = x + dl
                     return xn, F.rms_norm(xn, (d,), weight=w, eps=eps)
                 what = "x + delta, then F.rms_norm"
+            elif route == "fuse_norm rank":
+                # a rank of RANKS: every track's x + delta gathered, the
+                # norm under this rank's scale rows
+                sr = s[:tracks // RANKS].contiguous()
+
+                def args(f, x, dl):
+                    return (x,)
+                kern = lambda x: ops.fuse_rmsnorm(x, None, sr, eps=eps)
+                plain = lambda x: ref.fuse_rmsnorm_plain(x, None, sr,
+                                                         eps=eps)
+
+                def lib(x):
+                    f = torch.mean(x, dim=0, dtype=torch.float32).to(bf)
+                    return f, F.rms_norm(f[None].expand(sr.shape[0], *f.shape),
+                                         (d,), weight=w, eps=eps)
+                what = ("the fp32 track mean and its cast, then F.rms_norm "
+                        "on the broadcast to the rank's tracks")
             else:
                 def args(f, x, dl):
                     return x, dl
@@ -742,7 +773,8 @@ def check_rmsnorm(dev: torch.device, g: torch.Generator):
             t = device_timing(kern, lib, rsets, rsets, iters)
             x0 = rsets[0][0]
             ins = (sets[0][0] if route == "norm" and tracks else x0,) + \
-                tuple(rsets[0][1:]) + (s,)
+                tuple(rsets[0][1:]) + (sr if route == "fuse_norm rank"
+                                       else s,)
             row = _report("rmsnorm", "cuda",
                           "src/repro_torch/kernels/csrc/rmsnorm.cu",
                           "src/repro/kernels/rmsnorm.py:20", got[-1],
@@ -753,15 +785,18 @@ def check_rmsnorm(dev: torch.device, g: torch.Generator):
                           4.0 * got[-1].numel() + 2.0 * x0.numel(),
                           FP32_FLOP_S)
             shape = "x [" + ",".join(map(str, x0.shape)) + "]"
+            sc = ins[-1]
             timed_extras(row, t, f"{route}: {shape} bf16"
                                  f"{' (one row broadcast)' if route == 'norm' and tracks else ''}"
-                                 f", scale [{','.join(map(str, s.shape))}] "
+                                 f"{' (gathered, no delta)' if route == 'fuse_norm rank' else ''}"
+                                 f", scale [{','.join(map(str, sc.shape))}] "
                                  f"({ARCH if tracks else DENSE_ARCH} "
                                  f"{phase})")
-            row.update(kernel_route=route, yardstick=what,
+            row.update(kernel_route=route.split()[0], yardstick=what,
                        yardstick_ms=t["library_ms"],
                        yardstick_eager_ms=t["library_eager_ms"],
-                       run="bf16" if tracks else "dense paged")
+                       run=("ranks" if route == "fuse_norm rank" else "bf16")
+                       if tracks else "dense paged")
             log(f"[kernel]   rmsnorm {route}: yardstick ({what}) "
                 f"{t['library_ms']:.4f} ms as device work")
             out_rows.append(row)
@@ -1435,6 +1470,7 @@ INT8_PATH = ("int8_matmul", "paged_decode_attention_int8", "rmsnorm")
 INT8_ROUTES = {}      # the W8A16 launches of the int8 serve run, by route
 FLASH_ROUTES = {}     # the flash launches of each bf16 serve run, by route
 NORM_ROUTES = {}      # the RMSNorm launches of each serve run, by route
+RANK_SUMMARY = {}     # the figures of phase 8, for the summary line
 
 
 def norm_routes(kind: str, cfg, c: dict) -> dict:
@@ -2794,6 +2830,306 @@ def spec_boundary(dev, card: str, params) -> None:
         raise SystemExit(f"[boundary] gates {gates}")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: pt-6b-d4 served on track ranks (torch.distributed, gloo) on the
+# one card
+# ---------------------------------------------------------------------------
+
+RANKS = 2                      # two track ranks of pt-6b-d4's 8 tracks
+RANK_TIMEOUT = 600.0           # seconds for the spawned run, start to join
+
+
+def teacher_forced(r, prompts, streams) -> torch.Tensor:
+    """The logits a runner gives along ``streams`` [n, NEW] after
+    ``prompts`` [n, PROMPT]: the whole-prompt prefill's last row (the
+    engine's prefill call: the bucket is the prompt length) and one paged
+    decode step per stream token but the last, each the engine's decode
+    call (the same block table rows, bound and active lanes).  [n, NEW, V]
+    fp32; the cache rows are freed after."""
+    n, T, dev, cfg = len(prompts), NEW - 1, r.device, r.cfg
+    slots = list(range(n))
+    for s_ in slots:
+        r.kv.allocate(s_, PROMPT + NEW)
+    active = np.ones((n,), bool)
+    act_d = torch.ones((n,), dtype=torch.bool, device=dev)
+    pos = np.full((n,), PROMPT, np.int32)
+    pos_d = torch.as_tensor(pos, device=dev)
+    toks = torch.as_tensor([s[:T] for s in streams], device=dev)
+    with torch.no_grad():
+        logits, cache = r.fns["forward"](
+            r.params, {"inputs": torch.as_tensor(prompts, device=dev)}, cfg)
+        out = [logits[:, PROMPT - 1].float()]
+        r.kv.insert_prefill(cache, slots, r.kv.table_rows(slots))
+        del logits, cache
+        for i in range(T):
+            out.append(r.fns["decode"](
+                r.params, r.cache, toks[:, i], pos_d + i, cfg,
+                block_table=r._masked_table(active),
+                kv_max_len=r._live_max_len(pos + i, active),
+                active=act_d)[0].float())
+    for s_ in slots:
+        r.kv.free_slot(s_)
+    return torch.stack(out, dim=1)
+
+
+def _wrap_collectives(calls: dict, timed: dict):
+    """Count every collective of ``torch.distributed`` (independently of
+    the port's own counter) by name in ``calls``; while ``timed["on"]``,
+    also the host-clock seconds inside each (the card synchronised before
+    and after, so that the span is the collective's alone) in
+    ``timed["s"]``."""
+    import torch.distributed as dist
+    names = ("all_gather_single", "all_gather_into_tensor", "all_gather",
+             "all_reduce", "broadcast", "reduce", "reduce_scatter",
+             "reduce_scatter_tensor", "all_to_all", "all_to_all_single",
+             "gather", "scatter", "barrier", "send", "recv", "isend",
+             "irecv", "batch_isend_irecv")
+
+    def wrap(fn, name):
+        def counted(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            if not timed["on"]:
+                return fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            timed["s"] += time.perf_counter() - t0
+            return out
+        return counted
+
+    for name in names:
+        if hasattr(dist, name):
+            setattr(dist, name, wrap(getattr(dist, name), name))
+
+
+def serve_rank(par, device: str, prompts, streams, ref_path: str) -> dict:
+    """Phase 8 on one track rank (a spawned process; ``par`` its rank of
+    the gloo group): pt-6b-d4 bf16 from phase 5's seed, the rank's share
+    kept, served by ``Engine(par=...)`` on phase 5's prompts after phase
+    5's warm-up, with the launch counts, the collectives per prefill call
+    and per decode step and the RMSNorm routes of the measured run; then
+    the logits teacher-forced along one process's streams, against one
+    process's (``ref_path``), with the host clock's share of each decode
+    step spent in the collective."""
+    import hashlib
+    from repro_torch.configs import get_config
+    from repro_torch.core.track import init_pt
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import Engine, EngineMetrics, RequestState
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    calls, timed = {}, {"on": False, "s": 0.0}
+    _wrap_collectives(calls, timed)
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    full = init_pt(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    eng = Engine(cfg, full, max_slots=SLOTS, max_seq_len=PROMPT + NEW + 8,
+                 block_size=BLOCK, device=dev, par=par)
+    del full                            # the engine keeps the rank's share
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    r = eng.runner
+    held = sum(nbytes(t) for t in _leaves(r.params))
+    rng = np.random.default_rng(0)
+    eng.generate([rng.integers(1, cfg.vocab_size, size=(16,)).tolist()
+                  for _ in range(SLOTS)], 3)                 # as phase 5
+    eng.metrics = EngineMetrics()
+    per_prefill, per_step = [], []
+
+    def counted(fn, into):
+        def call(*args, **kwargs):
+            n0 = sum(calls.values())
+            out = fn(*args, **kwargs)
+            into.append(sum(calls.values()) - n0)
+            return out
+        return call
+
+    r.prefill = counted(r.prefill, per_prefill)
+    r._dispatch_step = counted(r._dispatch_step, per_step)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    calls.clear()
+    port0, adds0 = par.counts.collectives, par.counts.local_adds
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, NEW) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = {"rank": par.rank, "wall": wall, "init_s": init_s,
+           "param_bytes": held, "kv_bytes": r.kv.pool_bytes(),
+           "launches": ops.launch_counts(),
+           "norm_routes": dict(ops.rmsnorm.routes),
+           "flash_routes": dict(ops.flash_attention.routes),
+           "per_prefill": per_prefill, "per_step": per_step,
+           "calls": dict(calls),
+           "port_collectives": par.counts.collectives - port0,
+           "local_adds": par.counts.local_adds - adds0,
+           "m": eng.metrics.summary(),
+           "peak": torch.cuda.max_memory_allocated(dev),
+           "done": sum(q.state is RequestState.DONE and len(q.output) == NEW
+                       for q in reqs),
+           "streams": [q.output for q in reqs]}
+    del r.prefill, r._dispatch_step
+    # teacher-forced along one process's streams, the collective timed
+    timed["on"] = True
+    t0 = time.perf_counter()
+    got = teacher_forced(r, prompts, streams)
+    torch.cuda.synchronize()
+    out["forced_s"], out["collective_s"] = time.perf_counter() - t0, timed["s"]
+    timed["on"] = False
+    ref = torch.from_numpy(np.load(ref_path)).to(dev)
+    diff = (got - ref).abs()
+    rows = (got != ref).flatten(2).any(-1)                  # [n, NEW]
+    out.update(
+        logits_sha=hashlib.sha256(got.cpu().numpy().tobytes()).hexdigest(),
+        bitwise=bool(torch.equal(got, ref)),
+        mean_diff=diff[:, 1:].mean().item(), max_diff=diff.max().item(),
+        prefill_diff=diff[:, 0].max().item(),
+        argmax_equal=int((got.argmax(-1) == ref.argmax(-1)).sum()),
+        first_diff_step=(int(rows.any(0).nonzero()[0]) if rows.any()
+                         else -1))
+    return out
+
+
+def serve_ranks(dev: torch.device, card: str, prompts, streams,
+                launches) -> dict:
+    """Phase 8: pt-6b-d4 bf16 at full width and depth on RANKS track
+    ranks of the one card (one process each, gloo: NCCL takes one rank
+    per device; 4 of the 8 tracks each), the paged cache, phase 5's 8
+    prompts of 512 tokens and 64 greedy new tokens, the sync engine.
+    ``streams`` and ``launches`` are phase 5's one-process bf16 sync
+    run's (its routes are in NORM_ROUTES and FLASH_ROUTES).  First one
+    process's logits teacher-forced along its streams
+    (``teacher_forced``), and its whole-sequence prefill over the same
+    tokens, the yardstick of ``check_spec_logits``.
+    Gates: (a) the ranks' streams and teacher-forced logits bitwise
+    equal to each other; (b) a wrapper on the ``torch.distributed``
+    functions counts exactly R = L / D collectives per prefill call and
+    per decode step, of the gather alone, as the port's own counter
+    does, with one local add each; every kernel's launches and every
+    RMSNorm and flash route's on each rank equal to phase 5's; (c)
+    streams and logits bitwise equal to one process's, or else the
+    teacher-forced logits within ``check_spec_logits``'s limit of one
+    process's decode logits (2 x the one-process prefill's mean distance
+    to its decode, or 2e-2 x decode's logit std where larger); the free
+    streams are printed, not gated.  Returns rank 0's launch counts."""
+    import tempfile
+    from repro_torch.configs import get_config
+    from repro_torch.core.track import init_pt, pt_sync_points
+    from repro_torch.runtime.parallel import spawn
+    from repro_torch.serving.engine import Engine
+    cfg = get_config(ARCH)
+    R, T = pt_sync_points(cfg.n_layers, cfg.pt.block_depth), NEW - 1
+    params = init_pt(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    eng = Engine(cfg, params, max_slots=SLOTS, max_seq_len=PROMPT + NEW + 8,
+                 block_size=BLOCK, device=dev)
+    ref = teacher_forced(eng.runner, prompts, streams)
+    replay = int((ref.argmax(-1) == torch.as_tensor(streams, device=dev))
+                 .sum())
+    with torch.no_grad():
+        seq = torch.cat([torch.as_tensor(prompts, device=dev),
+                         torch.as_tensor([s[:T] for s in streams],
+                                         device=dev)], dim=1)
+        pre = eng.runner.fns["forward"](eng.runner.params,
+                                        {"inputs": seq}, cfg)[0]
+        pre = pre[:, PROMPT:PROMPT + T].float()
+    dec = ref[:, 1:]
+    pre_mean = (pre - dec).abs().mean().item()
+    limit = max(2 * pre_mean, KERNEL_TOL * dec.std().item())
+    log(f"[ranks] one process: teacher-forced logits replay its streams at "
+        f"{replay}/{len(prompts) * NEW} tokens; its prefill vs its decode "
+        f"mean |diff| {pre_mean:.4e}; limit {limit:.4e}")
+    del eng, params, pre, dec, seq
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="ranks-") as tmp:
+        path = str(Path(tmp) / "ref.npy")
+        np.save(path, ref.cpu().numpy())
+        del ref
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = spawn(serve_rank, RANKS, (str(dev), prompts, streams, path),
+                    timeout=RANK_TIMEOUT)
+        log(f"[ranks] {RANKS} rank processes, spawn to join "
+            f"{time.perf_counter() - t0:.1f}s")
+    gather = ("all_gather_single" if hasattr(torch.distributed,
+                                             "all_gather_single")
+              else "all_gather_into_tensor")
+    n_pre, n_dec = len(res[0]["per_prefill"]), len(res[0]["per_step"])
+    for o in res:
+        m = o["m"]
+        share = o["collective_s"] / o["forced_s"]
+        log(f"[ranks] {card} | rank {o['rank']}/{RANKS}: TTFT ms p50 "
+            f"{m['ttft_ms']['p50']:.2f} p90 {m['ttft_ms']['p90']:.2f}; TPOT "
+            f"ms p50 {m['tpot_ms']['p50']:.3f} p90 {m['tpot_ms']['p90']:.3f};"
+            f" throughput {m['throughput_tok_s']:.1f} tok/s; wall "
+            f"{o['wall']:.3f}s; peak memory {o['peak'] / 1e9:.3f} GB "
+            f"(weights held {o['param_bytes'] / 1e9:.3f} GB, KV pool "
+            f"{o['kv_bytes'] / 1e9:.3f} GB); init + shard {o['init_s']:.1f}s")
+        log(f"[ranks] {card} | rank {o['rank']}: collective (gloo through "
+            f"host memory on one card, not NVLink) {share * 100:.1f} % of "
+            f"the host clock of {T} teacher-forced decode steps + 1 prefill "
+            f"({o['collective_s'] * 1e3:.1f} of {o['forced_s'] * 1e3:.1f} "
+            f"ms, the card synchronised around each collective)")
+        log(f"[ranks] rank {o['rank']}: launches {json.dumps(o['launches'])}"
+            f"; RMSNorm routes {json.dumps(o['norm_routes'])}; collectives "
+            f"{json.dumps(o['calls'])} (port's counter "
+            f"{o['port_collectives']}, local adds {o['local_adds']}) over "
+            f"{len(o['per_prefill'])} prefill calls and "
+            f"{len(o['per_step'])} decode steps")
+        log(f"[ranks] rank {o['rank']} vs one process, teacher-forced: "
+            f"bitwise {o['bitwise']}, mean |diff| {o['mean_diff']:.4e}, max "
+            f"{o['max_diff']:.4e} (prefill row {o['prefill_diff']:.4e}), "
+            f"argmax equal {o['argmax_equal']}/{len(prompts) * NEW}, first "
+            f"differing step {o['first_diff_step']} (-1: none); free "
+            f"streams equal {sum(a == b for a, b in zip(o['streams'], streams))}"
+            f"/{len(streams)}")
+    total = R * (n_pre + n_dec)
+    gates = {
+        "finished": all(o["done"] == len(prompts) for o in res),
+        "(a) ranks bitwise": all(o["streams"] == res[0]["streams"]
+                                 and o["logits_sha"] == res[0]["logits_sha"]
+                                 for o in res),
+        "(b) R per prefill call": all(o["per_prefill"] == [R] * n_pre
+                                      and n_pre for o in res),
+        "(b) R per decode step": all(o["per_step"] == [R] * n_dec and n_dec
+                                     for o in res),
+        "(b) the gather alone": all(o["calls"] == {gather: total}
+                                    and o["port_collectives"] == total
+                                    and o["local_adds"] == total
+                                    for o in res),
+        "launches = one process": all(o["launches"] == launches
+                                      for o in res),
+        "RMSNorm routes = one process": all(
+            o["norm_routes"] == NORM_ROUTES["bf16"] for o in res),
+        "flash routes = one process": all(
+            o["flash_routes"] == FLASH_ROUTES["bf16"] for o in res)}
+    bitwise = all(o["bitwise"] and o["streams"] == streams for o in res)
+    if bitwise:
+        gates["(c) bitwise = one process"] = True
+    else:
+        gates["(c) teacher-forced within limit"] = all(
+            o["mean_diff"] <= limit for o in res)
+    log(f"[ranks] gates {json.dumps(gates)}")
+    if not all(gates.values()):
+        raise SystemExit(f"[ranks] gates not met: {gates}")
+    NORM_ROUTES["ranks"] = res[0]["norm_routes"]
+    RANK_SUMMARY.update(
+        ranks=RANKS, R=R, bitwise=bitwise, limit=limit,
+        per_rank=[{k: o[k] for k in ("rank", "mean_diff", "max_diff",
+                                     "first_diff_step", "collective_s",
+                                     "forced_s", "peak", "param_bytes")}
+                  | {"ttft_p50": o["m"]["ttft_ms"]["p50"],
+                     "tpot_p50": o["m"]["tpot_ms"]["p50"]} for o in res])
+    return res[0]["launches"]
+
+
 def head_choice_ms(eng, head, dev) -> None:
     """The LM head in fp32: the fp32 copy the runner keeps against a
     per-step cast of the bf16 head, at the decode shape."""
@@ -2871,6 +3207,7 @@ def main() -> int:
     if rate_b < rate_a:
         raise SystemExit("[serve] tied tracks accepted less than run (a)")
     serve_spec_sampled(dev, card, params)
+    one = {k: keep[k] for k in ("prompts", "streams")}
     del params, keep
     gc.collect()
     torch.cuda.empty_cache()
@@ -2895,6 +3232,10 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs["ranks"] = serve_ranks(dev, card, one["prompts"], one["streams"],
+                                runs["bf16"])
     for row in rows:
         # each kernel's count from the run of the path it belongs to
         run = ("falcon" if row["name"] == "ssm_scan" else
@@ -2917,8 +3258,8 @@ def main() -> int:
             row["routes_in_serve"] = dict(NORM_ROUTES)
             for r_ in [row] + row["shapes"]:
                 r_["route_launches"] = NORM_ROUTES[
-                    "bf16" if r_["run"] == "bf16" else
-                    "dense-6b bf16 paged"][r_["kernel_route"]]
+                    {"bf16": "bf16", "ranks": "ranks"}.get(
+                        r_["run"], "dense-6b bf16 paged")][r_["kernel_route"]]
         # the same two numbers under their longer key names as well
         row["kernel_ms"] = row["ms"]
         row["launches_in_serve"] = row["launches"]
@@ -2927,6 +3268,7 @@ def main() -> int:
          for tag, p in PLANNED.items()}))
     log("[profile] planned steps " + json.dumps(PROFILED))
     log("[sampling] summary " + json.dumps(SAMPLING))
+    log("[ranks] summary " + json.dumps(RANK_SUMMARY))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,6 +17,13 @@ next block's ln1, or the final norm) is one launch of the RMSNorm
 kernel's ``fuse_norm`` route; its fused value f [B, S, d] is the
 block's sync point, read by every track of the next block as a
 broadcast view, not a copy.
+
+On track ranks (``par``, ``runtime.parallel``) each process holds n/W
+tracks of the blocks (``shard_tracks``) and of the cache, and a block
+boundary is one collective: every rank's x + delta gathered in track
+order, then the ``fuse_norm`` route over all n rows under the rank's
+own scale rows, so the fusion sums as one process sums it.  The
+drafter runs with the track axis stripped: no collective.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.common.quant import QuantTensor
 from repro_torch.common.types import ModelConfig, PTConfig
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.decoder import _embed, _logits, model_dtype
@@ -34,6 +42,7 @@ from repro_torch.models.layers import (check_supported, layer_shapes,
                                        layer_step, norm_in)
 from repro_torch.models.norms import fuse_norm
 from repro_torch.models.params import Leaf, make_params, stack
+from repro_torch.runtime.parallel import NO_PARALLEL, Parallelism
 
 
 # ---------------------------------------------------------------------------
@@ -168,26 +177,58 @@ def _fuse(h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     raise ValueError(pt.fusion_op)
 
 
-def _spread(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Fused [B, S, d] -> [n, B, S, d] for every track: a broadcast view
-    (track stride 0), free as in the reference; the norm kernel's routes
-    read it as it is."""
-    return x[None].expand(_pt(cfg).n_tracks, *x.shape)
+def _spread(x: torch.Tensor, cfg: ModelConfig,
+            par: Parallelism = NO_PARALLEL) -> torch.Tensor:
+    """Fused [B, S, d] -> [n, B, S, d] for every track (on a rank, its
+    n/W tracks): a broadcast view (track stride 0), free as in the
+    reference; the norm kernel's routes read it as it is."""
+    return x[None].expand(par.local_tracks(cfg), *x.shape)
+
+
+def _gathered(x: torch.Tensor, delta: torch.Tensor,
+              par: Parallelism) -> torch.Tensor:
+    """A rank's x + delta [n/W, ...], rounded to x's dtype where the fused
+    RMSNorm rounds it (one local add, counted), gathered from every rank
+    into [n, ...] in track order (one collective)."""
+    s = x + delta
+    par.counts.local_adds += 1
+    return par.gather_tracks(s)
+
+
+def _boundary(cfg: ModelConfig, nxt, x: torch.Tensor, delta: torch.Tensor,
+              par: Parallelism) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A track-block boundary, the block's one sync point: (f, y) with f
+    [B, S, d] the fusion of x + delta over all n tracks and y its norm
+    under ``nxt`` (the next block's ln1, [n/W, d] on a rank, or the final
+    norm).  On a rank the local x + delta of every rank is gathered first
+    (one collective), and the fused norm runs over the n gathered rows
+    with nothing left to add: the bits of one process's launch."""
+    if par.sharded:
+        x, delta = _gathered(x, delta, par), None
+    return fuse_norm(cfg.norm, nxt, x, delta, eps=cfg.norm_eps,
+                     fusion_op=_pt(cfg).fusion_op)
 
 
 def _blocks(params, h: torch.Tensor, cfg: ModelConfig, layer,
-            final: bool) -> torch.Tensor:
+            final: bool, par: Parallelism) -> torch.Tensor:
     """The track blocks over the embedded input h [B, S, d]:
     ``layer(lp, x, y, r, j) -> (x, delta)`` runs layer j of block r
     (parameters ``lp``, stream x, ln1 output y) and leaves its last
     residual add pending; the next norm folds it in, and a block
-    boundary (``fuse_norm``) also the fusion and the next block's ln1.
+    boundary (``_boundary``) also the fusion and the next block's ln1.
     Returns the final norm's output [B, S, d] (``final``), or the fused
-    hidden states without it: the last block's bare fuse."""
+    hidden states without it: the last block's bare fuse.  On a rank
+    the blocks hold its n/W tracks, and each of the R boundaries is one
+    collective."""
     pt = _pt(cfg)
     R, _ = _block_counts(cfg)
     blocks = params["blocks"]
-    x = _spread(h, cfg)
+    held = blocks["ln1"]["scale"].shape[2]
+    if held != par.local_tracks(cfg):
+        raise ValueError(f"the blocks hold {held} tracks, rank {par.rank} "
+                         f"of {par.world} runs {par.local_tracks(cfg)}: "
+                         "pass shard_tracks(params, cfg, par)")
+    x = _spread(h, cfg, par)
     _, y = norm_in(cfg, _layer(blocks["ln1"], 0, 0), x, None)
     for r in range(R):
         for j in range(pt.block_depth):
@@ -198,10 +239,12 @@ def _blocks(params, h: torch.Tensor, cfg: ModelConfig, layer,
         if r + 1 < R or final:
             nxt = (_layer(blocks["ln1"], r + 1, 0) if r + 1 < R
                    else params["final_norm"])
-            f, y = fuse_norm(cfg.norm, nxt, x, delta, eps=cfg.norm_eps,
-                             fusion_op=pt.fusion_op)       # 1 sync / block
-            x = _spread(f, cfg)
-    return y if final else _fuse(x + delta, cfg)
+            f, y = _boundary(cfg, nxt, x, delta, par)      # 1 sync / block
+            x = _spread(f, cfg, par)
+    if final:
+        return y
+    return _fuse(_gathered(x, delta, par) if par.sharded else x + delta,
+                 cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -209,14 +252,16 @@ def _blocks(params, h: torch.Tensor, cfg: ModelConfig, layer,
 # ---------------------------------------------------------------------------
 
 def pt_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-               mode: str = "prefill", head: bool = True):
+               mode: str = "prefill", head: bool = True, *,
+               par: Parallelism = NO_PARALLEL):
     """Whole-prompt prefill.  batch: {'inputs': [B, S] token ids,
     'positions'?: [B, S]}.  Returns (logits [B, S, V], cache) with cache
     {'blocks': (k, v) each [R, D, n, B, S, KH, hd], 'tail': ()}, the
     reference's prefill cache layout; ``head=False`` skips the final
     norm and the LM head and returns (None, cache), for a caller that
     reads only the cache (the drafter's prefill, whose logits the
-    reference computes and drops).  (The reference also returns an
+    reference computes and drops).  On a rank (``par``) the blocks and
+    the cache hold its n/W tracks.  (The reference also returns an
     auxiliary loss, always zero here; training is ROADMAP queue 1,
     item 9.)"""
     if mode != "prefill":
@@ -239,7 +284,7 @@ def pt_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         vs.append(v)
         return x, delta
 
-    h = _blocks(params, _embed(params, inputs, cfg), cfg, layer, head)
+    h = _blocks(params, _embed(params, inputs, cfg), cfg, layer, head, par)
     logits = _logits(params, h, cfg) if head else None
 
     def stacked(xs):
@@ -252,7 +297,8 @@ def _pt_step(params, cache, h: torch.Tensor, pos: torch.Tensor,
              cfg: ModelConfig, mode: str,
              block_table: Optional[torch.Tensor], kv_max_len: Optional[int],
              active: Optional[torch.Tensor] = None,
-             final: bool = True) -> torch.Tensor:
+             final: bool = True,
+             par: Parallelism = NO_PARALLEL) -> torch.Tensor:
     """Shared decode / chunk drive over the track blocks: embedded h
     [B, C, d] in; out the final norm's output (``final``) or the fused
     hidden states [B, C, d]; every layer reads and writes its slice of
@@ -269,14 +315,15 @@ def _pt_step(params, cache, h: torch.Tensor, pos: torch.Tensor,
                                  kv_max_len=kv_max_len, active=active)
         return x, delta
 
-    return _blocks(params, h, cfg, layer, final)
+    return _blocks(params, h, cfg, layer, final, par)
 
 
 def pt_decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
                    cfg: ModelConfig,
                    block_table: Optional[torch.Tensor] = None,
                    kv_max_len: Optional[int] = None,
-                   active: Optional[torch.Tensor] = None, head: bool = True):
+                   active: Optional[torch.Tensor] = None, head: bool = True,
+                   *, par: Parallelism = NO_PARALLEL):
     """One token per row against the cache: the paged cache {'blocks':
     (PagedLeaf k, PagedLeaf v) with pools [R, D, n, N, bs, KH, hd]} with
     block_table [B, nmax] int32, or the contiguous cache {'blocks': (k,
@@ -284,11 +331,12 @@ def pt_decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
     int32 (cache write index).  The cache is updated in place.
     ``active`` [B] bool keeps the contiguous rows of inactive lanes (in
     the paged cache they write through zeroed table rows into the trash
-    block).  ``head=False`` skips the final norm and the LM head.
+    block).  ``head=False`` skips the final norm and the LM head.  On a
+    rank (``par``) the blocks and the cache hold its n/W tracks.
     Returns (logits [B, V] or None, cache)."""
     h = _embed(params, tokens[:, None], cfg)                 # [B, 1, d]
     h = _pt_step(params, cache, h, pos, cfg, "decode", block_table,
-                 kv_max_len, active, final=head)
+                 kv_max_len, active, final=head, par=par)
     return (_logits(params, h[:, 0], cfg) if head else None), cache
 
 
@@ -297,8 +345,8 @@ def pt_chunk_hidden(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
                     block_table: Optional[torch.Tensor] = None,
                     kv_max_len: Optional[int] = None,
                     slots: Optional[torch.Tensor] = None,
-                    chunk_lens: Optional[torch.Tensor] = None
-                    ) -> torch.Tensor:
+                    chunk_lens: Optional[torch.Tensor] = None, *,
+                    par: Parallelism = NO_PARALLEL) -> torch.Tensor:
     """``pt_chunk_step`` without the LM head: tokens [B, C] appended at
     positions pos[:, None] + arange(C) -> fused hidden states [B, C, d].
     The serving runner applies the head to each row's last real token
@@ -308,20 +356,21 @@ def pt_chunk_hidden(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
     state rows, and padded tail rows land past the row's live length."""
     h = _embed(params, tokens, cfg)                          # [B, C, d]
     return _pt_step(params, cache, h, pos, cfg, "chunk", block_table,
-                    kv_max_len, final=False)
+                    kv_max_len, final=False, par=par)
 
 
 def pt_chunk_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
                   cfg: ModelConfig,
                   block_table: Optional[torch.Tensor] = None,
-                  kv_max_len: Optional[int] = None):
+                  kv_max_len: Optional[int] = None, *,
+                  par: Parallelism = NO_PARALLEL):
     """Chunked prefill or the K+1-token speculative verify: tokens [B, C]
     appended at positions pos[:, None] + arange(C) against the cache,
     updated in place: the paged cache through ``block_table``, or (with
     none) contiguous rows aligned with the batch, the drafter's cache
     filled chunk by chunk.  Returns (logits [B, C, V], cache)."""
     h = _pt_step(params, cache, _embed(params, tokens, cfg), pos, cfg,
-                 "chunk", block_table, kv_max_len)
+                 "chunk", block_table, kv_max_len, par=par)
     return _logits(params, h, cfg), cache
 
 
@@ -354,48 +403,79 @@ def pt_draft_params(params, cfg: ModelConfig, draft_tracks: int):
     if not 1 <= d <= _pt(cfg).n_tracks:
         raise ValueError(f"draft_tracks={d} not in [1, {_pt(cfg).n_tracks}]")
     _block_counts(cfg)
+    return dict(params, blocks=map_blocks(lambda t: t[:, :, :d],
+                                          params["blocks"]))
 
-    def cut(tree):
-        if isinstance(tree, dict):
-            return {k: cut(v) for k, v in tree.items()}
-        return tree[:, :, :d]
 
-    return dict(params, blocks=cut(params["blocks"]))
+def map_blocks(fn, tree):
+    """``fn`` on every tensor of a parameter (sub)tree, on an int8 leaf's
+    payload and scale alike (both keep the leaf's leading axes)."""
+    if isinstance(tree, dict):
+        return {k: map_blocks(fn, v) for k, v in tree.items()}
+    if isinstance(tree, QuantTensor):
+        return QuantTensor(fn(tree.payload), fn(tree.scale))
+    return fn(tree)
+
+
+def shard_tracks(params, cfg: ModelConfig, par: Parallelism):
+    """This rank's share of the full stacked PT params: blocks leaves
+    [R, D, n, ...] -> [R, D, n/W, ...], tracks ``par.track_range(cfg)``,
+    as copies (int8 payload and scale together), so that the rank holds
+    only its share once the full tree is dropped; embed, final_norm and
+    head are kept as they are (replicated).  Under ``NO_PARALLEL`` the
+    tree comes back as it is.  (The reference shards the same leaves
+    over its 'track' mesh axis, ``repro/runtime/sharding.py``.)"""
+    if not par.sharded:
+        return params
+    _block_counts(cfg)
+    a, b = par.track_range(cfg)
+    n = _pt(cfg).n_tracks
+    held = params["blocks"]["ln1"]["scale"].shape[2]
+    if held != n:
+        raise ValueError(f"blocks hold {held} tracks: shard_tracks takes "
+                         f"the full tree, all {n}")
+    return dict(params, blocks=map_blocks(lambda t: t[:, :, a:b].clone(),
+                                          params["blocks"]))
 
 
 def pt_draft_step(draft_params, cache, tokens: torch.Tensor,
                   pos: torch.Tensor, cfg_draft: ModelConfig,
                   active: Optional[torch.Tensor] = None,
-                  kv_max_len: Optional[int] = None, head: bool = True):
+                  kv_max_len: Optional[int] = None, head: bool = True, *,
+                  par: Parallelism = NO_PARALLEL):
     """One decode step of the track-subset drafter on its contiguous
     cache: ``pt_decode_step`` on ``cfg_draft = pt_draft_config(cfg, d)``
     with the matching ``pt_draft_params`` slice.  It has no cross-track
-    collective: the d tracks are local, and the fusion mean is plain
+    collective: it runs with the track axis stripped from ``par``, the d
+    tracks are replicated on every rank, and the fusion mean is plain
     compute.  ``head=False`` only writes the step's K/V (the speculative
     step's last draft step, whose logits are dropped).  Returns (logits
     [B, V] or None, cache)."""
     return pt_decode_step(draft_params, cache, tokens, pos, cfg_draft,
-                          kv_max_len=kv_max_len, active=active, head=head)
+                          kv_max_len=kv_max_len, active=active, head=head,
+                          par=par.without_axis("track"))
 
 
-def pt_cache_shape(cfg: ModelConfig, batch: int, seq_len: int
-                   ) -> Tuple[int, ...]:
-    """Shape of one K or V leaf: [R, D, n, batch, seq_len, KH, hd].  The
-    paged engine lays its pools out the same way, with (num_blocks,
-    block_size) in place of (batch, seq_len)."""
+def pt_cache_shape(cfg: ModelConfig, batch: int, seq_len: int,
+                   par: Parallelism = NO_PARALLEL) -> Tuple[int, ...]:
+    """Shape of one K or V leaf: [R, D, n, batch, seq_len, KH, hd], on a
+    rank n/W tracks in place of n.  The paged engine lays its pools out
+    the same way, with (num_blocks, block_size) in place of (batch,
+    seq_len)."""
     pt = _pt(cfg)
     R, _ = _block_counts(cfg)
-    return (R, pt.block_depth, pt.n_tracks, batch, seq_len, cfg.n_kv_heads,
-            cfg.head_dim)
+    return (R, pt.block_depth, par.local_tracks(cfg), batch, seq_len,
+            cfg.n_kv_heads, cfg.head_dim)
 
 
 def pt_init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-                  device: DeviceLike = None) -> Dict[str, Any]:
+                  device: DeviceLike = None, *,
+                  par: Parallelism = NO_PARALLEL) -> Dict[str, Any]:
     """Zeroed contiguous cache {'blocks': (k, v), 'tail': ()}, each leaf
-    [R, D, n, batch, seq_len, KH, hd] in the model dtype (the reference's
-    ``pt_init_cache``)."""
+    [R, D, n, batch, seq_len, KH, hd] (on a rank n/W tracks) in the model
+    dtype (the reference's ``pt_init_cache``)."""
     device = resolve_device(device)
-    shape = pt_cache_shape(cfg, batch, seq_len)
+    shape = pt_cache_shape(cfg, batch, seq_len, par)
     dtype = model_dtype(cfg)
     return {"blocks": (torch.zeros(shape, dtype=dtype, device=device),
                        torch.zeros(shape, dtype=dtype, device=device)),

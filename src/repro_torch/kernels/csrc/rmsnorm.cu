@@ -11,7 +11,9 @@
 //
 //   norm       y = cast(x * rsqrt(mean(x^2) + eps) * (1 + s))
 //   add_norm   x' = cast(x + delta); y = norm(x')            writes x', y
-//   fuse_norm  x'_t = cast(x_t + delta_t) for each track t;
+//   fuse_norm  x'_t = cast(x_t + delta_t) for each track t (x_t itself
+//              when delta is null: a track rank's boundary, whose x + delta
+//              was added and rounded before its rows were gathered);
 //              f = cast(sum_t x'_t / div) (div = n for the mean, 1 for
 //              the sum); y_u = norm(f) * (1 + s_u)           writes f, y
 //
@@ -193,8 +195,10 @@ __global__ void __launch_bounds__(512) rows_kernel(
 }
 
 // fuse_norm: CTA m is position m; f [M, d]; y [ns, M, d] with scale row u
-// for y row u.
-template <typename T, int VPT>
+// for y row u (ns <= n: a track rank normalises under its own rows only).
+// ADD false reads no delta: x'_t = x_t, the bits ADD true gives for a zero
+// delta (x + 0 rounds to x).
+template <typename T, int VPT, bool ADD>
 __global__ void __launch_bounds__(512) fuse_kernel(
     const T* __restrict__ x, int64_t x_track, const T* __restrict__ delta,
     T* __restrict__ f_out, T* __restrict__ y,
@@ -219,7 +223,8 @@ __global__ void __launch_bounds__(512) fuse_kernel(
         const int t = t0 + i, c = threadIdx.x + k * blockDim.x;
         if (t < n && c < dv) {
           ra[i][k] = load_raw(x + t * x_track + m * d + c * E);
-          rb[i][k] = load_raw(delta + ((int64_t)t * M + m) * d + c * E);
+          if (ADD)
+            rb[i][k] = load_raw(delta + ((int64_t)t * M + m) * d + c * E);
         }
       }
 #pragma unroll
@@ -228,11 +233,16 @@ __global__ void __launch_bounds__(512) fuse_kernel(
       for (int k = 0; k < VPT; ++k) {
         const int c = threadIdx.x + k * blockDim.x;
         if (t0 + i < n && c < dv) {
-          float a[E], b[E];
+          float a[E];
           unpack<T>(ra[i][k], a);
-          unpack<T>(rb[i][k], b);
+          if (ADD) {
+            float b[E];
+            unpack<T>(rb[i][k], b);
 #pragma unroll
-          for (int e = 0; e < E; ++e) acc[k][e] += round_to<T>(a[e] + b[e]);
+            for (int e = 0; e < E; ++e) a[e] = round_to<T>(a[e] + b[e]);
+          }
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[k][e] += a[e];
         }
       }
   }
@@ -282,10 +292,14 @@ cudaError_t launch_vpt(int route, const void* x, int64_t x_track,
                        const float* scale, int64_t s_track, int n, int M,
                        int d, int ns, float div, float eps, int threads,
                        cudaStream_t st) {
-  if (route == kFuseNorm) {
-    fuse_kernel<T, VPT><<<M, threads, 0, st>>>(
+  if (route == kFuseNorm && delta != nullptr) {
+    fuse_kernel<T, VPT, true><<<M, threads, 0, st>>>(
         (const T*)x, x_track, (const T*)delta, (T*)x_out, (T*)y, scale, n, M,
         d, ns, div, eps);
+  } else if (route == kFuseNorm) {
+    fuse_kernel<T, VPT, false><<<M, threads, 0, st>>>(
+        (const T*)x, x_track, nullptr, (T*)x_out, (T*)y, scale, n, M, d, ns,
+        div, eps);
   } else if (route == kAddNorm) {
     rows_kernel<T, VPT, true><<<n * M, threads, 0, st>>>(
         (const T*)x, x_track, (const T*)delta, (T*)x_out, (T*)y, scale,
@@ -316,8 +330,8 @@ cudaError_t launch_typed(int route, const void* x, int64_t x_track,
 }  // namespace
 
 // route: 0 norm, 1 add_norm, 2 fuse_norm.  x [n, M, d] with track stride
-// x_track (elements; 0 for a broadcast row); delta [n, M, d] (add_norm,
-// fuse_norm); x_out: x' [n, M, d] (add_norm) or f [M, d] (fuse_norm); y
+// x_track (elements; 0 for a broadcast row); delta [n, M, d] (add_norm;
+// fuse_norm, where it may be null); x_out: x' [n, M, d] (add_norm) or f [M, d] (fuse_norm); y
 // [n, M, d] (norm, add_norm; scale row t * s_track for track t) or [ns, M,
 // d] (fuse_norm; scale row u for y row u); scale fp32; dtype rt::kFloat32 |
 // rt::kBFloat16; d a multiple of 16 bytes' elements and every pointer

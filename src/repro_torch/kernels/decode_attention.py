@@ -115,15 +115,21 @@ def reserve_counters(dev: torch.device, base: int) -> torch.Tensor:
 
 
 def _split_args(dev: torch.device, sweep: int, capacity: int, base: int,
-                page: Optional[int], G: int, hd: int):
-    """(splits, tokens per split, workspace, counters) of one launch, the
-    split size from the cache's ``capacity`` (``split_plan``).  The
-    workspace (partial m, l, acc in fp32) is fresh (under a capture, from
-    the graph's pool); the ticket counters are ``reserve_counters``'
-    buffer."""
+                page: Optional[int], G: int, hd: int, plan_scale: int = 1):
+    """(splits, tokens per split, workspace, counters) of one launch of
+    ``base`` blocks without a split, the split size from the cache's
+    ``capacity`` (``split_plan``) and from ``plan_scale`` x ``base``
+    blocks: on a track rank of W, W x its own, the blocks of the launch
+    one process makes over all n tracks, so that the rank splits (and
+    sums) as that process does.  The workspace (partial m, l, acc in
+    fp32) is fresh (under a capture, from the graph's pool); the ticket
+    counters are ``reserve_counters``' buffer."""
+    if plan_scale < 1:
+        raise ValueError(f"plan_scale must be >= 1, got {plan_scale}")
     if dev not in _SMS:
         _SMS[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_split, c = split_plan(sweep, base, page, _SMS[dev], capacity)
+    n_split, c = split_plan(sweep, base * plan_scale, page, _SMS[dev],
+                            capacity)
     if n_split == 1:
         return n_split, c, None, None
     cnt = reserve_counters(dev, base)
@@ -239,7 +245,7 @@ def _launcher():
 
 
 def _launch(q, k_pool, v_pool, k_scale, v_scale, block_table, lengths,
-            max_len) -> torch.Tensor:
+            max_len, plan_scale) -> torch.Tensor:
     """Launch the CUDA kernel on checked operands (either branch)."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
@@ -259,7 +265,8 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, block_table, lengths,
     nmax = block_table.shape[1]
     n_sweep = _sweep_blocks(nmax, bs, max_len)
     n_split, c, ws, cnt = _split_args(q.device, n_sweep * bs, nmax * bs,
-                                      n * B * KH, bs, H // KH, hd)
+                                      n * B * KH, bs, H // KH, hd,
+                                      plan_scale)
     out = torch.empty_like(q)
     quant = k_scale is not None
     err = _launcher()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -281,8 +288,8 @@ def paged_decode_attention_int8(q: torch.Tensor, k_pool: torch.Tensor,
                                 v_scale: torch.Tensor,
                                 block_table: torch.Tensor,
                                 lengths: torch.Tensor, *,
-                                max_len: Optional[int] = None
-                                ) -> torch.Tensor:
+                                max_len: Optional[int] = None,
+                                plan_scale: int = 1) -> torch.Tensor:
     """The int8 branch: pools int8 [n, N, bs, KH, hd] with fp32 scale
     pools [n, N, bs, KH, 1], dequantized per row inside the softmax
     loop; otherwise as ``paged_decode_attention``.  CPU tensors run the
@@ -293,7 +300,7 @@ def paged_decode_attention_int8(q: torch.Tensor, k_pool: torch.Tensor,
             q, k_pool, v_pool, block_table, lengths, max_len=max_len,
             k_scale=k_scale, v_scale=v_scale)
     out = _launch(q, k_pool, v_pool, k_scale, v_scale, block_table, lengths,
-                  max_len)
+                  max_len, plan_scale)
     paged_decode_attention_int8.launches += 1
     return out
 
@@ -303,8 +310,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            lengths: torch.Tensor, *,
                            max_len: Optional[int] = None,
                            k_scale: Optional[torch.Tensor] = None,
-                           v_scale: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           v_scale: Optional[torch.Tensor] = None,
+                           plan_scale: int = 1) -> torch.Tensor:
     """Flash-decode over a block pool, all tracks at once.
 
     q [n, B, H, hd]; pools [n, N, bs, KH, hd] (one layer's slice of the
@@ -312,19 +319,23 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     the tracks; lengths [B] int32 live tokens; ``max_len`` (host-known
     bound on lengths) cuts the sweep to ceil(max_len / bs) blocks.  int8
     pools pass their ``k_scale``/``v_scale`` pools and go to
-    ``paged_decode_attention_int8``.  Returns [n, B, H, hd].  CPU
+    ``paged_decode_attention_int8``.  ``plan_scale``: the split plan
+    counts that many times this launch's blocks (on a track rank of W,
+    W: one process's launch over every track), so that the kernel sums
+    each row as that launch does.  Returns [n, B, H, hd].  CPU
     tensors run the plain version; CUDA tensors launch the kernel or
     raise."""
     if k_scale is not None or v_scale is not None:
         return paged_decode_attention_int8(q, k_pool, v_pool, k_scale,
                                            v_scale, block_table, lengths,
-                                           max_len=max_len)
+                                           max_len=max_len,
+                                           plan_scale=plan_scale)
     _check(q, k_pool, v_pool, block_table, lengths)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_table,
                                             lengths, max_len=max_len)
     out = _launch(q, k_pool, v_pool, None, None, block_table, lengths,
-                  max_len)
+                  max_len, plan_scale)
     paged_decode_attention.launches += 1
     return out
 
@@ -424,7 +435,7 @@ def _dense_launcher():
 
 
 def _dense_launch(q, k_cache, v_cache, k_scale, v_scale, lengths, block_s,
-                  max_len) -> torch.Tensor:
+                  max_len, plan_scale) -> torch.Tensor:
     """Launch the contiguous-layout kernel on checked operands (either
     branch)."""
     if q.device.type != "cuda":
@@ -444,7 +455,7 @@ def _dense_launch(q, k_cache, v_cache, k_scale, v_scale, lengths, block_s,
                          f"G={H // KH}, hd={hd}")
     n_cols = _sweep_cols(S, block_s, max_len)
     n_split, c, ws, cnt = _split_args(q.device, n_cols, S, B * KH, None,
-                                      H // KH, hd)
+                                      H // KH, hd, plan_scale)
     out = torch.empty_like(q)
     quant = k_scale is not None
     err = _dense_launcher()(q.data_ptr(), k_cache.data_ptr(),
@@ -467,7 +478,8 @@ def decode_attention_int8(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, k_scale: torch.Tensor,
                           v_scale: torch.Tensor, lengths: torch.Tensor, *,
                           block_s: int = 512,
-                          max_len: Optional[int] = None) -> torch.Tensor:
+                          max_len: Optional[int] = None,
+                          plan_scale: int = 1) -> torch.Tensor:
     """The int8 branch: caches int8 [B, S, KH, hd] with fp32 scales
     [B, S, KH, 1], dequantized per row inside the softmax loop; otherwise
     as ``decode_attention``.  CPU tensors run the plain version; CUDA
@@ -478,7 +490,7 @@ def decode_attention_int8(q: torch.Tensor, k_cache: torch.Tensor,
                                       block_s=block_s, max_len=max_len,
                                       k_scale=k_scale, v_scale=v_scale)
     out = _dense_launch(q, k_cache, v_cache, k_scale, v_scale, lengths,
-                        block_s, max_len)
+                        block_s, max_len, plan_scale)
     decode_attention_int8.launches += 1
     return out
 
@@ -487,7 +499,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, lengths: torch.Tensor, *,
                      block_s: int = 512, max_len: Optional[int] = None,
                      k_scale: Optional[torch.Tensor] = None,
-                     v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     v_scale: Optional[torch.Tensor] = None,
+                     plan_scale: int = 1) -> torch.Tensor:
     """Flash-decode over a contiguous cache, the reference's signature.
 
     q [B, H, hd]; caches [B, S, KH, hd] (the tracks of a PT layer folded
@@ -495,18 +508,20 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     bound on lengths) cuts the sweep to ceil(max_len / block_s) tiles of
     ``min(block_s, S)`` columns.  int8 caches pass their ``k_scale`` /
     ``v_scale`` [B, S, KH, 1] and go to ``decode_attention_int8``.
-    Returns [B, H, hd].  CPU tensors run the plain version; CUDA tensors
-    launch the kernel or raise."""
+    ``plan_scale`` as in ``paged_decode_attention`` (on a track rank the
+    rows are its n/W tracks' folded rows).  Returns [B, H, hd].  CPU
+    tensors run the plain version; CUDA tensors launch the kernel or
+    raise."""
     if k_scale is not None or v_scale is not None:
         return decode_attention_int8(q, k_cache, v_cache, k_scale, v_scale,
                                      lengths, block_s=block_s,
-                                     max_len=max_len)
+                                     max_len=max_len, plan_scale=plan_scale)
     _check_dense(q, k_cache, v_cache, lengths)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, lengths,
                                       block_s=block_s, max_len=max_len)
     out = _dense_launch(q, k_cache, v_cache, None, None, lengths, block_s,
-                        max_len)
+                        max_len, plan_scale)
     decode_attention.launches += 1
     return out
 

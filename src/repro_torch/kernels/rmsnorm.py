@@ -14,8 +14,10 @@ its own residual add (``models/layers.py``) and fusion mean
   add_norm   ``add_rmsnorm(x, delta, s)`` -> (x + delta, y of that)
   fuse_norm  ``fuse_rmsnorm(x, delta, s)`` -> (f, y): f the fusion (fp32
              mean or sum over the tracks) of x + delta, y its norm, under
-             every track's scale row ([n, d]: y [n, ...]) or one ([d]: y
-             [...], the final norm)
+             k scale rows ([k, d], k <= n: y [k, ...], the next block's
+             tracks, all n or a rank's n/W) or one ([d]: y [...], the
+             final norm); with delta None, of x as it is (a rank's
+             boundary, whose x + delta was added before the gather)
 
 What bounds it on the H100 and how the kernel answers that is noted in
 the source.  x may be the broadcast of one fused row to every track
@@ -71,16 +73,17 @@ def _check_stream(x: torch.Tensor, delta: Optional[torch.Tensor]) -> None:
                              f"{tuple(x.shape)}, got {tuple(delta.shape)}")
 
 
-def _check_fuse(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
-                fusion_op: str) -> None:
+def _check_fuse(x: torch.Tensor, delta: Optional[torch.Tensor],
+                scale: torch.Tensor, fusion_op: str) -> None:
     _check_stream(x, delta)
     d = x.shape[-1]
     if x.dim() < 2:
         raise ValueError(f"x must be [n, ..., d], got {tuple(x.shape)}")
     if not (tuple(scale.shape) == (d,)
-            or tuple(scale.shape) == (x.shape[0], d)):
+            or (scale.dim() == 2 and scale.shape[1] == d
+                and 1 <= scale.shape[0] <= x.shape[0])):
         raise ValueError(f"scale {tuple(scale.shape)} does not fit x "
-                         f"{tuple(x.shape)}: want [d] or [n, d]")
+                         f"{tuple(x.shape)}: want [d] or [k, d], k <= n")
     if fusion_op not in FUSION_OPS:
         raise ValueError(f"fusion_op {fusion_op!r} not in {FUSION_OPS}")
 
@@ -112,20 +115,21 @@ def add_rmsnorm_plain(x: torch.Tensor, delta: torch.Tensor,
     return xn, rmsnorm_plain(xn, scale, eps=eps)
 
 
-def fuse_rmsnorm_plain(x: torch.Tensor, delta: torch.Tensor,
+def fuse_rmsnorm_plain(x: torch.Tensor, delta: Optional[torch.Tensor],
                        scale: torch.Tensor, *, eps: float = 1e-6,
                        fusion_op: str = "mean"
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of ``fuse_rmsnorm``: the residual add in x's
-    dtype, the fusion over dim 0 accumulated in fp32 and cast back, then
-    ``rmsnorm_plain`` of the fused value under each track's scale row
-    (scale [n, d]) or one (scale [d])."""
+    dtype (none when delta is None), the fusion over dim 0 accumulated in
+    fp32 and cast back, then ``rmsnorm_plain`` of the fused value under
+    each of the k scale rows (scale [k, d]) or one (scale [d])."""
     _check_fuse(x, delta, scale, fusion_op)
-    xn = x + delta
+    xn = x if delta is None else x + delta
     red = torch.mean if fusion_op == "mean" else torch.sum
     f = red(xn, dim=0, dtype=torch.float32).to(x.dtype)
     if scale.dim() == 2:
-        return f, rmsnorm_plain(f[None].expand(xn.shape), scale, eps=eps)
+        return f, rmsnorm_plain(f[None].expand(scale.shape[0], *f.shape),
+                                scale, eps=eps)
     return f, rmsnorm_plain(f, scale, eps=eps)
 
 
@@ -240,13 +244,15 @@ def add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
     return x_out, y
 
 
-def fuse_rmsnorm(x: torch.Tensor, delta: torch.Tensor, scale: torch.Tensor,
-                 *, eps: float = 1e-6, fusion_op: str = "mean"
+def fuse_rmsnorm(x: torch.Tensor, delta: Optional[torch.Tensor],
+                 scale: torch.Tensor, *, eps: float = 1e-6,
+                 fusion_op: str = "mean"
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Route ``fuse_norm``: x, delta [n, ..., d] -> (f [..., d], y): f the
     fusion (``fusion_op``, accumulated in fp32) of x + delta over the n
-    tracks, y its norm, [n, ..., d] under scale [n, d] or [..., d] under
-    scale [d]."""
+    tracks, y its norm, [k, ..., d] under scale [k, d] (k <= n) or
+    [..., d] under scale [d].  With delta None the kernel reads no delta
+    and fuses x as it is."""
     _check_fuse(x, delta, scale, fusion_op)
     if x.device.type == "cpu":
         return fuse_rmsnorm_plain(x, delta, scale, eps=eps,

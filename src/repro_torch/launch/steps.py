@@ -13,10 +13,15 @@ reference counterpart) is the chunk step without the LM head, which the
 runner applies to each request's last real row only.  ``init_cache`` is
 the contiguous cache of either path, the engine cache of
 ``Engine(paged=False)``: ``[R, D, n, B, S, KH, hd]`` K and V for a PT
-model, the ``lm_*`` tree of per-layer rows otherwise.
+model, the ``lm_*`` tree of per-layer rows otherwise.  The PT entries
+take ``par`` (``runtime.parallel``), as the reference's step functions
+do; ``model_fns(cfg, par)`` binds it, so that a track rank's runner
+calls them as one process does.  Only a PT model has tracks to place on
+ranks.
 """
 from __future__ import annotations
 
+import functools
 import gc
 from typing import Any, Callable, Dict, Hashable, Optional
 
@@ -26,16 +31,23 @@ from repro_torch.common.types import ModelConfig
 from repro_torch.core import track as pt_lib
 from repro_torch.kernels import ops
 from repro_torch.models import decoder as dec_lib
+from repro_torch.runtime.parallel import NO_PARALLEL, Parallelism
 
 
-def model_fns(cfg: ModelConfig) -> Dict[str, Callable]:
+def model_fns(cfg: ModelConfig,
+              par: Parallelism = NO_PARALLEL) -> Dict[str, Callable]:
     if cfg.pt is not None:
-        return {"init": pt_lib.init_pt,
-                "forward": pt_lib.pt_forward,
-                "decode": pt_lib.pt_decode_step,
-                "chunk": pt_lib.pt_chunk_step,
-                "chunk_hidden": pt_lib.pt_chunk_hidden,
-                "init_cache": pt_lib.pt_init_cache}
+        fns = {"forward": pt_lib.pt_forward,
+               "decode": pt_lib.pt_decode_step,
+               "chunk": pt_lib.pt_chunk_step,
+               "chunk_hidden": pt_lib.pt_chunk_hidden,
+               "init_cache": pt_lib.pt_init_cache}
+        fns = {k: functools.update_wrapper(functools.partial(f, par=par), f)
+               for k, f in fns.items()}
+        return dict(fns, init=pt_lib.init_pt)
+    if par.sharded:
+        raise ValueError(f"{cfg.name} has no tracks to place on ranks: "
+                         "track ranks serve PT configs only")
     return {"init": dec_lib.init_lm,
             "forward": dec_lib.lm_forward,
             "decode": dec_lib.lm_decode_step,

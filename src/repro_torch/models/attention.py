@@ -135,7 +135,7 @@ def _paged_decode(params, q: torch.Tensor, k_new: torch.Tensor,
                   v_new: torch.Tensor, k_leaf: PagedLeaf, v_leaf: PagedLeaf,
                   *, spec: LayerSpec, pos: torch.Tensor,
                   block_table: torch.Tensor, kv_max_len: Optional[int],
-                  out_dtype: torch.dtype):
+                  out_dtype: torch.dtype, plan_scale: int):
     """Decode step against block pools.  q [n, B, H, hd]; k_new/v_new
     [n, B, KH, hd]; pools [n, N, bs, KH, hd]; block_table [B, nmax]
     int32 shared by the tracks; pos [B] int32 (the new token's index).
@@ -157,7 +157,8 @@ def _paged_decode(params, q: torch.Tensor, k_new: torch.Tensor,
                                      block_table, (pos + 1).to(torch.int32),
                                      max_len=kv_max_len,
                                      k_scale=k_leaf.scale,
-                                     v_scale=v_leaf.scale)
+                                     v_scale=v_leaf.scale,
+                                     plan_scale=plan_scale)
     out = _out_proj(params, ctx.to(out_dtype))[:, :, None]
     return out, (k_leaf, v_leaf)
 
@@ -166,7 +167,8 @@ def _dense_decode(params, q: torch.Tensor, k_new: torch.Tensor,
                   v_new: torch.Tensor, k_cache: torch.Tensor,
                   v_cache: torch.Tensor, *, spec: LayerSpec,
                   pos: torch.Tensor, active: Optional[torch.Tensor],
-                  kv_max_len: Optional[int], out_dtype: torch.dtype):
+                  kv_max_len: Optional[int], out_dtype: torch.dtype,
+                  plan_scale: int):
     """Decode step against contiguous per-slot rows (the reference's
     dense branch with ``_scatter_cache``).  q [n, B, H, hd]; k_new/v_new
     [n, B, KH, hd]; caches [n, B, S, KH, hd]; pos [B] int32.
@@ -195,7 +197,7 @@ def _dense_decode(params, q: torch.Tensor, k_new: torch.Tensor,
     ctx = ops.decode_attention(q.reshape(n * B, H, hd),
                                k_cache.view(n * B, S, KH, hd),
                                v_cache.view(n * B, S, KH, hd), lengths,
-                               max_len=kv_max_len)
+                               max_len=kv_max_len, plan_scale=plan_scale)
     out = _out_proj(params, ctx.reshape(n, B, H, hd).to(out_dtype))
     return out[:, :, None], (k_cache, v_cache)
 
@@ -209,19 +211,27 @@ def attention_decode(params, x: torch.Tensor, cache: Tuple[Any, Any], *,
     contiguous rows [n, B, S, KH, hd]; pos [B] int32.  ``kv_max_len``
     (host-known bound on pos + 1) cuts the kernel's sweep to the live
     prefix.  ``active`` [B] bool keeps the contiguous rows of inactive
-    lanes (pool leaves are protected by their zeroed table rows).
+    lanes (pool leaves are protected by their zeroed table rows).  On a
+    track rank x holds n/W of the model's n tracks, and the kernel plans
+    its split for all n (``plan_scale`` W), as one process's launch.
     Returns (out [n, B, 1, d], cache)."""
     k_leaf, v_leaf = cache
     q, k_new, v_new = _project_qkv(params, x, cfg, pos[:, None])
+    plan_scale = 1
+    if cfg.pt is not None:
+        plan_scale, rem = divmod(cfg.pt.n_tracks, x.shape[0])
+        if rem or not plan_scale:
+            raise ValueError(f"{x.shape[0]} tracks is no rank's share of "
+                             f"{cfg.pt.n_tracks}")
     if not is_paged(k_leaf):
         return _dense_decode(params, q[:, :, 0], k_new[:, :, 0],
                              v_new[:, :, 0], k_leaf, v_leaf, spec=spec,
                              pos=pos, active=active, kv_max_len=kv_max_len,
-                             out_dtype=x.dtype)
+                             out_dtype=x.dtype, plan_scale=plan_scale)
     return _paged_decode(params, q[:, :, 0], k_new[:, :, 0], v_new[:, :, 0],
                          k_leaf, v_leaf, spec=spec, pos=pos,
                          block_table=block_table, kv_max_len=kv_max_len,
-                         out_dtype=x.dtype)
+                         out_dtype=x.dtype, plan_scale=plan_scale)
 
 
 def _causal_ctx(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

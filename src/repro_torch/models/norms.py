@@ -5,7 +5,7 @@ residual add before a norm, and at a track-block boundary the fusion
 mean, go into the same launch (``add_norm``, ``fuse_norm``)."""
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -38,12 +38,14 @@ def add_norm(kind: str, params, x: torch.Tensor, delta: torch.Tensor, *,
     return ops.add_rmsnorm(x, delta, params["scale"], eps=eps)
 
 
-def fuse_norm(kind: str, params, x: torch.Tensor, delta: torch.Tensor, *,
-              eps: float, fusion_op: str) -> Tuple[torch.Tensor, torch.Tensor]:
+def fuse_norm(kind: str, params, x: torch.Tensor,
+              delta: Optional[torch.Tensor], *, eps: float,
+              fusion_op: str) -> Tuple[torch.Tensor, torch.Tensor]:
     """A track-block boundary: x, delta [n, ..., d] -> (f, norm(f)) with f
-    [..., d] the fusion of x + delta over the tracks; the norm under the
-    next layer's per-track scale [n, d] (y [n, ..., d]) or the final
-    scale [d] (y [..., d])."""
+    [..., d] the fusion of x + delta over the tracks (of x alone when
+    delta is None: a track rank's gathered rows); the norm under the next
+    layer's per-track scale [k, d] (y [k, ..., d]; k = n, or a rank's
+    n/W tracks) or the final scale [d] (y [..., d])."""
     _rms_only(kind)
     return ops.fuse_rmsnorm(x, delta, params["scale"], eps=eps,
                             fusion_op=fusion_op)

@@ -8,7 +8,8 @@ classifies them by probing; the port knows them from the config):
   * 'paged' — a GQA layer's K and V pools, laid out as the reference
     lays them out: the dense cache's batch axis becomes the block axis,
     its sequence axis the in-block offset.  A PT model's pools are
-    ``[R, D, n_tracks, num_blocks, block_size, KH, hd]``; an ``lm_*``
+    ``[R, D, n_tracks, num_blocks, block_size, KH, hd]`` (on a track
+    rank, ``runtime.parallel``, its n_tracks / W tracks); an ``lm_*``
     model's are ``[num_blocks, block_size, KH, hd]`` per prefix / suffix
     layer and ``[R, num_blocks, block_size, KH, hd]`` per unit layer.
     All layers share one block table, so a slot costs ``ceil(tokens /
@@ -52,6 +53,7 @@ from repro_torch.common.quant import quantize_rows
 from repro_torch.common.types import ModelConfig
 from repro_torch.core.track import pt_cache_shape
 from repro_torch.models.decoder import layer_cache, map_layers, model_dtype
+from repro_torch.runtime.parallel import NO_PARALLEL, Parallelism
 
 
 def _leaves(tree: Any) -> List[Tuple[Any, int]]:
@@ -112,7 +114,8 @@ class PagedKVCache:
     def __init__(self, cfg: ModelConfig, *, max_slots: int, max_seq_len: int,
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefix_cache: bool = False,
-                 kv_dtype: Optional[str] = None, device: DeviceLike = None):
+                 kv_dtype: Optional[str] = None, device: DeviceLike = None,
+                 par: Parallelism = NO_PARALLEL):
         if prefix_cache:
             raise NotImplementedError("the prefix cache is not ported "
                                       "(ROADMAP queue 1, item 5)")
@@ -147,7 +150,7 @@ class PagedKVCache:
             return tuple(leaves)
 
         if cfg.pt is not None:
-            shape = pt_cache_shape(cfg, self.num_blocks, block_size)
+            shape = pt_cache_shape(cfg, self.num_blocks, block_size, par)
             dtype = pool_dtype or model_dtype(cfg)
             self.tree: Dict[str, Any] = {
                 "blocks": paged(tuple(torch.zeros(shape, dtype=dtype,
@@ -155,6 +158,10 @@ class PagedKVCache:
                                       for _ in range(2))),
                 "tail": ()}
         else:
+            if par.sharded:
+                raise ValueError(f"{cfg.name} has no tracks to place on "
+                                 "ranks")
+
             def entry(nm, lead):
                 if cfg.spec(nm).mixer == "gqa":
                     return paged(layer_cache(cfg, nm, lead, self.num_blocks,

@@ -99,11 +99,13 @@ from repro_torch.common.quant import is_quantized, quantize_params
 from repro_torch.common.types import ModelConfig
 from repro_torch.core.track import (pt_chunk_hidden, pt_draft_config,
                                     pt_draft_params, pt_draft_step,
-                                    pt_forward, pt_init_cache)
+                                    pt_forward, pt_init_cache, map_blocks,
+                                    shard_tracks)
 from repro_torch.kernels.decode_attention import reserve_counters
 from repro_torch.launch.steps import StepGraph, model_fns, plan_graphs
 from repro_torch.models.decoder import _head
 from repro_torch.models.layers import check_supported
+from repro_torch.runtime.parallel import NO_PARALLEL, Parallelism
 from repro_torch.serving.cache import PagedKVCache, insert_rows
 from repro_torch.serving.sampler import (SALT_DRAFT, SALT_SAMPLE,
                                          SampleParams, accept_step,
@@ -116,9 +118,14 @@ from repro_torch.serving.sampler import (SALT_DRAFT, SALT_SAMPLE,
 RECURRENT_MIXERS = ("mamba", "rglru")
 
 
-def _unported(what: str, item: int) -> NotImplementedError:
+def _unported(what: str, item: Any) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to repro_torch yet "
                                f"(ROADMAP queue 1, item {item})")
+
+
+def _ranks_unpipelined(what: str) -> NotImplementedError:
+    return _unported(f"{what} on track ranks (a gloo collective cannot be "
+                     "captured in a CUDA graph)", "7b")
 
 
 def _refuse(**knobs: Tuple[Any, Any, int]) -> None:
@@ -439,7 +446,17 @@ class ModelRunner:
     with a contiguous cache of its own (``pt_init_cache(draft_cfg,
     max_slots, max_seq_len)``).  With int8 weights the drafter's blocks
     are quantized after the slice, on their own.  ``pipeline_depth`` is
-    the engine's: it sizes the host staging for the steps in flight."""
+    the engine's: it sizes the host staging for the steps in flight.
+
+    On a track rank (``par``, a PT config) the runner holds its n/W
+    tracks of the blocks and of the cache; ``params`` is the full tree,
+    of which it keeps its share (``shard_tracks``).  Embed, final norm,
+    head and the drafter's tracks are replicated: the drafter's blocks
+    are views where its tracks lie in the rank's range, else copies of
+    tracks [0, draft_tracks) of the full tree.  Every forward, decode
+    and verify then makes R collectives (one per track block), the
+    drafter none, and every rank samples the same tokens from the same
+    full logits."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int,
                  max_seq_len: int, min_bucket: int = 16,
@@ -448,9 +465,12 @@ class ModelRunner:
                  prefill_chunk: int = 0, kv_dtype: Optional[str] = None,
                  weight_dtype: Optional[str] = None,
                  speculate_k: int = 0, draft_tracks: int = 0,
-                 pipeline_depth: int = 0, device: DeviceLike = None):
+                 pipeline_depth: int = 0, device: DeviceLike = None,
+                 par: Parallelism = NO_PARALLEL):
         self.device = resolve_device(device)
         check_supported(cfg)
+        if par.sharded and pipeline_depth:
+            raise _ranks_unpipelined(f"pipeline_depth={pipeline_depth}")
         if kv_dtype not in (None, "float32", "int8"):
             raise ValueError(f"unsupported kv_dtype {kv_dtype!r}")
         if weight_dtype not in (None, "float32", "int8"):
@@ -462,8 +482,9 @@ class ModelRunner:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"the runner on {self.device}")
         self.cfg = cfg
-        self.params = params
-        self.fns = model_fns(cfg)
+        self.par = par
+        self.params = shard_tracks(params, cfg, par)
+        self.fns = model_fns(cfg, par)
         self.capabilities = arch_capabilities(cfg)
         caps = self.capabilities
         # padded tokens would run through a recurrent layer's conv window
@@ -495,8 +516,7 @@ class ModelRunner:
                 d = draft_tracks or max(1, cfg.pt.n_tracks // 2)
                 self.draft_tracks = min(d, cfg.pt.n_tracks)
                 self.draft_cfg = pt_draft_config(cfg, self.draft_tracks)
-                draft_blocks = pt_draft_params(params, cfg,
-                                               self.draft_tracks)["blocks"]
+                draft_blocks = self._draft_blocks(params)
                 self.draft_cache = pt_init_cache(self.draft_cfg, max_slots,
                                                  max_seq_len,
                                                  device=self.device)
@@ -509,7 +529,7 @@ class ModelRunner:
                     "decode")
         self.n_quantized = 0
         if weight_dtype == "int8":
-            self.params, self.n_quantized = quantize_params(params)
+            self.params, self.n_quantized = quantize_params(self.params)
             if self.n_quantized:
                 self.weight_dtype = "int8"
                 if draft_blocks is not None:
@@ -541,7 +561,7 @@ class ModelRunner:
                                    block_size=block_size,
                                    num_blocks=num_blocks,
                                    kv_dtype=self.kv_dtype,
-                                   device=self.device)
+                                   device=self.device, par=par)
             self.cache = self.kv.engine_cache()
         else:
             self.cache = self.fns["init_cache"](cfg, max_slots, max_seq_len,
@@ -571,6 +591,16 @@ class ModelRunner:
         self.chunk_calls = 0               # chunk forwards (incl. int8-KV
                                            # whole-prompt prefills)
         self.decode_transfers = 0          # host transfers in decode steps
+
+    def _draft_blocks(self, params):
+        """The drafter's blocks, tracks [0, draft_tracks) of the full tree
+        ``params``: views of the runner's blocks where this rank holds
+        them (always in one process), else copies."""
+        d, (lo, hi) = self.draft_tracks, self.par.track_range(self.cfg)
+        if lo == 0 and d <= hi:
+            return pt_draft_params(self.params, self.cfg, d)["blocks"]
+        return map_blocks(torch.clone,
+                          pt_draft_params(params, self.cfg, d)["blocks"])
 
     # -- bucket policy --------------------------------------------------
     def bucket_for(self, length: int) -> int:
@@ -849,7 +879,7 @@ class ModelRunner:
             logits, _ = pt_draft_step(self.draft_params, self.draft_cache,
                                       t, pos + j, self.draft_cfg,
                                       active=active, kv_max_len=draft_len,
-                                      head=j < K)
+                                      head=j < K, par=self.par)
             if j < K:
                 keys = (row_keys(seed, cnt + j, SALT_DRAFT) if sampled
                         else None)
@@ -1019,6 +1049,8 @@ class ModelRunner:
         (track, row, KV head) bases any program launches.  On the CPU the
         programs are run once each and replayed as eager calls.  Returns
         the number of programs."""
+        if self.par.sharded:
+            raise _ranks_unpipelined("plan_programs")
         if any(st.busy for st in self._stages):
             raise RuntimeError("plan_programs with steps in flight")
         todo = {k: self._body(k) for k in self._program_keys()
@@ -1061,7 +1093,8 @@ class ModelRunner:
             tokens[i, :len(p)] = p
         _, cache = pt_forward(self.draft_params,
                               {"inputs": self._to_dev(tokens, torch.long)},
-                              self.draft_cfg, head=False)
+                              self.draft_cfg, head=False,
+                              par=self.par.without_axis("track"))
         insert_rows(self.draft_cache, cache, slots)
         self.draft_prefill_shapes.add((n, bucket))
 
@@ -1080,7 +1113,8 @@ class ModelRunner:
                 "tail": ()}
         pt_chunk_hidden(self.draft_params, rows,
                         self._to_dev(toks, torch.long),
-                        self._to_dev(pos, torch.int32), self.draft_cfg)
+                        self._to_dev(pos, torch.int32), self.draft_cfg,
+                        par=self.par.without_axis("track"))
         insert_rows(self.draft_cache, rows, slots)
         self.draft_chunk_shapes.add(tuple(np.shape(toks)))
 
@@ -1097,7 +1131,11 @@ class Engine:
 
     Runs on CUDA unless ``device='cpu'`` is given; the knobs of reference
     features not ported yet must stay at their off values.  ``paged``
-    picks the paged cache (the default) or the contiguous one."""
+    picks the paged cache (the default) or the contiguous one.  ``par``
+    serves a PT model on one track rank of a ``torch.distributed`` group
+    (``runtime.parallel``): every rank runs this loop on the same
+    requests, in the same order, and emits the same tokens; the
+    pipelined engine and planned programs are refused there."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 4,
                  max_seq_len: int = 256,
@@ -1111,10 +1149,12 @@ class Engine:
                  weight_dtype: Optional[str] = None,
                  pipeline_depth: int = 0, preplan: bool = False,
                  seed: int = 0, max_queue: Optional[int] = None,
-                 fault_plan: Any = None):
+                 fault_plan: Any = None, par: Parallelism = NO_PARALLEL):
         _refuse(prefix_cache=(prefix_cache, False, 5),
                 max_queue=(max_queue, None, 8),
                 fault_plan=(fault_plan, None, 8))
+        if par.sharded and preplan:
+            raise _ranks_unpipelined("preplan=True")
         if pipeline_depth < 0:
             raise ValueError(f"pipeline_depth must be >= 0, got "
                              f"{pipeline_depth}")
@@ -1132,7 +1172,7 @@ class Engine:
                                   speculate_k=speculate_k,
                                   draft_tracks=draft_tracks,
                                   pipeline_depth=pipeline_depth,
-                                  device=device)
+                                  device=device, par=par)
         if preplan:
             self.runner.plan_programs()
         self.scheduler = Scheduler(max_slots, self.runner.bucket_for,

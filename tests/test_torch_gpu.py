@@ -17,7 +17,12 @@ prefill on each route (wgmma + TMA for bf16 at hd 64 / 128, the CUDA
 cores otherwise) at the serve layouts and ragged S, Sq != Sk, an
 unaligned view, bitwise repeatable, one device kernel per call.  RMSNorm
 on each route (``norm``, ``add_norm``, ``fuse_norm``; a fused row
-broadcast to the tracks among the inputs), bitwise repeatable.  The contiguous decode
+broadcast to the tracks among the inputs), bitwise repeatable; a track
+rank's ``fuse_norm`` (no delta, k < n scale rows) bitwise the full
+launch's rows, and a rank's decode launches (``plan_scale`` W, W 2 and
+4) bitwise the same tracks' rows of the full launch, and pt-6b-d4 at
+full width (8 layers) on 2 and 4 track ranks of the one card bitwise one
+process.  The contiguous decode
 kernel at the speculative drafter's shapes, and a reduced speculative
 engine run, card against CPU.  The step programs' CUDA graphs (reduced
 configs): a replayed decode or spec step bitwise equal to the eager step
@@ -250,6 +255,45 @@ def test_rmsnorm_kernel_matches_plain(route, shape, per_track, bcast, dtype):
         (before[0] + 1, before[1] + 1)
     for g, again in zip(got, call()):
         assert torch.equal(g, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,bcast", [((8, 8, 1, 1408), False),
+                                         ((8, 2, 5, 1408), True),
+                                         ((4, 7, 32), False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fuse_norm_of_a_ranks_gathered_rows_is_bitwise_the_full_launch(
+        shape, bcast, dtype):
+    """A track rank's boundary (core/track.py ``_boundary``): x + delta
+    added first (PyTorch, in x's dtype), the ``fuse_norm`` route with no
+    delta under k < n scale rows gives f and the k rows of y bitwise as
+    the route with delta under all n rows does; each against its plain
+    version; one launch each."""
+    from repro_torch.kernels import rmsnorm as rn
+    dev, tol = _cuda(), _TOL[dtype]
+    rng = np.random.default_rng(4)
+    n = shape[0]
+    x = torch.from_numpy(rng.standard_normal(
+        shape[1:] if bcast else shape).astype(np.float32) * 3
+    ).to(dev, _TDT[dtype])
+    x = x[None].expand(shape) if bcast else x
+    delta = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             ).to(dev, _TDT[dtype])
+    s = torch.from_numpy(rng.standard_normal((n, shape[-1])).astype(
+        np.float32) * 0.2).to(dev)
+    f, y = ops.fuse_rmsnorm(x, delta, s)
+    gathered = x + delta
+    for a, b in ((0, n // 2), (n // 2, n), (1, 2)):
+        before = rn.rmsnorm.routes["fuse_norm"]
+        fr, yr = ops.fuse_rmsnorm(gathered, None, s[a:b].contiguous())
+        assert rn.rmsnorm.routes["fuse_norm"] == before + 1
+        assert yr.shape == (b - a,) + tuple(shape[1:])
+        assert torch.equal(fr, f) and torch.equal(yr, y[a:b])
+        pf, py = ref.fuse_rmsnorm_plain(gathered, None, s[a:b])
+        torch.testing.assert_close(fr, pf, rtol=tol, atol=tol)
+        torch.testing.assert_close(yr, py, rtol=tol, atol=tol)
+    fl, yl = ops.fuse_rmsnorm(gathered, None, s[0])      # the final norm
+    assert torch.equal(fl, f) and yl.shape == tuple(shape[1:])
 
 
 @pytest.mark.gpu
@@ -713,6 +757,72 @@ def test_decode_kernels_bitwise_across_sweeps(layout, capacity, many, int8):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["paged", "contiguous"])
+@pytest.mark.parametrize("int8", [False, True])
+def test_decode_kernels_on_a_ranks_tracks_bitwise_the_full_launch(layout,
+                                                                   int8):
+    """A track rank of W (2, 4) launches the decode kernels over its n/W
+    tracks with ``plan_scale`` W: its rows bitwise the same tracks' rows
+    of the n-track launch, at pt-6b-d4's decode shape (8 tracks x 8
+    slots, G 4 on 1 KV head, hd 128, capacity 592, the contiguous layout
+    with the tracks folded into the rows), where a plan from the rank's
+    own blocks would split otherwise."""
+    from repro_torch.common.quant import quantize_rows
+    dev = _cuda()
+    rng = np.random.default_rng(int8)
+    t = lambda a: torch.from_numpy(a).to(dev)            # noqa: E731
+    n, B, KH, G, hd, bs, cap = 8, 8, 1, 4, 128, 16, 592
+    nmax = cap // bs
+    lengths = t(rng.integers(cap // 2, cap + 1, B).astype(np.int32))
+    q = t(rng.standard_normal((n, B, KH * G, hd)).astype(np.float32))
+    if layout == "paged":
+        N = B * nmax + 1
+        table = t((rng.permutation(N - 1)[:B * nmax].reshape(B, nmax) + 1
+                   ).astype(np.int32))
+        shape, page = (n, N, bs, KH, hd), bs
+    else:
+        shape, page = (n, B, cap, KH, hd), None
+    k, v = (t(rng.standard_normal(shape).astype(np.float32))
+            for _ in range(2))
+    if int8:
+        (k, ks), (v, vs) = quantize_rows(k), quantize_rows(v)
+    else:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+        ks = vs = None
+    q = q.to(torch.bfloat16)
+
+    def call(a, b, scale):
+        """Tracks [a, b) in one launch; contiguous: folded into rows."""
+        m = b - a
+
+        def cut(x):
+            if x is None:
+                return None
+            x = x[a:b].contiguous()
+            return x if page else x.reshape(m * B, *x.shape[2:])
+
+        if layout == "paged":
+            return ops.paged_decode_attention(
+                cut(q), cut(k), cut(v), table, lengths, k_scale=cut(ks),
+                v_scale=cut(vs), plan_scale=scale)
+        return ops.decode_attention(
+            cut(q), cut(k), cut(v), lengths.repeat(m), k_scale=cut(ks),
+            v_scale=cut(vs), plan_scale=scale).reshape(m, B, KH * G, hd)
+
+    full = call(0, n, 1)
+    plans = {W: da.split_plan(cap, n // W * B * KH, page, _sms(dev), cap)
+             for W in (1, 2, 4)}
+    assert plans[4] != plans[1], plans       # the rank's own plan differs
+    for W in (2, 4):
+        k_ = n // W
+        for r in range(W):
+            got = call(r * k_, (r + 1) * k_, W)
+            assert torch.equal(got, full[r * k_:(r + 1) * k_]), (W, r)
+    with pytest.raises(ValueError, match="plan_scale"):
+        call(0, n // 2, 0)
+
+
+@pytest.mark.gpu
 def test_threefry_on_the_card_matches_the_cpu():
     """The sampler's threefry stream on the card: row_keys (seeds 0, 1,
     2**31 - 1, 2**32 - 1 by counters 0-300, every salt), random bits and
@@ -1087,3 +1197,65 @@ def test_decode_launch_that_grows_the_counters_under_capture_raises(
     assert da._COUNTERS[dev] is small
     grown = da.reserve_counters(dev, 8)
     assert grown.numel() >= 8 and any(t is small for t in da._RETIRED)
+
+
+# ---------------------------------------------------------------------------
+# track ranks on the one card
+# ---------------------------------------------------------------------------
+
+_RANK_PROMPT, _RANK_STEPS = 512, 4
+
+
+def _rank_logits(par, device: str) -> np.ndarray:
+    """pt-6b-d4 bf16 at full width, its depth cut to 8 layers (R = 2),
+    from seed 0, on one track rank (``NO_PARALLEL``: one process): the
+    prefill's last row and ``_RANK_STEPS`` greedy paged decode steps of
+    8 prompts of 512 tokens (capacity 592, as ``chip_smoke.py`` phase
+    5), [8, 1 + steps, V] fp32."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import track
+    from repro_torch.serving.cache import PagedKVCache
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    cfg = get_config("pt-6b-d4").replace(n_layers=8)
+    full = track.init_pt(torch.Generator(device=dev).manual_seed(0), cfg,
+                         dev)
+    p = track.shard_tracks(full, cfg, par)
+    del full
+    B, cap = 8, _RANK_PROMPT + 80
+    prompts = torch.as_tensor(np.random.default_rng(0).integers(
+        1, cfg.vocab_size, (B, _RANK_PROMPT)), device=dev)
+    kv = PagedKVCache(cfg, max_slots=B, max_seq_len=cap, block_size=16,
+                      device=dev, par=par)
+    slots = list(range(B))
+    for s in slots:
+        kv.allocate(s, cap)
+    with torch.no_grad():
+        logits, cache = track.pt_forward(p, {"inputs": prompts}, cfg,
+                                         par=par)
+        out = [logits[:, -1].float()]
+        kv.insert_prefill(cache, slots, kv.table_rows(slots))
+        del logits, cache
+        pos = torch.full((B,), _RANK_PROMPT, dtype=torch.int32, device=dev)
+        for i in range(_RANK_STEPS):
+            lg, _ = track.pt_decode_step(p, kv.engine_cache(),
+                                         out[-1].argmax(-1), pos + i, cfg,
+                                         block_table=kv.table(), par=par)
+            out.append(lg.float())
+    return torch.stack(out, dim=1).cpu().numpy()
+
+
+@pytest.mark.gpu
+def test_track_ranks_on_the_card_are_bitwise_one_process():
+    """pt-6b-d4 bf16 at full width on W = 2 and W = 4 track ranks of the
+    one card (gloo; 4 and 2 tracks a rank): every rank's prefill and
+    decode logits bitwise one process's (the decode kernels plan their
+    split for all 8 tracks on every rank)."""
+    from repro_torch.runtime.parallel import NO_PARALLEL, spawn
+    dev = _cuda()
+    one = _rank_logits(NO_PARALLEL, str(dev))
+    torch.cuda.empty_cache()
+    for W in (2, 4):
+        got = spawn(_rank_logits, W, (str(dev),), timeout=600.0)
+        for r, g in enumerate(got):
+            assert np.array_equal(g, one), (W, r, np.abs(g - one).max())

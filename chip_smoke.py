@@ -135,7 +135,32 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      ``torch.distributed``) and no other, launches and routes equal to
      phase 5's, (c) logits teacher-forced along phase 5's streams and
      the free streams bitwise phase 5's, or else the logits within
-     ``check_spec_logits``'s limit.
+     ``check_spec_logits``'s limit;
+  9. the prefix cache, copy-on-write blocks and fork, pt-6b-d4 at full
+     width on phase 5's seeded tree (``prefix_hit``, ``fork_runs``) and,
+     for the speculative arm, on run (b)'s tied tree (``prefix_spec``),
+     block 16, SLOTS slots, capacity PROMPT + NEW + 8: (a) a seed request
+     (a 448-token shared prefix and a 64-token tail), then 8 requests of
+     the same prefix and tails of their own, submitted together, against
+     the same 8 served cold (``prefix_cache=False``): every
+     ``cached_prefix`` 448, ``prefix_hit_tokens`` 8 x 448, flash prefill
+     only in the seed's cold call, the warm tails in one chunk call, the
+     invariants, and ``check_warm_logits`` (logits teacher-forced along
+     the cold streams within ``check_spec_logits``'s limit, every first
+     divergence a near-tie); TTFT p50 / p90 warm against cold, the
+     admission step's device busy time, used blocks, peak memory; (b)
+     the same with int8 weights and int8 KV (every prompt through the
+     chunk program; whether warm equals cold bitwise, and the first
+     layer whose K/V bytes differ); (c) a 512-token greedy request forked
+     3 ways after 5 decode steps: children bitwise the parent, exactly 3
+     copy-on-write copies, used blocks the fork arithmetic; (d) the
+     request sampled and forked 4 ways (``fork_seeds``), sync then
+     pipelined with the sampled programs planned: every step a replay,
+     planned bitwise sync, the children pairwise distinct; (e) (a) with
+     speculate_k=4, draft_tracks=4, sync then pipelined with the greedy
+     programs planned: the drafter filled for the warm slots, every step
+     a replay, planned bitwise sync.  Phases 1-8 serve with the prefix
+     cache off (``prefix_cache=False``), as they measured before it.
 Prints one ``{"kernels": [...]}`` JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -1067,7 +1092,8 @@ def check_reduced_parity(dev: torch.device) -> None:
         raise SystemExit("[parity] first greedy tokens differ")
     streams = {}
     for d in (cpu, dev):
-        eng = Engine(cfg, params[d], max_slots=2, max_seq_len=48, device=d)
+        eng = Engine(cfg, params[d], max_slots=2, max_seq_len=48, device=d,
+                     prefix_cache=False)
         streams[d] = eng.generate(prompts + [prompts[0][:5]], 8)
     log(f"[parity] greedy token streams, card vs CPU: "
         f"{'identical' if streams[dev] == streams[cpu] else 'DIFFER'} "
@@ -1159,7 +1185,7 @@ def check_int8_parity(dev: torch.device) -> None:
     streams = {}
     for d in (cpu, dev):
         eng = Engine(cfg, params[d], max_slots=2, max_seq_len=48, device=d,
-                     kv_dtype="int8", **knobs)
+                     kv_dtype="int8", prefix_cache=False, **knobs)
         streams[d] = eng.generate([p.tolist() for p in prompts]
                                   + [prompts[0, :5].tolist()], 8)
     log(f"[parity] greedy token streams, int8 weights + int8 KV + chunk 8, "
@@ -1228,7 +1254,8 @@ def check_mamba_parity(dev: torch.device) -> None:
                for L in (13, 11, 5)]
     for knobs in ({}, {"prefill_chunk": 8}):
         streams = {d: Engine(cfg, params[d], max_slots=2, max_seq_len=48,
-                             device=d, **knobs).generate(prompts, 8)
+                             device=d, prefix_cache=False,
+                             **knobs).generate(prompts, 8)
                    for d in (cpu, dev)}
         same = streams[dev] == streams[cpu]
         log(f"[parity] falcon-mamba greedy token streams {knobs or 'whole'}, "
@@ -1320,7 +1347,7 @@ def check_dense_parity(dev: torch.device) -> None:
         for paged in (True, False):
             streams[(d, paged)] = Engine(
                 cfg, params[d], max_slots=2, max_seq_len=48, device=d,
-                paged=paged).generate(prompts, 8)
+                paged=paged, prefix_cache=False).generate(prompts, 8)
     same = len({str(v) for v in streams.values()}) == 1
     log(f"[parity] dense greedy token streams, card vs CPU x paged vs "
         f"contiguous: {'identical' if same else 'DIFFER'} "
@@ -1367,7 +1394,8 @@ def check_pt_contiguous_parity(dev: torch.device) -> None:
     prompts = [rng.integers(1, cfg.vocab_size, size=(L,)).tolist()
                for L in (9, 16, 5)]
     streams = {(d, paged): Engine(cfg, params[d], max_slots=2, max_seq_len=48,
-                                  device=d, paged=paged).generate(prompts, 8)
+                                  device=d, paged=paged,
+                                  prefix_cache=False).generate(prompts, 8)
                for d in (cpu, dev) for paged in (False, True)}
     same = len({str(v) for v in streams.values()}) == 1
     log(f"[parity] PT greedy token streams, contiguous card vs CPU (and the "
@@ -1439,7 +1467,7 @@ def check_spec_parity(dev: torch.device) -> None:
             for k in (0, 3):
                 eng = Engine(cfg, params[d], max_slots=2, max_seq_len=48,
                              device=d, speculate_k=k, draft_tracks=2,
-                             **knobs)
+                             **knobs, prefix_cache=False)
                 out[(where, k)] = eng.generate(work, 8)
                 acc[where] = eng.metrics.summary()["acceptance_rate"]
         same = len({str(v) for v in out.values()}) == 1
@@ -1452,7 +1480,7 @@ def check_spec_parity(dev: torch.device) -> None:
     for where, d in (("CPU", cpu), ("card", dev)):
         _tie_tracks(params[d]["blocks"])
         eng = Engine(cfg, params[d], max_slots=2, max_seq_len=48, device=d,
-                     speculate_k=3, draft_tracks=2)
+                     speculate_k=3, draft_tracks=2, prefix_cache=False)
         eng.generate(work, 8)
         rate = eng.metrics.summary()["acceptance_rate"]
         log(f"[parity] spec, tracks tied, {where}: acceptance {rate}")
@@ -1531,7 +1559,7 @@ def serve_full(dev: torch.device, card: str, int8: bool = False,
     t0 = time.perf_counter()
     knobs = dict(weight_dtype="int8", kv_dtype="int8") if int8 else {}
     eng = Engine(cfg, params, max_slots=SLOTS, max_seq_len=PROMPT + NEW + 8,
-                 block_size=BLOCK, device=dev, **knobs)
+                 block_size=BLOCK, device=dev, prefix_cache=False, **knobs)
     head_bf16 = params["head"]
     if int8:
         del params, head_bf16    # the engine holds its own int8 copy
@@ -1752,7 +1780,7 @@ def serve_spec(dev: torch.device, card: str, params, prompts, plain,
     K = SPEC_K
     eng = Engine(cfg, params, max_slots=SLOTS, max_seq_len=PROMPT + NEW + 8,
                  block_size=BLOCK, device=dev, speculate_k=K,
-                 draft_tracks=SPEC_TRACKS)
+                 draft_tracks=SPEC_TRACKS, prefix_cache=False)
     r = eng.runner
     draft_bytes = sum(nbytes(t) for t in _leaves(r.draft_params["blocks"]))
     log(f"[serve] {tag}: drafter {r.draft_tracks} of {cfg.pt.n_tracks} "
@@ -2043,7 +2071,7 @@ def serve_falcon(dev: torch.device, card: str):
         f"{time.perf_counter() - t0:.1f}s")
     eng = Engine(cfg, params, max_slots=FM_SLOTS,
                  max_seq_len=PROMPT + NEW + 8, block_size=BLOCK,
-                 prefill_chunk=FM_CHUNK, device=dev)
+                 prefill_chunk=FM_CHUNK, device=dev, prefix_cache=False)
     del params, leaves
     r = eng.runner
     st = r.cache_stats()
@@ -2132,7 +2160,7 @@ def serve_dense(dev: torch.device, card: str, params, paged: bool):
     cfg = get_config(DENSE_ARCH)
     tag = f"dense-6b bf16 {'paged' if paged else 'contiguous'}"
     eng = Engine(cfg, params, max_slots=SLOTS, max_seq_len=PROMPT + NEW + 8,
-                 block_size=BLOCK, paged=paged, device=dev)
+                 block_size=BLOCK, paged=paged, device=dev, prefix_cache=False)
     r = eng.runner
     kv_bytes = (r.kv.pool_bytes() if paged
                 else sum(nbytes(t) for t in _leaves(r.cache)))
@@ -2400,7 +2428,8 @@ def serve_planned(dev, card: str, tag: str, kind: str, cfg, params, knobs,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     eng = Engine(cfg, params, max_slots=SLOTS, max_seq_len=PROMPT + NEW + 8,
-                 block_size=BLOCK, device=dev, pipeline_depth=1, **knobs)
+                 block_size=BLOCK, device=dev, pipeline_depth=1,
+                 prefix_cache=False, **knobs)
     del params
     r = eng.runner
     stages = {}
@@ -2583,7 +2612,7 @@ def serve_sync(dev, card: str, tag: str, cfg, params, knobs, prompts,
     NEW tokens.  Returns {"m", "peak", "streams", "wall"}."""
     from repro_torch.serving.engine import Engine, EngineMetrics, RequestState
     eng = Engine(cfg, params, max_slots=SLOTS, max_seq_len=PROMPT + NEW + 8,
-                 block_size=BLOCK, device=dev, **knobs)
+                 block_size=BLOCK, device=dev, prefix_cache=False, **knobs)
     rng = np.random.default_rng(0)
     eng.generate([rng.integers(1, cfg.vocab_size, size=(16,)).tolist()
                   for _ in range(SLOTS)], 3)               # warm-up
@@ -2785,7 +2814,7 @@ def spec_boundary(dev, card: str, params) -> None:
             eng = Engine(cfg, params, max_slots=SLOTS,
                          max_seq_len=PROMPT + NEW + 8, block_size=BLOCK,
                          device=dev, speculate_k=SPEC_K,
-                         draft_tracks=SPEC_TRACKS, **extra)
+                         draft_tracks=SPEC_TRACKS, prefix_cache=False, **extra)
             if name == "planned":
                 eng.runner.plan_programs(sampled=(False,))   # greedy runs
             _record_spec_keys(eng, keys)
@@ -2927,7 +2956,7 @@ def serve_rank(par, device: str, prompts, streams, ref_path: str) -> dict:
     t0 = time.perf_counter()
     full = init_pt(torch.Generator(device=dev).manual_seed(0), cfg, dev)
     eng = Engine(cfg, full, max_slots=SLOTS, max_seq_len=PROMPT + NEW + 8,
-                 block_size=BLOCK, device=dev, par=par)
+                 block_size=BLOCK, device=dev, par=par, prefix_cache=False)
     del full                            # the engine keeps the rank's share
     gc.collect()
     torch.cuda.empty_cache()
@@ -3028,7 +3057,7 @@ def serve_ranks(dev: torch.device, card: str, prompts, streams,
     R, T = pt_sync_points(cfg.n_layers, cfg.pt.block_depth), NEW - 1
     params = init_pt(torch.Generator(device=dev).manual_seed(0), cfg, dev)
     eng = Engine(cfg, params, max_slots=SLOTS, max_seq_len=PROMPT + NEW + 8,
-                 block_size=BLOCK, device=dev)
+                 block_size=BLOCK, device=dev, prefix_cache=False)
     ref = teacher_forced(eng.runner, prompts, streams)
     replay = int((ref.argmax(-1) == torch.as_tensor(streams, device=dev))
                  .sum())
@@ -3130,6 +3159,561 @@ def serve_ranks(dev: torch.device, card: str, prompts, streams,
     return res[0]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the prefix cache, copy-on-write blocks and fork at full width
+# ---------------------------------------------------------------------------
+
+PFX_SHARED, PFX_TAIL = 448, 64      # 28 shared blocks, a 64-token tail each
+FORK_STEPS = 5                      # decode steps before the fork: pos 517
+PREFIX = {}                         # the figures of phase 9, for the summary
+
+
+def _prefix_prompts(vocab: int, seed: int):
+    """The seed request's prompt and SLOTS prompts that share its first
+    PFX_SHARED tokens, each with a tail of its own (PROMPT tokens each)."""
+    rng = np.random.default_rng(seed)
+    shared = rng.integers(1, vocab, size=(PFX_SHARED,)).tolist()
+    tail = lambda: rng.integers(1, vocab, size=(PFX_TAIL,)).tolist()
+    return shared + tail(), [shared + tail() for _ in range(SLOTS)]
+
+
+def _pfx_engine(dev, cfg, params, knobs, **kw):
+    """An engine of the cell's shape, warmed up (cuBLAS handles and
+    heuristics, the kernels' first loads) on short random prompts and
+    then on phase 9's shapes: a PROMPT-token request, then SLOTS requests
+    sharing its first PFX_SHARED tokens (warm tails on an engine with the
+    prefix cache, cold prompts on one without), so that no measured
+    admission is the process's first call of its program and shape; its
+    metrics fresh."""
+    from repro_torch.serving.engine import Engine, EngineMetrics
+    eng = Engine(cfg, params, max_slots=SLOTS, max_seq_len=PROMPT + NEW + 8,
+                 block_size=BLOCK, device=dev, **knobs, **kw)
+    head, tails = _prefix_prompts(cfg.vocab_size, 1)
+    rng = np.random.default_rng(1)
+    eng.generate([rng.integers(1, cfg.vocab_size, size=(16,)).tolist()
+                  for _ in range(SLOTS)], 3)
+    eng.generate([head], 3)
+    eng.generate(tails, 3)
+    eng.metrics = EngineMetrics()
+    torch.cuda.synchronize()
+    return eng
+
+
+def admission_busy(eng, prompts) -> Optional[float]:
+    """Device busy ms (torch.profiler, CUPTI) of the engine step that
+    admits ``prompts`` (its prefill or warm tails and first decode step);
+    the requests then finish.  None when the profiler saw no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for p in prompts:
+        eng.submit(p, 2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    eng.run()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return busy or None
+
+
+def _measured(eng, dev, prompts, submit_kws=None):
+    """Serve ``prompts`` (NEW tokens each) from a clean slate of launch
+    counts, metrics and peak memory; the used blocks are read after the
+    admission step.  Returns (requests, launches, summary, peak bytes,
+    used blocks, runner call deltas)."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import EngineMetrics
+    r = eng.runner
+    eng.metrics = EngineMetrics()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    c0 = (r.prefill_calls, r.chunk_calls)
+    reqs = [eng.submit(p, NEW, **kw) for p, kw in
+            zip(prompts, submit_kws or [{}] * len(prompts))]
+    eng.step()
+    used = r.kv.utilization()["used_blocks"]
+    eng.run()
+    torch.cuda.synchronize()
+    calls = (r.prefill_calls - c0[0], r.chunk_calls - c0[1])
+    return (reqs, ops.launch_counts(), eng.metrics.summary(),
+            torch.cuda.max_memory_allocated(dev), used, calls)
+
+
+def _first_logits(r, prompts, matched, slots) -> torch.Tensor:
+    """The logits an admission gives each prompt's last row [n, V] fp32,
+    by the program the engine runs: flash prefill for a cold bf16
+    prompt, the chunk program for a warm tail (tokens [matched, len) at
+    their positions) and for every int8-KV prompt; the cache rows are
+    written as the engine writes them."""
+    from repro_torch.models.decoder import _head
+    n, dev, cfg = len(prompts), r.device, r.cfg
+    idx = torch.arange(n, device=dev)
+    if not any(matched) and r.kv_dtype is None:
+        logits, cache = r.fns["forward"](
+            r.params, {"inputs": torch.as_tensor(prompts, device=dev)}, cfg,
+            mode="prefill")
+        r.kv.insert_prefill(cache, slots, r.kv.table_rows(slots))
+        return logits[:, -1].float()
+    tails = [p[m:] for p, m in zip(prompts, matched)]
+    C = r.bucket_for(max(len(t) for t in tails))
+    toks = torch.zeros((n, C), dtype=torch.long, device=dev)
+    for i, t in enumerate(tails):
+        toks[i, :len(t)] = torch.as_tensor(t, device=dev)
+    last = torch.as_tensor([len(t) - 1 for t in tails], device=dev)
+    h = r.fns["chunk_hidden"](
+        r.params, r.cache, toks,
+        torch.as_tensor(matched, dtype=torch.int32, device=dev), cfg,
+        block_table=r.kv.table_rows(slots),
+        slots=torch.as_tensor(slots, device=dev), chunk_lens=last + 1)
+    return _head(r.params, h[idx, last], cfg).float()
+
+
+def _tail_kv(r, slots, lo, hi) -> list:
+    """Each pool's (and scale pool's) rows of positions [lo, hi) of
+    ``slots`` through their tables, per layer: [R, D, n, len(slots),
+    hi - lo, ...] copies."""
+    bs = r.kv.block_size
+    pos = torch.arange(lo, hi, device=r.device)
+    out = []
+    for leaf in r.kv.engine_cache()["blocks"]:
+        for t in (leaf.pool, leaf.scale):
+            if t is None:
+                continue
+            rows = []
+            for s_ in slots:
+                blk = torch.as_tensor(r.kv.table_np[s_], device=r.device)
+                rows.append(t[:, :, :, blk[pos // bs], pos % bs])
+            out.append(torch.stack(rows, dim=3))
+    return out
+
+
+def _first_diff_layer(a: list, b: list) -> Optional[tuple]:
+    """(track block, layer in the block) of the first layer whose K or V
+    rows (or scales) differ between two ``_tail_kv`` reads; None when
+    every byte is equal."""
+    R, D = a[0].shape[:2]
+    for r_ in range(R):
+        for j in range(D):
+            if any(not torch.equal(x[r_, j], y[r_, j]) for x, y in zip(a, b)):
+                return (r_, j)
+    return None
+
+
+def check_warm_logits(eng, prompts, cold, warm, tag: str) -> dict:
+    """Phase 9: the target's logits teacher-forced along the cold run's
+    streams (the first token and T = NEW - 1 decode steps) after a warm
+    admission (the first PFX_SHARED tokens matched in the prefix cache,
+    the tail through the chunk program) and after a cold one (fresh
+    blocks, the engine's cold admission program), on one runner; beside
+    them the whole-sequence prefill over prompt + stream, the model's
+    own program over the same tokens.  Reports each program's mean and
+    max |logits - cold's| and argmax agreement, whether the warm and
+    cold passes wrote the same K/V bytes (the tail: the first layer
+    that differs; the prefix: the seed's shared blocks against the cold
+    pass's), and at each stream's first divergence the cold token's
+    lead over the warm one under the cold logits.
+    Gates (``check_spec_logits``'s): the warm logits' mean |difference|
+    from cold at most twice the prefill's, or the bf16 kernel tolerance
+    times the cold logits' std where that is larger; every first
+    divergence a near-tie (the cold token leads by at most twice the
+    max |warm - cold| at that position)."""
+    r, cfg = eng.runner, eng.runner.cfg
+    n, T, dev = len(prompts), NEW - 1, r.device
+    slots = list(range(n))
+    act = np.ones((n,), bool)
+    act_d = torch.ones((n,), dtype=torch.bool, device=dev)
+    pos = np.full((n,), PROMPT, np.int32)
+    pos_d = torch.as_tensor(pos, device=dev)
+    toks = torch.as_tensor([c[:T] for c in cold], device=dev)
+    out, kv_rows = {}, {}
+    with torch.no_grad():
+        for how in ("warm", "cold"):
+            matched = []
+            for s_, p in zip(slots, prompts):
+                # a match over PFX_SHARED + 1 tokens can take the shared
+                # blocks only, whatever else the runs committed since
+                m = r.kv.allocate(s_, PROMPT + NEW, tokens=p[:PFX_SHARED + 1]
+                                  if how == "warm" else None)
+                matched.append(m)
+            if matched != ([PFX_SHARED] * n if how == "warm" else [0] * n):
+                raise SystemExit(f"[prefix] {tag}: {how} pass matched "
+                                 f"{matched}")
+            rows = [_first_logits(r, prompts, matched, slots)]
+            kv_rows[how] = (_tail_kv(r, slots, PFX_SHARED, PROMPT),
+                            _tail_kv(r, slots, 0, PFX_SHARED))
+            for i in range(T):
+                rows.append(r.fns["decode"](
+                    r.params, r.cache, toks[:, i].long(), pos_d + i, cfg,
+                    block_table=r._masked_table(act),
+                    kv_max_len=r._live_max_len(pos + i, act),
+                    active=act_d)[0].float())
+            out[how] = torch.stack(rows, dim=1)                # [n, T+1, V]
+            for s_ in slots:
+                r.kv.free_slot(s_)
+        seq = torch.cat([torch.as_tensor(prompts, device=dev), toks], dim=1)
+        out["prefill"] = r.fns["forward"](r.params, {"inputs": seq}, cfg,
+                                          mode="prefill")[0][
+            :, PROMPT - 1:PROMPT + T].float()
+    r.kv.check_invariants()
+    c = out["cold"]
+    stat = {}
+    for name in ("warm", "prefill"):
+        diff = (out[name] - c).abs()
+        stat[name] = (diff.mean().item(), diff.max().item(),
+                      int((out[name].argmax(-1) == c.argmax(-1)).sum()))
+    tail_diff = _first_diff_layer(kv_rows["warm"][0], kv_rows["cold"][0])
+    prefix_same = _first_diff_layer(kv_rows["warm"][1],
+                                    kv_rows["cold"][1]) is None
+    log(f"[prefix] {tag}: logits teacher-forced along the cold streams "
+        f"({n} x {T + 1} positions): cold logit std {c.std().item():.4f}")
+    for name, (mean, mx, agree) in stat.items():
+        log(f"[prefix] {tag}:   {name} vs cold: mean |diff| {mean:.4e}, "
+            f"max {mx:.4e}, argmax equal {agree}/{n * (T + 1)}")
+    log(f"[prefix] {tag}:   K/V bytes, warm pass against cold pass: the "
+        f"tail's first differing layer (track block, layer) {tail_diff} "
+        f"(None: all equal); the prefix (the seed's shared blocks against "
+        f"the cold pass's own) bitwise equal: {prefix_same}")
+    bad = []
+    for b, (w, cs) in enumerate(zip(warm, cold)):
+        i = _divergence(w, cs)
+        if i < 0 or i > T or i >= min(len(w), len(cs)):
+            log(f"[prefix] {tag}:   request {b}: first divergence {i} "
+                f"(-1: none)")
+            continue
+        g = (c[b, i, cs[i]] - c[b, i, w[i]]).item()
+        dmax = (out["warm"][b, i] - c[b, i]).abs().max().item()
+        log(f"[prefix] {tag}:   request {b}: diverges at {i} (cold {cs[i]}, "
+            f"warm {w[i]}): cold gap {g:.4e}, max |warm - cold| there "
+            f"{dmax:.4e}")
+        if g > 2 * dmax:
+            bad.append(b)
+    limit = max(2 * stat["prefill"][0], KERNEL_TOL * c.std().item())
+    gates = {"warm": stat["warm"][0] <= limit, "near-ties": not bad}
+    log(f"[prefix] {tag}: logit gates {json.dumps(gates)} (limit "
+        f"{limit:.4e})")
+    if not all(gates.values()):
+        raise SystemExit(f"[prefix] {tag}: logit gates {gates} (requests "
+                         f"whose divergence is no near-tie: {bad})")
+    return {"warm_mean_abs": stat["warm"][0], "warm_max_abs": stat["warm"][1],
+            "prefill_mean_abs": stat["prefill"][0], "limit": limit,
+            "tail_kv_first_diff": tail_diff, "prefix_kv_bitwise": prefix_same}
+
+
+def probe_rows(dev, cfg, int8: bool) -> dict:
+    """Phase 9: which ops of the chunk program give a row bits that depend
+    on how many rows share the call.  The tail rows [PFX_SHARED, PROMPT)
+    of SLOTS prompts, computed inside a whole-prompt call and in a
+    tail-only call, at pt-6b-d4's shapes on random inputs: the q
+    projection (W8A16 with ``int8``, else the bf16 product), then the
+    chunk attention's pieces as ``models.attention._causal_ctx`` computes
+    them (scores, softmax, P V; over fp32 K/V, as an int8 pool reads, or
+    bf16).  True where the tail rows are bitwise equal."""
+    from repro_torch.common.quant import matmul, quantize
+    g = torch.Generator(device=dev).manual_seed(5)
+    n, H, KH, hd = cfg.pt.n_tracks, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    t0, B, C = PFX_SHARED, SLOTS, PROMPT
+    S = -(-(PROMPT + NEW + 8) // BLOCK) * BLOCK
+    bf = torch.bfloat16
+    x = torch.randn(n, B, C, cfg.d_model, generator=g, device=dev, dtype=bf)
+    w = torch.randn(n, cfg.d_model, H * hd, generator=g, device=dev,
+                    dtype=bf)
+    if int8:
+        w = quantize(w, axes=(-2,))
+    res = {"q projection": torch.equal(
+        matmul(x, w)[:, :, t0:], matmul(x[:, :, t0:].contiguous(), w))}
+    rd = torch.float32 if int8 else bf
+    q = torch.randn(n, B, C, H, hd, generator=g, device=dev, dtype=bf)
+    k, v = (torch.randn(n, B, S, KH, hd, generator=g, device=dev).to(rd)
+            for _ in range(2))
+
+    def pieces(q, positions):
+        qg = (q * hd ** -0.5).to(rd).reshape(*q.shape[:3], KH, H // KH, hd)
+        sc = torch.einsum("nbckgd,nbskd->nbckgs", qg.float(), k.float())
+        mask = torch.arange(S, device=dev)[None, None] <= positions[:, :,
+                                                                    None]
+        p = sc.masked_fill(~mask[None, :, :, None, None], -1e30)
+        p = (p - p.amax(dim=-1, keepdim=True)).exp()
+        p = p / p.sum(dim=-1, keepdim=True)
+        ctx = torch.einsum("nbckgs,nbskd->nbckgd", p.to(rd).float(),
+                           v.float())
+        return sc, p, ctx
+
+    pos = torch.arange(C, device=dev)[None].expand(B, C)
+    whole = pieces(q, pos)
+    part = pieces(q[:, :, t0:], pos[:, t0:])
+    for name, a, b in zip(("scores", "softmax", "P V"), whole, part):
+        res[name] = torch.equal(a[:, :, t0:], b)
+    del whole, part
+    torch.cuda.empty_cache()
+    return res
+
+
+def prefix_hit(dev, card: str, params, tag: str, int8: bool = False) -> None:
+    """Phase 9 (a), (b with ``int8``): pt-6b-d4 on phase 5's seeded tree,
+    SLOTS slots, capacity PROMPT + NEW + 8, block BLOCK.  A cold engine
+    (``prefix_cache=False``) serves SLOTS prompts that share their first
+    PFX_SHARED tokens; a prefix-cache engine serves a seed request (the
+    shared prefix and a tail of its own) and then the same SLOTS prompts,
+    submitted together.  Gates: every ``cached_prefix`` is PFX_SHARED,
+    ``prefix_hit_tokens`` SLOTS x PFX_SHARED; bf16: flash prefill runs
+    only in the seed's cold call (one launch a layer), the warm tails
+    take one chunk call and no prefill call; int8: one chunk call each,
+    no flash; ``check_invariants``; ``check_warm_logits``.  Reports TTFT
+    p50 / p90 warm against cold, the admission step's device busy ms,
+    used blocks after admission, peak memory, and whether the streams
+    are bitwise the cold ones."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    L = cfg.n_layers
+    knobs = dict(weight_dtype="int8", kv_dtype="int8") if int8 else {}
+    seed, prompts = _prefix_prompts(cfg.vocab_size, 9)
+    _, probe = _prefix_prompts(cfg.vocab_size, 10)     # the busy-time probe
+    probe = [seed[:PFX_SHARED] + p[PFX_SHARED:] for p in probe]
+    fig = {}
+    for how in ("cold", "warm"):
+        eng = _pfx_engine(dev, cfg, params, knobs,
+                          prefix_cache=how == "warm")
+        r = eng.runner
+        if how == "warm":
+            _, launches, _, _, _, calls = _measured(eng, dev, [seed])
+            want = ({"flash_attention": 0} if int8
+                    else {"flash_attention": L})
+            log(f"[prefix] {tag}: seed request: calls (prefill, chunk) "
+                f"{calls}, flash_attention {launches['flash_attention']}")
+            if launches["flash_attention"] != want["flash_attention"] \
+                    or calls != ((0, 1) if int8 else (1, 0)):
+                raise SystemExit(f"[prefix] {tag}: the seed's admission "
+                                 f"ran {calls} calls, {launches}")
+            hits0 = r.kv.prefix_hit_tokens
+        t0 = time.perf_counter()
+        reqs, launches, m, peak, used, calls = _measured(eng, dev, prompts)
+        wall = time.perf_counter() - t0
+        streams = [q.output for q in reqs]
+        if how == "warm":
+            hits = r.kv.prefix_hit_tokens - hits0
+        busy = admission_busy(eng, probe)
+        fig[how] = {"ttft_p50_ms": m["ttft_ms"]["p50"],
+                    "ttft_p90_ms": m["ttft_ms"]["p90"],
+                    "tpot_p50_ms": m["tpot_ms"]["p50"],
+                    "admission_busy_ms": busy, "used_blocks": used,
+                    "peak_gb": peak / 1e9, "calls": calls, "wall_s": wall}
+        log(f"[prefix] {card} | {tag} {how}: {SLOTS} reqs x ({PROMPT} in "
+            f"/ {NEW} out), wall {wall:.3f}s; TTFT ms p50 "
+            f"{m['ttft_ms']['p50']:.2f} p90 {m['ttft_ms']['p90']:.2f}; TPOT "
+            f"ms p50 {m['tpot_ms']['p50']:.3f}; admission step device busy "
+            f"{'not measured' if busy is None else f'{busy:.3f} ms'}; used "
+            f"blocks after admission {used}; peak memory {peak / 1e9:.3f} "
+            f"GB; calls (prefill, chunk) {calls}; launches "
+            f"{json.dumps(launches)}")
+        if not all(q.state.value == "done" and len(q.output) == NEW
+                   for q in reqs):
+            raise SystemExit(f"[prefix] {tag} {how}: not every request "
+                             "finished")
+        if how == "cold":
+            cold = streams
+            del eng, r
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
+        cached = [q.cached_prefix for q in reqs]
+        gates = {"cached_prefix": cached == [PFX_SHARED] * SLOTS,
+                 "hit_tokens": hits == SLOTS * PFX_SHARED,
+                 "calls": calls == (0, 1),
+                 "no_flash": launches["flash_attention"] == 0}
+        r.kv.check_invariants()
+        same = sum(w == c for w, c in zip(streams, cold))
+        div = [_divergence(w, c) for w, c in zip(streams, cold)]
+        log(f"[prefix] {tag}: cached_prefix {cached}, prefix_hit_tokens "
+            f"{hits}; streams bitwise the cold run's {same}/{SLOTS} (first "
+            f"divergence per request: {div}); gates {json.dumps(gates)}")
+        if not all(gates.values()):
+            raise SystemExit(f"[prefix] {tag}: gates {gates}")
+        fig["logits"] = check_warm_logits(eng, prompts, cold, streams, tag)
+        fig["rows_bitwise"] = probe_rows(dev, cfg, int8)
+        log(f"[prefix] {tag}: tail rows bitwise between a whole-prompt call "
+            f"and a tail-only call, by op: {json.dumps(fig['rows_bitwise'])}")
+        fig.update(streams_bitwise_cold=same, first_divergence=div,
+                   hit_tokens=hits)
+        del eng, r
+        gc.collect()
+        torch.cuda.empty_cache()
+    w, c = fig["warm"], fig["cold"]
+    log(f"[prefix] {card} | {tag}: warm / cold TTFT p50 "
+        f"{w['ttft_p50_ms'] / c['ttft_p50_ms']:.4f}, p90 "
+        f"{w['ttft_p90_ms'] / c['ttft_p90_ms']:.4f}; used blocks "
+        f"{w['used_blocks']} / {c['used_blocks']}")
+    PREFIX[tag] = fig
+
+
+def _fork_run(eng, prompt, n, submit_kw) -> tuple:
+    """One request, FORK_STEPS decode steps after its first token (the
+    steps in flight of a pipelined engine counted), then a fork into
+    ``n`` children and the rest of the run.  Returns (parent, children,
+    figures)."""
+    r = eng.runner
+    req = eng.submit(prompt, NEW, **submit_kw)
+    while len(req.output) + len(eng._inflight) < FORK_STEPS + 1:
+        eng.step()
+    kids = eng.fork(req, n)
+    if len(req.output) != FORK_STEPS + 1:
+        raise SystemExit(f"[prefix] fork after {len(req.output)} tokens")
+    pslot = next(s_ for s_, q in eng.scheduler.active_slots() if q is req)
+    fig = {"used_after_fork": r.kv.utilization()["used_blocks"],
+           "committed": r.kv.committed(pslot)}
+    eng.step()
+    fig["used_after_cow"] = r.kv.utilization()["used_blocks"]
+    eng.run()
+    fig["cow_copies"] = r.kv.cow_copies
+    r.kv.check_invariants()
+    return req, kids, fig
+
+
+def fork_runs(dev, card: str, params) -> None:
+    """Phase 9 (c), (d): pt-6b-d4 bf16 on phase 5's seeded tree.  (c) one
+    PROMPT-token greedy request, FORK_STEPS decode steps after its first
+    token (position 517, inside the partial block 32, which the children
+    share), forked three ways.  Gates: the children's streams bitwise
+    the parent's; exactly 3 copy-on-write copies (the parent's and two
+    children's writes to block 32; the last holder writes in place);
+    used blocks after the fork 33 shared + ``fork_cost`` (3 at a
+    575-token reservation) fresh per holder, 3 more after the copies.
+    (d) the same request sampled (SAMPLED, seed 0) forked four ways
+    (seeds ``fork_seeds``), sync and then on ``Engine(pipeline_depth=1)``
+    with the sampled step programs of its live lengths planned.  Gates: every planned step a
+    replay, the planned streams bitwise the sync run's, the children's
+    streams pairwise distinct, 4 copies."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.sampler import SampleParams, fork_seeds
+    cfg = get_config(ARCH)
+    rng = np.random.default_rng(11)
+    prompt = rng.integers(1, cfg.vocab_size, size=(PROMPT,)).tolist()
+    eng = _pfx_engine(dev, cfg, params, {})
+    kv = eng.runner.kv
+    reserve = PROMPT + NEW - 1
+    t0 = time.perf_counter()
+    req, kids, fig = _fork_run(eng, prompt, 3, {})
+    wall = time.perf_counter() - t0
+    shared = kv.blocks_for(PROMPT + FORK_STEPS)
+    cost = kv.blocks_for(reserve) - shared
+    want = {"committed": PROMPT + FORK_STEPS,
+            "used_after_fork": shared + 4 * cost,
+            "used_after_cow": shared + 4 * cost + 3, "cow_copies": 3}
+    got = {k: fig[k] for k in want}
+    bitwise = all(k.output == req.output for k in kids)
+    log(f"[prefix] {card} | greedy fork: 1 request of {PROMPT} tokens, "
+        f"forked 3 ways after {FORK_STEPS} decode steps, wall {wall:.3f}s; "
+        f"{json.dumps(got)} (want {json.dumps(want)}: 33 shared blocks, "
+        f"fork_cost {cost}); children bitwise the parent: {bitwise}")
+    PREFIX["greedy fork"] = dict(got, children_bitwise_parent=bitwise,
+                                 fork_cost=cost)
+    if got != want or not bitwise or len(req.output) != NEW:
+        raise SystemExit(f"[prefix] greedy fork: {got} != {want} or "
+                         f"children differ ({bitwise})")
+    del eng, kv
+    gc.collect()
+    torch.cuda.empty_cache()
+    sp = {"params": SampleParams(**SAMPLED), "seed": 0}
+    out = {}
+    for how in ("sync", "planned"):
+        kw = {"pipeline_depth": 1} if how == "planned" else {}
+        eng = _pfx_engine(dev, cfg, params, {}, **kw)
+        r = eng.runner
+        if how == "planned":
+            t0 = time.perf_counter()
+            r.plan_programs(sampled=(True,),
+                            lengths=range(PROMPT, PROMPT + NEW + 1))
+            plan_s = time.perf_counter() - t0
+            hits0, steps0 = r.planned_hits, r.decode_transfers
+        req, kids, fig = _fork_run(eng, prompt, 4, sp)
+        out[how] = [req.output] + [k.output for k in kids]
+        seeds = [k.seed for k in kids]
+        if how == "planned":
+            replays = (r.planned_hits - hits0, r.decode_transfers - steps0)
+            fig.update(replays=replays, graphs=len(r.programs),
+                       capture_s=plan_s)
+        log(f"[prefix] {card} | sampled fork, {how}: seeds {seeds}; "
+            f"{json.dumps(fig)}")
+        if seeds != fork_seeds(0, 4) or fig["cow_copies"] != 4:
+            raise SystemExit(f"[prefix] sampled fork {how}: seeds {seeds}, "
+                             f"{fig['cow_copies']} copies")
+        del eng, r
+        gc.collect()
+        torch.cuda.empty_cache()
+    kids = out["sync"][1:]
+    gates = {"replays": replays[0] == replays[1] > 0,
+             "planned_bitwise_sync": out["planned"] == out["sync"],
+             "children_distinct": len({tuple(k) for k in kids}) == len(kids)}
+    log(f"[prefix] sampled fork: gates {json.dumps(gates)}")
+    PREFIX["sampled fork"] = gates
+    if not all(gates.values()):
+        raise SystemExit(f"[prefix] sampled fork: gates {gates}")
+
+
+def prefix_spec(dev, card: str, params) -> None:
+    """Phase 9 (e), on the tied tree (run (b)'s, so that the speculative
+    runs take seconds, not minutes): (a)'s warm hit with
+    speculate_k=SPEC_K, draft_tracks=SPEC_TRACKS, sync and then on
+    ``Engine(pipeline_depth=1)`` with the greedy step programs of the
+    run's live lengths planned.
+    The drafter has no prefix cache: the warm round fills its rows for
+    every warm slot from position 0, in one batched narrow forward.
+    Gates: every ``cached_prefix`` PFX_SHARED, the drafter filled for
+    the SLOTS warm slots in one call of (SLOTS, the prompts' bucket),
+    every planned
+    step a replay, the planned streams bitwise the sync run's."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    seed, prompts = _prefix_prompts(cfg.vocab_size, 9)
+    knobs = dict(speculate_k=SPEC_K, draft_tracks=SPEC_TRACKS)
+    out = {}
+    for how in ("sync", "planned"):
+        kw = {"pipeline_depth": 1} if how == "planned" else {}
+        eng = _pfx_engine(dev, cfg, params, knobs, **kw)
+        r = eng.runner
+        if how == "planned":
+            t0 = time.perf_counter()
+            r.plan_programs(sampled=(False,),
+                            lengths=range(PROMPT, PROMPT + NEW + 1))
+            plan_s = time.perf_counter() - t0
+            hits0, steps0 = r.planned_hits, r.decode_transfers
+        eng.generate([seed], NEW)
+        r.draft_prefill_shapes.clear()
+        reqs, launches, m, peak, used, calls = _measured(eng, dev, prompts)
+        out[how] = [q.output for q in reqs]
+        cached = [q.cached_prefix for q in reqs]
+        fig = {"cached_prefix_ok": cached == [PFX_SHARED] * SLOTS,
+               "drafter_fills": sorted(r.draft_prefill_shapes),
+               "calls": calls, "ttft_p50_ms": m["ttft_ms"]["p50"],
+               "tpot_p50_ms": m["tpot_ms"]["p50"],
+               "acceptance": m["acceptance_rate"], "used_blocks": used}
+        if how == "planned":
+            fig.update(replays=(r.planned_hits - hits0,
+                                r.decode_transfers - steps0),
+                       graphs=len(r.programs), capture_s=plan_s)
+        log(f"[prefix] {card} | spec warm hit, {how}: {json.dumps(fig)}")
+        r.kv.check_invariants()
+        if not fig["cached_prefix_ok"] or fig["drafter_fills"] != [
+                (SLOTS, r.bucket_for(PROMPT))] or calls != (0, 1):
+            raise SystemExit(f"[prefix] spec warm hit {how}: {fig}")
+        if how == "planned" and not fig["replays"][0] == \
+                fig["replays"][1] > 0:
+            raise SystemExit(f"[prefix] spec warm hit: not every step a "
+                             f"replay {fig['replays']}")
+        PREFIX[f"spec warm hit {how}"] = fig
+        del eng, r
+        gc.collect()
+        torch.cuda.empty_cache()
+    same = out["planned"] == out["sync"]
+    log(f"[prefix] spec warm hit: planned streams bitwise the sync run's: "
+        f"{same}")
+    if not same:
+        raise SystemExit("[prefix] spec warm hit: planned streams differ")
+
+
 def head_choice_ms(eng, head, dev) -> None:
     """The LM head in fp32: the fp32 copy the runner keeps against a
     per-step cast of the bf16 head, at the decode shape."""
@@ -3189,6 +3773,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_sampling(dev, card, params, keep["prompts"], keep)
     spec_boundary(dev, card, params)
+    # phase 9 on the seeded tree (the speculative warm hit comes after
+    # the tracks are tied, below)
+    prefix_hit(dev, card, params, "bf16")
+    prefix_hit(dev, card, params, "int8 weights + int8 KV", int8=True)
+    fork_runs(dev, card, params)
     # run (b): the same tree with its tracks tied in place, so the drafter
     # is the target model but for attention arithmetic; its plain stream
     # on the tied weights is one more plain run
@@ -3196,7 +3785,8 @@ def main() -> int:
     from repro_torch.serving.engine import Engine
     _tie_tracks(params["blocks"])
     eng = Engine(get_config(ARCH), params, max_slots=SLOTS,
-                 max_seq_len=PROMPT + NEW + 8, block_size=BLOCK, device=dev)
+                 max_seq_len=PROMPT + NEW + 8, block_size=BLOCK, device=dev,
+                 prefix_cache=False)
     tied_plain = eng.generate(keep["prompts"], NEW)
     del eng
     runs["spec b"], rate_b = serve_spec(
@@ -3207,6 +3797,7 @@ def main() -> int:
     if rate_b < rate_a:
         raise SystemExit("[serve] tied tracks accepted less than run (a)")
     serve_spec_sampled(dev, card, params)
+    prefix_spec(dev, card, params)
     one = {k: keep[k] for k in ("prompts", "streams")}
     del params, keep
     gc.collect()
@@ -3269,6 +3860,7 @@ def main() -> int:
     log("[profile] planned steps " + json.dumps(PROFILED))
     log("[sampling] summary " + json.dumps(SAMPLING))
     log("[ranks] summary " + json.dumps(RANK_SUMMARY))
+    log("[prefix] summary " + json.dumps(PREFIX))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,11 @@ a dense baseline, tinyllama-1.1b or falcon-mamba-7b) with random weights
 from ``--seed``, serves a synthetic workload through the engine (the
 paged cache, or with ``--contiguous`` the contiguous one), greedy or
 with ``--temperature`` sampled (each request under its own seed, the
-engine's default), and reports TTFT / TPOT / throughput and the launch
-count of each kernel.  Runs on the GPU unless ``--device cpu`` is given.
+engine's default), and reports TTFT / TPOT / throughput, the launch
+count of each kernel and, with the prefix cache on (the default; off
+with ``--no-prefix-cache``), the prompt tokens it served.
+``--shared-prefix N`` puts the same N tokens before every prompt (a
+system prompt).  Runs on the GPU unless ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
       --requests 8 --input-len 512 --output-len 64 --slots 8
@@ -23,6 +26,8 @@ count of each kernel.  Runs on the GPU unless ``--device cpu`` is given.
       --reduced --device cpu --pipeline-depth 1 --preplan
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
       --reduced --device cpu --temperature 0.8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
+      --reduced --device cpu --shared-prefix 16
 """
 from __future__ import annotations
 
@@ -81,6 +86,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="capture one CUDA graph per live-length bucket of "
                     "the decode / speculative step when the engine is "
                     "built, and replay them")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="turn the content-addressed prefix cache off (on "
+                    "by default where the architecture supports it)")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="put the same this many tokens before every "
+                    "prompt (a system prompt; exercises the prefix cache)")
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prefill-budget", type=int, default=4096,
@@ -95,7 +106,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model_fns(cfg)["init"](gen, cfg, device)
     eng = Engine(cfg, params, max_slots=args.slots,
-                 max_seq_len=args.input_len + args.output_len + 8,
+                 max_seq_len=(args.shared_prefix + args.input_len
+                              + args.output_len + 8),
                  max_waiting_prefill_tokens=args.prefill_budget,
                  paged=not args.contiguous, block_size=args.block_size,
                  num_blocks=args.num_blocks,
@@ -103,6 +115,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                  weight_dtype=args.weight_dtype,
                  speculate_k=args.speculate_k,
                  draft_tracks=args.draft_tracks,
+                 prefix_cache=not args.no_prefix_cache,
                  pipeline_depth=args.pipeline_depth, preplan=args.preplan,
                  device=device)
     del params                 # an int8 engine holds its own copy
@@ -132,10 +145,12 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"in {eng.runner.plan_seconds:.3f}s")
     rng = np.random.default_rng(args.seed)
     sp = SampleParams(temperature=args.temperature)
+    shared = rng.integers(1, cfg.vocab_size,
+                          size=(args.shared_prefix,)).tolist()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    reqs = [eng.submit(rng.integers(1, cfg.vocab_size,
-                                    size=(args.input_len,)).tolist(),
+    reqs = [eng.submit(shared + rng.integers(1, cfg.vocab_size,
+                                             size=(args.input_len,)).tolist(),
                        args.output_len, params=sp)
             for _ in range(args.requests)]
     eng.run()
@@ -168,6 +183,18 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"pipeline depth {args.pipeline_depth}, steps in flight "
               f"{m['steps_in_flight']}, dispatch gap ms p50 "
               f"{m['dispatch_gap_ms']['p50']:.3f}")
+    if eng.runner.prefix_cache:
+        u = eng.runner.kv.utilization()
+        hit = u["prefix_hit_tokens"] / max(1, u["prefix_lookup_tokens"])
+        print(f"[serve] prefix cache: {u['prefix_hit_tokens']} of "
+              f"{u['prefix_lookup_tokens']} prompt tokens served from cache "
+              f"({100 * hit:.0f}%), {u['cached_free_blocks']} cached blocks "
+              f"retained, {u['cow_copies']} CoW copies")
+    elif args.no_prefix_cache or args.shared_prefix:
+        why = ("--no-prefix-cache" if args.no_prefix_cache else
+               "needs the paged cache" if not eng.runner.paged else
+               eng.runner.capabilities["prefix_cache"].reason)
+        print(f"[serve] prefix cache: off ({why})")
     print("[serve] kernel launches: " + ", ".join(
         f"{k} {v}" for k, v in ops.launch_counts().items()))
     done = sum(r.state is RequestState.DONE for r in reqs)

@@ -33,15 +33,28 @@ collapsed to 1 (one scale per token per KV head, so a decode write
 touches one row's scale and never re-quantizes a block); ``pool_bytes``
 counts both.
 
+Blocks are reference-counted, as in the reference: a block may sit in
+several slots' tables (a prefix-cache hit, a fork), returns to the pool
+only when its count drops to zero, and is copied before a write by any
+slot that shares it (``ensure_writable`` names the (src, dst) pairs,
+``copy_blocks`` copies pool and scale rows).  Full blocks whose token
+ids are known are content-addressed by a sha256 chain hash (the parent
+block's digest and the block's int64 token ids), so a prompt sharing a
+block-aligned prefix with an earlier one shares its blocks; blocks at
+refcount zero keep their hash in an LRU and are evicted only when a
+fresh allocation finds the plain free list empty.  The host state is
+the reference's op for op (tables, refcounts, copy pairs, free and LRU
+order).  The prefix cache is honoured only when every leaf is a pool
+leaf (``all_pageable``): a state row is per slot, not content.
+
 The contiguous cache is the model's own ``init_cache`` tree at
 ``max_slots`` rows of ``max_seq_len`` positions, with no block
 accounting; ``insert_rows`` writes a prefill cache into it.
-
-Not ported yet: the content-addressed prefix cache, ``fork`` and
-copy-on-write (ROADMAP queue 1, item 5).
 """
 from __future__ import annotations
 
+import hashlib
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -98,27 +111,47 @@ def insert_rows(dst: Any, src: Any, slots: Sequence[int]) -> None:
         d.index_copy_(ax, idx, s.to(d.dtype))
 
 
-class PagedKVCache:
-    """vLLM-style block pool with host-side block accounting.
+_HASH_ROOT = b"pkv-root"           # chain-hash seed for position-0 blocks
 
-      can_allocate(n)      -> enough free blocks for n tokens?
-      allocate(slot, n)    -> reserve blocks for positions [0, n)
+
+def _chain_hash(parent: bytes, tokens: Sequence[int]) -> bytes:
+    """Content-addressed chain hash of one full block: sha256 over the
+    parent block's digest and the block's token ids as int64, so two
+    prompts share a block only when they share the whole prefix."""
+    h = hashlib.sha256(parent)
+    h.update(np.asarray(tokens, np.int64).tobytes())
+    return h.digest()
+
+
+class PagedKVCache:
+    """vLLM-style block pool with host-side block accounting, per-block
+    reference counts, a content-addressed prefix cache and copy-on-write
+    forking (the reference's ``PagedKVCache``, op for op).
+
+      can_allocate(n, tokens=None) -> enough free blocks (prefix-aware)?
+      allocate(slot, n, tokens=None) -> reserve blocks for [0, n); with
+          ``tokens`` share the longest cached prefix, return its length
       append(slot, n)      -> grow the slot's allocation to [0, n)
-      free_slot(slot)      -> blocks back to the pool; table row -> trash
+      fork(src, dst)       -> dst shares src's committed blocks
+      ensure_writable(slot, lo, hi) -> copy-on-write pairs [(src, dst)]
+          to copy (``copy_blocks``) before writing positions [lo, hi)
+      commit_tokens(slot, tokens) -> register newly full blocks
+      match_prefix(tokens) -> (matched tokens, block ids), a peek
+      free_slot(slot)      -> refcounts down; table row -> trash
       table() / table_rows(slots) -> device block-table views
       insert_prefill(src, slots, table_rows) -> a prefill cache's rows in
+      copy_blocks(pairs) / copy_rows(src, dsts) -> pool blocks / state
+          rows copied on the device
       reset_slots(slots)   -> zero the state rows of ``slots``
+      utilization()        -> occupancy and prefix-cache counters
       check_invariants()   -> raise unless block accounting is consistent
     """
 
     def __init__(self, cfg: ModelConfig, *, max_slots: int, max_seq_len: int,
                  block_size: int = 16, num_blocks: Optional[int] = None,
-                 prefix_cache: bool = False,
+                 prefix_cache: bool = True,
                  kv_dtype: Optional[str] = None, device: DeviceLike = None,
                  par: Parallelism = NO_PARALLEL):
-        if prefix_cache:
-            raise NotImplementedError("the prefix cache is not ported "
-                                      "(ROADMAP queue 1, item 5)")
         if kv_dtype not in (None, "int8"):
             raise ValueError(f"unsupported kv_dtype {kv_dtype!r} "
                              "(None or 'int8')")
@@ -178,10 +211,26 @@ class PagedKVCache:
         self.scales: Optional[Tuple[torch.Tensor, ...]] = (
             tuple(scales) if scales else None)
 
+        # a state row belongs to its slot, not to a prefix: the prefix
+        # cache needs every leaf to be a pool leaf
+        self.prefix_cache = prefix_cache and self.all_pageable
         self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
         self._blocks: List[List[int]] = [[] for _ in range(max_slots)]
         self._tokens: List[int] = [0] * max_slots
         self._ref: List[int] = [0] * self.num_blocks
+        # the prefix cache: chain hash <-> block id, and the LRU of
+        # refcount-zero blocks whose contents are still valid
+        self._hash_to_block: Dict[bytes, int] = {}
+        self._hash_of: Dict[int, bytes] = {}
+        self._cached_free: "OrderedDict[int, None]" = OrderedDict()
+        # per slot: tokens whose K/V is known written, and the chain
+        # digests of the slot's full committed blocks
+        self._committed: List[int] = [0] * max_slots
+        self._chain: List[List[bytes]] = [[] for _ in range(max_slots)]
+        self.prefix_queries = 0
+        self.prefix_hit_tokens = 0
+        self.prefix_lookup_tokens = 0
+        self.cow_copies = 0
         self.table_np = np.zeros((max_slots, self.blocks_per_seq), np.int32)
         self.version = 0          # bumped on every table change, so device
                                   # copies of the table can be cached
@@ -192,19 +241,148 @@ class PagedKVCache:
 
     @property
     def free_blocks(self) -> int:
-        return len(self._free)
+        """Blocks a fresh allocation can take: the plain free list and
+        the refcount-zero cached blocks (evicted under pressure)."""
+        return len(self._free) + len(self._cached_free)
 
-    def can_allocate(self, n_tokens: int) -> bool:
-        return self.blocks_for(n_tokens) <= self.free_blocks
+    def refcount(self, block: int) -> int:
+        return self._ref[block]
 
-    def allocate(self, slot: int, n_tokens: int) -> None:
-        """Reserve blocks for positions [0, n_tokens) of ``slot``."""
+    def committed(self, slot: int) -> int:
+        """Tokens of ``slot`` whose K/V is known written (the prompt
+        after its prefill, every emitted token but the last)."""
+        return self._committed[slot]
+
+    def fork_cost(self, src: int) -> int:
+        """Fresh blocks one fork of ``src`` takes: those past its
+        committed prefix (the rest is shared)."""
+        n_share = min(self.blocks_for(self._committed[src]),
+                      len(self._blocks[src]))
+        return len(self._blocks[src]) - n_share
+
+    def _take_block(self) -> int:
+        """One block for a fresh allocation: the plain free list first;
+        under pressure the least recently freed cached block, whose hash
+        entry is dropped (its bytes are about to be overwritten)."""
+        if self._free:
+            return self._free.pop()
+        if self._cached_free:
+            b, _ = self._cached_free.popitem(last=False)
+            self._uncache(b)
+            return b
+        raise MemoryError(
+            f"paged KV cache out of blocks: free 0/{self.num_blocks - 1}")
+
+    def _uncache(self, block: int) -> None:
+        h = self._hash_of.pop(block, None)
+        if h is not None and self._hash_to_block.get(h) == block:
+            del self._hash_to_block[h]
+
+    def _share(self, block: int) -> None:
+        """One more reference; a cached block at zero leaves the LRU."""
+        if self._ref[block] == 0:
+            self._cached_free.pop(block, None)
+        self._ref[block] += 1
+
+    def _release(self, block: int) -> None:
+        """One reference less; at zero the block goes to the LRU's most
+        recent end if its hash entry still holds, else to the free
+        list."""
+        self._ref[block] -= 1
+        if self._ref[block] < 0:
+            raise AssertionError(f"refcount underflow on {block}")
+        if self._ref[block] == 0:
+            if block in self._hash_of:
+                self._cached_free[block] = None
+            else:
+                self._free.append(block)
+
+    # -- the prefix cache -----------------------------------------------
+    def match_prefix(self, tokens: Sequence[int]) -> Tuple[int, List[int]]:
+        """Longest cached block-aligned prefix of ``tokens`` (a peek: no
+        refcount moves).  At least one token is left unmatched, so that
+        the first token's logits have a position to come from."""
+        bs = self.block_size
+        blocks: List[int] = []
+        if not self.prefix_cache or len(tokens) <= 1:
+            return 0, blocks
+        parent = _HASH_ROOT
+        for k in range((len(tokens) - 1) // bs):
+            parent = _chain_hash(parent, tokens[k * bs:(k + 1) * bs])
+            b = self._hash_to_block.get(parent)
+            if b is None:
+                break
+            blocks.append(b)
+        return len(blocks) * bs, blocks
+
+    def commit_tokens(self, slot: int, tokens: Sequence[int]) -> None:
+        """Positions [0, len(tokens)) of ``slot`` hold the K/V of these
+        token ids: register every newly full block (the first writer
+        wins: a digest already mapped, or a block already hashed, is not
+        registered again).  Only positions written and never rewritten
+        are committed."""
+        self._committed[slot] = max(self._committed[slot], len(tokens))
+        if not self.prefix_cache:
+            return
+        bs = self.block_size
+        chain = self._chain[slot]
+        n_full = min(len(tokens) // bs, len(self._blocks[slot]))
+        for k in range(len(chain), n_full):
+            parent = chain[-1] if chain else _HASH_ROOT
+            h = _chain_hash(parent, tokens[k * bs:(k + 1) * bs])
+            chain.append(h)
+            b = self._blocks[slot][k]
+            if h not in self._hash_to_block and b not in self._hash_of:
+                self._hash_to_block[h] = b
+                self._hash_of[b] = h
+
+    # -- allocation -----------------------------------------------------
+    def can_allocate(self, n_tokens: int,
+                     tokens: Optional[Sequence[int]] = None) -> bool:
+        """Enough free blocks for ``n_tokens``?  With ``tokens``, matched
+        blocks still referenced cost nothing; a matched block at
+        refcount zero is counted inside ``free_blocks`` already."""
+        need = self.blocks_for(n_tokens)
+        if tokens is not None:
+            _, blocks = self.match_prefix(tokens)
+            need -= sum(1 for b in blocks if self._ref[b] > 0)
+        return need <= self.free_blocks
+
+    def allocate(self, slot: int, n_tokens: int,
+                 tokens: Optional[Sequence[int]] = None) -> int:
+        """Reserve blocks for positions [0, n_tokens) of ``slot``.  With
+        ``tokens`` (the prompt's ids) the longest cached prefix is shared
+        (refcounts up, no compute) and only the tail takes fresh blocks.
+        Returns the number of prefix tokens served from the cache."""
         if self._blocks[slot]:
             raise ValueError(f"slot {slot} already allocated")
+        matched, mblocks = (self.match_prefix(tokens)
+                            if tokens is not None else (0, []))
+        if tokens is not None and self.prefix_cache:
+            self.prefix_queries += 1
+            self.prefix_lookup_tokens += len(tokens)
+            self.prefix_hit_tokens += matched
+        fresh = self.blocks_for(n_tokens) - len(mblocks)
+        avail = (self.free_blocks
+                 - sum(1 for b in mblocks if self._ref[b] == 0))
+        if fresh > avail:
+            raise MemoryError(
+                f"paged KV cache out of blocks: need {fresh}, "
+                f"free {avail}/{self.num_blocks - 1}")
+        for k, b in enumerate(mblocks):
+            self._share(b)
+            self.table_np[slot, k] = b
+            self._blocks[slot].append(b)
+        self._chain[slot] = [self._hash_of[b] for b in mblocks]
+        self._committed[slot] = matched
+        if mblocks:
+            self.version += 1
         self.append(slot, n_tokens)
+        return matched
 
     def append(self, slot: int, n_tokens: int) -> None:
-        """Grow ``slot``'s allocation to cover positions [0, n_tokens)."""
+        """Grow ``slot``'s allocation to cover positions [0, n_tokens)
+        with fresh blocks of its own."""
         if n_tokens > self.max_seq_len:
             raise ValueError(f"{n_tokens} tokens exceed capacity "
                              f"{self.max_seq_len}")
@@ -214,7 +392,7 @@ class PagedKVCache:
                 f"paged KV cache out of blocks: need {need}, "
                 f"free {self.free_blocks}/{self.num_blocks - 1}")
         for _ in range(max(0, need)):
-            b = self._free.pop()
+            b = self._take_block()
             self._ref[b] = 1
             self.table_np[slot, len(self._blocks[slot])] = b
             self._blocks[slot].append(b)
@@ -222,25 +400,92 @@ class PagedKVCache:
             self.version += 1
         self._tokens[slot] = max(self._tokens[slot], n_tokens)
 
+    # -- forking and copy-on-write --------------------------------------
+    def fork(self, src: int, dst: int) -> None:
+        """Point ``dst``'s table at ``src``'s blocks of the committed
+        prefix (refcounts up, the trailing partial block included: the
+        first divergent write copies it) and take fresh blocks for the
+        rest of the reservation.  ``dst`` inherits the committed chain."""
+        if self._blocks[dst]:
+            raise ValueError(f"fork target slot {dst} already allocated")
+        if not self._blocks[src]:
+            raise ValueError(f"fork source slot {src} has no allocation")
+        n_share = min(self.blocks_for(self._committed[src]),
+                      len(self._blocks[src]))
+        n_fresh = len(self._blocks[src]) - n_share
+        if n_fresh > self.free_blocks:
+            raise MemoryError(
+                f"paged KV cache out of blocks for fork: need {n_fresh}, "
+                f"free {self.free_blocks}/{self.num_blocks - 1}")
+        for k in range(n_share):
+            b = self._blocks[src][k]
+            self._share(b)
+            self.table_np[dst, k] = b
+            self._blocks[dst].append(b)
+        for k in range(n_share, len(self._blocks[src])):
+            b = self._take_block()
+            self._ref[b] = 1
+            self.table_np[dst, k] = b
+            self._blocks[dst].append(b)
+        self._tokens[dst] = self._tokens[src]
+        self._committed[dst] = self._committed[src]
+        self._chain[dst] = list(self._chain[src])
+        self.version += 1
+
+    def ensure_writable(self, slot: int, lo: int,
+                        hi: int) -> List[Tuple[int, int]]:
+        """Before ``slot`` writes positions [lo, hi): every touched block
+        it shares (refcount > 1) is swapped for a fresh one in its table.
+        Returns the (src, dst) pairs the caller copies on the device
+        (``copy_blocks``) before the writes; positions past the
+        allocation fall through to the trash block.  All or nothing: the
+        demand is checked before any table changes, so a MemoryError
+        leaves the cache as it was."""
+        pairs: List[Tuple[int, int]] = []
+        if hi <= lo:
+            return pairs
+        bs = self.block_size
+        last = min((hi - 1) // bs, len(self._blocks[slot]) - 1)
+        shared = [k for k in range(lo // bs, last + 1)
+                  if self._ref[self._blocks[slot][k]] > 1]
+        if not shared:
+            return pairs
+        if len(shared) > self.free_blocks:
+            raise MemoryError(
+                f"paged KV cache out of blocks for copy-on-write: need "
+                f"{len(shared)}, free {self.free_blocks}"
+                f"/{self.num_blocks - 1}")
+        for k in shared:
+            b = self._blocks[slot][k]
+            nb = self._take_block()
+            self._ref[nb] = 1
+            self._release(b)
+            self._blocks[slot][k] = nb
+            self.table_np[slot, k] = nb
+            pairs.append((b, nb))
+        self.cow_copies += len(pairs)
+        self.version += 1
+        return pairs
+
     def free_slot(self, slot: int) -> None:
-        """Return ``slot``'s blocks to the pool and point its table row at
-        the trash block."""
+        """Drop ``slot``'s references (a block returns to the pool at
+        refcount zero: to the LRU when its contents are hashed) and point
+        its table row at the trash block."""
         for b in reversed(self._blocks[slot]):
-            self._ref[b] -= 1
-            if self._ref[b] < 0:
-                raise AssertionError(f"refcount underflow on {b}")
-            if self._ref[b] == 0:
-                self._free.append(b)
+            self._release(b)
         self._blocks[slot] = []
         self._tokens[slot] = 0
+        self._committed[slot] = 0
+        self._chain[slot] = []
         self.table_np[slot, :] = 0
         self.version += 1
 
     # -- consistency ----------------------------------------------------
     def check_invariants(self) -> None:
-        """Every non-trash block is either referenced or free (never
-        both); refcounts equal table occurrences; the table mirror
-        matches the block lists."""
+        """Every non-trash block is in exactly one of referenced,
+        cached-free and free; refcounts equal table occurrences; the
+        table mirror matches the block lists; the hash index is a
+        bijection onto live or cached blocks."""
         N = self.num_blocks
         occurrences = [0] * N
         for slot, blks in enumerate(self._blocks):
@@ -252,17 +497,26 @@ class PagedKVCache:
                 f"table row {slot} has stale entries past the allocation"
             for b in blks:
                 occurrences[b] += 1
-        assert self._ref[0] == 0 and 0 not in self._free, \
-            "trash block left the reserve"
-        free_set = set(self._free)
+        assert self._ref[0] == 0 and 0 not in self._cached_free \
+            and 0 not in self._free, "trash block left the reserve"
+        free_set, cached_set = set(self._free), set(self._cached_free)
         assert len(free_set) == len(self._free), "block freed twice"
+        assert not (free_set & cached_set), "block free and cached-free"
         for b in range(1, N):
             assert self._ref[b] == occurrences[b], \
                 f"block {b}: ref {self._ref[b]} != occurrences {occurrences[b]}"
-            assert (self._ref[b] > 0) + (b in free_set) == 1, \
-                f"block {b} is neither referenced nor free, or both"
+            states = ((self._ref[b] > 0) + (b in free_set)
+                      + (b in cached_set))
+            assert states == 1, f"block {b} in {states} states"
+        for b, h in self._hash_of.items():
+            assert self._ref[b] > 0 or b in cached_set, \
+                f"hash entry for dead block {b}"
+            assert self._hash_to_block.get(h) == b, \
+                f"hash index not bijective at block {b}"
+        assert len(self._hash_to_block) == len(self._hash_of)
         for slot, blks in enumerate(self._blocks):
             assert self._tokens[slot] <= len(blks) * self.block_size
+            assert len(self._chain[slot]) <= len(blks)
 
     # -- layouts ----------------------------------------------------------
     def _state_leaves(self) -> List[Tuple[torch.Tensor, int]]:
@@ -339,6 +593,39 @@ class PagedKVCache:
         for leaf, axis in state:
             leaf.index_fill_(axis, idx, 0)
 
+    def copy_blocks(self, pairs: Sequence[Tuple[int, int]]) -> None:
+        """The device half of ``ensure_writable``: pool[dst] = pool[src]
+        for every pair, in every pool and its int8 scale pool (the scale
+        rows move with their payloads, or a copy would dequantize under
+        the wrong scales).  Every source block is gathered before any
+        write, so one block can fan out to many copies in one call."""
+        if not pairs or not self.data:
+            return
+        src = torch.as_tensor([p[0] for p in pairs], dtype=torch.long,
+                              device=self.device)
+        dst = torch.as_tensor([p[1] for p in pairs], dtype=torch.long,
+                              device=self.device)
+        for leaf, ax in _leaves(self.tree):
+            if not isinstance(leaf, PagedLeaf):
+                continue
+            for t in (leaf.pool, leaf.scale):
+                if t is not None:
+                    t.index_copy_(ax, dst, t.index_select(ax, src))
+
+    def copy_rows(self, src: int, dsts: Sequence[int]) -> None:
+        """Copy the state rows of slot ``src`` into slots ``dsts`` (a
+        fork of a recurrent model: the block table shares pool leaves
+        only)."""
+        state = self._state_leaves()
+        if not state or not dsts:
+            return
+        idx = torch.as_tensor(list(dsts), dtype=torch.long,
+                              device=self.device)
+        at = torch.full((len(dsts),), src, dtype=torch.long,
+                        device=self.device)
+        for leaf, axis in state:
+            leaf.index_copy_(axis, idx, leaf.index_select(axis, at))
+
     # -- device views ---------------------------------------------------
     def table(self) -> torch.Tensor:
         return torch.as_tensor(self.table_np).to(self.device)
@@ -377,4 +664,9 @@ class PagedKVCache:
             "pool_bytes": self.pool_bytes(),
             "bytes_per_block": bpb,
             "used_bytes": used * bpb,
+            "cached_free_blocks": len(self._cached_free),
+            "prefix_queries": self.prefix_queries,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "prefix_lookup_tokens": self.prefix_lookup_tokens,
+            "cow_copies": self.cow_copies,
         }

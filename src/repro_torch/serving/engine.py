@@ -75,9 +75,19 @@ step program.  A step whose lanes are all greedy runs the greedy
 program (the argmax alone); one with a sampled lane runs the sampled
 variant of the same program, whose greedy lanes take the same argmax.
 
-The prefix cache is off (``prefix_cache=False``; the
-reference defaults to on); the pipelined engine has no transfer faults,
-watchdog, deadlines or preemption (ROADMAP queue 1, item 8b).  Every
+The prefix cache is on by default, as in the reference (a PT or dense
+model on the paged cache; off by capability for falcon-mamba and on the
+contiguous cache): an admission shares the longest cached block-aligned
+prefix of its prompt (``cache.PagedKVCache.allocate(..., tokens=)``)
+and runs only the tail, at its true positions, through the chunk
+program (``ModelRunner.warm_prefill``), after every cold prefill of the
+round; finished chunks, prompts and streams are committed as they are
+written.  ``Engine.fork`` clones a decoding request n ways over the
+same blocks, and before every decode or speculative dispatch a slot's
+shared blocks in its write span are copied (``_cow``).  The engine has
+no transfer faults, watchdog, deadlines or preemption (ROADMAP queue 1,
+item 8b): where the reference would preempt (a copy-on-write short of
+blocks), the port raises ``NotImplementedError`` naming item 8.  Every
 feature of the reference engine this slice leaves out raises
 ``NotImplementedError`` naming its ROADMAP item when asked for, never
 silently ignored.
@@ -110,7 +120,7 @@ from repro_torch.serving.cache import PagedKVCache, insert_rows
 from repro_torch.serving.sampler import (SALT_DRAFT, SALT_SAMPLE,
                                          SampleParams, accept_step,
                                          advance_decode, advance_spec,
-                                         prefill_keys, row_keys,
+                                         fork_seeds, prefill_keys, row_keys,
                                          sample_rows, sample_step,
                                          stack_params)
 
@@ -161,6 +171,8 @@ class Request:
     truncated: bool = False            # max_new_tokens clamped to capacity
     finish_reason: Optional[str] = None
     prefilled: int = 0                 # prompt tokens already in the cache
+    cached_prefix: int = 0             # prompt tokens served from the
+                                       # prefix cache (or shared by fork)
     draft_filled: int = 0              # drafter cache tokens (chunked+spec)
     pending_first: Optional[int] = None  # first token parked until the
                                        # drafter catches up (chunked+spec)
@@ -465,6 +477,7 @@ class ModelRunner:
                  prefill_chunk: int = 0, kv_dtype: Optional[str] = None,
                  weight_dtype: Optional[str] = None,
                  speculate_k: int = 0, draft_tracks: int = 0,
+                 prefix_cache: bool = True,
                  pipeline_depth: int = 0, device: DeviceLike = None,
                  par: Parallelism = NO_PARALLEL):
         self.device = resolve_device(device)
@@ -554,12 +567,17 @@ class ModelRunner:
         self.min_bucket = min_bucket
         self.prefill_chunk = (prefill_chunk if self.paged
                               and caps["chunked_prefill"].supported else 0)
+        # the warm tail behind a prefix-cache hit runs through the chunk
+        # program, as a chunked prefill does
+        self.prefix_cache = (prefix_cache and self.paged
+                             and caps["prefix_cache"].supported)
         self.kv: Optional[PagedKVCache] = None
         if self.paged:
             self.kv = PagedKVCache(cfg, max_slots=max_slots,
                                    max_seq_len=max_seq_len,
                                    block_size=block_size,
                                    num_blocks=num_blocks,
+                                   prefix_cache=self.prefix_cache,
                                    kv_dtype=self.kv_dtype,
                                    device=self.device, par=par)
             self.cache = self.kv.engine_cache()
@@ -617,10 +635,14 @@ class ModelRunner:
         return min(b, self.max_seq_len)
 
     def admission_charge(self, req: Request) -> int:
-        """Prefill tokens a request costs per admission round: its padded
-        bucket, or one chunk when chunked prefill spreads the rest over
-        later steps."""
-        bucket = self.bucket_for(len(req.seq_tokens))
+        """Prefill tokens a request costs per admission round: the padded
+        bucket of its uncached tail (a prefix-cache hit costs no
+        compute), or one chunk when chunked prefill spreads the rest
+        over later steps."""
+        length = len(req.seq_tokens)
+        if self.prefix_cache:
+            length -= self.kv.match_prefix(req.seq_tokens)[0]
+        bucket = self.bucket_for(length)
         return min(bucket, self.prefill_chunk) if self.prefill_chunk \
             else bucket
 
@@ -634,6 +656,7 @@ class ModelRunner:
             return {"mode": "contiguous", **quant}
         stats = dict(self.kv.utilization())
         stats.update(mode="paged", block_size=self.kv.block_size,
+                     prefix_cache=self.prefix_cache,
                      state_bytes=self.kv.state_bytes(), **quant)
         return stats
 
@@ -729,23 +752,51 @@ class ModelRunner:
 
     @torch.no_grad()
     def warm_prefill(self, prompts: Sequence[Sequence[int]],
-                     slots: Sequence[int], seeds: Sequence[int],
-                     counters: Sequence[int],
+                     matched: Sequence[int], slots: Sequence[int],
+                     seeds: Sequence[int], counters: Sequence[int],
                      params_list: Sequence[SampleParams]) -> np.ndarray:
-        """Whole prompts through the chunk program, one call right-padded
-        to the bucket of the longest: the int8-KV route of cold prompts.
-        (The reference's ``warm_prefill`` also starts each prompt after a
-        matched cached prefix; with the prefix cache not ported that
-        prefix is always empty.)  Returns first tokens [n]."""
+        """The uncached tails of prompts, tokens [matched_i, len_i), at
+        their true positions through the chunk program, one call
+        right-padded to the bucket of the longest tail: each tail attends
+        to the shared blocks of its prefix.  With ``matched`` 0 this is
+        the int8-KV route of cold prompts.  Returns first tokens [n]
+        (each row's draw ``counters[i]``)."""
         n = len(prompts)
-        bucket = self.bucket_for(max(len(p) for p in prompts))
+        bucket = self.bucket_for(max(len(p) - m
+                                     for p, m in zip(prompts, matched)))
         toks = np.zeros((n, bucket), np.int64)
+        pos = np.empty((n,), np.int32)
         last_idx = np.empty((n,), np.int64)
-        for i, p in enumerate(prompts):
-            toks[i, :len(p)] = p
-            last_idx[i] = len(p) - 1
-        return self._chunk(toks, np.zeros((n,), np.int32), slots, last_idx,
-                           seeds, counters, params_list)
+        for i, (p, m) in enumerate(zip(prompts, matched)):
+            toks[i, :len(p) - m] = p[m:]
+            pos[i] = m
+            last_idx[i] = len(p) - m - 1
+        return self._chunk(toks, pos, slots, last_idx, seeds, counters,
+                           params_list)
+
+    @torch.no_grad()
+    def copy_blocks(self, pairs: Sequence[Tuple[int, int]]) -> None:
+        """Apply the copy-on-write pairs of ``kv.ensure_writable`` to the
+        pools (and int8 scale pools), eagerly between steps: a step
+        program then reads the new blocks through ``step_table``, which
+        the next dispatch copies in (the table's version changed)."""
+        self.kv.copy_blocks(pairs)
+
+    @torch.no_grad()
+    def dense_fork(self, src: int, dsts: Sequence[int]) -> None:
+        """Copy the state rows of slot ``src`` into ``dsts`` on a fork (a
+        Mamba model; nothing for an all-pool cache)."""
+        self.kv.copy_rows(src, dsts)
+
+    @torch.no_grad()
+    def draft_fork(self, src: int, dsts: Sequence[int]) -> None:
+        """Copy the drafter's contiguous rows of slot ``src`` into
+        ``dsts`` on a fork (the target's pools are shared through the
+        block table instead)."""
+        idx = self._to_dev(list(dsts), torch.long)
+        at = self._to_dev([src] * len(dsts), torch.long)
+        for leaf in self.draft_cache["blocks"]:
+            leaf.index_copy_(3, idx, leaf.index_select(3, at))
 
     def _table_rows(self, active) -> Optional[np.ndarray]:
         """The block table with inactive lanes' rows zeroed (their writes
@@ -1016,17 +1067,20 @@ class ModelRunner:
         K = self.speculate_k
         return host[:K + 1].T, host[K + 1]
 
-    def _program_keys(self) -> List[tuple]:
+    def _program_keys(self, lengths: Optional[Sequence[int]] = None
+                      ) -> List[tuple]:
         """The (kind, bounds, sampled) of every step program a run may
         dispatch: decode, one per power-of-two bound of the engine's
         cache (blocks up to ``blocks_per_seq`` paged, positions up to
         ``max_seq_len`` contiguous); speculative, one per pair (drafter's
         contiguous bound, verify's paged bound) that one live length
-        gives; each greedy and sampled."""
-        top = self.max_seq_len
-        if self.paged:
-            top = max(top, self.kv.blocks_per_seq * self.kv.block_size)
-        lengths = range(1, top + 1)
+        gives; each greedy and sampled.  ``lengths``: only the bounds of
+        these live lengths (default every length up to the capacity)."""
+        if lengths is None:
+            top = self.max_seq_len
+            if self.paged:
+                top = max(top, self.kv.blocks_per_seq * self.kv.block_size)
+            lengths = range(1, top + 1)
         if self.speculate_k:
             bounds = {("spec", self._bound(n, False), self._bound(n, True))
                       for n in lengths}
@@ -1036,10 +1090,12 @@ class ModelRunner:
         return sorted(b + (s,) for b in bounds for s in (False, True))
 
     @torch.no_grad()
-    def plan_programs(self, sampled: Sequence[bool] = (False, True)) -> int:
+    def plan_programs(self, sampled: Sequence[bool] = (False, True),
+                      lengths: Optional[Sequence[int]] = None) -> int:
         """Capture one CUDA graph per step program (``_program_keys``;
         of the variants in ``sampled``: the greedy ones, the sampled
-        ones, or both), all in one memory pool, so that a dispatch
+        ones, or both; with ``lengths`` only those whose bounds these
+        live lengths take), all in one memory pool, so that a dispatch
         replays a ready program with no Python launch on the hot path; a
         shape with no program runs eagerly.  Warm-up and capture run
         with every lane idle: pool writes go through zeroed table rows
@@ -1053,7 +1109,7 @@ class ModelRunner:
             raise _ranks_unpipelined("plan_programs")
         if any(st.busy for st in self._stages):
             raise RuntimeError("plan_programs with steps in flight")
-        todo = {k: self._body(k) for k in self._program_keys()
+        todo = {k: self._body(k) for k in self._program_keys(lengths)
                 if k not in self.programs and k[-1] in sampled}
         if not todo:
             return len(self.programs)
@@ -1142,7 +1198,7 @@ class Engine:
                  max_waiting_prefill_tokens: int = 4096,
                  min_bucket: int = 16, block_size: int = 16,
                  num_blocks: Optional[int] = None,
-                 prefix_cache: bool = False, device: DeviceLike = None,
+                 prefix_cache: bool = True, device: DeviceLike = None,
                  paged: bool = True, prefill_chunk: int = 0,
                  speculate_k: int = 0, draft_tracks: int = 0,
                  kv_dtype: Optional[str] = None,
@@ -1150,8 +1206,7 @@ class Engine:
                  pipeline_depth: int = 0, preplan: bool = False,
                  seed: int = 0, max_queue: Optional[int] = None,
                  fault_plan: Any = None, par: Parallelism = NO_PARALLEL):
-        _refuse(prefix_cache=(prefix_cache, False, 5),
-                max_queue=(max_queue, None, 8),
+        _refuse(max_queue=(max_queue, None, 8),
                 fault_plan=(fault_plan, None, 8))
         if par.sharded and preplan:
             raise _ranks_unpipelined("preplan=True")
@@ -1171,6 +1226,7 @@ class Engine:
                                   weight_dtype=weight_dtype,
                                   speculate_k=speculate_k,
                                   draft_tracks=draft_tracks,
+                                  prefix_cache=prefix_cache,
                                   pipeline_depth=pipeline_depth,
                                   device=device, par=par)
         if preplan:
@@ -1267,8 +1323,82 @@ class Engine:
         self.scheduler.submit(req)
         return req
 
-    def fork(self, *args, **kwargs):
-        raise _unported("Engine.fork (copy-on-write)", 5)
+    def fork(self, parent: Request, n: int, *,
+             seeds: Optional[Sequence[int]] = None,
+             params: Optional[SampleParams] = None,
+             on_token: Optional[Callable[[Request, int], None]] = None
+             ) -> List[Request]:
+        """Clone a decoding request into ``n`` children that share every
+        KV block of its committed tokens (best-of-n from one prompt's
+        cache, no recompute).  The children take free slots at once and
+        diverge through their own seeds (``seeds``, default
+        ``fork_seeds(parent.seed, n)``) and ``params`` (default the
+        parent's); a shared block is copied at its first divergent write.
+        The steps in flight are applied first, so that a pipelined
+        engine forks from the host state a synchronous one would have.
+
+        Raises ValueError on the contiguous cache, when the parent is
+        not decoding or fewer than ``n`` slots are free, and MemoryError
+        when the pool cannot hold the children's uncommitted tails (the
+        reference would preempt a lower-priority request first; every
+        request of the port has priority 0, so there is none)."""
+        if not self.runner.paged:
+            raise ValueError("fork requires the paged KV cache")
+        self._drain_inflight()
+        if parent.state is not RequestState.DECODE:
+            raise ValueError("fork parent must be actively decoding")
+        pslot = next(s for s, r in self.scheduler.active_slots()
+                     if r is parent)
+        free = self.scheduler.free_slots()
+        if len(free) < n:
+            raise ValueError(f"fork needs {n} free slots, have {len(free)}")
+        kv = self.runner.kv
+        # [0, pos) is written: the prompt and every emitted token but the
+        # last.  Committing it first makes the children share the partial
+        # block that holds the decode positions written since the last
+        # full block, instead of taking fresh (unwritten) blocks there
+        kv.commit_tokens(pslot, parent.prompt + parent.output[:-1])
+        if n * kv.fork_cost(pslot) > kv.free_blocks:
+            raise MemoryError(f"fork needs {n * kv.fork_cost(pslot)} "
+                              f"blocks, free {kv.free_blocks}")
+        child_seeds = (list(seeds) if seeds is not None
+                       else fork_seeds(parent.seed, n))
+        if len(child_seeds) != n:
+            raise ValueError(f"fork needs {n} seeds, got {len(child_seeds)}")
+        children: List[Request] = []
+        for i, slot in enumerate(free[:n]):
+            kv.fork(pslot, slot)
+            child = Request(self._next_rid, list(parent.prompt),
+                            parent.max_new_tokens, parent.eos_id,
+                            params if params is not None else parent.params,
+                            on_token, seed=child_seeds[i])
+            self._next_rid += 1
+            child.state = RequestState.DECODE
+            child.output = list(parent.output)
+            child.prefilled = len(parent.prompt)
+            child.cached_prefix = kv.committed(slot)
+            child.truncated = parent.truncated
+            child.t_submit = child.t_first = time.perf_counter()
+            self.scheduler.slots[slot] = child
+            for lane in (self._tok, self._pos, self._active, self._eos,
+                         self._remaining, self._counts):
+                lane[slot] = lane[pslot]
+            self._temps[slot] = child.params.temperature
+            self._topks[slot] = child.params.top_k
+            self._topps[slot] = child.params.top_p
+            self._seeds[slot] = child_seeds[i] & 0xFFFFFFFF
+            self._host_fresh[slot] = True
+            self._ahead[slot] = 0
+            children.append(child)
+        dsts = free[:n]
+        # the pools are shared through the block table; state rows and
+        # the drafter's contiguous rows are per slot and copied
+        self.runner.dense_fork(pslot, dsts)
+        if self.runner.speculate_k:
+            self.runner.draft_fork(pslot, dsts)
+        self.metrics.max_active = max(self.metrics.max_active,
+                                      len(self.scheduler.active_slots()))
+        return children
 
     def cancel(self, *args, **kwargs):
         raise _unported("Engine.cancel", 8)
@@ -1284,7 +1414,12 @@ class Engine:
         req.t_done = time.perf_counter()
         self._active[slot] = False
         if self.runner.paged:
-            self.runner.kv.free_slot(slot)
+            kv = self.runner.kv
+            # the prompt and every output token whose K/V was written (all
+            # but the last) are registered before the blocks park in the
+            # LRU, for a follow-up or a repeated prompt to share
+            kv.commit_tokens(slot, req.prompt + req.output[:-1])
+            kv.free_slot(slot)
         self._slot_gen[slot] += 1      # in-flight results: discard
         self.scheduler.release(slot)
         self.metrics.observe(req)
@@ -1301,6 +1436,11 @@ class Engine:
         def can_fit(req: Request) -> bool:
             nonlocal planned
             need = kv.blocks_for(self._reserve_tokens(req))
+            if self.runner.prefix_cache:
+                # matched blocks still live are shared, not allocated (a
+                # matched block at refcount zero still takes a free one)
+                _, blocks = kv.match_prefix(req.seq_tokens)
+                need -= sum(1 for b in blocks if kv.refcount(b) > 0)
             if planned + need > kv.free_blocks:
                 return False
             planned += need
@@ -1340,18 +1480,28 @@ class Engine:
                                       [s for s, _ in started])
 
     def _admit(self) -> int:
-        """Admit queued requests into free slots and prefill them: one
-        batched call per bucket, or (int8 KV) one chunk-program call for
-        the whole round; with chunked prefill the chunks run in
-        ``_prefill_chunks``.  Returns the number admitted."""
+        """Admit queued requests into free slots and prefill them: each
+        shares the longest cached prefix of its prompt; per bucket one
+        batched call for the cold prompts, then one chunk-program call
+        for every warm tail of the round (int8 KV: every prompt, from
+        position 0 when cold); with chunked prefill the chunks run in
+        ``_prefill_chunks``, from the end of the cached prefix.  Each
+        call's blocks are committed once it is issued.  Returns the
+        number admitted."""
         chunked = self.runner.prefill_chunk > 0
+        kv = self.runner.kv
         warm_rows: List[Tuple[int, Request]] = []
         admitted = 0
         for bucket, group in self.scheduler.plan_admission(
                 self._make_can_fit()):
             for slot, req in group:
                 if self.runner.paged:
-                    self.runner.kv.allocate(slot, self._reserve_tokens(req))
+                    # a block is matchable once committed, after the call
+                    # that writes it was issued: a match within this round
+                    # hits blocks whose writes are already in the stream
+                    req.cached_prefix = kv.allocate(
+                        slot, self._reserve_tokens(req),
+                        tokens=req.seq_tokens)
                 self._temps[slot] = req.params.temperature
                 self._topks[slot] = req.params.top_k
                 self._topps[slot] = req.params.top_p
@@ -1360,36 +1510,50 @@ class Engine:
                 req.prefilled = 0
             admitted += len(group)
             if chunked:
-                # chunks run in _prefill_chunks (the drafter's too, from
-                # position 0); the slots' state rows belonged to their
+                # chunks run in _prefill_chunks, the target's from the end
+                # of the cached prefix, the drafter's (no prefix cache)
+                # from position 0; the slots' state rows belonged to their
                 # previous tenants: zero them first
-                self.runner.kv.reset_slots([s for s, _ in group])
+                for _, req in group:
+                    req.prefilled = req.cached_prefix
+                    req.draft_filled = 0
+                kv.reset_slots([s for s, _ in group])
                 continue
             if self.runner.kv_dtype == "int8":
-                # int8 KV: cold prompts run through the chunk program, as
-                # in the reference, so the first token comes from
-                # attention over the quantized pool bytes
+                # int8 KV: cold prompts run through the chunk program too,
+                # as in the reference, so that every first token comes
+                # from attention over the quantized pool bytes
                 warm_rows += group
                 continue
-            slots = [s for s, _ in group]
-            reqs = [r for _, r in group]
+            cold = [(s, r) for s, r in group if not r.cached_prefix]
+            warm_rows += [(s, r) for s, r in group if r.cached_prefix]
+            if not cold:
+                continue
+            slots = [s for s, _ in cold]
+            reqs = [r for _, r in cold]
             toks = self.runner.prefill([r.seq_tokens for r in reqs], bucket,
                                        slots, [r.seed for r in reqs],
                                        [len(r.output) for r in reqs],
                                        [r.params for r in reqs])
             for slot, req, tok in zip(slots, reqs, toks):
+                if self.runner.paged:
+                    kv.commit_tokens(slot, req.seq_tokens)
                 req.prefilled = len(req.seq_tokens)
                 self._start_decode(slot, req, int(tok))
-            self._fill_drafter(group, bucket)
+            self._fill_drafter(cold, bucket)
         if warm_rows:
+            # after every cold prefill of the round: one call for all
             toks = self.runner.warm_prefill(
                 [r.seq_tokens for _, r in warm_rows],
+                [r.cached_prefix for _, r in warm_rows],
                 [s for s, _ in warm_rows], [r.seed for _, r in warm_rows],
                 [len(r.output) for _, r in warm_rows],
                 [r.params for _, r in warm_rows])
             for (slot, req), tok in zip(warm_rows, toks):
+                kv.commit_tokens(slot, req.seq_tokens)
                 req.prefilled = len(req.seq_tokens)
                 self._start_decode(slot, req, int(tok))
+            # the drafter has no prefix cache: it takes whole prompts
             self._fill_drafter(warm_rows, self.runner.bucket_for(
                 max(len(r.prompt) for _, r in warm_rows)))
         return admitted
@@ -1423,8 +1587,12 @@ class Engine:
                                      [len(r.output) for _, r in tgt],
                                      [r.params for _, r in tgt])
             for i, (slot, req) in enumerate(tgt):
-                req.prefilled = min(req.prefilled + C, len(req.seq_tokens))
-                if req.prefilled == len(req.seq_tokens):
+                seq = req.seq_tokens
+                req.prefilled = min(req.prefilled + C, len(seq))
+                # the chunk's writes are in the stream: its full blocks
+                # are matchable by later admissions
+                self.runner.kv.commit_tokens(slot, seq[:req.prefilled])
+                if req.prefilled == len(seq):
                     if spec:
                         req.pending_first = int(cand[i])
                     else:
@@ -1450,6 +1618,34 @@ class Engine:
                 tok, req.pending_first = req.pending_first, None
                 self._start_decode(slot, req, tok)
         return len({s for s, _ in tgt} | {s for s, _ in drows})
+
+    def _cow(self, active: List[Tuple[int, Request]]) -> None:
+        """Copy-on-write before a decode or speculative dispatch: every
+        block a lane is about to write while sharing it (fork siblings,
+        live prefix-cache readers) is copied first, so that the others
+        keep its bytes.  The write span is K + 1 positions past the host
+        mirror, times the steps in flight plus this one: a dispatched
+        step must find every position it may write already in a block of
+        its own.  A lane that finished in a step still in flight runs
+        idle (zeroed table row) and needs none.  The reference preempts
+        a request when a copy finds no free block; the port has no
+        preemption yet: the pairs taken so far are copied, so that the
+        cache stays whole, and NotImplementedError is raised
+        (``ensure_writable`` left the failing slot untouched)."""
+        kv = self.runner.kv
+        span = (self.runner.speculate_k + 1) * (len(self._inflight) + 1)
+        pairs: List[Tuple[int, int]] = []
+        for slot, req in active:
+            if self._remaining[slot] <= self._ahead[slot]:
+                continue
+            lo = int(self._pos[slot])
+            try:
+                pairs += kv.ensure_writable(slot, lo, lo + span)
+            except MemoryError as e:
+                self.runner.copy_blocks(pairs)
+                raise _unported(f"preemption under copy-on-write ({e})",
+                                8) from e
+        self.runner.copy_blocks(pairs)
 
     # -- applying step results -----------------------------------------
     #
@@ -1607,6 +1803,8 @@ class Engine:
                   if r.state is RequestState.DECODE]
         dispatched = False
         if active and len(self._inflight) <= self.pipeline_depth:
+            if self.runner.paged:
+                self._cow(active)
             dispatched = self._dispatch(active)
             if dispatched:
                 progress += len(active)

@@ -33,6 +33,10 @@ Imports no JAX, so it runs on a GPU machine without it:
 
   PYTHONPATH=src python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
+The prefix cache's copy-on-write on the card (``-k prefix``): one block
+copied three ways in one ``copy_blocks`` call, bf16 and int8 (payload
+and scale), bitwise; a fork under captured step programs whose replays
+read the copied table, no recapture.
 Without a GPU every test here skips (the kernels have no CPU mode)."""
 import numpy as np
 import pytest
@@ -1259,3 +1263,70 @@ def test_track_ranks_on_the_card_are_bitwise_one_process():
         got = spawn(_rank_logits, W, (str(dev),), timeout=600.0)
         for r, g in enumerate(got):
             assert np.array_equal(g, one), (W, r, np.abs(g - one).max())
+
+
+# ---------------------------------------------------------------------------
+# the prefix cache: copy-on-write blocks on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv_dtype", [None, "int8"], ids=["bf16", "int8"])
+def test_prefix_copy_blocks_fans_one_block_out_bitwise(kv_dtype):
+    """``copy_blocks`` with one source block copied three ways in one
+    call: every destination block of every pool (and int8 scale pool)
+    bitwise the source's, every other block untouched."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.serving.cache import PagedKVCache
+    dev = _cuda()
+    cfg = reduced_config("pt-6b-d4").replace(dtype="bfloat16")
+    kv = PagedKVCache(cfg, max_slots=2, max_seq_len=32, block_size=8,
+                      kv_dtype=kv_dtype, device=dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    pools = list(kv.data) + list(kv.scales or ())
+    for t in pools:
+        if t.dtype == torch.int8:
+            t.copy_(torch.randint(-127, 128, t.shape, generator=g,
+                                  device=dev, dtype=torch.int8))
+        else:
+            t.copy_(torch.randn(t.shape, generator=g, device=dev,
+                                dtype=t.dtype))
+    before = [t.clone() for t in pools]
+    kv.copy_blocks([(2, 5), (2, 6), (2, 7)])
+    torch.cuda.synchronize()
+    ax = 3                                    # [R, D, n, N, bs, KH, hd]
+    for t, b in zip(pools, before):
+        for dst in (5, 6, 7):
+            assert torch.equal(t.select(ax, dst), b.select(ax, 2))
+        keep = [i for i in range(t.shape[ax]) if i not in (5, 6, 7)]
+        idx = torch.as_tensor(keep, device=dev)
+        assert torch.equal(t.index_select(ax, idx), b.index_select(ax, idx))
+
+
+@pytest.mark.gpu
+def test_prefix_fork_under_captured_graphs_reads_the_cow_table():
+    """A fork on an engine whose step programs are captured: the
+    copy-on-write swaps a table entry of the parent and of a child, the
+    replays read the new ``step_table`` (copied in at dispatch; no
+    recapture, every step a replay), and the children's greedy streams
+    are the parent's, bitwise the same run eagerly."""
+    dev = _cuda()
+    streams = {}
+    for preplan in (False, True):
+        eng = _plan_engine("paged bf16", dev, preplan=preplan)
+        r = eng.runner
+        n_programs = len(r.programs)
+        req = eng.submit(list(range(3, 23)), 20)
+        for _ in range(3):          # pos 23: block 2 is partial, shared
+            eng.step()
+        hits0, steps0 = r.planned_hits, r.decode_transfers
+        kids = eng.fork(req, 2)
+        eng.run()
+        assert r.kv.cow_copies == 2
+        assert [q.output for q in kids] == [req.output] * 2
+        assert len(req.output) == 20
+        if preplan:
+            assert len(r.programs) == n_programs
+            assert r.planned_hits - hits0 == r.decode_transfers - steps0 > 0
+        streams[preplan] = [req.output] + [q.output for q in kids]
+        r.kv.check_invariants()
+    assert streams[True] == streams[False]

@@ -157,9 +157,12 @@ def test_engine_rejects_invalid_requests_and_unported_features(model):
     assert eng.submit([], 4).state is RequestState.REJECTED
     assert eng.submit([1] * 40, 4).state is RequestState.REJECTED
     assert eng.submit([1, 2], 0).state is RequestState.REJECTED
-    for kw in ({"prefix_cache": True}, {"max_queue": 4}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Engine(cfg, params, device="cpu", **kw)
+    # the prefix cache is ported, and on by default as in the reference
+    assert eng.runner.prefix_cache and eng.runner.kv.prefix_cache
+    assert not Engine(cfg, params, max_slots=2, max_seq_len=32,
+                      device="cpu", prefix_cache=False).runner.prefix_cache
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        Engine(cfg, params, device="cpu", max_queue=4)
     sampled = eng.submit([1, 2], 4, params=SampleParams(temperature=0.7))
     assert sampled.state is RequestState.QUEUED   # sampling is ported
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -169,7 +172,9 @@ def test_engine_rejects_invalid_requests_and_unported_features(model):
         with pytest.raises(ValueError):
             Engine(cfg, params, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.fork(None, 2)
+        eng.cancel(sampled)
+    with pytest.raises(ValueError, match="decoding"):   # fork is ported
+        eng.fork(sampled, 1)
     with pytest.raises(KeyError, match="ROADMAP"):
         reduced_config("gemma2-2b")
 
@@ -191,13 +196,19 @@ def test_entry_points_without_device_refuse_to_run_on_cpu(model):
         serve.main(["--reduced"])
 
 
-def test_serve_cli_smoke_on_cpu():
+@pytest.mark.parametrize("extra", [[], ["--shared-prefix", "16"]],
+                         ids=["plain", "shared_prefix"])
+def test_serve_cli_smoke_on_cpu(extra):
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH,
          "--reduced", "--device", "cpu", "--requests", "3", "--input-len",
-         "8", "--output-len", "4", "--slots", "2"],
+         "8", "--output-len", "4", "--slots", "2"] + extra,
         capture_output=True, text=True, env=env, cwd=REPO, timeout=120)
     assert out.returncode == 0, out.stderr
     assert "finished 3/3 requests" in out.stdout
     assert "TTFT ms" in out.stdout and "kernel launches" in out.stdout
+    if extra:
+        # the first two prompts are admitted together, cold; the third
+        # finds the shared block the first committed
+        assert "prefix cache: 16 of 72 prompt tokens" in out.stdout

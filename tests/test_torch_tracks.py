@@ -12,7 +12,9 @@ W = 4 ranks, each with its own join timeout, run:
     KV prefill and paged decode;
   * ``Engine(par=...).generate``: greedy whole-prompt, chunk 8,
     contiguous, int8 weights + KV and ``speculate_k=2, draft_tracks=2``,
-    and a batch with one sampled request.
+    and a batch with one sampled request; on W = 2 also a prefix-cache
+    hit and a fork of the warm request (every rank keeps the same block
+    accounting and copies its own pools).
 
 Gates: logits equal to the one-process port's (``RANK_TOL``: bitwise, as
 the gathered fusion sums the tracks in one process's order and a CPU
@@ -66,7 +68,9 @@ ENGINE_ARMS = {"whole": {}, "chunk8": {"prefill_chunk": 8},
                "contiguous": {"paged": False},
                "int8": {"weight_dtype": "int8", "kv_dtype": "int8"},
                "spec": {"speculate_k": 2, "draft_tracks": 2},
-               "sampled": {}}
+               "sampled": {}, "prefix": {}}
+PREFIX_ARM_WORLDS = (1, 2)      # the prefix-cache arm: one process, W = 2
+SHARED = [6, 2, 8, 3, 5, 7, 1, 9]                         # two blocks of 4
 GREEDY_ARMS = ("whole", "chunk8", "contiguous", "spec")
 # every collective of torch.distributed a port could call
 COLLECTIVES = ("all_gather_single", "all_gather_into_tensor", "all_gather",
@@ -221,10 +225,28 @@ def _engine_arms(par: Parallelism, tree, calls) -> dict:
     full = from_jax_params(tree, cfg, "cpu")
     out = {}
     for arm, knobs in ENGINE_ARMS.items():
+        if arm == "prefix" and par.world not in PREFIX_ARM_WORLDS:
+            continue
         c0, w0, a0 = (par.counts.collectives, sum(calls.values()),
                       par.counts.local_adds)
         eng = Engine(cfg, full, device="cpu", par=par, **ENGINE, **knobs)
-        if arm == "sampled":
+        extra = {}
+        if arm == "prefix":
+            # a seed request, then a warm hit on its two full blocks,
+            # forked two ways after two steps
+            reqs = [eng.submit(SHARED + [4, 4], NEW)]
+            eng.run()
+            reqs.append(eng.submit(SHARED + [9, 8, 7], NEW + 4))
+            eng.step()
+            eng.step()
+            reqs += eng.fork(reqs[1], 2)
+            eng.run()
+            streams = [r.output for r in reqs]
+            kv = eng.runner.kv
+            kv.check_invariants()
+            extra = {"cached": [r.cached_prefix for r in reqs],
+                     "hits": kv.prefix_hit_tokens, "cow": kv.cow_copies}
+        elif arm == "sampled":
             reqs = [eng.submit(PROMPTS[0], NEW),
                     eng.submit(PROMPTS[1], NEW,
                                params=SampleParams(0.8, 20, 0.9), seed=7)]
@@ -241,7 +263,7 @@ def _engine_arms(par: Parallelism, tree, calls) -> dict:
                     + r.decode_transfers,
                     "spec_steps": eng.metrics.summary().get("spec_steps", 0),
                     "param_bytes": _storage_bytes(r.params),
-                    "kinds": sorted(calls)}
+                    "kinds": sorted(calls), **extra}
     return out
 
 
@@ -594,7 +616,17 @@ def test_rank_streams_equal_one_process_and_the_jax_engine(ranks, single,
             assert e["streams"] == one[arm]["streams"], arm
         for arm in GREEDY_ARMS:
             assert r["engine"][arm]["streams"] == jax_streams, arm
+        # W = 2: the warm hit and the fork, with one process's accounting
+        assert ("prefix" in r["engine"]) == (W in PREFIX_ARM_WORLDS)
+        if W in PREFIX_ARM_WORLDS:
+            e, o = r["engine"]["prefix"], one["prefix"]
+            assert (e["cached"], e["hits"], e["cow"]) == \
+                (o["cached"], o["hits"], o["cow"])
     assert [len(s) for s in one["sampled"]["streams"]] == [NEW, NEW]
+    p = one["prefix"]
+    assert p["cached"][1] == len(SHARED) and p["hits"] == len(SHARED)
+    assert p["cow"] == 2 and p["streams"][2] == p["streams"][3] == \
+        p["streams"][1] and len(p["streams"][1]) == NEW + 4
 
 
 def test_port_count_equals_the_reference_compiled_count(reference_counts,

@@ -160,7 +160,31 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      speculate_k=4, draft_tracks=4, sync then pipelined with the greedy
      programs planned: the drafter filled for the warm slots, every step
      a replay, planned bitwise sync.  Phases 1-8 serve with the prefix
-     cache off (``prefix_cache=False``), as they measured before it.
+     cache off (``prefix_cache=False``), as they measured before it;
+ 10. the robustness layer, pt-6b-d4 at full width on phase 5's seeded
+     tree (``robust_runs``): (a) a pool of ROBUST_BLOCKS blocks (half of
+     SLOTS requests fit), the prefix cache on: 4 priority-0 requests
+     decode, then 4 priority-1 requests arrive and each admission
+     preempts one; gates: all DONE, preemptions >= 1 and resumes equal
+     to them, the invariants, 0 used blocks at the end, and
+     ``check_resume_logits`` (each stream bitwise phase 5's, or the
+     logits teacher-forced along phase 5's streams, by the admission
+     programs the run took, within ``check_spec_logits``'s limit and
+     every first divergence a near-tie); TTFT and TPOT p50 by priority,
+     the device busy ms of the step that admits the first resume, the
+     cached prefix of each resume; (b) the same with int8 weights and
+     int8 KV against an uncontended int8 run (whether the resumes are
+     bitwise); (c) transfer faults (``FaultPlan(transfer_ops=...)``) at
+     the prefill, decode and draft_verify waits, the prefix cache off:
+     plain sync and pipelined with planned programs bitwise phase 5's
+     streams, the speculative arm (K 4 of 4 tracks, 2 prompts, 16
+     tokens) sync and planned bitwise its fault-free sync run, every
+     planned step a replay, no staging slot left busy; (d) a request
+     cancelled from its own ``on_token`` and one timed out mid-decode,
+     their blocks reclaimed, the other streams bitwise phase 5's; (e) a
+     bounded storm of allocation faults: the watchdog fires and sheds
+     the head with the stall diagnostic, every request in one terminal
+     state.
 Prints one ``{"kernels": [...]}`` JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -2407,8 +2431,10 @@ def serve_planned(dev, card: str, tag: str, kind: str, cfg, params, knobs,
     entry of ``submit_kws``) served again with ``Engine(pipeline_depth=1)``
     and the sync run's knobs (``params`` a tree, or a function that makes
     one), its step programs captured by ``plan_programs`` for the
-    ``variants`` asked (greedy, sampled), greedy first, each stage's
-    graphs, capture seconds and memory reported.  Gates: every request
+    ``variants`` asked (greedy, sampled), greedy first, those of the
+    live lengths PROMPT..PROMPT + NEW that the run, ``check_replay`` and
+    ``profile_planned`` take, each stage's graphs, capture seconds and
+    memory reported.  Gates: every request
     finishes with NEW tokens; every decode / spec step of the run is a
     replay (``planned_hits``) with one host transfer (transfers =
     dispatches); the sync run's launch and route arithmetic
@@ -2437,7 +2463,9 @@ def serve_planned(dev, card: str, tag: str, kind: str, cfg, params, knobs,
         torch.cuda.synchronize()
         before = (len(r.programs), r.plan_seconds,
                   torch.cuda.memory_reserved(dev))
-        r.plan_programs(sampled=(v,))
+        # the programs of the live lengths this run and its probes take
+        # (every step still a replay); all of them took ~70 s more
+        r.plan_programs(sampled=(v,), lengths=range(PROMPT, PROMPT + NEW + 1))
         torch.cuda.synchronize()
         stages["sampled" if v else "greedy"] = {
             "graphs": len(r.programs) - before[0],
@@ -3714,6 +3742,453 @@ def prefix_spec(dev, card: str, params) -> None:
         raise SystemExit("[prefix] spec warm hit: planned streams differ")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the robustness layer at full width
+# ---------------------------------------------------------------------------
+
+HALF = SLOTS // 2
+# a pool that holds HALF requests of PROMPT + NEW - 1 positions (and a
+# few blocks more): the second half's admissions must preempt
+ROBUST_BLOCKS = HALF * -(-(PROMPT + NEW - 1) // BLOCK) + 4
+SPEC_NEW = 16                       # tokens of the speculative fault runs
+ROBUST = {}                         # the figures of phase 10, for the summary
+
+
+def _robust_engine(dev, cfg, params, knobs=None, **kw):
+    from repro_torch.serving.engine import Engine
+    return Engine(cfg, params, max_slots=SLOTS, max_seq_len=PROMPT + NEW + 8,
+                  block_size=BLOCK, device=dev, **(knobs or {}), **kw)
+
+
+def _free() -> None:
+    """Return the memory of the engines the caller has just dropped."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def teacher_forced_from(r, prompts, streams, starts, together: bool
+                        ) -> torch.Tensor:
+    """Phase 10: logits [n, NEW, V] fp32 teacher-forced along ``streams``:
+    row b is admitted with its prompt and the first ``starts[b]`` tokens
+    of its stream (the program the engine admits it with,
+    ``_first_logits``: flash prefill, or the chunk program for int8 KV;
+    all rows in one call with ``together``, else one call a row, as a
+    resume or a lone admission runs), which gives its logits at index
+    starts[b]; decode steps along the stream give the rest.  Entries
+    before starts[b] are NaN."""
+    n, cfg, dev = len(prompts), r.cfg, r.device
+    slots = list(range(n))
+    out = torch.full((n, NEW, cfg.vocab_size), float("nan"), device=dev)
+    seqs = [p + s[:m] for p, s, m in zip(prompts, streams, starts)]
+    with torch.no_grad():
+        for s_ in slots:
+            r.kv.allocate(s_, PROMPT + NEW)
+        if together:
+            first = _first_logits(r, seqs, [0] * n, slots)
+        else:
+            first = torch.cat([_first_logits(r, [q], [0], [s_])
+                               for s_, q in zip(slots, seqs)])
+        for b in slots:
+            out[b, starts[b]] = first[b]
+        P = len(prompts[0])
+        for step in range(1, NEW):
+            j = np.asarray(starts) + step          # the index each row makes
+            act = j <= NEW - 1
+            if not act.any():
+                break
+            tok = torch.as_tensor([s[min(jj, NEW - 1) - 1]
+                                   for s, jj in zip(streams, j)], device=dev)
+            pos = (P + j - 1).astype(np.int32)
+            lg = r.fns["decode"](
+                r.params, r.cache, tok.long(),
+                torch.as_tensor(pos, device=dev), cfg,
+                block_table=r._masked_table(act),
+                kv_max_len=r._live_max_len(pos, act),
+                active=torch.as_tensor(act, device=dev))[0].float()
+            for b in np.flatnonzero(act):
+                out[b, j[b]] = lg[b]
+        for s_ in slots:
+            r.kv.free_slot(s_)
+    r.kv.check_invariants()
+    return out
+
+
+def check_resume_logits(eng, prompts, ref, got, starts, tag: str) -> dict:
+    """Phase 10: the streams of a preemption run against the uncontended
+    run's (``ref``), by the logits teacher-forced along ``ref``: C, the
+    uncontended run's program (every prompt in one admission call, then
+    decode); S, each prompt admitted alone (the contended run admits one
+    at a time); X, each request admitted, as its resume is, with its
+    prompt and the ``starts[b]`` tokens it had emitted when it was last
+    preempted (0 for the others); W, the whole-sequence prefill.
+    Reports mean and max |S - C| and |X - C| (X from its resume point
+    on) beside |W - C| and C's std, and at each stream's first
+    divergence from ``ref`` the ref token's lead over the run's under C.
+    Gates (``check_spec_logits``'s): S's and X's mean |difference| from C
+    at most twice W's, or the bf16 kernel tolerance times C's std where
+    that is larger; every first divergence a near-tie: the lead at most
+    twice max |Y - C| at that position, Y the pass of the program that
+    made the token (X at or past the resume point, else S)."""
+    r, cfg = eng.runner, eng.runner.cfg
+    n, dev = len(prompts), eng.runner.device
+    C = teacher_forced_from(r, prompts, ref, [0] * n, together=True)
+    S = teacher_forced_from(r, prompts, ref, [0] * n, together=False)
+    X = teacher_forced_from(r, prompts, ref, starts, together=False)
+    with torch.no_grad():
+        seq = torch.as_tensor([p + s[:NEW - 1] for p, s in zip(prompts, ref)],
+                              device=dev)
+        W = r.fns["forward"](r.params, {"inputs": seq}, cfg,
+                             mode="prefill")[0][:, PROMPT - 1:].float()
+    live = torch.as_tensor([[j >= m for j in range(NEW)] for m in starts],
+                           device=dev)
+    stat = {}
+    for name, Y, mask in (("S", S, None), ("X", X, live), ("W", W, None)):
+        d = (Y - C).abs()
+        if mask is not None:
+            d = d[mask]
+        stat[name] = (d.mean().item(), d.max().item())
+    replay = int((C.argmax(-1) == torch.as_tensor(ref, device=dev)).sum())
+    log(f"[robust] {tag}: logits teacher-forced along the uncontended "
+        f"streams ({n} x {NEW}): C replays them at {replay}/{n * NEW} "
+        f"tokens, C's std {C.std().item():.4f}; mean / max |Y - C|: "
+        + ", ".join(f"{k} {m_:.4e} / {x_:.4e}" for k, (m_, x_)
+                    in stat.items()))
+    bad = []
+    for b, (g_, w_) in enumerate(zip(got, ref)):
+        i = _divergence(g_, w_)
+        if i < 0 or i >= min(len(g_), len(w_)):
+            continue
+        Y = X if i >= starts[b] else S
+        lead = (C[b, i, w_[i]] - C[b, i, g_[i]]).item()
+        dmax = (Y[b, i] - C[b, i]).abs().max().item()
+        log(f"[robust] {tag}:   request {b}: diverges at {i} (resume point "
+            f"{starts[b]}; uncontended {w_[i]}, run {g_[i]}): lead under C "
+            f"{lead:.4e}, max |{'X' if Y is X else 'S'} - C| there "
+            f"{dmax:.4e}")
+        if lead > 2 * dmax:
+            bad.append(b)
+    limit = max(2 * stat["W"][0], KERNEL_TOL * C.std().item())
+    gates = {"S": stat["S"][0] <= limit, "X": stat["X"][0] <= limit,
+             "near-ties": not bad}
+    log(f"[robust] {tag}: logit gates {json.dumps(gates)} (limit "
+        f"{limit:.4e})")
+    if not all(gates.values()):
+        raise SystemExit(f"[robust] {tag}: logit gates {gates} (requests "
+                         f"whose divergence is no near-tie: {bad})")
+    return {k: v[0] for k, v in stat.items()} | {"limit": limit}
+
+
+def _step_busy(eng) -> Optional[float]:
+    """One engine step under torch.profiler (CUPTI): its device busy ms,
+    None when the profiler saw no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng.step()
+        torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return busy or None
+
+
+def robust_preempt(dev, card: str, params, prompts, ref, tag: str,
+                   int8: bool = False) -> None:
+    """Phase 10 (a), (b with ``int8``): pt-6b-d4 on phase 5's seeded tree,
+    SLOTS slots, block BLOCK, a pool of ROBUST_BLOCKS blocks (HALF
+    requests fit), the prefix cache on.  HALF priority-0 requests (phase
+    5's first prompts) are admitted and decode; then HALF priority-1
+    requests arrive, and each admission preempts a decoder; the victims
+    resume when the pool frees.  ``ref``: the uncontended streams
+    (phase 5's bf16 run; for int8 an uncontended int8 run made here, all
+    prompts in one admission, as phase 5's).  Gates: every request DONE
+    with NEW tokens, preemptions >= 1 and resumes equal to them, the
+    invariants, 0 used blocks at the end, ``check_resume_logits``.
+    Reports the streams bitwise the uncontended ones (for int8 whether
+    the resumed ones are), TTFT and TPOT p50 by priority, the device
+    busy ms of the step that admits the first resume, the cached prefix
+    of each resume."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import EngineMetrics
+    cfg = get_config(ARCH)
+    knobs = dict(weight_dtype="int8", kv_dtype="int8") if int8 else {}
+    t0 = time.perf_counter()
+    # an uncontended engine (the whole pool, phase 5's admission): the
+    # int8 reference streams, and the teacher-forced logits afterwards
+    check = _robust_engine(dev, cfg, params, knobs, prefix_cache=False)
+    if ref is None:
+        ref = check.generate(prompts, NEW)
+    eng = _robust_engine(dev, cfg, params, knobs, num_blocks=ROBUST_BLOCKS)
+    rng = np.random.default_rng(1)
+    eng.generate([rng.integers(1, cfg.vocab_size, size=(16,)).tolist()
+                  for _ in range(SLOTS)], 3)                 # warm-up
+    eng.metrics = EngineMetrics()
+    r = eng.runner
+    starts = {}
+
+    def on_event(q, why):
+        if why.startswith("preempted"):
+            starts[q.rid] = len(q.output)
+
+    low = [eng.submit(p, NEW, priority=0, on_event=on_event)
+           for p in prompts[:HALF]]
+    while any(q.state.value != "decode" for q in low):
+        eng.step()
+    eng.step()
+    high = [eng.submit(p, NEW, priority=1, on_event=on_event)
+            for p in prompts[HALF:]]
+    busy, resumed_then, step_s = None, None, {True: [], False: []}
+    while eng.scheduler.has_work() or eng._inflight:
+        q = eng.scheduler.queue
+        if (resumed_then is None and q and q[0].output
+                and eng.scheduler.free_slots()
+                and eng._make_can_fit()(q[0])):
+            m0 = eng.metrics.resumes                   # the first resume
+            busy = _step_busy(eng)
+            resumed_then = eng.metrics.resumes - m0
+        else:
+            waiting = bool(q)
+            t1 = time.perf_counter()
+            eng.step()
+            step_s[waiting].append(time.perf_counter() - t1)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reqs = low + high
+    got = [q.output for q in reqs]
+    m = eng.metrics.summary()
+    r.kv.check_invariants()
+    used = r.kv.utilization()["used_blocks"]
+    pct = lambda xs: float(np.percentile(np.asarray(xs) * 1e3, 50))
+    resumed = [b for b, q in enumerate(reqs) if q.preemptions]
+    same = [g_ == w_ for g_, w_ in zip(got, ref)]
+    fig = {"preemptions": m["preemptions"], "resumes": m["resumes"],
+           "preempted": [q.preemptions for q in reqs],
+           "resume_points": [starts.get(q.rid, 0) for q in reqs],
+           "resume_cached_prefix": [reqs[b].cached_prefix for b in resumed],
+           "ttft_p50_ms": {p_: pct([q.ttft for q in g]) for p_, g
+                           in (("priority 0", low), ("priority 1", high))},
+           "tpot_p50_ms": {p_: pct([q.tpot for q in g]) for p_, g
+                           in (("priority 0", low), ("priority 1", high))},
+           "resume_admission_busy_ms": busy,
+           "resumed_in_that_step": resumed_then,
+           "step_ms_p50": {k: pct(v) if v else None for k, v in
+                           (("queue waiting", step_s[True]),
+                            ("queue empty", step_s[False]))},
+           "used_blocks_end": used,
+           "bitwise_uncontended": sum(same),
+           "resumed_bitwise": [same[b] for b in resumed],
+           "first_divergence": [_divergence(g_, w_)
+                                for g_, w_ in zip(got, ref)],
+           "pool_blocks": ROBUST_BLOCKS, "wall_s": wall}
+    gates = {"done": all(q.state.value == "done" and len(q.output) == NEW
+                         for q in reqs),
+             "preempted": m["preemptions"] >= 1,
+             "resumes == preemptions": m["resumes"] == m["preemptions"],
+             "used blocks 0": used == 0}
+    log(f"[robust] {card} | {tag}: {HALF} priority-0 then {SLOTS - HALF} "
+        f"priority-1 requests of ({PROMPT} in / {NEW} out) on "
+        f"{ROBUST_BLOCKS} blocks: {json.dumps(fig)}; gates "
+        f"{json.dumps(gates)}")
+    if not all(gates.values()):
+        raise SystemExit(f"[robust] {tag}: gates {gates}")
+    del eng, r
+    _free()
+    fig["logits"] = check_resume_logits(
+        check, prompts, ref, got, [starts.get(q.rid, 0) for q in reqs], tag)
+    ROBUST[tag] = fig
+    del check
+    _free()
+
+
+def _fault_run(dev, cfg, params, prompts, new, plan, knobs,
+               plan_lengths=None) -> tuple:
+    """One run of ``prompts`` (``new`` tokens each) under ``plan``, the
+    prefix cache off (phase 5's admission program); with
+    ``plan_lengths`` pipelined (depth 1) with the greedy step programs of
+    those live lengths planned.  Returns (streams, figures)."""
+    kw = {"pipeline_depth": 1} if plan_lengths else {}
+    eng = _robust_engine(dev, cfg, params, knobs, prefix_cache=False,
+                         fault_plan=plan, **kw)
+    r = eng.runner
+    if plan_lengths:
+        r.plan_programs(sampled=(False,), lengths=plan_lengths)
+    reqs = [eng.submit(p, new) for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    r.kv.check_invariants()
+    fig = {"done": all(q.state.value == "done" for q in reqs),
+           "transfer_faults": eng.metrics.transfer_faults,
+           "sites": sorted({lbl for _, lbl in plan.transfer_sites})
+           if plan else [],
+           "steps": eng.steps_run, "transfers": r.decode_transfers,
+           "replays": r.planned_hits,
+           "stages_busy": sum(st.busy for st in r._stages),
+           "used_blocks_end": r.kv.utilization()["used_blocks"]}
+    out = [q.output for q in reqs]
+    del eng, r
+    _free()
+    return out, fig
+
+
+def robust_faults(dev, card: str, params, prompts, ref) -> None:
+    """Phase 10 (c): transfer faults (``FaultPlan(transfer_ops=...)``) on
+    phase 5's seeded tree, the prefix cache off.  Plain decode, sync and
+    pipelined with the programs of the run's live lengths planned, on
+    phase 5's prompts against phase 5's streams (``ref``; planned equals
+    sync bitwise); then the speculative arm (K SPEC_K of SPEC_TRACKS
+    tracks) on two prompts, SPEC_NEW tokens, sync and planned, against
+    its fault-free sync run.  Gates: the faulted streams bitwise the
+    fault-free ones; the faults fired at the prefill, decode and
+    draft_verify waits (never at a dispatch); no staging slot left busy;
+    every planned step a replay; 0 used blocks at the end."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.faults import FaultPlan
+    cfg = get_config(ARCH)
+    lengths = range(PROMPT, PROMPT + NEW + 1)
+    spec = dict(speculate_k=SPEC_K, draft_tracks=SPEC_TRACKS)
+    runs = {}
+    for name, ps, want, knobs, ops_, planned in (
+            ("plain sync", prompts, ref, {},
+             {0, 3, NEW // 4 + 1, NEW // 2 + 8}, None),
+            ("plain planned", prompts, ref, {},
+             {0, 5, NEW // 3 + 2, NEW // 2 + 9}, lengths),
+            ("spec sync", prompts[:2], None, spec, {0, 2, 4}, None),
+            ("spec planned", prompts[:2], None, spec, {0, 3, 4},
+             lengths)):
+        new = NEW if not knobs else SPEC_NEW
+        if want is None:
+            want = runs.get("spec control")
+            if want is None:
+                want, _ = _fault_run(dev, cfg, params, ps, new, None, knobs)
+                runs["spec control"] = want
+        plan = FaultPlan(transfer_ops=frozenset(ops_))
+        got, fig = _fault_run(dev, cfg, params, ps, new, plan, knobs,
+                              planned)
+        site = "draft_verify" if knobs else "decode"
+        gates = {"done": fig["done"], "bitwise": got == want,
+                 "faults": fig["transfer_faults"] == len(ops_),
+                 "sites": fig["sites"] == sorted({"prefill", site}),
+                 "no stage busy": fig["stages_busy"] == 0,
+                 "used blocks 0": fig["used_blocks_end"] == 0}
+        if planned:
+            gates["every step a replay"] = (fig["replays"]
+                                            == fig["transfers"] > 0)
+        log(f"[robust] {card} | transfer faults, {name}: ops {sorted(ops_)}"
+            f"; {json.dumps(fig)}; gates {json.dumps(gates)}")
+        ROBUST[f"faults {name}"] = dict(fig, gates=gates)
+        if not all(gates.values()):
+            raise SystemExit(f"[robust] transfer faults {name}: {gates}")
+
+
+def robust_cancel_deadline(dev, card: str, params, prompts, ref) -> None:
+    """Phase 10 (d): phase 5's prompts and admission (prefix cache off),
+    request 0 cancelled from its own ``on_token`` after 5 tokens,
+    request 1 admitted with a 600 s deadline that its ``on_token`` cuts
+    to the time spent at its 10th token (it times out at the next
+    step's check).  Gates: the two end CANCELLED with 5 tokens and
+    TIMED_OUT with 10, each a prefix of the uncontended stream, the
+    others DONE and bitwise phase 5's, the invariants, 0 used blocks at
+    the end."""
+    from repro_torch.configs import get_config
+    cfg = get_config(ARCH)
+    eng = _robust_engine(dev, cfg, params, prefix_cache=False)
+    events = []
+
+    def stop(q, tok):
+        if len(q.output) >= 5:
+            eng.cancel(q, "client disconnected")
+
+    def late(q, tok):
+        # the budget shrinks to the time already spent: the next step's
+        # deadline check expires the request mid-decode
+        if len(q.output) == 10:
+            q.deadline_s = time.perf_counter() - q.t_submit
+
+    reqs = [eng.submit(prompts[0], NEW, on_token=stop,
+                       on_event=lambda q, why: events.append((q.rid, why))),
+            eng.submit(prompts[1], NEW, on_token=late, deadline_s=600.0,
+                       on_event=lambda q, why: events.append((q.rid, why)))]
+    reqs += [eng.submit(p, NEW) for p in prompts[2:]]
+    eng.run()
+    torch.cuda.synchronize()
+    r = eng.runner
+    r.kv.check_invariants()
+    got = [q.output for q in reqs]
+    used = r.kv.utilization()["used_blocks"]
+    gates = {"cancelled": (reqs[0].state.value == "cancelled"
+                           and got[0] == ref[0][:5]),
+             "timed out": (reqs[1].state.value == "timed_out"
+                           and got[1] == ref[1][:10]),
+             "others bitwise": got[2:] == ref[2:],
+             "used blocks 0": used == 0}
+    fig = {"events": events, "lengths": [len(g_) for g_ in got[:2]],
+           "used_blocks_end": used, "gates": gates}
+    log(f"[robust] {card} | cancel + deadline: {json.dumps(fig)}")
+    ROBUST["cancel + deadline"] = fig
+    del eng, r
+    _free()
+    if not all(gates.values()):
+        raise SystemExit(f"[robust] cancel + deadline: {gates}")
+
+
+def robust_watchdog(dev, card: str, params, prompts) -> None:
+    """Phase 10 (e): a bounded storm of allocation faults
+    (``FaultPlan(alloc_p=1.0, max_faults=12)``: every allocation of
+    three admission rounds, watchdog patience 3) over
+    four 64-token prompts of 8 new tokens.  Gates: ``run`` ends (no
+    EngineStallError), the watchdog fires and sheds the head with the
+    stall diagnostic in its reason, every request in exactly one
+    terminal state, the invariants, 0 used blocks."""
+    from repro_torch.configs import get_config
+    from repro_torch.serving.engine import TERMINAL_STATES
+    from repro_torch.serving.faults import FaultPlan
+    cfg = get_config(ARCH)
+    plan = FaultPlan(alloc_p=1.0, max_faults=12)
+    eng = _robust_engine(dev, cfg, params, prefix_cache=False,
+                         watchdog_patience=3, fault_plan=plan)
+    reqs = [eng.submit(p[:64], 8) for p in prompts[:4]]
+    eng.run(max_steps=200)
+    r = eng.runner
+    r.kv.check_invariants()
+    shed = [q for q in reqs if q.state.value == "rejected"]
+    m = eng.metrics.summary()
+    used = r.kv.utilization()["used_blocks"]
+    gates = {"watchdog fired": m["watchdog_fires"] >= 1,
+             "head shed with diagnostic": bool(shed) and all(
+                 "watchdog" in q.finish_reason and "queued=" in
+                 q.finish_reason for q in shed),
+             "one terminal state each": all(
+                 sum(q.state is s for s in TERMINAL_STATES) == 1
+                 for q in reqs),
+             "used blocks 0": used == 0}
+    fig = {"states": [q.state.value for q in reqs],
+           "watchdog_fires": m["watchdog_fires"], "faults": plan.summary(),
+           "reason": shed[0].finish_reason if shed else None,
+           "gates": gates}
+    log(f"[robust] {card} | watchdog: {json.dumps(fig)}")
+    ROBUST["watchdog"] = fig
+    del eng, r
+    _free()
+    if not all(gates.values()):
+        raise SystemExit(f"[robust] watchdog: {gates}")
+
+
+def robust_runs(dev, card: str, params, prompts, ref) -> None:
+    """Phase 10: (a) preemption, bf16; (b) the same with int8 weights and
+    int8 KV; (c) transfer faults; (d) cancel and deadline; (e) the
+    watchdog."""
+    t0 = time.perf_counter()
+    robust_preempt(dev, card, params, prompts, ref, "bf16")
+    robust_preempt(dev, card, params, prompts, None,
+                   "int8 weights + int8 KV", int8=True)
+    robust_faults(dev, card, params, prompts, ref)
+    robust_cancel_deadline(dev, card, params, prompts, ref)
+    robust_watchdog(dev, card, params, prompts)
+    ROBUST["seconds"] = time.perf_counter() - t0
+    log(f"[robust] phase 10 took {ROBUST['seconds']:.1f}s")
+
+
 def head_choice_ms(eng, head, dev) -> None:
     """The LM head in fp32: the fp32 copy the runner keeps against a
     per-step cast of the bf16 head, at the decode shape."""
@@ -3778,6 +4253,8 @@ def main() -> int:
     prefix_hit(dev, card, params, "bf16")
     prefix_hit(dev, card, params, "int8 weights + int8 KV", int8=True)
     fork_runs(dev, card, params)
+    # phase 10 on the seeded tree, against phase 5's streams
+    robust_runs(dev, card, params, keep["prompts"], keep["streams"])
     # run (b): the same tree with its tracks tied in place, so the drafter
     # is the target model but for attention arithmetic; its plain stream
     # on the tied weights is one more plain run
@@ -3861,6 +4338,7 @@ def main() -> int:
     log("[sampling] summary " + json.dumps(SAMPLING))
     log("[ranks] summary " + json.dumps(RANK_SUMMARY))
     log("[prefix] summary " + json.dumps(PREFIX))
+    log("[robust] summary " + json.dumps(ROBUST))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

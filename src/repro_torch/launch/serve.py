@@ -7,7 +7,13 @@ engine's default), and reports TTFT / TPOT / throughput, the launch
 count of each kernel and, with the prefix cache on (the default; off
 with ``--no-prefix-cache``), the prompt tokens it served.
 ``--shared-prefix N`` puts the same N tokens before every prompt (a
-system prompt).  Runs on the GPU unless ``--device cpu`` is given.
+system prompt).  The robustness knobs are the reference's: a bounded
+queue (``--max-queue``), the stall watchdog's patience, the preemption
+cap, a per-request deadline, priorities cycled over the requests
+(``--priority-mix N``: N > 1 exercises preempt-and-recompute when the
+pool is small) and a seeded ``FaultPlan`` (``--fault-*``); the summary
+then counts preemptions, sheds, rejections, timeouts, watchdog fires and
+transfer faults.  Runs on the GPU unless ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
       --requests 8 --input-len 512 --output-len 64 --slots 8
@@ -28,6 +34,9 @@ system prompt).  Runs on the GPU unless ``--device cpu`` is given.
       --reduced --device cpu --temperature 0.8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
       --reduced --device cpu --shared-prefix 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
+      --reduced --device cpu --num-blocks 12 --priority-mix 2 \
+      --fault-transfer-p 0.1
 """
 from __future__ import annotations
 
@@ -42,7 +51,8 @@ from repro_torch.common.device import resolve_device
 from repro_torch.configs import NAMES, get_config, reduced_config
 from repro_torch.kernels import ops
 from repro_torch.launch.steps import model_fns
-from repro_torch.serving.engine import Engine, RequestState
+from repro_torch.serving.engine import Engine, EngineStallError, RequestState
+from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.sampler import SampleParams
 
 
@@ -96,6 +106,38 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--prefill-budget", type=int, default=4096,
                     help="max padded prefill tokens admitted per step")
+    ap.add_argument("--max-queue", type=int, default=None,
+                    help="bounded admission queue: submissions past this "
+                    "many waiting requests are shed as REJECTED "
+                    "(default unbounded)")
+    ap.add_argument("--watchdog-patience", type=int, default=25,
+                    help="consecutive no-progress engine steps before "
+                    "the stall watchdog preempts or sheds the head")
+    ap.add_argument("--max-preemptions", type=int, default=8,
+                    help="evictions a request survives before it is "
+                    "REJECTED (termination guarantee under pressure)")
+    ap.add_argument("--deadline-s", type=float, default=None,
+                    help="per-request submit-to-done budget in seconds "
+                    "(exceeding it yields TIMED_OUT)")
+    ap.add_argument("--priority-mix", type=int, default=1,
+                    help="cycle request priorities 0..N-1 across the "
+                    "workload (N>1 exercises preempt-and-recompute)")
+    ap.add_argument("--fault-seed", type=int, default=0,
+                    help="seed for the deterministic fault-injection "
+                    "schedule (chaos drills)")
+    ap.add_argument("--fault-alloc-p", type=float, default=0.0,
+                    help="per-call probability of an injected KV "
+                    "allocation failure")
+    ap.add_argument("--fault-transfer-p", type=float, default=0.0,
+                    help="per-call probability of an injected device-to-"
+                    "host transfer failure (the step retries)")
+    ap.add_argument("--fault-slow-p", type=float, default=0.0,
+                    help="per-step probability of an injected slow step")
+    ap.add_argument("--fault-slow-s", type=float, default=0.05,
+                    help="sleep per injected slow step (seconds)")
+    ap.add_argument("--fault-max", type=int, default=None,
+                    help="cap on total injected faults (a storm that "
+                    "clears; default unbounded)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "
                     "plain PyTorch path)")
@@ -105,6 +147,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model_fns(cfg)["init"](gen, cfg, device)
+    plan = None
+    if args.fault_alloc_p or args.fault_transfer_p or args.fault_slow_p:
+        plan = FaultPlan(seed=args.fault_seed, alloc_p=args.fault_alloc_p,
+                         transfer_p=args.fault_transfer_p,
+                         slow_p=args.fault_slow_p, slow_s=args.fault_slow_s,
+                         max_faults=args.fault_max)
+        print(f"[serve] fault injection armed: seed={plan.seed} "
+              f"alloc_p={plan.alloc_p} transfer_p={plan.transfer_p} "
+              f"slow_p={plan.slow_p} max={plan.max_faults}")
     eng = Engine(cfg, params, max_slots=args.slots,
                  max_seq_len=(args.shared_prefix + args.input_len
                               + args.output_len + 8),
@@ -117,6 +168,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                  draft_tracks=args.draft_tracks,
                  prefix_cache=not args.no_prefix_cache,
                  pipeline_depth=args.pipeline_depth, preplan=args.preplan,
+                 max_queue=args.max_queue,
+                 watchdog_patience=args.watchdog_patience,
+                 max_preemptions=args.max_preemptions, fault_plan=plan,
                  device=device)
     del params                 # an int8 engine holds its own copy
     st = eng.runner.cache_stats()
@@ -151,9 +205,18 @@ def main(argv: Optional[List[str]] = None) -> int:
     t0 = time.perf_counter()
     reqs = [eng.submit(shared + rng.integers(1, cfg.vocab_size,
                                              size=(args.input_len,)).tolist(),
-                       args.output_len, params=sp)
-            for _ in range(args.requests)]
-    eng.run()
+                       args.output_len, params=sp,
+                       priority=i % max(1, args.priority_mix),
+                       deadline_s=args.deadline_s)
+            for i in range(args.requests)]
+    stalled = False
+    try:
+        eng.run()
+    except EngineStallError as e:
+        stalled = True
+        print(f"[serve] STALL: {e}")
+        for k, v in e.diagnostic.items():
+            print(f"[serve]   {k} = {v}")
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     wall = time.perf_counter() - t0
@@ -197,9 +260,29 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"[serve] prefix cache: off ({why})")
     print("[serve] kernel launches: " + ", ".join(
         f"{k} {v}" for k, v in ops.launch_counts().items()))
+    by_state = {}
+    for r in reqs:
+        by_state[r.state.value] = by_state.get(r.state.value, 0) + 1
+    pressure = (m["preemptions"] or m["rejected"] or m["shed"]
+                or m["timed_out"] or m["watchdog_fires"]
+                or m["transfer_faults"])
+    if pressure or by_state.keys() != {RequestState.DONE.value}:
+        states = ", ".join(f"{k}={v}" for k, v in sorted(by_state.items()))
+        print(f"[serve] robustness: {states} | "
+              f"preemptions {m['preemptions']} (resumes {m['resumes']}), "
+              f"shed {m['shed']}, rejected {m['rejected']}, "
+              f"cancelled {m['cancelled']}, timed_out {m['timed_out']}, "
+              f"watchdog {m['watchdog_fires']}, "
+              f"transfer_faults {m['transfer_faults']}")
+    if plan is not None:
+        fs = plan.summary()
+        print(f"[serve] faults injected: {fs['injected']} "
+              f"(alloc {fs['alloc_faults']}, transfer "
+              f"{fs['transfer_faults']}, slow {fs['slow_steps']})")
     done = sum(r.state is RequestState.DONE for r in reqs)
     print(f"[serve] finished {done}/{len(reqs)} requests")
-    return 0 if done == len(reqs) else 1
+    # every request ended, in one state (shed or timed out ones too)
+    return 0 if all(r.finished for r in reqs) and not stalled else 1
 
 
 if __name__ == "__main__":

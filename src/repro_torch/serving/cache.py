@@ -145,17 +145,22 @@ class PagedKVCache:
       reset_slots(slots)   -> zero the state rows of ``slots``
       utilization()        -> occupancy and prefix-cache counters
       check_invariants()   -> raise unless block accounting is consistent
+
+    With ``fault_plan`` (``faults.FaultPlan``) ``allocate``, ``append``,
+    ``fork`` and ``ensure_writable`` may raise an injected MemoryError
+    before they change anything, at the reference's sites.
     """
 
     def __init__(self, cfg: ModelConfig, *, max_slots: int, max_seq_len: int,
                  block_size: int = 16, num_blocks: Optional[int] = None,
                  prefix_cache: bool = True,
                  kv_dtype: Optional[str] = None, device: DeviceLike = None,
-                 par: Parallelism = NO_PARALLEL):
+                 par: Parallelism = NO_PARALLEL, fault_plan: Any = None):
         if kv_dtype not in (None, "int8"):
             raise ValueError(f"unsupported kv_dtype {kv_dtype!r} "
                              "(None or 'int8')")
         self.kv_dtype = kv_dtype
+        self.faults = fault_plan        # a ``faults.FaultPlan``, or None
         self.device = resolve_device(device)
         self.cfg = cfg
         self.max_slots = max_slots
@@ -236,6 +241,16 @@ class PagedKVCache:
                                   # copies of the table can be cached
 
     # -- block accounting ----------------------------------------------
+    def _maybe_inject_alloc(self) -> None:
+        """The fault hook at the top of every allocating op (``allocate``,
+        ``append``, ``fork``, ``ensure_writable``), before any accounting
+        changes, as in the reference: an injected failure leaves the
+        cache exactly as a real out-of-blocks MemoryError does."""
+        if self.faults is not None and self.faults.take_alloc():
+            raise MemoryError(
+                "paged KV cache: injected allocation failure "
+                f"(op {self.faults.alloc_calls - 1})")
+
     def blocks_for(self, n_tokens: int) -> int:
         return -(-n_tokens // self.block_size)
 
@@ -356,6 +371,7 @@ class PagedKVCache:
         Returns the number of prefix tokens served from the cache."""
         if self._blocks[slot]:
             raise ValueError(f"slot {slot} already allocated")
+        self._maybe_inject_alloc()
         matched, mblocks = (self.match_prefix(tokens)
                             if tokens is not None else (0, []))
         if tokens is not None and self.prefix_cache:
@@ -387,6 +403,8 @@ class PagedKVCache:
             raise ValueError(f"{n_tokens} tokens exceed capacity "
                              f"{self.max_seq_len}")
         need = self.blocks_for(n_tokens) - len(self._blocks[slot])
+        if need > 0:
+            self._maybe_inject_alloc()
         if need > self.free_blocks:
             raise MemoryError(
                 f"paged KV cache out of blocks: need {need}, "
@@ -410,6 +428,7 @@ class PagedKVCache:
             raise ValueError(f"fork target slot {dst} already allocated")
         if not self._blocks[src]:
             raise ValueError(f"fork source slot {src} has no allocation")
+        self._maybe_inject_alloc()
         n_share = min(self.blocks_for(self._committed[src]),
                       len(self._blocks[src]))
         n_fresh = len(self._blocks[src]) - n_share
@@ -450,6 +469,7 @@ class PagedKVCache:
                   if self._ref[self._blocks[slot][k]] > 1]
         if not shared:
             return pairs
+        self._maybe_inject_alloc()
         if len(shared) > self.free_blocks:
             raise MemoryError(
                 f"paged KV cache out of blocks for copy-on-write: need "

@@ -84,13 +84,34 @@ program (``ModelRunner.warm_prefill``), after every cold prefill of the
 round; finished chunks, prompts and streams are committed as they are
 written.  ``Engine.fork`` clones a decoding request n ways over the
 same blocks, and before every decode or speculative dispatch a slot's
-shared blocks in its write span are copied (``_cow``).  The engine has
-no transfer faults, watchdog, deadlines or preemption (ROADMAP queue 1,
-item 8b): where the reference would preempt (a copy-on-write short of
-blocks), the port raises ``NotImplementedError`` naming item 8.  Every
-feature of the reference engine this slice leaves out raises
-``NotImplementedError`` naming its ROADMAP item when asked for, never
-silently ignored.
+shared blocks in its write span are copied (``_cow``).
+
+The robustness layer is the reference's, decision for decision: under
+block exhaustion (a starved higher-priority admission, a fork or a
+copy-on-write short of blocks) the engine preempts the lowest-priority,
+newest decoding request: it commits the positions written, so that its
+blocks park in the prefix cache's LRU, and requeues it with prompt +
+output as its effective prompt; the resume prefills that sequence
+(mostly a prefix hit) at the request's own key counters and decodes on
+from position L + m.  Requests carry ``priority``, ``deadline_s`` and
+``on_event``, can be cancelled anywhere (``cancel``), and end in exactly
+one of DONE / REJECTED / CANCELLED / TIMED_OUT; invalid requests,
+unmeetable deadlines and overload past ``max_queue`` come back REJECTED
+through ``on_event``, never as an exception.  A stall watchdog breaks a
+run of ``watchdog_patience`` steps without progress (preempt, or shed
+the head with a diagnostic), and ``faults.FaultPlan`` injects
+allocation failures, transfer faults and slow steps at the reference's
+sites, in the reference's order, so that one seed gives the same
+schedule in both engines.  A transfer fault at a synchronous step drops
+the step (its stage freed, the lanes' host values authoritative again)
+and the next tick recomputes it from the same inputs, writing the same
+K/V bytes; in the pipelined engine the faulted step stays at the head
+of the queue and the retry re-reads its result, while back-pressure
+keeps any dispatch from reusing its staging slot.  Deadlines are
+refused on track ranks (a wall clock read on each rank could differ;
+ROADMAP item 7f).  Every feature of the reference engine this slice
+leaves out raises ``NotImplementedError`` naming its ROADMAP item when
+asked for, never silently ignored.
 """
 from __future__ import annotations
 
@@ -117,6 +138,7 @@ from repro_torch.models.decoder import _head
 from repro_torch.models.layers import check_supported
 from repro_torch.runtime.parallel import NO_PARALLEL, Parallelism
 from repro_torch.serving.cache import PagedKVCache, insert_rows
+from repro_torch.serving.faults import FaultPlan, TransferFault
 from repro_torch.serving.sampler import (SALT_DRAFT, SALT_SAMPLE,
                                          SampleParams, accept_step,
                                          advance_decode, advance_spec,
@@ -138,22 +160,19 @@ def _ranks_unpipelined(what: str) -> NotImplementedError:
                      "captured in a CUDA graph)", "7b")
 
 
-def _refuse(**knobs: Tuple[Any, Any, int]) -> None:
-    """knobs: name -> (value, off value, ROADMAP item)."""
-    for name, (value, off, item) in knobs.items():
-        if value != off:
-            raise _unported(f"{name}={value!r}", item)
-
-
 class RequestState(enum.Enum):
     QUEUED = "queued"
     PREFILL = "prefill"
     DECODE = "decode"
     DONE = "done"
-    REJECTED = "rejected"      # never ran: failed validation
+    REJECTED = "rejected"      # validation, overload shed, watchdog, or
+                               # preempted more than max_preemptions
+    CANCELLED = "cancelled"    # Engine.cancel
+    TIMED_OUT = "timed_out"    # deadline_s exceeded
 
 
-TERMINAL_STATES = (RequestState.DONE, RequestState.REJECTED)
+TERMINAL_STATES = (RequestState.DONE, RequestState.REJECTED,
+                   RequestState.CANCELLED, RequestState.TIMED_OUT)
 
 
 @dataclasses.dataclass
@@ -165,6 +184,9 @@ class Request:
     params: SampleParams = dataclasses.field(default_factory=SampleParams)
     on_token: Optional[Callable[["Request", int], None]] = None
     seed: int = 0                      # per-request PRNG seed (sampling)
+    priority: int = 0                  # higher evicts lower under pressure
+    deadline_s: Optional[float] = None  # submit-to-done budget (monotonic)
+    on_event: Optional[Callable[["Request", str], None]] = None
     # filled by the engine
     state: RequestState = RequestState.QUEUED
     output: List[int] = dataclasses.field(default_factory=list)
@@ -176,10 +198,12 @@ class Request:
     draft_filled: int = 0              # drafter cache tokens (chunked+spec)
     pending_first: Optional[int] = None  # first token parked until the
                                        # drafter catches up (chunked+spec)
+    preemptions: int = 0               # times evicted and requeued
     # monotonic (perf_counter) latency marks
     t_submit: float = 0.0
     t_first: float = 0.0
     t_done: float = 0.0
+    t_submit_wall: float = 0.0         # wall clock, for logs only
 
     @property
     def ttft(self) -> float:
@@ -192,6 +216,8 @@ class Request:
 
     @property
     def seq_tokens(self) -> List[int]:
+        """The prompt and every token emitted so far: the effective prompt
+        a preempted request re-enters the queue with."""
         return self.prompt + self.output
 
     @property
@@ -208,7 +234,6 @@ class EngineMetrics:
         self.prompt_tokens = 0
         self.output_tokens = 0
         self.max_active = 0
-        self.rejected = 0
         self.t_start: Optional[float] = None
         self.t_last: Optional[float] = None
         # speculative decoding
@@ -218,6 +243,16 @@ class EngineMetrics:
         self.acceptance_ema: Optional[float] = None
         self.spec_tokens = 0           # tokens the spec steps emitted
         self.spec_slot_steps = 0       # decoding slots summed over them
+        # robustness counters
+        self.preemptions = 0           # evict-and-requeue events
+        self.resumes = 0               # preempted requests re-admitted
+        self.rejected = 0              # REJECTED: validation, watchdog,
+                                       # preemption give-up
+        self.shed = 0                  # bounded-queue overload rejects
+        self.cancelled = 0
+        self.timed_out = 0
+        self.watchdog_fires = 0
+        self.transfer_faults = 0       # TransferFault steps retried
         # pipelined stepping
         self.dispatch_gaps: List[float] = []   # s between step dispatches
         self.steps_in_flight = 0       # peak dispatched-but-unfetched steps
@@ -268,7 +303,6 @@ class EngineMetrics:
                 "prompt_tokens": self.prompt_tokens,
                 "output_tokens": self.output_tokens,
                 "max_active": self.max_active,
-                "rejected": self.rejected,
                 "elapsed_s": elapsed,
                 "throughput_tok_s": (self.output_tokens / elapsed
                                      if elapsed > 0 else 0.0),
@@ -283,12 +317,26 @@ class EngineMetrics:
                 "tokens_per_slot_step": (self.spec_tokens
                                          / self.spec_slot_steps
                                          if self.spec_slot_steps else 0.0),
+                "preemptions": self.preemptions,
+                "resumes": self.resumes,
+                "rejected": self.rejected,
+                "shed": self.shed,
+                "cancelled": self.cancelled,
+                "timed_out": self.timed_out,
+                "watchdog_fires": self.watchdog_fires,
+                "transfer_faults": self.transfer_faults,
                 "dispatch_gap_ms": pct(self.dispatch_gaps),
                 "steps_in_flight": self.steps_in_flight}
 
 
 class EngineStallError(RuntimeError):
-    """``Engine.run`` exhausted its step budget with work still pending."""
+    """``Engine.run`` exhausted its step budget with work still pending
+    (or a pipeline drain its retries).  ``diagnostic`` is the queued /
+    active / pool snapshot at the stall (``Engine.stall_diagnostic``)."""
+
+    def __init__(self, message: str, diagnostic: Dict[str, Any]):
+        super().__init__(message)
+        self.diagnostic = diagnostic
 
 
 # ---------------------------------------------------------------------------
@@ -328,6 +376,14 @@ class Scheduler:
 
     def release(self, slot: int) -> None:
         self.slots[slot] = None
+
+    def remove(self, req: Request) -> bool:
+        """Drop a queued request (cancel, deadline, watchdog shed)."""
+        try:
+            self.queue.remove(req)
+            return True
+        except ValueError:
+            return False
 
     def has_work(self) -> bool:
         return bool(self.queue) or any(r is not None for r in self.slots)
@@ -479,7 +535,8 @@ class ModelRunner:
                  speculate_k: int = 0, draft_tracks: int = 0,
                  prefix_cache: bool = True,
                  pipeline_depth: int = 0, device: DeviceLike = None,
-                 par: Parallelism = NO_PARALLEL):
+                 par: Parallelism = NO_PARALLEL,
+                 fault_plan: Optional[FaultPlan] = None):
         self.device = resolve_device(device)
         check_supported(cfg)
         if par.sharded and pipeline_depth:
@@ -496,6 +553,7 @@ class ModelRunner:
                              f"the runner on {self.device}")
         self.cfg = cfg
         self.par = par
+        self.faults = fault_plan       # deterministic fault injection
         self.params = shard_tracks(params, cfg, par)
         self.fns = model_fns(cfg, par)
         self.capabilities = arch_capabilities(cfg)
@@ -579,7 +637,8 @@ class ModelRunner:
                                    num_blocks=num_blocks,
                                    prefix_cache=self.prefix_cache,
                                    kv_dtype=self.kv_dtype,
-                                   device=self.device, par=par)
+                                   device=self.device, par=par,
+                                   fault_plan=fault_plan)
             self.cache = self.kv.engine_cache()
         else:
             self.cache = self.fns["init_cache"](cfg, max_slots, max_seq_len,
@@ -661,6 +720,18 @@ class ModelRunner:
         return stats
 
     # -- device steps ---------------------------------------------------
+    def _maybe_inject_transfer(self, site: str) -> None:
+        """The fault hook at each device-to-host transfer, fired after the
+        step's device work was issued and before its result is read, at
+        the reference's five sites with its labels: ``prefill``,
+        ``chunk``, ``warm_prefill``, ``decode`` and ``draft_verify``.
+        The engine undoes no device work: the retry writes the same bytes
+        at the same positions."""
+        if self.faults is not None and self.faults.take_transfer(site):
+            raise TransferFault(
+                f"injected device-to-host transfer failure at {site} "
+                f"(op {self.faults.transfer_calls - 1})")
+
     def _to_dev(self, a, dtype: torch.dtype) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a)).to(self.device, dtype)
 
@@ -710,20 +781,21 @@ class ModelRunner:
             insert_rows(self.cache, cache, slots)
         self.prefill_shapes.add((n, bucket))
         self.prefill_calls += 1
+        self._maybe_inject_transfer("prefill")
         return toks.cpu().numpy()
 
     def _chunk(self, toks: np.ndarray, pos: np.ndarray,
                slots: Sequence[int], last_idx: np.ndarray,
                seeds: Sequence[int], counters: Sequence[int],
-               params_list: Sequence[SampleParams]) -> np.ndarray:
+               params_list: Sequence[SampleParams]) -> torch.Tensor:
         """The chunk program for n rows: toks [n, C] appended at
         pos[:, None] + arange(C) through the block-table rows of
         ``slots`` (the whole table row is gathered, as the reference's
         chunk call passes no ``kv_max_len``); state rows advance at
         ``slots`` by ``last_idx + 1`` valid tokens.  Returns the token
         sampled at each row's ``last_idx`` [n] (draw ``counters[i]`` of
-        the stream of ``seeds[i]``) -- meaningful only for a row's final
-        chunk.  The LM head runs on those n rows only (the
+        the stream of ``seeds[i]``), on the device -- meaningful only for a
+        row's final chunk.  The LM head runs on those n rows only (the
         reference takes them from the logits of all n * C rows; the head
         is row-wise)."""
         n = len(toks)
@@ -739,7 +811,7 @@ class ModelRunner:
                                   counters, params_list)
         self.chunk_shapes.add(tuple(np.shape(toks)))
         self.chunk_calls += 1
-        return cand.cpu().numpy()
+        return cand
 
     @torch.no_grad()
     def chunk(self, toks: np.ndarray, pos: np.ndarray, slots: Sequence[int],
@@ -747,8 +819,10 @@ class ModelRunner:
               counters: Sequence[int],
               params_list: Sequence[SampleParams]) -> np.ndarray:
         """One chunk step for the requests prefilling in ``slots``."""
-        return self._chunk(toks, pos, slots, last_idx, seeds, counters,
+        cand = self._chunk(toks, pos, slots, last_idx, seeds, counters,
                            params_list)
+        self._maybe_inject_transfer("chunk")
+        return cand.cpu().numpy()
 
     @torch.no_grad()
     def warm_prefill(self, prompts: Sequence[Sequence[int]],
@@ -771,8 +845,10 @@ class ModelRunner:
             toks[i, :len(p) - m] = p[m:]
             pos[i] = m
             last_idx[i] = len(p) - m - 1
-        return self._chunk(toks, pos, slots, last_idx, seeds, counters,
+        cand = self._chunk(toks, pos, slots, last_idx, seeds, counters,
                            params_list)
+        self._maybe_inject_transfer("warm_prefill")
+        return cand.cpu().numpy()
 
     @torch.no_grad()
     def copy_blocks(self, pairs: Sequence[Tuple[int, int]]) -> None:
@@ -1035,10 +1111,21 @@ class ModelRunner:
         return self._dispatch_step(key, toks, pos, active, eos, remaining,
                                    counts, carry, override, rows)
 
+    def drop(self, handle: Dict[str, Any]) -> None:
+        """Give up a dispatched step's result (a synchronous step whose
+        transfer faulted: the engine recomputes it): once its copies have
+        run, its staging slot is free again."""
+        st = handle["stage"]
+        if st.event is not None:
+            st.event.synchronize()
+        st.busy = False
+
     def wait_decode(self, handle: Dict[str, Any]
                     ) -> Tuple[np.ndarray, np.ndarray]:
         """The one host transfer of a dispatched decode step: the packed
-        (token, done) array."""
+        (token, done) array.  An injected TransferFault leaves the step's
+        stage busy with its result, for the engine to retry or drop."""
+        self._maybe_inject_transfer("decode")
         host = self._wait(handle)
         return host[0], host[1].astype(bool)
 
@@ -1063,6 +1150,7 @@ class ModelRunner:
         """The one host transfer of a dispatched speculative step: the
         packed [K+2, slots] result.  Returns (tokens [slots, K+1],
         emitted counts [slots])."""
+        self._maybe_inject_transfer("draft_verify")
         host = self._wait(handle)
         K = self.speculate_k
         return host[:K + 1].T, host[K + 1]
@@ -1185,13 +1273,19 @@ class Engine:
     step N's host transfer is waited on); ``preplan`` captures the step
     programs (``ModelRunner.plan_programs``) when the engine is built.
 
-    Runs on CUDA unless ``device='cpu'`` is given; the knobs of reference
-    features not ported yet must stay at their off values.  ``paged``
-    picks the paged cache (the default) or the contiguous one.  ``par``
-    serves a PT model on one track rank of a ``torch.distributed`` group
+    Runs on CUDA unless ``device='cpu'`` is given.  ``paged`` picks the
+    paged cache (the default) or the contiguous one.  ``par`` serves a
+    PT model on one track rank of a ``torch.distributed`` group
     (``runtime.parallel``): every rank runs this loop on the same
     requests, in the same order, and emits the same tokens; the
-    pipelined engine and planned programs are refused there."""
+    pipelined engine, planned programs and deadlines are refused there.
+
+    The robustness knobs are the reference's: ``max_queue`` bounds the
+    queue (a submission past it is shed, REJECTED), ``watchdog_patience``
+    is the number of steps in a row without progress after which the
+    stall watchdog fires, ``max_preemptions`` the evictions a request
+    survives before it is REJECTED, and ``fault_plan`` a
+    ``faults.FaultPlan`` of injected faults."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 4,
                  max_seq_len: int = 256,
@@ -1205,9 +1299,9 @@ class Engine:
                  weight_dtype: Optional[str] = None,
                  pipeline_depth: int = 0, preplan: bool = False,
                  seed: int = 0, max_queue: Optional[int] = None,
-                 fault_plan: Any = None, par: Parallelism = NO_PARALLEL):
-        _refuse(max_queue=(max_queue, None, 8),
-                fault_plan=(fault_plan, None, 8))
+                 watchdog_patience: int = 25, max_preemptions: int = 8,
+                 fault_plan: Optional[FaultPlan] = None,
+                 par: Parallelism = NO_PARALLEL):
         if par.sharded and preplan:
             raise _ranks_unpipelined("preplan=True")
         if pipeline_depth < 0:
@@ -1228,7 +1322,8 @@ class Engine:
                                   draft_tracks=draft_tracks,
                                   prefix_cache=prefix_cache,
                                   pipeline_depth=pipeline_depth,
-                                  device=device, par=par)
+                                  device=device, par=par,
+                                  fault_plan=fault_plan)
         if preplan:
             self.runner.plan_programs()
         self.scheduler = Scheduler(max_slots, self.runner.bucket_for,
@@ -1236,6 +1331,13 @@ class Engine:
                                    charge_fn=self.runner.admission_charge)
         self.metrics = EngineMetrics()
         self.seed = seed               # base for derived per-request seeds
+        self.max_queue = max_queue
+        self.watchdog_patience = watchdog_patience
+        self.max_preemptions = max_preemptions
+        self.faults = fault_plan
+        self._stalled_steps = 0        # consecutive steps without progress
+        self._step_ema: Optional[float] = None   # step time (s), for the
+                                                 # deadline estimate
         self._next_rid = 0
         self.steps_run = 0
         B = max_slots
@@ -1253,10 +1355,11 @@ class Engine:
         # pipelined stepping (pipeline_depth >= 1): dispatched steps whose
         # transfer has not been waited on yet, oldest first.
         # ``_host_fresh[slot]`` marks lanes whose host-side inputs are
-        # authoritative for the next dispatch (newly admitted); carried
-        # lanes advance on the device from the previous step's result.
-        # ``_slot_gen`` counts slot reassignments, so that an in-flight
-        # result for a previous tenant of the slot is discarded.
+        # authoritative for the next dispatch (newly admitted, resumed,
+        # forked); carried lanes advance on the device from the previous
+        # step's result.  ``_slot_gen`` counts slot reassignments, so that
+        # an in-flight result for a previous tenant of the slot (or for a
+        # tenant that was preempted, cancelled or timed out) is discarded.
         # ``_ahead[slot]`` counts the tenant's steps in flight: the
         # positions (a plain step's exactly, a speculative step's at
         # least) that the device is ahead of the host mirror.
@@ -1267,6 +1370,31 @@ class Engine:
         self._ahead = np.zeros((B,), np.int32)
         self._last_dispatch_t: Optional[float] = None
 
+    def capabilities(self) -> Dict[str, Dict[str, Any]]:
+        """Per feature, whether the architecture supports it (with the
+        reason when not) and whether this engine has it on; the int8
+        fallbacks fold in, as in the reference."""
+        r = self.runner
+        live = {"paged": r.paged,
+                "chunked_prefill": r.prefill_chunk > 0,
+                "speculative": r.speculate_k > 0,
+                "prefix_cache": r.prefix_cache,
+                "int8_kv": r.kv_dtype == "int8",
+                "fork": r.paged}
+        out = {name: {"supported": cap.supported, "reason": cap.reason,
+                      "active": live[name]}
+               for name, cap in r.capabilities.items()}
+        wfall = next((f for f in r.quant_fallbacks
+                      if f.startswith("weight_dtype")), None)
+        kfall = next((f for f in r.quant_fallbacks
+                      if f.startswith("kv_dtype")), None)
+        out["int8_weights"] = {"supported": wfall is None, "reason": wfall,
+                               "active": r.weight_dtype == "int8"}
+        if kfall is not None and out["int8_kv"]["reason"] is None:
+            # requested but gated off (the engine is not paged)
+            out["int8_kv"]["reason"] = kfall
+        return out
+
     # ------------------------------------------------------------------
     def _reserve_tokens(self, req: Request) -> int:
         """Cache positions a request occupies over its lifetime: prompt
@@ -1274,6 +1402,25 @@ class Engine:
         L = len(req.prompt)
         cap = self.max_seq_len - L + 1
         return L + min(req.max_new_tokens, cap) - 1
+
+    def _estimate_completion_s(self, req: Request) -> float:
+        """An optimistic submit-to-done estimate at the current load, from
+        the step-time EMA (``_finish_step``): the request's own prefill
+        and decode steps, times the full queue waves ahead of it.  A lower
+        bound on purpose: only a deadline unmeetable even under ideal
+        scheduling is rejected.  0.0 before any step has run."""
+        if self._step_ema is None:
+            return 0.0
+        L = len(req.prompt)
+        C = self.runner.prefill_chunk
+        prefill_steps = -(-L // C) if C else 1
+        cap = self.max_seq_len - L + 1
+        decode_steps = min(req.max_new_tokens, cap)
+        if self.runner.speculate_k:
+            decode_steps = -(-decode_steps // (self.runner.speculate_k + 1))
+        own = (prefill_steps + decode_steps) * self._step_ema
+        waves = len(self.scheduler.queue) // self.max_slots
+        return own * (1 + waves)
 
     def submit(self, prompt: List[int], max_new_tokens: int = 32,
                eos_id: Optional[int] = None,
@@ -1287,42 +1434,214 @@ class Engine:
         default); ``seed`` keys its sampling stream, so that with the same
         seed it draws the same tokens whatever shares its batch (default:
         ``(engine seed * 1_000_003 + request id) & 0x7FFFFFFF``, as in the
-        reference).  Invalid requests (empty or overlong prompt,
-        non-positive token budget, on the paged cache a reservation
-        larger than the whole block pool) come back REJECTED with
-        ``finish_reason`` set."""
-        _refuse(priority=(priority, 0, 8), deadline_s=(deadline_s, None, 8),
-                on_event=(on_event, None, 8))
+        reference).  ``priority`` orders eviction under memory pressure
+        (a higher-priority admission may preempt strictly lower-priority
+        decoders); ``deadline_s`` bounds submit-to-done time (past it the
+        request is TIMED_OUT); ``on_event`` hears every terminal
+        transition and every preemption.
+
+        Invalid requests (empty or overlong prompt, non-positive token
+        budget, on the paged cache a reservation larger than the whole
+        block pool), a deadline the step-time EMA says cannot be met
+        (``finish_reason`` starting ``unmeetable_deadline``) and overload
+        (``max_queue`` requests waiting) come back REJECTED with
+        ``finish_reason`` set, through ``on_event``, never as an
+        exception.  On track ranks ``deadline_s`` raises (item 7f)."""
+        if deadline_s is not None and self.runner.par.sharded:
+            raise _unported("deadline_s on track ranks (each rank would "
+                            "read its own clock: one expiry decided on one "
+                            "rank alone would stall the others' "
+                            "collectives)", "7f")
         if seed is None:
             seed = (self.seed * 1_000_003 + self._next_rid) & 0x7FFFFFFF
         req = Request(self._next_rid, list(prompt), max_new_tokens, eos_id,
-                      params, on_token, seed=seed)
-        req.t_submit = time.perf_counter()
+                      params, on_token, seed=seed, priority=priority,
+                      deadline_s=deadline_s, on_event=on_event)
+        req.t_submit = time.perf_counter()     # monotonic: latency math
+        req.t_submit_wall = time.time()        # wall clock: logs only
         self._next_rid += 1
-        kv = self.runner.kv
-        reason = None
         if not req.prompt:
-            reason = "empty prompt"
-        elif max_new_tokens <= 0:
-            reason = f"max_new_tokens must be positive, got {max_new_tokens}"
-        elif len(req.prompt) > self.max_seq_len:
-            reason = (f"prompt length {len(req.prompt)} exceeds engine "
-                      f"capacity {self.max_seq_len}")
-        elif kv is not None and \
+            return self._reject(req, "empty prompt")
+        if max_new_tokens <= 0:
+            return self._reject(req, "max_new_tokens must be positive, "
+                                     f"got {max_new_tokens}")
+        if len(req.prompt) > self.max_seq_len:
+            return self._reject(req, f"prompt length {len(req.prompt)} "
+                                     "exceeds engine capacity "
+                                     f"{self.max_seq_len}")
+        kv = self.runner.kv
+        if kv is not None and \
                 kv.blocks_for(self._reserve_tokens(req)) > kv.num_blocks - 1:
-            reason = (f"request needs "
-                      f"{kv.blocks_for(self._reserve_tokens(req))} KV blocks "
-                      f"but the pool holds {kv.num_blocks - 1}")
-        if reason is not None:
-            req.state = RequestState.REJECTED
-            req.finish_reason = reason
-            req.t_done = time.perf_counter()
-            self.metrics.rejected += 1
-            return req
+            return self._reject(
+                req,
+                f"request needs {kv.blocks_for(self._reserve_tokens(req))} "
+                f"KV blocks but the pool holds {kv.num_blocks - 1}")
+        if deadline_s is not None:
+            est = self._estimate_completion_s(req)
+            if est > deadline_s:
+                return self._reject(
+                    req, "unmeetable_deadline: needs "
+                         f"~{est:.3f}s at current load, "
+                         f"budget {deadline_s:.3f}s")
+        if self.max_queue is not None \
+                and len(self.scheduler.queue) >= self.max_queue:
+            self.metrics.shed += 1
+            return self._reject(req, f"queue full ({self.max_queue} "
+                                     "waiting): overload shed",
+                                count=False)
         self.metrics.start()
         self.scheduler.submit(req)
         return req
 
+    # -- terminal transitions ------------------------------------------
+    def _event(self, req: Request) -> None:
+        if req.on_event is not None:
+            req.on_event(req, req.finish_reason or req.state.value)
+
+    def _reject(self, req: Request, reason: str, *,
+                count: bool = True) -> Request:
+        req.state = RequestState.REJECTED
+        req.finish_reason = reason
+        req.t_done = time.perf_counter()
+        if count:
+            self.metrics.rejected += 1
+        self._event(req)
+        return req
+
+    def _slot_of(self, req: Request) -> Optional[int]:
+        for s, r in self.scheduler.active_slots():
+            if r is req:
+                return s
+        return None
+
+    def _evict_slot(self, slot: int, req: Request) -> None:
+        """Reclaim the slot of a request that leaves mid-flight (preempted,
+        cancelled, timed out): every position written is committed, so
+        that its blocks park in the LRU for its own resume (or an equal
+        prompt) to match, then its references drop.  Steps still in
+        flight for it are discarded when they land (``_slot_gen``); their
+        K/V writes land at or past the host position, never in a block
+        the commit registered, and before any later tenant's writes on
+        the same stream."""
+        self._active[slot] = False
+        if self.runner.paged:
+            kv = self.runner.kv
+            if req.state is RequestState.DECODE:
+                # [0, pos) is written: the prompt and every emitted token
+                # but the last (a chunked prefill committed its chunks)
+                kv.commit_tokens(slot, req.seq_tokens[:-1])
+            kv.free_slot(slot)
+        self._slot_gen[slot] += 1
+        self._ahead[slot] = 0
+        self.scheduler.release(slot)
+
+    def cancel(self, req: Request,
+               reason: str = "cancelled by caller") -> bool:
+        """End a request wherever it is: drop it from the queue, or free
+        its slot and blocks mid-prefill or mid-decode.  Safe from a
+        streaming callback: the step skips slots whose request is gone,
+        and a result in flight for it is discarded.  False when the
+        request had already ended."""
+        if req.finished:
+            return False
+        if req.state is RequestState.QUEUED:
+            self.scheduler.remove(req)
+        else:
+            slot = self._slot_of(req)
+            if slot is not None:
+                self._evict_slot(slot, req)
+        req.state = RequestState.CANCELLED
+        req.finish_reason = reason
+        req.t_done = time.perf_counter()
+        self.metrics.cancelled += 1
+        self._event(req)
+        return True
+
+    def _time_out(self, req: Request) -> None:
+        if req.state is RequestState.QUEUED:
+            self.scheduler.remove(req)
+        else:
+            slot = self._slot_of(req)
+            if slot is not None:
+                self._evict_slot(slot, req)
+        req.state = RequestState.TIMED_OUT
+        req.finish_reason = f"deadline {req.deadline_s:.3f}s exceeded"
+        req.t_done = time.perf_counter()
+        self.metrics.timed_out += 1
+        self._event(req)
+
+    def _expire_deadlines(self) -> None:
+        now = time.perf_counter()
+        late = [r for r in self.scheduler.queue
+                if r.deadline_s is not None
+                and now - r.t_submit > r.deadline_s]
+        late += [r for _, r in self.scheduler.active_slots()
+                 if r.deadline_s is not None
+                 and now - r.t_submit > r.deadline_s]
+        for req in late:
+            self._time_out(req)
+
+    # -- preemption -----------------------------------------------------
+    def _pick_victim(self, max_priority: int, exclude: Sequence[int] = ()
+                     ) -> Optional[Tuple[int, Request]]:
+        """The lowest-priority, most recently submitted decoding slot of
+        priority at most ``max_priority`` (the newest, cheapest request
+        loses first, so preemption cannot ping-pong)."""
+        cands = [(s, r) for s, r in self.scheduler.active_slots()
+                 if r.state is RequestState.DECODE and s not in exclude
+                 and r.priority <= max_priority]
+        if not cands:
+            return None
+        return min(cands, key=lambda sr: (sr[1].priority, -sr[1].t_submit))
+
+    def _preempt(self, slot: int, req: Request, why: str) -> None:
+        """Evict a decoding request and requeue it at the back of the
+        line; its resume prefills prompt + output (mostly a prefix hit)
+        at its own key counters.  A request evicted more than
+        ``max_preemptions`` times is REJECTED instead, so that the engine
+        terminates."""
+        self._evict_slot(slot, req)
+        if req.preemptions >= self.max_preemptions:
+            req.state = RequestState.REJECTED
+            req.finish_reason = (f"gave up after {req.preemptions} "
+                                 f"preemptions under memory pressure "
+                                 f"({why})")
+            req.t_done = time.perf_counter()
+            self.metrics.rejected += 1
+            self._event(req)
+            return
+        req.preemptions += 1
+        req.state = RequestState.QUEUED
+        req.prefilled = 0
+        req.cached_prefix = 0
+        req.draft_filled = 0
+        req.pending_first = None
+        self.scheduler.queue.append(req)
+        self.metrics.preemptions += 1
+        if req.on_event is not None:
+            req.on_event(req, f"preempted ({why})")
+
+    def _preempt_for_admission(self) -> None:
+        """The head of the queue waits for a slot or for blocks: evict
+        strictly lower-priority decoders until it fits.  Equal priority
+        never preempts (FCFS among peers)."""
+        if not self.scheduler.queue:
+            return
+        head = self.scheduler.queue[0]
+        for _ in range(self.max_slots + 1):
+            blocked_slot = not self.scheduler.free_slots()
+            blocked_blocks = (not blocked_slot and self.runner.paged
+                              and not self._make_can_fit()(head))
+            if not (blocked_slot or blocked_blocks):
+                return
+            victim = self._pick_victim(head.priority - 1)
+            if victim is None:
+                return
+            self._preempt(victim[0], victim[1],
+                          "admission of higher-priority request "
+                          f"{head.rid}")
+
+    # ------------------------------------------------------------------
     def fork(self, parent: Request, n: int, *,
              seeds: Optional[Sequence[int]] = None,
              params: Optional[SampleParams] = None,
@@ -1336,12 +1655,14 @@ class Engine:
         parent's); a shared block is copied at its first divergent write.
         The steps in flight are applied first, so that a pipelined
         engine forks from the host state a synchronous one would have.
+        Short of blocks, the fork preempts strictly lower-priority
+        decoders first, as the reference does.
 
         Raises ValueError on the contiguous cache, when the parent is
         not decoding or fewer than ``n`` slots are free, and MemoryError
-        when the pool cannot hold the children's uncommitted tails (the
-        reference would preempt a lower-priority request first; every
-        request of the port has priority 0, so there is none)."""
+        when the pool cannot hold the children's uncommitted tails with
+        no one left to evict (or an allocation fault hits mid-fork: the
+        children made so far are cancelled first)."""
         if not self.runner.paged:
             raise ValueError("fork requires the paged KV cache")
         self._drain_inflight()
@@ -1358,16 +1679,27 @@ class Engine:
         # block that holds the decode positions written since the last
         # full block, instead of taking fresh (unwritten) blocks there
         kv.commit_tokens(pslot, parent.prompt + parent.output[:-1])
-        if n * kv.fork_cost(pslot) > kv.free_blocks:
-            raise MemoryError(f"fork needs {n * kv.fork_cost(pslot)} "
-                              f"blocks, free {kv.free_blocks}")
+        while n * kv.fork_cost(pslot) > kv.free_blocks:
+            victim = self._pick_victim(parent.priority - 1,
+                                       exclude=(pslot,))
+            if victim is None:
+                raise MemoryError(f"fork needs {n * kv.fork_cost(pslot)} "
+                                  f"blocks, free {kv.free_blocks}")
+            self._preempt(victim[0], victim[1],
+                          f"fork of request {parent.rid}")
         child_seeds = (list(seeds) if seeds is not None
                        else fork_seeds(parent.seed, n))
         if len(child_seeds) != n:
             raise ValueError(f"fork needs {n} seeds, got {len(child_seeds)}")
         children: List[Request] = []
         for i, slot in enumerate(free[:n]):
-            kv.fork(pslot, slot)
+            try:
+                kv.fork(pslot, slot)
+            except MemoryError:
+                for c in children:
+                    self.cancel(c, "fork aborted: allocation failure "
+                                   "mid-fork")
+                raise
             child = Request(self._next_rid, list(parent.prompt),
                             parent.max_new_tokens, parent.eos_id,
                             params if params is not None else parent.params,
@@ -1379,6 +1711,7 @@ class Engine:
             child.cached_prefix = kv.committed(slot)
             child.truncated = parent.truncated
             child.t_submit = child.t_first = time.perf_counter()
+            child.t_submit_wall = time.time()
             self.scheduler.slots[slot] = child
             for lane in (self._tok, self._pos, self._active, self._eos,
                          self._remaining, self._counts):
@@ -1400,9 +1733,6 @@ class Engine:
                                       len(self.scheduler.active_slots()))
         return children
 
-    def cancel(self, *args, **kwargs):
-        raise _unported("Engine.cancel", 8)
-
     # ------------------------------------------------------------------
     def _emit(self, req: Request, tok: int) -> None:
         req.output.append(tok)
@@ -1423,6 +1753,7 @@ class Engine:
         self._slot_gen[slot] += 1      # in-flight results: discard
         self.scheduler.release(slot)
         self.metrics.observe(req)
+        self._event(req)
 
     def _make_can_fit(self) -> Optional[Callable[[Request], bool]]:
         """Block-availability gate for one admission round; accumulates
@@ -1449,66 +1780,116 @@ class Engine:
         return can_fit
 
     def _start_decode(self, slot: int, req: Request, tok: int) -> None:
-        """The prefill sampled the request's first token: move it into
-        the decode batch (or finish it when that was its last).  When
-        speculating, the caller fills the drafter's cache: batched at
-        admission (``_fill_drafter``) or chunk by chunk."""
-        req.t_first = time.perf_counter()
+        """A (re)prefill sampled the request's next token: move it into
+        the decode batch (or finish it when that was its last).  A
+        request resumed with m tokens already emitted decodes on from
+        position L + m at key counter m + 1.  When speculating, the
+        caller fills the drafter's cache: batched at admission
+        (``_fill_drafter``) or chunk by chunk."""
+        if req.t_first == 0.0:
+            req.t_first = time.perf_counter()
         req.state = RequestState.DECODE
-        L = len(req.prompt)
+        L, m = len(req.prompt), len(req.output)
         cap = self.max_seq_len - L + 1
         req.truncated = req.max_new_tokens > cap
         self._tok[slot] = tok
-        self._pos[slot] = L
+        self._pos[slot] = L + m
         self._active[slot] = True
-        self._remaining[slot] = min(req.max_new_tokens, cap) - 1
-        self._counts[slot] = 1
+        self._remaining[slot] = min(req.max_new_tokens, cap) - 1 - m
+        self._counts[slot] = m + 1
         self._host_fresh[slot] = True  # host lanes authoritative again
         self._ahead[slot] = 0
         self._emit(req, int(tok))
+        if self.scheduler.slots[slot] is not req:
+            return                     # its callback cancelled it
         if (self._remaining[slot] <= 0
                 or (req.eos_id is not None and tok == req.eos_id)):
             self._finish(slot, req)
 
     def _fill_drafter(self, rows: Sequence[Tuple[int, Request]],
-                      bucket: int) -> None:
+                      bucket: Optional[int] = None) -> None:
         """When speculating, one batched narrow forward fills the
-        drafter's cache for every admitted row still decoding."""
-        started = [(s, r) for s, r in rows if r.state is RequestState.DECODE]
-        if self.runner.speculate_k and started:
-            self.runner.draft_prefill([r.prompt for _, r in started], bucket,
-                                      [s for s, _ in started])
+        drafter's cache of every admitted row still decoding with its
+        written positions, ``seq_tokens[:-1]`` (the prompt when fresh,
+        prompt + output but the last token on a resume), right-padded
+        to ``bucket`` (default: the bucket of the longest)."""
+        started = [(s, r) for s, r in rows if r.state is RequestState.DECODE
+                   and self.scheduler.slots[s] is r]
+        if not (self.runner.speculate_k and started):
+            return
+        seqs = [r.seq_tokens[:-1] for _, r in started]
+        self.runner.draft_prefill(
+            seqs, bucket or self.runner.bucket_for(max(map(len, seqs))),
+            [s for s, _ in started])
+
+    def _unadmit(self, rows: List[Tuple[int, Request]]) -> None:
+        """Roll an admission back (an allocation fault mid-round, or a
+        transfer fault on the prefill that would have sampled the first
+        tokens): the blocks freed (nothing was committed, so no later
+        match sees half-written bytes) and the requests requeued at the
+        front, in request order, keeping their FCFS turn."""
+        for slot, req in rows:
+            if self.runner.paged:
+                self.runner.kv.free_slot(slot)
+            self._active[slot] = False
+            self._slot_gen[slot] += 1
+            self._ahead[slot] = 0
+            self.scheduler.release(slot)
+            req.state = RequestState.QUEUED
+            req.cached_prefix = 0
+            req.prefilled = 0
+            req.draft_filled = 0
+            req.pending_first = None
+        self.scheduler.queue.extendleft(
+            [r for _, r in sorted(rows, key=lambda sr: sr[1].rid,
+                                  reverse=True)])
 
     def _admit(self) -> int:
-        """Admit queued requests into free slots and prefill them: each
-        shares the longest cached prefix of its prompt; per bucket one
+        """Admit queued requests into free slots (after preempting for a
+        starved higher-priority head) and prefill them: each shares the
+        longest cached prefix of its ``seq_tokens``; per bucket one
         batched call for the cold prompts, then one chunk-program call
         for every warm tail of the round (int8 KV: every prompt, from
         position 0 when cold); with chunked prefill the chunks run in
         ``_prefill_chunks``, from the end of the cached prefix.  Each
-        call's blocks are committed once it is issued.  Returns the
-        number admitted."""
+        call's blocks are committed once it is issued.  An allocation
+        fault un-admits that request, a transfer fault the call's rows.
+        Returns the number that made prefill progress (for the
+        watchdog)."""
+        self._preempt_for_admission()
         chunked = self.runner.prefill_chunk > 0
         kv = self.runner.kv
         warm_rows: List[Tuple[int, Request]] = []
         admitted = 0
         for bucket, group in self.scheduler.plan_admission(
                 self._make_can_fit()):
+            if self.runner.paged:
+                # a block is matchable once committed, after the call that
+                # writes it was issued: a match within this round hits
+                # blocks whose writes are already in the stream
+                kept, bounced = [], []
+                for slot, req in group:
+                    try:
+                        req.cached_prefix = kv.allocate(
+                            slot, self._reserve_tokens(req),
+                            tokens=req.seq_tokens)
+                        kept.append((slot, req))
+                    except MemoryError:
+                        bounced.append((slot, req))
+                if bounced:
+                    self._unadmit(bounced)
+                group = kept
+            admitted += len(group)
             for slot, req in group:
-                if self.runner.paged:
-                    # a block is matchable once committed, after the call
-                    # that writes it was issued: a match within this round
-                    # hits blocks whose writes are already in the stream
-                    req.cached_prefix = kv.allocate(
-                        slot, self._reserve_tokens(req),
-                        tokens=req.seq_tokens)
+                if req.output:
+                    self.metrics.resumes += 1
                 self._temps[slot] = req.params.temperature
                 self._topks[slot] = req.params.top_k
                 self._topps[slot] = req.params.top_p
                 self._seeds[slot] = req.seed & 0xFFFFFFFF
                 self._eos[slot] = -1 if req.eos_id is None else req.eos_id
+                self._counts[slot] = len(req.output)   # the resume counter
                 req.prefilled = 0
-            admitted += len(group)
             if chunked:
                 # chunks run in _prefill_chunks, the target's from the end
                 # of the cached prefix, the drafter's (no prefix cache)
@@ -1517,6 +1898,7 @@ class Engine:
                 for _, req in group:
                     req.prefilled = req.cached_prefix
                     req.draft_filled = 0
+                    req.pending_first = None
                 kv.reset_slots([s for s, _ in group])
                 continue
             if self.runner.kv_dtype == "int8":
@@ -1531,41 +1913,55 @@ class Engine:
                 continue
             slots = [s for s, _ in cold]
             reqs = [r for _, r in cold]
-            toks = self.runner.prefill([r.seq_tokens for r in reqs], bucket,
-                                       slots, [r.seed for r in reqs],
-                                       [len(r.output) for r in reqs],
-                                       [r.params for r in reqs])
-            for slot, req, tok in zip(slots, reqs, toks):
-                if self.runner.paged:
+            try:
+                toks = self.runner.prefill(
+                    [r.seq_tokens for r in reqs], bucket, slots,
+                    [r.seed for r in reqs], [len(r.output) for r in reqs],
+                    [r.params for r in reqs])
+            except TransferFault:
+                self.metrics.transfer_faults += 1
+                self._unadmit(cold)
+                admitted -= len(cold)
+                continue
+            if self.runner.paged:
+                for slot, req in cold:
                     kv.commit_tokens(slot, req.seq_tokens)
+            for slot, req, tok in zip(slots, reqs, toks):
                 req.prefilled = len(req.seq_tokens)
                 self._start_decode(slot, req, int(tok))
             self._fill_drafter(cold, bucket)
         if warm_rows:
             # after every cold prefill of the round: one call for all
-            toks = self.runner.warm_prefill(
-                [r.seq_tokens for _, r in warm_rows],
-                [r.cached_prefix for _, r in warm_rows],
-                [s for s, _ in warm_rows], [r.seed for _, r in warm_rows],
-                [len(r.output) for _, r in warm_rows],
-                [r.params for _, r in warm_rows])
-            for (slot, req), tok in zip(warm_rows, toks):
+            try:
+                toks = self.runner.warm_prefill(
+                    [r.seq_tokens for _, r in warm_rows],
+                    [r.cached_prefix for _, r in warm_rows],
+                    [s for s, _ in warm_rows],
+                    [r.seed for _, r in warm_rows],
+                    [len(r.output) for _, r in warm_rows],
+                    [r.params for _, r in warm_rows])
+            except TransferFault:
+                self.metrics.transfer_faults += 1
+                self._unadmit(warm_rows)
+                return admitted - len(warm_rows)
+            for slot, req in warm_rows:
                 kv.commit_tokens(slot, req.seq_tokens)
+            for (slot, req), tok in zip(warm_rows, toks):
                 req.prefilled = len(req.seq_tokens)
                 self._start_decode(slot, req, int(tok))
-            # the drafter has no prefix cache: it takes whole prompts
-            self._fill_drafter(warm_rows, self.runner.bucket_for(
-                max(len(r.prompt) for _, r in warm_rows)))
+            # the drafter has no prefix cache: it takes whole sequences
+            self._fill_drafter(warm_rows)
         return admitted
 
     def _prefill_chunks(self) -> int:
         """Advance every prefilling request by one chunk (one batched
-        call), starting the decode of rows whose prompt is now fully in
-        the cache.  When speculating, the drafter's cache fills chunk by
-        chunk in step (its own batched call): a row whose target prompt
-        is in first parks its token in ``pending_first``, and joins the
-        decode batch only when both cursors have caught up.  Returns rows
-        advanced."""
+        call) over its ``seq_tokens``, starting the decode of rows now
+        fully in the cache.  When speculating, the drafter's cache fills
+        chunk by chunk in step (its own batched call): a row whose target
+        sequence is in first parks its token in ``pending_first``, and
+        joins the decode batch only when both cursors have caught up.
+        Returns rows advanced (0 on a transfer fault: nothing on the host
+        moves, and the retry writes the same chunk bytes)."""
         C = self.runner.prefill_chunk
         spec = self.runner.speculate_k > 0
         rows = [(s, r) for s, r in self.scheduler.active_slots()
@@ -1582,11 +1978,17 @@ class Engine:
                 toks[i, :len(chunk)] = chunk
                 pos[i] = req.prefilled
                 last_idx[i] = min(C - 1, len(seq) - 1 - req.prefilled)
-            cand = self.runner.chunk(toks, pos, [s for s, _ in tgt],
-                                     last_idx, [r.seed for _, r in tgt],
-                                     [len(r.output) for _, r in tgt],
-                                     [r.params for _, r in tgt])
+            try:
+                cand = self.runner.chunk(toks, pos, [s for s, _ in tgt],
+                                         last_idx, [r.seed for _, r in tgt],
+                                         [len(r.output) for _, r in tgt],
+                                         [r.params for _, r in tgt])
+            except TransferFault:
+                self.metrics.transfer_faults += 1
+                return 0
             for i, (slot, req) in enumerate(tgt):
+                if self.scheduler.slots[slot] is not req:
+                    continue           # cancelled by an earlier callback
                 seq = req.seq_tokens
                 req.prefilled = min(req.prefilled + C, len(seq))
                 # the chunk's writes are in the stream: its full blocks
@@ -1613,7 +2015,9 @@ class Engine:
                 req.draft_filled = min(req.draft_filled + C,
                                        len(req.seq_tokens))
         for slot, req in rows:
-            if (req.pending_first is not None
+            if (self.scheduler.slots[slot] is req
+                    and req.pending_first is not None
+                    and req.prefilled >= len(req.seq_tokens)
                     and req.draft_filled >= len(req.seq_tokens)):
                 tok, req.pending_first = req.pending_first, None
                 self._start_decode(slot, req, tok)
@@ -1627,25 +2031,36 @@ class Engine:
         mirror, times the steps in flight plus this one: a dispatched
         step must find every position it may write already in a block of
         its own.  A lane that finished in a step still in flight runs
-        idle (zeroed table row) and needs none.  The reference preempts
-        a request when a copy finds no free block; the port has no
-        preemption yet: the pairs taken so far are copied, so that the
-        cache stays whole, and NotImplementedError is raised
-        (``ensure_writable`` left the failing slot untouched)."""
+        idle (zeroed table row) and needs none.  Short of blocks, the
+        writer preempts an equal- or lower-priority decoder and retries;
+        with no one to evict it preempts itself, as in the reference
+        (``ensure_writable`` is all or nothing).  The pairs of a writer
+        preempted later in the pass are dropped before the copy: its new
+        blocks went back to the pool."""
         kv = self.runner.kv
         span = (self.runner.speculate_k + 1) * (len(self._inflight) + 1)
-        pairs: List[Tuple[int, int]] = []
+        taken: List[Tuple[int, Request, List[Tuple[int, int]]]] = []
         for slot, req in active:
-            if self._remaining[slot] <= self._ahead[slot]:
+            if self.scheduler.slots[slot] is not req \
+                    or self._remaining[slot] <= self._ahead[slot]:
                 continue
             lo = int(self._pos[slot])
-            try:
-                pairs += kv.ensure_writable(slot, lo, lo + span)
-            except MemoryError as e:
-                self.runner.copy_blocks(pairs)
-                raise _unported(f"preemption under copy-on-write ({e})",
-                                8) from e
-        self.runner.copy_blocks(pairs)
+            while True:
+                try:
+                    taken.append((slot, req,
+                                  kv.ensure_writable(slot, lo, lo + span)))
+                    break
+                except MemoryError as e:
+                    victim = self._pick_victim(req.priority,
+                                               exclude=(slot,))
+                    if victim is None:
+                        self._preempt(slot, req, f"copy-on-write: {e}")
+                        break
+                    self._preempt(victim[0], victim[1],
+                                  f"copy-on-write by request {req.rid}")
+        self.runner.copy_blocks([p for slot, req, ps in taken
+                                 if self.scheduler.slots[slot] is req
+                                 for p in ps])
 
     # -- applying step results -----------------------------------------
     #
@@ -1653,7 +2068,7 @@ class Engine:
     # to host state, shared by the synchronous and the pipelined loop.
     # ``rows`` is the (slot, request, slot generation) snapshot taken at
     # dispatch: a row whose slot was released since (its request
-    # finished, in an earlier step's result) is discarded.
+    # finished, was preempted, cancelled or timed out) is discarded.
 
     def _snap_rows(self, active: List[Tuple[int, Request]]
                    ) -> List[Tuple[int, Request, int]]:
@@ -1676,23 +2091,25 @@ class Engine:
                 continue
             tok = int(toks[slot])
             self._emit(req, tok)
+            n += 1
+            if self.scheduler.slots[slot] is not req:
+                continue               # its callback cancelled it
             self._tok[slot] = tok
             self._pos[slot] += 1
             self._counts[slot] += 1
             self._remaining[slot] -= 1
             if done[slot]:
                 self._finish(slot, req)
-            n += 1
         return n
 
     def _apply_spec(self, rows: List[Tuple[int, Request, int]], toks_mat,
                     counts) -> int:
         """Emit each slot's 1..K+1 tokens of a speculative step, stopping
-        at EOS or at the slot's remaining budget, as plain decode would.
-        Acceptance charges only the proposals a slot could use: the
-        budget caps the window up front, and an EOS stop drops the
-        proposals after it, so an early finish does not drag the rate
-        below its true value."""
+        at EOS, at the slot's remaining budget, or where a callback
+        cancelled the request, as plain decode would.  Acceptance charges
+        only the proposals a slot could use: the budget caps the window
+        up front, and an EOS stop drops the proposals after it, so an
+        early finish does not drag the rate below its true value."""
         acc = prop = out = n = 0
         K = self.runner.speculate_k
         for slot, req, gen in rows:
@@ -1705,11 +2122,13 @@ class Engine:
             for j in range(m):
                 tok = int(toks_mat[slot, j])
                 self._emit(req, tok)
+                emitted += 1
+                if self.scheduler.slots[slot] is not req:
+                    break
                 self._tok[slot] = tok
                 self._pos[slot] += 1
                 self._counts[slot] += 1
                 self._remaining[slot] -= 1
-                emitted += 1
                 eos_stop = req.eos_id is not None and tok == req.eos_id
                 if self._remaining[slot] <= 0 or eos_stop:
                     self._finish(slot, req)
@@ -1724,21 +2143,27 @@ class Engine:
 
     # -- stepping: dispatch, then wait ----------------------------------
 
-    def _dispatch(self, active: List[Tuple[int, Request]]) -> bool:
+    def _dispatch(self, active: List[Tuple[int, Request]]) -> None:
         """Dispatch the next decode / speculative step, no host transfer.
         With a step in flight, this one's inputs are composed on the
         device from that step's still-unfetched result (``carry``); lanes
-        the host rewrote since (fresh admissions) or that were idle in
-        the carried step take the host values (``override``).  A lane
-        whose budget runs out in a step in flight has finished there: it
-        runs idle, as the sync engine would run it, so that the sweep
-        bound is the sync engine's (a plain step advances each lane by
-        exactly one).  Returns False when no lane is left to run."""
+        the host rewrote since (fresh admissions, resumes) or that were
+        idle in the carried step take the host values (``override``).  A
+        lane whose budget runs out in a step in flight has finished
+        there: it runs idle, as the sync engine would run it, so that the
+        sweep bound is the sync engine's (a plain step advances each lane
+        by exactly one).  When every lane has, the reference still
+        dispatches a step: the port runs no device work for it, but
+        queues a step with no rows and no handle in its place, so that
+        the engine's ticks and the sequence of fault sites stay the
+        reference's."""
         r = self.runner
         K = r.speculate_k
         lanes = self._active & (self._remaining > self._ahead)
         if not lanes.any():
-            return False
+            self._inflight.append({"handle": None, "rows": [],
+                                   "spec": bool(K)})
+            return
         carry = self._inflight[-1]["handle"] if self._inflight else None
         override = (None if carry is None
                     else self._host_fresh | ~carry["active"])
@@ -1768,32 +2193,75 @@ class Engine:
             # the host mirror catches up when the result is applied
             self._host_fresh[s] = False
             self._ahead[s] += 1
-        return True
 
     def _process_oldest(self) -> int:
         """Wait on the oldest step in flight and apply it.  Returns the
-        number of rows applied.  TTFT and TPOT marks are taken here, when
-        the transfer has landed, never at dispatch."""
-        entry = self._inflight.popleft()
+        number of rows applied, or -1 on a transfer fault.  A pipelined
+        fault leaves the step at the head of the queue: the retry next
+        tick re-reads its result (its staging slot stays busy, and
+        back-pressure dispatches nothing on top).  A synchronous fault
+        drops the step instead: its stage is freed and its lanes' host
+        values are authoritative again, so that the next tick recomputes
+        it from the same inputs, as the reference's synchronous loop
+        does.  TTFT and TPOT marks are taken here, when the transfer has
+        landed, never at dispatch."""
+        entry = self._inflight[0]
+        handle = entry["handle"]
+        try:
+            if handle is None:
+                self.runner._maybe_inject_transfer(
+                    "draft_verify" if entry["spec"] else "decode")
+            elif entry["spec"]:
+                toks_mat, counts = self.runner.wait_spec(handle)
+            else:
+                toks, done = self.runner.wait_decode(handle)
+        except TransferFault:
+            self.metrics.transfer_faults += 1
+            if not self.pipeline_depth:
+                self._inflight.popleft()
+                self.runner.drop(handle)
+                for slot, _, gen in entry["rows"]:
+                    if gen == self._slot_gen[slot]:
+                        self._ahead[slot] -= 1
+                        self._host_fresh[slot] = True
+            return -1
+        self._inflight.popleft()
+        if handle is None:
+            return 0
         if entry["spec"]:
-            toks_mat, counts = self.runner.wait_spec(entry["handle"])
             return self._apply_spec(entry["rows"], toks_mat, counts)
-        toks, done = self.runner.wait_decode(entry["handle"])
         return self._apply_decode(entry["rows"], toks, done)
 
     def _drain_inflight(self) -> None:
-        """Apply every step in flight."""
-        while self._inflight:
+        """Apply every step in flight (fork needs the exact host state).
+        Bounded retries keep a transfer-fault storm from hanging it."""
+        for _ in range(1000):
+            if not self._inflight:
+                return
             self._process_oldest()
+        raise EngineStallError(
+            "pipeline drain: transfer-fault storm outlived its retry "
+            "budget", self.stall_diagnostic())
 
     def step(self) -> int:
-        """Admit, advance chunked prefills by one chunk, then dispatch one
-        decode step (or one speculative draft + verify step) for every
-        decoding slot, and wait on the oldest step in flight once more
-        than ``pipeline_depth`` are queued: at once in the synchronous
-        engine (depth 0); with depth > 0 admission, chunked prefill and
-        the next dispatch overlap the steps still on the device.
-        Returns the number of requests that made progress."""
+        """Sleep an injected slow step, expire deadlines, admit (first
+        preempting for a starved higher-priority head), advance chunked
+        prefills by one chunk, then dispatch one decode step (or one
+        speculative draft + verify step) for every decoding slot, and
+        wait on the oldest step in flight once more than
+        ``pipeline_depth`` are queued: at once in the synchronous engine
+        (depth 0); with depth > 0 admission, chunked prefill and the
+        next dispatch overlap the steps still on the device.  Transfer
+        faults are absorbed here (``_process_oldest``).  Returns the
+        number of requests that made progress; a run of
+        ``watchdog_patience`` steps without any, with work pending, fires
+        the stall watchdog."""
+        t0 = time.perf_counter()
+        if self.faults is not None:
+            dt = self.faults.take_slow()
+            if dt > 0:
+                time.sleep(dt)
+        self._expire_deadlines()
         progress = self._admit()
         if self.runner.prefill_chunk:
             progress += self._prefill_chunks()
@@ -1804,34 +2272,125 @@ class Engine:
         dispatched = False
         if active and len(self._inflight) <= self.pipeline_depth:
             if self.runner.paged:
-                self._cow(active)
-            dispatched = self._dispatch(active)
-            if dispatched:
-                progress += len(active)
+                self._cow(active)      # may preempt: re-filter
+                active = [(s, r) for s, r in active
+                          if self.scheduler.slots[s] is r]
+            if active:
+                self._dispatch(active)
+                dispatched = True
         processed_any = False
         while len(self._inflight) > self.pipeline_depth:
             n = self._process_oldest()
+            if n < 0:
+                break                  # a transfer fault: retry next tick
             processed_any = True
             if not dispatched:
                 progress += n
+        if dispatched and (processed_any or self.pipeline_depth):
+            # a pipelined dispatch is progress (the watchdog must not
+            # fire on work the device is running); a synchronous step
+            # only once its result landed
+            progress += len(active)
         if not dispatched and not processed_any and self._inflight:
-            progress += self._process_oldest()   # the tail: drain
+            n = self._process_oldest()          # the tail: drain
+            if n > 0:
+                progress += n
+        return self._finish_step(t0, progress)
+
+    def _finish_step(self, t0: float, progress: int) -> int:
         self.steps_run += 1
+        # the step-time EMA for the deadline estimate; alpha 0.2 forgets
+        # a one-off spike within a few steps
+        dt = time.perf_counter() - t0
+        self._step_ema = (dt if self._step_ema is None
+                          else 0.8 * self._step_ema + 0.2 * dt)
+        if progress > 0 or not self.scheduler.has_work():
+            self._stalled_steps = 0
+        else:
+            self._stalled_steps += 1
+            if self._stalled_steps >= self.watchdog_patience:
+                self._watchdog_fire()
         return progress
 
-    def run(self, max_steps: int = 10000) -> None:
-        """Drain queue, slots and steps in flight; raise EngineStallError
-        when the step budget runs out with work pending."""
+    def _watchdog_fire(self) -> None:
+        """``watchdog_patience`` steps in a row without progress, with
+        work pending: if the head of the queue waits for a slot or for
+        blocks, preempt a decoder (equal priority allowed: anything beats
+        livelock); with no one to evict, shed the head with the stall
+        diagnostic as its reason.  A stall with nothing queued is on the
+        device side (a transfer-fault storm): scheduling can free
+        nothing, and ``run`` reports it when its budget ends."""
+        self.metrics.watchdog_fires += 1
+        self._stalled_steps = 0
+        if not self.scheduler.queue:
+            return
+        head = self.scheduler.queue[0]
+        blocked_slot = not self.scheduler.free_slots()
+        blocked_blocks = (not blocked_slot and self.runner.paged
+                          and not self._make_can_fit()(head))
+        if blocked_slot or blocked_blocks:
+            victim = self._pick_victim(head.priority)
+            if victim is not None:
+                self._preempt(victim[0], victim[1],
+                              "watchdog: head-of-line starved")
+                return
+        self.scheduler.remove(head)
+        head.state = RequestState.REJECTED
+        head.finish_reason = ("watchdog: no forward progress for "
+                              f"{self.watchdog_patience} steps; "
+                              f"{self._stall_summary()}")
+        head.t_done = time.perf_counter()
+        self.metrics.rejected += 1
+        self._event(head)
+
+    def stall_diagnostic(self) -> Dict[str, Any]:
+        """The queued / active / pool snapshot for stall reports (the
+        reference's keys, in its order)."""
+        sched = self.scheduler
+        active = sched.active_slots()
+        diag: Dict[str, Any] = {
+            "steps_run": self.steps_run,
+            "queued": len(sched.queue),
+            "head_rid": sched.queue[0].rid if sched.queue else None,
+            "active_prefill": sum(1 for _, r in active
+                                  if r.state is RequestState.PREFILL),
+            "active_decode": sum(1 for _, r in active
+                                 if r.state is RequestState.DECODE),
+            "preemptions": self.metrics.preemptions,
+            "watchdog_fires": self.metrics.watchdog_fires,
+            "transfer_faults": self.metrics.transfer_faults,
+            "steps_in_flight": len(self._inflight),
+        }
+        if self.runner.paged:
+            kv = self.runner.kv
+            diag["free_blocks"] = kv.free_blocks
+            diag["block_utilization"] = kv.utilization()["block_utilization"]
+            if sched.queue:
+                diag["head_needs_blocks"] = kv.blocks_for(
+                    self._reserve_tokens(sched.queue[0]))
+        return diag
+
+    def _stall_summary(self) -> str:
+        return ", ".join(f"{k}={v}" for k, v in
+                         self.stall_diagnostic().items())
+
+    def run(self, max_steps: int = 10000, *,
+            allow_incomplete: bool = False) -> None:
+        """Drain queue, slots and steps in flight.  Running out of
+        ``max_steps`` with work pending raises EngineStallError with
+        ``stall_diagnostic()`` attached, unless ``allow_incomplete``
+        (the engine stays whole: ``run`` can be called again)."""
         for _ in range(max_steps):
             if not self.scheduler.has_work() and not self._inflight:
                 return
             self.step()
-        if self.scheduler.has_work() or self._inflight:
+        if ((self.scheduler.has_work() or self._inflight)
+                and not allow_incomplete):
             raise EngineStallError(
                 f"engine stalled: {max_steps} steps exhausted with "
-                f"{len(self.scheduler.queue)} queued, "
+                f"{len(self.scheduler.queue)} queued and "
                 f"{len(self.scheduler.active_slots())} active requests "
-                f"and {len(self._inflight)} steps in flight")
+                f"({self._stall_summary()})", self.stall_diagnostic())
 
     def generate(self, prompts: List[List[int]], max_new_tokens: int = 32,
                  params: SampleParams = SampleParams()) -> List[List[int]]:

@@ -37,6 +37,12 @@ The prefix cache's copy-on-write on the card (``-k prefix``): one block
 copied three ways in one ``copy_blocks`` call, bf16 and int8 (payload
 and scale), bitwise; a fork under captured step programs whose replays
 read the copied table, no recapture.
+The robustness layer on the card (``-k robust``): phase 10's
+preemption at 8 layers (fp32: every stream the uncontended run's),
+transfer faults at the prefill, decode and draft_verify waits bitwise
+the fault-free streams, sync and with planned programs, and a
+synchronous fault that frees its staging slot with the recompute's K/V
+bytes the clean run's.
 Without a GPU every test here skips (the kernels have no CPU mode)."""
 import numpy as np
 import pytest
@@ -1330,3 +1336,141 @@ def test_prefix_fork_under_captured_graphs_reads_the_cow_table():
         streams[preplan] = [req.output] + [q.output for q in kids]
         r.kv.check_invariants()
     assert streams[True] == streams[False]
+
+
+# ---------------------------------------------------------------------------
+# the robustness layer on the card
+# ---------------------------------------------------------------------------
+
+_ROBUST_PROMPT, _ROBUST_NEW = 128, 32
+
+
+def _robust_model(dev, dtype):
+    """pt-6b-d4 at full width, its depth cut to 8 layers, from seed 0, and
+    8 prompts of ``_ROBUST_PROMPT`` tokens."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.track import init_pt
+    cfg = get_config("pt-6b-d4").replace(n_layers=8, dtype=dtype)
+    params = init_pt(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(1, cfg.vocab_size,
+                            size=(_ROBUST_PROMPT,)).tolist()
+               for _ in range(8)]
+    return cfg, params, prompts
+
+
+def _robust_engine(cfg, params, dev, **kw):
+    from repro_torch.serving.engine import Engine
+    return Engine(cfg, params, max_slots=8, block_size=16, device=dev,
+                  max_seq_len=_ROBUST_PROMPT + _ROBUST_NEW + 8, **kw)
+
+
+@pytest.mark.gpu
+def test_robust_preemption_resumes_to_the_uncontended_streams():
+    """chip_smoke.py phase 10 (a) at 8 layers, in fp32 (the resume's
+    recompute and the decode that first wrote those positions differ by
+    rounding only, far below any logit gap): a pool that holds half of
+    8 requests; 4 priority-0 requests decode, 4 priority-1 requests
+    arrive and each admission preempts one.  Every request DONE with the
+    uncontended run's stream, resumes equal to preemptions, the
+    invariants, 0 used blocks."""
+    dev = _cuda()
+    cfg, params, prompts = _robust_model(dev, "float32")
+    ref = _robust_engine(cfg, params, dev, prefix_cache=False).generate(
+        prompts, _ROBUST_NEW)
+    per = -(-(_ROBUST_PROMPT + _ROBUST_NEW - 1) // 16)
+    eng = _robust_engine(cfg, params, dev, num_blocks=4 * per + 2)
+    low = [eng.submit(p, _ROBUST_NEW, priority=0) for p in prompts[:4]]
+    while any(q.state.value != "decode" for q in low):
+        eng.step()
+    eng.step()
+    high = [eng.submit(p, _ROBUST_NEW, priority=1) for p in prompts[4:]]
+    eng.run()
+    m = eng.metrics.summary()
+    assert all(q.state.value == "done" for q in low + high)
+    assert m["preemptions"] >= 1 and m["resumes"] == m["preemptions"]
+    assert [q.output for q in low + high] == ref
+    eng.runner.kv.check_invariants()
+    assert eng.runner.kv.utilization()["used_blocks"] == 0
+
+
+def _fault_streams(cfg, params, prompts, new, dev, plan=None, planned=False,
+                   **knobs):
+    eng = _robust_engine(cfg, params, dev, prefix_cache=False,
+                         fault_plan=plan,
+                         pipeline_depth=1 if planned else 0, **knobs)
+    r = eng.runner
+    if planned:
+        r.plan_programs(sampled=(False,), lengths=range(
+            _ROBUST_PROMPT, _ROBUST_PROMPT + _ROBUST_NEW + 1))
+    reqs = [eng.submit(p, new) for p in prompts]
+    eng.run()
+    r.kv.check_invariants()
+    assert not any(st.busy for st in r._stages) and not eng._inflight
+    if planned:
+        assert r.planned_hits == r.decode_transfers > 0
+    return [q.output for q in reqs], eng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spec", [False, True], ids=["decode", "spec"])
+def test_robust_transfer_faults_are_bitwise_sync_and_planned(spec):
+    """chip_smoke.py phase 10 (c) at 8 layers, bf16: transfer faults at
+    the prefill and at the decode (or draft_verify) waits.  Sync, the
+    step is dropped and recomputed; pipelined with planned programs, the
+    faulted step's result is re-read from its pinned stage; both streams
+    bitwise the fault-free run's, every planned step a replay, the
+    faults at wait sites only."""
+    from repro_torch.serving.faults import FaultPlan
+    dev = _cuda()
+    cfg, params, prompts = _robust_model(dev, "bfloat16")
+    knobs = {"speculate_k": 3, "draft_tracks": 4} if spec else {}
+    ps, new = (prompts[:2], 12) if spec else (prompts, _ROBUST_NEW)
+    want, _ = _fault_streams(cfg, params, ps, new, dev, **knobs)
+    site = "draft_verify" if spec else "decode"
+    for planned, ops in ((False, {0, 2, 5}), (True, {0, 3, 4})):
+        plan = FaultPlan(transfer_ops=frozenset(ops))
+        got, eng = _fault_streams(cfg, params, ps, new, dev, plan, planned,
+                                  **knobs)
+        assert got == want, planned
+        assert eng.metrics.transfer_faults == len(ops)
+        assert {lbl for _, lbl in plan.transfer_sites} == {"prefill", site}
+        del eng
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+def test_robust_sync_transfer_fault_frees_its_staging_slot():
+    """The synchronous engine goes through the dispatch / wait pair, so a
+    faulted wait would leave its staging slot busy and the retry's
+    dispatch would raise 'more steps in flight'.  The fault drops the
+    step instead: the slot is free once its copies ran, the lanes' host
+    values are authoritative, and the recompute writes the same K/V
+    bytes (the pools bitwise a fault-free engine's after the same
+    tokens)."""
+    from repro_torch.serving.faults import FaultPlan
+    dev = _cuda()
+    cfg, params, prompts = _robust_model(dev, "bfloat16")
+    runs = {}
+    for name, plan in (("clean", None),
+                       ("faulted", FaultPlan(transfer_ops=frozenset({2})))):
+        eng = _robust_engine(cfg, params, dev, prefix_cache=False,
+                             fault_plan=plan)
+        r = eng.runner
+        reqs = [eng.submit(p, _ROBUST_NEW) for p in prompts[:3]]
+        eng.step()                    # the prefill (op 0), decode (op 1)
+        if plan is not None:
+            eng.step()                # the decode wait of op 2 faults
+            assert eng.metrics.transfer_faults == 1
+            assert not any(st.busy for st in r._stages)
+            assert (eng._ahead == 0).all() and eng._host_fresh[:3].all()
+        for _ in range(3):
+            eng.step()
+        torch.cuda.synchronize()
+        runs[name] = ([q.output[:] for q in reqs],
+                      [t.clone() for t in r.kv.data])
+        eng.run()
+        del eng, r
+    (a, pa), (b, pb) = runs["clean"], runs["faulted"]
+    assert a == b
+    assert all(torch.equal(x, y) for x, y in zip(pa, pb))

@@ -49,6 +49,7 @@ from repro_torch.models.attention import attention_chunk
 from repro_torch.serving import sampler
 from repro_torch.serving.cache import _leaves
 from repro_torch.serving.engine import Engine, RequestState
+from repro_torch.serving.faults import FaultPlan
 from repro_torch.weights import from_jax_params
 
 REPO = Path(__file__).resolve().parents[1]
@@ -83,12 +84,13 @@ def _params(arch: str):
                                        "cpu")
 
 
-def _engine(arm: str, depth: int = 0, preplan: bool = False) -> Engine:
+def _engine(arm: str, depth: int = 0, preplan: bool = False,
+            **extra) -> Engine:
     arch, knobs = ARMS[arm]
     cfg, params = _params(arch)
     return Engine(cfg, params, max_slots=3, max_seq_len=40, block_size=8,
                   device="cpu", pipeline_depth=depth, preplan=preplan,
-                  **knobs)
+                  **knobs, **extra)
 
 
 def _prompts(cfg):
@@ -387,9 +389,24 @@ def test_serve_cli_pipelined_preplanned_on_cpu():
     assert hits and int(hits[1]) > 0 and hits[2] == hits[3] != "0"
 
 
-@pytest.mark.parametrize("knob", [{"max_queue": 4},
-                                  {"fault_plan": object()}])
+@pytest.mark.parametrize("knob", [{"max_queue": 5},
+                                  {"fault_plan": FaultPlan(
+                                      transfer_ops=frozenset({1, 3, 6}))}])
 def test_unported_robustness_knobs_still_raise(knob):
-    cfg, params = _params(PT)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        Engine(cfg, params, device="cpu", **knob)
+    """The knobs this test held as refused until the robustness layer was
+    ported now serve the pipelined, preplanned engine: with a bounded
+    queue (``max_queue``, nothing shed at this load) and with transfer
+    faults at the decode waits, the streams equal the sync engine's."""
+    eos, want = _sync("paged")
+    eng = _engine("paged", 1, preplan=True, **knob)
+    assert [r.output for r in _serve(eng, eos)] == want
+    m = eng.metrics.summary()
+    assert m["shed"] == 0 and not eng._inflight
+    plan = knob.get("fault_plan")
+    if plan is not None:
+        assert m["transfer_faults"] == 3
+        # at the prefill's transfer and at the decode waits, never at a
+        # dispatch
+        assert {lbl for _, lbl in plan.transfer_sites} == {"prefill",
+                                                           "decode"}
+    assert eng.runner.planned_hits == eng.runner.decode_transfers

@@ -23,8 +23,9 @@ the JAX package on the CPU.
       the sync engine with warm hits and forks, bitwise;
   (f) falcon-mamba: the prefix cache off by capability, fork children
       (state rows copied) equal to the parent;
-  (g) a copy-on-write on an exhausted pool raises the item-8
-      NotImplementedError (no preemption yet), the cache unchanged.
+  (g) a copy-on-write on an exhausted pool preempts, as the reference
+      does: the writer evicts its fork child, which resumes later; the
+      streams, preemptions and copies are the JAX engine's.
 
 Each JAX engine runs once, in the module fixture ``jax_runs``."""
 import jax
@@ -487,20 +488,34 @@ def test_falcon_mamba_has_no_prefix_cache_and_forks_its_state_rows():
 def test_cow_out_of_blocks_raises_item_8_and_leaves_the_cache(models):
     """A fork that takes every block of the pool (its children share the
     parent's blocks, partial block included); the next decode's
-    copy-on-write finds no free block.  The reference would preempt; the
-    port raises, naming item 8, with the block accounting untouched."""
-    _, cfg, _, params = models["pt"]
-    eng = Engine(cfg, params, device="cpu", max_slots=2, max_seq_len=16,
-                 block_size=4, num_blocks=2)
-    req = eng.submit([1, 2, 3, 4, 5, 6], 3)       # 8 positions: 2 blocks
-    eng.step()
-    kids = eng.fork(req, 1)
-    kv = eng.runner.kv
-    assert kv.free_blocks == 0 and kv.refcount(kv._blocks[0][1]) == 2
-    before = (kv.table_np.copy(), list(kv._ref), kv.version, kv.cow_copies)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    copy-on-write finds no free block.  Where the port raised item 8's
+    NotImplementedError before the robustness layer, it now preempts as
+    the reference does: the writer evicts the child (equal priority, the
+    newest), whose release leaves the partial block the writer's alone,
+    so no copy is needed; the child resumes once the parent is done.
+    Streams, preemptions, copies and events equal the JAX engine's."""
+    def run(engine_cls, cfg, params, **kw):
+        eng = engine_cls(cfg, params, max_slots=2, max_seq_len=16,
+                         block_size=4, num_blocks=2, **kw)
+        events = []
+        req = eng.submit([1, 2, 3, 4, 5, 6], 3,        # 8 positions: 2
+                         on_event=lambda r, why: events.append(why))
         eng.step()
-    assert np.array_equal(kv.table_np, before[0])
-    assert (list(kv._ref), kv.version, kv.cow_copies) == before[1:]
-    kv.check_invariants()
-    assert kids[0].state is RequestState.DECODE
+        kids = eng.fork(req, 1)
+        kv = eng.runner.kv
+        assert kv.free_blocks == 0 and kv.refcount(kv._blocks[0][1]) == 2
+        eng.step()
+        assert kids[0].state.value == "queued"
+        eng.run()
+        kv.check_invariants()
+        return {"streams": [req.output, kids[0].output],
+                "states": [req.state.value, kids[0].state.value],
+                "preemptions": [req.preemptions, kids[0].preemptions],
+                "cow": kv.cow_copies, "events": events,
+                "used": kv.utilization()["used_blocks"]}
+
+    jcfg, cfg, jparams, params = models["pt"]
+    got = run(Engine, cfg, params, device="cpu")
+    assert got == run(JEngine, jcfg, jparams)
+    assert got["preemptions"] == [0, 1] and got["states"] == ["done"] * 2
+    assert got["streams"][0] == got["streams"][1] and got["used"] == 0

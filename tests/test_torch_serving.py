@@ -3,6 +3,7 @@ accounting of the paged cache, greedy token streams of the whole engine
 on ``reduced_config("pt-6b-d4")`` (one JAX ``init_pt`` tree loaded into
 both), the serve CLI, and the entry points' device rule."""
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -161,18 +162,19 @@ def test_engine_rejects_invalid_requests_and_unported_features(model):
     assert eng.runner.prefix_cache and eng.runner.kv.prefix_cache
     assert not Engine(cfg, params, max_slots=2, max_seq_len=32,
                       device="cpu", prefix_cache=False).runner.prefix_cache
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Engine(cfg, params, device="cpu", max_queue=4)
+    # the robustness layer is ported: a bounded queue sheds past it
+    small = Engine(cfg, params, max_slots=2, max_seq_len=32, device="cpu",
+                   max_queue=1)
+    assert small.submit([1, 2], 4).state is RequestState.QUEUED
+    assert "overload shed" in small.submit([3, 4], 4).finish_reason
     sampled = eng.submit([1, 2], 4, params=SampleParams(temperature=0.7))
     assert sampled.state is RequestState.QUEUED   # sampling is ported
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.submit([1, 2], 4, priority=1)
+    assert eng.submit([1, 2], 4, priority=1).priority == 1
     for kw in ({"kv_dtype": "fp8"}, {"weight_dtype": "int4"},
                {"prefill_chunk": -1}):
         with pytest.raises(ValueError):
             Engine(cfg, params, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.cancel(sampled)
+    assert eng.cancel(sampled) and sampled.state is RequestState.CANCELLED
     with pytest.raises(ValueError, match="decoding"):   # fork is ported
         eng.fork(sampled, 1)
     with pytest.raises(KeyError, match="ROADMAP"):
@@ -196,8 +198,10 @@ def test_entry_points_without_device_refuse_to_run_on_cpu(model):
         serve.main(["--reduced"])
 
 
-@pytest.mark.parametrize("extra", [[], ["--shared-prefix", "16"]],
-                         ids=["plain", "shared_prefix"])
+@pytest.mark.parametrize("extra", [[], ["--shared-prefix", "16"],
+                                   ["--num-blocks", "1", "--priority-mix",
+                                    "2", "--fault-transfer-p", "0.3"]],
+                         ids=["plain", "shared_prefix", "robust"])
 def test_serve_cli_smoke_on_cpu(extra):
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
     out = subprocess.run(
@@ -208,7 +212,13 @@ def test_serve_cli_smoke_on_cpu(extra):
     assert out.returncode == 0, out.stderr
     assert "finished 3/3 requests" in out.stdout
     assert "TTFT ms" in out.stdout and "kernel launches" in out.stdout
-    if extra:
+    if "--shared-prefix" in extra:
         # the first two prompts are admitted together, cold; the third
         # finds the shared block the first committed
         assert "prefix cache: 16 of 72 prompt tokens" in out.stdout
+    if "--num-blocks" in extra:
+        # one request at a time fits the pool: the priority-1 one
+        # preempts, and the faulted transfers are retried
+        assert "fault injection armed" in out.stdout
+        assert re.search(r"robustness: done=3 \| preemptions [1-9]",
+                         out.stdout) and "transfer_faults 0" not in out.stdout

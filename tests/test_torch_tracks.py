@@ -14,7 +14,11 @@ W = 4 ranks, each with its own join timeout, run:
     contiguous, int8 weights + KV and ``speculate_k=2, draft_tracks=2``,
     and a batch with one sampled request; on W = 2 also a prefix-cache
     hit and a fork of the warm request (every rank keeps the same block
-    accounting and copies its own pools).
+    accounting and copies its own pools); on every W the robustness
+    layer: a small pool, a priority-1 admission that preempts both
+    decoders, a cancel of a requeued victim and a ``FaultPlan`` of
+    allocation and transfer faults (every rank the same decisions, a
+    faulted step's recompute one more step of collectives).
 
 Gates: logits equal to the one-process port's (``RANK_TOL``: bitwise, as
 the gathered fusion sums the tracks in one process's order and a CPU
@@ -54,6 +58,7 @@ from repro_torch.launch.steps import model_fns
 from repro_torch.runtime.parallel import NO_PARALLEL, Parallelism, spawn
 from repro_torch.serving.cache import PagedKVCache, insert_rows
 from repro_torch.serving.engine import Engine
+from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.sampler import SampleParams
 from repro_torch.weights import from_jax_params
 
@@ -68,7 +73,7 @@ ENGINE_ARMS = {"whole": {}, "chunk8": {"prefill_chunk": 8},
                "contiguous": {"paged": False},
                "int8": {"weight_dtype": "int8", "kv_dtype": "int8"},
                "spec": {"speculate_k": 2, "draft_tracks": 2},
-               "sampled": {}, "prefix": {}}
+               "sampled": {}, "prefix": {}, "robust": {"num_blocks": 9}}
 PREFIX_ARM_WORLDS = (1, 2)      # the prefix-cache arm: one process, W = 2
 SHARED = [6, 2, 8, 3, 5, 7, 1, 9]                         # two blocks of 4
 GREEDY_ARMS = ("whole", "chunk8", "contiguous", "spec")
@@ -229,9 +234,32 @@ def _engine_arms(par: Parallelism, tree, calls) -> dict:
             continue
         c0, w0, a0 = (par.counts.collectives, sum(calls.values()),
                       par.counts.local_adds)
+        plan = None
+        if arm == "robust":
+            plan = FaultPlan(alloc_ops=frozenset({4}),
+                             transfer_ops=frozenset({3, 7}))
+            knobs = dict(knobs, fault_plan=plan)
         eng = Engine(cfg, full, device="cpu", par=par, **ENGINE, **knobs)
         extra = {}
-        if arm == "prefix":
+        if arm == "robust":
+            # a (18 positions, 5 blocks) and b (3 blocks) leave 1 of 9
+            # free; c, priority 1, needs 5: both are preempted, b first;
+            # a is cancelled while it waits to resume
+            reqs = [eng.submit(PROMPTS[1], NEW + 4),
+                    eng.submit(PROMPTS[0], NEW)]
+            eng.step()
+            eng.step()
+            reqs.append(eng.submit(PROMPTS[2], NEW, priority=1))
+            eng.step()
+            eng.cancel(reqs[0])
+            eng.run()
+            streams = [r.output for r in reqs]
+            eng.runner.kv.check_invariants()
+            extra = {"states": [r.state.value for r in reqs],
+                     "preemptions": [r.preemptions for r in reqs],
+                     "faults": list(plan.events),
+                     "used": eng.runner.kv.utilization()["used_blocks"]}
+        elif arm == "prefix":
             # a seed request, then a warm hit on its two full blocks,
             # forked two ways after two steps
             reqs = [eng.submit(SHARED + [4, 4], NEW)]
@@ -259,8 +287,11 @@ def _engine_arms(par: Parallelism, tree, calls) -> dict:
                     "collectives": par.counts.collectives - c0,
                     "wrapped": sum(calls.values()) - w0,
                     "adds": par.counts.local_adds - a0,
+                    # a decode step whose transfer faulted ran, and its
+                    # recompute runs again
                     "calls": r.prefill_calls + r.chunk_calls
-                    + r.decode_transfers,
+                    + r.decode_transfers + (0 if plan is None else sum(
+                        lbl == "decode" for _, lbl in plan.transfer_sites)),
                     "spec_steps": eng.metrics.summary().get("spec_steps", 0),
                     "param_bytes": _storage_bytes(r.params),
                     "kinds": sorted(calls), **extra}
@@ -627,6 +658,28 @@ def test_rank_streams_equal_one_process_and_the_jax_engine(ranks, single,
     assert p["cached"][1] == len(SHARED) and p["hits"] == len(SHARED)
     assert p["cow"] == 2 and p["streams"][2] == p["streams"][3] == \
         p["streams"][1] and len(p["streams"][1]) == NEW + 4
+
+
+def test_rank_robustness_decisions_equal_one_process(ranks, single):
+    """Cancel, priorities with preempt-and-recompute and injected faults
+    on track ranks: every rank takes one process's decisions and emits
+    its streams (the collectives, R per prefill, chunk and decode step,
+    the recomputed ones included, are held by
+    ``test_collectives_one_per_track_block_none_in_the_draft``)."""
+    W, res = ranks
+    o = single["engine"]["robust"]
+    assert o["states"] == ["cancelled", "done", "done"]
+    assert o["preemptions"] == [1, 1, 0] and o["used"] == 0
+    assert [s for s, _ in o["faults"]] == ["transfer", "alloc", "transfer"]
+    assert len(o["streams"][1]) == len(o["streams"][2]) == NEW
+    for r in res:
+        e = r["engine"]["robust"]
+        assert {k: e[k] for k in o if k not in ("collectives", "wrapped",
+                                                "adds", "param_bytes",
+                                                "kinds")} == \
+            {k: o[k] for k in o if k not in ("collectives", "wrapped",
+                                             "adds", "param_bytes",
+                                             "kinds")}
 
 
 def test_port_count_equals_the_reference_compiled_count(reference_counts,

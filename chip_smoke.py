@@ -30,7 +30,17 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      graph, as their library calls; the eager loops' times beside them),
      each with its share of the bound; the decode rows with their split
      plan, and the fp decode rows over a short sweep of B 1 and 8 by live
-     length 64, 576 and 4096;
+     length 64, 576 and 4096; then this slice's shapes
+     (``check_layer_kernels``): flash at gemma3-4b's prefill (q [8, 1536,
+     8, 320], k, v [8, 1536, 4, 320]), causal and with window 1024, and
+     at gemma2-2b's (hd 288, softcap 50), all on the ``cuda_core`` route;
+     flash's offset route at phase 9's warm tails (q [64, 64, 4, 128] at
+     position 448 over K/V gathered [64, 592, 1, 128]), gated bitwise
+     against the same rows of a whole-prompt call; paged decode at
+     gemma3-4b's global layers (hd 320, 1600 live) and gemma2-2b's (hd
+     288, softcap 50); contiguous decode over gemma3-4b's 1024-slot
+     rings (hd 320) — each against its plain version, beside SDPA (none
+     for a softcap) and its bound;
   4. the reduced PT config in fp32, on the card against the same weights
      on the CPU (tolerance 1e-4): prefill logits, K/V and teacher-forced
      paged decode steps; then with int8 weights, int8 KV and chunked
@@ -48,7 +58,10 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      draft-step logits and the verify logits (1e-4), greedy streams
      identical card vs CPU and to plain decode with whole-prompt prefill,
      chunk 8 and int8 weights + int8 KV, and acceptance 1.0 with the
-     tracks tied;
+     tracks tied; then reduced gemma2-2b, gemma3-4b and nemotron-4-15b
+     (``check_layer_parity``): prefill of right-padded rows (rings built
+     per row), chunk 8 into the paged cache with ring leaves, decode
+     across the rings' wrap (1e-4) and greedy streams, identical;
   5. serve pt-6b-d4 at full width (random weights from a seeded
      generator): 8 slots, 8 greedy requests of 512 prompt tokens and 64
      new tokens, block size 16 — TTFT, TPOT, throughput, peak memory and
@@ -144,10 +157,13 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      the same prefix and tails of their own, submitted together, against
      the same 8 served cold (``prefix_cache=False``): every
      ``cached_prefix`` 448, ``prefix_hit_tokens`` 8 x 448, flash prefill
-     only in the seed's cold call, the warm tails in one chunk call, the
-     invariants, and ``check_warm_logits`` (logits teacher-forced along
-     the cold streams within ``check_spec_logits``'s limit, every first
-     divergence a near-tie); TTFT p50 / p90 warm against cold, the
+     in the seed's cold call, the warm tails in one chunk call whose
+     attention is flash's offset route (32 launches on ``wgmma_tma``),
+     every warm stream bitwise its cold one, the invariants, and
+     ``check_warm_logits`` (logits teacher-forced along the cold streams
+     within ``check_spec_logits``'s limit, every first divergence a
+     near-tie; the tail's K/V bytes and every decode step's logits
+     bitwise the cold pass's); TTFT p50 / p90 warm against cold, the
      admission step's device busy time, used blocks, peak memory; (b)
      the same with int8 weights and int8 KV (every prompt through the
      chunk program; whether warm equals cold bitwise, and the first
@@ -184,7 +200,23 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      their blocks reclaimed, the other streams bitwise phase 5's; (e) a
      bounded storm of allocation faults: the watchdog fires and sheds
      the head with the stall diagnostic, every request in one terminal
-     state.
+     state;
+ 11. this slice's models at full width and depth, bf16, seeded random
+     weights, all prompts admitted in one round (``serve_layer_models``):
+     gemma3-4b, 8 x (1536 in / 64 out), capacity 1608 past its 1024
+     window (its 29 local layers' K/V in ring leaves, its 5 global ones'
+     in pools: leaf kinds {ring 18, paged 2}), sync then pipelined with
+     planned programs; gemma2-2b, 8 x (512 / 32), every layer paged (its
+     4096 window covers the capacity), softcaps, hd 288; nemotron-4-15b,
+     8 x (512 / 32), LayerNorm, squared ReLU: TTFT, TPOT p50 / p90,
+     throughput, peak memory, leaf kinds, launches per kernel and per
+     flash / RMSNorm route; gates: every request finished, the launch
+     arithmetic (``layer_arith``: flash L a prefill call, per decode
+     step the paged kernel on each pool layer and the contiguous one on
+     each ring layer; ``norm_routes``: per forward ``norm`` 1 + the
+     sandwich and qk norms, ``add_norm`` 2 L), every flash launch on
+     ``route``'s route; planned: every step a replay, streams bitwise
+     sync.
 Prints one ``{"kernels": [...]}`` JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -445,6 +477,7 @@ def check_kernels(dev: torch.device):
     torch.cuda.empty_cache()
     rows += check_decode_attention(dev, g)
     torch.cuda.empty_cache()
+    check_layer_kernels(dev, g, rows)
     return rows
 
 
@@ -1535,12 +1568,17 @@ def norm_routes(kind: str, cfg, c: dict) -> dict:
     block's end into ``fuse_norm`` (the last one with the final norm);
     the drafter's prefill and its step at pos + K skip the head, so their
     last block ends on a bare fusion.  Per forward the routes add up to
-    2 L + 1 (L + 1 for Mamba), 2 L for a forward without a head."""
+    2 L + 1 (L + 1 for Mamba), 2 L for a forward without a head; a layer
+    with sandwich norms adds 2 ``norm`` launches, one with qk-norm 2 more
+    (q and k); a LayerNorm model launches none."""
     L, P, C, T = cfg.n_layers, c["P"], c.get("C", 0), c["T"]
+    if cfg.norm != "rmsnorm":
+        return {"norm": 0, "add_norm": 0, "fuse_norm": 0}
     if cfg.pt is None:
         A = L if kind == "falcon" else 2 * L         # adds per forward
-        return {"norm": P + 2 * C + T, "add_norm": A * (P + T) + (A - 1) * C,
-                "fuse_norm": 0}
+        X = L * (2 * cfg.post_norm + 2 * cfg.qk_norm)  # per-layer norms
+        return {"norm": P + 2 * C + T + X * (P + C + T),
+                "add_norm": A * (P + T) + (A - 1) * C, "fuse_norm": 0}
     R = L // cfg.pt.block_depth
     if kind == "spec":
         Fw = (SPEC_K + 2) * T      # the K + 1 draft steps and the verify
@@ -3331,7 +3369,8 @@ def _first_diff_layer(a: list, b: list) -> Optional[tuple]:
     return None
 
 
-def check_warm_logits(eng, prompts, cold, warm, tag: str) -> dict:
+def check_warm_logits(eng, prompts, cold, warm, tag: str,
+                      bitwise: bool = False) -> dict:
     """Phase 9: the target's logits teacher-forced along the cold run's
     streams (the first token and T = NEW - 1 decode steps) after a warm
     admission (the first PFX_SHARED tokens matched in the prefix cache,
@@ -3348,7 +3387,12 @@ def check_warm_logits(eng, prompts, cold, warm, tag: str) -> dict:
     from cold at most twice the prefill's, or the bf16 kernel tolerance
     times the cold logits' std where that is larger; every first
     divergence a near-tie (the cold token leads by at most twice the
-    max |warm - cold| at that position)."""
+    max |warm - cold| at that position).  With ``bitwise`` (bf16: the
+    warm tails on flash's offset route) the tail's K/V bytes must equal
+    the cold pass's and so must every decode step's logits (the first
+    position's come from the LM head over the prompts' last rows alone
+    in the warm program and over every row in the cold one: a GEMM of
+    other rows, within the limit above)."""
     r, cfg = eng.runner, eng.runner.cfg
     n, T, dev = len(prompts), NEW - 1, r.device
     slots = list(range(n))
@@ -3421,6 +3465,10 @@ def check_warm_logits(eng, prompts, cold, warm, tag: str) -> dict:
             bad.append(b)
     limit = max(2 * stat["prefill"][0], KERNEL_TOL * c.std().item())
     gates = {"warm": stat["warm"][0] <= limit, "near-ties": not bad}
+    if bitwise:
+        gates["warm decode logits bitwise cold"] = torch.equal(
+            out["warm"][:, 1:], c[:, 1:])
+        gates["tail K/V bitwise cold"] = tail_diff is None
     log(f"[prefix] {tag}: logit gates {json.dumps(gates)} (limit "
         f"{limit:.4e})")
     if not all(gates.values()):
@@ -3437,9 +3485,9 @@ def probe_rows(dev, cfg, int8: bool) -> dict:
     of SLOTS prompts, computed inside a whole-prompt call and in a
     tail-only call, at pt-6b-d4's shapes on random inputs: the q
     projection (W8A16 with ``int8``, else the bf16 product), then the
-    chunk attention's pieces as ``models.attention._causal_ctx`` computes
-    them (scores, softmax, P V; over fp32 K/V, as an int8 pool reads, or
-    bf16).  True where the tail rows are bitwise equal."""
+    chunk attention's pieces as the int8 pool's chunk program computes
+    them (``models.attention._masked_ctx``: scores, softmax, P V; over
+    fp32 K/V, as an int8 pool reads, or bf16).  True where the tail rows are bitwise equal."""
     from repro_torch.common.quant import matmul, quantize
     g = torch.Generator(device=dev).manual_seed(5)
     n, H, KH, hd = cfg.pt.n_tracks, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -3487,13 +3535,15 @@ def prefix_hit(dev, card: str, params, tag: str, int8: bool = False) -> None:
     PFX_SHARED tokens; a prefix-cache engine serves a seed request (the
     shared prefix and a tail of its own) and then the same SLOTS prompts,
     submitted together.  Gates: every ``cached_prefix`` is PFX_SHARED,
-    ``prefix_hit_tokens`` SLOTS x PFX_SHARED; bf16: flash prefill runs
-    only in the seed's cold call (one launch a layer), the warm tails
-    take one chunk call and no prefill call; int8: one chunk call each,
-    no flash; ``check_invariants``; ``check_warm_logits``.  Reports TTFT
-    p50 / p90 warm against cold, the admission step's device busy ms,
-    used blocks after admission, peak memory, and whether the streams
-    are bitwise the cold ones."""
+    ``prefix_hit_tokens`` SLOTS x PFX_SHARED; bf16: flash prefill runs in
+    the seed's cold call (one launch a layer), the warm tails take one
+    chunk call and no prefill call, its attention the flash kernel's
+    offset route (one launch a layer, on ``wgmma_tma``), and every warm
+    stream is bitwise its cold one; int8: one chunk call each, no flash;
+    ``check_invariants``; ``check_warm_logits``.  Reports TTFT p50 / p90
+    warm against cold, the admission step's device busy ms, used blocks
+    after admission, peak memory, and whether the streams are bitwise
+    the cold ones."""
     from repro_torch.configs import get_config
     cfg = get_config(ARCH)
     L = cfg.n_layers
@@ -3520,6 +3570,8 @@ def prefix_hit(dev, card: str, params, tag: str, int8: bool = False) -> None:
         t0 = time.perf_counter()
         reqs, launches, m, peak, used, calls = _measured(eng, dev, prompts)
         wall = time.perf_counter() - t0
+        from repro_torch.kernels import ops
+        flash_routes = dict(ops.flash_attention.routes)
         streams = [q.output for q in reqs]
         if how == "warm":
             hits = r.kv.prefix_hit_tokens - hits0
@@ -3528,7 +3580,8 @@ def prefix_hit(dev, card: str, params, tag: str, int8: bool = False) -> None:
                     "ttft_p90_ms": m["ttft_ms"]["p90"],
                     "tpot_p50_ms": m["tpot_ms"]["p50"],
                     "admission_busy_ms": busy, "used_blocks": used,
-                    "peak_gb": peak / 1e9, "calls": calls, "wall_s": wall}
+                    "peak_gb": peak / 1e9, "calls": calls, "wall_s": wall,
+                    "launches": launches, "flash_routes": flash_routes}
         log(f"[prefix] {card} | {tag} {how}: {SLOTS} reqs x ({PROMPT} in "
             f"/ {NEW} out), wall {wall:.3f}s; TTFT ms p50 "
             f"{m['ttft_ms']['p50']:.2f} p90 {m['ttft_ms']['p90']:.2f}; TPOT "
@@ -3548,19 +3601,28 @@ def prefix_hit(dev, card: str, params, tag: str, int8: bool = False) -> None:
             torch.cuda.empty_cache()
             continue
         cached = [q.cached_prefix for q in reqs]
+        same = sum(w == c for w, c in zip(streams, cold))
         gates = {"cached_prefix": cached == [PFX_SHARED] * SLOTS,
                  "hit_tokens": hits == SLOTS * PFX_SHARED,
-                 "calls": calls == (0, 1),
-                 "no_flash": launches["flash_attention"] == 0}
+                 "calls": calls == (0, 1)}
+        if int8:
+            gates["no flash"] = launches["flash_attention"] == 0
+        else:
+            # the warm tails' one chunk call: one flash launch a layer, on
+            # the offset route, and every stream bitwise the cold one
+            gates["flash offset route"] = (
+                launches["flash_attention"] == L and flash_routes == dict(
+                    dict.fromkeys(flash_routes, 0), wgmma_tma=L))
+            gates["streams bitwise cold"] = same == SLOTS
         r.kv.check_invariants()
-        same = sum(w == c for w, c in zip(streams, cold))
         div = [_divergence(w, c) for w, c in zip(streams, cold)]
         log(f"[prefix] {tag}: cached_prefix {cached}, prefix_hit_tokens "
             f"{hits}; streams bitwise the cold run's {same}/{SLOTS} (first "
             f"divergence per request: {div}); gates {json.dumps(gates)}")
         if not all(gates.values()):
             raise SystemExit(f"[prefix] {tag}: gates {gates}")
-        fig["logits"] = check_warm_logits(eng, prompts, cold, streams, tag)
+        fig["logits"] = check_warm_logits(eng, prompts, cold, streams, tag,
+                                          bitwise=not int8)
         fig["rows_bitwise"] = probe_rows(dev, cfg, int8)
         log(f"[prefix] {tag}: tail rows bitwise between a whole-prompt call "
             f"and a tail-only call, by op: {json.dumps(fig['rows_bitwise'])}")
@@ -4189,6 +4251,526 @@ def robust_runs(dev, card: str, params, prompts, ref) -> None:
     log(f"[robust] phase 10 took {ROBUST['seconds']:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# phase 3, the layer models' kernel shapes (gemma3-4b, gemma2-2b) and the
+# flash offset route of phase 9's warm tails
+# ---------------------------------------------------------------------------
+
+G3_ARCH, G2_ARCH, NEMO_ARCH = "gemma3-4b", "gemma2-2b", "nemotron-4-15b"
+G3_PROMPT, G2_PROMPT, LM_NEW = 1536, 512, 32   # phase 11's requests
+G3_NEW = 64
+
+
+def _flash_keys(B: int, Sq: int, window=None, q_off=None, k_len=None):
+    """The key columns a flash call's rows see, summed over the rows of
+    one (batch row, head): causal, in the window, below k_len."""
+    seen = 0
+    for b in range(B):
+        o = 0 if q_off is None else q_off[b]
+        kl = None if k_len is None else k_len[b]
+        for i in range(Sq):
+            hi = o + i + 1 if kl is None else min(o + i + 1, kl)
+            lo = 0 if window is None else max(0, o + i - window + 1)
+            seen += max(0, hi - lo)
+    return seen
+
+
+def layer_flash_row(dev, g, arch: str, tag: str, B: int, S: int, H: int,
+                    KH: int, hd: int, window=None, softcap=None,
+                    iters: int = 10):
+    """One phase-3 flash row at a layer model's prefill shape (bf16,
+    causal, with ``window`` or ``softcap``): the kernel against its plain
+    version (2e-2), kernel and SDPA (K / V expanded beforehand, a boolean
+    mask for a window; none for a softcap, which SDPA does not compute)
+    as device work, the route it took (``route``'s), the bound from the
+    key columns the rows see."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    q = torch.randn(B, S, H, hd, generator=g, device=dev).to(bf)
+    k, v = (torch.randn(B, S, KH, hd, generator=g, device=dev).to(bf)
+            for _ in range(2))
+    kw = dict(causal=True, window=window, softcap=softcap)
+    routes0 = dict(fa.flash_attention.routes)
+    out = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    took = {r for r, c in fa.flash_attention.routes.items()
+            if c != routes0[r]}
+    want_route = fa.route(bf, hd, True)
+    if took != {want_route}:
+        raise SystemExit(f"[kernel] flash_attention at {tag} took {took}")
+    want = ref.flash_attention_plain(q, k, v, **kw)
+    t = {"ms": graph_ms(lambda q, k, v: ops.flash_attention(q, k, v, **kw),
+                        [(q, k, v)], iters),
+         "eager_ms": time_ms(lambda q, k, v: ops.flash_attention(
+             q, k, v, **kw), [(q, k, v)], iters)}
+    lib = None
+    if softcap is None:
+        qq = q.transpose(1, 2).contiguous()
+        kk, vv = (x.repeat_interleave(H // KH, 2).transpose(1, 2).contiguous()
+                  for x in (k, v))
+        i = torch.arange(S, device=dev)
+        mask = i[None, :] <= i[:, None]
+        if window is not None:
+            mask &= i[None, :] > i[:, None] - window
+        lib = graph_ms(lambda a, b, c: F.scaled_dot_product_attention(
+            a, b, c, attn_mask=mask), [(qq, kk, vv)], iters)
+        del qq, kk, vv, mask
+    p_ms = time_ms(lambda q, k, v: ref.flash_attention_plain(q, k, v, **kw),
+                   [(q, k, v)], 2)
+    row = _report("flash_attention", "cuda",
+                  "src/repro_torch/kernels/csrc/flash_attention.cu",
+                  "src/repro/kernels/flash_attention.py:79", out, want,
+                  t["ms"], p_ms, lib, nbytes(q, k, v, out),
+                  4.0 * H * hd * _flash_keys(B, S, window), BF16_FLOP_S)
+    row.update(kernel_route=want_route, run=arch, eager_ms=t["eager_ms"],
+               at=f"{tag}: q [{B},{S},{H},{hd}], k, v [{B},{S},{KH},{hd}] "
+                  f"bf16, causal" + (f", window {window}" if window else "")
+               + (f", softcap {softcap}" if softcap else "")
+               + f"; route {want_route}",
+               bound_share=row["bound_ms"] / row["ms"],
+               timing="ms and library_ms: device work (CUDA graph replay)")
+    log(f"[kernel]   flash_attention at {row['at']}: "
+        f"{100 * row['bound_share']:.1f} % of its bound")
+    del q, k, v, out, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def flash_offset_row(dev, g):
+    """Phase 3, the flash offset route at phase 9's warm shape (pt-6b-d4:
+    SLOTS x 8 tracks of 64-token tails at offset PFX_SHARED over their
+    rows' K/V gathered from the pool, table width
+    ceil((PROMPT + NEW + 8) / BLOCK) blocks): held against the plain
+    version (2e-2) and, the A1 gate, bitwise against the same rows of a
+    whole-prompt call from position 0 (a cold prefill).  SDPA with a
+    boolean mask as the yardstick."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+    cfg = get_config(ARCH)
+    B, H, KH, hd = cfg.pt.n_tracks * SLOTS, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.head_dim
+    S = -(-(PROMPT + NEW + 8) // BLOCK) * BLOCK
+    C, o, bf = PFX_TAIL, PFX_SHARED, torch.bfloat16
+    qf = torch.randn(B, PROMPT, H, hd, generator=g, device=dev).to(bf)
+    kf, vf = (torch.randn(B, S, KH, hd, generator=g, device=dev).to(bf)
+              for _ in range(2))
+    q = qf[:, o:o + C].contiguous()
+    q_off = torch.full((B,), o, dtype=torch.int32, device=dev)
+    k_len = torch.full((B,), o + C, dtype=torch.int32, device=dev)
+    kw = dict(causal=True, q_offset=q_off, k_lengths=k_len)
+    out = ops.flash_attention(q, kf, vf, **kw)
+    cold = ops.flash_attention(qf, kf[:, :PROMPT].contiguous(),
+                               vf[:, :PROMPT].contiguous(), causal=True)
+    torch.cuda.synchronize()
+    bitwise = torch.equal(out, cold[:, o:o + C])
+    log(f"[kernel] flash_attention offset route: the tail rows bitwise the "
+        f"whole-prompt call's: {bitwise}")
+    if not bitwise:
+        raise SystemExit("[kernel] flash offset route is not bitwise the "
+                         "whole-prompt call")
+    want = ref.flash_attention_plain(q, kf, vf, **kw)
+    t = {"ms": graph_ms(lambda q: ops.flash_attention(q, kf, vf, **kw),
+                        [(q,)], 200),
+         "eager_ms": time_ms(lambda q: ops.flash_attention(q, kf, vf, **kw),
+                             [(q,)], 200)}
+    i = torch.arange(C, device=dev)[:, None] + o
+    mask = torch.arange(S, device=dev)[None, :] <= i
+    qq = q.transpose(1, 2).contiguous()
+    kk, vv = (x.repeat_interleave(H // KH, 2).transpose(1, 2).contiguous()
+              for x in (kf, vf))
+    lib = graph_ms(lambda a: F.scaled_dot_product_attention(
+        a, kk, vv, attn_mask=mask), [(qq,)], 200)
+    del qq, kk, vv
+    p_ms = time_ms(lambda q: ref.flash_attention_plain(q, kf, vf, **kw),
+                   [(q,)], 3)
+    keys = _flash_keys(B, C, q_off=[o] * B, k_len=[o + C] * B)
+    row = _report("flash_attention", "cuda",
+                  "src/repro_torch/kernels/csrc/flash_attention.cu",
+                  "src/repro/kernels/flash_attention.py:79", out, want,
+                  t["ms"], p_ms, lib,
+                  nbytes(q, out, q_off, k_len) + (o + C) * B * KH * hd * 4,
+                  4.0 * H * hd * keys, BF16_FLOP_S)
+    row.update(kernel_route="wgmma_tma", run="prefix bf16 warm",
+               eager_ms=t["eager_ms"], bitwise_cold=bitwise,
+               at=f"offset route (phase 9's warm tails): q [{B},{C},{H},{hd}]"
+                  f" at {o}, k, v [{B},{S},{KH},{hd}] gathered, k_len "
+                  f"{o + C}, bf16; route wgmma_tma",
+               bound_share=row["bound_ms"] / row["ms"],
+               timing="ms and library_ms: device work (CUDA graph replay)")
+    del qf, kf, vf, q, out, cold, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def layer_decode_row(dev, g, arch: str, tag: str, paged: bool, B: int,
+                     L: int, S: int, H: int, KH: int, hd: int,
+                     softcap=None):
+    """One phase-3 decode row at a layer model's decode shape near the end
+    of its phase-11 run (every row L live tokens): paged (one layer's
+    pools, n = 1, block BLOCK, a capacity of S tokens, ``max_len`` as the
+    engine buckets it) or contiguous (the ring [B, S, KH, hd]); with
+    ``softcap``.  Kernel against plain (2e-2); SDPA on K / V gathered and
+    expanded beforehand (none for a softcap) as device work."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+    bf = torch.bfloat16
+    lengths = torch.full((B,), L, dtype=torch.int32, device=dev)
+    if paged:
+        nmax = -(-S // BLOCK)
+        N = B * nmax + 1
+        table = (torch.randperm(N - 1, generator=torch.Generator()
+                                .manual_seed(L))[:B * nmax]
+                 .reshape(B, nmax) + 1).to(torch.int32).to(dev)
+        p2 = 1
+        while p2 < -(-L // BLOCK):
+            p2 *= 2
+        max_len = min(nmax, p2) * BLOCK
+        shape, qshape = (1, N, BLOCK, KH, hd), (1, B, H, hd)
+    else:
+        max_len, shape, qshape = S, (B, S, KH, hd), (B, H, hd)
+    one = 2 * math.prod(shape) * 2
+    sets = [(torch.randn(qshape, generator=g, device=dev).to(bf),
+             torch.randn(shape, generator=g, device=dev).to(bf),
+             torch.randn(shape, generator=g, device=dev).to(bf))
+            for _ in range(min(20, copies_for(one)))]
+    if paged:
+        tbl = table.long()
+
+        def kern(q, k, v):
+            return ops.paged_decode_attention(q, k, v, table, lengths,
+                                              max_len=max_len,
+                                              softcap=softcap)
+
+        def plain(q, k, v):
+            return ref.paged_decode_attention_plain(
+                q, k, v, table, lengths, max_len=max_len, softcap=softcap)
+
+        def lib_args(q, k, v):
+            def one_(c):
+                c = c[:, tbl].reshape(B, nmax * BLOCK, KH, hd)
+                return c[:, :L].repeat_interleave(H // KH, 2) \
+                    .transpose(1, 2).contiguous()
+            return q.reshape(B, H, 1, hd), one_(k), one_(v)
+    else:
+        def kern(q, k, v):
+            return ops.decode_attention(q, k, v, lengths, max_len=max_len,
+                                        softcap=softcap)
+
+        def plain(q, k, v):
+            return ref.decode_attention_plain(q, k, v, lengths,
+                                              max_len=max_len,
+                                              softcap=softcap)
+
+        def lib_args(q, k, v):
+            def one_(c):
+                return c[:, :L].repeat_interleave(H // KH, 2) \
+                    .transpose(1, 2).contiguous()
+            return q[:, :, None], one_(k), one_(v)
+    out, want = kern(*sets[0]), plain(*sets[0])
+    t = {"ms": graph_ms(kern, sets, 100), "eager_ms": time_ms(kern, sets, 100),
+         "library_ms": None, "library_eager_ms": float("nan")}
+    if softcap is None:
+        lib_sets = [lib_args(*st) for st in sets]
+        t["library_ms"] = graph_ms(F.scaled_dot_product_attention, lib_sets,
+                                   100)
+        t["library_eager_ms"] = time_ms(F.scaled_dot_product_attention,
+                                        lib_sets, 100)
+        del lib_sets
+    name = "paged_decode_attention" if paged else "decode_attention"
+    row = _report(name, "cuda", "src/repro_torch/kernels/csrc/paged_decode.cu",
+                  "src/repro/kernels/decode_attention.py:"
+                  + ("187" if paged else "92"), out, want, t["ms"],
+                  time_ms(plain, sets[:1], 3), t["library_ms"],
+                  B * L * KH * hd * 2 * 2 + nbytes(sets[0][0], lengths, out),
+                  4.0 * B * L * H * hd, BF16_FLOP_S)
+    row["run"] = arch
+    row["at"] = (f"{tag}: B {B}, live {L}, hd {hd}, G {H // KH} ("
+                 + ("paged, block 16" if paged else "contiguous ring")
+                 + f", capacity {S}, max_len {max_len}"
+                 + (f", softcap {softcap}" if softcap else "") + ")")
+    log(f"[kernel]   {name} at {row['at']}")
+    sweep = max_len if paged else da._sweep_cols(S, 512, max_len)
+    decode_extras(row, t, sweep, B * KH, BLOCK if paged else None,
+                  nmax * BLOCK if paged else S)
+    del sets, out, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_layer_kernels(dev, g, rows) -> None:
+    """Phase 3 for this slice's paths, appended to the shapes of the flash,
+    paged decode and contiguous decode rows: flash at gemma3's global
+    (hd 320) and local (window 1024) prefill shapes and gemma2's (hd 288,
+    softcap 50); the offset route at phase 9's warm shape (bitwise the
+    cold rows); paged decode at gemma3's global layers and at gemma2's
+    (softcap); contiguous decode over gemma3's 1024-slot rings."""
+    from repro_torch.configs import get_config
+    g3, g2 = get_config(G3_ARCH), get_config(G2_ARCH)
+    by = {r["name"]: r for r in rows}
+    g3_cap = G3_PROMPT + G3_NEW + 8
+    g2_cap = G2_PROMPT + LM_NEW + 8
+    by["flash_attention"]["shapes"] += [
+        layer_flash_row(dev, g, G3_ARCH, "gemma3-4b global", SLOTS,
+                        G3_PROMPT, g3.n_heads, g3.n_kv_heads, g3.head_dim),
+        layer_flash_row(dev, g, G3_ARCH, "gemma3-4b local", SLOTS,
+                        G3_PROMPT, g3.n_heads, g3.n_kv_heads, g3.head_dim,
+                        window=g3.spec("local").window),
+        layer_flash_row(dev, g, G2_ARCH, "gemma2-2b", SLOTS, G2_PROMPT,
+                        g2.n_heads, g2.n_kv_heads, g2.head_dim,
+                        softcap=g2.spec("local").attn_logit_softcap),
+        flash_offset_row(dev, g)]
+    by["paged_decode_attention"]["shapes"] += [
+        layer_decode_row(dev, g, G3_ARCH, "gemma3-4b global", True, SLOTS,
+                         G3_PROMPT + G3_NEW, g3_cap, g3.n_heads,
+                         g3.n_kv_heads, g3.head_dim),
+        layer_decode_row(dev, g, G2_ARCH, "gemma2-2b", True, SLOTS,
+                         G2_PROMPT + LM_NEW, g2_cap, g2.n_heads,
+                         g2.n_kv_heads, g2.head_dim,
+                         softcap=g2.spec("local").attn_logit_softcap)]
+    W = g3.spec("local").window
+    by["decode_attention"].setdefault("shapes", []).append(
+        layer_decode_row(dev, g, G3_ARCH, "gemma3-4b local ring", False,
+                         SLOTS, W, W, g3.n_heads, g3.n_kv_heads,
+                         g3.head_dim))
+
+
+def check_layer_parity(dev: torch.device) -> None:
+    """Phase 4, this slice's models: ``reduced_config`` of gemma2-2b (4
+    layers alternating a 16-token window with global, softcaps),
+    gemma3-4b (10 layers, 8 local of window 16, qk-norm, sandwich norms)
+    and nemotron-4-15b (4 layers, LayerNorm, squared ReLU), fp32, on the
+    card against the same weights on the CPU within 1e-4: prefill logits
+    (rows of 30 and 21 tokens right-padded to 32: the rings built per
+    row), chunked prefill (chunk 8, the second row's last chunk holding
+    5 real tokens) into the paged cache of capacity 48 (ring leaves for
+    the windowed layers), then four teacher-forced decode steps across
+    the rings' wrap; then the engine's greedy streams (paged, whole
+    prompts), which must be identical card vs CPU."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import decoder as dec
+    from repro_torch.serving.cache import PagedKVCache
+    from repro_torch.serving.engine import Engine
+    cpu = torch.device("cpu")
+    for arch in (G2_ARCH, G3_ARCH, NEMO_ARCH):
+        cfg = reduced_config(arch)
+        params = {cpu: dec.init_lm(torch.Generator().manual_seed(0), cfg,
+                                   cpu)}
+        params[dev] = _to(params[cpu], dev)
+        rng = np.random.default_rng(4)
+        lens = np.asarray([30, 21])
+        toks = np.zeros((2, 32), np.int64)
+        for i, L in enumerate(lens):
+            toks[i, :L] = rng.integers(1, cfg.vocab_size, size=(L,))
+        teacher = rng.integers(1, cfg.vocab_size, size=(4, 2))
+        got = {}
+        with torch.no_grad():
+            for d in (cpu, dev):
+                t = lambda a, dt=torch.long: torch.as_tensor(  # noqa: E731
+                    np.asarray(a)).to(d, dt)
+                p = params[d]
+                logits, _ = dec.lm_forward(p, {"inputs": t(toks),
+                                               "lengths": t(lens)}, cfg)
+                kv = PagedKVCache(cfg, max_slots=2, max_seq_len=48,
+                                  block_size=8, device=d)
+                for slot in range(2):
+                    kv.allocate(slot, int(lens[slot]) + 4)
+                chunks = []
+                for c in range(0, 32, 8):
+                    cl = np.clip(lens - c, 0, 8)
+                    chunks.append(dec.lm_chunk_step(
+                        p, kv.engine_cache(), t(toks[:, c:c + 8]),
+                        t([c, c], torch.int32), cfg, block_table=kv.table(),
+                        slots=t([0, 1]), chunk_lens=t(cl))[0])
+                steps = [dec.lm_decode_step(
+                    p, kv.engine_cache(), t(teacher[k]),
+                    t(lens + k, torch.int32), cfg, block_table=kv.table(),
+                    kv_max_len=48)[0] for k in range(teacher.shape[0])]
+                got[d] = (logits, torch.cat(chunks, 1), torch.stack(steps),
+                          kv.leaf_kinds())
+        _close(f"{arch} prefill logits", got[dev][0], got[cpu][0])
+        _close(f"{arch} paged chunk-8 logits", got[dev][1], got[cpu][1])
+        _close(f"{arch} decode logits across the ring wrap", got[dev][2],
+               got[cpu][2])
+        log(f"[parity] {arch}: leaf kinds {got[dev][3]}")
+        prompts = [rng.integers(1, cfg.vocab_size, size=(L,)).tolist()
+                   for L in (30, 21, 9, 26)]
+        streams = {d: Engine(cfg, params[d], max_slots=2, max_seq_len=48,
+                             device=d).generate(prompts, 8)
+                   for d in (cpu, dev)}
+        same = streams[dev] == streams[cpu]
+        log(f"[parity] {arch} greedy token streams, card vs CPU: "
+            f"{'identical' if same else 'DIFFER'}")
+        if not same:
+            raise SystemExit(f"[parity] {arch} greedy streams differ")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: gemma3-4b, gemma2-2b and nemotron-4-15b at full width
+# ---------------------------------------------------------------------------
+
+LAYER_RUNS = {}       # the figures of phase 11, for the summary
+
+
+def layer_arith(cfg, c: dict) -> dict:
+    """The launch counts of a phase-11 run of ``c["P"]`` prefill calls and
+    ``c["T"]`` decode steps, from the code: one flash launch per layer per
+    prefill call; per decode step one decode launch per layer, the paged
+    kernel on a pool layer and the contiguous one on a ring layer; the
+    RMSNorm launches ``norm_routes`` counts (none for LayerNorm)."""
+    from repro_torch.common.paged import leaf_kind
+    L, P, T = cfg.n_layers, c["P"], c["T"]
+    rings = sum(leaf_kind(cfg.spec(nm), c["capacity"]) == "ring"
+                for nm in cfg.layer_names)
+    want = {"flash_attention": L * P,
+            "paged_decode_attention": (L - rings) * T,
+            "decode_attention": rings * T,
+            "paged_decode_attention_int8": 0, "decode_attention_int8": 0,
+            "int8_matmul": 0, "ssm_scan": 0,
+            "rmsnorm": sum(norm_routes("layers", cfg, c).values())}
+    return want
+
+
+def serve_layer_model(dev, card: str, arch: str, prompt: int, new: int,
+                      planned: bool = False):
+    """Phase 11, one model at full width and depth, bf16, seeded random
+    weights: SLOTS greedy requests of ``prompt`` tokens and ``new`` new
+    tokens, SLOTS slots, block BLOCK, capacity prompt + new + 8, all
+    prompts admitted in one round (``max_waiting_prefill_tokens``), the
+    prefix cache off (windowed models have none).  Prints TTFT and TPOT
+    p50 / p90, throughput, peak memory, the cache's leaf kinds and the
+    launches per kernel and per flash / RMSNorm route; gates: every
+    request finishes, the launch arithmetic (``layer_arith``), every
+    flash launch on ``route``'s route, the RMSNorm launches by route as
+    ``norm_routes`` counts them.  With ``planned`` the same prompts again
+    pipelined (depth 1, the programs of the run's live lengths
+    captured): every step a replay, streams bitwise the sync run's, the
+    same arithmetic.  Returns the sync run's launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.decoder import init_lm
+    from repro_torch.serving.engine import Engine, EngineMetrics, RequestState
+    cfg = get_config(arch)
+    cap = prompt + new + 8
+    t0 = time.perf_counter()
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    torch.cuda.synchronize()
+    log(f"[layers] {arch}: {sum(t.numel() for t in _leaves(params)) / 1e9:.3f}"
+        f" B parameters, {sum(nbytes(t) for t in _leaves(params)) / 1e9:.3f} "
+        f"GB bf16, init {time.perf_counter() - t0:.1f}s")
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(1, cfg.vocab_size, size=(prompt,)).tolist()
+               for _ in range(SLOTS)]
+    route = fa.route(torch.bfloat16, cfg.head_dim, True)
+    fig, sync_streams, launches0 = {}, None, None
+    for mode in ("sync", "planned") if planned else ("sync",):
+        eng = Engine(cfg, params, max_slots=SLOTS, max_seq_len=cap,
+                     block_size=BLOCK, device=dev, prefix_cache=False,
+                     max_waiting_prefill_tokens=SLOTS * cap,
+                     pipeline_depth=1 if mode == "planned" else 0)
+        r = eng.runner
+        if mode == "planned":
+            r.plan_programs(sampled=(False,),
+                            lengths=range(prompt, prompt + new + 1))
+        kinds = r.kv.leaf_kinds()
+        eng.generate([rng.integers(1, cfg.vocab_size, size=(16,)).tolist()
+                      for _ in range(SLOTS)], 3)          # warm-up
+        eng.metrics = EngineMetrics()
+        eng._last_dispatch_t = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        base = (r.decode_transfers, r.prefill_calls, r.chunk_calls,
+                r.planned_hits)
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, new) for p in prompts]
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        flash_routes = dict(ops.flash_attention.routes)
+        rms_routes = dict(ops.rmsnorm.routes)
+        m = eng.metrics.summary()
+        peak = torch.cuda.max_memory_allocated(dev)
+        c = {"T": r.decode_transfers - base[0], "P": r.prefill_calls - base[1],
+             "C": r.chunk_calls - base[2], "hits": r.planned_hits - base[3],
+             "capacity": cap}
+        done = sum(q.state is RequestState.DONE and len(q.output) == new
+                   for q in reqs)
+        streams = [q.output for q in reqs]
+        want = layer_arith(cfg, c)
+        got = {k: launches[k] for k in want}
+        gates = {"finished": done == len(reqs),
+                 "launch arithmetic": got == want and c["P"] > 0
+                 and c["C"] == 0,
+                 "flash route": flash_routes == dict(
+                     dict.fromkeys(flash_routes, 0),
+                     **{route: launches["flash_attention"]}),
+                 "RMSNorm routes": rms_routes == norm_routes("layers", cfg,
+                                                             c)}
+        if mode == "planned":
+            gates["every step replayed"] = c["hits"] == c["T"] > 0
+            gates["streams equal sync"] = streams == sync_streams
+        log(f"[layers] {card} | {arch} {mode}: {SLOTS} reqs x ({prompt} in "
+            f"/ {new} out), slots {SLOTS}, block {BLOCK}, wall {wall:.3f}s; "
+            f"TTFT ms p50 {m['ttft_ms']['p50']:.2f} p90 "
+            f"{m['ttft_ms']['p90']:.2f}; TPOT ms p50 "
+            f"{m['tpot_ms']['p50']:.3f} p90 {m['tpot_ms']['p90']:.3f}; "
+            f"throughput {m['throughput_tok_s']:.1f} tok/s; peak memory "
+            f"{peak / 1e9:.3f} GB")
+        log(f"[layers] {arch} {mode}: leaf kinds {json.dumps(kinds)} "
+            f"(pool {r.kv.pool_bytes() / 1e9:.3f} GB, ring rows "
+            f"{r.kv.state_bytes() / 1e9:.3f} GB); prefill calls {c['P']}, "
+            f"decode steps {c['T']}, replays {c['hits']}; launches "
+            f"{json.dumps(launches)}; arithmetic {json.dumps(want)}; flash "
+            f"routes {json.dumps(flash_routes)}; RMSNorm routes "
+            f"{json.dumps(rms_routes)}; gates {json.dumps(gates)}")
+        fig[mode] = {"ttft_ms": m["ttft_ms"], "tpot_ms": m["tpot_ms"],
+                     "throughput_tok_s": m["throughput_tok_s"],
+                     "peak_gb": peak / 1e9, "wall_s": wall,
+                     "leaf_kinds": kinds, "launches": launches,
+                     "flash_routes": flash_routes, "rmsnorm_routes":
+                     rms_routes, "graphs": len(r.programs)}
+        if mode == "sync":
+            sync_streams, launches0 = streams, launches
+        del eng, r
+        gc.collect()
+        torch.cuda.empty_cache()
+        if not all(gates.values()):
+            raise SystemExit(f"[layers] {arch} {mode}: gates {gates}")
+    LAYER_RUNS[arch] = fig
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches0
+
+
+def serve_layer_models(dev, card: str, runs: dict) -> None:
+    """Phase 11: gemma3-4b (8 x 1536 / 64: a capacity past its 1024
+    window, so its 29 local layers hold rings and its 5 global ones
+    pools; sync, then planned), gemma2-2b (8 x 512 / 32; its 4096 window
+    covers the capacity: every layer paged, softcaps, hd 288) and
+    nemotron-4-15b (8 x 512 / 32, LayerNorm, squared ReLU), sync."""
+    t0 = time.perf_counter()
+    runs[G3_ARCH] = serve_layer_model(dev, card, G3_ARCH, G3_PROMPT, G3_NEW,
+                                      planned=True)
+    kinds = LAYER_RUNS[G3_ARCH]["sync"]["leaf_kinds"]
+    if kinds != {"ring": 18, "paged": 2}:
+        raise SystemExit(f"[layers] gemma3-4b leaf kinds {kinds}: want the "
+                         "29 local layers' K/V as rings (18 leaves: 5 unit "
+                         "positions and 4 suffix layers) and the 5 global "
+                         "ones' as pools (2 leaves)")
+    runs[G2_ARCH] = serve_layer_model(dev, card, G2_ARCH, G2_PROMPT, LM_NEW)
+    runs[NEMO_ARCH] = serve_layer_model(dev, card, NEMO_ARCH, G2_PROMPT,
+                                        LM_NEW)
+    LAYER_RUNS["seconds"] = time.perf_counter() - t0
+    log(f"[layers] phase 11 took {LAYER_RUNS['seconds']:.1f}s")
+
+
 def head_choice_ms(eng, head, dev) -> None:
     """The LM head in fp32: the fp32 copy the runner keeps against a
     per-step cast of the bf16 head, at the decode shape."""
@@ -4236,6 +4818,7 @@ def main() -> int:
     check_dense_parity(dev)
     check_pt_contiguous_parity(dev)
     check_spec_parity(dev)
+    check_layer_parity(dev)
     keep = {}
     runs = {"bf16": serve_full(dev, card, keep=keep)}
     gc.collect()
@@ -4304,6 +4887,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     runs["ranks"] = serve_ranks(dev, card, one["prompts"], one["streams"],
                                 runs["bf16"])
+    serve_layer_models(dev, card, runs)
+    runs["prefix bf16 warm"] = PREFIX["bf16"]["warm"]["launches"]
     for row in rows:
         # each kernel's count from the run of the path it belongs to
         run = ("falcon" if row["name"] == "ssm_scan" else
@@ -4339,6 +4924,10 @@ def main() -> int:
     log("[ranks] summary " + json.dumps(RANK_SUMMARY))
     log("[prefix] summary " + json.dumps(PREFIX))
     log("[robust] summary " + json.dumps(ROBUST))
+    log("[layers] summary " + json.dumps(
+        {k: ({m: {x: y for x, y in f.items() if x != "launches"}
+              for m, f in v.items()} if isinstance(v, dict) else v)
+         for k, v in LAYER_RUNS.items()}))
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,17 +1,47 @@
-"""Paged KV-cache leaf marker and block-table address arithmetic
-(counterpart of ``repro.common.paged``).
+"""Paged KV-cache leaf layouts, leaf marker and block-table address
+arithmetic (counterpart of ``repro.common.paged``).
 
 A paged engine cache replaces every full-length K/V leaf with a block
 pool ``[..., num_blocks, block_size, KH, hd]`` shared by all slots and
 indexed through a per-slot block table.  Block 0 is the trash block:
 unallocated table entries point at it.  An int8 pool carries its fp32
 per-token-per-head scale pool beside it.
+
+Every cache leaf has one layout kind (``leaf_kind``), as in the
+reference's ``LeafLayout``:
+
+  ``paged``  a sequence leaf that grows to the engine's capacity (GQA
+             K/V, windowed K/V whose window covers the capacity): a
+             block pool addressed through the block table;
+  ``ring``   a sliding-window K/V leaf clamped at its window W shorter
+             than the capacity: dense per-slot rows of W positions
+             (slot = position % W);
+  ``state``  O(1) recurrent state (Mamba's conv window and h): dense
+             per-slot rows.
+
+The reference finds the kinds by probing shapes; the port reads them off
+the layer spec.  Ring and state rows belong to their slot, not to a
+prefix, so the prefix cache needs every leaf paged.
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
 import torch
+
+from repro_torch.common.types import LayerSpec
+
+
+def leaf_kind(spec: LayerSpec, max_seq_len: int) -> str:
+    """The layout kind ('paged', 'ring' or 'state') of a layer's cache
+    leaves in an engine of capacity ``max_seq_len``: a GQA layer's are
+    paged unless its window is shorter than the capacity (a ring of
+    ``window`` rows); any other mixer's are state."""
+    if spec.mixer != "gqa":
+        return "state"
+    if spec.window is not None and spec.window < max_seq_len:
+        return "ring"
+    return "paged"
 
 
 class PagedLeaf:

@@ -39,7 +39,8 @@ class LayerSpec:
     """One transformer-layer flavour referenced by the layer pattern."""
 
     mixer: str                         # 'gqa' (PT) and 'mamba' are ported
-    mlp: str                           # 'swiglu' (PT) and 'none' are ported
+    mlp: str                           # 'swiglu' (PT), 'geglu', 'sqrelu'
+                                       # and 'none' are ported
     window: Optional[int] = None
     rope: str = "rope"
     attn_logit_softcap: Optional[float] = None
@@ -74,6 +75,7 @@ class ModelConfig:
     tie_embeddings: bool = True
 
     rope_theta: float = 10000.0
+    local_rope_theta: float = 10000.0  # theta of ``rope="local_rope"`` layers
 
     # sub-configs; only ``ssm`` and ``pt`` are ported
     moe: Optional[Any] = None

@@ -1,12 +1,15 @@
 """Config registry of the port: the paper's Parallel-Track models, its
-dense baselines, tinyllama-1.1b and falcon-mamba-7b.
+dense baselines, tinyllama-1.1b, falcon-mamba-7b, nemotron-4-15b,
+gemma2-2b and gemma3-4b.
 
   get_config(name)      — full-size config
   reduced_config(name)  — small same-family config (CPU tests)
 
 The ``pt-*`` names serve through ``core.track``; ``dense-*``,
-``tinyllama-1.1b`` (GQA + SwiGLU) and ``falcon-mamba-7b`` (Mamba)
-through the dense ``lm_*`` decoder.  The other assigned architectures
+``tinyllama-1.1b`` (GQA + SwiGLU), ``falcon-mamba-7b`` (Mamba),
+``nemotron-4-15b`` (LayerNorm, squared ReLU) and the gemma models
+(GeGLU, sliding windows, softcaps, qk-norm, sandwich norms) through the
+dense ``lm_*`` decoder.  The other assigned architectures
 need mixers and layer features not ported yet (ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
@@ -14,7 +17,8 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Tuple
 
 from repro_torch.common.types import ModelConfig
-from repro_torch.configs import falcon_mamba_7b, pt_paper, tinyllama_1_1b
+from repro_torch.configs import (falcon_mamba_7b, gemma2_2b, gemma3_4b,
+                                nemotron_4_15b, pt_paper, tinyllama_1_1b)
 
 _PAPER: Dict[str, Callable[[], ModelConfig]] = {
     "pt-6b-d2": lambda: pt_paper.pt_6b(2),
@@ -35,6 +39,9 @@ _LM: Dict[str, Tuple[Callable[[], ModelConfig], Callable[[], ModelConfig]]] = {
     "dense-30b": (pt_paper.dense_30b, pt_paper.reduced_dense),
     "tinyllama-1.1b": (tinyllama_1_1b.config, tinyllama_1_1b.reduced),
     "falcon-mamba-7b": (falcon_mamba_7b.config, falcon_mamba_7b.reduced),
+    "nemotron-4-15b": (nemotron_4_15b.config, nemotron_4_15b.reduced),
+    "gemma2-2b": (gemma2_2b.config, gemma2_2b.reduced),
+    "gemma3-4b": (gemma3_4b.config, gemma3_4b.reduced),
 }
 NAMES: List[str] = PT_NAMES + list(_LM)
 

@@ -353,9 +353,10 @@ def pt_chunk_hidden(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
     only; the head is row-wise, so those logits are the rows
     ``pt_chunk_step`` returns.  ``slots`` and ``chunk_lens`` are accepted
     for the shared step signature and unused: a PT cache has no per-slot
-    state rows, and padded tail rows land past the row's live length."""
+    state rows, and padded tail rows land past the row's live length.
+    It runs as the chunk program of a prompt (mode 'fill')."""
     h = _embed(params, tokens, cfg)                          # [B, C, d]
-    return _pt_step(params, cache, h, pos, cfg, "chunk", block_table,
+    return _pt_step(params, cache, h, pos, cfg, "fill", block_table,
                     kv_max_len, final=False, par=par)
 
 

@@ -7,7 +7,22 @@
 // H, hd], k and v [B, Sk, KH, hd] un-expanded (query head h reads KV head
 // h / (H / KH)), out [B, Sq, H, hd] in q's dtype; row i sees key columns
 // j <= i when causal; softcap s -> cap * tanh(s / cap) before the mask;
-// out = (sum_j p_j v_j) / max(l, 1e-37).
+// out = (sum_j p_j v_j) / max(l, 1e-37).  Beyond the Pallas kernel: a
+// sliding window W (row i sees only j > i - W; key tiles wholly before a
+// query tile's window are skipped), and per batch row b a query offset
+// and a key length (row b's query i sits at position q_off[b] + i and
+// sees keys j < k_len[b]), with which the chunk program attends a
+// prompt's tail over its K/V gathered from the cache.
+//
+// Offsets and bits: a row visits the key tiles from its window's (or
+// key 0's) tile on, in order, up to its query tile's last row, whatever
+// its offset.  A tile past a row's diagonal has every score masked to
+// -inf: its max leaves m as it is, its rescale factor is exp2(0) = 1 and
+// its probabilities are exact zeros, so it leaves m, l and the
+// accumulator unchanged bit for bit.  A row's sums thus run over the
+// same tiles in the same order as in a prefill from position 0, and per
+// row the arithmetic does not depend on where the row sits in its tile:
+// a warm tail's rows get the cold prefill's bits.
 //
 // Two routes, chosen by shape on the host (flash_attention.py::route) and
 // passed in.  What bounds each at the serve shapes (pt-6b-d4: q
@@ -64,7 +79,8 @@
 //     without the store, 0.022 with the loads alone.  So the SM's chain of
 //     loads, softmax and products, not the bytes, sets the time; a third
 //     Q buffer or K stage does not shorten it.
-//   * cuda_core (fp32, other head dims, unaligned bases): bound by the fp32
+//   * cuda_core (fp32, other head dims up to 320, unaligned bases): bound by
+//     the fp32
 //     operations on the CUDA cores (no TF32: the fp32 reference configs
 //     keep fp32 products).  The kernel right below keeps every
 //     intermediate on chip:
@@ -72,7 +88,9 @@
 //       head and reads K/V of KV head h / G straight from the [B, S, KH,
 //       hd] projections, which cuts the bytes of the expanded copy G-fold;
 //     - 256 threads: 4 per query row; each computes 8 of the 32 scores of
-//       a k-tile and owns hd/4 output columns of the fp32 accumulator;
+//       a k-tile and owns hd/4 output columns of the fp32 accumulator (32
+//       registers up to hd 128, 80 up to hd 320: gemma2's 288 and
+//       gemma3's 320, two instantiations);
 //     - the online-softmax state (m, l) stays in registers, the 64x32 tile
 //       of probabilities in shared memory; rows reduce over 4 lanes;
 //     - causal: the k loop stops at the tile's last row, ragged row and
@@ -96,8 +114,7 @@ using namespace hopper;
 constexpr int kBQ = 64;                  // query rows per block
 constexpr int kBK = 32;                  // keys per tile
 constexpr int kThreads = 256;            // 4 threads per query row
-constexpr int kMaxHd = 128;
-constexpr int kDPerThread = kMaxHd / 4;  // accumulator columns per thread
+constexpr int kMaxHd = 320;
 constexpr int kCPerThread = kBK / 4;     // score columns per thread
 
 inline size_t smem_bytes(int hd) {
@@ -106,13 +123,18 @@ inline size_t smem_bytes(int hd) {
          ((size_t)kBQ * ld + 2 * (size_t)kBK * ld + (size_t)kBQ * (kBK + 1));
 }
 
-template <typename T>
+// DPT: accumulator columns per thread (hd <= 4 DPT)
+template <typename T, int DPT>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int Sq,
-                       int Sk, int H, int KH, int hd, int causal,
-                       float softcap, float scale) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       const int* __restrict__ q_off,
+                       const int* __restrict__ k_len, int Sq, int Sk, int H,
+                       int KH, int hd, int causal, int window, float softcap,
+                       float scale) {
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int qo = q_off ? q_off[b] : 0;   // position of the row's query 0
+  const int kl = k_len ? k_len[b] : Sk;  // the row's keys
   const int kh = h / (H / KH);
   const int tid = threadIdx.x, r = tid >> 2, j = tid & 3;
   const int ld = hd + 1;
@@ -130,21 +152,24 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     Q_s[rr * ld + d] = x;
   }
 
-  float acc[kDPerThread];
+  float acc[DPT];
 #pragma unroll
-  for (int i = 0; i < kDPerThread; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DPT; ++i) acc[i] = 0.f;
   float m = -INFINITY, l = 0.f;
   const int row = q0 + r;
+  const int pos = qo + row;              // the query's position
   // causal: a k-tile whose first column is past the block's last row
-  // contributes nothing and is never loaded
-  const int k_end = causal ? min(Sk, q0 + kBQ) : Sk;
+  // contributes nothing and is never loaded; with a window, neither does
+  // one wholly before the block's first row's window
+  const int k_end = causal ? min(kl, qo + q0 + kBQ) : kl;
+  const int k_begin = window > 0 ? max(0, qo + q0 - window + 1) / kBK * kBK : 0;
 
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
+  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();   // Q_s is written / the previous tile is consumed
     for (int idx = tid; idx < kBK * hd; idx += kThreads) {
       const int c = idx / hd, d = idx % hd, ki = k0 + c;
       float kx = 0.f, vx = 0.f;
-      if (ki < Sk) {
+      if (ki < kl) {
         const size_t off = (((size_t)b * Sk + ki) * KH + kh) * hd + d;
         kx = rt::to_f(k[off]);
         vx = rt::to_f(v[off]);
@@ -168,7 +193,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int col = k0 + j + 4 * i;
       float x = s[i];
       if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-      const bool ok = col < Sk && (!causal || col <= row);
+      const bool ok = col < kl && (!causal || col <= pos) &&
+                      (window <= 0 || col > pos - window);
       s[i] = ok ? x : -INFINITY;
       tmax = fmaxf(tmax, s[i]);
     }
@@ -191,7 +217,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncwarp();      // the row's 4 lanes share P_s
 
 #pragma unroll
-    for (int i = 0; i < kDPerThread; ++i) {
+    for (int i = 0; i < DPT; ++i) {
       const int d = j + 4 * i;
       if (d < hd) {
         float a = acc[i] * alpha;
@@ -204,7 +230,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (row < Sq) {
     const float denom = fmaxf(l, 1e-37f);
 #pragma unroll
-    for (int i = 0; i < kDPerThread; ++i) {
+    for (int i = 0; i < DPT; ++i) {
       const int d = j + 4 * i;
       if (d < hd)
         out[(((size_t)b * Sq + row) * H + h) * hd + d] = rt::from_f<T>(acc[i] / denom);
@@ -394,20 +420,22 @@ __device__ __forceinline__ void pv(float (&o)[HD / 2],
   }
 }
 
-// One k-tile's online softmax on this thread's scores s (rows r0 = its
-// fragment row g, r1 = g + 8; columns k0 + 8 j + 2 t4 + (e & 1) of
-// s[4 j + e], e < 2 on r0).  Scores become probabilities in place, in the
-// units of x * c2 (CAP: x = cap tanh(s pre), c2 = log2 e; else x = s,
-// c2 = scale log2 e); m is the running max of x, l this thread's share of
-// the running sum; returns the factors the accumulator rows are rescaled
-// by.  `mask`: the tile crosses the diagonal or the end of the keys.
+// One k-tile's online softmax on this thread's scores s (rows at
+// positions r0 = its fragment row g's, r0 + 8; columns k0 + 8 j + 2 t4 +
+// (e & 1) of s[4 j + e], e < 2 on r0).  Scores become probabilities in
+// place, in the units of x * c2 (CAP: x = cap tanh(s pre), c2 = log2 e;
+// else x = s, c2 = scale log2 e); m is the running max of x, l this
+// thread's share of the running sum; returns the factors the accumulator
+// rows are rescaled by.  `mask`: the tile crosses the diagonal, the end
+// of the keys (kl) or the start of a window.
 template <bool CAP>
 __device__ __forceinline__ float2 softmax_tile(float (&s)[64], float& m0,
                                                float& m1, float& l0,
                                                float& l1, bool mask, int k0,
-                                               int t4, int r0, int Sk,
-                                               int causal, float c2,
-                                               float pre, float cap) {
+                                               int t4, int r0, int kl,
+                                               int causal, int window,
+                                               float c2, float pre,
+                                               float cap) {
   if (CAP) {
 #pragma unroll
     for (int i = 0; i < 64; ++i) s[i] = cap * tanhf(s[i] * pre);
@@ -417,7 +445,9 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[64], float& m0,
     for (int i = 0; i < 64; ++i) {
       const int col = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
       const int row = r0 + ((i & 2) ? 8 : 0);
-      if (col >= Sk || (causal && col > row)) s[i] = -INFINITY;
+      if (col >= kl || (causal && col > row) ||
+          (window > 0 && col <= row - window))
+        s[i] = -INFINITY;
     }
   }
   float x0 = -INFINITY, x1 = -INFINITY;
@@ -470,7 +500,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap kmap,
                              const __grid_constant__ CUtensorMap vmap,
                              const __grid_constant__ CUtensorMap omap,
-                             int B, int Sq, int Sk, int H, int KH, int causal,
+                             const int* __restrict__ q_off,
+                             const int* __restrict__ k_len, int B, int Sq,
+                             int Sk, int H, int KH, int causal, int window,
                              float c2, float pre, float cap) {
   using SM = fa::Smem<HD>;
   constexpr int BQ = fa::kBQ, BK = fa::kBK;
@@ -510,15 +542,23 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   __syncthreads();
 
   // tile t: q-tile (the heaviest causal ones first), then batch, then
-  // head fastest, so the G heads of a KV head run side by side
-  auto decode = [&](int t, int& q0, int& h, int& b, int& n) {
+  // head fastest, so the G heads of a KV head run side by side.  The tile
+  // reads key tiles j0 .. j0 + n - 1 of its batch row (qo: the position
+  // of the row's query 0, kl: its keys)
+  auto decode = [&](int t, int& q0, int& h, int& b, int& n, int& j0,
+                    int& qo, int& kl) {
     const int qt = causal ? n_qt - 1 - t / (H * B) : t / (H * B);
     const int r = t % (H * B);
     b = r / H;
     h = r % H;
     q0 = qt * BQ;
-    const int k_end = causal ? min(Sk, q0 + BQ) : Sk;
-    n = (k_end + BK - 1) / BK;
+    qo = q_off ? q_off[b] : 0;
+    kl = k_len ? k_len[b] : Sk;
+    const int k_end = causal ? min(kl, qo + q0 + BQ) : kl;
+    const int j_end = (k_end + BK - 1) / BK;
+    j0 = window > 0 ? max(0, qo + q0 - window + 1) / BK : 0;
+    j0 = max(0, min(j0, j_end - 1));
+    n = max(1, j_end - j0);
   };
 
   if (tid < 128) {                      // producer: one thread loads
@@ -545,8 +585,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       };
       int u = 0, i = 0;                 // K / V tiles, q-tiles so far
       for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++i) {
-        int q0, h, b, n;
-        decode(t, q0, h, b, n);
+        int q0, h, b, n, j0, qo, kl;
+        decode(t, q0, h, b, n, j0, qo, kl);
         const int qb = i % QS;
         mbar_wait(&q_empty[qb], ((i / QS) & 1) ^ 1);
         mbar_expect_tx(&q_full[qb], SM::kQ);
@@ -554,10 +594,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           tma_load_4d(qs + qb * SM::kQ + x * (BQ * 128), &qmap, &q_full[qb],
                       64 * x, h, q0, b);
         for (int j = 0; j < n; ++j) {
-          load_k(u + j, j, h / G, b);
-          if (j > 0) load_v(u + j - 1, j - 1, h / G, b);
+          load_k(u + j, j0 + j, h / G, b);
+          if (j > 0) load_v(u + j - 1, j0 + j - 1, h / G, b);
         }
-        load_v(u + n - 1, n - 1, h / G, b);
+        load_v(u + n - 1, j0 + n - 1, h / G, b);
         u += n;
       }
     }
@@ -578,14 +618,15 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   int pend = -1;                        // Q buffer a store still reads
   if (cw == 1) turn_pass(cw);           // warpgroup 0 issues first
   for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++i) {
-    int q0, h, b, n;
-    decode(t, q0, h, b, n);
+    int q0, h, b, n, j0, qo, kl;
+    decode(t, q0, h, b, n, j0, qo, kl);
     const int qb = i % QS;
     uint8_t* qh = qs + qb * SM::kQ + cw * (64 * 128);  // the warpgroup's rows
-    const int lo = q0 + 64 * cw;                // its first row
+    const int lo = qo + q0 + 64 * cw;           // its first row's position
     const int r0 = lo + rl;                     // this thread's rows r0, r0 + 8
     auto needs_mask = [&](int k0) {
-      return k0 + BK > Sk || (causal && k0 + BK - 1 > lo);
+      return k0 + BK > kl || (causal && k0 + BK - 1 > lo) ||
+             (window > 0 && k0 <= lo + 63 - window);
     };
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
     mbar_wait(&q_full[qb], (i / QS) & 1);
@@ -607,8 +648,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     wgmma_wait<0>();
     fence_regs(s);
     if (lane == 0) mbar_arrive(&k_empty[u % KS]);
-    softmax_tile<CAP>(s, m0, m1, l0, l1, needs_mask(0), 0, t4, r0, Sk, causal,
-                      c2, pre, cap);
+    softmax_tile<CAP>(s, m0, m1, l0, l1, needs_mask(j0 * BK), j0 * BK, t4, r0,
+                      kl, causal, window, c2, pre, cap);
     pack_p(s, p);
 
     // k-tile j: its Q K^T and k-tile j - 1's P V issued together; the
@@ -630,9 +671,10 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       wgmma_wait<1>();
       fence_regs(s);
       if (lane == 0) mbar_arrive(&k_empty[uk % KS]);
-      const float2 a = softmax_tile<CAP>(s, m0, m1, l0, l1,
-                                         needs_mask(j * BK), j * BK, t4, r0,
-                                         Sk, causal, c2, pre, cap);
+      const int k0 = (j0 + j) * BK;
+      const float2 a = softmax_tile<CAP>(s, m0, m1, l0, l1, needs_mask(k0),
+                                         k0, t4, r0, kl, causal, window, c2,
+                                         pre, cap);
       wgmma_wait<0>();
       fence_regs(o);
       fence_regs(p);
@@ -693,8 +735,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
 template <int HD, bool CAP>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int B, int Sq, int Sk, int H, int KH, int causal,
-                 float softcap, float scale, cudaStream_t s) {
+                 const int* q_off, const int* k_len, int B, int Sq, int Sk,
+                 int H, int KH, int causal, int window, float softcap,
+                 float scale, cudaStream_t s) {
   using SM = fa::Smem<HD>;
   const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   // (hd, heads, S, B), innermost first; boxes of 64 columns of one head
@@ -730,7 +773,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   const float log2e = fa::kLog2e;
   flash_attention_wgmma_kernel<HD, CAP>
       <<<blocks, fa::kThreads, SM::kBytes, s>>>(
-          qm, km, vm, om, B, Sq, Sk, H, KH, causal,
+          qm, km, vm, om, q_off, k_len, B, Sq, Sk, H, KH, causal, window,
           CAP ? log2e : scale * log2e, CAP ? scale / softcap : 0.f,
           CAP ? softcap : 0.f);
   return (int)cudaGetLastError();
@@ -738,66 +781,86 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 
 template <int HD>
 int dispatch_wgmma(const void* q, const void* k, const void* v, void* out,
-                   int B, int Sq, int Sk, int H, int KH, int causal,
-                   float softcap, float scale, cudaStream_t s) {
+                   const int* q_off, const int* k_len, int B, int Sq, int Sk,
+                   int H, int KH, int causal, int window, float softcap,
+                   float scale, cudaStream_t s) {
   if (softcap > 0.f)
-    return launch_wgmma<HD, true>(q, k, v, out, B, Sq, Sk, H, KH, causal,
-                                  softcap, scale, s);
-  return launch_wgmma<HD, false>(q, k, v, out, B, Sq, Sk, H, KH, causal,
-                                 softcap, scale, s);
+    return launch_wgmma<HD, true>(q, k, v, out, q_off, k_len, B, Sq, Sk, H,
+                                  KH, causal, window, softcap, scale, s);
+  return launch_wgmma<HD, false>(q, k, v, out, q_off, k_len, B, Sq, Sk, H,
+                                 KH, causal, window, softcap, scale, s);
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, void* out, int B,
-           int Sq, int Sk, int H, int KH, int hd, int causal, float softcap,
-           float scale, cudaStream_t s) {
+template <typename T, int DPT>
+int launch_dpt(const void* q, const void* k, const void* v, void* out,
+               const int* q_off, const int* k_len, int B, int Sq, int Sk,
+               int H, int KH, int hd, int causal, int window, float softcap,
+               float scale, cudaStream_t s) {
   const size_t smem = smem_bytes(hd);
   // above 48 KB a block's dynamic shared memory must be opted into
-  cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<T>,
+  cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<T, DPT>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        (int)smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<T><<<grid, kThreads, smem, s>>>(
+  flash_attention_kernel<T, DPT><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), Sq, Sk, H, KH, hd,
-      causal, softcap, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), q_off, k_len, Sq, Sk,
+      H, KH, hd, causal, window, softcap, scale);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* out,
+           const int* q_off, const int* k_len, int B, int Sq, int Sk, int H,
+           int KH, int hd, int causal, int window, float softcap, float scale,
+           cudaStream_t s) {
+  if (hd <= 128)
+    return launch_dpt<T, 32>(q, k, v, out, q_off, k_len, B, Sq, Sk, H, KH,
+                             hd, causal, window, softcap, scale, s);
+  return launch_dpt<T, kMaxHd / 4>(q, k, v, out, q_off, k_len, B, Sq, Sk, H,
+                                   KH, hd, causal, window, softcap, scale, s);
 }
 
 }  // namespace
 
 // q [B, Sq, H, hd]; k, v [B, Sk, KH, hd]; out [B, Sq, H, hd]; contiguous,
-// Sq, Sk >= 1.  softcap <= 0 means none.  `route` is a code of
-// flash_attention.py::ROUTES (0 wgmma_tma, 1 cuda_core).  Returns
+// Sq, Sk >= 1.  q_off, k_len: int32 [B] (both or neither; null: 0 and Sk),
+// k_len[b] <= Sk.  window <= 0 and softcap <= 0 mean none.  `route` is a
+// code of flash_attention.py::ROUTES (0 wgmma_tma, 1 cuda_core).  Returns
 // cudaGetLastError() after the launch, or an error code for a route the
 // arguments do not fit.
 extern "C" int flash_attention_launch(const void* q, const void* k,
-                                      const void* v, void* out, int B, int Sq,
-                                      int Sk, int H, int KH, int hd,
-                                      int causal, float softcap, float scale,
-                                      int dtype, int route, void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || KH <= 0 || H % KH != 0 || hd > kMaxHd)
+                                      const void* v, void* out,
+                                      const void* q_off, const void* k_len,
+                                      int B, int Sq, int Sk, int H, int KH,
+                                      int hd, int causal, int window,
+                                      float softcap, float scale, int dtype,
+                                      int route, void* stream) {
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || KH <= 0 || H % KH != 0 || hd > kMaxHd ||
+      (q_off == nullptr) != (k_len == nullptr))
     return (int)cudaErrorInvalidValue;
+  const int* qo = static_cast<const int*>(q_off);
+  const int* kl = static_cast<const int*>(k_len);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == 0) {
     if (dtype != rt::kBFloat16 || !aligned16(q) || !aligned16(k) ||
         !aligned16(v) || !aligned16(out))
       return (int)cudaErrorInvalidValue;
     if (hd == 128)
-      return dispatch_wgmma<128>(q, k, v, out, B, Sq, Sk, H, KH, causal,
-                                 softcap, scale, s);
+      return dispatch_wgmma<128>(q, k, v, out, qo, kl, B, Sq, Sk, H, KH,
+                                 causal, window, softcap, scale, s);
     if (hd == 64)
-      return dispatch_wgmma<64>(q, k, v, out, B, Sq, Sk, H, KH, causal,
-                                softcap, scale, s);
+      return dispatch_wgmma<64>(q, k, v, out, qo, kl, B, Sq, Sk, H, KH,
+                                causal, window, softcap, scale, s);
     return (int)cudaErrorInvalidValue;
   }
   if (route != 1) return (int)cudaErrorInvalidValue;
   if (dtype == rt::kFloat32)
-    return launch<float>(q, k, v, out, B, Sq, Sk, H, KH, hd, causal, softcap,
-                         scale, s);
+    return launch<float>(q, k, v, out, qo, kl, B, Sq, Sk, H, KH, hd, causal,
+                         window, softcap, scale, s);
   if (dtype == rt::kBFloat16)
-    return launch<__nv_bfloat16>(q, k, v, out, B, Sq, Sk, H, KH, hd, causal,
-                                 softcap, scale, s);
+    return launch<__nv_bfloat16>(q, k, v, out, qo, kl, B, Sq, Sk, H, KH, hd,
+                                 causal, window, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -64,6 +64,12 @@
 // Scores live in the log2 domain (q pre-scaled by hd^-0.5 * log2 e), so the
 // softmax uses exp2f.  Columns >= lengths[b] and past the host's sweep are
 // never visited; a row with no live column stores zeros.
+//
+// Beyond the Pallas kernels: the tanh logit softcap (gemma2; softcap > 0:
+// a score x becomes cap tanh(x / cap), in the log2 domain c tanh(s / c)
+// with c = cap log2 e, one tanhf per score after the int8 scale), and
+// head dims up to 320 (gemma2's 288, gemma3's 320: rows of 36 or 40
+// 16-byte words take the scalar path, 10 elements a lane).
 #include <type_traits>
 
 #include "common.cuh"
@@ -73,7 +79,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxG = 8;                  // query heads per KV head
-constexpr int kMaxHd = 256;
+constexpr int kMaxHd = 320;
 constexpr int kMaxSplits = 64;            // decode_attention.py _MAX_SPLITS
 constexpr int kMaxPages = 256;            // decode_attention.py _MAX_PAGES
 constexpr int kScalarE = kMaxHd / 32;     // elements per lane, scalar path
@@ -96,6 +102,7 @@ struct Args {
   int sweep;        // tokens the sweep may visit (the host's max_len cut)
   int n_split, split_len;
   float scale;
+  float softcap;    // > 0: the tanh logit cap; 0: none
 };
 
 // One lane's kE elements of a K or V row.  Vector path: kE consecutive
@@ -219,7 +226,9 @@ struct Shape {
   static constexpr int kStageBytes =
       2 * kTileBytes + (kQuant ? 2 * kMaxT * 4 : 0);
   static constexpr int kPipeBytes = kWarps * kStages * kStageBytes;
-  static constexpr int kMergeBytes = kWarps * kG * kMaxHd * 4;
+  // the widest row an instantiation takes: 32 lanes of kE elements
+  static constexpr int kHd = 32 * kE;
+  static constexpr int kMergeBytes = kWarps * kG * kHd * 4;
   static constexpr int kSmem = kPipeBytes > kMergeBytes ? kPipeBytes
                                                         : kMergeBytes;
 };
@@ -326,12 +335,15 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
       }
     }
     float p[kU][kG];
+    const float cap = a.softcap * kLog2e;
 #pragma unroll
     for (int g = 0; g < kG; ++g) {
       float mx = -INFINITY;
 #pragma unroll
       for (int u = 0; u < kU; ++u) {
-        s[u][g] = x.live[u] ? s[u][g] * x.ks[u] : -INFINITY;
+        float x2 = s[u][g] * x.ks[u];
+        if (a.softcap > 0.f) x2 = cap * tanhf(x2 / cap);
+        s[u][g] = x.live[u] ? x2 : -INFINITY;
         mx = fmaxf(mx, s[u][g]);
       }
       const float m_new = fmaxf(m[g], mx);
@@ -690,6 +702,7 @@ int dispatch(const Args& a, int n_bases_z, int dtype, int cache_dtype,
 
 }  // namespace
 
+// softcap > 0: the tanh logit cap (0: none).
 // q [n, B, H, hd]; k_pool/v_pool [n, N, bs, KH, hd] of q's dtype, or int8
 // (pool_dtype rt::kInt8) with k_scale/v_scale [n, N, bs, KH, 1] fp32 (null
 // for fp pools); table [B, nmax] int32; lengths [B] int32; out [n, B, H, hd]
@@ -704,14 +717,15 @@ extern "C" int paged_decode_attention_launch(
     const void* k_scale, const void* v_scale, const void* table,
     const void* lengths, void* out, void* ws, void* counters, int n, int B,
     int H, int KH, int hd, int N, int bs, int nmax, int n_sweep, int n_split,
-    int split_len, float scale, int dtype, int pool_dtype, int vec,
-    void* stream) {
+    int split_len, float scale, float softcap, int dtype, int pool_dtype,
+    int vec, void* stream) {
   const Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale),
                static_cast<const int*>(table),
                static_cast<const int*>(lengths), out,
                static_cast<float*>(ws), static_cast<int*>(counters), B, H, KH,
-               hd, N, bs, nmax, n_sweep * bs, n_split, split_len, scale};
+               hd, N, bs, nmax, n_sweep * bs, n_split, split_len, scale,
+               softcap};
   return dispatch<true>(a, n * B, dtype, pool_dtype, vec, stream);
 }
 
@@ -725,12 +739,12 @@ extern "C" int decode_attention_launch(
     const void* q, const void* k_cache, const void* v_cache,
     const void* k_scale, const void* v_scale, const void* lengths, void* out,
     void* ws, void* counters, int B, int H, int KH, int hd, int S,
-    int n_cols, int n_split, int split_len, float scale, int dtype,
-    int cache_dtype, int vec, void* stream) {
+    int n_cols, int n_split, int split_len, float scale, float softcap,
+    int dtype, int cache_dtype, int vec, void* stream) {
   const Args a{q, k_cache, v_cache, static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale), nullptr,
                static_cast<const int*>(lengths), out,
                static_cast<float*>(ws), static_cast<int*>(counters), B, H, KH,
-               hd, B, S, 1, n_cols, n_split, split_len, scale};
+               hd, B, S, 1, n_cols, n_split, split_len, scale, softcap};
   return dispatch<false>(a, B, dtype, cache_dtype, vec, stream);
 }

@@ -9,7 +9,10 @@ the two layouts of the reference.
     replaces ``repro/kernels/decode_attention.py::decode_attention`` (the
     Pallas ``_kernel``).
 
-Both have both branches: fp caches, and int8 caches whose fp32
+Both take the tanh logit softcap of gemma2 (``softcap``: each score s
+becomes cap * tanh(s / cap) before the softmax, one tanh per score in
+the kernel), which the Pallas kernels do not (the reference routes such
+layers to jnp).  Both have both branches: fp caches, and int8 caches whose fp32
 per-token-per-head scales are dequantized inside the softmax loop
 (``_online_softmax_step``'s ``ks``/``vs``).  The CUDA kernel is
 ``csrc/paged_decode.cu``, one split-KV template for both layouts and both
@@ -35,6 +38,14 @@ from repro_torch.kernels import build
 NEG_INF = -2.0e38
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8 = 2                       # pool dtype code of the int8 branch
+MAX_HD = 320                    # csrc/paged_decode.cu kMaxHd
+
+
+def _cap(softcap: Optional[float]) -> float:
+    """The kernel's softcap argument (0: none)."""
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"softcap must be positive, got {softcap}")
+    return 0.0 if softcap is None else float(softcap)
 
 # split-KV plan (the kernel's kMaxSplits / kMaxPages bound the first two)
 _MAX_SPLITS = 64                # splits of one (track, row, KV head)
@@ -195,7 +206,8 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                                  lengths: torch.Tensor, *,
                                  max_len: Optional[int] = None,
                                  k_scale: Optional[torch.Tensor] = None,
-                                 v_scale: Optional[torch.Tensor] = None
+                                 v_scale: Optional[torch.Tensor] = None,
+                                 softcap: Optional[float] = None
                                  ) -> torch.Tensor:
     """Plain PyTorch version: gather the table's blocks (dequantizing
     int8 pools: payload * per-row scale), masked fp32 softmax.  q
@@ -223,6 +235,8 @@ def paged_decode_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     v = gather(v_pool, v_scale)
     qf = q.float().reshape(n, B, KH, G, hd) * hd ** -0.5
     s = torch.einsum("nbkgd,nbskd->nbkgs", qf, k)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
     cols = torch.arange(n_s * bs, device=q.device)
     live = ((cols[None, :] < lengths.to(q.device).long()[:, None])
             & (cols[None, :] < cut))                                # [B, S]
@@ -239,13 +253,14 @@ def _launcher():
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i,
-                       i, i, i, i, i, i, ctypes.c_float, i, i, i, vp]
+                       i, i, i, i, i, i, ctypes.c_float, ctypes.c_float, i,
+                       i, i, vp]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _launch(q, k_pool, v_pool, k_scale, v_scale, block_table, lengths,
-            max_len, plan_scale) -> torch.Tensor:
+            max_len, plan_scale, softcap) -> torch.Tensor:
     """Launch the CUDA kernel on checked operands (either branch)."""
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
@@ -259,8 +274,8 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, block_table, lengths,
             raise ValueError("all operands must be contiguous on one device")
     n, B, H, hd = q.shape
     _, N, bs, KH, _ = k_pool.shape
-    if H // KH > 8 or hd > 256:
-        raise ValueError(f"kernel takes G <= 8 and hd <= 256, got "
+    if H // KH > 8 or hd > MAX_HD:
+        raise ValueError(f"kernel takes G <= 8 and hd <= {MAX_HD}, got "
                          f"G={H // KH}, hd={hd}")
     nmax = block_table.shape[1]
     n_sweep = _sweep_blocks(nmax, bs, max_len)
@@ -276,7 +291,7 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, block_table, lengths,
                       out.data_ptr(), ws.data_ptr() if n_split > 1 else None,
                       cnt.data_ptr() if n_split > 1 else None, n, B, H, KH,
                       hd, N, bs, nmax, n_sweep, n_split, c, hd ** -0.5,
-                      _DTYPES[q.dtype],
+                      _cap(softcap), _DTYPES[q.dtype],
                       _INT8 if quant else _DTYPES[q.dtype],
                       _vector_rows(hd, k_pool, v_pool), build.cuda_stream(q))
     build.check(err, "paged_decode_attention")
@@ -289,7 +304,9 @@ def paged_decode_attention_int8(q: torch.Tensor, k_pool: torch.Tensor,
                                 block_table: torch.Tensor,
                                 lengths: torch.Tensor, *,
                                 max_len: Optional[int] = None,
-                                plan_scale: int = 1) -> torch.Tensor:
+                                plan_scale: int = 1,
+                                softcap: Optional[float] = None
+                                ) -> torch.Tensor:
     """The int8 branch: pools int8 [n, N, bs, KH, hd] with fp32 scale
     pools [n, N, bs, KH, 1], dequantized per row inside the softmax
     loop; otherwise as ``paged_decode_attention``.  CPU tensors run the
@@ -298,9 +315,9 @@ def paged_decode_attention_int8(q: torch.Tensor, k_pool: torch.Tensor,
     if q.device.type == "cpu":
         return paged_decode_attention_plain(
             q, k_pool, v_pool, block_table, lengths, max_len=max_len,
-            k_scale=k_scale, v_scale=v_scale)
+            k_scale=k_scale, v_scale=v_scale, softcap=softcap)
     out = _launch(q, k_pool, v_pool, k_scale, v_scale, block_table, lengths,
-                  max_len, plan_scale)
+                  max_len, plan_scale, softcap)
     paged_decode_attention_int8.launches += 1
     return out
 
@@ -311,7 +328,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            max_len: Optional[int] = None,
                            k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None,
-                           plan_scale: int = 1) -> torch.Tensor:
+                           plan_scale: int = 1,
+                           softcap: Optional[float] = None) -> torch.Tensor:
     """Flash-decode over a block pool, all tracks at once.
 
     q [n, B, H, hd]; pools [n, N, bs, KH, hd] (one layer's slice of the
@@ -322,20 +340,22 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     ``paged_decode_attention_int8``.  ``plan_scale``: the split plan
     counts that many times this launch's blocks (on a track rank of W,
     W: one process's launch over every track), so that the kernel sums
-    each row as that launch does.  Returns [n, B, H, hd].  CPU
-    tensors run the plain version; CUDA tensors launch the kernel or
-    raise."""
+    each row as that launch does.  ``softcap``: the tanh logit cap.
+    Returns [n, B, H, hd].  CPU tensors run the plain version; CUDA
+    tensors launch the kernel or raise."""
     if k_scale is not None or v_scale is not None:
         return paged_decode_attention_int8(q, k_pool, v_pool, k_scale,
                                            v_scale, block_table, lengths,
                                            max_len=max_len,
-                                           plan_scale=plan_scale)
+                                           plan_scale=plan_scale,
+                                           softcap=softcap)
     _check(q, k_pool, v_pool, block_table, lengths)
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_table,
-                                            lengths, max_len=max_len)
+                                            lengths, max_len=max_len,
+                                            softcap=softcap)
     out = _launch(q, k_pool, v_pool, None, None, block_table, lengths,
-                  max_len, plan_scale)
+                  max_len, plan_scale, softcap)
     paged_decode_attention.launches += 1
     return out
 
@@ -394,7 +414,8 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                            block_s: int = 512,
                            max_len: Optional[int] = None,
                            k_scale: Optional[torch.Tensor] = None,
-                           v_scale: Optional[torch.Tensor] = None
+                           v_scale: Optional[torch.Tensor] = None,
+                           softcap: Optional[float] = None
                            ) -> torch.Tensor:
     """Plain PyTorch version: the swept columns of the cache
     (dequantizing int8 caches: payload * per-row scale), masked fp32
@@ -415,6 +436,8 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     v = cols(v_cache, v_scale)
     qf = q.float().reshape(B, KH, H // KH, hd) * hd ** -0.5
     s = torch.einsum("bkgd,bskd->bkgs", qf, k)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
     c = torch.arange(S, device=q.device)[None, :]
     live = (c < lengths.to(q.device).long()[:, None]) & (c < cut)  # [B, S]
     s = s.masked_fill(~live[:, None, None, :], NEG_INF)
@@ -429,13 +452,13 @@ def _dense_launcher():
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
-                       i, i, ctypes.c_float, i, i, i, vp]
+                       i, i, ctypes.c_float, ctypes.c_float, i, i, i, vp]
         fn.restype = ctypes.c_int
     return fn
 
 
 def _dense_launch(q, k_cache, v_cache, k_scale, v_scale, lengths, block_s,
-                  max_len, plan_scale) -> torch.Tensor:
+                  max_len, plan_scale, softcap) -> torch.Tensor:
     """Launch the contiguous-layout kernel on checked operands (either
     branch)."""
     if q.device.type != "cuda":
@@ -450,8 +473,8 @@ def _dense_launch(q, k_cache, v_cache, k_scale, v_scale, lengths, block_s,
             raise ValueError("all operands must be contiguous on one device")
     B, H, hd = q.shape
     S, KH = k_cache.shape[1:3]
-    if H // KH > 8 or hd > 256:
-        raise ValueError(f"kernel takes G <= 8 and hd <= 256, got "
+    if H // KH > 8 or hd > MAX_HD:
+        raise ValueError(f"kernel takes G <= 8 and hd <= {MAX_HD}, got "
                          f"G={H // KH}, hd={hd}")
     n_cols = _sweep_cols(S, block_s, max_len)
     n_split, c, ws, cnt = _split_args(q.device, n_cols, S, B * KH, None,
@@ -466,7 +489,7 @@ def _dense_launch(q, k_cache, v_cache, k_scale, v_scale, lengths, block_s,
                             ws.data_ptr() if n_split > 1 else None,
                             cnt.data_ptr() if n_split > 1 else None, B, H,
                             KH, hd, S, n_cols, n_split, c, hd ** -0.5,
-                            _DTYPES[q.dtype],
+                            _cap(softcap), _DTYPES[q.dtype],
                             _INT8 if quant else _DTYPES[q.dtype],
                             _vector_rows(hd, k_cache, v_cache),
                             build.cuda_stream(q))
@@ -479,7 +502,8 @@ def decode_attention_int8(q: torch.Tensor, k_cache: torch.Tensor,
                           v_scale: torch.Tensor, lengths: torch.Tensor, *,
                           block_s: int = 512,
                           max_len: Optional[int] = None,
-                          plan_scale: int = 1) -> torch.Tensor:
+                          plan_scale: int = 1,
+                          softcap: Optional[float] = None) -> torch.Tensor:
     """The int8 branch: caches int8 [B, S, KH, hd] with fp32 scales
     [B, S, KH, 1], dequantized per row inside the softmax loop; otherwise
     as ``decode_attention``.  CPU tensors run the plain version; CUDA
@@ -488,9 +512,10 @@ def decode_attention_int8(q: torch.Tensor, k_cache: torch.Tensor,
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, lengths,
                                       block_s=block_s, max_len=max_len,
-                                      k_scale=k_scale, v_scale=v_scale)
+                                      k_scale=k_scale, v_scale=v_scale,
+                                      softcap=softcap)
     out = _dense_launch(q, k_cache, v_cache, k_scale, v_scale, lengths,
-                        block_s, max_len, plan_scale)
+                        block_s, max_len, plan_scale, softcap)
     decode_attention_int8.launches += 1
     return out
 
@@ -500,7 +525,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      block_s: int = 512, max_len: Optional[int] = None,
                      k_scale: Optional[torch.Tensor] = None,
                      v_scale: Optional[torch.Tensor] = None,
-                     plan_scale: int = 1) -> torch.Tensor:
+                     plan_scale: int = 1,
+                     softcap: Optional[float] = None) -> torch.Tensor:
     """Flash-decode over a contiguous cache, the reference's signature.
 
     q [B, H, hd]; caches [B, S, KH, hd] (the tracks of a PT layer folded
@@ -509,19 +535,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``min(block_s, S)`` columns.  int8 caches pass their ``k_scale`` /
     ``v_scale`` [B, S, KH, 1] and go to ``decode_attention_int8``.
     ``plan_scale`` as in ``paged_decode_attention`` (on a track rank the
-    rows are its n/W tracks' folded rows).  Returns [B, H, hd].  CPU
-    tensors run the plain version; CUDA tensors launch the kernel or
-    raise."""
+    rows are its n/W tracks' folded rows); ``softcap`` the tanh logit
+    cap.  Returns [B, H, hd].  CPU tensors run the plain version; CUDA
+    tensors launch the kernel or raise."""
     if k_scale is not None or v_scale is not None:
         return decode_attention_int8(q, k_cache, v_cache, k_scale, v_scale,
                                      lengths, block_s=block_s,
-                                     max_len=max_len, plan_scale=plan_scale)
+                                     max_len=max_len, plan_scale=plan_scale,
+                                     softcap=softcap)
     _check_dense(q, k_cache, v_cache, lengths)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, lengths,
-                                      block_s=block_s, max_len=max_len)
+                                      block_s=block_s, max_len=max_len,
+                                      softcap=softcap)
     out = _dense_launch(q, k_cache, v_cache, None, None, lengths, block_s,
-                        max_len, plan_scale)
+                        max_len, plan_scale, softcap)
     decode_attention.launches += 1
     return out
 

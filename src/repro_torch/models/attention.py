@@ -20,9 +20,27 @@ take the W8A16 kernel in every projection, ``wq``/``wk``/``wv`` and
 the activation dtype.  int8 pools (``PagedLeaf.scale``) quantize rows on
 write and dequantize on read.
 
-Not ported (each raises): sliding windows and ring caches, logit
-softcap on the decode and chunk paths, qk-norm, M-RoPE,
-cross-attention.
+Layer features (gemma2 / gemma3): qk-norm (an RMSNorm of each q and k
+head before RoPE, through the RMSNorm kernel), RoPE at the local theta
+on ``rope="local_rope"`` layers, the tanh logit softcap on every path,
+and sliding windows.  A windowed layer's prefill runs the flash kernel
+with its ``window``; its cache is a ring of W = window rows per slot
+(slot = position % W; ``_to_ring_per_row`` builds it from right-padded
+prefill rows) when W is shorter than the cache, which decodes on the
+contiguous decode kernel over ``min(pos + 1, W)`` slots and takes
+chunks in plain PyTorch (``_ring_chunk``, as the reference computes it
+in jnp).  A window that covers the cache stays a plain (paged or
+contiguous) cache with the window mask.
+
+The chunk program of a prompt (``prefill=True``: chunked prefill, the
+warm tail behind a prefix-cache hit) over an fp pool on the card runs
+the flash kernel with per-row query offsets over the row's gathered
+K/V, so that a prompt's K/V and first token do not depend on how much
+of it came from the prefix cache (flash sums each row over the same key
+tiles in the same order whatever its offset).  The verify, int8 pools
+and the CPU keep the reference's plain masked softmax.
+
+Not ported (each raises): M-RoPE, cross-attention.
 """
 from __future__ import annotations
 
@@ -37,32 +55,56 @@ from repro_torch.common.types import LayerSpec, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import NEG_INF
 from repro_torch.models import rope as rope_lib
+from repro_torch.models.norms import rmsnorm
 from repro_torch.models.params import Leaf
 
 
 def attention_shapes(d_stream: int, n_heads: int, n_kv_heads: int,
-                     head_dim: int):
+                     head_dim: int, qk_norm: bool = False):
     """Per-track weight shapes and init std (normal * std), as
-    ``repro.models.attention.attention_init`` draws them."""
+    ``repro.models.attention.attention_init`` draws them; with
+    ``qk_norm`` the q and k heads' RMSNorm scales [hd] (fp32 zeros)."""
     s_in = 1.0 / d_stream ** 0.5
     s_out = 1.0 / (n_heads * head_dim) ** 0.5
-    return {"wq": Leaf((d_stream, n_heads, head_dim), s_in),
-            "wk": Leaf((d_stream, n_kv_heads, head_dim), s_in),
-            "wv": Leaf((d_stream, n_kv_heads, head_dim), s_in),
-            "wo": Leaf((n_heads, head_dim, d_stream), s_out)}
+    p = {"wq": Leaf((d_stream, n_heads, head_dim), s_in),
+         "wk": Leaf((d_stream, n_kv_heads, head_dim), s_in),
+         "wv": Leaf((d_stream, n_kv_heads, head_dim), s_in),
+         "wo": Leaf((n_heads, head_dim, d_stream), s_out)}
+    if qk_norm:
+        p["q_norm"] = {"scale": Leaf((head_dim,))}
+        p["k_norm"] = {"scale": Leaf((head_dim,))}
+    return p
 
 
-def _project_qkv(params, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor):
-    """x [n, B, S, d] -> q [n, B, S, H, hd], k/v [n, B, S, KH, hd], RoPE
-    (theta = cfg.rope_theta) applied to q and k in fp32."""
+def rope_theta(spec: LayerSpec, cfg: ModelConfig) -> float:
+    """The RoPE base of a layer: ``local_rope_theta`` on local layers."""
+    return cfg.local_rope_theta if spec.rope == "local_rope" \
+        else cfg.rope_theta
+
+
+def _project_qkv(params, x: torch.Tensor, spec: LayerSpec,
+                 cfg: ModelConfig, positions: torch.Tensor):
+    """x [n, B, S, d] -> q [n, B, S, H, hd], k/v [n, B, S, KH, hd]: the
+    projections, qk-norm (``cfg.qk_norm``), then RoPE at the layer's
+    theta applied to q and k in fp32."""
     n, B, S, d = x.shape
     wq, wk, wv = params["wq"], params["wk"], params["wv"]
     q = matmul(x, as_matrix(wq, d)).reshape(n, B, S, *wq.shape[2:])
     k = matmul(x, as_matrix(wk, d)).reshape(n, B, S, *wk.shape[2:])
     v = matmul(x, as_matrix(wv, d)).reshape(n, B, S, *wv.shape[2:])
-    cos, sin = rope_lib.rope_cos_sin(positions, wq.shape[-1], cfg.rope_theta)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q, eps=cfg.norm_eps)
+        k = rmsnorm(params["k_norm"], k, eps=cfg.norm_eps)
+    cos, sin = rope_lib.rope_cos_sin(positions, wq.shape[-1],
+                                     rope_theta(spec, cfg))
     return rope_lib.apply_rope(q, cos, sin), rope_lib.apply_rope(k, cos, sin), v
+
+
+def is_ring(spec: LayerSpec, cache_len: int) -> bool:
+    """A windowed layer's cache of ``cache_len`` rows per slot is a ring
+    (slot = position % cache_len) when the window covers it; else it is
+    a plain cache (the reference's ``S_cache <= window`` rule)."""
+    return spec.window is not None and cache_len <= spec.window
 
 
 def _out_proj(params, ctx: torch.Tensor) -> torch.Tensor:
@@ -75,24 +117,49 @@ def _out_proj(params, ctx: torch.Tensor) -> torch.Tensor:
 
 def attention_apply(params, x: torch.Tensor, *, spec: LayerSpec,
                     cfg: ModelConfig, positions: torch.Tensor,
-                    return_cache: bool = False):
-    """Causal self-attention over x [n, B, S, d] through the flash kernel
-    (tracks flattened into its batch).  Returns (out [n, B, S, d],
-    (k, v) [n, B, S, KH, hd] with RoPE applied, or None)."""
-    if spec.window is not None:
-        raise NotImplementedError("sliding-window attention is not ported "
-                                  "(ROADMAP queue 1, item 3)")
+                    return_cache: bool = False,
+                    lengths: Optional[torch.Tensor] = None):
+    """Causal (windowed) self-attention over x [n, B, S, d] through the
+    flash kernel (tracks flattened into its batch).  Returns (out
+    [n, B, S, d], cache or None): (k, v) [n, B, S, KH, hd] with RoPE
+    applied, or for a window W < S the rings [n, B, W, KH, hd] built from
+    each row's true ``lengths`` [B] (default S: no padding)."""
     n, B, S, _ = x.shape
-    q, k, v = _project_qkv(params, x, cfg, positions)
+    q, k, v = _project_qkv(params, x, spec, cfg, positions)
     H, hd = q.shape[-2:]
     KH = k.shape[-2]
     ctx = ops.flash_attention(q.reshape(n * B, S, H, hd),
                               k.reshape(n * B, S, KH, hd),
                               v.reshape(n * B, S, KH, hd),
                               causal=spec.causal,
-                              softcap=spec.attn_logit_softcap)
+                              softcap=spec.attn_logit_softcap,
+                              window=spec.window)
     out = _out_proj(params, ctx.reshape(n, B, S, H, hd))
-    return out, ((k, v) if return_cache else None)
+    if not return_cache:
+        return out, None
+    if spec.window is not None and spec.window < S:
+        if lengths is None:
+            lengths = torch.full((B,), S, dtype=torch.long, device=x.device)
+        return out, (_to_ring_per_row(k, lengths, spec.window),
+                     _to_ring_per_row(v, lengths, spec.window))
+    return out, (k, v)
+
+
+def _to_ring_per_row(k: torch.Tensor, lengths: torch.Tensor,
+                     w: int) -> torch.Tensor:
+    """The ring [n, B, w, KH, hd] of right-padded prefill rows k
+    [n, B, S, KH, hd]: slot j of row b holds the latest real position
+    p <= lengths[b] - 1 with p % w == j (zeros where there is none), so
+    padding never enters a ring and never evicts a real in-window row."""
+    n, B, S = k.shape[:3]
+    last = lengths.to(k.device).long()[:, None] - 1               # [B, 1]
+    j = torch.arange(w, device=k.device)[None, :]
+    src = last - torch.remainder(last - j, w)                     # [B, w]
+    idx = src.clamp(0, S - 1)[None, :, :, None, None].expand(
+        n, B, w, *k.shape[3:])
+    ring = torch.gather(k, 2, idx)
+    return torch.where((src >= 0)[None, :, :, None, None], ring,
+                       torch.zeros((), dtype=k.dtype, device=k.device))
 
 
 def pool_write(leaf: PagedLeaf, rows: torch.Tensor,
@@ -143,12 +210,11 @@ def _paged_decode(params, q: torch.Tensor, k_new: torch.Tensor,
     Write-before-read, as in the reference: the new K/V rows land first
     (inactive lanes carry zeroed table rows, so theirs land in the trash
     block), then the kernel attends over ``lengths = pos + 1`` columns.
-    Returns (out [n, B, 1, d], (k_leaf, v_leaf))."""
+    A windowed layer is paged only when its window covers the cache, so
+    the window masks nothing here.  Returns (out [n, B, 1, d],
+    (k_leaf, v_leaf))."""
     if block_table is None:
         raise ValueError("paged cache leaf but no block_table passed")
-    if spec.attn_logit_softcap is not None:
-        raise NotImplementedError("logit softcap on the decode paths is "
-                                  "not ported (ROADMAP queue 1, item 3)")
     bs = k_leaf.pool.shape[2]
     w_idx = token_to_pool(block_table, pos[:, None], bs)[:, 0]
     pool_write(k_leaf, k_new, w_idx)
@@ -158,7 +224,8 @@ def _paged_decode(params, q: torch.Tensor, k_new: torch.Tensor,
                                      max_len=kv_max_len,
                                      k_scale=k_leaf.scale,
                                      v_scale=v_leaf.scale,
-                                     plan_scale=plan_scale)
+                                     plan_scale=plan_scale,
+                                     softcap=spec.attn_logit_softcap)
     out = _out_proj(params, ctx.to(out_dtype))[:, :, None]
     return out, (k_leaf, v_leaf)
 
@@ -178,26 +245,37 @@ def _dense_decode(params, q: torch.Tensor, k_new: torch.Tensor,
     pos lies past the cache (a finished slot's pos may reach S): the
     reference's scatter drops that write.  Then the kernel attends, the
     tracks folded into its batch, over ``lengths = pos + 1`` columns.
-    Returns (out [n, B, 1, d], (k_cache, v_cache))."""
-    if spec.attn_logit_softcap is not None:
-        raise NotImplementedError("logit softcap on the decode paths is "
-                                  "not ported (ROADMAP queue 1, item 3)")
+
+    A ring (``is_ring``: a window covering the S rows) takes the row at
+    slot pos % S, and the kernel attends over its first min(pos + 1, S)
+    slots: every stored position lies in the window, so that is the
+    reference's masked ring attention (a softmax does not depend on the
+    order of its columns).  Returns (out [n, B, 1, d], (k_cache,
+    v_cache))."""
     n, B, S, KH, hd = k_cache.shape
     H = q.shape[2]
     b = torch.arange(B, device=pos.device)
-    slot = pos.long().clamp(max=S - 1)
-    keep = pos < S
+    ring = is_ring(spec, S)
+    if ring:
+        slot = torch.remainder(pos.long(), S)
+        keep = torch.ones_like(pos, dtype=torch.bool)
+        lengths = torch.clamp(pos + 1, max=S)
+    else:
+        slot = pos.long().clamp(max=S - 1)
+        keep = pos < S
+        lengths = pos + 1
     if active is not None:
         keep = keep & active
     keep = keep[None, :, None, None]
     for cache, new in ((k_cache, k_new), (v_cache, v_new)):
         cache[:, b, slot] = torch.where(keep, new.to(cache.dtype),
                                         cache[:, b, slot])
-    lengths = (pos + 1).to(torch.int32).repeat(n)
+    lengths = lengths.to(torch.int32).repeat(n)
     ctx = ops.decode_attention(q.reshape(n * B, H, hd),
                                k_cache.view(n * B, S, KH, hd),
                                v_cache.view(n * B, S, KH, hd), lengths,
-                               max_len=kv_max_len, plan_scale=plan_scale)
+                               max_len=kv_max_len, plan_scale=plan_scale,
+                               softcap=spec.attn_logit_softcap)
     out = _out_proj(params, ctx.reshape(n, B, H, hd).to(out_dtype))
     return out[:, :, None], (k_cache, v_cache)
 
@@ -216,7 +294,7 @@ def attention_decode(params, x: torch.Tensor, cache: Tuple[Any, Any], *,
     its split for all n (``plan_scale`` W), as one process's launch.
     Returns (out [n, B, 1, d], cache)."""
     k_leaf, v_leaf = cache
-    q, k_new, v_new = _project_qkv(params, x, cfg, pos[:, None])
+    q, k_new, v_new = _project_qkv(params, x, spec, cfg, pos[:, None])
     plan_scale = 1
     if cfg.pt is not None:
         plan_scale, rem = divmod(cfg.pt.n_tracks, x.shape[0])
@@ -234,21 +312,33 @@ def attention_decode(params, x: torch.Tensor, cache: Tuple[Any, Any], *,
                          out_dtype=x.dtype, plan_scale=plan_scale)
 
 
-def _causal_ctx(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                positions: torch.Tensor, round_dtype: torch.dtype
-                ) -> torch.Tensor:
+def _chunk_mask(positions: torch.Tensor, S: int,
+                window: Optional[int]) -> torch.Tensor:
+    """[B, C, S]: query (b, c) at positions[b, c] sees the columns j <=
+    its position, and with a window only j > position - window."""
+    cols = torch.arange(S, device=positions.device)[None, None, :]
+    mask = cols <= positions[:, :, None]
+    if window is not None:
+        mask &= cols > positions[:, :, None] - window
+    return mask
+
+
+def _masked_ctx(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                mask: torch.Tensor, round_dtype: torch.dtype,
+                softcap: Optional[float] = None) -> torch.Tensor:
     """Masked grouped softmax in fp32, the reference's jnp chunk
-    attention: q [n, B, C, H, hd]; k, v [n, B, S, KH, hd]; query (b, c)
-    sees columns <= positions[b, c].  The scaled q and the probabilities
-    are rounded to ``round_dtype`` before their products, as the
-    reference's branch does (the paged branch to the cache dtype, the
-    contiguous one to fp32).  Returns ctx [n, B, C, H, hd] fp32."""
+    attention: q [n, B, C, H, hd]; k, v [n, B, S, KH, hd]; mask
+    [B, C, S] (True: seen).  The scaled q and the probabilities are
+    rounded to ``round_dtype`` before their products, as the reference's
+    branch does (the paged branch to the cache dtype, the contiguous and
+    ring ones to fp32); the softcap applies to the scores before the
+    mask.  Returns ctx [n, B, C, H, hd] fp32."""
     n, B, C, H, hd = q.shape
-    S, KH = k.shape[2:4]
+    KH = k.shape[3]
     qg = (q * hd ** -0.5).to(round_dtype).reshape(n, B, C, KH, H // KH, hd)
     s = torch.einsum("nbckgd,nbskd->nbckgs", qg.float(), k.float())
-    cols = torch.arange(S, device=q.device)
-    mask = cols[None, None, :] <= positions[:, :, None]          # [B, C, S]
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
     # in place: at full width the scores are the chunk's largest transient
     s.masked_fill_(~mask[None, :, :, None, None, :], NEG_INF)
     s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
@@ -279,44 +369,122 @@ def _dense_chunk_write(k_cache: torch.Tensor, v_cache: torch.Tensor,
         cache.copy_(torch.where(hit, rows, cache))
 
 
+def _ring_chunk(q: torch.Tensor, k_new: torch.Tensor, v_new: torch.Tensor,
+                k_cache: torch.Tensor, v_cache: torch.Tensor, *,
+                spec: LayerSpec, pos: torch.Tensor, positions: torch.Tensor,
+                slots: Optional[torch.Tensor],
+                chunk_lens: Optional[torch.Tensor]) -> torch.Tensor:
+    """A chunk against ring rows [n, S_slots, W, KH, hd] (the reference's
+    ``_ring_chunk``): the chunk's queries attend to the ring rows of
+    their slots (``slots`` [B]; None: the rows align with the batch) as
+    they were before the chunk, each slot j holding the position
+    p_j = pos - 1 - ((pos - 1 - j) mod W), plus the chunk's own K/V, in
+    the window; then each slot takes the chunk's latest valid token
+    (``chunk_lens`` [B] valid tokens; default all C) of its residue, in
+    place.  Returns ctx [n, B, C, H, hd] fp32."""
+    n, B, C = q.shape[:3]
+    W = k_cache.shape[2]
+    if chunk_lens is None:
+        chunk_lens = torch.full_like(pos, C)
+    sl = slice(None) if slots is None else slots.long()
+    k_rows, v_rows = k_cache[:, sl], v_cache[:, sl]             # [n, B, W]
+    j = torch.arange(W, device=q.device)[None, :]
+    last_old = pos.long()[:, None] - 1
+    p_j = last_old - torch.remainder(last_old - j, W)           # [B, W]
+    src_pos = torch.cat([p_j, positions.long()], dim=1)         # [B, W+C]
+    src_ok = torch.cat(
+        [p_j >= 0, torch.ones_like(positions, dtype=torch.bool)], dim=1)
+    at = positions.long()[:, :, None]
+    mask = (src_ok[:, None, :] & (src_pos[:, None, :] <= at)
+            & (src_pos[:, None, :] > at - spec.window))
+    ctx = _masked_ctx(q, torch.cat([k_rows, k_new.to(k_rows.dtype)], dim=2),
+                      torch.cat([v_rows, v_new.to(v_rows.dtype)], dim=2),
+                      mask, torch.float32, spec.attn_logit_softcap)
+    last = pos.long()[:, None] + chunk_lens.long()[:, None] - 1
+    q_new = last - torch.remainder(last - j, W)                  # [B, W]
+    from_chunk = (q_new >= pos.long()[:, None])[None, :, :, None, None]
+    idx = (q_new - pos.long()[:, None]).clamp(0, C - 1)[None, :, :, None,
+                                                         None]
+    idx = idx.expand(n, B, W, *k_cache.shape[3:])
+    for cache, rows, new in ((k_cache, k_rows, k_new), (v_cache, v_rows,
+                                                        v_new)):
+        upd = torch.gather(new.to(rows.dtype), 2, idx)
+        rows = torch.where(from_chunk, upd, rows)
+        if slots is None:
+            cache.copy_(rows)
+        else:
+            cache.index_copy_(1, slots.long(), rows)
+    return ctx
+
+
+def _flash_chunk(q: torch.Tensor, k_g: torch.Tensor, v_g: torch.Tensor,
+                 spec: LayerSpec, pos: torch.Tensor) -> torch.Tensor:
+    """The chunk's attention on the flash kernel: q [n, B, C, H, hd];
+    the rows' gathered K/V [n, B, S, KH, hd]; row b's queries at
+    pos[b] + c over keys [0, min(pos[b] + C, S)).  Returns ctx
+    [n, B, C, H, hd] in q's dtype."""
+    n, B, C, H, hd = q.shape
+    S, KH = k_g.shape[2:4]
+    q_off = pos.to(torch.int32).repeat(n)
+    k_len = torch.clamp(pos + C, max=S).to(torch.int32).repeat(n)
+    ctx = ops.flash_attention(q.reshape(n * B, C, H, hd),
+                              k_g.reshape(n * B, S, KH, hd),
+                              v_g.reshape(n * B, S, KH, hd), causal=True,
+                              softcap=spec.attn_logit_softcap,
+                              window=spec.window, q_offset=q_off,
+                              k_lengths=k_len)
+    return ctx.reshape(n, B, C, H, hd)
+
+
 def attention_chunk(params, x: torch.Tensor, cache: Tuple[Any, Any], *,
                     spec: LayerSpec, cfg: ModelConfig, pos: torch.Tensor,
                     block_table: Optional[torch.Tensor] = None,
-                    kv_max_len: Optional[int] = None):
+                    kv_max_len: Optional[int] = None,
+                    slots: Optional[torch.Tensor] = None,
+                    chunk_lens: Optional[torch.Tensor] = None,
+                    prefill: bool = False):
     """Chunked prefill or the K+1-token verify: C new tokens per row.
 
     x [n, B, C, d]; pos [B] int32 position of each row's first chunk
     token; cache: this layer's (k, v) pools, or its contiguous rows
     [n, B, S, KH, hd] aligned with the batch (the speculative drafter's
-    cache; the reference's ``_dense_chunk``).  The chunk's K/V rows are
-    written first: through the block table (rows past a prompt's end land
-    in owned or trash blocks and sit causally after every real query), or
-    at [:, b, pos[b] + c] in the rows (dropped at or past S).  Then every
-    chunk row attends causally over the gathered (and, for int8 pools,
-    dequantized) per-slot view, or over the whole of its rows, as the
-    reference computes it in jnp: plain PyTorch, masked grouped softmax
-    in fp32, over the whole table row: ``kv_max_len`` (host-known bound
-    on pos + C) cuts nothing, so that a row's result does not depend on
-    the bound (the pipelined engine's speculative steps take a wider one
-    than the sync engine's), as on the reference's jnp path, which is
-    given none.  Returns (out [n, B, C, d], cache)."""
+    cache; the reference's ``_dense_chunk``), or a windowed layer's ring
+    rows (``is_ring``; ``_ring_chunk`` with ``slots`` and
+    ``chunk_lens``).  The chunk's K/V rows are written first: through
+    the block table (rows past a prompt's end land in owned or trash
+    blocks and sit causally after every real query), or at [:, b,
+    pos[b] + c] in the rows (dropped at or past S).  Then every chunk row
+    attends causally (and in its window) over the gathered (and, for
+    int8 pools, dequantized) per-slot view, or over the whole of its
+    rows, as the reference computes it in jnp: plain PyTorch, masked
+    grouped softmax in fp32, over the whole table row: ``kv_max_len``
+    (host-known bound on pos + C) cuts nothing, so that a row's result
+    does not depend on the bound (the pipelined engine's speculative
+    steps take a wider one than the sync engine's), as on the reference's
+    jnp path, which is given none.  With ``prefill`` (the chunk program
+    of a prompt) an fp pool on the card takes the flash kernel instead
+    (``_flash_chunk``), over the same gathered rows.  Returns (out
+    [n, B, C, d], cache)."""
     k_leaf, v_leaf = cache
     if is_paged(k_leaf) and block_table is None:
         raise ValueError("attention_chunk on a paged cache requires a "
                          "block_table")
-    if spec.window is not None or spec.attn_logit_softcap is not None:
-        raise NotImplementedError("windows and logit softcap on the chunk "
-                                  "path are not ported (ROADMAP queue 1, "
-                                  "item 3)")
     n, B, C, _ = x.shape
     positions = pos[:, None].to(torch.int32) + torch.arange(
         C, dtype=torch.int32, device=x.device)[None]             # [B, C]
-    q, k_new, v_new = _project_qkv(params, x, cfg, positions)
+    q, k_new, v_new = _project_qkv(params, x, spec, cfg, positions)
     H, hd = q.shape[-2:]
     KH = k_new.shape[-2]
+    cap = spec.attn_logit_softcap
     if not is_paged(k_leaf):
+        if is_ring(spec, k_leaf.shape[2]):
+            ctx = _ring_chunk(q, k_new, v_new, k_leaf, v_leaf, spec=spec,
+                              pos=pos, positions=positions, slots=slots,
+                              chunk_lens=chunk_lens)
+            return _out_proj(params, ctx.to(x.dtype)), (k_leaf, v_leaf)
         _dense_chunk_write(k_leaf, v_leaf, k_new, v_new, positions)
-        ctx = _causal_ctx(q, k_leaf, v_leaf, positions, torch.float32)
+        mask = _chunk_mask(positions, k_leaf.shape[2], spec.window)
+        ctx = _masked_ctx(q, k_leaf, v_leaf, mask, torch.float32, cap)
         return _out_proj(params, ctx.to(x.dtype)), (k_leaf, v_leaf)
     bs = k_leaf.pool.shape[2]
     w_idx = token_to_pool(block_table, positions, bs).reshape(-1)
@@ -324,6 +492,10 @@ def attention_chunk(params, x: torch.Tensor, cache: Tuple[Any, Any], *,
     pool_write(v_leaf, v_new.reshape(n, B * C, KH, hd), w_idx)
     k_g = pool_read(k_leaf, block_table)               # [n, B, S, KH, hd]
     v_g = pool_read(v_leaf, block_table)
-    ctx = _causal_ctx(q, k_g, v_g, positions, k_g.dtype)
+    if prefill and k_leaf.scale is None and q.is_cuda:
+        ctx = _flash_chunk(q, k_g, v_g, spec, pos)
+    else:
+        mask = _chunk_mask(positions, k_g.shape[2], spec.window)
+        ctx = _masked_ctx(q, k_g, v_g, mask, k_g.dtype, cap)
     out = _out_proj(params, ctx.to(x.dtype))
     return out, (k_leaf, v_leaf)

@@ -4,8 +4,10 @@ with the embedding and LM head the Parallel-Track model shares.
 The layer stack is (prefix, unit × R, suffix) per ModelConfig, as in the
 reference; the repeated unit's parameters and cache leaves are stacked
 on a leading [R] axis, and the layers run as a Python loop over it (the
-reference scans).  Two layers are ported on this path: GQA + SwiGLU
-(the paper's dense baselines, tinyllama-1.1b) and Mamba
+reference scans).  Two layers are ported on this path: GQA (the
+paper's dense baselines and tinyllama-1.1b with SwiGLU; nemotron-4-15b
+with LayerNorm and the squared-ReLU MLP; gemma2-2b and gemma3-4b with
+GeGLU, sandwich norms, sliding windows, softcaps and qk-norm) and Mamba
 (falcon-mamba-7b).
 
   init_lm(generator, cfg, device)               -> params
@@ -18,7 +20,9 @@ reference scans).  Two layers are ported on this path: GQA + SwiGLU
 The cache is the reference's tree {"prefix", "unit", "suffix"} (unit
 leaves stacked [R, ...]).  A GQA layer's entry is (k, v), each
 [.., B, S, KH, hd] in the model dtype (the contiguous cache), or the
-paged engine's (PagedLeaf k, PagedLeaf v) pools [.., N, bs, KH, hd]; a
+paged engine's (PagedLeaf k, PagedLeaf v) pools [.., N, bs, KH, hd],
+or for a window W shorter than the cache ring rows [.., B, W, KH, hd]
+(slot = position % W) in either engine; a
 Mamba layer's entry is (conv window [.., B, dc-1, di] in the model
 dtype, h [.., B, di, ds] fp32): per-slot state rows.  The decode and
 chunk steps update every leaf in place.  (The reference's prefill also returns an
@@ -35,7 +39,7 @@ from repro_torch.common import quant
 from repro_torch.common.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.common.types import ModelConfig
 from repro_torch.models.layers import (check_supported, layer_shapes,
-                                       layer_step, norm_in)
+                                       layer_step, norm_in, norm_shapes)
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.norms import apply_norm
 from repro_torch.models.params import Leaf, make_params, stack
@@ -59,7 +63,7 @@ def lm_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     d = cfg.d_model
     specs: Dict[str, Any] = {
         "embed": Leaf((cfg.vocab_size, d), 1.0 / math.sqrt(d)),
-        "final_norm": {"scale": Leaf((d,))},
+        "final_norm": norm_shapes(cfg.norm, d),
         "prefix": tuple(layer_shapes(cfg, cfg.spec(nm), d)
                         for nm in cfg.pattern_prefix),
         "unit": tuple(stack(layer_shapes(cfg, cfg.spec(nm), d),
@@ -170,19 +174,21 @@ def _stacked(caches: List[Any]) -> Any:
 def lm_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                mode: str = "prefill"):
     """Whole-prompt prefill.  batch: {'inputs': [B, S] token ids,
-    'positions'?: [B, S]}.
+    'positions'?: [B, S], 'lengths'?: [B] true lengths of right-padded
+    rows}.
     Returns (logits [B, S, V], cache) in the reference's prefill layout
-    (a GQA layer's (k, v) [B, S, KH, hd] with RoPE applied, unit leaves
-    stacked [R, B, ...]).  Right-padded rows are safe for full
-    attention: a padded key lies causally after every real query (the
-    reference's ``lengths`` only shapes ring caches, not ported).
-    Recurrent layers carry every position into their state, so their
-    rows must not be right-padded: the engine prefills them at exact
-    length."""
+    (a GQA layer's (k, v) [B, S, KH, hd] with RoPE applied, a window
+    W < S's rings [B, W, KH, hd] built from ``lengths``, unit leaves
+    stacked [R, B, ...]).  Right-padded rows are safe for attention: a
+    padded key lies causally after every real query, and ``lengths``
+    keeps padding out of the rings.  Recurrent layers carry every
+    position into their state, so their rows must not be right-padded:
+    the engine prefills them at exact length."""
     if mode != "prefill":
         raise NotImplementedError(f"lm_forward mode {mode!r} is not ported "
                                   "(train: ROADMAP queue 1, item 9)")
     inputs = batch["inputs"]
+    lengths = batch.get("lengths")
     positions = batch.get("positions")
     if positions is None:
         positions = rope_lib.positions_default(*inputs.shape[:2],
@@ -196,7 +202,8 @@ def lm_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
               else _at(params["unit"][i], r))
         x, y = norm_in(cfg, lp["ln1"], x, delta)
         x, delta, c = layer_step(lp, x, y, cfg=cfg, spec=cfg.spec(nm),
-                                 mode="prefill", positions=positions)
+                                 mode="prefill", positions=positions,
+                                 lengths=lengths)
         (caches[group] if r is None else caches["unit"][i]).append(c)
     cache = {"prefix": tuple(caches["prefix"]),
              "unit": (tuple(_stacked(cs) for cs in caches["unit"])
@@ -213,8 +220,9 @@ def _step_layers(params, cache, h: torch.Tensor, pos: torch.Tensor,
                  chunk_lens: Optional[torch.Tensor] = None,
                  active: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the (prefix, unit × R, suffix) stack in decode or chunk mode;
-    every layer updates its cache entry in place.  Returns (x, delta):
+    """Run the (prefix, unit × R, suffix) stack in decode or chunk mode
+    ('fill': a prompt's chunk program); every layer updates its cache
+    entry in place.  Returns (x, delta):
     the hidden states are x + delta, the last residual add left for the
     final norm to fold in."""
     x, delta = h, None
@@ -258,9 +266,9 @@ def lm_chunk_hidden(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
     rows advance at ``slots`` by ``chunk_lens`` valid tokens.  The
     serving runner applies the head to each row's last real token only;
     the head is row-wise, so those logits are the rows ``lm_chunk_step``
-    returns."""
+    returns.  It runs as the chunk program of a prompt (mode 'fill')."""
     h = _embed(params, tokens, cfg)
-    x, delta = _step_layers(params, cache, h, pos, cfg, "chunk",
+    x, delta = _step_layers(params, cache, h, pos, cfg, "fill",
                             block_table, kv_max_len, slots=slots,
                             chunk_lens=chunk_lens)
     return x + delta
@@ -282,13 +290,18 @@ def lm_chunk_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
 
 
 def layer_cache(cfg: ModelConfig, nm: str, lead, batch: int, seq_len: int,
-                device, kv_dtype: Optional[torch.dtype] = None) -> Any:
+                device, kv_dtype: Optional[torch.dtype] = None,
+                pool: bool = False) -> Any:
     """Zeroed cache entry of layer ``nm`` with stacking dims ``lead``: a
-    GQA layer's (k, v) [*lead, batch, seq_len, KH, hd] (in ``kv_dtype``,
-    default the model dtype; the paged engine asks for (num_blocks,
-    block_size) in place of (batch, seq_len)), a Mamba layer's state
-    rows for ``batch`` slots."""
-    if cfg.spec(nm).mixer == "gqa":
+    GQA layer's (k, v) [*lead, batch, min(seq_len, window), KH, hd] (in
+    ``kv_dtype``, default the model dtype; the paged engine asks for
+    pools with ``pool``, (num_blocks, block_size) in place of (batch,
+    seq_len), which no window clamps), a Mamba layer's state rows for
+    ``batch`` slots."""
+    spec = cfg.spec(nm)
+    if spec.mixer == "gqa":
+        if spec.window is not None and not pool:
+            seq_len = min(seq_len, spec.window)
         shape = (*lead, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
         dtype = kv_dtype or model_dtype(cfg)
         return tuple(torch.zeros(shape, dtype=dtype, device=device)

@@ -1,12 +1,16 @@
-"""Layer assembly: RMSNorm + mixer (+ MLP) per LayerSpec (counterpart of
+"""Layer assembly: norm + mixer (+ MLP) per LayerSpec (counterpart of
 ``repro.models.layers``).
 
 Two flavours are ported:
-  * the GQA + SwiGLU layer: over the stacked track dim in a
+  * the GQA layer: GQA + SwiGLU over the stacked track dim in a
     Parallel-Track model (x [n, B, S, d], every parameter [n, ...]), and
-    in the dense ``lm_*`` decoder (x [B, S, d]), where the layer views x
-    as [1, B, S, d] and every parameter and cache leaf with a leading
-    track dim of 1 (views, no copies) and runs the same code;
+    in the dense ``lm_*`` decoder (x [B, S, d]) with a SwiGLU, GeGLU or
+    squared-ReLU MLP, RMSNorm or LayerNorm, and gemma's sandwich norms
+    (``post_norm``: ln1_post / ln2_post normalise the mixer's and the
+    MLP's output before their residual adds), qk-norm, sliding windows,
+    local RoPE and softcaps; the ``lm_*`` layer views x as [1, B, S, d]
+    and every parameter and cache leaf with a leading track dim of 1
+    (views, no copies) and runs the same code;
   * the Mamba layer of the dense ``lm_*`` decoder, mixer only
     (``mlp="none"``, x [B, S, d]).
 
@@ -22,7 +26,10 @@ Both run the modes the serving path needs:
   'chunk'   — C tokens per row appended to the layer's cache
 GQA caches are block pools written through the block table, or
 contiguous per-slot rows [.., B, S, KH, hd] written at each row's
-position (inactive decode lanes keep their rows); Mamba caches are
+position (inactive decode lanes keep their rows), or for a window
+shorter than the cache ring rows [.., B, W, KH, hd] (slot = position %
+W), which a chunk reads at ``slots`` and advances by ``chunk_lens``
+valid tokens, as the Mamba rows; Mamba caches are
 per-slot state rows, updated in place: the chunk batch
 gathers its rows at ``slots``, advances them by ``chunk_lens`` valid
 tokens and writes them back (``index_copy_``), and a decode step
@@ -40,32 +47,39 @@ from repro_torch.common.quant import QuantTensor
 from repro_torch.common.types import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.mlp import mlp_apply
-from repro_torch.models.norms import add_norm, apply_norm
+from repro_torch.models.mlp import MLPS, mlp_apply, mlp_shapes
+from repro_torch.models.norms import NORMS, add_norm, apply_norm
 from repro_torch.models.params import Leaf
 
 _PT_LAYER = ("gqa", "swiglu")       # (mixer, mlp) of the PT path
-_LM_LAYERS = (("gqa", "swiglu"), ("mamba", "none"))   # of the lm_* path
+_LM_LAYERS = tuple(("gqa", m) for m in MLPS) + (("mamba", "none"),)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless every layer is a ported flavour: GQA + SwiGLU in a PT
-    model; GQA + SwiGLU or Mamba alone in a dense ``lm_*`` model.  GQA
-    layers take full attention with RoPE (no window, no M-RoPE)."""
+    """Raise unless every layer is a ported flavour: GQA + SwiGLU with
+    RMSNorm and plain RoPE in a PT model; GQA with a SwiGLU, GeGLU or
+    squared-ReLU MLP (windows, local RoPE, softcaps, qk-norm and
+    sandwich norms too), or Mamba alone, in a dense ``lm_*`` model.  No
+    M-RoPE, no cross-attention."""
     unported = []
     for nm in cfg.layer_names:
         s = cfg.spec(nm)
         if cfg.pt is not None:
             if (s.mixer, s.mlp) != _PT_LAYER:
                 unported.append(f"PT layer mixer={s.mixer} mlp={s.mlp}")
+            if s.window is not None or s.rope != "rope":
+                unported.append(f"PT layer window={s.window} rope={s.rope}")
         elif (s.mixer, s.mlp) not in _LM_LAYERS:
             unported.append(f"lm_* layer mixer={s.mixer} mlp={s.mlp}")
-        if s.mixer == "gqa" and (s.window is not None or s.rope != "rope"):
-            unported.append(f"window={s.window} rope={s.rope}")
+        if s.mixer == "gqa" and s.rope not in ("rope", "local_rope"):
+            unported.append(f"rope={s.rope}")
         if s.cross_attn:
             unported.append("cross-attention")
-    if cfg.post_norm or cfg.qk_norm or cfg.norm != "rmsnorm":
-        unported.append("post_norm / qk_norm / non-RMS norms")
+    if cfg.norm not in NORMS:
+        unported.append(f"norm={cfg.norm}")
+    if cfg.pt is not None and (cfg.post_norm or cfg.qk_norm
+                               or cfg.norm != "rmsnorm"):
+        unported.append("PT with post_norm / qk_norm / non-RMS norms")
     if any(x is not None for x in (cfg.moe, cfg.mla, cfg.rglru, cfg.encdec)):
         unported.append("MoE / MLA / RG-LRU / encoder-decoder")
     if cfg.ssm is not None and cfg.pt is not None:
@@ -77,19 +91,31 @@ def check_supported(cfg: ModelConfig) -> None:
             + "); see ROADMAP queue 1, item 3")
 
 
+def norm_shapes(kind: str, d: int) -> Dict[str, Leaf]:
+    """A norm's fp32 leaves, as ``repro.models.norms.norm_init`` makes
+    them: RMSNorm's (1 + scale) scale zeros; LayerNorm's scale ones and
+    bias zeros."""
+    if kind == "layernorm":
+        return {"scale": Leaf((d,), fill=torch.ones), "bias": Leaf((d,))}
+    return {"scale": Leaf((d,))}
+
+
 def layer_shapes(cfg: ModelConfig, spec: LayerSpec,
                  d_stream: int) -> Dict[str, Any]:
     """Parameter specs of one layer (per track for a PT layer)."""
-    norm = {"scale": Leaf((d_stream,))}
+    norm = norm_shapes(cfg.norm, d_stream)
     if spec.mixer == "mamba":
         return {"ln1": norm, "mixer": ssm_lib.ssm_shapes(cfg, d_stream)}
-    return {"ln1": norm,
-            "mixer": attn.attention_shapes(d_stream, cfg.n_heads,
-                                           cfg.n_kv_heads, cfg.head_dim),
-            "ln2": {"scale": Leaf((d_stream,))},
-            "mlp": {"wi_gate": Leaf((d_stream, cfg.d_ff), 1 / d_stream ** 0.5),
-                    "wi_up": Leaf((d_stream, cfg.d_ff), 1 / d_stream ** 0.5),
-                    "wo": Leaf((cfg.d_ff, d_stream), 1 / cfg.d_ff ** 0.5)}}
+    p = {"ln1": norm,
+         "mixer": attn.attention_shapes(d_stream, cfg.n_heads,
+                                        cfg.n_kv_heads, cfg.head_dim,
+                                        qk_norm=cfg.qk_norm),
+         "ln2": norm,
+         "mlp": mlp_shapes(spec.mlp, d_stream, cfg.d_ff)}
+    if cfg.post_norm:
+        p["ln1_post"] = norm
+        p["ln2_post"] = norm
+    return p
 
 
 def norm_in(cfg: ModelConfig, params, x: torch.Tensor,
@@ -124,7 +150,7 @@ def _mamba(params, h: torch.Tensor, *, cfg: ModelConfig, mode: str,
         out, new_rows = ssm_lib.ssm_decode(params, h, cache, cfg=cfg,
                                            active=active)
         return out, _write_rows(cache, new_rows, None)
-    if mode == "chunk":
+    if mode in ("chunk", "fill"):
         rows = cache if slots is None else tuple(l[slots] for l in cache)
         out, new_rows = ssm_lib.ssm_chunk(params, h, rows, cfg=cfg,
                                           chunk_lens=chunk_lens)
@@ -134,18 +160,22 @@ def _mamba(params, h: torch.Tensor, *, cfg: ModelConfig, mode: str,
 
 
 def _gqa(params, h: torch.Tensor, *, cfg: ModelConfig, spec: LayerSpec,
-         mode: str, positions, pos, cache, block_table, kv_max_len, active):
+         mode: str, positions, pos, cache, block_table, kv_max_len, active,
+         lengths, slots, chunk_lens):
     if mode == "prefill":
         return attn.attention_apply(params, h, spec=spec, cfg=cfg,
-                                    positions=positions, return_cache=True)
+                                    positions=positions, return_cache=True,
+                                    lengths=lengths)
     if mode == "decode":
         return attn.attention_decode(params, h, cache, spec=spec, cfg=cfg,
                                      pos=pos, block_table=block_table,
                                      kv_max_len=kv_max_len, active=active)
-    if mode == "chunk":
+    if mode in ("chunk", "fill"):
         return attn.attention_chunk(params, h, cache, spec=spec, cfg=cfg,
                                     pos=pos, block_table=block_table,
-                                    kv_max_len=kv_max_len)
+                                    kv_max_len=kv_max_len, slots=slots,
+                                    chunk_lens=chunk_lens,
+                                    prefill=mode == "fill")
     raise NotImplementedError(f"layer mode {mode!r} is not ported (train: "
                               "ROADMAP queue 1, item 9)")
 
@@ -162,9 +192,18 @@ def _track1(tree):
     return tree
 
 
+def _post(cfg: ModelConfig, params, name: str,
+          h: torch.Tensor) -> torch.Tensor:
+    """A sublayer's output before its residual add: normed under
+    ``name`` with ``cfg.post_norm`` (the sandwich), else as it is."""
+    if not cfg.post_norm:
+        return h
+    return apply_norm(cfg.norm, params[name], h, eps=cfg.norm_eps)
+
+
 def _step(params, x: torch.Tensor, y: torch.Tensor, *, cfg: ModelConfig,
           spec: LayerSpec, mode: str, positions, pos, cache, block_table,
-          kv_max_len, slots, chunk_lens, active
+          kv_max_len, slots, chunk_lens, active, lengths
           ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
     if spec.mixer == "mamba":
         h, new_cache = _mamba(params["mixer"], y, cfg=cfg, mode=mode,
@@ -174,9 +213,11 @@ def _step(params, x: torch.Tensor, y: torch.Tensor, *, cfg: ModelConfig,
     h, new_cache = _gqa(params["mixer"], y, cfg=cfg, spec=spec, mode=mode,
                         positions=positions, pos=pos, cache=cache,
                         block_table=block_table, kv_max_len=kv_max_len,
-                        active=active)
-    x, y = norm_in(cfg, params["ln2"], x, h)
-    return x, mlp_apply(params["mlp"], y, spec.mlp), new_cache
+                        active=active, lengths=lengths, slots=slots,
+                        chunk_lens=chunk_lens)
+    x, y = norm_in(cfg, params["ln2"], x, _post(cfg, params, "ln1_post", h))
+    return x, _post(cfg, params, "ln2_post",
+                    mlp_apply(params["mlp"], y, spec.mlp)), new_cache
 
 
 def layer_step(params, x: torch.Tensor, y: torch.Tensor, *,
@@ -187,16 +228,18 @@ def layer_step(params, x: torch.Tensor, y: torch.Tensor, *,
                kv_max_len: Optional[int] = None,
                slots: Optional[torch.Tensor] = None,
                chunk_lens: Optional[torch.Tensor] = None,
-               active: Optional[torch.Tensor] = None
+               active: Optional[torch.Tensor] = None,
+               lengths: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
     """One layer whose ln1 the caller applied: x the residual stream (in a
     PT model possibly one fused row broadcast to every track), y =
     ln1(x).  Returns (x, delta, cache): the layer's output is x + delta,
     the add left for the next norm to fold in (``norm_in``).  Arguments
-    and cache as ``layer_apply``."""
+    and cache as ``layer_apply``; mode 'fill' is 'chunk' run as the
+    chunk program of a prompt (``attention_chunk(prefill=True)``)."""
     kw = dict(cfg=cfg, spec=spec, mode=mode, positions=positions, pos=pos,
               block_table=block_table, kv_max_len=kv_max_len, slots=slots,
-              chunk_lens=chunk_lens, active=active)
+              chunk_lens=chunk_lens, active=active, lengths=lengths)
     if cfg.pt is None and spec.mixer == "gqa":
         # an lm_* GQA layer runs the PT layer's code at n = 1, on views
         x1, d1, c1 = _step(_track1(params), x[None], y[None],
@@ -214,7 +257,8 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
                 kv_max_len: Optional[int] = None,
                 slots: Optional[torch.Tensor] = None,
                 chunk_lens: Optional[torch.Tensor] = None,
-                active: Optional[torch.Tensor] = None
+                active: Optional[torch.Tensor] = None,
+                lengths: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Any]:
     """One layer.  A PT layer takes x [n, B, S, d] and params leaves
     [n, ...]; an lm_* layer x [B, S, d].  'prefill' takes ``positions``
@@ -232,5 +276,6 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
                                  mode=mode, positions=positions, pos=pos,
                                  cache=cache, block_table=block_table,
                                  kv_max_len=kv_max_len, slots=slots,
-                                 chunk_lens=chunk_lens, active=active)
+                                 chunk_lens=chunk_lens, active=active,
+                                 lengths=lengths)
     return x + delta, cache

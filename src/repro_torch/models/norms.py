@@ -1,8 +1,16 @@
-"""RMSNorm (counterpart of ``repro.models.norms``): gemma-style
-``(1 + scale)`` weight, fp32 math, routed through the RMSNorm kernel
-wrapper so every track of a layer is normalised in one launch.  The
-residual add before a norm, and at a track-block boundary the fusion
-mean, go into the same launch (``add_norm``, ``fuse_norm``)."""
+"""RMSNorm and LayerNorm (counterpart of ``repro.models.norms``).
+
+RMSNorm: gemma-style ``(1 + scale)`` weight, fp32 math, routed through
+the RMSNorm kernel wrapper so every track of a layer is normalised in
+one launch.  The residual add before a norm, and at a track-block
+boundary the fusion mean, go into the same launch (``add_norm``,
+``fuse_norm``).
+
+LayerNorm (nemotron-4-15b): ``scale`` and ``bias``, fp32 statistics
+(population variance), plain PyTorch: the reference has no Pallas
+kernel for it, and the RMSNorm kernel does not compute it.  Its residual
+add is the same add in x's dtype, then the norm.  Track fusion is a PT
+boundary and PT models use RMSNorm only."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -12,10 +20,12 @@ import torch
 from repro_torch.kernels import ops
 
 
-def _rms_only(kind: str) -> None:
-    if kind != "rmsnorm":
-        raise NotImplementedError(
-            f"norm {kind!r} is not ported (ROADMAP queue 1, item 3)")
+NORMS = ("rmsnorm", "layernorm")
+
+
+def _known(kind: str) -> None:
+    if kind not in NORMS:
+        raise ValueError(f"unknown norm {kind!r}")
 
 
 def rmsnorm(params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
@@ -24,9 +34,26 @@ def rmsnorm(params, x: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
     return ops.rmsnorm(x, params["scale"], eps=eps)
 
 
+def layernorm(params, x: torch.Tensor, *, eps: float = 1e-5
+              ) -> torch.Tensor:
+    """x [..., d] with scale and bias [d], or x [n, ..., d] with
+    per-track rows [n, d]: (x - mean) * rsqrt(var + eps) * scale + bias
+    in fp32, cast back to x's dtype."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    w, b = params["scale"].float(), params["bias"].float()
+    if w.dim() == 2 and x.dim() > 2:
+        w = w.reshape(w.shape[0], *([1] * (x.dim() - 2)), w.shape[-1])
+        b = b.reshape(w.shape)
+    return ((xf - mu) * torch.rsqrt(var + eps) * w + b).to(x.dtype)
+
+
 def apply_norm(kind: str, params, x: torch.Tensor, *,
                eps: float) -> torch.Tensor:
-    _rms_only(kind)
+    _known(kind)
+    if kind == "layernorm":
+        return layernorm(params, x, eps=eps)
     return rmsnorm(params, x, eps=eps)
 
 
@@ -34,7 +61,10 @@ def add_norm(kind: str, params, x: torch.Tensor, delta: torch.Tensor, *,
              eps: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """The residual add and the norm of its result: (x + delta,
     norm(x + delta)), the sum rounded to x's dtype first."""
-    _rms_only(kind)
+    _known(kind)
+    if kind == "layernorm":
+        x = x + delta
+        return x, layernorm(params, x, eps=eps)
     return ops.add_rmsnorm(x, delta, params["scale"], eps=eps)
 
 
@@ -46,6 +76,8 @@ def fuse_norm(kind: str, params, x: torch.Tensor,
     delta is None: a track rank's gathered rows); the norm under the next
     layer's per-track scale [k, d] (y [k, ..., d]; k = n, or a rank's
     n/W tracks) or the final scale [d] (y [..., d])."""
-    _rms_only(kind)
+    if kind != "rmsnorm":
+        raise NotImplementedError(f"a track fusion under {kind!r}: PT "
+                                  "models use RMSNorm")
     return ops.fuse_rmsnorm(x, delta, params["scale"], eps=eps,
                             fusion_op=fusion_op)

@@ -2,8 +2,9 @@
 block-pool ``PagedKVCache`` with its block accounting, and the row
 insert of the contiguous cache, ``insert_rows``.
 
-Every leaf of a paged engine cache is one of two layouts (the reference
-classifies them by probing; the port knows them from the config):
+Every leaf of a paged engine cache is one of three layouts
+(``common.paged.leaf_kind``; the reference classifies them by probing,
+the port reads them off the layer spec):
 
   * 'paged' — a GQA layer's K and V pools, laid out as the reference
     lays them out: the dense cache's batch axis becomes the block axis,
@@ -17,10 +18,15 @@ classifies them by probing; the port knows them from the config):
     unallocated regions and released slots point at it, so stray writes
     (padded prefill rows, idle decode lanes) never reach a block another
     request owns.
+  * 'ring' — a sliding-window layer whose window W is shorter than the
+    capacity: K and V as ``max_slots`` dense rows of W positions (slot =
+    position % W), as the ``lm_*`` decoder's ``init_cache`` lays them
+    out, under the same block accounting as the pools;
   * 'state' — the per-slot rows of a recurrent layer (Mamba: the conv
     window and h), ``max_slots`` rows as the ``lm_*`` decoder's
-    ``init_cache`` lays them out; a row belongs to whichever request
-    holds the slot.
+    ``init_cache`` lays them out.
+Ring and state leaves are the cache's "row" leaves: a row belongs to
+whichever request holds the slot.
 
 A config may have no pageable leaf at all (falcon-mamba: every leaf a
 state row).  The block table still exists and admission and reclamation
@@ -45,7 +51,7 @@ refcount zero keep their hash in an LRU and are evicted only when a
 fresh allocation finds the plain free list empty.  The host state is
 the reference's op for op (tables, refcounts, copy pairs, free and LRU
 order).  The prefix cache is honoured only when every leaf is a pool
-leaf (``all_pageable``): a state row is per slot, not content.
+leaf (``all_pageable``): a ring or state row is per slot, not content.
 
 The contiguous cache is the model's own ``init_cache`` tree at
 ``max_slots`` rows of ``max_seq_len`` positions, with no block
@@ -61,7 +67,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
-from repro_torch.common.paged import PagedLeaf, token_to_pool
+from repro_torch.common.paged import PagedLeaf, leaf_kind, token_to_pool
 from repro_torch.common.quant import quantize_rows
 from repro_torch.common.types import ModelConfig
 from repro_torch.core.track import pt_cache_shape
@@ -92,23 +98,29 @@ def _leaves(tree: Any) -> List[Tuple[Any, int]]:
     return out
 
 
+def _padded(s: torch.Tensor, d: torch.Tensor, ax: int) -> torch.Tensor:
+    """``s`` zero-padded past its batch axis ``ax`` to ``d``'s shape: a
+    bucketed prefill covers positions [0, bucket) of [0, capacity), and a
+    short cache padded to a ring of W rows is in ring order for every
+    position < W, as the reference pads."""
+    if s.shape[ax + 1:] == d.shape[ax + 1:]:
+        return s
+    full = s.new_zeros(s.shape[:ax + 1] + d.shape[ax + 1:])
+    full[tuple(slice(0, k) for k in s.shape)] = s
+    return full
+
+
 def insert_rows(dst: Any, src: Any, slots: Sequence[int]) -> None:
     """Write the rows of a prefill cache ``src`` (``len(slots)`` rows on
     each leaf's batch axis) into rows ``slots`` of the contiguous engine
     cache ``dst``, in place, one ``index_copy_`` per leaf (the
-    reference's ``insert_rows``).  A leaf of ``src`` shorter than ``dst``
-    past its batch axis (a bucketed prefill covers positions [0, bucket)
-    of [0, capacity)) is zero-padded first, as the reference pads."""
+    reference's ``insert_rows``), each zero-padded first (``_padded``)."""
     idx = None
     for (d, ax), (s, _) in zip(_leaves(dst), _leaves(src)):
         if idx is None:
             idx = torch.as_tensor(list(slots), dtype=torch.long,
                                   device=d.device)
-        if s.shape[ax + 1:] != d.shape[ax + 1:]:
-            full = s.new_zeros(s.shape[:ax + 1] + d.shape[ax + 1:])
-            full[tuple(slice(0, k) for k in s.shape)] = s
-            s = full
-        d.index_copy_(ax, idx, s.to(d.dtype))
+        d.index_copy_(ax, idx, _padded(s, d, ax).to(d.dtype))
 
 
 _HASH_ROOT = b"pkv-root"           # chain-hash seed for position-0 blocks
@@ -140,9 +152,9 @@ class PagedKVCache:
       free_slot(slot)      -> refcounts down; table row -> trash
       table() / table_rows(slots) -> device block-table views
       insert_prefill(src, slots, table_rows) -> a prefill cache's rows in
-      copy_blocks(pairs) / copy_rows(src, dsts) -> pool blocks / state
-          rows copied on the device
-      reset_slots(slots)   -> zero the state rows of ``slots``
+      copy_blocks(pairs) / copy_rows(src, dsts) -> pool blocks / ring
+          and state rows copied on the device
+      reset_slots(slots)   -> zero the ring and state rows of ``slots``
       utilization()        -> occupancy and prefix-cache counters
       check_invariants()   -> raise unless block accounting is consistent
 
@@ -201,14 +213,19 @@ class PagedKVCache:
                                  "ranks")
 
             def entry(nm, lead):
-                if cfg.spec(nm).mixer == "gqa":
+                if leaf_kind(cfg.spec(nm), max_seq_len) == "paged":
                     return paged(layer_cache(cfg, nm, lead, self.num_blocks,
                                              block_size, self.device,
-                                             kv_dtype=pool_dtype))
+                                             kv_dtype=pool_dtype, pool=True))
                 return layer_cache(cfg, nm, lead, max_slots, max_seq_len,
                                    self.device)
 
             self.tree = map_layers(cfg, entry)
+        # the layout kind of every leaf, in the order of _leaves(tree)
+        self._kinds: List[str] = (
+            ["paged"] * 2 if cfg.pt is not None else
+            [k for k, _ in _leaves(map_layers(cfg, lambda nm, lead: (
+                leaf_kind(cfg.spec(nm), max_seq_len),) * 2))])
         if kv_dtype == "int8" and not pools:
             raise ValueError("int8 KV needs pageable leaves; this config "
                              "has none")
@@ -216,8 +233,8 @@ class PagedKVCache:
         self.scales: Optional[Tuple[torch.Tensor, ...]] = (
             tuple(scales) if scales else None)
 
-        # a state row belongs to its slot, not to a prefix: the prefix
-        # cache needs every leaf to be a pool leaf
+        # a ring or state row belongs to its slot, not to a prefix: the
+        # prefix cache needs every leaf to be a pool leaf
         self.prefix_cache = prefix_cache and self.all_pageable
         self._free: List[int] = list(range(self.num_blocks - 1, 0, -1))
         self._blocks: List[List[int]] = [[] for _ in range(max_slots)]
@@ -539,17 +556,19 @@ class PagedKVCache:
             assert len(self._chain[slot]) <= len(blks)
 
     # -- layouts ----------------------------------------------------------
-    def _state_leaves(self) -> List[Tuple[torch.Tensor, int]]:
+    def _row_leaves(self) -> List[Tuple[torch.Tensor, int]]:
+        """(leaf, batch axis) of every ring and state leaf."""
         return [(leaf, ax) for leaf, ax in _leaves(self.tree)
                 if not isinstance(leaf, PagedLeaf)]
 
     def leaf_kinds(self) -> Dict[str, int]:
-        """Histogram of leaf layouts, e.g. {'paged': 2} or {'state': 2}."""
-        kinds = {}
-        if self.data:
-            kinds["paged"] = len(self.data)
-        if self._state_leaves():
-            kinds["state"] = len(self._state_leaves())
+        """Histogram of leaf layouts, e.g. {'paged': 2}, {'state': 2} or
+        {'ring': 18, 'paged': 2}: one count per leaf of the tree, a K or
+        V leaf of the unit (stacked over its R repeats) counted once, as
+        the reference counts."""
+        kinds: Dict[str, int] = {}
+        for k in self._kinds:
+            kinds[k] = kinds.get(k, 0) + 1
         return kinds
 
     @property
@@ -558,14 +577,16 @@ class PagedKVCache:
 
     @property
     def all_pageable(self) -> bool:
-        """True when every leaf is a block-pool leaf (no state rows)."""
-        return "state" not in self.leaf_kinds()
+        """True when every leaf is a block-pool leaf (no ring or state
+        rows)."""
+        return set(self.leaf_kinds()) <= {"paged"}
 
     def engine_cache(self) -> Any:
         """The cache tree the model functions take: a PT model's
         ``{'blocks': (PagedLeaf k, PagedLeaf v), 'tail': ()}``, or the
-        ``lm_*`` tree with (PagedLeaf k, PagedLeaf v) for each GQA layer
-        and state rows for each Mamba layer (updated in place)."""
+        ``lm_*`` tree with (PagedLeaf k, PagedLeaf v) for each paged GQA
+        layer, ring rows (k, v) for each ring layer and state rows for
+        each Mamba layer (updated in place)."""
         return self.tree
 
     # -- row writes -----------------------------------------------------
@@ -576,15 +597,16 @@ class PagedKVCache:
         [0, bucket) of each request through its block-table row, one
         indexed write per pool (padded rows past the allocation resolve
         to the trash block; int8 pools take each row quantized, payload
-        and scale); state leaves take each request's row at its slot
-        (``index_copy_``)."""
+        and scale); ring and state leaves take each request's row at its
+        slot (``index_copy_``), a ring's zero-padded to its W rows when
+        the bucket is shorter (``_padded``)."""
         n, bs = len(slots), self.block_size
         idx = torch.as_tensor(list(slots), dtype=torch.long,
                               device=self.device)
         rows_at: Dict[int, torch.Tensor] = {}     # bucket -> pool rows
         for (dst, ax), (rows, _) in zip(_leaves(self.tree), _leaves(src)):
             if not isinstance(dst, PagedLeaf):
-                dst.index_copy_(ax, idx, rows.to(dst.dtype))
+                dst.index_copy_(ax, idx, _padded(rows, dst, ax).to(dst.dtype))
                 continue
             bucket = rows.shape[ax + 1]
             if bucket not in rows_at:
@@ -602,10 +624,11 @@ class PagedKVCache:
                 flat[at] = r.to(pool.dtype)
 
     def reset_slots(self, slots: Sequence[int]) -> None:
-        """Zero the state rows of ``slots``: a chunked admission appends to
-        its rows, so the previous tenant's state must not seed it.  Pool
-        leaves need nothing: the block table isolates them."""
-        state = self._state_leaves()
+        """Zero the ring and state rows of ``slots``: a chunked admission
+        appends to its rows, so the previous tenant's state must not seed
+        it (a ring's stale rows are masked anyway).  Pool leaves need
+        nothing: the block table isolates them."""
+        state = self._row_leaves()
         if not state or not slots:
             return
         idx = torch.as_tensor(list(slots), dtype=torch.long,
@@ -633,10 +656,9 @@ class PagedKVCache:
                     t.index_copy_(ax, dst, t.index_select(ax, src))
 
     def copy_rows(self, src: int, dsts: Sequence[int]) -> None:
-        """Copy the state rows of slot ``src`` into slots ``dsts`` (a
-        fork of a recurrent model: the block table shares pool leaves
-        only)."""
-        state = self._state_leaves()
+        """Copy the ring and state rows of slot ``src`` into slots
+        ``dsts`` (a fork: the block table shares pool leaves only)."""
+        state = self._row_leaves()
         if not state or not dsts:
             return
         idx = torch.as_tensor(list(dsts), dtype=torch.long,
@@ -661,9 +683,9 @@ class PagedKVCache:
                    for t in self.data + (self.scales or ()))
 
     def state_bytes(self) -> int:
-        """Device bytes of the per-slot state rows."""
+        """Device bytes of the per-slot ring and state rows."""
         return sum(t.numel() * t.element_size()
-                   for t, _ in self._state_leaves())
+                   for t, _ in self._row_leaves())
 
     def bytes_per_block(self) -> int:
         return self.pool_bytes() // self.num_blocks

@@ -771,8 +771,8 @@ class ModelRunner:
             lengths[i] = len(p)
         len_d = self._to_dev(lengths, torch.long)
         logits, cache = self.fns["forward"](
-            self.params, {"inputs": self._to_dev(tokens, torch.long)},
-            self.cfg, mode="prefill")
+            self.params, {"inputs": self._to_dev(tokens, torch.long),
+                          "lengths": len_d}, self.cfg, mode="prefill")
         last = logits[torch.arange(n, device=self.device), len_d - 1]
         toks = self._sample_first(last, seeds, counters, params_list)
         if self.paged:

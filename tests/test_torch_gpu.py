@@ -43,6 +43,10 @@ transfer faults at the prefill, decode and draft_verify waits bitwise
 the fault-free streams, sync and with planned programs, and a
 synchronous fault that frees its staging slot with the recompute's K/V
 bytes the clean run's.
+Flash's per-row offsets, windows and head dims 288 / 320, the offset
+route's rows bitwise a whole-prompt call's, the decode template's
+softcap and wide heads, and a bf16 warm prefix hit bitwise the cold run
+(``-k "offset or wide or warm_prefix"``).
 Without a GPU every test here skips (the kernels have no CPU mode)."""
 import numpy as np
 import pytest
@@ -224,6 +228,104 @@ def test_flash_attention_wgmma_route_is_bitwise_repeatable():
     second = ops.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
+
+
+# (B, Sq, Sk, H, KH, hd, dtype): the wgmma route (bf16, hd 128 and 64) and
+# the CUDA-core one (fp32; bf16 at gemma2's hd 288 and gemma3's 320)
+_OFFSET_SHAPES = [(3, 70, 300, 4, 1, 128, "bfloat16"),
+                  (2, 130, 400, 8, 2, 64, "bfloat16"),
+                  (3, 40, 200, 4, 2, 64, "float32"),
+                  (2, 33, 160, 8, 4, 288, "bfloat16"),
+                  (2, 70, 200, 8, 4, 320, "bfloat16")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,hd,dtype", _OFFSET_SHAPES)
+@pytest.mark.parametrize("window,softcap", [(None, None), (37, None),
+                                            (None, 5.0), (130, 5.0)])
+def test_flash_attention_offsets_and_windows_match_plain(B, Sq, Sk, H, KH,
+                                                         hd, dtype, window,
+                                                         softcap):
+    """Per-row query offsets and key lengths (row b's queries at q_off[b]
+    + i over keys < k_len[b]), sliding windows and softcaps against the
+    plain version, on the route ``route`` names, hd 288 and 320 too."""
+    from repro_torch.kernels import flash_attention as fa
+    dev, tol = _cuda(), _TOL[dtype]
+    q, k, v = _flash_inputs(dev, dtype, B, Sq, Sk, H, KH, hd, seed=7)
+    off = torch.tensor([0, Sk - Sq, 17][:B], dtype=torch.int32, device=dev)
+    kl = torch.clamp(off + Sq, max=Sk).to(torch.int32)
+    for kw in ({}, {"q_offset": off, "k_lengths": kl}):
+        out, r = _flash_routed(q, k, v, causal=True, window=window,
+                               softcap=softcap, **kw)
+        assert r == fa.route(_TDT[dtype], hd, True)
+        torch.testing.assert_close(
+            out, ref.flash_attention_plain(q, k, v, causal=True,
+                                           window=window, softcap=softcap,
+                                           **kw), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,dtype", [(128, "bfloat16"), (64, "float32"),
+                                      (320, "bfloat16")])
+@pytest.mark.parametrize("window", [None, 100])
+def test_flash_offset_rows_bitwise_the_whole_prompt_call(hd, dtype, window):
+    """The warm-equals-cold property at the kernel: a tail of rows at
+    offsets 0, 17, 128, 448 and 300 (tile-aligned or not) over keys
+    gathered into a longer buffer gives the bits of the same rows of a
+    whole-prompt call from position 0, on each route."""
+    dev = _cuda()
+    B, S, H, KH, cap = 5, 512, 8, 2, 600
+    q, k, v = _flash_inputs(dev, dtype, B, S, cap, H, KH, hd, seed=8)
+    cold = ops.flash_attention(q, k[:, :S].contiguous(),
+                               v[:, :S].contiguous(), causal=True,
+                               window=window)
+    offs = [0, 17, 128, 448, 300]
+    C = 64
+    tail = torch.stack([q[b, o:o + C] for b, o in enumerate(offs)])
+    off = torch.tensor(offs, dtype=torch.int32, device=dev)
+    warm = ops.flash_attention(tail, k, v, causal=True, window=window,
+                               q_offset=off, k_lengths=off + C)
+    torch.cuda.synchronize()
+    for b, o in enumerate(offs):
+        assert torch.equal(warm[b], cold[b, o:o + C]), (b, o)
+
+
+@pytest.mark.gpu
+def test_bf16_warm_prefix_hit_is_bitwise_the_cold_run():
+    """A1 at a small size on the card: a bf16 dense model of head dim 128
+    (the wgmma route), a 48-token shared prefix (3 blocks of 16) and
+    tails of their own: the prefix cache's warm admissions (the tails on
+    flash's offset route) give the streams of a cold engine bitwise, and
+    the tails' K/V pool bytes equal the cold run's."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models.decoder import init_lm
+    from repro_torch.serving.engine import Engine
+    dev = _cuda()
+    cfg = reduced_config("dense-6b").replace(
+        d_model=256, n_heads=2, n_kv_heads=1, head_dim=128, d_ff=384,
+        dtype="bfloat16")
+    assert cfg.head_dim == 128
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    rng = np.random.default_rng(3)
+    shared = rng.integers(1, cfg.vocab_size, size=48).tolist()
+    prompts = [shared + rng.integers(1, cfg.vocab_size, size=n).tolist()
+               for n in (20, 9, 33, 16)]
+    out = {}
+    for warm in (False, True):
+        eng = Engine(cfg, params, max_slots=4, max_seq_len=128, device=dev,
+                     prefix_cache=warm)
+        if warm:
+            eng.generate([shared + [1, 2, 3]], 2)     # the seed request
+        before = ops.launch_counts()["flash_attention"]
+        streams = eng.generate(prompts, 12)
+        r = eng.runner
+        if warm:
+            assert r.kv.prefix_hit_tokens >= 4 * 48
+            # the warm tails: one chunk call, its attention on flash
+            assert ops.launch_counts()["flash_attention"] - before \
+                == cfg.n_layers
+        out[warm] = streams
+    assert out[True] == out[False]
 
 
 @pytest.mark.gpu
@@ -1474,3 +1576,37 @@ def test_robust_sync_transfer_fault_frees_its_staging_slot():
     (a, pa), (b, pb) = runs["clean"], runs["faulted"]
     assert a == b
     assert all(torch.equal(x, y) for x, y in zip(pa, pb))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd,G", [(288, 2), (320, 2), (320, 8), (128, 4)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("softcap", [None, 50.0])
+def test_decode_kernels_take_softcap_and_wide_heads(hd, G, dtype, softcap):
+    """The split-KV template at gemma2's hd 288 and gemma3's 320 (the
+    scalar path) and with the tanh softcap, paged and contiguous, against
+    the plain versions (scores scaled past the cap).  Kept last in the
+    file: after these 16 cases in one process the profiler of
+    ``test_decode_kernels_launch_one_device_kernel_per_call`` recorded no
+    device event at all (each case alone leaves it whole); not
+    understood."""
+    dev, tol = _cuda(), _TOL[dtype]
+    rng = np.random.default_rng(hd + G)
+    q, kp, vp, table, lengths = _paged_inputs(2, 5, 2, G, hd, 16, 40, rng,
+                                              _sms(dev))
+    cast = lambda a: torch.from_numpy(a).to(dev, _TDT[dtype])   # noqa: E731
+    args = (cast(q * 8), cast(kp), cast(vp), torch.from_numpy(table).to(dev),
+            torch.from_numpy(lengths).to(dev))
+    torch.testing.assert_close(
+        ops.paged_decode_attention(*args, softcap=softcap),
+        ref.paged_decode_attention_plain(*args, softcap=softcap),
+        rtol=tol, atol=tol)
+    S = 640
+    qd = cast(rng.standard_normal((6, 2 * G, hd)) * 8)
+    kc, vc = (cast(rng.standard_normal((6, S, 2, hd))) for _ in range(2))
+    ln = torch.tensor([0, 1, 100, 639, 640, 333], dtype=torch.int32,
+                      device=dev)
+    torch.testing.assert_close(
+        ops.decode_attention(qd, kc, vc, ln, softcap=softcap),
+        ref.decode_attention_plain(qd, kc, vc, ln, softcap=softcap),
+        rtol=tol, atol=tol)

@@ -712,3 +712,67 @@ def test_decisions_match_the_reference_engine(arm, jax_runs, monkeypatch):
     assert m["timed_out"] and m["shed"] and m["rejected"]
     assert {"done", "rejected", "cancelled", "timed_out"} <= states
     assert got["pool"] == 0
+
+
+def _fork_fault_script(engine_cls, plan_cls, cfg, params, clock,
+                       num_blocks) -> dict:
+    """A pipelined engine (depth 1) on a small pool: a priority-0 request
+    and a priority-1 one decode; the latter is forked 2 ways (the
+    children share its blocks); the very next transfer of the engine
+    faults (back-pressure on the step in flight), then the run goes on
+    under block pressure: copy-on-write copies and preemptions.  Returns
+    every decision it shows."""
+    plan = plan_cls()
+    kw = {"device": "cpu"} if engine_cls is Engine else {}
+    eng = engine_cls(cfg, params, fault_plan=plan, max_slots=4,
+                     max_seq_len=32, block_size=4, num_blocks=num_blocks,
+                     min_bucket=32, pipeline_depth=1, **kw)
+    rng = np.random.default_rng(29)
+    low = eng.submit(rng.integers(1, cfg.vocab_size, 7).tolist(), 10,
+                     priority=0)
+    parent = eng.submit(rng.integers(1, cfg.vocab_size, 10).tolist(), 12,
+                        priority=1)
+    for _ in range(3):
+        eng.step()
+        clock.t += 0.001
+    kids = eng.fork(parent, 2)
+    plan.transfer_ops = frozenset({plan.transfer_calls})
+    eng.run(max_steps=300, allow_incomplete=True)
+    eng.runner.kv.check_invariants()
+    m = eng.metrics.summary()
+    return {"requests": [(r.rid, r.state.value, r.finish_reason, r.output,
+                          r.preemptions, r.cached_prefix)
+                         for r in [low, parent] + kids],
+            "cow_copies": eng.runner.kv.cow_copies,
+            "plan": (list(plan.events), list(plan.transfer_sites)),
+            "steps_run": eng.steps_run,
+            "metrics": {k: m[k] for k in ("preemptions", "resumes",
+                                          "transfer_faults")},
+            "pool": eng.runner.kv.utilization()["used_blocks"]}
+
+
+@pytest.mark.parametrize("num_blocks", [12, 14])
+def test_fork_after_pipelined_transfer_fault_matches_reference(num_blocks,
+                                                                monkeypatch):
+    """Copy-on-write after a pipelined transfer fault: the port's ``_cow``
+    runs at dispatch and skips lanes that finished in flight, the
+    reference's every tick; on a fork that shares blocks, a transfer
+    fault on the next step and a pool short of blocks, both engines take
+    the same copies, preemptions, faults and end states."""
+    jcfg, cfg, jparams, params = _model("tiny")
+    runs = []
+    for mod, eng_cls, plan_cls, p, c in (
+            (jengine, jengine.Engine, JFaultPlan, jparams, jcfg),
+            (engine_mod, Engine, FaultPlan, params, cfg)):
+        clock = _Clock()
+        monkeypatch.setattr(mod, "time", clock)
+        if mod is jengine:
+            monkeypatch.setattr(jengine, "jnp", _CopyingJnp())
+        runs.append(_fork_fault_script(eng_cls, plan_cls, c, p, clock,
+                                       num_blocks))
+    want, got = runs
+    for key in want:
+        assert got[key] == want[key], key
+    assert got["cow_copies"] and got["metrics"]["transfer_faults"] == 1
+    assert got["metrics"]["preemptions"] and got["pool"] == 0
+    assert all(r[1] == "done" for r in got["requests"])

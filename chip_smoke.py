@@ -478,6 +478,7 @@ def check_kernels(dev: torch.device):
     rows += check_decode_attention(dev, g)
     torch.cuda.empty_cache()
     check_layer_kernels(dev, g, rows)
+    check_slice16_kernels(dev, g, rows)
     return rows
 
 
@@ -4418,6 +4419,7 @@ def layer_decode_row(dev, g, arch: str, tag: str, paged: bool, B: int,
     from repro_torch.kernels import ops, ref
     F = torch.nn.functional
     bf = torch.bfloat16
+    hg = da.head_groups(H // KH)        # blocks a KV head's query heads take
     lengths = torch.full((B,), L, dtype=torch.int32, device=dev)
     if paged:
         nmax = -(-S // BLOCK)
@@ -4488,13 +4490,16 @@ def layer_decode_row(dev, g, arch: str, tag: str, paged: bool, B: int,
                   B * L * KH * hd * 2 * 2 + nbytes(sets[0][0], lengths, out),
                   4.0 * B * L * H * hd, BF16_FLOP_S)
     row["run"] = arch
+    row["head_groups"] = hg
     row["at"] = (f"{tag}: B {B}, live {L}, hd {hd}, G {H // KH} ("
+                 + (f"{hg} head groups of {H // KH // hg}, " if hg > 1
+                    else "")
                  + ("paged, block 16" if paged else "contiguous ring")
                  + f", capacity {S}, max_len {max_len}"
                  + (f", softcap {softcap}" if softcap else "") + ")")
     log(f"[kernel]   {name} at {row['at']}")
     sweep = max_len if paged else da._sweep_cols(S, 512, max_len)
-    decode_extras(row, t, sweep, B * KH, BLOCK if paged else None,
+    decode_extras(row, t, sweep, B * KH * hg, BLOCK if paged else None,
                   nmax * BLOCK if paged else S)
     del sets, out, want
     torch.cuda.empty_cache()
@@ -4616,61 +4621,87 @@ LAYER_RUNS = {}       # the figures of phase 11, for the summary
 
 
 def layer_arith(cfg, c: dict) -> dict:
-    """The launch counts of a phase-11 run of ``c["P"]`` prefill calls and
-    ``c["T"]`` decode steps, from the code: one flash launch per layer per
-    prefill call; per decode step one decode launch per layer, the paged
-    kernel on a pool layer and the contiguous one on a ring layer; the
-    RMSNorm launches ``norm_routes`` counts (none for LayerNorm)."""
+    """The launch counts of a phase-11 or phase-12 run of ``c["P"]``
+    prefill calls, ``c.get("C", 0)`` chunk calls (a prompt's chunk
+    program) and ``c["T"]`` decode steps, from the code: per prefill call
+    one flash launch per attention layer and one scan launch per
+    recurrent layer; per chunk call one scan launch per recurrent layer
+    and one flash launch (the offset route) per pooled attention layer (a
+    ring's chunk is plain PyTorch, as the reference computes it in jnp);
+    per decode step one decode launch per attention layer, the paged
+    kernel on a pool layer and the contiguous one on a ring layer or on
+    the contiguous cache (``c["contiguous"]``); the RMSNorm launches
+    ``norm_routes`` counts (none for LayerNorm)."""
     from repro_torch.common.paged import leaf_kind
-    L, P, T = cfg.n_layers, c["P"], c["T"]
-    rings = sum(leaf_kind(cfg.spec(nm), c["capacity"]) == "ring"
-                for nm in cfg.layer_names)
-    want = {"flash_attention": L * P,
-            "paged_decode_attention": (L - rings) * T,
-            "decode_attention": rings * T,
+    P, C, T = c["P"], c.get("C", 0), c["T"]
+    kinds = [leaf_kind(cfg.spec(nm), c["capacity"]) for nm in cfg.layer_names]
+    attn = sum(cfg.spec(nm).mixer == "gqa" for nm in cfg.layer_names)
+    pools = 0 if c.get("contiguous") else kinds.count("paged")
+    rec = len(kinds) - attn
+    return {"flash_attention": attn * P + pools * C,
+            "paged_decode_attention": pools * T,
+            "decode_attention": (attn - pools) * T,
             "paged_decode_attention_int8": 0, "decode_attention_int8": 0,
-            "int8_matmul": 0, "ssm_scan": 0,
+            "int8_matmul": 0, "ssm_scan": rec * (P + C),
             "rmsnorm": sum(norm_routes("layers", cfg, c).values())}
-    return want
 
 
 def serve_layer_model(dev, card: str, arch: str, prompt: int, new: int,
-                      planned: bool = False):
-    """Phase 11, one model at full width and depth, bf16, seeded random
+                      planned: bool = False, cfg=None, cap=None,
+                      chunk: int = 0, store=None, after=None):
+    """Phase 11 (and 12), one model at full width, bf16, seeded random
     weights: SLOTS greedy requests of ``prompt`` tokens and ``new`` new
-    tokens, SLOTS slots, block BLOCK, capacity prompt + new + 8, all
-    prompts admitted in one round (``max_waiting_prefill_tokens``), the
-    prefix cache off (windowed models have none).  Prints TTFT and TPOT
-    p50 / p90, throughput, peak memory, the cache's leaf kinds and the
-    launches per kernel and per flash / RMSNorm route; gates: every
-    request finishes, the launch arithmetic (``layer_arith``), every
-    flash launch on ``route``'s route, the RMSNorm launches by route as
-    ``norm_routes`` counts them.  With ``planned`` the same prompts again
-    pipelined (depth 1, the programs of the run's live lengths
-    captured): every step a replay, streams bitwise the sync run's, the
-    same arithmetic.  Returns the sync run's launch counts."""
+    tokens, SLOTS slots, block BLOCK, capacity ``cap`` (default prompt +
+    new + 8), all prompts admitted in one round
+    (``max_waiting_prefill_tokens``), the prefix cache off (windowed and
+    recurrent models have none).  ``cfg``: the config to serve (default
+    ``get_config(arch)``; phase 12 cuts qwen2-vl's depth).  Prints TTFT
+    and TPOT p50 / p90, throughput, peak memory, the cache's leaf kinds
+    (and each layer's) and the launches per kernel and per flash /
+    RMSNorm route; gates: every request finishes, the launch arithmetic
+    (``layer_arith``), every flash launch on ``route``'s route, the
+    RMSNorm launches by route as ``norm_routes`` counts them.  With
+    ``planned`` the same prompts again pipelined (depth 1, the programs
+    of the run's live lengths captured): every step a replay, streams
+    bitwise the sync run's, the same arithmetic.  With ``chunk`` the same
+    prompts again, sync, with ``prefill_chunk=chunk``: its streams against
+    the whole-prompt run's are reported (bf16 near-ties may flip, so no
+    gate), the arithmetic gated.  The figures go into ``store`` (default
+    ``LAYER_RUNS``) under ``arch``; ``after(cfg, params)`` runs on the
+    model before its weights are freed.  Returns the sync run's launch
+    counts."""
+    from collections import Counter
+
+    from repro_torch.common.paged import leaf_kind
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models.decoder import init_lm
     from repro_torch.serving.engine import Engine, EngineMetrics, RequestState
-    cfg = get_config(arch)
-    cap = prompt + new + 8
+    cfg = cfg or get_config(arch)
+    cap = cap or prompt + new + 8
+    store = LAYER_RUNS if store is None else store
     t0 = time.perf_counter()
     params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, dev)
     torch.cuda.synchronize()
-    log(f"[layers] {arch}: {sum(t.numel() for t in _leaves(params)) / 1e9:.3f}"
-        f" B parameters, {sum(nbytes(t) for t in _leaves(params)) / 1e9:.3f} "
-        f"GB bf16, init {time.perf_counter() - t0:.1f}s")
+    log(f"[layers] {cfg.name}: "
+        f"{sum(t.numel() for t in _leaves(params)) / 1e9:.3f} B parameters, "
+        f"{sum(nbytes(t) for t in _leaves(params)) / 1e9:.3f} GB, init "
+        f"{time.perf_counter() - t0:.1f}s")
     rng = np.random.default_rng(11)
     prompts = [rng.integers(1, cfg.vocab_size, size=(prompt,)).tolist()
                for _ in range(SLOTS)]
     route = fa.route(torch.bfloat16, cfg.head_dim, True)
+    layer_kinds = dict(Counter(leaf_kind(cfg.spec(nm), cap)
+                               for nm in cfg.layer_names))
+    modes = ("sync",) + (("planned",) if planned else ()) \
+        + (("chunk",) if chunk else ())
     fig, sync_streams, launches0 = {}, None, None
-    for mode in ("sync", "planned") if planned else ("sync",):
+    for mode in modes:
         eng = Engine(cfg, params, max_slots=SLOTS, max_seq_len=cap,
                      block_size=BLOCK, device=dev, prefix_cache=False,
                      max_waiting_prefill_tokens=SLOTS * cap,
+                     prefill_chunk=chunk if mode == "chunk" else 0,
                      pipeline_depth=1 if mode == "planned" else 0)
         r = eng.runner
         if mode == "planned":
@@ -4704,9 +4735,10 @@ def serve_layer_model(dev, card: str, arch: str, prompt: int, new: int,
         streams = [q.output for q in reqs]
         want = layer_arith(cfg, c)
         got = {k: launches[k] for k in want}
+        calls_ok = (c["C"] > 0 and c["P"] == 0 if mode == "chunk"
+                    else c["P"] > 0 and c["C"] == 0)
         gates = {"finished": done == len(reqs),
-                 "launch arithmetic": got == want and c["P"] > 0
-                 and c["C"] == 0,
+                 "launch arithmetic": got == want and calls_ok,
                  "flash route": flash_routes == dict(
                      dict.fromkeys(flash_routes, 0),
                      **{route: launches["flash_attention"]}),
@@ -4715,34 +4747,50 @@ def serve_layer_model(dev, card: str, arch: str, prompt: int, new: int,
         if mode == "planned":
             gates["every step replayed"] = c["hits"] == c["T"] > 0
             gates["streams equal sync"] = streams == sync_streams
-        log(f"[layers] {card} | {arch} {mode}: {SLOTS} reqs x ({prompt} in "
-            f"/ {new} out), slots {SLOTS}, block {BLOCK}, wall {wall:.3f}s; "
-            f"TTFT ms p50 {m['ttft_ms']['p50']:.2f} p90 "
-            f"{m['ttft_ms']['p90']:.2f}; TPOT ms p50 "
+        vs_sync = None
+        if mode == "chunk":
+            vs_sync = {"equal": sum(a == b for a, b in
+                                    zip(streams, sync_streams)),
+                       "first_divergence": [_divergence(a, b) for a, b in
+                                            zip(streams, sync_streams)]}
+        log(f"[layers] {card} | {cfg.name} {mode}: {SLOTS} reqs x ({prompt} "
+            f"in / {new} out), slots {SLOTS}, block {BLOCK}, capacity {cap}"
+            + (f", chunk {chunk}" if mode == "chunk" else "")
+            + f", wall {wall:.3f}s; TTFT ms p50 {m['ttft_ms']['p50']:.2f} "
+            f"p90 {m['ttft_ms']['p90']:.2f}; TPOT ms p50 "
             f"{m['tpot_ms']['p50']:.3f} p90 {m['tpot_ms']['p90']:.3f}; "
             f"throughput {m['throughput_tok_s']:.1f} tok/s; peak memory "
             f"{peak / 1e9:.3f} GB")
-        log(f"[layers] {arch} {mode}: leaf kinds {json.dumps(kinds)} "
-            f"(pool {r.kv.pool_bytes() / 1e9:.3f} GB, ring rows "
+        log(f"[layers] {cfg.name} {mode}: leaf kinds {json.dumps(kinds)}, "
+            f"layers {json.dumps(layer_kinds)} (pool "
+            f"{r.kv.pool_bytes() / 1e9:.3f} GB, ring and state rows "
             f"{r.kv.state_bytes() / 1e9:.3f} GB); prefill calls {c['P']}, "
-            f"decode steps {c['T']}, replays {c['hits']}; launches "
-            f"{json.dumps(launches)}; arithmetic {json.dumps(want)}; flash "
-            f"routes {json.dumps(flash_routes)}; RMSNorm routes "
-            f"{json.dumps(rms_routes)}; gates {json.dumps(gates)}")
+            f"chunk calls {c['C']}, decode steps {c['T']}, replays "
+            f"{c['hits']}; launches {json.dumps(launches)}; arithmetic "
+            f"{json.dumps(want)}; flash routes {json.dumps(flash_routes)}; "
+            f"RMSNorm routes {json.dumps(rms_routes)}; gates "
+            f"{json.dumps(gates)}"
+            + (f"; streams vs whole-prompt {json.dumps(vs_sync)}"
+               if vs_sync else ""))
         fig[mode] = {"ttft_ms": m["ttft_ms"], "tpot_ms": m["tpot_ms"],
                      "throughput_tok_s": m["throughput_tok_s"],
                      "peak_gb": peak / 1e9, "wall_s": wall,
-                     "leaf_kinds": kinds, "launches": launches,
-                     "flash_routes": flash_routes, "rmsnorm_routes":
-                     rms_routes, "graphs": len(r.programs)}
+                     "leaf_kinds": kinds, "layer_kinds": layer_kinds,
+                     "launches": launches, "flash_routes": flash_routes,
+                     "rmsnorm_routes": rms_routes, "graphs": len(r.programs),
+                     "calls": c}
+        if vs_sync:
+            fig[mode]["streams_vs_whole_prompt"] = vs_sync
         if mode == "sync":
             sync_streams, launches0 = streams, launches
         del eng, r
         gc.collect()
         torch.cuda.empty_cache()
         if not all(gates.values()):
-            raise SystemExit(f"[layers] {arch} {mode}: gates {gates}")
-    LAYER_RUNS[arch] = fig
+            raise SystemExit(f"[layers] {cfg.name} {mode}: gates {gates}")
+    store[arch] = fig
+    if after is not None:
+        after(cfg, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
@@ -4769,6 +4817,309 @@ def serve_layer_models(dev, card: str, runs: dict) -> None:
                                         LM_NEW)
     LAYER_RUNS["seconds"] = time.perf_counter() - t0
     log(f"[layers] phase 11 took {LAYER_RUNS['seconds']:.1f}s")
+
+
+# ---------------------------------------------------------------------------
+# phases 3, 4 and 12 for qwen2-vl-72b (M-RoPE, precomputed embeddings) and
+# recurrentgemma-9b (RG-LRU on the scan kernel, 2048-token MQA rings at 16
+# query heads a KV head)
+# ---------------------------------------------------------------------------
+
+QWEN_ARCH, RG_ARCH = "qwen2-vl-72b", "recurrentgemma-9b"
+QWEN_LAYERS, QWEN_PROMPT, QWEN_NEW = 16, 512, 32   # phase 12's requests
+RG_PROMPT, RG_NEW, RG_CHUNK = 2048, 64, 512
+EMB_B, EMB_S, EMB_STEPS = 2, 1024, 16              # the embeddings arm
+PHASE12 = {}          # the figures of phase 12, for the summary
+
+
+def qwen_config():
+    """qwen2-vl-72b cut to QWEN_LAYERS of its 80 layers: 72.7 B parameters
+    are ~145 GB in bf16, past one 80 GB card; 16 layers with the
+    embedding and the head are ~16.5 B, ~33 GB.  Widths untouched."""
+    from repro_torch.configs import get_config
+    return get_config(QWEN_ARCH).replace(n_layers=QWEN_LAYERS)
+
+
+def scan_row(dev, g):
+    """Phase 3, ``ssm_scan`` at recurrentgemma's prefill: a, b [SLOTS,
+    RG_PROMPT, d_inner] fp32 (the RG-LRU's features, no d_state axis),
+    nonzero h0, against its plain version (1e-4) and its bound, timed as
+    the falcon-mamba row (eager loops)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    di = get_config(RG_ARCH).rglru.d_inner
+    shape = (SLOTS, RG_PROMPT, di)
+    a = torch.sigmoid(torch.randn(shape, generator=g, device=dev))
+    b = torch.randn(shape, generator=g, device=dev)
+    h0 = torch.randn(SLOTS, di, generator=g, device=dev)
+    (h, hl), (rh, rhl) = ops.ssm_scan(a, b, h0), ref.ssm_scan_plain(a, b, h0)
+    _agree("ssm_scan h_last", hl, rhl, FP32_KERNEL_TOL)
+    k_ms = time_ms(ops.ssm_scan, [(a, b, h0)], 20)
+    p_ms = time_ms(ref.ssm_scan_plain, [(a, b, h0)], 2)
+    row = _report("ssm_scan", "cuda",
+                  "src/repro_torch/kernels/csrc/ssm_scan.cu",
+                  "src/repro/kernels/ssm_scan.py:47", h, rh, k_ms, p_ms, None,
+                  nbytes(a, b, h0, h, hl), 2.0 * a.numel(), FP32_FLOP_S,
+                  tol=FP32_KERNEL_TOL)
+    row.update(run=RG_ARCH, at=f"{RG_ARCH} prefill: a, b [{SLOTS},{RG_PROMPT},"
+               f"{di}] fp32, h0 [{SLOTS},{di}]",
+               bound_share=row["bound_ms"] / row["ms"],
+               library_ms_why="no single PyTorch call computes a linear "
+                              "recurrence over the sequence axis",
+               timing="ms and plain_ms: CUDA events over eager loops")
+    log(f"[kernel]   ssm_scan at {row['at']}: "
+        f"{100 * row['bound_share']:.1f} % of its bound")
+    del a, b, h0, h, hl, rh, rhl
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_slice16_kernels(dev, g, rows) -> None:
+    """Phase 3 for qwen2-vl-72b and recurrentgemma-9b, appended to the
+    shapes of the decode, flash and scan rows: contiguous decode over
+    recurrentgemma's 2048-slot rings at 16 query heads on 1 KV head (two
+    head groups), paged decode at qwen2-vl's decode (64 heads on 8, 544
+    live), flash at recurrentgemma's prefill (hd 256, 16 on 1, window
+    2048; ``cuda_core``) and at qwen2-vl's (64 on 8, hd 128;
+    ``wgmma_tma``), the scan at recurrentgemma's prefill."""
+    from repro_torch.configs import get_config
+    rg, qw = get_config(RG_ARCH), get_config(QWEN_ARCH)
+    by = {r["name"]: r for r in rows}
+    W = rg.spec("attn").window
+    by["decode_attention"].setdefault("shapes", []).append(
+        layer_decode_row(dev, g, RG_ARCH, "recurrentgemma-9b ring", False,
+                         SLOTS, RG_PROMPT, W, rg.n_heads, rg.n_kv_heads,
+                         rg.head_dim))
+    by["paged_decode_attention"]["shapes"].append(
+        layer_decode_row(dev, g, QWEN_ARCH, "qwen2-vl-72b", True, SLOTS,
+                         QWEN_PROMPT + QWEN_NEW, QWEN_PROMPT + QWEN_NEW + 8,
+                         qw.n_heads, qw.n_kv_heads, qw.head_dim))
+    by["flash_attention"]["shapes"] += [
+        layer_flash_row(dev, g, RG_ARCH, "recurrentgemma-9b", SLOTS,
+                        RG_PROMPT, rg.n_heads, rg.n_kv_heads, rg.head_dim,
+                        window=W, iters=3),
+        layer_flash_row(dev, g, QWEN_ARCH, "qwen2-vl-72b", SLOTS,
+                        QWEN_PROMPT, qw.n_heads, qw.n_kv_heads, qw.head_dim)]
+    by["ssm_scan"].setdefault("shapes", []).append(scan_row(dev, g))
+
+
+def _grid_positions(B: int, S: int, dev, grid: int = 4) -> torch.Tensor:
+    """(t, h, w) M-RoPE streams of a patch grid: ``grid`` x ``grid``
+    patches a frame, frame after frame (three distinct streams),
+    [3, B, S] int32."""
+    i = torch.arange(S, device=dev)
+    hw = i % (grid * grid)
+    pos = torch.stack([i // (grid * grid), hw // grid, hw % grid])
+    return pos[:, None].expand(3, B, S).to(torch.int32)
+
+
+def check_slice16_parity(dev: torch.device) -> None:
+    """Phase 4 for this slice's models, fp32, the card against the same
+    weights on the CPU within 1e-4 and with equal greedy streams:
+    ``reduced_config`` of qwen2-vl-72b (4 layers, M-RoPE sections (2, 3,
+    3)) prefilled from precomputed embeddings [2, 24, d] with distinct
+    4 x 4 grid (t, h, w) streams, then four teacher-forced decode steps on
+    the paged cache the prefill rows went into; recurrentgemma-9b (8
+    layers, window 16) prefilled whole (two rows of 24), then chunks of 8
+    into the paged cache (state rows, rings) with the second row's last
+    chunk padded, then four decode steps; each model's engine streams
+    (paged; recurrentgemma whole-prompt and with chunk 4)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import decoder as dec
+    from repro_torch.serving.cache import PagedKVCache
+    from repro_torch.serving.engine import Engine
+    cpu = torch.device("cpu")
+    for arch in (QWEN_ARCH, RG_ARCH):
+        cfg = reduced_config(arch)
+        params = {cpu: dec.init_lm(torch.Generator().manual_seed(0), cfg,
+                                   cpu)}
+        params[dev] = _to(params[cpu], dev)
+        rng = np.random.default_rng(16)
+        lens = np.asarray([24, 21])
+        toks = rng.integers(1, cfg.vocab_size, size=(2, 24))
+        emb = rng.standard_normal((2, 24, cfg.d_model)).astype(np.float32)
+        teacher = rng.integers(1, cfg.vocab_size, size=(4, 2))
+        got = {}
+        with torch.no_grad():
+            for d in (cpu, dev):
+                t = lambda a, dt=torch.long: torch.as_tensor(  # noqa: E731
+                    np.asarray(a)).to(d, dt)
+                p = params[d]
+                kv = PagedKVCache(cfg, max_slots=2, max_seq_len=40,
+                                  block_size=8, device=d)
+                if arch == QWEN_ARCH:
+                    for slot in range(2):
+                        kv.allocate(slot, 28)
+                    logits, pre = dec.lm_forward(p, {
+                        "inputs": t(emb, torch.float32),
+                        "positions": _grid_positions(2, 24, d)}, cfg)
+                    kv.insert_prefill(pre, [0, 1], kv.table())
+                    mid = None
+                    start = np.asarray([24, 24])
+                else:
+                    logits, _ = dec.lm_forward(p, {"inputs": t(toks)}, cfg)
+                    for slot in range(2):
+                        kv.allocate(slot, int(lens[slot]) + 4)
+                    chunks = []
+                    for c in range(0, 24, 8):
+                        cl = np.clip(lens - c, 0, 8)
+                        chunks.append(dec.lm_chunk_step(
+                            p, kv.engine_cache(), t(toks[:, c:c + 8]),
+                            t([c, c], torch.int32), cfg,
+                            block_table=kv.table(), slots=t([0, 1]),
+                            chunk_lens=t(cl))[0])
+                    mid = torch.cat(chunks, 1)
+                    mid = torch.cat([mid[0, :24], mid[1, :21]])
+                    start = lens
+                steps = [dec.lm_decode_step(
+                    p, kv.engine_cache(), t(teacher[k]),
+                    t(start + k, torch.int32), cfg, block_table=kv.table(),
+                    kv_max_len=40)[0] for k in range(teacher.shape[0])]
+                got[d] = (logits, mid, torch.stack(steps), kv.leaf_kinds())
+        if arch == QWEN_ARCH:
+            _close(f"{arch} prefill logits from embeddings, grid streams",
+                   got[dev][0], got[cpu][0])
+        else:
+            _close(f"{arch} prefill logits", got[dev][0], got[cpu][0])
+            _close(f"{arch} paged chunk-8 logits", got[dev][1], got[cpu][1])
+        _close(f"{arch} decode logits", got[dev][2], got[cpu][2])
+        log(f"[parity] {arch}: leaf kinds {got[dev][3]}")
+        prompts = [rng.integers(1, cfg.vocab_size, size=(L,)).tolist()
+                   for L in (30, 21, 9, 26)]
+        for chunk in ((0, 4) if arch == RG_ARCH else (0,)):
+            streams = {d: Engine(cfg, params[d], max_slots=2, max_seq_len=48,
+                                 prefill_chunk=chunk, device=d
+                                 ).generate(prompts, 8)
+                       for d in (cpu, dev)}
+            same = streams[dev] == streams[cpu]
+            log(f"[parity] {arch} greedy token streams (chunk {chunk}), card "
+                f"vs CPU: {'identical' if same else 'DIFFER'}")
+            if not same:
+                raise SystemExit(f"[parity] {arch} greedy streams differ")
+
+
+def embeddings_arm(dev, card: str, cfg, params) -> dict:
+    """Phase 12's qwen2-vl embeddings arm on the contiguous cache:
+    EMB_B x EMB_S token ids; the token prefill; ``embed[tokens]`` as
+    precomputed embeddings with three equal M-RoPE streams (gate: logits
+    bitwise the token prefill's); the same embeddings with distinct 4 x 4
+    grid (t, h, w) streams (reported: how far its logits move), whose
+    cache goes into the contiguous rows for EMB_STEPS greedy
+    ``lm_decode_step``s.  Gates: the bitwise prefill, finite decode
+    logits, the launch arithmetic (flash on ``wgmma_tma``, the contiguous
+    decode kernel, RMSNorm by route)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import decoder as dec
+    from repro_torch.models.rope import mrope_positions_default
+    from repro_torch.serving.cache import insert_rows
+    g = torch.Generator(device=dev).manual_seed(12)
+    toks = torch.randint(1, cfg.vocab_size, (EMB_B, EMB_S), generator=g,
+                         device=dev)
+    cap = EMB_S + EMB_STEPS
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        by_tok, _ = dec.lm_forward(params, {"inputs": toks}, cfg)
+        emb = params["embed"][toks]
+        by_emb, _ = dec.lm_forward(params, {
+            "inputs": emb,
+            "positions": mrope_positions_default(EMB_B, EMB_S, device=dev)},
+            cfg)
+        bitwise = torch.equal(by_tok, by_emb)
+        del by_emb
+        logits, pre = dec.lm_forward(params, {
+            "inputs": emb, "positions": _grid_positions(EMB_B, EMB_S, dev)},
+            cfg)
+        moved = (logits - by_tok).abs()
+        moved = {"max": moved.max().item(), "mean": moved.mean().item(),
+                 "argmax_equal_rows": (logits.argmax(-1) == by_tok.argmax(-1))
+                 .float().mean().item()}
+        del by_tok
+        cache = dec.init_cache(cfg, EMB_B, cap, device=dev)
+        insert_rows(cache, pre, range(EMB_B))
+        del pre
+        tok = logits[:, -1].argmax(-1)
+        del logits
+        steps, finite = [], True
+        for k in range(EMB_STEPS):
+            pos = torch.full((EMB_B,), EMB_S + k, dtype=torch.int32,
+                             device=dev)
+            out, _ = dec.lm_decode_step(params, cache, tok, pos, cfg)
+            finite &= bool(torch.isfinite(out).all())
+            tok = out.argmax(-1)
+            steps.append(tok)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    c = {"P": 3, "T": EMB_STEPS, "capacity": cap, "contiguous": True}
+    want = layer_arith(cfg, c)
+    gates = {"embeddings = tokens bitwise": bitwise,
+             "decode logits finite": finite,
+             "launch arithmetic": {k: launches[k] for k in want} == want,
+             "flash route": ops.flash_attention.routes["wgmma_tma"]
+             == launches["flash_attention"],
+             "RMSNorm routes": dict(ops.rmsnorm.routes)
+             == norm_routes("layers", cfg, c)}
+    out = {"moved": moved, "wall_s": wall, "launches": launches,
+           "gates": gates,
+           "streams": torch.stack(steps, 1).tolist()}
+    log(f"[phase12] {card} | {cfg.name} embeddings arm: precomputed "
+        f"embeddings [{EMB_B},{EMB_S},{cfg.d_model}], grid (t, h, w) "
+        f"positions [3,{EMB_B},{EMB_S}], then {EMB_STEPS} decode steps on "
+        f"the contiguous cache, wall {wall:.3f}s; distinct streams moved the "
+        f"logits by {json.dumps(moved)} from the equal-stream ones; "
+        f"launches {json.dumps(launches)}; arithmetic {json.dumps(want)}; "
+        f"gates {json.dumps(gates)}")
+    if not all(gates.values()):
+        raise SystemExit(f"[phase12] embeddings arm: gates {gates}")
+    return out
+
+
+def serve_phase12(dev, card: str, runs: dict) -> None:
+    """Phase 12, bf16, seeded random weights, every prompt admitted in one
+    round: qwen2-vl-72b at full width, 16 of its 80 layers
+    (``qwen_config``), 8 x (512 / 32) sync then planned (every layer
+    paged), then its embeddings arm; recurrentgemma-9b, nothing cut, 8 x
+    (2048 / 64), capacity 2112 past its 2048 window (its 12 attention
+    layers ring rows, its 26 RG-LRU layers state rows), sync, planned,
+    then sync with ``prefill_chunk`` 512."""
+    t0 = time.perf_counter()
+    qcfg = qwen_config()
+    log(f"[phase12] {QWEN_ARCH}: cut to {QWEN_LAYERS} of 80 layers (72.7 B "
+        "parameters are ~145 GB in bf16, past one 80 GB card); widths, "
+        "heads, vocabulary and M-RoPE sections as published")
+    emb = {}
+    runs[QWEN_ARCH] = serve_layer_model(
+        dev, card, QWEN_ARCH, QWEN_PROMPT, QWEN_NEW, planned=True, cfg=qcfg,
+        store=PHASE12,
+        after=lambda cfg, params: emb.update(embeddings_arm(dev, card, cfg,
+                                                            params)))
+    PHASE12[QWEN_ARCH]["embeddings"] = {k: v for k, v in emb.items()
+                                        if k != "streams"}
+    PHASE12[QWEN_ARCH]["cut"] = f"{QWEN_LAYERS} of 80 layers"
+    runs[RG_ARCH] = serve_layer_model(
+        dev, card, RG_ARCH, RG_PROMPT, RG_NEW, planned=True,
+        cap=RG_PROMPT + RG_NEW, chunk=RG_CHUNK, store=PHASE12)
+    kinds = PHASE12[RG_ARCH]["sync"]
+    want = ({"ring": 12, "state": 26}, {"state": 8, "ring": 2})
+    if (kinds["layer_kinds"], kinds["leaf_kinds"]) != want:
+        raise SystemExit(f"[phase12] recurrentgemma-9b layers "
+                         f"{kinds['layer_kinds']}, leaves "
+                         f"{kinds['leaf_kinds']}: want the 12 attention "
+                         "layers' K/V as rings and the 26 RG-LRU layers' "
+                         "state as rows (leaves: 2 ring, 8 state)")
+    if PHASE12[QWEN_ARCH]["sync"]["leaf_kinds"] != {"paged": 2}:
+        raise SystemExit("[phase12] qwen2-vl-72b: want every layer paged")
+    PHASE12["seconds"] = time.perf_counter() - t0
+    log(f"[phase12] phase 12 took {PHASE12['seconds']:.1f}s")
+
+
+def phase12_summary() -> str:
+    return json.dumps(
+        {k: ({m: ({x: y for x, y in f.items() if x != "launches"}
+                  if isinstance(f, dict) else f) for m, f in v.items()}
+             if isinstance(v, dict) else v)
+         for k, v in PHASE12.items()}, default=str)
 
 
 def head_choice_ms(eng, head, dev) -> None:
@@ -4819,6 +5170,7 @@ def main() -> int:
     check_pt_contiguous_parity(dev)
     check_spec_parity(dev)
     check_layer_parity(dev)
+    check_slice16_parity(dev)
     keep = {}
     runs = {"bf16": serve_full(dev, card, keep=keep)}
     gc.collect()
@@ -4888,6 +5240,7 @@ def main() -> int:
     runs["ranks"] = serve_ranks(dev, card, one["prompts"], one["streams"],
                                 runs["bf16"])
     serve_layer_models(dev, card, runs)
+    serve_phase12(dev, card, runs)
     runs["prefix bf16 warm"] = PREFIX["bf16"]["warm"]["launches"]
     for row in rows:
         # each kernel's count from the run of the path it belongs to
@@ -4928,6 +5281,7 @@ def main() -> int:
         {k: ({m: {x: y for x, y in f.items() if x != "launches"}
               for m, f in v.items()} if isinstance(v, dict) else v)
          for k, v in LAYER_RUNS.items()}))
+    log("[phase12] summary " + phase12_summary())
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """Config dataclasses (the port's own copy of ``repro.common.types``).
 
 Only what the ported serving paths read is kept: ``PTConfig``,
-``SSMConfig``, ``LayerSpec`` and ``ModelConfig`` with the fields
-``pt_ify`` and the models touch.  The sub-configs of the other mixers
-(MoE, MLA, RG-LRU, encoder-decoder) are not ported yet (ROADMAP queue 1,
-item 3); their fields stay so a config reads the same, and must be None.
+``SSMConfig``, ``RGLRUConfig``, ``LayerSpec`` and ``ModelConfig`` with
+the fields ``pt_ify`` and the models touch.  The sub-configs of the
+other mixers (MoE, MLA, encoder-decoder) are not ported yet (ROADMAP
+queue 1, item 3); their fields stay so a config reads the same, and must
+be None.
 """
 from __future__ import annotations
 
@@ -35,14 +36,27 @@ class SSMConfig:
 
 
 @dataclass(frozen=True)
+class RGLRUConfig:
+    """RG-LRU recurrent block (RecurrentGemma / Griffin)."""
+
+    d_inner: int                       # width of the recurrent stream
+    d_conv: int = 4
+    n_blocks: int = 0                  # block-diagonal gate projections;
+                                       # 0 => n_heads
+    c: float = 8.0                     # gate sharpness constant
+    chunk: int = 256
+
+
+@dataclass(frozen=True)
 class LayerSpec:
     """One transformer-layer flavour referenced by the layer pattern."""
 
-    mixer: str                         # 'gqa' (PT) and 'mamba' are ported
+    mixer: str                         # 'gqa' (PT), 'mamba' and 'rglru'
+                                       # are ported
     mlp: str                           # 'swiglu' (PT), 'geglu', 'sqrelu'
                                        # and 'none' are ported
     window: Optional[int] = None
-    rope: str = "rope"
+    rope: str = "rope"                 # 'rope' | 'mrope' | 'local_rope' | 'none'
     attn_logit_softcap: Optional[float] = None
     causal: bool = True
     cross_attn: bool = False
@@ -76,14 +90,18 @@ class ModelConfig:
 
     rope_theta: float = 10000.0
     local_rope_theta: float = 10000.0  # theta of ``rope="local_rope"`` layers
+    mrope_sections: Tuple[int, ...] = ()   # M-RoPE (t, h, w) pairs; sum
+                                           # = head_dim // 2
 
-    # sub-configs; only ``ssm`` and ``pt`` are ported
+    # sub-configs; ``ssm``, ``rglru`` and ``pt`` are ported
     moe: Optional[Any] = None
     mla: Optional[Any] = None
     ssm: Optional[SSMConfig] = None
-    rglru: Optional[Any] = None
+    rglru: Optional[RGLRUConfig] = None
     pt: Optional[PTConfig] = None
     encdec: Optional[Any] = None
+
+    input_kind: str = "tokens"         # 'tokens' | 'embeds' (vlm stub)
 
     dtype: str = "bfloat16"
     attn_chunk_q: int = 512            # kept for config parity; unused

@@ -1,16 +1,19 @@
 """Config registry of the port: the paper's Parallel-Track models, its
 dense baselines, tinyllama-1.1b, falcon-mamba-7b, nemotron-4-15b,
-gemma2-2b and gemma3-4b.
+gemma2-2b, gemma3-4b, qwen2-vl-72b and recurrentgemma-9b.
 
   get_config(name)      — full-size config
   reduced_config(name)  — small same-family config (CPU tests)
 
 The ``pt-*`` names serve through ``core.track``; ``dense-*``,
 ``tinyllama-1.1b`` (GQA + SwiGLU), ``falcon-mamba-7b`` (Mamba),
-``nemotron-4-15b`` (LayerNorm, squared ReLU) and the gemma models
-(GeGLU, sliding windows, softcaps, qk-norm, sandwich norms) through the
-dense ``lm_*`` decoder.  The other assigned architectures
-need mixers and layer features not ported yet (ROADMAP queue 1, item 3).
+``nemotron-4-15b`` (LayerNorm, squared ReLU), the gemma models
+(GeGLU, sliding windows, softcaps, qk-norm, sandwich norms),
+``qwen2-vl-72b`` (M-RoPE, precomputed input embeddings) and
+``recurrentgemma-9b`` (RG-LRU beside windowed MQA) through the dense
+``lm_*`` decoder.  The other assigned architectures (deepseek-v2 / -v3:
+MLA and MoE; whisper-medium: cross-attention) need mixers and layer
+features not ported yet (ROADMAP queue 1, item 3).
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ from typing import Callable, Dict, List, Tuple
 
 from repro_torch.common.types import ModelConfig
 from repro_torch.configs import (falcon_mamba_7b, gemma2_2b, gemma3_4b,
-                                nemotron_4_15b, pt_paper, tinyllama_1_1b)
+                                nemotron_4_15b, pt_paper, qwen2_vl_72b,
+                                recurrentgemma_9b, tinyllama_1_1b)
 
 _PAPER: Dict[str, Callable[[], ModelConfig]] = {
     "pt-6b-d2": lambda: pt_paper.pt_6b(2),
@@ -42,6 +46,8 @@ _LM: Dict[str, Tuple[Callable[[], ModelConfig], Callable[[], ModelConfig]]] = {
     "nemotron-4-15b": (nemotron_4_15b.config, nemotron_4_15b.reduced),
     "gemma2-2b": (gemma2_2b.config, gemma2_2b.reduced),
     "gemma3-4b": (gemma3_4b.config, gemma3_4b.reduced),
+    "qwen2-vl-72b": (qwen2_vl_72b.config, qwen2_vl_72b.reduced),
+    "recurrentgemma-9b": (recurrentgemma_9b.config, recurrentgemma_9b.reduced),
 }
 NAMES: List[str] = PT_NAMES + list(_LM)
 
@@ -49,8 +55,8 @@ NAMES: List[str] = PT_NAMES + list(_LM)
 def _unported(name: str) -> KeyError:
     return KeyError(
         f"arch {name!r} is not ported to repro_torch yet: only {NAMES} are "
-        "(the other architectures need mixers and layer features of "
-        "ROADMAP queue 1, item 3)")
+        "(the other architectures need the MLA and MoE mixers or "
+        "cross-attention: ROADMAP queue 1, item 3)")
 
 
 def get_config(name: str) -> ModelConfig:

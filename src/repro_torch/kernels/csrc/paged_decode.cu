@@ -60,7 +60,16 @@
 //     warp per token, lane d owning elements d + 32 j, loaded straight from
 //     device memory;
 //   * no wgmma and no TMA: G <= 8 query rows per KV head are far below
-//     wgmma's 64-row tile, and the work is bytes-bound, so CUDA cores do it.
+//     wgmma's 64-row tile, and the work is bytes-bound, so CUDA cores do it;
+//   * more than kMaxG query heads per KV head (recurrentgemma's 16 on 1):
+//     the host splits a KV head's G heads into hg groups of G / hg <= kMaxG
+//     and the grid's y axis runs (KV head, group), each block the kMaxG
+//     instantiation over its group's heads.  A G 16 instantiation would
+//     hold 2 x 16 x 8 fp32 of q and accumulators a lane, past the 255
+//     registers the G 8 one already uses.  Each group reads its KV head's
+//     rows (2x the bytes at hg 2, the second read mostly from L2).  With
+//     hg = 1 every index is the one-group kernel's, so G <= 8 launches keep
+//     their plan and their bits.
 // Scores live in the log2 domain (q pre-scaled by hd^-0.5 * log2 e), so the
 // softmax uses exp2f.  Columns >= lengths[b] and past the host's sweep are
 // never visited; a row with no live column stores zeros.
@@ -100,6 +109,7 @@ struct Args {
   int N, bs, nmax;  // paged: pool blocks, block size, table width;
                     // contiguous: N = B, bs = S, nmax unused
   int sweep;        // tokens the sweep may visit (the host's max_len cut)
+  int hg;           // query-head groups per KV head (1 while G <= kMaxG)
   int n_split, split_len;
   float scale;
   float softcap;    // > 0: the tanh logit cap; 0: none
@@ -241,9 +251,11 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
   using S = Shape<P, kG, kE, kVec>;
   constexpr bool kQuant = S::kQuant;
   constexpr int kU = S::kU;
-  const int split = blockIdx.x, kh = blockIdx.y, z = blockIdx.z;
+  // y = KV head x head group; the group's G heads start at head kg * G
+  const int split = blockIdx.x, kg = blockIdx.y, z = blockIdx.z;
+  const int kh = kg / a.hg;
   const int b = z % a.B, tr = z / a.B;       // z = track * B + row
-  const int hd = a.hd, KH = a.KH, G = a.H / KH;
+  const int hd = a.hd, KH = a.KH, G = a.H / (KH * a.hg);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int lpr = kVec ? hd / kE : 32;       // lanes per row (a worker)
   const int r = lane & (lpr - 1);
@@ -287,7 +299,7 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
 
   // this lane's q slice for the G heads, pre-scaled into the log2 domain
   // (read once the first tiles are on their way)
-  const size_t q_off = ((size_t)z * a.H + (size_t)kh * G) * hd;
+  const size_t q_off = ((size_t)z * a.H + (size_t)kg * G) * hd;
   float qf[kG][kE], acc[kG][kE], m[kG], l[kG];
   auto load_q = [&]() {
     const T* q = static_cast<const T*>(a.q) + q_off;
@@ -513,8 +525,8 @@ __global__ void __launch_bounds__(kThreads) decode_kernel(const Args a) {
   __syncthreads();
 
   T* out = static_cast<T*>(a.out) + q_off;
-  const int bid = z * KH + kh;
-  const size_t n_slots = (size_t)gridDim.z * KH * a.n_split;
+  const int bid = z * gridDim.y + kg;
+  const size_t n_slots = (size_t)gridDim.z * gridDim.y * a.n_split;
   const size_t slot = (size_t)bid * a.n_split + split;
   float* ws_acc = a.ws;
   float* ws_ml = a.ws + n_slots * n_out;
@@ -664,7 +676,7 @@ int launch_g(const Args& a, dim3 grid, cudaStream_t s, bool vec) {
 
 template <typename T, typename P, bool kPaged>
 int launch_tp(const Args& a, dim3 grid, cudaStream_t s, bool vec) {
-  const int G = a.H / a.KH;
+  const int G = a.H / (a.KH * a.hg);
   if (G <= 1) return launch_g<T, P, kPaged, 1>(a, grid, s, vec);
   if (G <= 2) return launch_g<T, P, kPaged, 2>(a, grid, s, vec);
   if (G <= 4) return launch_g<T, P, kPaged, 4>(a, grid, s, vec);
@@ -675,7 +687,8 @@ int launch_tp(const Args& a, dim3 grid, cudaStream_t s, bool vec) {
 template <bool kPaged>
 int dispatch(const Args& a, int n_bases_z, int dtype, int cache_dtype,
              int vec, void* stream) {
-  if (a.H % a.KH != 0 || a.H / a.KH > kMaxG || a.hd > kMaxHd || a.hd < 1 ||
+  if (a.hg < 1 || a.H % (a.KH * a.hg) != 0 || a.H / (a.KH * a.hg) > kMaxG ||
+      a.hd > kMaxHd || a.hd < 1 ||
       a.n_split < 1 || a.n_split > kMaxSplits || a.split_len < 1 ||
       (a.n_split > 1 && (a.ws == nullptr || a.counters == nullptr)) ||
       (kPaged && (a.split_len % a.bs || a.split_len / a.bs > kMaxPages)))
@@ -685,7 +698,7 @@ int dispatch(const Args& a, int n_bases_z, int dtype, int cache_dtype,
             : cache_dtype != dtype)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(a.n_split, a.KH, n_bases_z);
+  const dim3 grid(a.n_split, a.KH * a.hg, n_bases_z);
   int err;
   if (dtype == rt::kFloat32 && quant)
     err = launch_tp<float, int8_t, kPaged>(a, grid, s, vec);
@@ -702,13 +715,15 @@ int dispatch(const Args& a, int n_bases_z, int dtype, int cache_dtype,
 
 }  // namespace
 
-// softcap > 0: the tanh logit cap (0: none).
+// softcap > 0: the tanh logit cap (0: none).  hg: query-head groups per KV
+// head (1, or more when G = H / KH passes kMaxG; G / hg <= kMaxG), which
+// multiply the blocks, the workspace slots and the counters by hg.
 // q [n, B, H, hd]; k_pool/v_pool [n, N, bs, KH, hd] of q's dtype, or int8
 // (pool_dtype rt::kInt8) with k_scale/v_scale [n, N, bs, KH, 1] fp32 (null
 // for fp pools); table [B, nmax] int32; lengths [B] int32; out [n, B, H, hd]
 // of q's dtype; n_sweep the table columns the sweep may visit; n_split
 // splits of split_len tokens (a multiple of bs); ws fp32 [n*B*KH*n_split*G*
-// (hd + 2)] and counters int32 [n*B*KH], zero, when n_split > 1 (else
+// (hd + 2)] and counters int32 [n*B*KH*hg], zero, when n_split > 1 (else
 // null); vec 1 for the vector path (rows of 16-byte words, 16-byte aligned).
 // All contiguous, on one device.  Returns cudaGetLastError() after the
 // launch.
@@ -716,15 +731,15 @@ extern "C" int paged_decode_attention_launch(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* table,
     const void* lengths, void* out, void* ws, void* counters, int n, int B,
-    int H, int KH, int hd, int N, int bs, int nmax, int n_sweep, int n_split,
-    int split_len, float scale, float softcap, int dtype, int pool_dtype,
-    int vec, void* stream) {
+    int H, int KH, int hd, int N, int bs, int nmax, int n_sweep, int hg,
+    int n_split, int split_len, float scale, float softcap, int dtype,
+    int pool_dtype, int vec, void* stream) {
   const Args a{q, k_pool, v_pool, static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale),
                static_cast<const int*>(table),
                static_cast<const int*>(lengths), out,
                static_cast<float*>(ws), static_cast<int*>(counters), B, H, KH,
-               hd, N, bs, nmax, n_sweep * bs, n_split, split_len, scale,
+               hd, N, bs, nmax, n_sweep * bs, hg, n_split, split_len, scale,
                softcap};
   return dispatch<true>(a, n * B, dtype, pool_dtype, vec, stream);
 }
@@ -732,19 +747,19 @@ extern "C" int paged_decode_attention_launch(
 // q [B, H, hd]; k_cache/v_cache [B, S, KH, hd] of q's dtype, or int8
 // (cache_dtype rt::kInt8) with k_scale/v_scale [B, S, KH, 1] fp32 (null for
 // fp caches); lengths [B] int32; n_cols (1..S) the columns the sweep may
-// visit; out [B, H, hd] of q's dtype; n_split, split_len, ws, counters and
-// vec as for the paged entry (counters [B*KH]).  All contiguous, on one
+// visit; out [B, H, hd] of q's dtype; hg, n_split, split_len, ws, counters
+// and vec as for the paged entry (counters [B*KH*hg]).  All contiguous, on one
 // device.  Returns cudaGetLastError() after the launch.
 extern "C" int decode_attention_launch(
     const void* q, const void* k_cache, const void* v_cache,
     const void* k_scale, const void* v_scale, const void* lengths, void* out,
     void* ws, void* counters, int B, int H, int KH, int hd, int S,
-    int n_cols, int n_split, int split_len, float scale, float softcap,
-    int dtype, int cache_dtype, int vec, void* stream) {
+    int n_cols, int hg, int n_split, int split_len, float scale,
+    float softcap, int dtype, int cache_dtype, int vec, void* stream) {
   const Args a{q, k_cache, v_cache, static_cast<const float*>(k_scale),
                static_cast<const float*>(v_scale), nullptr,
                static_cast<const int*>(lengths), out,
                static_cast<float*>(ws), static_cast<int*>(counters), B, H, KH,
-               hd, B, S, 1, n_cols, n_split, split_len, scale, softcap};
+               hd, B, S, 1, n_cols, hg, n_split, split_len, scale, softcap};
   return dispatch<false>(a, B, dtype, cache_dtype, vec, stream);
 }

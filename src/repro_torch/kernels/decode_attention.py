@@ -17,7 +17,8 @@ per-token-per-head scales are dequantized inside the softmax loop
 (``_online_softmax_step``'s ``ks``/``vs``).  The CUDA kernel is
 ``csrc/paged_decode.cu``, one split-KV template for both layouts and both
 branches; what bounds it on the H100 (bytes: each live K/V row is read
-once for all G query heads) and how its design answers that is noted
+once for all G query heads; past 8 heads a KV head, ``head_groups``
+splits them over blocks) and how its design answers that is noted
 there.  ``split_plan`` is its host-side split of the swept tokens over
 blocks, shared by the two layouts.  ``paged_decode_attention_plain`` and
 ``decode_attention_plain`` are the same functions in plain PyTorch: the
@@ -39,6 +40,17 @@ NEG_INF = -2.0e38
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _INT8 = 2                       # pool dtype code of the int8 branch
 MAX_HD = 320                    # csrc/paged_decode.cu kMaxHd
+MAX_G = 8                       # csrc/paged_decode.cu kMaxG: heads a block
+
+
+def head_groups(G: int) -> int:
+    """The groups a KV head's G query heads are split into, one block
+    each: the fewest that divide G into groups of at most ``MAX_G`` (1
+    for G <= 8; recurrentgemma's G 16 takes 2)."""
+    hg = -(-G // MAX_G)
+    while G % hg:
+        hg += 1
+    return hg
 
 
 def _cap(softcap: Optional[float]) -> float:
@@ -253,8 +265,8 @@ def _launcher():
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i,
-                       i, i, i, i, i, i, ctypes.c_float, ctypes.c_float, i,
-                       i, i, vp]
+                       i, i, i, i, i, i, i, ctypes.c_float, ctypes.c_float,
+                       i, i, i, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -274,14 +286,14 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, block_table, lengths,
             raise ValueError("all operands must be contiguous on one device")
     n, B, H, hd = q.shape
     _, N, bs, KH, _ = k_pool.shape
-    if H // KH > 8 or hd > MAX_HD:
-        raise ValueError(f"kernel takes G <= 8 and hd <= {MAX_HD}, got "
-                         f"G={H // KH}, hd={hd}")
+    if hd > MAX_HD:
+        raise ValueError(f"kernel takes hd <= {MAX_HD}, got hd={hd}")
+    hg = head_groups(H // KH)
     nmax = block_table.shape[1]
     n_sweep = _sweep_blocks(nmax, bs, max_len)
     n_split, c, ws, cnt = _split_args(q.device, n_sweep * bs, nmax * bs,
-                                      n * B * KH, bs, H // KH, hd,
-                                      plan_scale)
+                                      n * B * KH * hg, bs, H // KH // hg,
+                                      hd, plan_scale)
     out = torch.empty_like(q)
     quant = k_scale is not None
     err = _launcher()(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
@@ -290,7 +302,7 @@ def _launch(q, k_pool, v_pool, k_scale, v_scale, block_table, lengths,
                       block_table.data_ptr(), lengths.data_ptr(),
                       out.data_ptr(), ws.data_ptr() if n_split > 1 else None,
                       cnt.data_ptr() if n_split > 1 else None, n, B, H, KH,
-                      hd, N, bs, nmax, n_sweep, n_split, c, hd ** -0.5,
+                      hd, N, bs, nmax, n_sweep, hg, n_split, c, hd ** -0.5,
                       _cap(softcap), _DTYPES[q.dtype],
                       _INT8 if quant else _DTYPES[q.dtype],
                       _vector_rows(hd, k_pool, v_pool), build.cuda_stream(q))
@@ -452,7 +464,7 @@ def _dense_launcher():
     if fn.argtypes is None:
         vp, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i, i,
-                       i, i, ctypes.c_float, ctypes.c_float, i, i, i, vp]
+                       i, i, i, ctypes.c_float, ctypes.c_float, i, i, i, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -473,12 +485,12 @@ def _dense_launch(q, k_cache, v_cache, k_scale, v_scale, lengths, block_s,
             raise ValueError("all operands must be contiguous on one device")
     B, H, hd = q.shape
     S, KH = k_cache.shape[1:3]
-    if H // KH > 8 or hd > MAX_HD:
-        raise ValueError(f"kernel takes G <= 8 and hd <= {MAX_HD}, got "
-                         f"G={H // KH}, hd={hd}")
+    if hd > MAX_HD:
+        raise ValueError(f"kernel takes hd <= {MAX_HD}, got hd={hd}")
+    hg = head_groups(H // KH)
     n_cols = _sweep_cols(S, block_s, max_len)
-    n_split, c, ws, cnt = _split_args(q.device, n_cols, S, B * KH, None,
-                                      H // KH, hd, plan_scale)
+    n_split, c, ws, cnt = _split_args(q.device, n_cols, S, B * KH * hg,
+                                      None, H // KH // hg, hd, plan_scale)
     out = torch.empty_like(q)
     quant = k_scale is not None
     err = _dense_launcher()(q.data_ptr(), k_cache.data_ptr(),
@@ -488,7 +500,7 @@ def _dense_launch(q, k_cache, v_cache, k_scale, v_scale, lengths, block_s,
                             lengths.data_ptr(), out.data_ptr(),
                             ws.data_ptr() if n_split > 1 else None,
                             cnt.data_ptr() if n_split > 1 else None, B, H,
-                            KH, hd, S, n_cols, n_split, c, hd ** -0.5,
+                            KH, hd, S, n_cols, hg, n_split, c, hd ** -0.5,
                             _cap(softcap), _DTYPES[q.dtype],
                             _INT8 if quant else _DTYPES[q.dtype],
                             _vector_rows(hd, k_cache, v_cache),

@@ -20,7 +20,9 @@ take the W8A16 kernel in every projection, ``wq``/``wk``/``wv`` and
 the activation dtype.  int8 pools (``PagedLeaf.scale``) quantize rows on
 write and dequantize on read.
 
-Layer features (gemma2 / gemma3): qk-norm (an RMSNorm of each q and k
+Layer features (gemma2 / gemma3, qwen2-vl): M-RoPE (the (t, h, w)
+position streams of ``rope="mrope"`` layers; decode and chunks, which
+see text, take three equal streams), qk-norm (an RMSNorm of each q and k
 head before RoPE, through the RMSNorm kernel), RoPE at the local theta
 on ``rope="local_rope"`` layers, the tanh logit softcap on every path,
 and sliding windows.  A windowed layer's prefill runs the flash kernel
@@ -40,7 +42,7 @@ of it came from the prefix cache (flash sums each row over the same key
 tiles in the same order whatever its offset).  The verify, int8 pools
 and the CPU keep the reference's plain masked softmax.
 
-Not ported (each raises): M-RoPE, cross-attention.
+Not ported (it raises): cross-attention.
 """
 from __future__ import annotations
 
@@ -85,8 +87,8 @@ def rope_theta(spec: LayerSpec, cfg: ModelConfig) -> float:
 def _project_qkv(params, x: torch.Tensor, spec: LayerSpec,
                  cfg: ModelConfig, positions: torch.Tensor):
     """x [n, B, S, d] -> q [n, B, S, H, hd], k/v [n, B, S, KH, hd]: the
-    projections, qk-norm (``cfg.qk_norm``), then RoPE at the layer's
-    theta applied to q and k in fp32."""
+    projections, qk-norm (``cfg.qk_norm``), then RoPE (or M-RoPE) at the
+    layer's theta applied to q and k in fp32 (``rope_tables``)."""
     n, B, S, d = x.shape
     wq, wk, wv = params["wq"], params["wk"], params["wv"]
     q = matmul(x, as_matrix(wq, d)).reshape(n, B, S, *wq.shape[2:])
@@ -95,9 +97,25 @@ def _project_qkv(params, x: torch.Tensor, spec: LayerSpec,
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q, eps=cfg.norm_eps)
         k = rmsnorm(params["k_norm"], k, eps=cfg.norm_eps)
-    cos, sin = rope_lib.rope_cos_sin(positions, wq.shape[-1],
-                                     rope_theta(spec, cfg))
+    cos, sin = rope_tables(spec, cfg, positions, wq.shape[-1])
     return rope_lib.apply_rope(q, cos, sin), rope_lib.apply_rope(k, cos, sin), v
+
+
+def rope_tables(spec: LayerSpec, cfg: ModelConfig, positions: torch.Tensor,
+                head_dim: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos, sin [B, S, hd/2] of a layer at ``positions``: [B, S], or
+    [3, B, S] (t, h, w) streams, which an M-RoPE layer reads (2-D
+    positions give it three equal streams, as text does) and a plain
+    RoPE layer reads the first of (the reference's ``_rope_tables``)."""
+    theta = rope_theta(spec, cfg)
+    if spec.rope == "mrope":
+        if positions.dim() == 2:
+            positions = positions[None].expand(3, *positions.shape)
+        return rope_lib.mrope_cos_sin(positions, head_dim, theta,
+                                      cfg.mrope_sections)
+    if positions.dim() == 3:
+        positions = positions[0]
+    return rope_lib.rope_cos_sin(positions, head_dim, theta)
 
 
 def is_ring(spec: LayerSpec, cache_len: int) -> bool:
@@ -119,7 +137,8 @@ def attention_apply(params, x: torch.Tensor, *, spec: LayerSpec,
                     cfg: ModelConfig, positions: torch.Tensor,
                     return_cache: bool = False,
                     lengths: Optional[torch.Tensor] = None):
-    """Causal (windowed) self-attention over x [n, B, S, d] through the
+    """Causal (windowed) self-attention over x [n, B, S, d] at
+    ``positions`` [B, S] (or M-RoPE streams [3, B, S]) through the
     flash kernel (tracks flattened into its batch).  Returns (out
     [n, B, S, d], cache or None): (k, v) [n, B, S, KH, hd] with RoPE
     applied, or for a window W < S the rings [n, B, W, KH, hd] built from

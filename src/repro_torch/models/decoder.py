@@ -4,11 +4,14 @@ with the embedding and LM head the Parallel-Track model shares.
 The layer stack is (prefix, unit × R, suffix) per ModelConfig, as in the
 reference; the repeated unit's parameters and cache leaves are stacked
 on a leading [R] axis, and the layers run as a Python loop over it (the
-reference scans).  Two layers are ported on this path: GQA (the
+reference scans).  Three layers are ported on this path: GQA (the
 paper's dense baselines and tinyllama-1.1b with SwiGLU; nemotron-4-15b
 with LayerNorm and the squared-ReLU MLP; gemma2-2b and gemma3-4b with
-GeGLU, sandwich norms, sliding windows, softcaps and qk-norm) and Mamba
-(falcon-mamba-7b).
+GeGLU, sandwich norms, sliding windows, softcaps and qk-norm;
+qwen2-vl-72b with M-RoPE), Mamba (falcon-mamba-7b) and RG-LRU
+(recurrentgemma-9b, beside its windowed MQA layers).  ``lm_forward``
+also takes precomputed input embeddings (qwen2-vl's stub vision
+frontend) with (t, h, w) M-RoPE positions.
 
   init_lm(generator, cfg, device)               -> params
   lm_forward(params, batch, cfg, mode)          -> (logits, cache)
@@ -24,7 +27,8 @@ paged engine's (PagedLeaf k, PagedLeaf v) pools [.., N, bs, KH, hd],
 or for a window W shorter than the cache ring rows [.., B, W, KH, hd]
 (slot = position % W) in either engine; a
 Mamba layer's entry is (conv window [.., B, dc-1, di] in the model
-dtype, h [.., B, di, ds] fp32): per-slot state rows.  The decode and
+dtype, h [.., B, di, ds] fp32) and an RG-LRU layer's (conv window
+[.., B, dc-1, di], h [.., B, di] fp32): per-slot state rows.  The decode and
 chunk steps update every leaf in place.  (The reference's prefill also returns an
 auxiliary loss, always zero here; training is ROADMAP queue 1, item 9.)
 """
@@ -94,11 +98,13 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def _embed(params, inputs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """inputs [B, S] token ids -> [B, S, d] in the model dtype."""
+    """inputs [B, S] token ids, or [B, S, d] floating precomputed
+    embeddings (cast to the model dtype) -> [B, S, d] in the model dtype,
+    times the embedding multiplier."""
     if inputs.is_floating_point():
-        raise NotImplementedError("precomputed input embeddings are not "
-                                  "ported (ROADMAP queue 1, item 3)")
-    h = params["embed"][inputs.long()]
+        h = inputs.to(model_dtype(cfg))
+    else:
+        h = params["embed"][inputs.long()]
     if cfg.embedding_multiplier != 1.0:
         h = (h.float() * cfg.embedding_multiplier).to(model_dtype(cfg))
     return h
@@ -173,9 +179,10 @@ def _stacked(caches: List[Any]) -> Any:
 
 def lm_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                mode: str = "prefill"):
-    """Whole-prompt prefill.  batch: {'inputs': [B, S] token ids,
-    'positions'?: [B, S], 'lengths'?: [B] true lengths of right-padded
-    rows}.
+    """Whole-prompt prefill.  batch: {'inputs': [B, S] token ids or
+    [B, S, d] floating precomputed embeddings, 'positions'?: [B, S] or
+    [3, B, S] (M-RoPE's (t, h, w) streams), 'lengths'?: [B] true lengths
+    of right-padded rows}.
     Returns (logits [B, S, V], cache) in the reference's prefill layout
     (a GQA layer's (k, v) [B, S, KH, hd] with RoPE applied, a window
     W < S's rings [B, W, KH, hd] built from ``lengths``, unit leaves
@@ -296,8 +303,8 @@ def layer_cache(cfg: ModelConfig, nm: str, lead, batch: int, seq_len: int,
     GQA layer's (k, v) [*lead, batch, min(seq_len, window), KH, hd] (in
     ``kv_dtype``, default the model dtype; the paged engine asks for
     pools with ``pool``, (num_blocks, block_size) in place of (batch,
-    seq_len), which no window clamps), a Mamba layer's state rows for
-    ``batch`` slots."""
+    seq_len), which no window clamps), a Mamba or RG-LRU layer's
+    state rows for ``batch`` slots."""
     spec = cfg.spec(nm)
     if spec.mixer == "gqa":
         if spec.window is not None and not pool:
@@ -306,11 +313,12 @@ def layer_cache(cfg: ModelConfig, nm: str, lead, batch: int, seq_len: int,
         dtype = kv_dtype or model_dtype(cfg)
         return tuple(torch.zeros(shape, dtype=dtype, device=device)
                      for _ in range(2))
-    s = cfg.ssm
+    s = cfg.rglru if spec.mixer == "rglru" else cfg.ssm
+    h = (s.d_inner,) if spec.mixer == "rglru" else (s.d_inner, s.d_state)
     return (torch.zeros(*lead, batch, s.d_conv - 1, s.d_inner,
                         dtype=model_dtype(cfg), device=device),
-            torch.zeros(*lead, batch, s.d_inner, s.d_state,
-                        dtype=torch.float32, device=device))
+            torch.zeros(*lead, batch, *h, dtype=torch.float32,
+                        device=device))
 
 
 def map_layers(cfg: ModelConfig, fn) -> Dict[str, Any]:

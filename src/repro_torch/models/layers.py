@@ -1,7 +1,7 @@
 """Layer assembly: norm + mixer (+ MLP) per LayerSpec (counterpart of
 ``repro.models.layers``).
 
-Two flavours are ported:
+Three flavours are ported:
   * the GQA layer: GQA + SwiGLU over the stacked track dim in a
     Parallel-Track model (x [n, B, S, d], every parameter [n, ...]), and
     in the dense ``lm_*`` decoder (x [B, S, d]) with a SwiGLU, GeGLU or
@@ -12,7 +12,9 @@ Two flavours are ported:
     and every parameter and cache leaf with a leading track dim of 1
     (views, no copies) and runs the same code;
   * the Mamba layer of the dense ``lm_*`` decoder, mixer only
-    (``mlp="none"``, x [B, S, d]).
+    (``mlp="none"``, x [B, S, d]);
+  * the RG-LRU layer of the dense ``lm_*`` decoder (recurrentgemma): the
+    RG-LRU mixer, then a GeGLU MLP on n = 1 views, x [B, S, d].
 
 ``layer_step`` is what the model loops run: its caller applies ln1 (the
 norm of the residual stream, with the previous layer's pending residual
@@ -21,7 +23,7 @@ add, or a track fusion, folded into the same launch: ``norm_in`` and
 for the next norm; ``layer_apply`` is the whole layer, residuals added.
 Both run the modes the serving path needs:
   'prefill' — full-sequence forward, returns the layer's cache
-              ((k, v) for GQA, (conv window, h) for Mamba)
+              ((k, v) for GQA, (conv window, h) for Mamba and RG-LRU)
   'decode'  — one token per row against the layer's cache
   'chunk'   — C tokens per row appended to the layer's cache
 GQA caches are block pools written through the block table, or
@@ -29,7 +31,7 @@ contiguous per-slot rows [.., B, S, KH, hd] written at each row's
 position (inactive decode lanes keep their rows), or for a window
 shorter than the cache ring rows [.., B, W, KH, hd] (slot = position %
 W), which a chunk reads at ``slots`` and advances by ``chunk_lens``
-valid tokens, as the Mamba rows; Mamba caches are
+valid tokens, as the Mamba rows; Mamba and RG-LRU caches are
 per-slot state rows, updated in place: the chunk batch
 gathers its rows at ``slots``, advances them by ``chunk_lens`` valid
 tokens and writes them back (``index_copy_``), and a decode step
@@ -46,21 +48,24 @@ from repro_torch.common.paged import PagedLeaf
 from repro_torch.common.quant import QuantTensor
 from repro_torch.common.types import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.mlp import MLPS, mlp_apply, mlp_shapes
 from repro_torch.models.norms import NORMS, add_norm, apply_norm
 from repro_torch.models.params import Leaf
 
 _PT_LAYER = ("gqa", "swiglu")       # (mixer, mlp) of the PT path
-_LM_LAYERS = tuple(("gqa", m) for m in MLPS) + (("mamba", "none"),)
+_LM_LAYERS = tuple(("gqa", m) for m in MLPS) + (("mamba", "none"),
+                                                 ("rglru", "geglu"))
+_GQA_ROPES = ("rope", "local_rope", "mrope")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless every layer is a ported flavour: GQA + SwiGLU with
     RMSNorm and plain RoPE in a PT model; GQA with a SwiGLU, GeGLU or
-    squared-ReLU MLP (windows, local RoPE, softcaps, qk-norm and
-    sandwich norms too), or Mamba alone, in a dense ``lm_*`` model.  No
-    M-RoPE, no cross-attention."""
+    squared-ReLU MLP (windows, local RoPE, M-RoPE, softcaps, qk-norm and
+    sandwich norms too), Mamba alone, or RG-LRU + GeGLU, in a dense
+    ``lm_*`` model.  No cross-attention, no MoE or MLA."""
     unported = []
     for nm in cfg.layer_names:
         s = cfg.spec(nm)
@@ -71,7 +76,7 @@ def check_supported(cfg: ModelConfig) -> None:
                 unported.append(f"PT layer window={s.window} rope={s.rope}")
         elif (s.mixer, s.mlp) not in _LM_LAYERS:
             unported.append(f"lm_* layer mixer={s.mixer} mlp={s.mlp}")
-        if s.mixer == "gqa" and s.rope not in ("rope", "local_rope"):
+        if s.mixer == "gqa" and s.rope not in _GQA_ROPES:
             unported.append(f"rope={s.rope}")
         if s.cross_attn:
             unported.append("cross-attention")
@@ -80,10 +85,10 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.pt is not None and (cfg.post_norm or cfg.qk_norm
                                or cfg.norm != "rmsnorm"):
         unported.append("PT with post_norm / qk_norm / non-RMS norms")
-    if any(x is not None for x in (cfg.moe, cfg.mla, cfg.rglru, cfg.encdec)):
-        unported.append("MoE / MLA / RG-LRU / encoder-decoder")
-    if cfg.ssm is not None and cfg.pt is not None:
-        unported.append("SSM in a PT model")
+    if any(x is not None for x in (cfg.moe, cfg.mla, cfg.encdec)):
+        unported.append("MoE / MLA / encoder-decoder")
+    if cfg.pt is not None and (cfg.ssm is not None or cfg.rglru is not None):
+        unported.append("SSM / RG-LRU in a PT model")
     if unported:
         raise NotImplementedError(
             f"{cfg.name}: not ported to repro_torch yet ("
@@ -106,10 +111,12 @@ def layer_shapes(cfg: ModelConfig, spec: LayerSpec,
     norm = norm_shapes(cfg.norm, d_stream)
     if spec.mixer == "mamba":
         return {"ln1": norm, "mixer": ssm_lib.ssm_shapes(cfg, d_stream)}
-    p = {"ln1": norm,
-         "mixer": attn.attention_shapes(d_stream, cfg.n_heads,
+    mixer = (rglru_lib.rglru_shapes(cfg, d_stream) if spec.mixer == "rglru"
+             else attn.attention_shapes(d_stream, cfg.n_heads,
                                         cfg.n_kv_heads, cfg.head_dim,
-                                        qk_norm=cfg.qk_norm),
+                                        qk_norm=cfg.qk_norm))
+    p = {"ln1": norm,
+         "mixer": mixer,
          "ln2": norm,
          "mlp": mlp_shapes(spec.mlp, d_stream, cfg.d_ff)}
     if cfg.post_norm:
@@ -140,20 +147,26 @@ def _write_rows(cache, new_rows, slots: Optional[torch.Tensor]):
     return cache
 
 
-def _mamba(params, h: torch.Tensor, *, cfg: ModelConfig, mode: str,
-           cache: Any, slots: Optional[torch.Tensor],
-           chunk_lens: Optional[torch.Tensor],
-           active: Optional[torch.Tensor]):
+_RECURRENT = {"mamba": (ssm_lib.ssm_apply, ssm_lib.ssm_decode,
+                        ssm_lib.ssm_chunk),
+              "rglru": (rglru_lib.rglru_apply, rglru_lib.rglru_decode,
+                        rglru_lib.rglru_chunk)}
+
+
+def _recurrent(params, h: torch.Tensor, *, cfg: ModelConfig, mixer: str,
+               mode: str, cache: Any, slots: Optional[torch.Tensor],
+               chunk_lens: Optional[torch.Tensor],
+               active: Optional[torch.Tensor]):
+    """A Mamba or RG-LRU mixer on its per-slot state rows."""
+    apply, decode, chunk = _RECURRENT[mixer]
     if mode == "prefill":
-        return ssm_lib.ssm_apply(params, h, cfg=cfg, return_cache=True)
+        return apply(params, h, cfg=cfg, return_cache=True)
     if mode == "decode":
-        out, new_rows = ssm_lib.ssm_decode(params, h, cache, cfg=cfg,
-                                           active=active)
+        out, new_rows = decode(params, h, cache, cfg=cfg, active=active)
         return out, _write_rows(cache, new_rows, None)
     if mode in ("chunk", "fill"):
         rows = cache if slots is None else tuple(l[slots] for l in cache)
-        out, new_rows = ssm_lib.ssm_chunk(params, h, rows, cfg=cfg,
-                                          chunk_lens=chunk_lens)
+        out, new_rows = chunk(params, h, rows, cfg=cfg, chunk_lens=chunk_lens)
         return out, _write_rows(cache, new_rows, slots)
     raise NotImplementedError(f"layer mode {mode!r} is not ported (train: "
                               "ROADMAP queue 1, item 9)")
@@ -205,11 +218,18 @@ def _step(params, x: torch.Tensor, y: torch.Tensor, *, cfg: ModelConfig,
           spec: LayerSpec, mode: str, positions, pos, cache, block_table,
           kv_max_len, slots, chunk_lens, active, lengths
           ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
-    if spec.mixer == "mamba":
-        h, new_cache = _mamba(params["mixer"], y, cfg=cfg, mode=mode,
-                              cache=cache, slots=slots,
-                              chunk_lens=chunk_lens, active=active)
-        return x, h, new_cache
+    if spec.mixer in _RECURRENT:
+        h, new_cache = _recurrent(params["mixer"], y, cfg=cfg,
+                                  mixer=spec.mixer, mode=mode, cache=cache,
+                                  slots=slots, chunk_lens=chunk_lens,
+                                  active=active)
+        if spec.mlp == "none":
+            return x, h, new_cache
+        # the MLP's weights take a track dim of 1, as a GQA layer's
+        x, y = norm_in(cfg, params["ln2"], x, _post(cfg, params, "ln1_post",
+                                                    h))
+        h = mlp_apply(_track1(params["mlp"]), y[None], spec.mlp)[0]
+        return x, _post(cfg, params, "ln2_post", h), new_cache
     h, new_cache = _gqa(params["mixer"], y, cfg=cfg, spec=spec, mode=mode,
                         positions=positions, pos=pos, cache=cache,
                         block_table=block_table, kv_max_len=kv_max_len,
@@ -264,10 +284,10 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
     [n, ...]; an lm_* layer x [B, S, d].  'prefill' takes ``positions``
     [B, S] and returns (x, cache); 'decode' and 'chunk' take ``pos`` [B]
     (the row's first new position) and this layer's cache: a GQA layer's
-    pools with the block table, or its contiguous rows; a Mamba layer's
-    state rows with ``slots`` [B] (chunk rows -> engine slots; None when
-    the rows align with the batch) and ``chunk_lens`` [B] (valid tokens
-    of a padded final chunk).  ``active`` [B] marks the decode lanes
+    pools with the block table, or its contiguous rows; a Mamba or
+    RG-LRU layer's state rows with ``slots`` [B] (chunk rows -> engine
+    slots; None when the rows align with the batch) and ``chunk_lens``
+    [B] (valid tokens of a padded final chunk).  ``active`` [B] marks the decode lanes
     whose contiguous rows or state may change.  Returns (x, cache).
     (The reference also returns an auxiliary MoE loss, always zero
     here.)"""

@@ -1578,6 +1578,119 @@ def test_robust_sync_transfer_fault_frees_its_staging_slot():
     assert all(torch.equal(x, y) for x, y in zip(pa, pb))
 
 
+def _groups(t, KH, j, hg=2):
+    """Head group j of q or out [..., KH * G, hd]: the heads [j * G / hg,
+    (j + 1) * G / hg) of every KV head, contiguous."""
+    *lead, H, hd = t.shape
+    return t.reshape(*lead, KH, hg, H // KH // hg, hd)[..., j, :, :] \
+        .reshape(*lead, H // hg, hd).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("paged", [True, False])
+@pytest.mark.parametrize("B,S,KH,hd", [(3, 2048, 1, 256), (2, 300, 2, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_at_16_heads_a_kv_head_matches_plain_and_its_groups(
+        paged, B, S, KH, hd, dtype):
+    """G 16 (recurrentgemma: 16 query heads on 1 KV head at hd 256; and
+    2 KV heads at hd 64), paged (block 16) and contiguous, rows of 0, 1,
+    a few and all S live tokens, with and without a sweep cut: against
+    the plain version, and bitwise equal to the kernel's G 8 launches
+    over each half of the heads planned for the same blocks
+    (``plan_scale`` 2): a head group's block is the G 8 instantiation,
+    which launches of G <= 8 keep (``head_groups`` 1)."""
+    dev, tol = _cuda(), _TOL[dtype]
+    assert da.head_groups(16) == 2 and da.head_groups(12) == 2
+    assert all(da.head_groups(g) == 1 for g in range(1, 9))
+    rng = np.random.default_rng(S + KH)
+    cast = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(  # noqa
+        dev, _TDT[dtype])
+    lengths = torch.tensor(([0, 1, S, 77] * B)[:B], dtype=torch.int32,
+                           device=dev)
+    H = 16 * KH
+    if paged:
+        nmax = -(-S // 16)
+        N = B * nmax + 1
+        table = torch.from_numpy((rng.permutation(N - 1)[:B * nmax]
+                                  .reshape(B, nmax) + 1).astype(np.int32)
+                                 ).to(dev)
+        q = cast(rng.standard_normal((1, B, H, hd)))
+        k, v = (cast(rng.standard_normal((1, N, 16, KH, hd)))
+                for _ in range(2))
+
+        def run(q_, plan_scale=1, max_len=None):
+            return ops.paged_decode_attention(q_, k, v, table, lengths,
+                                              max_len=max_len,
+                                              plan_scale=plan_scale)
+
+        def plain(max_len=None):
+            return ref.paged_decode_attention_plain(q, k, v, table, lengths,
+                                                    max_len=max_len)
+    else:
+        q = cast(rng.standard_normal((B, H, hd)))
+        k, v = (cast(rng.standard_normal((B, S, KH, hd))) for _ in range(2))
+
+        def run(q_, plan_scale=1, max_len=None):
+            return ops.decode_attention(q_, k, v, lengths, max_len=max_len,
+                                        plan_scale=plan_scale)
+
+        def plain(max_len=None):
+            return ref.decode_attention_plain(q, k, v, lengths,
+                                              max_len=max_len)
+    name = "paged_decode_attention" if paged else "decode_attention"
+    for max_len in (None, S // 2):
+        before = ops.launch_counts()[name]
+        out = run(q, max_len=max_len)
+        assert ops.launch_counts()[name] == before + 1
+        torch.testing.assert_close(out, plain(max_len), rtol=tol, atol=tol)
+        for j in range(2):
+            half = run(_groups(q, KH, j), plan_scale=2, max_len=max_len)
+            assert torch.equal(_groups(out, KH, j), half), (max_len, j)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,window", [(2048, 2048), (700, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_at_recurrentgemma_heads_matches_plain(S, window,
+                                                               dtype):
+    """Flash prefill at recurrentgemma's attention layers: hd 256 on the
+    CUDA cores, 16 query heads on 1 KV head, causal with its 2048-token
+    window (the whole prompt) and a window shorter than the prompt."""
+    from repro_torch.kernels import flash_attention as fa
+    dev, tol = _cuda(), _TOL[dtype]
+    q, k, v = _flash_inputs(dev, dtype, 1, S, S, 16, 1, 256)
+    assert fa.route(_TDT[dtype], 256, True) == "cuda_core"
+    out, r = _flash_routed(q, k, v, causal=True, window=window)
+    assert r == "cuda_core"
+    torch.testing.assert_close(
+        out, ref.flash_attention_plain(q, k, v, causal=True, window=window),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,F", [(2, 100, 4096), (3, 37, 48), (1, 2048, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssm_scan_on_rglru_features_matches_plain(B, S, F, dtype):
+    """The scan over a, b [B, S, F] (the RG-LRU's d_inner features, no
+    d_state axis), nonzero h0 [B, F]; tolerances as the reference sweep
+    (fp32 1e-4, bf16 inputs 5e-2)."""
+    dev = _cuda()
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    rng = np.random.default_rng(F)
+    a = torch.from_numpy(1 / (1 + np.exp(-rng.standard_normal(
+        (B, S, F)))).astype(np.float32)).to(dev, _TDT[dtype])
+    b = torch.from_numpy(rng.standard_normal((B, S, F)).astype(
+        np.float32)).to(dev, _TDT[dtype])
+    h0 = torch.from_numpy(rng.standard_normal((B, F)).astype(
+        np.float32)).to(dev)
+    before = ops.launch_counts()["ssm_scan"]
+    h, hl = ops.ssm_scan(a, b, h0)
+    want, want_last = ref.ssm_scan_plain(a, b, h0)
+    torch.testing.assert_close(h, want, rtol=tol, atol=tol)
+    torch.testing.assert_close(hl, want_last, rtol=tol, atol=tol)
+    assert ops.launch_counts()["ssm_scan"] == before + 1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("hd,G", [(288, 2), (320, 2), (320, 8), (128, 4)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

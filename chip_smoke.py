@@ -217,6 +217,26 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      sandwich and qk norms, ``add_norm`` 2 L), every flash launch on
      ``route``'s route; planned: every step a replay, streams bitwise
      sync.
+ 12. qwen2-vl-72b at 16 of its 80 layers (sync, planned, its embeddings
+     arm) and recurrentgemma-9b at full depth (sync, planned, chunk 512)
+     (``serve_phase12``; its phase-3 rows ``check_slice16_kernels``, its
+     phase-4 parity ``check_slice16_parity``).
+ 13. deepseek-v2-236b at 8 of its 60 layers and deepseek-v3-671b at 5 of
+     its 61 (``ds_config``: the dense prefix, then MoE layers; widths,
+     heads, experts, top-k, ranks and vocabulary as published), bf16,
+     seeded random weights, 8 x (512 / 32) greedy, sync then planned
+     (``serve_phase13``): TTFT / TPOT p50 and p90, throughput, peak
+     memory, leaf kinds (every layer's latents in pools), launches per
+     kernel and route against ``layer_arith`` (flash once per layer a
+     prefill call, on ``wgmma_tma`` at q / k width 192 and value width
+     128; no decode kernel: MLA's absorbed decode is plain products), the
+     MoE's routed and dropped (token, expert) pairs in prefill and
+     decode; gates: every request finished, the arithmetic, planned
+     streams bitwise sync.  Its phase-3 row (``check_slice17_kernels``):
+     flash at the MLA prefill, q, k [8, 512, 128, 192], v [8, 512, 128,
+     128], against its plain version and SDPA's memory-efficient
+     backend; its phase 4 (``check_slice17_parity``): both reduced
+     models, fp32, card against CPU (1e-4), equal streams.
 Prints one ``{"kernels": [...]}`` JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -479,6 +499,7 @@ def check_kernels(dev: torch.device):
     torch.cuda.empty_cache()
     check_layer_kernels(dev, g, rows)
     check_slice16_kernels(dev, g, rows)
+    check_slice17_kernels(dev, g, rows)
     return rows
 
 
@@ -1571,13 +1592,17 @@ def norm_routes(kind: str, cfg, c: dict) -> dict:
     last block ends on a bare fusion.  Per forward the routes add up to
     2 L + 1 (L + 1 for Mamba), 2 L for a forward without a head; a layer
     with sandwich norms adds 2 ``norm`` launches, one with qk-norm 2 more
-    (q and k); a LayerNorm model launches none."""
+    (q and k), an MLA layer 1 (kv_norm) or 2 (and q_norm, at q_lora_rank
+    > 0); a LayerNorm model launches none."""
     L, P, C, T = cfg.n_layers, c["P"], c.get("C", 0), c["T"]
     if cfg.norm != "rmsnorm":
         return {"norm": 0, "add_norm": 0, "fuse_norm": 0}
     if cfg.pt is None:
         A = L if kind == "falcon" else 2 * L         # adds per forward
         X = L * (2 * cfg.post_norm + 2 * cfg.qk_norm)  # per-layer norms
+        if cfg.mla is not None:
+            X += sum(cfg.spec(nm).mixer == "mla" for nm in cfg.layer_names
+                     ) * (1 + (cfg.mla.q_lora_rank > 0))
         return {"norm": P + 2 * C + T + X * (P + C + T),
                 "add_norm": A * (P + T) + (A - 1) * C, "fuse_norm": 0}
     R = L // cfg.pt.block_depth
@@ -4621,26 +4646,28 @@ LAYER_RUNS = {}       # the figures of phase 11, for the summary
 
 
 def layer_arith(cfg, c: dict) -> dict:
-    """The launch counts of a phase-11 or phase-12 run of ``c["P"]``
+    """The launch counts of a phase-11, 12 or 13 run of ``c["P"]``
     prefill calls, ``c.get("C", 0)`` chunk calls (a prompt's chunk
     program) and ``c["T"]`` decode steps, from the code: per prefill call
-    one flash launch per attention layer and one scan launch per
-    recurrent layer; per chunk call one scan launch per recurrent layer
-    and one flash launch (the offset route) per pooled attention layer (a
+    one flash launch per attention layer (GQA or MLA) and one scan launch
+    per recurrent layer; per chunk call one scan launch per recurrent
+    layer and one flash launch (the offset route) per pooled GQA layer (a
     ring's chunk is plain PyTorch, as the reference computes it in jnp);
-    per decode step one decode launch per attention layer, the paged
-    kernel on a pool layer and the contiguous one on a ring layer or on
-    the contiguous cache (``c["contiguous"]``); the RMSNorm launches
-    ``norm_routes`` counts (none for LayerNorm)."""
+    per decode step one decode launch per GQA layer, the paged kernel on
+    a pool layer and the contiguous one on a ring layer or on the
+    contiguous cache (``c["contiguous"]``), none for an MLA layer (its
+    absorbed decode is plain products, as the reference's); the RMSNorm
+    launches ``norm_routes`` counts (none for LayerNorm)."""
     from repro_torch.common.paged import leaf_kind
     P, C, T = c["P"], c.get("C", 0), c["T"]
-    kinds = [leaf_kind(cfg.spec(nm), c["capacity"]) for nm in cfg.layer_names]
-    attn = sum(cfg.spec(nm).mixer == "gqa" for nm in cfg.layer_names)
-    pools = 0 if c.get("contiguous") else kinds.count("paged")
-    rec = len(kinds) - attn
+    specs = [cfg.spec(nm) for nm in cfg.layer_names]
+    gqa = [leaf_kind(s, c["capacity"]) for s in specs if s.mixer == "gqa"]
+    attn = sum(s.mixer in ("gqa", "mla") for s in specs)
+    pools = 0 if c.get("contiguous") else gqa.count("paged")
+    rec = len(specs) - attn
     return {"flash_attention": attn * P + pools * C,
             "paged_decode_attention": pools * T,
-            "decode_attention": (attn - pools) * T,
+            "decode_attention": (len(gqa) - pools) * T,
             "paged_decode_attention_int8": 0, "decode_attention_int8": 0,
             "int8_matmul": 0, "ssm_scan": rec * (P + C),
             "rmsnorm": sum(norm_routes("layers", cfg, c).values())}
@@ -4666,7 +4693,9 @@ def serve_layer_model(dev, card: str, arch: str, prompt: int, new: int,
     bitwise the sync run's, the same arithmetic.  With ``chunk`` the same
     prompts again, sync, with ``prefill_chunk=chunk``: its streams against
     the whole-prompt run's are reported (bf16 near-ties may flip, so no
-    gate), the arithmetic gated.  The figures go into ``store`` (default
+    gate), the arithmetic gated.  A MoE model's routed and dropped (token,
+    expert) pairs are counted (``moe.track_drops``) and printed.  The
+    figures go into ``store`` (default
     ``LAYER_RUNS``) under ``arch``; ``after(cfg, params)`` runs on the
     model before its weights are freed.  Returns the sync run's launch
     counts."""
@@ -4676,11 +4705,15 @@ def serve_layer_model(dev, card: str, arch: str, prompt: int, new: int,
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
+    from repro_torch.models import moe
     from repro_torch.models.decoder import init_lm
     from repro_torch.serving.engine import Engine, EngineMetrics, RequestState
     cfg = cfg or get_config(arch)
     cap = cap or prompt + new + 8
     store = LAYER_RUNS if store is None else store
+    if cfg.moe is not None:
+        # on before any capture: the planned steps' graphs count too
+        moe.track_drops(dev)
     t0 = time.perf_counter()
     params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, dev)
     torch.cuda.synchronize()
@@ -4691,7 +4724,12 @@ def serve_layer_model(dev, card: str, arch: str, prompt: int, new: int,
     rng = np.random.default_rng(11)
     prompts = [rng.integers(1, cfg.vocab_size, size=(prompt,)).tolist()
                for _ in range(SLOTS)]
-    route = fa.route(torch.bfloat16, cfg.head_dim, True)
+    if cfg.mla is not None:        # MLA's prefill: q / k 192, v 128 wide
+        ml = cfg.mla
+        route = fa.route(torch.bfloat16, ml.qk_nope_head_dim
+                         + ml.qk_rope_head_dim, True, ml.v_head_dim)
+    else:
+        route = fa.route(torch.bfloat16, cfg.head_dim, True)
     layer_kinds = dict(Counter(leaf_kind(cfg.spec(nm), cap)
                                for nm in cfg.layer_names))
     modes = ("sync",) + (("planned",) if planned else ()) \
@@ -4715,6 +4753,8 @@ def serve_layer_model(dev, card: str, arch: str, prompt: int, new: int,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         ops.reset_launch_counts()
+        if cfg.moe is not None:
+            moe.track_drops(dev)
         base = (r.decode_transfers, r.prefill_calls, r.chunk_calls,
                 r.planned_hits)
         t0 = time.perf_counter()
@@ -4725,6 +4765,7 @@ def serve_layer_model(dev, card: str, arch: str, prompt: int, new: int,
         launches = ops.launch_counts()
         flash_routes = dict(ops.flash_attention.routes)
         rms_routes = dict(ops.rmsnorm.routes)
+        drops = moe.drop_counts()
         m = eng.metrics.summary()
         peak = torch.cuda.max_memory_allocated(dev)
         c = {"T": r.decode_transfers - base[0], "P": r.prefill_calls - base[1],
@@ -4772,6 +4813,12 @@ def serve_layer_model(dev, card: str, arch: str, prompt: int, new: int,
             f"{json.dumps(gates)}"
             + (f"; streams vs whole-prompt {json.dumps(vs_sync)}"
                if vs_sync else ""))
+        if drops:
+            log(f"[layers] {cfg.name} {mode}: MoE (token, expert) pairs "
+                f"routed / dropped: prefill {drops['prefill']['routed']} / "
+                f"{drops['prefill']['dropped']}, decode "
+                f"{drops['decode']['routed']} / "
+                f"{drops['decode']['dropped']}")
         fig[mode] = {"ttft_ms": m["ttft_ms"], "tpot_ms": m["tpot_ms"],
                      "throughput_tok_s": m["throughput_tok_s"],
                      "peak_gb": peak / 1e9, "wall_s": wall,
@@ -4779,6 +4826,8 @@ def serve_layer_model(dev, card: str, arch: str, prompt: int, new: int,
                      "launches": launches, "flash_routes": flash_routes,
                      "rmsnorm_routes": rms_routes, "graphs": len(r.programs),
                      "calls": c}
+        if drops:
+            fig[mode]["moe_pairs"] = drops
         if vs_sync:
             fig[mode]["streams_vs_whole_prompt"] = vs_sync
         if mode == "sync":
@@ -4789,6 +4838,7 @@ def serve_layer_model(dev, card: str, arch: str, prompt: int, new: int,
         if not all(gates.values()):
             raise SystemExit(f"[layers] {cfg.name} {mode}: gates {gates}")
     store[arch] = fig
+    moe.track_drops(None)
     if after is not None:
         after(cfg, params)
     del params
@@ -5122,6 +5172,191 @@ def phase12_summary() -> str:
          for k, v in PHASE12.items()}, default=str)
 
 
+# ---------------------------------------------------------------------------
+# phases 3, 4 and 13 for deepseek-v2-236b and deepseek-v3-671b (MLA over
+# paged latent pools, capacity-routed MoE)
+# ---------------------------------------------------------------------------
+
+DS_ARCHS = ("deepseek-v2-236b", "deepseek-v3-671b")
+# each model's layers on one card: the dense prefix, then MoE layers
+DS_LAYERS = {"deepseek-v2-236b": 8, "deepseek-v3-671b": 5}
+DS_FULL = {"deepseek-v2-236b": 60, "deepseek-v3-671b": 61}
+DS_PROMPT, DS_NEW = 512, 32                        # phase 13's requests
+PHASE13 = {}          # the figures of phase 13, for the summary
+
+
+def ds_config(arch: str):
+    """``arch`` cut to ``DS_LAYERS`` of its layers, widths untouched:
+    deepseek-v2-236b's 60 layers (236 B parameters, ~472 GB in bf16) to
+    8 (its dense layer and 7 MoE layers, ~29.2 B, ~58.4 GB: each MoE
+    layer holds its 160 routed experts, 3.97 B); deepseek-v3-671b's 61
+    (~1.34 TB) to 5 (its 3 dense layers and 2 MoE layers of 256 experts,
+    11.51 B each; ~26.6 B, ~53.2 GB)."""
+    from repro_torch.configs import get_config
+    return get_config(arch).replace(n_layers=DS_LAYERS[arch])
+
+
+def mla_flash_row(dev, g):
+    """Phase 3, flash at deepseek's MLA prefill (both models): q, k [SLOTS,
+    DS_PROMPT, 128, 192] (nope 128 + rope 64; k_rope broadcast to the
+    heads), v [SLOTS, DS_PROMPT, 128, 128] bf16, causal, on the wgmma
+    route; against its plain version (2e-2); SDPA's memory-efficient
+    backend (the one that takes a value width unlike the q / k width) at
+    the same shape as its library time; both as device work."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+    m = ds_config(DS_ARCHS[0]).mla
+    H, hd, dv = 128, m.qk_nope_head_dim + m.qk_rope_head_dim, m.v_head_dim
+    B, S, bf = SLOTS, DS_PROMPT, torch.bfloat16
+    q, k = (torch.randn(B, S, H, hd, generator=g, device=dev).to(bf)
+            for _ in range(2))
+    v = torch.randn(B, S, H, dv, generator=g, device=dev).to(bf)
+    routes0 = dict(fa.flash_attention.routes)
+    out = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    took = {r for r, c in fa.flash_attention.routes.items()
+            if c != routes0[r]}
+    want_route = fa.route(bf, hd, True, dv)
+    if took != {want_route} or want_route != "wgmma_tma":
+        raise SystemExit(f"[kernel] flash_attention at MLA's widths took "
+                         f"{took}, want wgmma_tma")
+    want = ref.flash_attention_plain(q, k, v, causal=True)
+    sets = [(q, k, v)]
+    kern = lambda q, k, v: ops.flash_attention(q, k, v,  # noqa: E731
+                                               causal=True)
+    qq, kk, vv = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def lib(a, b, c):
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            return F.scaled_dot_product_attention(a, b, c, is_causal=True)
+
+    t = device_timing(kern, lib, sets, [(qq, kk, vv)], 20)
+    p_ms = time_ms(lambda q, k, v: ref.flash_attention_plain(
+        q, k, v, causal=True), sets, 2)
+    row = _report("flash_attention", "cuda",
+                  "src/repro_torch/kernels/csrc/flash_attention.cu",
+                  "src/repro/kernels/flash_attention.py:79", out, want,
+                  t["ms"], p_ms, t["library_ms"], nbytes(q, k, v, out),
+                  2.0 * B * H * (hd + dv) * S * (S + 1) / 2, BF16_FLOP_S)
+    row.update(kernel_route=want_route, run=DS_ARCHS[0],
+               library_ms_why="SDPA, memory-efficient backend (value "
+                              "width 128 unlike the q / k width 192)")
+    timed_extras(row, t, f"deepseek MLA prefill: q, k [{B},{S},{H},{hd}], "
+                         f"v [{B},{S},{H},{dv}] bf16, causal; route "
+                         f"{want_route}")
+    del q, k, v, qq, kk, vv, out, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_slice17_kernels(dev, g, rows) -> None:
+    """Phase 3 for deepseek-v2 / -v3, appended to the flash row's shapes:
+    flash at their MLA prefill (q / k width 192, value width 128,
+    ``wgmma_tma``).  Their decode is plain products (the absorbed form,
+    as the reference's): no decode kernel shape of theirs."""
+    by = {r["name"]: r for r in rows}
+    by["flash_attention"]["shapes"].append(mla_flash_row(dev, g))
+
+
+def check_slice17_parity(dev: torch.device) -> None:
+    """Phase 4 for deepseek-v2 and -v3, fp32, the card against the same
+    weights on the CPU within 1e-4 and with equal greedy streams:
+    ``reduced_config`` (4 layers: a dense layer then 3 MoE layers, kv_lora
+    16, 8 experts top 2; v2 softmax routing and q_lora_rank 0, v3
+    sigmoid_bias and q_lora_rank 24) prefilled from two rows of 24 tokens,
+    the latents put into the paged cache, then four teacher-forced decode
+    steps; each model's engine streams (paged, four prompts on two slots,
+    so a lane idles while the last request decodes)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import decoder as dec
+    from repro_torch.serving.cache import PagedKVCache
+    from repro_torch.serving.engine import Engine
+    cpu = torch.device("cpu")
+    for arch in DS_ARCHS:
+        cfg = reduced_config(arch)
+        params = {cpu: dec.init_lm(torch.Generator().manual_seed(0), cfg,
+                                   cpu)}
+        params[dev] = _to(params[cpu], dev)
+        rng = np.random.default_rng(17)
+        toks = rng.integers(1, cfg.vocab_size, size=(2, 24))
+        teacher = rng.integers(1, cfg.vocab_size, size=(4, 2))
+        got = {}
+        with torch.no_grad():
+            for d in (cpu, dev):
+                t = lambda a, dt=torch.long: torch.as_tensor(  # noqa: E731
+                    np.asarray(a)).to(d, dt)
+                p = params[d]
+                kv = PagedKVCache(cfg, max_slots=2, max_seq_len=40,
+                                  block_size=8, device=d)
+                for slot in range(2):
+                    kv.allocate(slot, 28)
+                logits, pre = dec.lm_forward(p, {"inputs": t(toks)}, cfg)
+                kv.insert_prefill(pre, [0, 1], kv.table())
+                steps = [dec.lm_decode_step(
+                    p, kv.engine_cache(), t(teacher[k]),
+                    t([24 + k] * 2, torch.int32), cfg,
+                    block_table=kv.table(), kv_max_len=40)[0]
+                    for k in range(teacher.shape[0])]
+                got[d] = (logits, torch.stack(steps), kv.leaf_kinds())
+        _close(f"{arch} prefill logits", got[dev][0], got[cpu][0])
+        _close(f"{arch} decode logits (latent pools)", got[dev][1],
+               got[cpu][1])
+        log(f"[parity] {arch}: leaf kinds {got[dev][2]}")
+        prompts = [rng.integers(1, cfg.vocab_size, size=(L,)).tolist()
+                   for L in (30, 21, 9, 26)]
+        streams = {d: Engine(cfg, params[d], max_slots=2, max_seq_len=48,
+                             device=d).generate(prompts, 8)
+                   for d in (cpu, dev)}
+        same = streams[dev] == streams[cpu]
+        log(f"[parity] {arch} greedy token streams, card vs CPU: "
+            f"{'identical' if same else 'DIFFER'}")
+        if not same:
+            raise SystemExit(f"[parity] {arch} greedy streams differ")
+
+
+def serve_phase13(dev, card: str, runs: dict) -> None:
+    """Phase 13, bf16, seeded random weights, every prompt admitted in one
+    round (MoE prefills at exact length: one prefill call of SLOTS x
+    DS_PROMPT rows), SLOTS x (DS_PROMPT / DS_NEW) greedy, sync then
+    planned: deepseek-v2-236b at 8 of its 60 layers and deepseek-v3-671b
+    at 5 of its 61 (``ds_config``), at published widths, heads, experts,
+    top-k, ranks and vocabulary.  Every layer's latents are pools; the
+    gates of ``serve_layer_model`` (every request finished, the launch
+    arithmetic, every flash launch on ``wgmma_tma``, the RMSNorm routes,
+    planned streams bitwise sync), the MoE's routed and dropped pairs
+    printed.  The earlier phases' models are freed before each model is
+    drawn."""
+    t0 = time.perf_counter()
+    for arch in DS_ARCHS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = ds_config(arch)
+        log(f"[phase13] {arch}: cut to {cfg.n_layers} layers "
+            f"({len(cfg.pattern_prefix)} dense + {cfg.pattern_repeat} MoE); "
+            "widths, heads, experts, top-k, ranks and vocabulary as "
+            "published")
+        runs[arch] = serve_layer_model(dev, card, arch, DS_PROMPT, DS_NEW,
+                                       planned=True, cfg=cfg, store=PHASE13)
+        PHASE13[arch]["cut"] = f"{cfg.n_layers} of {DS_FULL[arch]} layers"
+        if PHASE13[arch]["sync"]["leaf_kinds"] != {"paged": 2 * (
+                len(cfg.pattern_prefix) + len(cfg.pattern_unit))}:
+            raise SystemExit(f"[phase13] {arch}: want every layer's "
+                             "latents paged")
+    PHASE13["seconds"] = time.perf_counter() - t0
+    log(f"[phase13] phase 13 took {PHASE13['seconds']:.1f}s")
+
+
+def phase13_summary() -> str:
+    return json.dumps(
+        {k: ({m: ({x: y for x, y in f.items() if x != "launches"}
+                  if isinstance(f, dict) else f) for m, f in v.items()}
+             if isinstance(v, dict) else v)
+         for k, v in PHASE13.items()}, default=str)
+
+
 def head_choice_ms(eng, head, dev) -> None:
     """The LM head in fp32: the fp32 copy the runner keeps against a
     per-step cast of the bf16 head, at the decode shape."""
@@ -5171,6 +5406,7 @@ def main() -> int:
     check_spec_parity(dev)
     check_layer_parity(dev)
     check_slice16_parity(dev)
+    check_slice17_parity(dev)
     keep = {}
     runs = {"bf16": serve_full(dev, card, keep=keep)}
     gc.collect()
@@ -5241,6 +5477,7 @@ def main() -> int:
                                 runs["bf16"])
     serve_layer_models(dev, card, runs)
     serve_phase12(dev, card, runs)
+    serve_phase13(dev, card, runs)
     runs["prefix bf16 warm"] = PREFIX["bf16"]["warm"]["launches"]
     for row in rows:
         # each kernel's count from the run of the path it belongs to
@@ -5282,6 +5519,7 @@ def main() -> int:
               for m, f in v.items()} if isinstance(v, dict) else v)
          for k, v in LAYER_RUNS.items()}))
     log("[phase12] summary " + phase12_summary())
+    log("[phase13] summary " + phase13_summary())
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

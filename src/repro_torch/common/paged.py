@@ -11,8 +11,9 @@ Every cache leaf has one layout kind (``leaf_kind``), as in the
 reference's ``LeafLayout``:
 
   ``paged``  a sequence leaf that grows to the engine's capacity (GQA
-             K/V, windowed K/V whose window covers the capacity): a
-             block pool addressed through the block table;
+             K/V, windowed K/V whose window covers the capacity, MLA's
+             latents c_kv and k_rope, pools [N, bs, r] with no KV-head
+             axis): a block pool addressed through the block table;
   ``ring``   a sliding-window K/V leaf clamped at its window W shorter
              than the capacity: dense per-slot rows of W positions
              (slot = position % W);
@@ -34,9 +35,12 @@ from repro_torch.common.types import LayerSpec
 
 def leaf_kind(spec: LayerSpec, max_seq_len: int) -> str:
     """The layout kind ('paged', 'ring' or 'state') of a layer's cache
-    leaves in an engine of capacity ``max_seq_len``: a GQA layer's are
-    paged unless its window is shorter than the capacity (a ring of
-    ``window`` rows); any other mixer's are state."""
+    leaves in an engine of capacity ``max_seq_len``: an MLA layer's are
+    paged; a GQA layer's are paged unless its window is shorter than the
+    capacity (a ring of ``window`` rows); a recurrent mixer's are
+    state."""
+    if spec.mixer == "mla":
+        return "paged"
     if spec.mixer != "gqa":
         return "state"
     if spec.window is not None and spec.window < max_seq_len:

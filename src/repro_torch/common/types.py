@@ -1,10 +1,10 @@
 """Config dataclasses (the port's own copy of ``repro.common.types``).
 
-Only what the ported serving paths read is kept: ``PTConfig``,
-``SSMConfig``, ``RGLRUConfig``, ``LayerSpec`` and ``ModelConfig`` with
-the fields ``pt_ify`` and the models touch.  The sub-configs of the
-other mixers (MoE, MLA, encoder-decoder) are not ported yet (ROADMAP
-queue 1, item 3); their fields stay so a config reads the same, and must
+Only what the ported serving paths read is kept: ``MoEConfig``,
+``MLAConfig``, ``PTConfig``, ``SSMConfig``, ``RGLRUConfig``,
+``LayerSpec`` and ``ModelConfig`` with the fields ``pt_ify`` and the
+models touch.  The encoder-decoder sub-config is not ported yet (ROADMAP
+queue 1, item 3.6); its field stays so a config reads the same, and must
 be None.
 """
 from __future__ import annotations
@@ -12,6 +12,39 @@ from __future__ import annotations
 import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Mapping, Optional, Tuple
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts MLP (shared + routed, capacity-based dispatch)."""
+
+    n_routed_experts: int
+    n_shared_experts: int
+    top_k: int
+    d_expert: int                      # per-expert FFN hidden dim
+    router: str = "softmax"            # 'softmax' (+aux loss) |
+                                       # 'sigmoid_bias' (aux-free)
+    capacity_factor: float = 1.25
+    routed_scaling_factor: float = 1.0
+    norm_topk_prob: bool = True
+    aux_loss_coef: float = 0.001
+    # storage padding of the expert axis in the reference's tree, so that
+    # it divides an expert-parallel mesh (deepseek-v2: 160 experts padded
+    # to 256); padded experts are never routed to.  The port keeps the
+    # n_routed_experts real experts only (``weights.from_jax_params``
+    # drops the padding).
+    n_experts_padded: int = 0
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-style Multi-head Latent Attention."""
+
+    kv_lora_rank: int                  # compressed KV dim (c_kv)
+    q_lora_rank: int                   # 0 => full-rank Q projection
+    qk_nope_head_dim: int
+    qk_rope_head_dim: int
+    v_head_dim: int
 
 
 @dataclass(frozen=True)
@@ -51,10 +84,10 @@ class RGLRUConfig:
 class LayerSpec:
     """One transformer-layer flavour referenced by the layer pattern."""
 
-    mixer: str                         # 'gqa' (PT), 'mamba' and 'rglru'
-                                       # are ported
-    mlp: str                           # 'swiglu' (PT), 'geglu', 'sqrelu'
-                                       # and 'none' are ported
+    mixer: str                         # 'gqa' (PT), 'mla', 'mamba' and
+                                       # 'rglru' are ported
+    mlp: str                           # 'swiglu' (PT), 'geglu', 'sqrelu',
+                                       # 'moe' and 'none' are ported
     window: Optional[int] = None
     rope: str = "rope"                 # 'rope' | 'mrope' | 'local_rope' | 'none'
     attn_logit_softcap: Optional[float] = None
@@ -93,9 +126,9 @@ class ModelConfig:
     mrope_sections: Tuple[int, ...] = ()   # M-RoPE (t, h, w) pairs; sum
                                            # = head_dim // 2
 
-    # sub-configs; ``ssm``, ``rglru`` and ``pt`` are ported
-    moe: Optional[Any] = None
-    mla: Optional[Any] = None
+    # sub-configs; all but ``encdec`` are ported
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
     pt: Optional[PTConfig] = None

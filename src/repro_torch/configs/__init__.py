@@ -1,6 +1,7 @@
 """Config registry of the port: the paper's Parallel-Track models, its
 dense baselines, tinyllama-1.1b, falcon-mamba-7b, nemotron-4-15b,
-gemma2-2b, gemma3-4b, qwen2-vl-72b and recurrentgemma-9b.
+gemma2-2b, gemma3-4b, qwen2-vl-72b, recurrentgemma-9b, deepseek-v2-236b
+and deepseek-v3-671b.
 
   get_config(name)      — full-size config
   reduced_config(name)  — small same-family config (CPU tests)
@@ -9,18 +10,19 @@ The ``pt-*`` names serve through ``core.track``; ``dense-*``,
 ``tinyllama-1.1b`` (GQA + SwiGLU), ``falcon-mamba-7b`` (Mamba),
 ``nemotron-4-15b`` (LayerNorm, squared ReLU), the gemma models
 (GeGLU, sliding windows, softcaps, qk-norm, sandwich norms),
-``qwen2-vl-72b`` (M-RoPE, precomputed input embeddings) and
-``recurrentgemma-9b`` (RG-LRU beside windowed MQA) through the dense
-``lm_*`` decoder.  The other assigned architectures (deepseek-v2 / -v3:
-MLA and MoE; whisper-medium: cross-attention) need mixers and layer
-features not ported yet (ROADMAP queue 1, item 3).
+``qwen2-vl-72b`` (M-RoPE, precomputed input embeddings),
+``recurrentgemma-9b`` (RG-LRU beside windowed MQA) and the deepseek
+models (MLA over paged latent pools, capacity-routed MoE) through the
+dense ``lm_*`` decoder.  The last assigned architecture, whisper-medium,
+needs cross-attention, not ported yet (ROADMAP queue 1, item 3.6).
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, List, Tuple
 
 from repro_torch.common.types import ModelConfig
-from repro_torch.configs import (falcon_mamba_7b, gemma2_2b, gemma3_4b,
+from repro_torch.configs import (deepseek_v2_236b, deepseek_v3_671b,
+                                falcon_mamba_7b, gemma2_2b, gemma3_4b,
                                 nemotron_4_15b, pt_paper, qwen2_vl_72b,
                                 recurrentgemma_9b, tinyllama_1_1b)
 
@@ -48,6 +50,8 @@ _LM: Dict[str, Tuple[Callable[[], ModelConfig], Callable[[], ModelConfig]]] = {
     "gemma3-4b": (gemma3_4b.config, gemma3_4b.reduced),
     "qwen2-vl-72b": (qwen2_vl_72b.config, qwen2_vl_72b.reduced),
     "recurrentgemma-9b": (recurrentgemma_9b.config, recurrentgemma_9b.reduced),
+    "deepseek-v2-236b": (deepseek_v2_236b.config, deepseek_v2_236b.reduced),
+    "deepseek-v3-671b": (deepseek_v3_671b.config, deepseek_v3_671b.reduced),
 }
 NAMES: List[str] = PT_NAMES + list(_LM)
 
@@ -55,8 +59,8 @@ NAMES: List[str] = PT_NAMES + list(_LM)
 def _unported(name: str) -> KeyError:
     return KeyError(
         f"arch {name!r} is not ported to repro_torch yet: only {NAMES} are "
-        "(the other architectures need the MLA and MoE mixers or "
-        "cross-attention: ROADMAP queue 1, item 3)")
+        "(whisper-medium needs cross-attention: ROADMAP queue 1, item "
+        "3.6)")
 
 
 def get_config(name: str) -> ModelConfig:

@@ -4,8 +4,10 @@
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py
 // ::flash_attention (_kernel; pallas_call at :104).  Contract: q [B, Sq,
-// H, hd], k and v [B, Sk, KH, hd] un-expanded (query head h reads KV head
-// h / (H / KH)), out [B, Sq, H, hd] in q's dtype; row i sees key columns
+// H, hd], k [B, Sk, KH, hd] and v [B, Sk, KH, dv] un-expanded (query head
+// h reads KV head h / (H / KH)), dv <= hd (MLA's prefill: q / k 192 wide,
+// v 128, as the Pallas kernel's dv), out [B, Sq, H, dv] in q's dtype,
+// scale hd^-0.5; row i sees key columns
 // j <= i when causal; softcap s -> cap * tanh(s / cap) before the mask;
 // out = (sum_j p_j v_j) / max(l, 1e-37).  Beyond the Pallas kernel: a
 // sliding window W (row i sees only j > i - W; key tiles wholly before a
@@ -32,8 +34,8 @@
 // hd S (S + 1) / 2 = 17.2 GFLOP, take 0.0174 ms at 989 TFLOP/s (bf16
 // tensor cores) and 0.257 ms at 67 TFLOP/s (fp32 on the CUDA cores).
 //
-//   * wgmma_tma (bf16, hd 64 or 128, 16-byte-aligned bases; the serve
-//     path): bound by the bytes, with the products close behind, so only
+//   * wgmma_tma (bf16, (hd, dv) (64, 64), (128, 128) or MLA's (192, 128),
+//     16-byte-aligned bases; the serve path): bound by the bytes, with the products close behind, so only
 //     wgmma gets near it.  On the SM the products (at 128 x 128 tiles the
 //     causal diagonal is computed whole: 21.5 GFLOP, 0.0217 ms), the
 //     softmax's 42 M exponentials (MUFU, 16 a clock on each SM: ~0.011 ms)
@@ -73,6 +75,11 @@
 //       last Q K^T has freed, and TMA stores it, clipping the ragged rows;
 //       the buffer goes back to the producer after the next q-tile's first
 //       issue, so no thread waits on the store.
+//     At (192, 128) two Q buffers, two K and two V stages would take 256
+//     KB: that instantiation keeps one Q buffer (208 KB), whose output
+//     store the warpgroup waits for before it hands the buffer back, so
+//     the next q-tile's Q and K / V loads start after this tile's
+//     epilogue; the (64, 64) and (128, 128) instantiations are unchanged.
 //     Measured on an H100 80GB HBM3 at 700 W at the pt-6b-d4 shape
 //     (tools/flash_attention_variants.py, device work): ~0.047 ms whole;
 //     0.040 without the products, 0.042 without the softmax, 0.044
@@ -130,8 +137,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ out,
                        const int* __restrict__ q_off,
                        const int* __restrict__ k_len, int Sq, int Sk, int H,
-                       int KH, int hd, int causal, int window, float softcap,
-                       float scale) {
+                       int KH, int hd, int dv, int causal, int window,
+                       float softcap, float scale) {
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int qo = q_off ? q_off[b] : 0;   // position of the row's query 0
   const int kl = k_len ? k_len[b] : Sk;  // the row's keys
@@ -170,9 +177,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int c = idx / hd, d = idx % hd, ki = k0 + c;
       float kx = 0.f, vx = 0.f;
       if (ki < kl) {
-        const size_t off = (((size_t)b * Sk + ki) * KH + kh) * hd + d;
-        kx = rt::to_f(k[off]);
-        vx = rt::to_f(v[off]);
+        const size_t row = ((size_t)b * Sk + ki) * KH + kh;
+        kx = rt::to_f(k[row * hd + d]);
+        if (d < dv) vx = rt::to_f(v[row * dv + d]);
       }
       K_s[c * ld + d] = kx;
       V_s[c * ld + d] = vx;
@@ -219,7 +226,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < DPT; ++i) {
       const int d = j + 4 * i;
-      if (d < hd) {
+      if (d < dv) {
         float a = acc[i] * alpha;
         for (int c = 0; c < kBK; ++c) a += P_s[r * (kBK + 1) + c] * V_s[c * ld + d];
         acc[i] = a;
@@ -232,8 +239,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < DPT; ++i) {
       const int d = j + 4 * i;
-      if (d < hd)
-        out[(((size_t)b * Sq + row) * H + h) * hd + d] = rt::from_f<T>(acc[i] / denom);
+      if (d < dv)
+        out[(((size_t)b * Sq + row) * H + h) * dv + d] = rt::from_f<T>(acc[i] / denom);
     }
   }
 }
@@ -245,18 +252,25 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 namespace fa {
 constexpr int kBQ = 128;                // query rows per tile, 64 a consumer
 constexpr int kBK = 128;                // keys per K / V stage
-constexpr int kQBufs = 2;               // Q ring (also the output staging)
 constexpr int kKStages = 2;             // K ring
 constexpr int kVStages = 2;             // V ring
 constexpr int kThreads = 384;           // producer + two consumer warpgroups
 constexpr float kLog2e = 1.4426950408889634f;
-template <int HD>
+constexpr int kMaxSmem = 232448;        // a block's opt-in shared memory
+// HD: the q / k width, DV: the value (and output) width
+template <int HD, int DV>
 struct Smem {
   static constexpr int kQ = kBQ * HD * 2;       // one Q buffer (32 KB at 128)
-  static constexpr int kKV = kBK * HD * 2;      // one K or V stage
-  static constexpr int kBarriers = 2 * (kQBufs + kKStages + kVStages);
-  static constexpr int kBytes = kQBufs * kQ + (kKStages + kVStages) * kKV +
-                                8 * kBarriers + 1024;   // + alignment
+  static constexpr int kK = kBK * HD * 2;       // one K stage
+  static constexpr int kV = kBK * DV * 2;       // one V stage
+  static constexpr int bytes(int q_bufs) {
+    return q_bufs * kQ + kKStages * kK + kVStages * kV +
+           16 * (q_bufs + kKStages + kVStages) + 1024;  // barriers, alignment
+  }
+  // the Q ring (a Q buffer is also the output's staging): two buffers
+  // where they fit (the next q-tile's Q lands during this one), else one
+  static constexpr int kQBufs = bytes(2) <= kMaxSmem ? 2 : 1;
+  static constexpr int kBytes = bytes(kQBufs);
 };
 }  // namespace fa
 
@@ -406,14 +420,14 @@ __device__ __forceinline__ void qk(float (&s)[64], const uint8_t* q,
 // O += P V: the k16 step kk takes keys 16 kk .. + 15 (2 KB into each
 // box); V is MN-major, its 64-column boxes LBO = 16 KB apart, its 8-key
 // groups SBO = 1 KB apart.
-template <int HD>
-__device__ __forceinline__ void pv(float (&o)[HD / 2],
+template <int DV>
+__device__ __forceinline__ void pv(float (&o)[DV / 2],
                                    const uint32_t (&p)[8][4],
                                    const uint8_t* v, int acc) {
 #pragma unroll
   for (int kk = 0; kk < fa::kBK / 16; ++kk) {
     const uint64_t dv = sw128_desc(v + kk * 16 * 128, fa::kBK * 128, 1024);
-    if constexpr (HD == 128)
+    if constexpr (DV == 128)
       wgmma_rs_n128t(o, p[kk], dv, acc || kk > 0);
     else
       wgmma_rs_n64t(o, p[kk], dv, acc || kk > 0);
@@ -494,7 +508,7 @@ __device__ __forceinline__ void pack_p(const float (&s)[64],
       p[kk][e] = pack2(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
 }
 
-template <int HD, bool CAP>
+template <int HD, int DV, bool CAP>
 __global__ void __launch_bounds__(fa::kThreads, 1)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                              const __grid_constant__ CUtensorMap kmap,
@@ -504,16 +518,17 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                              const int* __restrict__ k_len, int B, int Sq,
                              int Sk, int H, int KH, int causal, int window,
                              float c2, float pre, float cap) {
-  using SM = fa::Smem<HD>;
+  using SM = fa::Smem<HD, DV>;
   constexpr int BQ = fa::kBQ, BK = fa::kBK;
-  constexpr int QS = fa::kQBufs, KS = fa::kKStages, VS = fa::kVStages;
-  constexpr int NB = HD / 64;           // 64-column boxes per row
+  constexpr int QS = SM::kQBufs, KS = fa::kKStages, VS = fa::kVStages;
+  constexpr int NB = HD / 64;           // 64-column boxes per q / k row
+  constexpr int NV = DV / 64;           // per v / output row
   extern __shared__ uint8_t smem_raw[];
   uint8_t* qs = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* ks = qs + QS * SM::kQ;
-  uint8_t* vs = ks + KS * SM::kKV;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + VS * SM::kKV);
+  uint8_t* vs = ks + KS * SM::kK;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(vs + VS * SM::kV);
   uint64_t* q_empty = q_full + QS;
   uint64_t* k_full = q_empty + QS;
   uint64_t* k_empty = k_full + KS;
@@ -570,17 +585,17 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       auto load_k = [&](int u, int j, int kh, int b) {
         const int s = u % KS;
         mbar_wait(&k_empty[s], ((u / KS) & 1) ^ 1);
-        mbar_expect_tx(&k_full[s], SM::kKV);
+        mbar_expect_tx(&k_full[s], SM::kK);
         for (int x = 0; x < NB; ++x)
-          tma_load_4d(ks + s * SM::kKV + x * (BK * 128), &kmap, &k_full[s],
+          tma_load_4d(ks + s * SM::kK + x * (BK * 128), &kmap, &k_full[s],
                       64 * x, kh, j * BK, b);
       };
       auto load_v = [&](int u, int j, int kh, int b) {
         const int s = u % VS;
         mbar_wait(&v_empty[s], ((u / VS) & 1) ^ 1);
-        mbar_expect_tx(&v_full[s], SM::kKV);
-        for (int x = 0; x < NB; ++x)
-          tma_load_4d(vs + s * SM::kKV + x * (BK * 128), &vmap, &v_full[s],
+        mbar_expect_tx(&v_full[s], SM::kV);
+        for (int x = 0; x < NV; ++x)
+          tma_load_4d(vs + s * SM::kV + x * (BK * 128), &vmap, &v_full[s],
                       64 * x, kh, j * BK, b);
       };
       int u = 0, i = 0;                 // K / V tiles, q-tiles so far
@@ -612,7 +627,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int rl = 16 * wq + g;           // this thread's rows rl, rl + 8 of 64
   const bool leader = (ct & 127) == 0;  // issues the warpgroup's stores
   float s[64];                          // scores, then probabilities
-  float o[HD / 2];                      // each tile's first P V overwrites
+  float o[DV / 2];                      // each tile's first P V overwrites
   uint32_t p[8][4];                     // P as wgmma A fragments
   int u = 0, i = 0;                     // K / V tiles, q-tiles so far
   int pend = -1;                        // Q buffer a store still reads
@@ -636,7 +651,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     fence_regs(s);
     turn_wait(cw);
     wgmma_fence();
-    qk<HD>(s, qh, ks + (u % KS) * SM::kKV);
+    qk<HD>(s, qh, ks + (u % KS) * SM::kK);
     wgmma_commit();
     turn_pass(cw);
     if (leader && pend >= 0) {
@@ -663,9 +678,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       fence_regs(p);
       turn_wait(cw);
       wgmma_fence();
-      qk<HD>(s, qh, ks + (uk % KS) * SM::kKV);
+      qk<HD>(s, qh, ks + (uk % KS) * SM::kK);
       wgmma_commit();
-      pv<HD>(o, p, vs + (uv % VS) * SM::kKV, j > 1);
+      pv<DV>(o, p, vs + (uv % VS) * SM::kV, j > 1);
       wgmma_commit();
       turn_pass(cw);
       wgmma_wait<1>();
@@ -680,7 +695,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       fence_regs(p);
       if (lane == 0) mbar_arrive(&v_empty[uv % VS]);
 #pragma unroll
-      for (int c = 0; c < HD / 2; ++c) o[c] *= (c & 2) ? a.y : a.x;
+      for (int c = 0; c < DV / 2; ++c) o[c] *= (c & 2) ? a.y : a.x;
       pack_p(s, p);
     }
 
@@ -692,7 +707,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       fence_regs(p);
       turn_wait(cw);
       wgmma_fence();
-      pv<HD>(o, p, vs + (uv % VS) * SM::kKV, n > 1);
+      pv<DV>(o, p, vs + (uv % VS) * SM::kV, n > 1);
       wgmma_commit();
       // after the block's last issue no turn of warpgroup 0's is left to
       // meet warpgroup 1's pass
@@ -713,7 +728,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
     const float i0 = 1.f / fmaxf(l0, 1e-37f), i1 = 1.f / fmaxf(l1, 1e-37f);
 #pragma unroll
-    for (int jn = 0; jn < HD / 8; ++jn) {
+    for (int jn = 0; jn < DV / 8; ++jn) {
       uint8_t* box = qh + (jn / 8) * (BQ * 128);
       const int chunk = ((jn % 8) ^ g) * 16 + 4 * t4;
       *reinterpret_cast<uint32_t*>(box + rl * 128 + chunk) =
@@ -724,36 +739,43 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
     if (leader) {
-      for (int x = 0; x < NB; ++x)
+      for (int x = 0; x < NV; ++x)
         tma_store_4d(&omap, qh + x * (BQ * 128), 64 * x, h, q0 + 64 * cw, b);
       asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-      pend = qb;
+      if constexpr (QS == 1) {
+        // one Q buffer: the next q-tile's Q goes into it, so it goes back
+        // to the producer once the store has read it
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        mbar_arrive(&q_empty[qb]);
+      } else {
+        pend = qb;
+      }
     }
   }
   if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-template <int HD, bool CAP>
+template <int HD, int DV, bool CAP>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  const int* q_off, const int* k_len, int B, int Sq, int Sk,
                  int H, int KH, int causal, int window, float softcap,
                  float scale, cudaStream_t s) {
-  using SM = fa::Smem<HD>;
+  using SM = fa::Smem<HD, DV>;
   const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
-  // (hd, heads, S, B), innermost first; boxes of 64 columns of one head
-  auto map = [&](CUtensorMap* m, const void* base, int heads, int len,
-                 int rows) {
-    const cuuint64_t dims[4] = {(cuuint64_t)HD, (cuuint64_t)heads,
+  // (width, heads, S, B), innermost first; boxes of 64 columns of one head
+  auto map = [&](CUtensorMap* m, const void* base, int width, int heads,
+                 int len, int rows) {
+    const cuuint64_t dims[4] = {(cuuint64_t)width, (cuuint64_t)heads,
                                 (cuuint64_t)len, (cuuint64_t)B};
-    const cuuint64_t strides[3] = {(cuuint64_t)HD * 2,
-                                   (cuuint64_t)heads * HD * 2,
-                                   (cuuint64_t)len * heads * HD * 2};
+    const cuuint64_t strides[3] = {(cuuint64_t)width * 2,
+                                   (cuuint64_t)heads * width * 2,
+                                   (cuuint64_t)len * heads * width * 2};
     const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
     return tensor_map(m, bf, 4, base, dims, strides, box);
   };
   CUtensorMap qm, km, vm, om;
-  if (!map(&qm, q, H, Sq, fa::kBQ) || !map(&km, k, KH, Sk, fa::kBK) ||
-      !map(&vm, v, KH, Sk, fa::kBK) || !map(&om, out, H, Sq, 64))
+  if (!map(&qm, q, HD, H, Sq, fa::kBQ) || !map(&km, k, HD, KH, Sk, fa::kBK) ||
+      !map(&vm, v, DV, KH, Sk, fa::kBK) || !map(&om, out, DV, H, Sq, 64))
     return (int)cudaErrorInvalidValue;
   static int sms = 0;                   // once per instantiation
   if (sms == 0) {
@@ -762,7 +784,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(flash_attention_wgmma_kernel<HD, CAP>,
+      e = cudaFuncSetAttribute(flash_attention_wgmma_kernel<HD, DV, CAP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                SM::kBytes);
     if (e != cudaSuccess) return (int)e;
@@ -771,7 +793,7 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   const long tiles = (long)((Sq + fa::kBQ - 1) / fa::kBQ) * H * B;
   const int blocks = (int)(tiles < sms ? tiles : sms);
   const float log2e = fa::kLog2e;
-  flash_attention_wgmma_kernel<HD, CAP>
+  flash_attention_wgmma_kernel<HD, DV, CAP>
       <<<blocks, fa::kThreads, SM::kBytes, s>>>(
           qm, km, vm, om, q_off, k_len, B, Sq, Sk, H, KH, causal, window,
           CAP ? log2e : scale * log2e, CAP ? scale / softcap : 0.f,
@@ -779,23 +801,25 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int DV>
 int dispatch_wgmma(const void* q, const void* k, const void* v, void* out,
                    const int* q_off, const int* k_len, int B, int Sq, int Sk,
                    int H, int KH, int causal, int window, float softcap,
                    float scale, cudaStream_t s) {
+  static_assert(fa::Smem<HD, DV>::kBytes <= fa::kMaxSmem, "shared memory");
   if (softcap > 0.f)
-    return launch_wgmma<HD, true>(q, k, v, out, q_off, k_len, B, Sq, Sk, H,
-                                  KH, causal, window, softcap, scale, s);
-  return launch_wgmma<HD, false>(q, k, v, out, q_off, k_len, B, Sq, Sk, H,
-                                 KH, causal, window, softcap, scale, s);
+    return launch_wgmma<HD, DV, true>(q, k, v, out, q_off, k_len, B, Sq, Sk,
+                                      H, KH, causal, window, softcap, scale,
+                                      s);
+  return launch_wgmma<HD, DV, false>(q, k, v, out, q_off, k_len, B, Sq, Sk, H,
+                                     KH, causal, window, softcap, scale, s);
 }
 
 template <typename T, int DPT>
 int launch_dpt(const void* q, const void* k, const void* v, void* out,
                const int* q_off, const int* k_len, int B, int Sq, int Sk,
-               int H, int KH, int hd, int causal, int window, float softcap,
-               float scale, cudaStream_t s) {
+               int H, int KH, int hd, int dv, int causal, int window,
+               float softcap, float scale, cudaStream_t s) {
   const size_t smem = smem_bytes(hd);
   // above 48 KB a block's dynamic shared memory must be opted into
   cudaError_t e = cudaFuncSetAttribute(flash_attention_kernel<T, DPT>,
@@ -806,26 +830,27 @@ int launch_dpt(const void* q, const void* k, const void* v, void* out,
   flash_attention_kernel<T, DPT><<<grid, kThreads, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), q_off, k_len, Sq, Sk,
-      H, KH, hd, causal, window, softcap, scale);
+      H, KH, hd, dv, causal, window, softcap, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out,
            const int* q_off, const int* k_len, int B, int Sq, int Sk, int H,
-           int KH, int hd, int causal, int window, float softcap, float scale,
-           cudaStream_t s) {
+           int KH, int hd, int dv, int causal, int window, float softcap,
+           float scale, cudaStream_t s) {
   if (hd <= 128)
     return launch_dpt<T, 32>(q, k, v, out, q_off, k_len, B, Sq, Sk, H, KH,
-                             hd, causal, window, softcap, scale, s);
+                             hd, dv, causal, window, softcap, scale, s);
   return launch_dpt<T, kMaxHd / 4>(q, k, v, out, q_off, k_len, B, Sq, Sk, H,
-                                   KH, hd, causal, window, softcap, scale, s);
+                                   KH, hd, dv, causal, window, softcap, scale,
+                                   s);
 }
 
 }  // namespace
 
-// q [B, Sq, H, hd]; k, v [B, Sk, KH, hd]; out [B, Sq, H, hd]; contiguous,
-// Sq, Sk >= 1.  q_off, k_len: int32 [B] (both or neither; null: 0 and Sk),
+// q [B, Sq, H, hd]; k [B, Sk, KH, hd]; v [B, Sk, KH, dv]; out [B, Sq, H,
+// dv]; 1 <= dv <= hd; contiguous, Sq, Sk >= 1.  q_off, k_len: int32 [B] (both or neither; null: 0 and Sk),
 // k_len[b] <= Sk.  window <= 0 and softcap <= 0 mean none.  `route` is a
 // code of flash_attention.py::ROUTES (0 wgmma_tma, 1 cuda_core).  Returns
 // cudaGetLastError() after the launch, or an error code for a route the
@@ -834,11 +859,11 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out,
                                       const void* q_off, const void* k_len,
                                       int B, int Sq, int Sk, int H, int KH,
-                                      int hd, int causal, int window,
+                                      int hd, int dv, int causal, int window,
                                       float softcap, float scale, int dtype,
                                       int route, void* stream) {
   if (B <= 0 || Sq <= 0 || Sk <= 0 || KH <= 0 || H % KH != 0 || hd > kMaxHd ||
-      (q_off == nullptr) != (k_len == nullptr))
+      dv < 1 || dv > hd || (q_off == nullptr) != (k_len == nullptr))
     return (int)cudaErrorInvalidValue;
   const int* qo = static_cast<const int*>(q_off);
   const int* kl = static_cast<const int*>(k_len);
@@ -847,20 +872,23 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     if (dtype != rt::kBFloat16 || !aligned16(q) || !aligned16(k) ||
         !aligned16(v) || !aligned16(out))
       return (int)cudaErrorInvalidValue;
-    if (hd == 128)
-      return dispatch_wgmma<128>(q, k, v, out, qo, kl, B, Sq, Sk, H, KH,
-                                 causal, window, softcap, scale, s);
-    if (hd == 64)
-      return dispatch_wgmma<64>(q, k, v, out, qo, kl, B, Sq, Sk, H, KH,
-                                causal, window, softcap, scale, s);
+    if (hd == 128 && dv == 128)
+      return dispatch_wgmma<128, 128>(q, k, v, out, qo, kl, B, Sq, Sk, H, KH,
+                                      causal, window, softcap, scale, s);
+    if (hd == 64 && dv == 64)
+      return dispatch_wgmma<64, 64>(q, k, v, out, qo, kl, B, Sq, Sk, H, KH,
+                                    causal, window, softcap, scale, s);
+    if (hd == 192 && dv == 128)
+      return dispatch_wgmma<192, 128>(q, k, v, out, qo, kl, B, Sq, Sk, H, KH,
+                                      causal, window, softcap, scale, s);
     return (int)cudaErrorInvalidValue;
   }
   if (route != 1) return (int)cudaErrorInvalidValue;
   if (dtype == rt::kFloat32)
-    return launch<float>(q, k, v, out, qo, kl, B, Sq, Sk, H, KH, hd, causal,
-                         window, softcap, scale, s);
+    return launch<float>(q, k, v, out, qo, kl, B, Sq, Sk, H, KH, hd, dv,
+                         causal, window, softcap, scale, s);
   if (dtype == rt::kBFloat16)
     return launch<__nv_bfloat16>(q, k, v, out, qo, kl, B, Sq, Sk, H, KH, hd,
-                                 causal, window, softcap, scale, s);
+                                 dv, causal, window, softcap, scale, s);
   return (int)cudaErrorInvalidValue;
 }

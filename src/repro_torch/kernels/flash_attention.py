@@ -6,12 +6,14 @@ what bounds it on the H100 and how its design answers that is noted
 there.  Unlike the Pallas kernel it takes K/V with their KV heads
 un-expanded ([B, S, KH, hd]) and maps query head h to KV head h // G
 itself, so no G-fold copy of K/V is written or read.  ``route`` picks
-the kernel's route from dtype, head dim and alignment, on the host: bf16
-with head dim 64 or 128 and 16-byte-aligned bases (the serving path)
-runs ``wgmma_tma`` (wgmma fed by TMA, warp-specialised); fp32, other
-head dims and unaligned bases run ``cuda_core``, a CUDA-core kernel of
-the same contract.  The wrapper counts each launch under its route in
-``flash_attention.routes``.  ``flash_attention_plain`` is the same
+the kernel's route from dtype, head dims and alignment, on the host:
+bf16 with head dim 64 or 128 and 16-byte-aligned bases (the serving
+path), or MLA's q/k width 192 with value width 128, runs ``wgmma_tma``
+(wgmma fed by TMA, warp-specialised); fp32, other head dims and
+unaligned bases run ``cuda_core``, a CUDA-core kernel of the same
+contract.  V may be narrower than q and k (``dv <= hd``, as the Pallas
+kernel allows for MLA); the output takes V's width.  The wrapper counts
+each launch under its route in ``flash_attention.routes``.  ``flash_attention_plain`` is the same
 function in plain PyTorch: the wrapper runs it for CPU tensors, and the
 on-card check holds the kernel against it.
 
@@ -43,28 +45,38 @@ _CODES = {r: i for i, r in enumerate(ROUTES)}
 MAX_HD = 320                    # the cuda_core route's widest head
 
 
-def route(dtype: torch.dtype, hd: int, aligned: bool) -> str:
-    """The kernel route for q of ``dtype`` and head dim ``hd``;
-    ``aligned``: q, k, v and the output start on 16-byte boundaries.
-    TMA needs 16-byte bases and row strides (hd * 2 bytes) and wgmma
-    tiles of 64 columns: bf16 at hd 64 or 128.  Everything else takes
-    the CUDA-core kernel."""
+# (q/k width, value width) pairs the wgmma_tma route is built for
+WGMMA_WIDTHS = ((64, 64), (128, 128), (192, 128))
+
+
+def route(dtype: torch.dtype, hd: int, aligned: bool,
+          dv: Optional[int] = None) -> str:
+    """The kernel route for q of ``dtype``, q/k head dim ``hd`` and value
+    width ``dv`` (default ``hd``); ``aligned``: q, k, v and the output
+    start on 16-byte boundaries.  TMA needs 16-byte bases and row
+    strides and wgmma tiles of 64 columns: bf16 at (hd, dv) (64, 64),
+    (128, 128) or MLA's (192, 128).  Everything else takes the CUDA-core
+    kernel."""
     if dtype not in _DTYPES:
         raise ValueError(f"unsupported dtype {dtype}")
-    if dtype == torch.bfloat16 and hd in (64, 128) and aligned:
+    if (dtype == torch.bfloat16 and (hd, dv or hd) in WGMMA_WIDTHS
+            and aligned):
         return "wgmma_tma"
     return "cuda_core"
 
 
 def _check(q, k, v, q_offset=None, k_lengths=None) -> None:
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"want q [B,Sq,H,hd], k/v [B,Sk,KH,hd]; got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"want q [B,Sq,H,hd], k [B,Sk,KH,hd], v "
+                         f"[B,Sk,KH,dv]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, _, H, hd = q.shape
     if k.shape[0] != B or k.shape[3] != hd or H % k.shape[2]:
         raise ValueError(f"q {tuple(q.shape)} does not match k/v "
                          f"{tuple(k.shape)}")
+    if v.shape[3] > hd:
+        raise ValueError(f"value width {v.shape[3]} exceeds the q/k width "
+                         f"{hd}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtype mismatch: q {q.dtype}, k/v {k.dtype}")
     if (q_offset is None) != (k_lengths is None):
@@ -84,9 +96,10 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           k_lengths: Optional[torch.Tensor] = None
                           ) -> torch.Tensor:
     """Plain PyTorch version: fp32 scores, one softmax over all keys.
-    q [B, Sq, H, hd]; k, v [B, Sk, KH, hd]; ``window``, ``q_offset`` and
-    ``k_lengths`` as the kernel's.  Returns [B, Sq, H, hd]; a row that
-    sees no key gives zeros, as the kernel's max(l, 1e-37)."""
+    q [B, Sq, H, hd]; k [B, Sk, KH, hd]; v [B, Sk, KH, dv], dv <= hd;
+    ``window``, ``q_offset`` and ``k_lengths`` as the kernel's.  Returns
+    [B, Sq, H, dv]; a row that sees no key gives zeros, as the kernel's
+    max(l, 1e-37)."""
     B, Sq, H, hd = q.shape
     Sk, KH = k.shape[1], k.shape[2]
     G = H // KH
@@ -114,8 +127,8 @@ def _launcher():
     fn = build.library("flash_attention.cu").flash_attention_launch
     if fn.argtypes is None:
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, f, f,
-                       i, i, vp]
+        fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, f,
+                       f, i, i, vp]
         fn.restype = ctypes.c_int
     return fn
 
@@ -128,12 +141,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     k_lengths: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
     """Softmax attention, causal or full, with optional tanh softcap and
-    sliding ``window``.  q [B, Sq, H, hd]; k, v [B, Sk, KH, hd] (GQA: KH
-    divides H); ``q_offset`` / ``k_lengths`` [B] int32 (both or neither):
-    row b's queries at q_offset[b] + i over keys [0, k_lengths[b]),
-    k_lengths[b] <= Sk.  Returns [B, Sq, H, hd] in q's dtype.  CPU
-    tensors run the plain version; CUDA tensors launch the kernel or
-    raise."""
+    sliding ``window``.  q [B, Sq, H, hd]; k [B, Sk, KH, hd] (GQA: KH
+    divides H); v [B, Sk, KH, dv] with dv <= hd (MLA's prefill: q/k
+    192 wide, v 128); the scale is hd ** -0.5; ``q_offset`` /
+    ``k_lengths`` [B] int32 (both or neither): row b's queries at
+    q_offset[b] + i over keys [0, k_lengths[b]), k_lengths[b] <= Sk.
+    Returns [B, Sq, H, dv] in q's dtype.  CPU tensors run the plain
+    version; CUDA tensors launch the kernel or raise."""
     _check(q, k, v, q_offset, k_lengths)
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window}")
@@ -151,22 +165,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError("q, k, v (and the offsets and lengths) must "
                              "be contiguous on one device")
     B, Sq, H, hd = q.shape
-    Sk, KH = k.shape[1], k.shape[2]
+    Sk, KH, dv = k.shape[1], k.shape[2], v.shape[3]
     if hd > MAX_HD:
         raise ValueError(f"kernel takes hd <= {MAX_HD}, got {hd}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"softcap must be positive, got {softcap}")
-    out = torch.empty_like(q)
+    out = q.new_empty(B, Sq, H, dv)
     if out.numel() == 0:
         return out
     if Sk == 0:                 # no key: the plain version's empty sum
         return out.zero_()
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    r = route(q.dtype, hd, all(p % 16 == 0 for p in ptrs))
+    r = route(q.dtype, hd, all(p % 16 == 0 for p in ptrs), dv)
     err = _launcher()(*ptrs,
                       None if q_offset is None else q_offset.data_ptr(),
                       None if k_lengths is None else k_lengths.data_ptr(),
-                      B, Sq, Sk, H, KH, hd, int(causal), window or 0,
+                      B, Sq, Sk, H, KH, hd, dv, int(causal), window or 0,
                       0.0 if softcap is None else float(softcap),
                       hd ** -0.5, _DTYPES[q.dtype], _CODES[r],
                       build.cuda_stream(q))

@@ -1,7 +1,8 @@
 """Serving launcher of the port: builds a model (a Parallel-Track model,
 a dense baseline or any other ``configs.NAMES`` entry: tinyllama-1.1b,
 falcon-mamba-7b, nemotron-4-15b, the gemma models, qwen2-vl-72b (text
-tokens, M-RoPE with equal streams) or recurrentgemma-9b) with random weights
+tokens, M-RoPE with equal streams), recurrentgemma-9b, deepseek-v2-236b
+or deepseek-v3-671b (MLA over latent pools, MoE) with random weights
 from ``--seed``, serves a synthetic workload through the engine (the
 paged cache, or with ``--contiguous`` the contiguous one), greedy or
 with ``--temperature`` sampled (each request under its own seed, the
@@ -32,6 +33,8 @@ transfer faults.  Runs on the GPU unless ``--device cpu`` is given.
       --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch recurrentgemma-9b --reduced --device cpu --prefill-chunk 8
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch deepseek-v3-671b --reduced --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
       --reduced --device cpu --speculate-k 3 --draft-tracks 2
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \

@@ -184,7 +184,8 @@ def _to_ring_per_row(k: torch.Tensor, lengths: torch.Tensor,
 def pool_write(leaf: PagedLeaf, rows: torch.Tensor,
                w_idx: torch.Tensor) -> PagedLeaf:
     """Write rows [n, M, KH, hd] into one layer's pool [n, N, bs, KH, hd]
-    at flat pool rows ``w_idx`` [M], in place (the JAX version returns a
+    (or an MLA latent pool's rows [n, M, r] into [n, N, bs, r]: any
+    trailing shape) at flat pool rows ``w_idx`` [M], in place (the JAX version returns a
     new pool; updating in place saves a pool-sized copy per token).  An
     int8 leaf quantizes each row over hd and writes payload and scale
     through the same indices."""
@@ -203,8 +204,9 @@ def pool_write(leaf: PagedLeaf, rows: torch.Tensor,
 
 def pool_read(leaf: PagedLeaf, block_table: torch.Tensor) -> torch.Tensor:
     """The contiguous per-slot view [n, B, nmax * bs, KH, hd] of one
-    layer's pool [n, N, bs, KH, hd] through block_table [B, nmax];
-    int8 leaves come back dequantized to fp32."""
+    layer's pool [n, N, bs, KH, hd] through block_table [B, nmax] (an
+    MLA latent pool [n, N, bs, r] gives [n, B, nmax * bs, r]); int8
+    leaves come back dequantized to fp32."""
     n, _, bs = leaf.pool.shape[:3]
     B, nmax = block_table.shape
     tbl = block_table.long()

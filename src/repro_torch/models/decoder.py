@@ -8,8 +8,10 @@ reference scans).  Three layers are ported on this path: GQA (the
 paper's dense baselines and tinyllama-1.1b with SwiGLU; nemotron-4-15b
 with LayerNorm and the squared-ReLU MLP; gemma2-2b and gemma3-4b with
 GeGLU, sandwich norms, sliding windows, softcaps and qk-norm;
-qwen2-vl-72b with M-RoPE), Mamba (falcon-mamba-7b) and RG-LRU
-(recurrentgemma-9b, beside its windowed MQA layers).  ``lm_forward``
+qwen2-vl-72b with M-RoPE), Mamba (falcon-mamba-7b), RG-LRU
+(recurrentgemma-9b, beside its windowed MQA layers) and MLA with a
+SwiGLU or MoE MLP (deepseek-v2-236b, deepseek-v3-671b: a dense prefix,
+then the MoE unit).  ``lm_forward``
 also takes precomputed input embeddings (qwen2-vl's stub vision
 frontend) with (t, h, w) M-RoPE positions.
 
@@ -25,7 +27,10 @@ leaves stacked [R, ...]).  A GQA layer's entry is (k, v), each
 [.., B, S, KH, hd] in the model dtype (the contiguous cache), or the
 paged engine's (PagedLeaf k, PagedLeaf v) pools [.., N, bs, KH, hd],
 or for a window W shorter than the cache ring rows [.., B, W, KH, hd]
-(slot = position % W) in either engine; a
+(slot = position % W) in either engine; an
+MLA layer's entry is its latents (c_kv [.., B, S, r], k_rope [.., B, S,
+rope]) or the paged engine's latent pools [.., N, bs, r] and [.., N,
+bs, rope] (no KV-head axis); a
 Mamba layer's entry is (conv window [.., B, dc-1, di] in the model
 dtype, h [.., B, di, ds] fp32) and an RG-LRU layer's (conv window
 [.., B, dc-1, di], h [.., B, di] fp32): per-slot state rows.  The decode and
@@ -303,9 +308,16 @@ def layer_cache(cfg: ModelConfig, nm: str, lead, batch: int, seq_len: int,
     GQA layer's (k, v) [*lead, batch, min(seq_len, window), KH, hd] (in
     ``kv_dtype``, default the model dtype; the paged engine asks for
     pools with ``pool``, (num_blocks, block_size) in place of (batch,
-    seq_len), which no window clamps), a Mamba or RG-LRU layer's
-    state rows for ``batch`` slots."""
+    seq_len), which no window clamps), an MLA layer's latents (c_kv
+    [*lead, batch, seq_len, r], k_rope [*lead, batch, seq_len, rope]),
+    a Mamba or RG-LRU layer's state rows for ``batch`` slots."""
     spec = cfg.spec(nm)
+    if spec.mixer == "mla":
+        dtype = kv_dtype or model_dtype(cfg)
+        return tuple(torch.zeros(*lead, batch, seq_len, w, dtype=dtype,
+                                 device=device)
+                     for w in (cfg.mla.kv_lora_rank,
+                               cfg.mla.qk_rope_head_dim))
     if spec.mixer == "gqa":
         if spec.window is not None and not pool:
             seq_len = min(seq_len, spec.window)

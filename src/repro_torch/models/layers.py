@@ -14,7 +14,11 @@ Three flavours are ported:
   * the Mamba layer of the dense ``lm_*`` decoder, mixer only
     (``mlp="none"``, x [B, S, d]);
   * the RG-LRU layer of the dense ``lm_*`` decoder (recurrentgemma): the
-    RG-LRU mixer, then a GeGLU MLP on n = 1 views, x [B, S, d].
+    RG-LRU mixer, then a GeGLU MLP on n = 1 views, x [B, S, d];
+  * the MLA layer of the dense ``lm_*`` decoder (deepseek-v2 / -v3):
+    Multi-head Latent Attention (``models/mla.py``), then a SwiGLU MLP
+    on n = 1 views (the dense prefix) or the capacity-routed MoE
+    (``models/moe.py``), x [B, S, d].
 
 ``layer_step`` is what the model loops run: its caller applies ln1 (the
 norm of the residual stream, with the previous layer's pending residual
@@ -23,7 +27,8 @@ add, or a track fusion, folded into the same launch: ``norm_in`` and
 for the next norm; ``layer_apply`` is the whole layer, residuals added.
 Both run the modes the serving path needs:
   'prefill' — full-sequence forward, returns the layer's cache
-              ((k, v) for GQA, (conv window, h) for Mamba and RG-LRU)
+              ((k, v) for GQA, (c_kv, k_rope) latents for MLA, (conv
+              window, h) for Mamba and RG-LRU)
   'decode'  — one token per row against the layer's cache
   'chunk'   — C tokens per row appended to the layer's cache
 GQA caches are block pools written through the block table, or
@@ -31,7 +36,9 @@ contiguous per-slot rows [.., B, S, KH, hd] written at each row's
 position (inactive decode lanes keep their rows), or for a window
 shorter than the cache ring rows [.., B, W, KH, hd] (slot = position %
 W), which a chunk reads at ``slots`` and advances by ``chunk_lens``
-valid tokens, as the Mamba rows; Mamba and RG-LRU caches are
+valid tokens, as the Mamba rows; MLA caches are latent pools [N, bs, r]
+and [N, bs, rope] (or contiguous rows [B, S, r], [B, S, rope]), with no
+chunk mode (``mla.mla_chunk`` raises); Mamba and RG-LRU caches are
 per-slot state rows, updated in place: the chunk batch
 gathers its rows at ``slots``, advances them by ``chunk_lens`` valid
 tokens and writes them back (``index_copy_``), and a decode step
@@ -48,6 +55,8 @@ from repro_torch.common.paged import PagedLeaf
 from repro_torch.common.quant import QuantTensor
 from repro_torch.common.types import LayerSpec, ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.mlp import MLPS, mlp_apply, mlp_shapes
@@ -56,7 +65,9 @@ from repro_torch.models.params import Leaf
 
 _PT_LAYER = ("gqa", "swiglu")       # (mixer, mlp) of the PT path
 _LM_LAYERS = tuple(("gqa", m) for m in MLPS) + (("mamba", "none"),
-                                                 ("rglru", "geglu"))
+                                                 ("rglru", "geglu"),
+                                                 ("mla", "swiglu"),
+                                                 ("mla", "moe"))
 _GQA_ROPES = ("rope", "local_rope", "mrope")
 
 
@@ -64,8 +75,9 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise unless every layer is a ported flavour: GQA + SwiGLU with
     RMSNorm and plain RoPE in a PT model; GQA with a SwiGLU, GeGLU or
     squared-ReLU MLP (windows, local RoPE, M-RoPE, softcaps, qk-norm and
-    sandwich norms too), Mamba alone, or RG-LRU + GeGLU, in a dense
-    ``lm_*`` model.  No cross-attention, no MoE or MLA."""
+    sandwich norms too), Mamba alone, RG-LRU + GeGLU, or MLA with a
+    SwiGLU MLP or MoE, in a dense ``lm_*`` model.  No cross-attention or
+    encoder-decoder."""
     unported = []
     for nm in cfg.layer_names:
         s = cfg.spec(nm)
@@ -85,8 +97,8 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.pt is not None and (cfg.post_norm or cfg.qk_norm
                                or cfg.norm != "rmsnorm"):
         unported.append("PT with post_norm / qk_norm / non-RMS norms")
-    if any(x is not None for x in (cfg.moe, cfg.mla, cfg.encdec)):
-        unported.append("MoE / MLA / encoder-decoder")
+    if cfg.encdec is not None:
+        unported.append("encoder-decoder")
     if cfg.pt is not None and (cfg.ssm is not None or cfg.rglru is not None):
         unported.append("SSM / RG-LRU in a PT model")
     if unported:
@@ -111,14 +123,18 @@ def layer_shapes(cfg: ModelConfig, spec: LayerSpec,
     norm = norm_shapes(cfg.norm, d_stream)
     if spec.mixer == "mamba":
         return {"ln1": norm, "mixer": ssm_lib.ssm_shapes(cfg, d_stream)}
-    mixer = (rglru_lib.rglru_shapes(cfg, d_stream) if spec.mixer == "rglru"
-             else attn.attention_shapes(d_stream, cfg.n_heads,
-                                        cfg.n_kv_heads, cfg.head_dim,
-                                        qk_norm=cfg.qk_norm))
+    if spec.mixer == "rglru":
+        mixer = rglru_lib.rglru_shapes(cfg, d_stream)
+    elif spec.mixer == "mla":
+        mixer = mla_lib.mla_shapes(cfg, d_stream)
+    else:
+        mixer = attn.attention_shapes(d_stream, cfg.n_heads, cfg.n_kv_heads,
+                                      cfg.head_dim, qk_norm=cfg.qk_norm)
     p = {"ln1": norm,
          "mixer": mixer,
          "ln2": norm,
-         "mlp": mlp_shapes(spec.mlp, d_stream, cfg.d_ff)}
+         "mlp": (moe_lib.moe_shapes(cfg, d_stream) if spec.mlp == "moe"
+                 else mlp_shapes(spec.mlp, d_stream, cfg.d_ff))}
     if cfg.post_norm:
         p["ln1_post"] = norm
         p["ln2_post"] = norm
@@ -172,6 +188,23 @@ def _recurrent(params, h: torch.Tensor, *, cfg: ModelConfig, mixer: str,
                               "ROADMAP queue 1, item 9)")
 
 
+def _mla(params, h: torch.Tensor, *, cfg: ModelConfig, spec: LayerSpec,
+         mode: str, positions, pos, cache, block_table, kv_max_len, active):
+    """An MLA mixer: prefill, or decode against its latent pools or
+    rows (no chunk mode: ``mla.mla_chunk`` raises)."""
+    if mode == "prefill":
+        return mla_lib.mla_apply(params, h, spec=spec, cfg=cfg,
+                                 positions=positions, return_cache=True)
+    if mode == "decode":
+        return mla_lib.mla_decode(params, h, cache, spec=spec, cfg=cfg,
+                                  pos=pos, block_table=block_table,
+                                  kv_max_len=kv_max_len, active=active)
+    if mode in ("chunk", "fill"):
+        return mla_lib.mla_chunk()
+    raise NotImplementedError(f"layer mode {mode!r} is not ported (train: "
+                              "ROADMAP queue 1, item 9)")
+
+
 def _gqa(params, h: torch.Tensor, *, cfg: ModelConfig, spec: LayerSpec,
          mode: str, positions, pos, cache, block_table, kv_max_len, active,
          lengths, slots, chunk_lens):
@@ -218,17 +251,27 @@ def _step(params, x: torch.Tensor, y: torch.Tensor, *, cfg: ModelConfig,
           spec: LayerSpec, mode: str, positions, pos, cache, block_table,
           kv_max_len, slots, chunk_lens, active, lengths
           ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
-    if spec.mixer in _RECURRENT:
-        h, new_cache = _recurrent(params["mixer"], y, cfg=cfg,
-                                  mixer=spec.mixer, mode=mode, cache=cache,
-                                  slots=slots, chunk_lens=chunk_lens,
-                                  active=active)
+    if spec.mixer in _RECURRENT or spec.mixer == "mla":
+        if spec.mixer == "mla":
+            h, new_cache = _mla(params["mixer"], y, cfg=cfg, spec=spec,
+                                mode=mode, positions=positions, pos=pos,
+                                cache=cache, block_table=block_table,
+                                kv_max_len=kv_max_len, active=active)
+        else:
+            h, new_cache = _recurrent(params["mixer"], y, cfg=cfg,
+                                      mixer=spec.mixer, mode=mode,
+                                      cache=cache, slots=slots,
+                                      chunk_lens=chunk_lens, active=active)
         if spec.mlp == "none":
             return x, h, new_cache
-        # the MLP's weights take a track dim of 1, as a GQA layer's
         x, y = norm_in(cfg, params["ln2"], x, _post(cfg, params, "ln1_post",
                                                     h))
-        h = mlp_apply(_track1(params["mlp"]), y[None], spec.mlp)[0]
+        if spec.mlp == "moe":
+            h = moe_lib.moe_apply(params["mlp"], y, cfg=cfg,
+                                  phase="chunk" if mode == "fill" else mode)
+        else:
+            # the MLP's weights take a track dim of 1, as a GQA layer's
+            h = mlp_apply(_track1(params["mlp"]), y[None], spec.mlp)[0]
         return x, _post(cfg, params, "ln2_post", h), new_cache
     h, new_cache = _gqa(params["mixer"], y, cfg=cfg, spec=spec, mode=mode,
                         positions=positions, pos=pos, cache=cache,
@@ -289,8 +332,8 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
     slots; None when the rows align with the batch) and ``chunk_lens``
     [B] (valid tokens of a padded final chunk).  ``active`` [B] marks the decode lanes
     whose contiguous rows or state may change.  Returns (x, cache).
-    (The reference also returns an auxiliary MoE loss, always zero
-    here.)"""
+    (The reference also returns an auxiliary MoE loss, a training
+    quantity not computed here.)"""
     x, y = norm_in(cfg, params["ln1"], x, None)
     x, delta, cache = layer_step(params, x, y, cfg=cfg, spec=spec,
                                  mode=mode, positions=positions, pos=pos,

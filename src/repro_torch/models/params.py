@@ -22,12 +22,16 @@ class Leaf:
 
     ``std`` set: drawn normal * std, in the model dtype (or in fp32 with
     ``fp32=True``).  ``std`` None: an fp32 constant, ``fill(shape)`` or
-    zeros (norm scales, biases)."""
+    zeros (norm scales, biases).  ``by_matrix``: drawn one trailing
+    [rows, cols] matrix at a time into the output, so that no fp32 copy
+    of the whole leaf is made (a MoE layer's expert stack is 1.3-3.8 G
+    values at full width)."""
 
     shape: Tuple[int, ...]
     std: Optional[float] = None
     fp32: bool = False
     fill: Optional[Callable[[Tuple[int, ...]], torch.Tensor]] = None
+    by_matrix: bool = False
 
     def dtype(self, model_dtype: torch.dtype) -> torch.dtype:
         if self.std is None or self.fp32:
@@ -45,6 +49,14 @@ class Leaf:
                 return torch.zeros(self.shape, dtype=torch.float32,
                                    device=device)
             return self.fill(self.shape).to(device, torch.float32)
+        if self.by_matrix:
+            out = torch.empty(self.shape, dtype=self.dtype(model_dtype),
+                              device=device)
+            for m in out.view(-1, *self.shape[-2:]):
+                m.copy_(torch.randn(self.shape[-2:], generator=generator,
+                                    dtype=torch.float32, device=device)
+                        .mul_(self.std))
+            return out
         t = torch.randn(self.shape, generator=generator, dtype=torch.float32,
                         device=device)
         return t.mul_(self.std).to(self.dtype(model_dtype))

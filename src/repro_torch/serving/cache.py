@@ -13,6 +13,11 @@ the port reads them off the layer spec):
     rank, ``runtime.parallel``, its n_tracks / W tracks); an ``lm_*``
     model's are ``[num_blocks, block_size, KH, hd]`` per prefix / suffix
     layer and ``[R, num_blocks, block_size, KH, hd]`` per unit layer.
+    An MLA layer's latents are pools too, with no KV-head axis:
+    ``[num_blocks, block_size, kv_lora_rank]`` (c_kv) and
+    ``[num_blocks, block_size, qk_rope_head_dim]`` (k_rope), stacked
+    ``[R, ...]`` in the unit: (r + rope) values a token and layer (576
+    at deepseek's widths) against GQA's 2 KH hd.
     All layers share one block table, so a slot costs ``ceil(tokens /
     block_size)`` blocks.  Block 0 is the trash block: table entries of
     unallocated regions and released slots point at it, so stray writes

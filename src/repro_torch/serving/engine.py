@@ -559,8 +559,11 @@ class ModelRunner:
         self.capabilities = arch_capabilities(cfg)
         caps = self.capabilities
         # padded tokens would run through a recurrent layer's conv window
-        # and state: those architectures prefill at exact prompt length
+        # and state, or take expert-capacity slots that belong to real
+        # tokens in a capacity-routed MoE: those architectures prefill at
+        # exact prompt length
         self.exact_prefill = any(cfg.spec(nm).mixer in RECURRENT_MIXERS
+                                 or cfg.spec(nm).mlp == "moe"
                                  for nm in cfg.layer_names)
         self.paged = paged and caps["paged"].supported
         # effective dtypes (None = full precision) and, as in the

@@ -9,6 +9,13 @@ embed [V, d], head [d, V], blocks leaves [R, D, n, ...] with wq
 wo [ff, d].  lm_*: embed, head, and the prefix / unit / suffix layer
 tuples, unit leaves stacked [R, ...]; a Mamba layer's conv_w, conv_b,
 dt_w, dt_bias, A_log and D stay fp32.  Norm scales are fp32 everywhere.
+An MLA layer's mixer carries w_dq / q_norm / w_uq (or w_uq alone at
+q_lora_rank 0), w_dkv, kv_norm, w_uk, w_uv and wo; a MoE layer's MLP
+its router (fp32), e_bias (fp32, the sigmoid_bias router), expert stacks
+w_gate / w_up / w_down and shared experts ws_gate / ws_up / ws_down.  A
+reference tree that stores its experts padded to ``n_experts_padded``
+loses the padded experts (router columns, e_bias entries, expert rows):
+they are never routed to.
 Nothing here imports JAX: the caller hands over numpy arrays.
 
 A tree from the reference's ``quantize_params`` carries across too: each
@@ -40,6 +47,11 @@ def _to_torch(a: Any, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
 
 
+# the expert axis of each MoE leaf (its padding is dropped)
+_EXPERT_AXIS = {"router": -1, "e_bias": -1, "w_gate": -3, "w_up": -3,
+                "w_down": -3}
+
+
 def from_jax_params(tree: Any, cfg: ModelConfig,
                     device: DeviceLike = None) -> Any:
     """Numpy-leaved JAX ``init_pt`` / ``init_lm`` tree (optionally
@@ -48,6 +60,7 @@ def from_jax_params(tree: Any, cfg: ModelConfig,
     from what ``cfg`` describes."""
     device = resolve_device(device)
     dtype = model_dtype(cfg)
+    n_exp = cfg.moe.n_routed_experts if cfg.moe is not None else 0
 
     def quantized(shape, node, path):
         keys = path.split(".")
@@ -82,6 +95,9 @@ def from_jax_params(tree: Any, cfg: ModelConfig,
         assert isinstance(spec, Leaf), spec
         if isinstance(node, tuple):
             return quantized(spec.shape, node, path)
+        axis = _EXPERT_AXIS.get(path.rsplit(".", 1)[-1])
+        if n_exp and axis is not None and ".mlp." in f".{path}":
+            node = np.take(np.asarray(node), np.arange(n_exp), axis=axis)
         t = _to_torch(node, device)
         want = spec.dtype(dtype)
         if tuple(t.shape) != tuple(spec.shape) or t.dtype != want:

@@ -47,7 +47,22 @@ Flash's per-row offsets, windows and head dims 288 / 320, the offset
 route's rows bitwise a whole-prompt call's, the decode template's
 softcap and wide heads, and a bf16 warm prefix hit bitwise the cold run
 (``-k "offset or wide or warm_prefix"``).
+Flash at a value width below the q/k width (MLA's 192 / 128 on the
+wgmma route; the CUDA cores otherwise) against the plain version, every
+launch at equal widths bitwise the parent checkout's (the digests
+``tools/flash_attention_ab.py`` recorded from it, in
+``tests/flash_dv_eq_hd_digests.json``), and a MoE + MLA decode step
+(deepseek-v2 / -v3 reduced) replayed from its CUDA graph bitwise the
+eager step (``-k "value_width or dv_eq_hd or deepseek"``).
+The tests that read the profiler (one device kernel per call) run their
+body in a Python process of its own, whose first profiler session it is
+(``_own_process``).
 Without a GPU every test here skips (the kernels have no CPU mode)."""
+import json
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -67,6 +82,22 @@ def _cuda():
 
 def _sms(dev):
     return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _own_process(fn: str, *args) -> None:
+    """Run ``fn(*args)`` of this module in a fresh Python process and
+    fail with its output unless it exits 0.  The profiler tests run
+    there: in a process that had already run the rest of this file,
+    CUPTI sometimes recorded no device activity at all for a profiler
+    session (each test alone passed), so each reads the profiler in a
+    process whose first session it is."""
+    here = Path(__file__).resolve()
+    code = (f"import sys; sys.path[:0] = [{str(here.parents[1] / 'src')!r}, "
+            f"{str(here.parent)!r}]; import {here.stem} as m; "
+            f"m.{fn}(*{args!r})")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=900)
+    assert proc.returncode == 0, (proc.stdout[-3000:] + proc.stderr[-6000:])
 
 
 def _edge_lengths(lengths, sweep, base, page, sms):
@@ -288,6 +319,69 @@ def test_flash_offset_rows_bitwise_the_whole_prompt_call(hd, dtype, window):
     torch.cuda.synchronize()
     for b, o in enumerate(offs):
         assert torch.equal(warm[b], cold[b, o:o + C]), (b, o)
+
+
+# (B, Sq, Sk, H, KH, hd, dv, dtype): MLA's widths on the wgmma route (bf16,
+# q / k 192, v 128; ragged, Sq != Sk, GQA), and the CUDA-core route (fp32
+# at the reduced MLA's 12 / 8; bf16 at 96 / 64)
+_DV_SHAPES = [(2, 300, 300, 8, 8, 192, 128, "bfloat16"),
+              (1, 64, 200, 4, 2, 192, 128, "bfloat16"),
+              (2, 70, 70, 4, 4, 12, 8, "float32"),
+              (2, 130, 130, 4, 1, 96, 64, "bfloat16")]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,Sq,Sk,H,KH,hd,dv,dtype", _DV_SHAPES)
+def test_flash_attention_narrower_value_width_matches_plain(B, Sq, Sk, H, KH,
+                                                            hd, dv, dtype):
+    """V narrower than q / k (out [B, Sq, H, dv], scale hd ** -0.5):
+    causal, full, softcapped and with per-row offsets, on the route
+    ``route`` names, against the plain version; on the CUDA cores the
+    narrow call's columns are bitwise the first dv columns of a
+    full-width call (each output column sums on its own)."""
+    from repro_torch.kernels import flash_attention as fa
+    dev, tol = _cuda(), _TOL[dtype]
+    q, k, vfull = _flash_inputs(dev, dtype, B, Sq, Sk, H, KH, hd, seed=12)
+    v = vfull[..., :dv].contiguous()
+    want_route = fa.route(_TDT[dtype], hd, True, dv)
+    assert want_route == ("wgmma_tma" if hd == 192 else "cuda_core")
+    off = torch.tensor([0, Sk - Sq][:B], dtype=torch.int32, device=dev)
+    rows = {"q_offset": off,
+            "k_lengths": torch.clamp(off + Sq, max=Sk).to(torch.int32)}
+    for causal, softcap, kw in ((True, None, {}), (False, None, {}),
+                                (True, 5.0, {}), (True, None, rows)):
+        out, r = _flash_routed(q, k, v, causal=causal, softcap=softcap, **kw)
+        assert r == want_route and tuple(out.shape) == (B, Sq, H, dv)
+        torch.testing.assert_close(
+            out, ref.flash_attention_plain(q, k, v, causal=causal,
+                                           softcap=softcap, **kw),
+            rtol=tol, atol=tol)
+        if r == "cuda_core":
+            wide = ops.flash_attention(q, k, vfull, causal=causal,
+                                       softcap=softcap, **kw)
+            assert torch.equal(out, wide[..., :dv])
+
+
+_DIGESTS = Path(__file__).with_name("flash_dv_eq_hd_digests.json")
+
+
+@pytest.mark.gpu
+def test_flash_dv_eq_hd_launches_bitwise_the_parent():
+    """Every case of ``tools/flash_attention_ab.py`` (value width = q / k
+    width: the serve layouts, offsets, windows, softcaps, fp32, hd 64 to
+    320, both routes) gives the bytes the parent checkout's kernel gave
+    on the same seeded inputs (their sha256, recorded by that tool)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+    from flash_attention_ab import case_inputs, digest
+    from repro_torch.kernels import flash_attention as fa
+    dev = _cuda()
+    cases = json.loads(_DIGESTS.read_text())["cases"]
+    assert len(cases) >= 14
+    for c in cases:
+        q, k, v, kw = case_inputs(c, dev)
+        out, r = _flash_routed(q, k, v, **kw)
+        assert r == c["route"] == fa.route(q.dtype, c["hd"], True)
+        assert digest(out) == c["sha256"], c
 
 
 @pytest.mark.gpu
@@ -545,7 +639,13 @@ def test_int8_matmul_decode_route_bitwise():
                                            (1, 8, 1408, 100352, "float32")])
 def test_int8_matmul_launches_one_device_kernel_per_call(n, M, K, N, dtype):
     """bf16 out is written by the kernel itself: the profiler sees one
-    device kernel per call, no cast or copy after it."""
+    device kernel per call, no cast or copy after it (in a process of
+    its own)."""
+    _cuda()
+    _own_process("_int8_matmul_one_kernel", n, M, K, N, dtype)
+
+
+def _int8_matmul_one_kernel(n, M, K, N, dtype):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     dev = _cuda()
@@ -567,12 +667,13 @@ def test_int8_matmul_launches_one_device_kernel_per_call(n, M, K, N, dtype):
 @pytest.mark.parametrize("B,S,H,KH", [(64, 512, 4, 1), (8, 512, 32, 8)])
 def test_flash_attention_launches_one_device_kernel_per_call(B, S, H, KH):
     """At the serve shapes (pt-6b-d4, dense-6b) the profiler sees one
-    device kernel per call (no memset, copy or cast), on the wgmma route.
-    It stays after the W8A16 one-kernel tests: placed with the other
-    flash tests, so that the process's first profiler session was this
-    one, it left the later profiler sessions of a whole-file run without
-    device events (cause unknown: every profiler test passes alone and
-    all of them pass together)."""
+    device kernel per call (no memset, copy or cast), on the wgmma route
+    (in a process of its own)."""
+    _cuda()
+    _own_process("_flash_one_kernel", B, S, H, KH)
+
+
+def _flash_one_kernel(B, S, H, KH):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     dev = _cuda()
@@ -975,7 +1076,12 @@ def test_threefry_on_the_card_matches_the_cpu():
 def test_decode_kernels_launch_one_device_kernel_per_call(int8):
     """One launch per call, the combine inside it: the profiler sees one
     device kernel (and no memset or copy) for a multi-split call of
-    each layout."""
+    each layout (in a process of its own)."""
+    _cuda()
+    _own_process("_decode_one_kernel", int8)
+
+
+def _decode_one_kernel(int8):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     dev = _cuda()
@@ -1159,7 +1265,12 @@ _PLAN_ARMS = {"paged bf16": ("pt-6b-d4", "bfloat16", {}),
               "spec": ("pt-6b-d4", "float32",
                        {"speculate_k": 3, "draft_tracks": 2}),
               "spec sampled": ("pt-6b-d4", "float32",
-                               {"speculate_k": 3, "draft_tracks": 2})}
+                               {"speculate_k": 3, "draft_tracks": 2}),
+              "deepseek-v2 moe mla paged": ("deepseek-v2-236b", "bfloat16",
+                                            {}),
+              "deepseek-v3 moe mla contiguous": ("deepseek-v3-671b",
+                                                 "bfloat16",
+                                                 {"paged": False})}
 
 
 def _plan_engine(arm, dev, preplan=True):
@@ -1268,14 +1379,21 @@ def test_capture_leaves_the_cache_unchanged(arm):
         live = torch.as_tensor(sorted(set(r.kv.table_np.ravel()) - {0}),
                                dtype=torch.long, device=dev)
 
+    def block_axis(t):
+        """A pool's block axis: [.., N, bs, KH, hd] K/V or [.., N, bs, r]
+        MLA latents; None for rows."""
+        for ax in (t.dim() - 4, t.dim() - 3):
+            if live is not None and ax >= 0 and \
+                    t.shape[ax:ax + 2] == (r.kv.num_blocks, r.kv.block_size):
+                return ax
+        return None
+
     def snap():
         out = []
         for t in _cache_tensors(r):
-            pooled = live is not None and t.dim() >= 4 and \
-                t.shape[-4] == r.kv.num_blocks and t.shape[-3] == \
-                r.kv.block_size
-            out.append(t.index_select(t.dim() - 4, live).clone() if pooled
-                       else t.clone())
+            ax = block_axis(t)
+            out.append(t.clone() if ax is None
+                       else t.index_select(ax, live).clone())
         return out
 
     before = snap()
@@ -1698,11 +1816,7 @@ def test_ssm_scan_on_rglru_features_matches_plain(B, S, F, dtype):
 def test_decode_kernels_take_softcap_and_wide_heads(hd, G, dtype, softcap):
     """The split-KV template at gemma2's hd 288 and gemma3's 320 (the
     scalar path) and with the tanh softcap, paged and contiguous, against
-    the plain versions (scores scaled past the cap).  Kept last in the
-    file: after these 16 cases in one process the profiler of
-    ``test_decode_kernels_launch_one_device_kernel_per_call`` recorded no
-    device event at all (each case alone leaves it whole); not
-    understood."""
+    the plain versions (scores scaled past the cap)."""
     dev, tol = _cuda(), _TOL[dtype]
     rng = np.random.default_rng(hd + G)
     q, kp, vp, table, lengths = _paged_inputs(2, 5, 2, G, hd, 16, 40, rng,

@@ -408,22 +408,28 @@ def test_int8_matmul_route_refuses_other_dtypes():
         qm.route(8, 16, 16, torch.float16, True)
 
 
-# (dtype, hd, aligned) -> the flash route: bf16 at hd 64 / 128 with
-# 16-byte bases on wgmma + TMA, everything else on the CUDA cores
+# (dtype, hd, aligned[, dv]) -> the flash route: bf16 at hd 64 / 128 (v
+# as wide) or MLA's q/k 192 with v 128, 16-byte bases, on wgmma + TMA,
+# everything else on the CUDA cores
 _FLASH_ROUTES = [(("bfloat16", 128, True), "wgmma_tma"),
                  (("bfloat16", 64, True), "wgmma_tma"),
                  (("bfloat16", 128, False), "cuda_core"),
                  (("bfloat16", 96, True), "cuda_core"),
                  (("bfloat16", 8, True), "cuda_core"),
                  (("float32", 128, True), "cuda_core"),
-                 (("float32", 64, False), "cuda_core")]
+                 (("float32", 64, False), "cuda_core"),
+                 (("bfloat16", 192, True, 128), "wgmma_tma"),
+                 (("bfloat16", 192, True), "cuda_core"),
+                 (("bfloat16", 192, False, 128), "cuda_core"),
+                 (("float32", 192, True, 128), "cuda_core"),
+                 (("bfloat16", 128, True, 64), "cuda_core")]
 
 
 @pytest.mark.parametrize("args,want", _FLASH_ROUTES)
 def test_flash_attention_route_by_dtype_hd_and_alignment(args, want):
     from repro_torch.kernels import flash_attention as fa
-    dtype, hd, aligned = args
-    assert fa.route(_TDT[dtype], hd, aligned) == want
+    dtype, hd, aligned, *dv = args
+    assert fa.route(_TDT[dtype], hd, aligned, *dv) == want
     assert set(fa.flash_attention.routes) == set(fa.ROUTES)
     with pytest.raises(ValueError):
         fa.route(torch.float16, hd, aligned)

@@ -178,7 +178,7 @@ def test_engine_rejects_invalid_requests_and_unported_features(model):
     with pytest.raises(ValueError, match="decoding"):   # fork is ported
         eng.fork(sampled, 1)
     with pytest.raises(KeyError, match="ROADMAP"):
-        reduced_config("deepseek-v2-236b")
+        reduced_config("whisper-medium")
 
 
 def test_entry_points_without_device_refuse_to_run_on_cpu(model):

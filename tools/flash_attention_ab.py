@@ -1,38 +1,98 @@
 """The flash prefill kernel of this checkout against another checkout's, on
-one card.
+one card: every launch with the value width equal to the q/k width
+(the only kind the other checkout takes) bitwise, and the serve shapes
+timed.
 
   python3 tools/flash_attention_ab.py OTHER_CHECKOUT [--json FILE]
+      [--digests FILE]
 
 Builds ``src/repro_torch/kernels/csrc/flash_attention.cu`` of this
 checkout (through the port's build) and of OTHER_CHECKOUT (nvcc with the
-same flags, into ``build/ab/``), then at the bf16 serve cells' prefill
-shapes (those of ``chip_smoke.py`` phase 3: pt-6b-d4's q [64,512,4,128]
-with k, v [64,512,1,128], and dense-6b's q [8,512,32,128] with k, v
-[8,512,8,128], causal):
+same flags, into ``build/ab/``), then:
 
-* compares the two outputs on the same inputs (max |difference|), and
-  each with the plain version;
-* times both in turns (other, this, this, other) as device work (the
-  calls replayed from a CUDA graph, ``chip_smoke.graph_ms``) over inputs
-  cycled past the 50 MB L2.
+* runs each of ``CASES`` (seeded numpy inputs, ``case_inputs``): the
+  serve layouts of pt-6b-d4, dense-6b and qwen2-vl-72b on the wgmma
+  route, full attention and softcaps at hd 64, windows and per-row
+  offsets on both routes, phase 9's warm tails, fp32 on the CUDA cores,
+  and hd 256 / 288 / 320 with their windows and softcaps, through both
+  libraries, and compares the outputs bitwise (each also against the
+  plain version);
+* times the two serve shapes (pt-6b-d4's q [64,512,4,128] with k, v
+  [64,512,1,128]; dense-6b's q [8,512,32,128] with k, v [8,512,8,128];
+  causal) in turns (other, this, this, other) as device work (the calls
+  replayed from a CUDA graph, ``chip_smoke.graph_ms``) over inputs
+  cycled past the 50 MB L2;
+* with ``--digests FILE`` writes each case with the sha256 of the other
+  checkout's output bytes: ``tests/test_torch_gpu.py`` holds this
+  checkout's launches to them.
 
-OTHER_CHECKOUT's launcher is the earlier C interface, with no route:
-``flash_attention_launch(q, k, v, out, B, Sq, Sk, H, KH, hd, causal,
-softcap, scale, dtype, stream)``.  Needs one CUDA GPU.  Prints the card
-line and one JSON object.
+OTHER_CHECKOUT's launcher is the C interface without a value width:
+``flash_attention_launch(q, k, v, out, q_off, k_len, B, Sq, Sk, H, KH,
+hd, causal, window, softcap, scale, dtype, route, stream)``.  Needs one
+CUDA GPU.  Prints the card line and one JSON object.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+
+# each case: dtype, B, Sq, Sk, H, KH, hd, causal, window, softcap and
+# offsets (row b's queries at q_off[b] + i over keys < q_off[b] + Sq)
+CASES = [
+    ("bfloat16", 64, 512, 512, 4, 1, 128, True, None, None, None),
+    ("bfloat16", 8, 512, 512, 32, 8, 128, True, None, None, None),
+    ("bfloat16", 8, 512, 512, 64, 8, 128, True, None, None, None),
+    ("bfloat16", 2, 200, 200, 4, 1, 64, False, None, 5.0, None),
+    ("bfloat16", 2, 300, 100, 8, 2, 128, False, None, None, None),
+    ("bfloat16", 3, 70, 300, 4, 1, 128, True, 37, None, (0, 230, 17)),
+    ("bfloat16", 2, 130, 400, 8, 2, 64, True, 130, 5.0, (0, 270)),
+    ("bfloat16", 64, 64, 592, 4, 1, 128, True, None, None, (448,) * 64),
+    ("float32", 3, 40, 200, 4, 2, 64, True, None, None, (0, 160, 17)),
+    ("float32", 2, 130, 130, 4, 1, 128, True, None, 5.0, None),
+    ("bfloat16", 2, 512, 512, 8, 4, 288, True, None, 50.0, None),
+    ("bfloat16", 2, 1536, 1536, 8, 4, 320, True, 1024, None, None),
+    ("bfloat16", 2, 2048, 2048, 16, 1, 256, True, 2048, None, None),
+    ("bfloat16", 2, 130, 130, 4, 1, 96, True, None, None, None),
+]
+KEYS = ("dtype", "B", "Sq", "Sk", "H", "KH", "hd", "causal", "window",
+        "softcap", "offsets")
+
+
+def case_inputs(case: dict, dev: torch.device):
+    """(q, k, v, kwargs of ``flash_attention``) of one case, from numpy
+    seeded by the case's shape."""
+    c = case
+    rng = np.random.default_rng([c["B"], c["Sq"], c["Sk"], c["H"], c["hd"]])
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[c["dtype"]]
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(dev, dt)
+               for s in ((c["B"], c["Sq"], c["H"], c["hd"]),
+                         (c["B"], c["Sk"], c["KH"], c["hd"]),
+                         (c["B"], c["Sk"], c["KH"], c["hd"])))
+    kw = {"causal": c["causal"], "window": c["window"],
+          "softcap": c["softcap"]}
+    if c["offsets"] is not None:
+        off = torch.tensor(c["offsets"], dtype=torch.int32, device=dev)
+        kw.update(q_offset=off,
+                  k_lengths=torch.clamp(off + c["Sq"], max=c["Sk"])
+                  .to(torch.int32))
+    return q, k, v, kw
+
+
+def digest(t: torch.Tensor) -> str:
+    """sha256 of a tensor's bytes."""
+    b = t.detach().contiguous().cpu().view(torch.uint8).numpy().tobytes()
+    return hashlib.sha256(b).hexdigest()
 
 
 def _build_other(other: Path):
@@ -45,7 +105,8 @@ def _build_other(other: Path):
                    check=True, stdout=subprocess.DEVNULL)
     fn = ctypes.CDLL(str(out)).flash_attention_launch
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [vp, vp, vp, vp, i, i, i, i, i, i, i, f, f, i, vp]
+    fn.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, i, f, f, i,
+                   i, vp]
     fn.restype = ctypes.c_int
     return fn
 
@@ -54,6 +115,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("other", type=Path)
     ap.add_argument("--json", type=Path, default=None)
+    ap.add_argument("--digests", type=Path, default=None)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("flash_attention_ab: no CUDA device visible", file=sys.stderr)
@@ -62,22 +124,47 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch.configs import get_config
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import flash_attention as fa
     dev = torch.device("cuda", torch.cuda.current_device())
     card = cs.card_line()
     build.build_all()
     other = _build_other(args.other.resolve())
 
-    def old(q, k, v):
+    def old(q, k, v, causal=True, window=None, softcap=None, q_offset=None,
+            k_lengths=None):
         B, Sq, H, hd = q.shape
         out = torch.empty_like(q)
-        build.check(other(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          out.data_ptr(), B, Sq, k.shape[1], H, k.shape[2],
-                          hd, 1, 0.0, hd ** -0.5, 1, build.cuda_stream(q)),
-                    "other flash_attention")
+        ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+        r = fa.route(q.dtype, hd, all(p % 16 == 0 for p in ptrs))
+        build.check(other(*ptrs,
+                          None if q_offset is None else q_offset.data_ptr(),
+                          None if k_lengths is None
+                          else k_lengths.data_ptr(),
+                          B, Sq, k.shape[1], H, k.shape[2], hd, int(causal),
+                          window or 0, softcap or 0.0, hd ** -0.5,
+                          fa._DTYPES[q.dtype], fa._CODES[r],
+                          build.cuda_stream(q)), "other flash_attention")
         return out
 
-    def new(q, k, v):
-        return ops.flash_attention(q, k, v, causal=True)
+    cases, equal = [], 0
+    for row in CASES:
+        c = dict(zip(KEYS, row))
+        q, k, v, kw = case_inputs(c, dev)
+        a, b = old(q, k, v, **kw), ops.flash_attention(q, k, v, **kw)
+        want = ref.flash_attention_plain(q, k, v, **kw).float()
+        torch.cuda.synchronize()
+        same = torch.equal(a, b)
+        equal += same
+        c.update(route=fa.route(q.dtype, c["hd"], True), bitwise=same,
+                 sha256=digest(a),
+                 other_vs_plain=(a.float() - want).abs().max().item(),
+                 this_vs_plain=(b.float() - want).abs().max().item())
+        print(f"[ab] {row} {c['route']}: bitwise {same}; vs plain other "
+              f"{c['other_vs_plain']:.3e} this {c['this_vs_plain']:.3e}",
+              flush=True)
+        cases.append(c)
+        del q, k, v, a, b, want
+        torch.cuda.empty_cache()
 
     g = torch.Generator(device=dev).manual_seed(1)
     rows = []
@@ -89,31 +176,29 @@ def main() -> int:
         sets = [tuple(torch.randn(B, S, h, hd, generator=g, device=dev)
                       .to(torch.bfloat16) for h in (H, KH, KH))
                 for _ in range(cs.copies_for(one))]
-        a, b = old(*sets[0]), new(*sets[0])
-        want = ref.flash_attention_plain(*sets[0], causal=True).float()
-        torch.cuda.synchronize()
-        t = [cs.graph_ms(fn, sets, 50) for fn in (old, new, new, old)]
+        t = [cs.graph_ms(fn, sets, 50)
+             for fn in (old, ops.flash_attention, ops.flash_attention, old)]
         row = {"at": f"{arch}: q [{B},{S},{H},{hd}], k, v [{B},{S},{KH},"
                      f"{hd}] bf16, causal",
-               "max_abs_diff": (a.float() - b.float()).abs().max().item(),
-               "other_vs_plain": (a.float() - want).abs().max().item(),
-               "this_vs_plain": (b.float() - want).abs().max().item(),
                "other_ms": [t[0], t[3]], "this_ms": [t[1], t[2]]}
-        print(f"[ab] {row['at']}: max diff {row['max_abs_diff']:.3e} (vs "
-              f"plain: other {row['other_vs_plain']:.3e}, this "
-              f"{row['this_vs_plain']:.3e}); other {row['other_ms']} this "
+        print(f"[ab] {row['at']}: other {row['other_ms']} this "
               f"{row['this_ms']} ms", flush=True)
         rows.append(row)
-        del sets, a, b, want
+        del sets
         torch.cuda.empty_cache()
     result = {"card": card, "device": torch.cuda.get_device_name(0),
-              "other": str(args.other), "rows": rows}
-    if args.json:
-        args.json.parent.mkdir(parents=True, exist_ok=True)
-        args.json.write_text(json.dumps(result, indent=1))
+              "other": str(args.other), "bitwise": f"{equal}/{len(cases)}",
+              "cases": cases, "rows": rows}
+    for path, obj in ((args.json, result),
+                      (args.digests, {"card": card, "cases": [
+                          {k: c[k] for k in KEYS + ("route", "sha256")}
+                          for c in cases]})):
+        if path:
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(json.dumps(obj, indent=1))
     print(card)
     print(json.dumps(result))
-    return 0
+    return 0 if equal == len(cases) else 1
 
 
 if __name__ == "__main__":

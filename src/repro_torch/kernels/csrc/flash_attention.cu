@@ -34,8 +34,10 @@
 // hd S (S + 1) / 2 = 17.2 GFLOP, take 0.0174 ms at 989 TFLOP/s (bf16
 // tensor cores) and 0.257 ms at 67 TFLOP/s (fp32 on the CUDA cores).
 //
-//   * wgmma_tma (bf16, (hd, dv) (64, 64), (128, 128) or MLA's (192, 128),
-//     16-byte-aligned bases; the serve path): bound by the bytes, with the products close behind, so only
+//   * wgmma_tma (bf16, (hd, dv) (64, 64), (128, 128), MLA's (192, 128),
+//     or the gemma heads' (256, 256), (288, 288) and (320, 320), 16-byte-
+//     aligned bases; the serve path): bound by the bytes at hd 128, with
+//     the products close behind (by the products at hd 256-320), so only
 //     wgmma gets near it.  On the SM the products (at 128 x 128 tiles the
 //     causal diagonal is computed whole: 21.5 GFLOP, 0.0217 ms), the
 //     softmax's 42 M exponentials (MUFU, 16 a clock on each SM: ~0.011 ms)
@@ -47,15 +49,16 @@
 //     - a block is three warpgroups: a producer that gives its registers
 //       away (setmaxnreg) and whose one thread issues every TMA load, and
 //       two consumers, each owning 64 of the tile's 128 query rows;
-//     - TMA moves Q (double buffered: the next tile's Q lands during this
-//       one) and K, V tiles of 128 keys through 4-D tensor maps over (hd,
+//     - TMA moves Q (double buffered at hd 64 and 128: the next tile's Q
+//       lands during this one) and K, V tiles of BK keys (128 up to hd
+//       192) through 4-D tensor maps over (hd,
 //       heads, S, B) with 128-byte swizzle: an hd-128 row is two 64-column
 //       boxes; S being its own dimension, TMA zero-fills the ragged end of
 //       each sequence without touching the next batch row, and the KV
 //       head is a coordinate.  K and V have 2-stage rings of their own on
 //       mbarriers, K one tile ahead: a K stage goes back to the producer
 //       as soon as its Q K^T is done, a V stage once its P V is;
-//     - S = Q K^T is wgmma m64n128k16 with both operands K-major in shared
+//     - S = Q K^T is wgmma m64nBKk16 with both operands K-major in shared
 //       memory;
 //     - the softmax stays in registers: scale * log2(e) folded into one
 //       FMA before ex2, row max and sum over the 4 lanes that share a row,
@@ -78,26 +81,60 @@
 //     At (192, 128) two Q buffers, two K and two V stages would take 256
 //     KB: that instantiation keeps one Q buffer (208 KB), whose output
 //     store the warpgroup waits for before it hands the buffer back, so
-//     the next q-tile's Q and K / V loads start after this tile's
-//     epilogue; the (64, 64) and (128, 128) instantiations are unchanged.
+//     the next q-tile's Q loads start after this tile's epilogue (its
+//     first K stage is issued before that wait).
+//     The wide heads (a block has 227 KB; a Q buffer is 128 hd 2 bytes,
+//     a K or V stage BK hd 2) keep one Q buffer and two K and two V
+//     stages, with the key tile BK a function of the width (Smem::kBK):
+//       hd 256, BK 64: Q 64 KB + K 2 x 32 + V 2 x 32 = 192 KB;
+//       hd 320, BK 64 would be 80 + 80 + 80 = 240 KB: BK 48 is 80 + 60 +
+//       60 = 200 KB.
+//     S = Q K^T is then m64n64k16 / m64n48k16 over hd / 16 k-steps; P V
+//     (N at most 256) runs as n128 products on two-box boundaries and an
+//     n64 for a last odd box (320 = 128 + 128 + 64), so no descriptor
+//     starts inside a 128-byte swizzle atom.  Registers: ptxas holds the
+//     consumers to setmaxnreg's 232 (without it, to the launch's 168).
+//     The fp32 output accumulator is dv / 2 registers a thread (128 at 256,
+//     160 at 320), S BK / 2 and P BK / 4, so a wide warpgroup issues k-tile
+//     j - 1's P V and j's Q K^T together and runs the softmax of j after
+//     both (Smem::kIssue, fa::kJoint): S, P and O are live together only
+//     while they issue, and S not at all from its packing into P to the
+//     next Q K^T (fresh_regs).  The Q, K and V descriptors (at every
+//     width) are one opaque base each plus constant steps, else the
+//     compiler hoists the hd / 16 loop-invariant Q descriptors into
+//     registers; the wide instantiations then build with 0 spill bytes.
+//     The two warpgroups' ping-pong stays.  Every key tile is computed:
+//     skipping warpgroup 0's tiles wholly past its rows' diagonal
+//     measured no faster (a branch around a
+//     product needs a warp-uniform warpgroup index, from a shuffle, else
+//     ptxas serializes every wgmma: C7520).  hd 288 is 4.5 boxes of 64
+//     columns: it runs the 320 instantiation over maps of the true width
+//     288 (576-byte rows); TMA fills columns 288-319 of q, k and v with
+//     zeros, which add exact zeros to Q K^T and give output columns
+//     288-319 that the store's map clips.  At hd 256 a 64-key tile's Q K^T
+//     reads its A and B operands from shared memory (128 KB a block),
+//     beside the P V's V (64 KB) and the TMA writes (64 KB): 256 KB a tile
+//     against 2048 clocks of products, the shared memory's 128 bytes a
+//     clock, so the route sits near 58 % of the products' bound there.
+//     The (64, 64), (128, 128) and (192, 128) instantiations issue the
+//     same products in the same order as before, so their outputs are
+//     the same bits.
 //     Measured on an H100 80GB HBM3 at 700 W at the pt-6b-d4 shape
 //     (tools/flash_attention_variants.py, device work): ~0.047 ms whole;
 //     0.040 without the products, 0.042 without the softmax, 0.044
 //     without the store, 0.022 with the loads alone.  So the SM's chain of
 //     loads, softmax and products, not the bytes, sets the time; a third
 //     Q buffer or K stage does not shorten it.
-//   * cuda_core (fp32, other head dims up to 320, unaligned bases): bound by
-//     the fp32
-//     operations on the CUDA cores (no TF32: the fp32 reference configs
-//     keep fp32 products).  The kernel right below keeps every
+//   * cuda_core (fp32, other widths up to 320, unaligned bases): bound by
+//     the fp32 operations on the CUDA cores (no TF32: the fp32 reference
+//     configs keep fp32 products).  The kernel right below keeps every
 //     intermediate on chip:
 //     - grid (ceil(Sq/64), H, batch): a block owns 64 query rows of one
 //       head and reads K/V of KV head h / G straight from the [B, S, KH,
 //       hd] projections, which cuts the bytes of the expanded copy G-fold;
 //     - 256 threads: 4 per query row; each computes 8 of the 32 scores of
 //       a k-tile and owns hd/4 output columns of the fp32 accumulator (32
-//       registers up to hd 128, 80 up to hd 320: gemma2's 288 and
-//       gemma3's 320, two instantiations);
+//       registers up to hd 128, 80 up to hd 320, two instantiations);
 //     - the online-softmax state (m, l) stays in registers, the 64x32 tile
 //       of probabilities in shared memory; rows reduce over 4 lanes;
 //     - causal: the k loop stops at the tile's last row, ragged row and
@@ -251,15 +288,32 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 namespace fa {
 constexpr int kBQ = 128;                // query rows per tile, 64 a consumer
-constexpr int kBK = 128;                // keys per K / V stage
 constexpr int kKStages = 2;             // K ring
 constexpr int kVStages = 2;             // V ring
 constexpr int kThreads = 384;           // producer + two consumer warpgroups
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kMaxSmem = 232448;        // a block's opt-in shared memory
-// HD: the q / k width, DV: the value (and output) width
+// how a consumer warpgroup issues k-tile j's Q K^T and k-tile j - 1's P V
+// in its turn: kOverlapped (both, then the softmax of j while the P V
+// runs: S, P and O live together beside the softmax's temporaries) or
+// kJoint (both, then the softmax once both are done: S, P and O live
+// together only while they issue, S not at all between its packing into P
+// and the next Q K^T)
+constexpr int kOverlapped = 0, kJoint = 1;
+// HD: the q / k width, DV: the value (and output) width the boxes hold (a
+// tensor map may be narrower: hd 288 runs <320, 320>)
 template <int HD, int DV>
 struct Smem {
+  // keys per K / V stage: 128 up to q / k width 192; 64 at 256 and 48 at
+  // 320, where one Q buffer and two K and two V stages of 128 keys would
+  // not fit (the arithmetic is in the header)
+  static constexpr int kBK = HD <= 192 ? 128 : HD <= 256 ? 64 : 48;
+  // the dv / 2 accumulator registers, S (BK / 2) and P (BK / 4) fit the
+  // consumers' 232 with the softmax's temporaries up to width 192; at 320
+  // (160 + 24 + 12) only while they issue.  At 256 (128 + 32 + 16) both
+  // fit, and took the same time within the runs' spread
+  // (tools/flash_attention_variants.py)
+  static constexpr int kIssue = HD <= 192 ? kOverlapped : kJoint;
   static constexpr int kQ = kBQ * HD * 2;       // one Q buffer (32 KB at 128)
   static constexpr int kK = kBK * HD * 2;       // one K stage
   static constexpr int kV = kBK * DV * 2;       // one V stage
@@ -300,6 +354,44 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[32] = A (64 x 16, K-major in shared memory) * B (16 x 64, K-major in
+// shared memory) + (acc ? d : 0)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
+// d[24] = A (64 x 16, K-major in shared memory) * B (16 x 48, K-major in
+// shared memory) + (acc ? d : 0)
+__device__ __forceinline__ void wgmma_ss_n48(float (&d)[24], uint64_t da,
+                                            uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, "
+      "p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "l"(da), "l"(db), "r"(acc));
 }
 
@@ -361,11 +453,20 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[8][4]) {
+template <int K>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[K][4]) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < K; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
+
+// gives d fresh values (zeros) for a Q K^T whose first step overwrites
+// them: S is then dead, and its registers free, from its last read to here
+template <int N>
+__device__ __forceinline__ void fresh_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("mov.b32 %0, 0;\n" : "=f"(d[i]));
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -403,34 +504,64 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
 }
 
 // S = Q K^T for one warpgroup: q its 64 rows in the Q buffer (HD / 64
-// boxes of 128-byte rows, kBQ rows apart), k the stage's 128 keys (boxes
-// kBK rows apart).  The k16 step kk starts 32 (kk % 4) bytes into the rows
-// of box kk / 4.
-template <int HD>
-__device__ __forceinline__ void qk(float (&s)[64], const uint8_t* q,
+// boxes of 128-byte rows, kBQ rows apart), k the stage's BK keys (boxes BK
+// rows apart), m64nBKk16 (BK 128, 64 or 48).  The k16 step kk starts 32
+// (kk % 4) bytes into the rows of box kk / 4.
+template <int HD, int BK>
+__device__ __forceinline__ void qk(float (&s)[BK / 2], const uint8_t* q,
                                    const uint8_t* k) {
+  // one descriptor per operand, opaque to the compiler, and each step's
+  // a constant on (its address field, in 16-byte units, cannot carry
+  // below 256 KB): the HD / 16 loop-invariant Q descriptors would
+  // otherwise be hoisted out of the key loop into registers
+  uint64_t qd = sw128_desc(q), kd = sw128_desc(k);
+  asm volatile("" : "+l"(qd), "+l"(kd));
 #pragma unroll
   for (int kk = 0; kk < HD / 16; ++kk) {
     const int off = (kk / 4) * (fa::kBQ * 128) + (kk % 4) * 32;
-    const int koff = (kk / 4) * (fa::kBK * 128) + (kk % 4) * 32;
-    wgmma_ss_n128(s, sw128_desc(q + off), sw128_desc(k + koff), kk > 0);
+    const int koff = (kk / 4) * (BK * 128) + (kk % 4) * 32;
+    const uint64_t da = qd + (off >> 4), db = kd + (koff >> 4);
+    if constexpr (BK == 128)
+      wgmma_ss_n128(s, da, db, kk > 0);
+    else if constexpr (BK == 64)
+      wgmma_ss_n64(s, da, db, kk > 0);
+    else
+      wgmma_ss_n48(s, da, db, kk > 0);
   }
 }
 
+// N registers of an accumulator from register `at` on: columns 2 at ..
+// 2 (at + N) - 1 of a wider m64nN one (its registers are its n8 blocks in
+// order, 4 a block)
+template <int N, int M>
+__device__ __forceinline__ float (&cols(float (&o)[M], int at))[N] {
+  return *reinterpret_cast<float(*)[N]>(&o[at]);
+}
+
 // O += P V: the k16 step kk takes keys 16 kk .. + 15 (2 KB into each
-// box); V is MN-major, its 64-column boxes LBO = 16 KB apart, its 8-key
-// groups SBO = 1 KB apart.
-template <int DV>
+// box); V is MN-major, its 64-column boxes LBO = BK * 128 bytes apart, its
+// 8-key groups SBO = 1 KB apart.  N is at most 256, so O's columns go as
+// n128 products on two-box boundaries and, where DV % 128 is 64, an n64
+// for the last box (320 = 128 + 128 + 64): a product that started inside
+// a box would start its descriptor inside a 128-byte swizzle atom.
+template <int DV, int BK>
 __device__ __forceinline__ void pv(float (&o)[DV / 2],
-                                   const uint32_t (&p)[8][4],
+                                   const uint32_t (&p)[BK / 16][4],
                                    const uint8_t* v, int acc) {
+  // one opaque descriptor and constant steps, as qk's
+  uint64_t vd = sw128_desc(v, BK * 128, 1024);
+  asm volatile("" : "+l"(vd));
+  auto at = [&](int bytes) { return vd + (bytes >> 4); };
 #pragma unroll
-  for (int kk = 0; kk < fa::kBK / 16; ++kk) {
-    const uint64_t dv = sw128_desc(v + kk * 16 * 128, fa::kBK * 128, 1024);
-    if constexpr (DV == 128)
-      wgmma_rs_n128t(o, p[kk], dv, acc || kk > 0);
-    else
-      wgmma_rs_n64t(o, p[kk], dv, acc || kk > 0);
+  for (int kk = 0; kk < BK / 16; ++kk) {
+#pragma unroll
+    for (int c = 0; c < DV / 128; ++c)
+      wgmma_rs_n128t(cols<64>(o, 64 * c), p[kk],
+                     at(c * 2 * (BK * 128) + kk * 16 * 128), acc || kk > 0);
+    if constexpr (DV % 128 != 0)
+      wgmma_rs_n64t(cols<32>(o, DV / 2 - 32), p[kk],
+                    at((DV / 64 - 1) * (BK * 128) + kk * 16 * 128),
+                    acc || kk > 0);
   }
 }
 
@@ -441,9 +572,9 @@ __device__ __forceinline__ void pv(float (&o)[DV / 2],
 // else x = s, c2 = scale log2 e); m is the running max of x, l this
 // thread's share of the running sum; returns the factors the accumulator
 // rows are rescaled by.  `mask`: the tile crosses the diagonal, the end
-// of the keys (kl) or the start of a window.
-template <bool CAP>
-__device__ __forceinline__ float2 softmax_tile(float (&s)[64], float& m0,
+// of the keys (kl) or the start of a window.  N: BK / 2 scores.
+template <bool CAP, int N>
+__device__ __forceinline__ float2 softmax_tile(float (&s)[N], float& m0,
                                                float& m1, float& l0,
                                                float& l1, bool mask, int k0,
                                                int t4, int r0, int kl,
@@ -452,11 +583,11 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[64], float& m0,
                                                float cap) {
   if (CAP) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) s[i] = cap * tanhf(s[i] * pre);
+    for (int i = 0; i < N; ++i) s[i] = cap * tanhf(s[i] * pre);
   }
   if (mask) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) {
+    for (int i = 0; i < N; ++i) {
       const int col = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
       const int row = r0 + ((i & 2) ? 8 : 0);
       if (col >= kl || (causal && col > row) ||
@@ -466,7 +597,7 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[64], float& m0,
   }
   float x0 = -INFINITY, x1 = -INFINITY;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < N; ++i) {
     if (i & 2) x1 = fmaxf(x1, s[i]);
     else x0 = fmaxf(x0, s[i]);
   }
@@ -483,7 +614,7 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[64], float& m0,
   m1 = n1;
   float p0 = 0.f, p1 = 0.f;
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
+  for (int i = 0; i < N; ++i) {
     if (i & 2) {
       s[i] = ex2(fmaf(s[i], c2, -b1));
       p1 += s[i];
@@ -499,10 +630,11 @@ __device__ __forceinline__ float2 softmax_tile(float (&s)[64], float& m0,
 
 // the probabilities of s as wgmma's A fragments: k16 step kk is score
 // columns 16 kk .. + 15, i.e. accumulator n8 blocks 2 kk and 2 kk + 1
-__device__ __forceinline__ void pack_p(const float (&s)[64],
-                                       uint32_t (&p)[8][4]) {
+template <int K>
+__device__ __forceinline__ void pack_p(const float (&s)[8 * K],
+                                       uint32_t (&p)[K][4]) {
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk)
+  for (int kk = 0; kk < K; ++kk)
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       p[kk][e] = pack2(s[8 * kk + 2 * e], s[8 * kk + 2 * e + 1]);
@@ -519,7 +651,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                              int Sk, int H, int KH, int causal, int window,
                              float c2, float pre, float cap) {
   using SM = fa::Smem<HD, DV>;
-  constexpr int BQ = fa::kBQ, BK = fa::kBK;
+  constexpr int BQ = fa::kBQ, BK = SM::kBK;
   constexpr int QS = SM::kQBufs, KS = fa::kKStages, VS = fa::kVStages;
   constexpr int NB = HD / 64;           // 64-column boxes per q / k row
   constexpr int NV = DV / 64;           // per v / output row
@@ -603,13 +735,17 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
         int q0, h, b, n, j0, qo, kl;
         decode(t, q0, h, b, n, j0, qo, kl);
         const int qb = i % QS;
+        // one Q buffer: it is free only once the previous q-tile's output
+        // store has read it, so this tile's first K stage goes first
+        constexpr int early = QS == 1 ? 1 : 0;
+        if (early) load_k(u, j0, h / G, b);
         mbar_wait(&q_empty[qb], ((i / QS) & 1) ^ 1);
         mbar_expect_tx(&q_full[qb], SM::kQ);
         for (int x = 0; x < NB; ++x)
           tma_load_4d(qs + qb * SM::kQ + x * (BQ * 128), &qmap, &q_full[qb],
                       64 * x, h, q0, b);
         for (int j = 0; j < n; ++j) {
-          load_k(u + j, j0 + j, h / G, b);
+          if (j >= early) load_k(u + j, j0 + j, h / G, b);
           if (j > 0) load_v(u + j - 1, j0 + j - 1, h / G, b);
         }
         load_v(u + n - 1, j0 + n - 1, h / G, b);
@@ -626,9 +762,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const int g = lane >> 2, t4 = lane & 3;
   const int rl = 16 * wq + g;           // this thread's rows rl, rl + 8 of 64
   const bool leader = (ct & 127) == 0;  // issues the warpgroup's stores
-  float s[64];                          // scores, then probabilities
+  float s[BK / 2];                      // scores, then probabilities
   float o[DV / 2];                      // each tile's first P V overwrites
-  uint32_t p[8][4];                     // P as wgmma A fragments
+  uint32_t p[BK / 16][4];               // P as wgmma A fragments
   int u = 0, i = 0;                     // K / V tiles, q-tiles so far
   int pend = -1;                        // Q buffer a store still reads
   if (cw == 1) turn_pass(cw);           // warpgroup 0 issues first
@@ -648,10 +784,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
     // k-tile 0: S, its softmax, P
     mbar_wait(&k_full[u % KS], (u / KS) & 1);
-    fence_regs(s);
+    if constexpr (SM::kIssue == fa::kOverlapped)
+      fence_regs(s);
+    else
+      fresh_regs(s);
     turn_wait(cw);
     wgmma_fence();
-    qk<HD>(s, qh, ks + (u % KS) * SM::kK);
+    qk<HD, BK>(s, qh, ks + (u % KS) * SM::kK);
     wgmma_commit();
     turn_pass(cw);
     if (leader && pend >= 0) {
@@ -667,33 +806,50 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                       kl, causal, window, c2, pre, cap);
     pack_p(s, p);
 
-    // k-tile j: its Q K^T and k-tile j - 1's P V issued together; the
-    // softmax of j runs while the P V does
+    // k-tile j: its Q K^T and k-tile j - 1's P V in one turn, as
+    // SM::kIssue says; o takes the same products in the same order
     for (int j = 1; j < n; ++j) {
       const int uk = u + j, uv = u + j - 1;
       mbar_wait(&k_full[uk % KS], (uk / KS) & 1);
       mbar_wait(&v_full[uv % VS], (uv / VS) & 1);
-      fence_regs(s);
+      if constexpr (SM::kIssue == fa::kOverlapped)
+        fence_regs(s);
+      else
+        fresh_regs(s);
       fence_regs(o);
       fence_regs(p);
       turn_wait(cw);
       wgmma_fence();
-      qk<HD>(s, qh, ks + (uk % KS) * SM::kK);
-      wgmma_commit();
-      pv<DV>(o, p, vs + (uv % VS) * SM::kV, j > 1);
-      wgmma_commit();
-      turn_pass(cw);
-      wgmma_wait<1>();
+      if constexpr (SM::kIssue == fa::kOverlapped) {
+        qk<HD, BK>(s, qh, ks + (uk % KS) * SM::kK);
+        wgmma_commit();
+        pv<DV, BK>(o, p, vs + (uv % VS) * SM::kV, j > 1);
+        wgmma_commit();
+        turn_pass(cw);
+        wgmma_wait<1>();
+      } else {
+        pv<DV, BK>(o, p, vs + (uv % VS) * SM::kV, j > 1);
+        wgmma_commit();
+        qk<HD, BK>(s, qh, ks + (uk % KS) * SM::kK);
+        wgmma_commit();
+        turn_pass(cw);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(p);
+        if (lane == 0) mbar_arrive(&v_empty[uv % VS]);
+      }
       fence_regs(s);
       if (lane == 0) mbar_arrive(&k_empty[uk % KS]);
       const int k0 = (j0 + j) * BK;
       const float2 a = softmax_tile<CAP>(s, m0, m1, l0, l1, needs_mask(k0),
                                          k0, t4, r0, kl, causal, window, c2,
                                          pre, cap);
-      wgmma_wait<0>();
-      fence_regs(o);
-      fence_regs(p);
-      if (lane == 0) mbar_arrive(&v_empty[uv % VS]);
+      if constexpr (SM::kIssue == fa::kOverlapped) {
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(p);
+        if (lane == 0) mbar_arrive(&v_empty[uv % VS]);
+      }
 #pragma unroll
       for (int c = 0; c < DV / 2; ++c) o[c] *= (c & 2) ? a.y : a.x;
       pack_p(s, p);
@@ -707,7 +863,7 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       fence_regs(p);
       turn_wait(cw);
       wgmma_fence();
-      pv<DV>(o, p, vs + (uv % VS) * SM::kV, n > 1);
+      pv<DV, BK>(o, p, vs + (uv % VS) * SM::kV, n > 1);
       wgmma_commit();
       // after the block's last issue no turn of warpgroup 0's is left to
       // meet warpgroup 1's pass
@@ -755,11 +911,14 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   if (leader) asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
+// hd, dv: the tensors' widths, at most HD, DV (hd 288 on <320, 320>: TMA
+// reads zeros past column 288 of q, k and v, which add exact zeros to Q K^T
+// and give output columns that the store clips)
 template <int HD, int DV, bool CAP>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
                  const int* q_off, const int* k_len, int B, int Sq, int Sk,
-                 int H, int KH, int causal, int window, float softcap,
-                 float scale, cudaStream_t s) {
+                 int H, int KH, int hd, int dv, int causal, int window,
+                 float softcap, float scale, cudaStream_t s) {
   using SM = fa::Smem<HD, DV>;
   const CUtensorMapDataType bf = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   // (width, heads, S, B), innermost first; boxes of 64 columns of one head
@@ -774,8 +933,8 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
     return tensor_map(m, bf, 4, base, dims, strides, box);
   };
   CUtensorMap qm, km, vm, om;
-  if (!map(&qm, q, HD, H, Sq, fa::kBQ) || !map(&km, k, HD, KH, Sk, fa::kBK) ||
-      !map(&vm, v, DV, KH, Sk, fa::kBK) || !map(&om, out, DV, H, Sq, 64))
+  if (!map(&qm, q, hd, H, Sq, fa::kBQ) || !map(&km, k, hd, KH, Sk, SM::kBK) ||
+      !map(&vm, v, dv, KH, Sk, SM::kBK) || !map(&om, out, dv, H, Sq, 64))
     return (int)cudaErrorInvalidValue;
   static int sms = 0;                   // once per instantiation
   if (sms == 0) {
@@ -804,15 +963,16 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
 template <int HD, int DV>
 int dispatch_wgmma(const void* q, const void* k, const void* v, void* out,
                    const int* q_off, const int* k_len, int B, int Sq, int Sk,
-                   int H, int KH, int causal, int window, float softcap,
-                   float scale, cudaStream_t s) {
+                   int H, int KH, int hd, int dv, int causal, int window,
+                   float softcap, float scale, cudaStream_t s) {
   static_assert(fa::Smem<HD, DV>::kBytes <= fa::kMaxSmem, "shared memory");
   if (softcap > 0.f)
     return launch_wgmma<HD, DV, true>(q, k, v, out, q_off, k_len, B, Sq, Sk,
-                                      H, KH, causal, window, softcap, scale,
-                                      s);
+                                      H, KH, hd, dv, causal, window, softcap,
+                                      scale, s);
   return launch_wgmma<HD, DV, false>(q, k, v, out, q_off, k_len, B, Sq, Sk, H,
-                                     KH, causal, window, softcap, scale, s);
+                                     KH, hd, dv, causal, window, softcap,
+                                     scale, s);
 }
 
 template <typename T, int DPT>
@@ -874,13 +1034,23 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       return (int)cudaErrorInvalidValue;
     if (hd == 128 && dv == 128)
       return dispatch_wgmma<128, 128>(q, k, v, out, qo, kl, B, Sq, Sk, H, KH,
-                                      causal, window, softcap, scale, s);
+                                      hd, dv, causal, window, softcap, scale,
+                                      s);
     if (hd == 64 && dv == 64)
       return dispatch_wgmma<64, 64>(q, k, v, out, qo, kl, B, Sq, Sk, H, KH,
-                                    causal, window, softcap, scale, s);
+                                    hd, dv, causal, window, softcap, scale, s);
     if (hd == 192 && dv == 128)
       return dispatch_wgmma<192, 128>(q, k, v, out, qo, kl, B, Sq, Sk, H, KH,
-                                      causal, window, softcap, scale, s);
+                                      hd, dv, causal, window, softcap, scale,
+                                      s);
+    if (hd == 256 && dv == 256)
+      return dispatch_wgmma<256, 256>(q, k, v, out, qo, kl, B, Sq, Sk, H, KH,
+                                      hd, dv, causal, window, softcap, scale,
+                                      s);
+    if ((hd == 288 || hd == 320) && dv == hd)
+      return dispatch_wgmma<320, 320>(q, k, v, out, qo, kl, B, Sq, Sk, H, KH,
+                                      hd, dv, causal, window, softcap, scale,
+                                      s);
     return (int)cudaErrorInvalidValue;
   }
   if (route != 1) return (int)cudaErrorInvalidValue;

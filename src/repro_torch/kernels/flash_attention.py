@@ -7,15 +7,16 @@ there.  Unlike the Pallas kernel it takes K/V with their KV heads
 un-expanded ([B, S, KH, hd]) and maps query head h to KV head h // G
 itself, so no G-fold copy of K/V is written or read.  ``route`` picks
 the kernel's route from dtype, head dims and alignment, on the host:
-bf16 with head dim 64 or 128 and 16-byte-aligned bases (the serving
-path), or MLA's q/k width 192 with value width 128, runs ``wgmma_tma``
-(wgmma fed by TMA, warp-specialised); fp32, other head dims and
-unaligned bases run ``cuda_core``, a CUDA-core kernel of the same
-contract.  V may be narrower than q and k (``dv <= hd``, as the Pallas
-kernel allows for MLA); the output takes V's width.  The wrapper counts
-each launch under its route in ``flash_attention.routes``.  ``flash_attention_plain`` is the same
-function in plain PyTorch: the wrapper runs it for CPU tensors, and the
-on-card check holds the kernel against it.
+bf16 with 16-byte-aligned bases at head dim 64, 128, 256, 288 or 320
+(value width as wide; the serving path and the gemma heads) or at
+MLA's q/k width 192 with value width 128 runs ``wgmma_tma`` (wgmma fed
+by TMA, warp-specialised); fp32, other widths and unaligned bases run
+``cuda_core``, a CUDA-core kernel of the same contract.  V may be
+narrower than q and k (``dv <= hd``, as the Pallas kernel allows for
+MLA); the output takes V's width.  The wrapper counts each launch under
+its route in ``flash_attention.routes``.  ``flash_attention_plain`` is
+the same function in plain PyTorch: the wrapper runs it for CPU
+tensors, and the on-card check holds the kernel against it.
 
 Causal masking follows the Pallas kernel: query row i sees key columns
 j <= i (rows and columns both counted from 0).  Beyond the Pallas
@@ -45,8 +46,10 @@ _CODES = {r: i for i, r in enumerate(ROUTES)}
 MAX_HD = 320                    # the cuda_core route's widest head
 
 
-# (q/k width, value width) pairs the wgmma_tma route is built for
-WGMMA_WIDTHS = ((64, 64), (128, 128), (192, 128))
+# (q/k width, value width) pairs the wgmma_tma route is built for (288
+# runs the 320 instantiation over maps 288 wide)
+WGMMA_WIDTHS = ((64, 64), (128, 128), (192, 128), (256, 256), (288, 288),
+                (320, 320))
 
 
 def route(dtype: torch.dtype, hd: int, aligned: bool,
@@ -54,8 +57,9 @@ def route(dtype: torch.dtype, hd: int, aligned: bool,
     """The kernel route for q of ``dtype``, q/k head dim ``hd`` and value
     width ``dv`` (default ``hd``); ``aligned``: q, k, v and the output
     start on 16-byte boundaries.  TMA needs 16-byte bases and row
-    strides and wgmma tiles of 64 columns: bf16 at (hd, dv) (64, 64),
-    (128, 128) or MLA's (192, 128).  Everything else takes the CUDA-core
+    strides, and the kernel is built for the widths of ``WGMMA_WIDTHS``:
+    bf16 at (hd, dv) (64, 64), (128, 128), MLA's (192, 128), (256, 256),
+    (288, 288) or (320, 320).  Everything else takes the CUDA-core
     kernel."""
     if dtype not in _DTYPES:
         raise ValueError(f"unsupported dtype {dtype}")

@@ -13,9 +13,10 @@ their ticket counters back at zero, one device kernel per call, and
 bitwise equal across every sweep bound from 64 to the capacity that
 covers the same live tokens (the split size follows the capacity).  The
 sampler's threefry keys and bits on the card bitwise the CPU's.  Flash
-prefill on each route (wgmma + TMA for bf16 at hd 64 / 128, the CUDA
-cores otherwise) at the serve layouts and ragged S, Sq != Sk, an
-unaligned view, bitwise repeatable, one device kernel per call.  RMSNorm
+prefill on each route (wgmma + TMA for bf16 at hd 64 / 128 / 256 / 288 /
+320 and MLA's 192 / 128, the CUDA cores otherwise) at the serve layouts
+and ragged S, Sq != Sk, an unaligned view, bitwise repeatable, one
+device kernel per call.  RMSNorm
 on each route (``norm``, ``add_norm``, ``fuse_norm``; a fused row
 broadcast to the tracks among the inputs), bitwise repeatable; a track
 rank's ``fuse_norm`` (no delta, k < n scale rows) bitwise the full
@@ -44,9 +45,12 @@ the fault-free streams, sync and with planned programs, and a
 synchronous fault that frees its staging slot with the recompute's K/V
 bytes the clean run's.
 Flash's per-row offsets, windows and head dims 288 / 320, the offset
-route's rows bitwise a whole-prompt call's, the decode template's
-softcap and wide heads, and a bf16 warm prefix hit bitwise the cold run
-(``-k "offset or wide or warm_prefix"``).
+route's rows bitwise a whole-prompt call's (hd 288 and 320 too), the
+wide heads (256 / 288 / 320) on wgmma + TMA at the three gemma models'
+layouts against the plain version, hd 288's clipped store leaving a
+guard band past the output untouched, the decode template's softcap and
+wide heads, and a bf16 warm prefix hit bitwise the cold run (``-k
+"offset or wide or warm_prefix"``).
 Flash at a value width below the q/k width (MLA's 192 / 128 on the
 wgmma route; the CUDA cores otherwise) against the plain version, every
 launch at equal widths bitwise the parent checkout's (the digests
@@ -297,7 +301,8 @@ def test_flash_attention_offsets_and_windows_match_plain(B, Sq, Sk, H, KH,
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("hd,dtype", [(128, "bfloat16"), (64, "float32"),
-                                      (320, "bfloat16")])
+                                      (320, "bfloat16"), (288, "bfloat16"),
+                                      (256, "bfloat16")])
 @pytest.mark.parametrize("window", [None, 100])
 def test_flash_offset_rows_bitwise_the_whole_prompt_call(hd, dtype, window):
     """The warm-equals-cold property at the kernel: a tail of rows at
@@ -319,6 +324,99 @@ def test_flash_offset_rows_bitwise_the_whole_prompt_call(hd, dtype, window):
     torch.cuda.synchronize()
     for b, o in enumerate(offs):
         assert torch.equal(warm[b], cold[b, o:o + C]), (b, o)
+
+
+# (B, S, H, KH, hd): recurrentgemma-9b's attention (16 query heads on 1 KV
+# head, hd 256), gemma3-4b's (8 on 4, hd 320) and gemma2-2b's (8 on 4, hd
+# 288) at small B, S not a multiple of the key tile (64 at hd 256, 48 at
+# 288 and 320) nor of the 128-row query tile
+_WIDE_SHAPES = [(1, 700, 16, 1, 256), (2, 130, 16, 1, 256),
+                (1, 700, 8, 4, 320), (2, 130, 8, 4, 320),
+                (2, 130, 8, 4, 288), (1, 700, 8, 4, 288)]
+# the largest of each output row's error norm over the plain row's norm
+# (chip_smoke.row_rel_err, its limit FLASH_ROW_REL_TOL): it holds each row
+# to its own size, where the late rows of a long prompt are ~0.03 and 2e-2
+# absolute is most of them.  The kernel reads ~3.5e-3 on an H100, a key
+# tile skipped ~0.7 (tools/flash_attention_variants.py, drop_tile)
+_ROW_REL_TOL = 1e-2
+
+
+def _row_rel_err(out, want):
+    o, w = out.float(), want.float()
+    return ((o - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)
+            ).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,H,KH,hd", _WIDE_SHAPES)
+def test_flash_attention_wide_heads_on_wgmma_match_plain(B, S, H, KH, hd):
+    """bf16 at the gemma models' head dims on the wgmma + TMA route:
+    causal, full, a window shorter than the prompt, softcaps (50, as
+    gemma2's; 5 to bend the scores) and per-row offsets with ragged key
+    lengths (a tail over a longer key buffer), each against the plain
+    version within 2e-2 and within _ROW_REL_TOL of each row's size."""
+    from repro_torch.kernels import flash_attention as fa
+    dev = _cuda()
+    assert fa.route(torch.bfloat16, hd, True) == "wgmma_tma"
+    Sk = S + 70
+    q, k, v = _flash_inputs(dev, "bfloat16", B, S, Sk, H, KH, hd, seed=hd)
+    kS, vS = k[:, :S].contiguous(), v[:, :S].contiguous()
+    off = torch.tensor([70, 0][:B], dtype=torch.int32, device=dev)
+    kl = torch.tensor([Sk, S - 9][:B], dtype=torch.int32, device=dev)
+    rows = {"q_offset": off, "k_lengths": kl}
+    for kk, vv, kw in ((kS, vS, {"causal": True}),
+                       (kS, vS, {"causal": False}),
+                       (kS, vS, {"causal": True, "window": 100}),
+                       (kS, vS, {"causal": True, "softcap": 50.0}),
+                       (kS, vS, {"causal": False, "softcap": 5.0}),
+                       (k, v, dict(causal=True, **rows)),
+                       (k, v, dict(causal=True, window=77, softcap=5.0,
+                                   **rows))):
+        out, r = _flash_routed(q, kk, vv, **kw)
+        assert r == "wgmma_tma", kw
+        want = ref.flash_attention_plain(q, kk, vv, **kw)
+        torch.testing.assert_close(out, want, rtol=2e-2, atol=2e-2,
+                                   msg=lambda m: f"{kw}: {m}")
+        assert _row_rel_err(out, want) <= _ROW_REL_TOL, kw
+
+
+@pytest.mark.gpu
+def test_flash_hd288_store_leaves_the_guard_band():
+    """hd 288 runs the 320-wide instantiation: TMA loads 5 boxes of 64
+    columns (zeros past 288) and the output map's bounds, 288 columns,
+    are what clip the last box's store.  The output written into the
+    front of a larger buffer leaves the guard band after it untouched
+    (nothing else writes there, so a store past column 288 of the last
+    row's last head would show whatever the order of the stores), and
+    every head's 288 columns equal the plain version's.  A store past
+    column 288 of another row lands on the next head's first columns,
+    which that head's own store may write again afterwards: those
+    columns alone do not show it."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as fa
+    dev = _cuda()
+    B, S, H, KH, hd = 2, 200, 8, 4, 288
+    q, k, v = _flash_inputs(dev, "bfloat16", B, S, S, H, KH, hd, seed=9)
+    n, guard = B * S * H * hd, 4096
+    buf = torch.full((n + guard,), float("nan"), dtype=torch.bfloat16,
+                     device=dev)
+    sentinel = buf[n:].clone()
+    out = buf[:n].view(B, S, H, hd)
+    for causal, softcap in ((True, None), (False, 50.0)):
+        err = fa._launcher()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+            None, B, S, S, H, KH, hd, hd, int(causal), 0,
+            0.0 if softcap is None else softcap, hd ** -0.5,
+            fa._DTYPES[torch.bfloat16], fa._CODES["wgmma_tma"],
+            build.cuda_stream(q))
+        build.check(err, "flash_attention (wgmma_tma, hd 288)")
+        torch.cuda.synchronize()
+        assert torch.equal(buf[n:].view(torch.int16),
+                           sentinel.view(torch.int16))
+        torch.testing.assert_close(
+            out, ref.flash_attention_plain(q, k, v, causal=causal,
+                                           softcap=softcap),
+            rtol=2e-2, atol=2e-2)
 
 
 # (B, Sq, Sk, H, KH, hd, dv, dtype): MLA's widths on the wgmma route (bf16,
@@ -369,8 +467,11 @@ _DIGESTS = Path(__file__).with_name("flash_dv_eq_hd_digests.json")
 def test_flash_dv_eq_hd_launches_bitwise_the_parent():
     """Every case of ``tools/flash_attention_ab.py`` (value width = q / k
     width: the serve layouts, offsets, windows, softcaps, fp32, hd 64 to
-    320, both routes) gives the bytes the parent checkout's kernel gave
-    on the same seeded inputs (their sha256, recorded by that tool)."""
+    320, both routes) takes its recorded route and gives the recorded
+    bytes on the same seeded inputs (their sha256, recorded by that
+    tool): the parent checkout's bytes for every case whose route it
+    kept, the wgmma route's own for bf16 at hd 256 / 288 / 320, which
+    moved there from the CUDA cores."""
     sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
     from flash_attention_ab import case_inputs, digest
     from repro_torch.kernels import flash_attention as fa
@@ -1771,15 +1872,17 @@ def test_decode_at_16_heads_a_kv_head_matches_plain_and_its_groups(
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_at_recurrentgemma_heads_matches_plain(S, window,
                                                                dtype):
-    """Flash prefill at recurrentgemma's attention layers: hd 256 on the
-    CUDA cores, 16 query heads on 1 KV head, causal with its 2048-token
-    window (the whole prompt) and a window shorter than the prompt."""
+    """Flash prefill at recurrentgemma's attention layers: hd 256 (bf16 on
+    wgmma + TMA, fp32 on the CUDA cores), 16 query heads on 1 KV head,
+    causal with its 2048-token window (the whole prompt) and a window
+    shorter than the prompt."""
     from repro_torch.kernels import flash_attention as fa
     dev, tol = _cuda(), _TOL[dtype]
     q, k, v = _flash_inputs(dev, dtype, 1, S, S, 16, 1, 256)
-    assert fa.route(_TDT[dtype], 256, True) == "cuda_core"
+    want = "wgmma_tma" if dtype == "bfloat16" else "cuda_core"
+    assert fa.route(_TDT[dtype], 256, True) == want
     out, r = _flash_routed(q, k, v, causal=True, window=window)
-    assert r == "cuda_core"
+    assert r == want
     torch.testing.assert_close(
         out, ref.flash_attention_plain(q, k, v, causal=True, window=window),
         rtol=tol, atol=tol)

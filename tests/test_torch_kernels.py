@@ -408,9 +408,9 @@ def test_int8_matmul_route_refuses_other_dtypes():
         qm.route(8, 16, 16, torch.float16, True)
 
 
-# (dtype, hd, aligned[, dv]) -> the flash route: bf16 at hd 64 / 128 (v
-# as wide) or MLA's q/k 192 with v 128, 16-byte bases, on wgmma + TMA,
-# everything else on the CUDA cores
+# (dtype, hd, aligned[, dv]) -> the flash route: bf16 at hd 64 / 128 /
+# 256 / 288 / 320 (v as wide) or MLA's q/k 192 with v 128, 16-byte bases,
+# on wgmma + TMA, everything else on the CUDA cores
 _FLASH_ROUTES = [(("bfloat16", 128, True), "wgmma_tma"),
                  (("bfloat16", 64, True), "wgmma_tma"),
                  (("bfloat16", 128, False), "cuda_core"),
@@ -422,7 +422,16 @@ _FLASH_ROUTES = [(("bfloat16", 128, True), "wgmma_tma"),
                  (("bfloat16", 192, True), "cuda_core"),
                  (("bfloat16", 192, False, 128), "cuda_core"),
                  (("float32", 192, True, 128), "cuda_core"),
-                 (("bfloat16", 128, True, 64), "cuda_core")]
+                 (("bfloat16", 128, True, 64), "cuda_core"),
+                 (("bfloat16", 256, True), "wgmma_tma"),
+                 (("bfloat16", 288, True), "wgmma_tma"),
+                 (("bfloat16", 320, True), "wgmma_tma"),
+                 (("bfloat16", 256, False), "cuda_core"),
+                 (("bfloat16", 288, False), "cuda_core"),
+                 (("bfloat16", 320, False), "cuda_core"),
+                 (("float32", 320, True), "cuda_core"),
+                 (("bfloat16", 224, True), "cuda_core"),
+                 (("bfloat16", 320, True, 256), "cuda_core")]
 
 
 @pytest.mark.parametrize("args,want", _FLASH_ROUTES)

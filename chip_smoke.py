@@ -19,8 +19,14 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      the route it took (which must be the one ``route`` names); RMSNorm
      by route (``norm``, ``add_norm``, ``fuse_norm``) at the pt-6b-d4 and
      dense-6b decode and prefill shapes (``check_rmsnorm``), each beside
-     a yardstick of PyTorch calls; ``ssm_scan`` at the falcon-mamba
-     chunk shape, then at ragged S, d_state 1, bf16 inputs and an odd
+     a yardstick of PyTorch calls; ``ssm_scan``'s selective route
+     (``check_selective_scan``: the Mamba mixer's discretisation, chunk
+     mask, recurrence and C contraction fused) at the falcon-mamba chunk
+     (dt, x [8, 256, 8192], d_state 16), h_last gated bitwise the unfused
+     route's (a, b, h in device memory, the scan route, the einsum) and
+     y within 1e-5, then at ragged lens and d_state 4 / 1 / 5; its scan
+     route at the falcon-mamba chunk shape (which no serve path launches
+     any more), then at ragged S, d_state 1, bf16 inputs and an odd
      feature count; ``decode_attention`` (the contiguous cache) at the
      dense-6b decode shape, bf16 and int8, and at the speculative runs'
      drafter shape (4 tracks x 8 slots folded: q [32, 4, 128], cache
@@ -81,8 +87,10 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      decode route and the heads on its fp32 decode-row route; then
      falcon-mamba-7b at full width and depth, bf16, the same workload
      with chunked prefill of 256 tokens, whose launch counts must equal
-     64 ``ssm_scan`` per chunk call, 65 ``rmsnorm`` per forward and no
-     attention kernel; then
+     64 ``ssm_scan`` per chunk call, every one on the selective route,
+     65 ``rmsnorm`` per forward and no attention kernel (TTFT, TPOT, the
+     admission step's device busy time and peak memory in the
+     ``[falcon] summary`` line); then
      dense-6b at full width and depth, bf16, the same workload, on the
      paged cache and then on the contiguous cache, whose launch counts
      must equal 32 ``flash_attention`` per prefill call (every one on
@@ -221,8 +229,10 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      sync.
  12. qwen2-vl-72b at 16 of its 80 layers (sync, planned, its embeddings
      arm) and recurrentgemma-9b at full depth (sync, planned, chunk 512)
-     (``serve_phase12``; its phase-3 rows ``check_slice16_kernels``, its
-     phase-4 parity ``check_slice16_parity``).
+     (``serve_phase12``; its phase-3 rows ``check_slice16_kernels``, the
+     scan route at its prefill and chunk among them, its phase-4 parity
+     ``check_slice16_parity``); every ``ssm_scan`` launch of phases
+     11-13 on the scan route (gated).
  13. deepseek-v2-236b at 8 of its 60 layers and deepseek-v3-671b at 5 of
      its 61 (``ds_config``: the dense prefix, then MoE layers; widths,
      heads, experts, top-k, ranks and vocabulary as published), bf16,
@@ -522,7 +532,7 @@ def check_kernels(dev: torch.device):
     torch.cuda.empty_cache()
     rows += check_int8_kernels(dev, g)
     torch.cuda.empty_cache()
-    rows.append(check_ssm_scan(dev, g))
+    rows.append(check_selective_scan(dev, g))
     torch.cuda.empty_cache()
     rows += check_decode_attention(dev, g)
     torch.cuda.empty_cache()
@@ -940,13 +950,141 @@ def check_rmsnorm(dev: torch.device, g: torch.Generator):
     return main
 
 
+SCAN_TOL = 1e-5    # y of the selective route against the unfused einsum
+                   # (rtol and atol): the d_state sum runs in another order
+
+
+def ulp_distance(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The largest distance in units of the last place between two fp32
+    tensors of one shape (0: bitwise equal; both signs counted through
+    the ordered integer images)."""
+    def ordered(t):
+        i = t.float().contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((ordered(a) - ordered(b)).abs().max().item()) if a.numel() \
+        else 0
+
+
+def selective_inputs(dev, g, B: int, S: int, di: int, ds: int, dtr: int):
+    """Inputs of the selective route as the Mamba mixer makes them: dt =
+    softplus(N(0, 1) / 2 + softplus^-1(1)) [B, S, di]; x N(0, 1); A =
+    -(1 .. ds) (the init's -exp(A_log)); Bt, Ct [B, S, ds] as the
+    column views of one x_dbl [B, S, dtr + 2 ds] N(0, 1) / 2; h0 N(0, 1)
+    [B, di, ds]; all fp32."""
+    F = torch.nn.functional
+    dt = F.softplus(torch.randn(B, S, di, generator=g, device=dev) / 2
+                    + math.log(math.e - 1))
+    x = torch.randn(B, S, di, generator=g, device=dev)
+    A = -torch.arange(1, ds + 1, dtype=torch.float32,
+                      device=dev).expand(di, ds).contiguous()
+    x_dbl = torch.randn(B, S, dtr + 2 * ds, generator=g, device=dev) / 2
+    h0 = torch.randn(B, di, ds, generator=g, device=dev)
+    return dt, x, A, x_dbl[..., dtr:dtr + ds], x_dbl[..., dtr + ds:], h0
+
+
+def check_selective_scan(dev: torch.device, g: torch.Generator):
+    """Phase 3 for the falcon-mamba path: the scan's selective route
+    (``selective_scan``: discretisation, chunk mask, recurrence and the C
+    contraction fused; one launch per layer per chunk call) at the serve
+    run's chunk (dt, x [8, 256, 8192] fp32, d_state 16, Bt / Ct views of
+    x_dbl, nonzero h0, every row 256 valid), against its plain version
+    (the unfused composition with the plain step loop; y within
+    SCAN_TOL) and the unfused route on the card (the same composition on
+    the scan route): h_last must be bitwise both, y within SCAN_TOL; then
+    ragged lens (a row of 0, rows cut mid-chunk), d_state 4 (the reduced
+    config), 1 and 5, checked alike.  Timed as device work (a CUDA graph)
+    beside its eager loop, the unfused route's and the plain version's
+    times; bound by bytes (dt, x, A, B, C, h0 in, y and h_last out) or by
+    fp32 operations (7 a state update + 1 a (row, step, feature)),
+    whichever is larger."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.ssm import dt_rank_of
+    cfg = get_config(FM_ARCH)
+    s = cfg.ssm
+    di, ds, dtr = s.d_inner, s.d_state, dt_rank_of(cfg)
+    B, S = FM_SLOTS, FM_CHUNK
+    dt, x, A, Bt, Ct, h0 = selective_inputs(dev, g, B, S, di, ds, dtr)
+    lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+    args = (dt, x, A, Bt, Ct, h0, lens)
+    routes0 = dict(ops.ssm_scan.routes)
+    y, hl = ops.selective_scan(*args)
+    torch.cuda.synchronize()
+    took = {r: n - routes0[r] for r, n in ops.ssm_scan.routes.items()}
+    if took != {"scan": 0, "selective": 1}:
+        raise SystemExit(f"[kernel] selective_scan took routes {took}")
+    ry, rhl = ref.selective_scan_plain(*args)
+    uy, uhl = ref.selective_scan_plain(*args, scan=ops.ssm_scan)
+    bitwise = torch.equal(hl, rhl) and torch.equal(hl, uhl)
+    ulp = max(ulp_distance(hl, rhl), ulp_distance(hl, uhl))
+    y_err = _agree("selective_scan y vs the unfused route", y, uy, SCAN_TOL)
+    del uy, rhl, uhl
+    torch.cuda.empty_cache()
+    t = graph_ms(ops.selective_scan, [args], 20)
+    eager = time_ms(ops.selective_scan, [args], 20)
+    unfused = time_ms(lambda *a: ref.selective_scan_plain(
+        *a, scan=ops.ssm_scan), [args], 2)
+    p_ms = time_ms(ref.selective_scan_plain, [args], 1)
+    bc_bytes = 2 * B * S * ds * 4                   # the B and C values read
+    row = _report("ssm_scan", "cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu",
+                  "src/repro/kernels/ssm_scan.py:47", y, ry, t, p_ms, None,
+                  nbytes(dt, x, A, h0, lens, y, hl) + bc_bytes,
+                  7.0 * B * S * di * ds + B * S * di, FP32_FLOP_S,
+                  tol=SCAN_TOL)
+    row.update(kernel_route="selective", run="falcon",
+               at=f"{FM_ARCH} chunk: dt, x [{B},{S},{di}] fp32, d_state "
+                  f"{ds}, Bt / Ct views of x_dbl [{B},{S},{dtr + 2 * ds}], "
+                  f"h0 [{B},{di},{ds}], lens {S}",
+               eager_ms=eager, unfused_ms=unfused,
+               h_last_bitwise=bitwise, h_last_max_ulp=ulp,
+               y_vs_unfused_max_abs_err=y_err,
+               bound_share=row["bound_ms"] / t,
+               library_ms_why="no single PyTorch call computes a linear "
+                              "recurrence over the sequence axis",
+               timing="ms: device work (CUDA graph replay); eager_ms, "
+                      "unfused_ms and plain_ms: CUDA events over eager "
+                      "loops")
+    log(f"[kernel]   ssm_scan selective at {row['at']}: "
+        f"{100 * row['bound_share']:.1f} % of its bound; eager loop "
+        f"{eager:.4f} ms; the unfused route (a, b, h in device memory, the "
+        f"scan route, the einsum) {unfused:.4f} ms; h_last bitwise the "
+        f"plain and the unfused route's: {bitwise} (max {ulp} ulp); y vs "
+        f"the unfused route max |diff| {y_err:.3e} (tol {SCAN_TOL})")
+    if not bitwise:
+        raise SystemExit(f"[kernel] selective_scan h_last differs from the "
+                         f"unfused route's by up to {ulp} ulp")
+    del args, dt, x, A, Bt, Ct, h0, y, hl, ry
+    torch.cuda.empty_cache()
+    for B, S, di, ds, lens in ((3, 37, 300, s.d_state, [37, 20, 0]),
+                               (2, 70, 128, 4, [64, 70]),
+                               (2, 33, 96, 1, None),
+                               (3, 19, 40, 5, [1, 19, 7])):
+        dt, x, A, Bt, Ct, h0 = selective_inputs(dev, g, B, S, di, ds, 8)
+        ln = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                    device=dev)
+        y, hl = ops.selective_scan(dt, x, A, Bt, Ct, h0, ln)
+        uy, uhl = ref.selective_scan_plain(dt, x, A, Bt, Ct, h0, ln,
+                                           scan=ops.ssm_scan)
+        err = _agree("selective_scan y", y, uy, SCAN_TOL)
+        same = torch.equal(hl, uhl)
+        log(f"[kernel]   ssm_scan selective at dt [{B},{S},{di}], d_state "
+            f"{ds}, lens {lens}: y max_abs_err {err:.3e} (tol {SCAN_TOL}); "
+            f"h_last bitwise {same} ({ulp_distance(hl, uhl)} ulp)")
+        if not same:
+            raise SystemExit("[kernel] selective_scan h_last differs from "
+                             "the unfused route's")
+    row["shapes"] = [check_ssm_scan(dev, g)]
+    return row
+
+
 def check_ssm_scan(dev: torch.device, g: torch.Generator):
-    """Phase 3 for the falcon-mamba path: ``ssm_scan`` at the serve
-    run's chunk shape (a, b [8, 256, 8192, 16] fp32, nonzero h0; one
-    launch per layer per chunk call), timed against its plain version
-    and its bound (no single PyTorch call computes the recurrence, so no
-    library time); then ragged S, d_state 1, bf16 inputs and the scalar
-    path, checked only (tolerances as the reference's sweep)."""
+    """Phase 3, the scan route at the falcon-mamba chunk shape (a, b [8,
+    256, 8192, 16] fp32, nonzero h0; no serve path launches it since the
+    Mamba mixer takes the selective route), timed against its plain
+    version and its bound (no single PyTorch call computes the
+    recurrence, so no library time); then ragged S, d_state 1, bf16
+    inputs and the scalar path, checked only (tolerances as the
+    reference's sweep)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
     s = get_config(FM_ARCH).ssm
@@ -956,16 +1094,26 @@ def check_ssm_scan(dev: torch.device, g: torch.Generator):
     h0 = torch.randn(FM_SLOTS, s.d_inner, s.d_state, generator=g, device=dev)
     (h, hl), (rh, rhl) = ops.ssm_scan(a, b, h0), ref.ssm_scan_plain(a, b, h0)
     _agree("ssm_scan h_last", hl, rhl, FP32_KERNEL_TOL)
-    k_ms = time_ms(ops.ssm_scan, [(a, b, h0)], 20)
+    k_ms = graph_ms(ops.ssm_scan, [(a, b, h0)], 10)
+    eager = time_ms(ops.ssm_scan, [(a, b, h0)], 20)
     p_ms = time_ms(ref.ssm_scan_plain, [(a, b, h0)], 3)
     row = _report("ssm_scan", "cuda", "src/repro_torch/kernels/csrc/ssm_scan.cu",
                   "src/repro/kernels/ssm_scan.py:47", h, rh, k_ms, p_ms, None,
                   nbytes(a, b, h0, h, hl), 2.0 * a.numel(), FP32_FLOP_S,
                   tol=FP32_KERNEL_TOL)
-    row["at"] = (f"a, b [{FM_SLOTS},{FM_CHUNK},{s.d_inner},{s.d_state}] fp32, "
-                 "h0 [8,8192,16]")
-    row["library_ms_why"] = ("no single PyTorch call computes a linear "
-                             "recurrence over the sequence axis")
+    row.update(kernel_route="scan", run="falcon", eager_ms=eager,
+               bound_share=row["bound_ms"] / k_ms,
+               at=f"a, b [{FM_SLOTS},{FM_CHUNK},{s.d_inner},{s.d_state}] "
+                  f"fp32, h0 [{FM_SLOTS},{s.d_inner},{s.d_state}] (no serve "
+                  f"path launches it: falcon-mamba takes the selective "
+                  f"route)",
+               library_ms_why="no single PyTorch call computes a linear "
+                              "recurrence over the sequence axis",
+               timing="ms: device work (CUDA graph replay); eager_ms and "
+                      "plain_ms: CUDA events over eager loops")
+    log(f"[kernel]   ssm_scan at {row['at']}: "
+        f"{100 * row['bound_share']:.1f} % of its bound; eager loop "
+        f"{eager:.4f} ms")
     del a, b, h, hl, rh, rhl
     torch.cuda.empty_cache()
     for B, S, di, ds, dt in ((3, 37, s.d_inner, 1, torch.float32),
@@ -1794,6 +1942,17 @@ def serve_full(dev: torch.device, card: str, int8: bool = False,
     return launches
 
 
+SCAN_ROUTES = {}   # tag -> the ssm_scan launches by route of a serve run
+
+
+def scan_route_counts(route: str, launches) -> dict:
+    """The scan's route counts of a run whose every ``ssm_scan`` launch
+    takes ``route`` (falcon-mamba: ``selective``; recurrentgemma's
+    RG-LRU: ``scan``; a model without a recurrence: none at all)."""
+    from repro_torch.kernels.ssm_scan import ROUTES
+    return dict(dict.fromkeys(ROUTES, 0), **{route: launches["ssm_scan"]})
+
+
 def check_flash_routes(tag: str, launches, routes) -> None:
     """Every flash launch of a bf16 serve run on the wgmma + TMA route."""
     want = dict.fromkeys(routes, 0)
@@ -1806,19 +1965,21 @@ def check_flash_routes(tag: str, launches, routes) -> None:
 
 
 def profile_steps(eng, vocab: int, rng, tpot_ms: float, tag: str,
-                  chunk_steps: int = 0) -> None:
+                  chunk_steps: int = 0) -> Optional[float]:
     """Where the time goes: device time by kernel (torch.profiler, CUPTI)
     over the step that admits SLOTS prompts and over three decode steps,
     beside the decode step's unprofiled time (TPOT).  With chunked
     prefill the admission step runs the first chunk, and the other
     ``chunk_steps - 1`` chunk steps run unprofiled before the decode
-    steps."""
+    steps.  Returns the admission step's device busy ms (None where the
+    profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(SLOTS):
         eng.submit(rng.integers(1, vocab, size=(PROMPT,)).tolist(), 5)
     first = ("admission step (first prompt chunk)" if chunk_steps else
              "admission step (prefill + first decode)")
+    admission = None
     for what, n in ((first, 1), ("decode step", 3)):
         if what == "decode step":
             for _ in range(max(0, chunk_steps - 1)):
@@ -1840,6 +2001,8 @@ def profile_steps(eng, vocab: int, rng, tpot_ms: float, tag: str,
                 "(busy / idle share not measured)")
             continue
         busy = sum(r[0] for r in rows)
+        if what == first:
+            admission = busy
         log(f"[profile] {tag} {what}: device busy {busy:.3f} ms in "
             f"{sum(r[1] for r in rows):.0f} kernels and copies per step")
         if what == "decode step":
@@ -1850,6 +2013,7 @@ def profile_steps(eng, vocab: int, rng, tpot_ms: float, tag: str,
         for ms, count, key in rows[:8] + [r for r in rows[8:]
                                           if "flash_attention" in r[2]]:
             log(f"[profile]   {ms:9.3f} ms {count:6.0f}x  {key[:90]}")
+    return admission
 
 
 def _divergence(a, b) -> int:
@@ -2162,6 +2326,9 @@ def profile_spec_step(eng, vocab: int, rng, tag: str) -> None:
         log(f"[profile]   {ms:9.3f} ms {count:6.0f}x  {key[:90]}")
 
 
+FALCON = {}        # the figures of phase 5's falcon-mamba run, for the JSON
+
+
 def serve_falcon(dev: torch.device, card: str):
     """Phase 5 (and 6) for falcon-mamba-7b: full width and depth, bf16,
     8 greedy requests of 512 prompt tokens and 64 new tokens, 8 slots,
@@ -2216,6 +2383,7 @@ def serve_falcon(dev: torch.device, card: str):
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     rms_routes = dict(ops.rmsnorm.routes)
+    scan_routes = dict(ops.ssm_scan.routes)
     m = eng.metrics.summary()
     peak = torch.cuda.max_memory_allocated(dev)
     done = sum(rq.state is RequestState.DONE and len(rq.output) == NEW
@@ -2246,11 +2414,23 @@ def serve_falcon(dev: torch.device, card: str):
         raise SystemExit("[serve] not every falcon-mamba request finished")
     if got != want or not chunks:
         raise SystemExit(f"[serve] launch counts {got} != {want}")
+    want_scan = scan_route_counts("selective", launches)
+    log(f"[serve] {tag}: ssm_scan routes {json.dumps(scan_routes)}: "
+        f"{'met' if scan_routes == want_scan else 'NOT MET'} (every launch "
+        f"on the selective route)")
+    if scan_routes != want_scan:
+        raise SystemExit(f"[serve] ssm_scan routes {scan_routes} != "
+                         f"{want_scan}")
+    SCAN_ROUTES[tag] = scan_routes
     check_norm_routes(tag, "falcon", cfg,
                       {"P": r.prefill_calls - prefills0, "C": chunks,
                        "T": decodes}, rms_routes)
-    profile_steps(eng, cfg.vocab_size, rng, m["tpot_ms"]["p50"], tag,
-                  chunk_steps=-(-PROMPT // FM_CHUNK))
+    FALCON.update(ttft_ms=m["ttft_ms"], tpot_ms=m["tpot_ms"],
+                  peak_gb=peak / 1e9, chunk_calls=chunks,
+                  scan_routes=scan_routes)
+    FALCON["admission_busy_ms"] = profile_steps(
+        eng, cfg.vocab_size, rng, m["tpot_ms"]["p50"], tag,
+        chunk_steps=-(-PROMPT // FM_CHUNK))
     sync = {"m": m, "peak": peak, "streams": [rq.output for rq in reqs]}
     del eng, r
     gc.collect()
@@ -2590,6 +2770,7 @@ def serve_planned(dev, card: str, tag: str, kind: str, cfg, params, knobs,
     routes = dict(ops.int8_matmul.routes)
     flash_routes = dict(ops.flash_attention.routes)
     rms_routes = dict(ops.rmsnorm.routes)
+    scan_routes = dict(ops.ssm_scan.routes)
     m = eng.metrics.summary()
     peak = torch.cuda.max_memory_allocated(dev)
     c = {"steps": eng.steps_run - base[0], "T": r.decode_transfers - base[1],
@@ -2634,6 +2815,9 @@ def serve_planned(dev, card: str, tag: str, kind: str, cfg, params, knobs,
     NORM_ROUTES[tag + " planned"] = rms_routes
     log(f"[planned] {tag}: RMSNorm routes {json.dumps(rms_routes)}, "
         f"arithmetic {json.dumps(want_norm)}")
+    gates["scan routes"] = scan_routes == scan_route_counts("selective",
+                                                            launches)
+    SCAN_ROUTES[tag + " planned"] = scan_routes
     if kind != "int8" and kind != "falcon":
         gates["flash routes"] = flash_routes == dict(
             dict.fromkeys(flash_routes, 0),
@@ -4811,6 +4995,7 @@ def serve_layer_model(dev, card: str, arch: str, prompt: int, new: int,
         launches = ops.launch_counts()
         flash_routes = dict(ops.flash_attention.routes)
         rms_routes = dict(ops.rmsnorm.routes)
+        scan_routes = dict(ops.ssm_scan.routes)
         drops = moe.drop_counts()
         m = eng.metrics.summary()
         peak = torch.cuda.max_memory_allocated(dev)
@@ -4830,7 +5015,10 @@ def serve_layer_model(dev, card: str, arch: str, prompt: int, new: int,
                      dict.fromkeys(flash_routes, 0),
                      **{route: launches["flash_attention"]}),
                  "RMSNorm routes": rms_routes == norm_routes("layers", cfg,
-                                                             c)}
+                                                             c),
+                 "scan routes": scan_routes == scan_route_counts(
+                     "scan", launches)}
+        SCAN_ROUTES[f"{cfg.name} {mode}"] = scan_routes
         if mode == "planned":
             gates["every step replayed"] = c["hits"] == c["T"] > 0
             gates["streams equal sync"] = streams == sync_streams
@@ -4855,7 +5043,8 @@ def serve_layer_model(dev, card: str, arch: str, prompt: int, new: int,
             f"chunk calls {c['C']}, decode steps {c['T']}, replays "
             f"{c['hits']}; launches {json.dumps(launches)}; arithmetic "
             f"{json.dumps(want)}; flash routes {json.dumps(flash_routes)}; "
-            f"RMSNorm routes {json.dumps(rms_routes)}; gates "
+            f"RMSNorm routes {json.dumps(rms_routes)}; scan routes "
+            f"{json.dumps(scan_routes)}; gates "
             f"{json.dumps(gates)}"
             + (f"; streams vs whole-prompt {json.dumps(vs_sync)}"
                if vs_sync else ""))
@@ -4870,7 +5059,8 @@ def serve_layer_model(dev, card: str, arch: str, prompt: int, new: int,
                      "peak_gb": peak / 1e9, "wall_s": wall,
                      "leaf_kinds": kinds, "layer_kinds": layer_kinds,
                      "launches": launches, "flash_routes": flash_routes,
-                     "rmsnorm_routes": rms_routes, "graphs": len(r.programs),
+                     "rmsnorm_routes": rms_routes,
+                     "scan_routes": scan_routes, "graphs": len(r.programs),
                      "calls": c}
         if drops:
             fig[mode]["moe_pairs"] = drops
@@ -4936,35 +5126,42 @@ def qwen_config():
     return get_config(QWEN_ARCH).replace(n_layers=QWEN_LAYERS)
 
 
-def scan_row(dev, g):
-    """Phase 3, ``ssm_scan`` at recurrentgemma's prefill: a, b [SLOTS,
-    RG_PROMPT, d_inner] fp32 (the RG-LRU's features, no d_state axis),
-    nonzero h0, against its plain version (1e-4) and its bound, timed as
-    the falcon-mamba row (eager loops)."""
+def scan_row(dev, g, S: int = RG_PROMPT):
+    """Phase 3, the scan route at recurrentgemma's prefill (S = RG_PROMPT)
+    or its chunk (S = RG_CHUNK): a, b [SLOTS, S, d_inner] fp32 (the
+    RG-LRU's features, no d_state axis; the TMA path), nonzero h0,
+    against its plain version (1e-4) and its bound, timed as device work
+    (a CUDA graph) beside its eager loop."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops, ref
     di = get_config(RG_ARCH).rglru.d_inner
-    shape = (SLOTS, RG_PROMPT, di)
+    shape = (SLOTS, S, di)
     a = torch.sigmoid(torch.randn(shape, generator=g, device=dev))
     b = torch.randn(shape, generator=g, device=dev)
     h0 = torch.randn(SLOTS, di, generator=g, device=dev)
     (h, hl), (rh, rhl) = ops.ssm_scan(a, b, h0), ref.ssm_scan_plain(a, b, h0)
     _agree("ssm_scan h_last", hl, rhl, FP32_KERNEL_TOL)
-    k_ms = time_ms(ops.ssm_scan, [(a, b, h0)], 20)
+    k_ms = graph_ms(ops.ssm_scan, [(a, b, h0)], 20)
+    eager = time_ms(ops.ssm_scan, [(a, b, h0)], 20)
     p_ms = time_ms(ref.ssm_scan_plain, [(a, b, h0)], 2)
     row = _report("ssm_scan", "cuda",
                   "src/repro_torch/kernels/csrc/ssm_scan.cu",
                   "src/repro/kernels/ssm_scan.py:47", h, rh, k_ms, p_ms, None,
                   nbytes(a, b, h0, h, hl), 2.0 * a.numel(), FP32_FLOP_S,
                   tol=FP32_KERNEL_TOL)
-    row.update(run=RG_ARCH, at=f"{RG_ARCH} prefill: a, b [{SLOTS},{RG_PROMPT},"
-               f"{di}] fp32, h0 [{SLOTS},{di}]",
+    what = "prefill" if S == RG_PROMPT else f"chunk of {S}"
+    row.update(kernel_route="scan", eager_ms=eager,
+               run=RG_ARCH if S == RG_PROMPT else RG_ARCH + " chunked",
+               at=f"{RG_ARCH} {what}: a, b [{SLOTS},{S},{di}] fp32, h0 "
+                  f"[{SLOTS},{di}]",
                bound_share=row["bound_ms"] / row["ms"],
                library_ms_why="no single PyTorch call computes a linear "
                               "recurrence over the sequence axis",
-               timing="ms and plain_ms: CUDA events over eager loops")
+               timing="ms: device work (CUDA graph replay); eager_ms and "
+                      "plain_ms: CUDA events over eager loops")
     log(f"[kernel]   ssm_scan at {row['at']}: "
-        f"{100 * row['bound_share']:.1f} % of its bound")
+        f"{100 * row['bound_share']:.1f} % of its bound; eager loop "
+        f"{eager:.4f} ms")
     del a, b, h0, h, hl, rh, rhl
     torch.cuda.empty_cache()
     return row
@@ -4972,12 +5169,13 @@ def scan_row(dev, g):
 
 def check_slice16_kernels(dev, g, rows) -> None:
     """Phase 3 for qwen2-vl-72b and recurrentgemma-9b, appended to the
-    shapes of the decode, flash and scan rows: contiguous decode over
+    shapes of the decode and flash rows: contiguous decode over
     recurrentgemma's 2048-slot rings at 16 query heads on 1 KV head (two
     head groups), paged decode at qwen2-vl's decode (64 heads on 8, 544
     live), flash at recurrentgemma's prefill (hd 256, 16 on 1, window
-    2048) and at qwen2-vl's (64 on 8, hd 128), both on ``wgmma_tma``,
-    the scan at recurrentgemma's prefill."""
+    2048) and at qwen2-vl's (64 on 8, hd 128), both on ``wgmma_tma``;
+    a row of its own for the scan route at recurrentgemma's prefill, its
+    chunk of RG_CHUNK beside it."""
     from repro_torch.configs import get_config
     rg, qw = get_config(RG_ARCH), get_config(QWEN_ARCH)
     by = {r["name"]: r for r in rows}
@@ -4996,7 +5194,8 @@ def check_slice16_kernels(dev, g, rows) -> None:
                         window=W),
         layer_flash_row(dev, g, QWEN_ARCH, "qwen2-vl-72b", SLOTS,
                         QWEN_PROMPT, qw.n_heads, qw.n_kv_heads, qw.head_dim)]
-    by["ssm_scan"].setdefault("shapes", []).append(scan_row(dev, g))
+    rows.append(scan_row(dev, g))
+    rows[-1]["shapes"] = [scan_row(dev, g, RG_CHUNK)]
 
 
 def _grid_positions(B: int, S: int, dev, grid: int = 4) -> torch.Tensor:
@@ -5196,6 +5395,7 @@ def serve_phase12(dev, card: str, runs: dict) -> None:
     runs[RG_ARCH] = serve_layer_model(
         dev, card, RG_ARCH, RG_PROMPT, RG_NEW, planned=True,
         cap=RG_PROMPT + RG_NEW, chunk=RG_CHUNK, store=PHASE12)
+    runs[RG_ARCH + " chunked"] = PHASE12[RG_ARCH]["chunk"]["launches"]
     kinds = PHASE12[RG_ARCH]["sync"]
     want = ({"ring": 12, "state": 26}, {"state": 8, "ring": 2})
     if (kinds["layer_kinds"], kinds["leaf_kinds"]) != want:
@@ -5540,8 +5740,9 @@ def main() -> int:
     log_time("phases 11-13")
     runs["prefix bf16 warm"] = PREFIX["bf16"]["warm"]["launches"]
     for row in rows:
-        # each kernel's count from the run of the path it belongs to
-        run = ("falcon" if row["name"] == "ssm_scan" else
+        # each kernel's count from the run of the path it belongs to (the
+        # scan's: its route's, every launch of which is gated to it)
+        run = (row["run"] if row["name"] == "ssm_scan" else
                "dense contiguous" if row["name"].startswith("decode_attention")
                else "bf16" if row["name"] in FP_PATH else "int8")
         row["launches"] = runs[run][row["name"]]
@@ -5552,6 +5753,17 @@ def main() -> int:
         for shape in row.get("shapes", []):
             if "run" in shape:      # a shape of its own run's path
                 shape["launches"] = runs[shape["run"]][row["name"]]
+        if row["name"] == "ssm_scan":
+            # each scan row: its route's launches in its own run (the
+            # falcon-mamba shape's scan route: none, the mixer being on
+            # the selective route)
+            tags = {"falcon": "falcon-mamba bf16",
+                    RG_ARCH: f"{RG_ARCH} sync",
+                    RG_ARCH + " chunked": f"{RG_ARCH} chunk"}
+            for r_ in [row] + row.get("shapes", []):
+                r_["launches"] = SCAN_ROUTES[tags[r_["run"]]][
+                    r_["kernel_route"]]
+            row["routes_in_serve"] = dict(SCAN_ROUTES)
         if row["name"] == "int8_matmul":
             row["routes_in_serve"] = dict(INT8_ROUTES)
         if row["name"] == "flash_attention":
@@ -5566,6 +5778,7 @@ def main() -> int:
         # the same two numbers under their longer key names as well
         row["kernel_ms"] = row["ms"]
         row["launches_in_serve"] = row["launches"]
+    log("[falcon] summary " + json.dumps(FALCON))
     log("[planned] summary " + json.dumps(
         {tag: {k: v for k, v in p.items() if k != "launches"}
          for tag, p in PLANNED.items()}))

@@ -6,17 +6,21 @@ Layouts are the reference's: x [B, S, d]; in_proj [d, 2·di]; conv_w
 [di, ds]; out_proj [di, d]; the decode state is (conv window
 [B, dc-1, di] in the model dtype, h [B, di, ds] in fp32).
 
-The recurrence ``h_t = a_t * h_{t-1} + b_t`` of ``ssm_apply`` and
-``ssm_chunk`` runs through the ``ssm_scan`` kernel (``kernels/ssm_scan``),
-where the reference takes a jnp associative scan in ``ssm_apply`` and
-the Pallas kernel in ``ssm_chunk``: the same function.  Every dtype
-promotion JAX makes silently is written out: ``conv_w`` and ``dt_w``
-are fp32, so the conv output, ``x_dbl`` and ``dt`` of prefill and chunk
-are fp32 (``x_proj`` is upcast), while decode casts the conv output back
-to the model dtype and upcasts only ``dt_in``.  The convolution is the
-reference's shifted sum (no ``conv1d``, which cuDNN would run in TF32).
-Every function here is functional; the layer writes the new state rows
-into the cache in place.
+The discretisation, the chunk mask, the recurrence ``h_t = a_t *
+h_{t-1} + b_t`` and the ``C`` contraction of ``ssm_apply`` and
+``ssm_chunk`` run through the ``ssm_scan`` kernel's selective route
+(``kernels/ssm_scan.py::selective_scan``), so a, b and h [B, S, di, ds]
+never reach device memory; on the CPU its plain version is the unfused
+composition, the reference's (which takes a jnp associative scan in
+``ssm_apply`` and the Pallas kernel in ``ssm_chunk``: the same
+function).  Every dtype promotion JAX makes silently is written out:
+``conv_w`` and ``dt_w`` are fp32, so the conv output, ``x_dbl`` and
+``dt`` of prefill and chunk are fp32 (``x_proj`` is upcast), while
+decode casts the conv output back to the model dtype and upcasts only
+``dt_in``.  The convolution is the reference's shifted sum (no
+``conv1d``, which cuDNN would run in TF32).  Every function here is
+functional; the layer writes the new state rows into the cache in
+place.
 """
 from __future__ import annotations
 
@@ -77,25 +81,25 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return y + b[None, None, :]
 
 
-def _scan_inputs(params, xc: torch.Tensor, x_dbl: torch.Tensor,
-                 ds: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Discretisation of prefill and chunk: xc [B, S, di] fp32, x_dbl
-    [B, S, dtr + 2 ds] fp32 -> (a, b [B, S, di, ds] fp32, Ct [B, S, ds])."""
+def _scan(params, xc: torch.Tensor, x_dbl: torch.Tensor, ds: int,
+          h0: torch.Tensor, lens: Optional[torch.Tensor] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Discretisation, recurrence and ``C`` contraction of prefill and
+    chunk: xc [B, S, di] fp32, x_dbl [B, S, dtr + 2 ds] fp32, h0 [B, di,
+    ds], ``lens`` [B] valid tokens a row or None -> (y = h·C [B, S, di]
+    fp32, h_last [B, di, ds] fp32)."""
     dtr = params["dt_w"].shape[0]
     dt_in, Bt, Ct = (x_dbl[..., :dtr], x_dbl[..., dtr:dtr + ds],
                      x_dbl[..., dtr + ds:])
     dt = F.softplus((dt_in @ params["dt_w"]).float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])                          # [di, ds]
-    a = (dt[..., None] * A[None, None]).exp_()               # [B,S,di,ds]
-    b = (dt * xc)[..., None] * Bt.float()[:, :, None, :]
-    return a, b, Ct
+    return ops.selective_scan(dt, xc, A, Bt, Ct, h0.float(), lens)
 
 
-def _output(params, h: torch.Tensor, Ct: torch.Tensor, xc: torch.Tensor,
-            z: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """y = h·C + D·x, gated by silu(z), through out_proj.  h [B, S, di, ds]
+def _output(params, y: torch.Tensor, xc: torch.Tensor, z: torch.Tensor,
+            dtype: torch.dtype) -> torch.Tensor:
+    """y + D·x, gated by silu(z), through out_proj.  y = h·C [B, S, di]
     fp32 -> [B, S, d] in ``dtype``."""
-    y = torch.einsum("bsiz,bsz->bsi", h, Ct.float())
     y = (y + params["D"][None, None] * xc).to(dtype)
     return (y * F.silu(z)) @ params["out_proj"]
 
@@ -113,12 +117,10 @@ def ssm_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
     xr, z = xz[..., :di], xz[..., di:]
     xc = F.silu(_causal_conv(xr, params["conv_w"], params["conv_b"]))
     x_dbl = xc @ params["x_proj"].float()
-    a, b, Ct = _scan_inputs(params, xc, x_dbl, ds)
     if h0 is None:
         h0 = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
-    h, h_last = ops.ssm_scan(a, b, h0.float())
-    del a, b
-    out = _output(params, h, Ct, xc, z, x.dtype)
+    y, h_last = _scan(params, xc, x_dbl, ds, h0)
+    out = _output(params, y, xc, z, x.dtype)
     if not return_cache:
         return out, None
     dc = params["conv_w"].shape[0]
@@ -136,9 +138,8 @@ def ssm_chunk(params, x: torch.Tensor, cache: State, *, cfg: ModelConfig,
     of the chunk batch.  The window replaces the whole-prompt conv's zero
     left pad and h seeds the scan, so consecutive chunks compose to the
     whole-prompt recurrence.  ``chunk_lens`` [B] counts each row's valid
-    tokens: padded tail positions do identity updates (a = 1, b = 0)
-    before the scan, and the new window holds the last dc-1 *valid*
-    inputs."""
+    tokens: padded tail positions do identity updates (a = 1, b = 0) in
+    the scan, and the new window holds the last dc-1 *valid* inputs."""
     s = cfg.ssm
     B, C, _ = x.shape
     di, ds = s.d_inner, s.d_state
@@ -151,15 +152,9 @@ def ssm_chunk(params, x: torch.Tensor, cache: State, *, cfg: ModelConfig,
     y = sum(xfull[:, i:i + C] * w[i][None, None, :] for i in range(dc))
     xc = F.silu(y + params["conv_b"][None, None, :])
     x_dbl = xc @ params["x_proj"].float()
-    a, b, Ct = _scan_inputs(params, xc, x_dbl, ds)
-    if chunk_lens is not None:
-        pad = (torch.arange(C, device=x.device)[None]
-               >= chunk_lens.to(x.device)[:, None])[..., None, None]
-        a.masked_fill_(pad, 1.0)
-        b.masked_fill_(pad, 0.0)
-    h, h_last = ops.ssm_scan(a, b, h0.float())
-    del a, b
-    out = _output(params, h, Ct, xc, z, x.dtype)
+    y, h_last = _scan(params, xc, x_dbl, ds, h0,
+                      None if chunk_lens is None else chunk_lens.to(x.device))
+    out = _output(params, y, xc, z, x.dtype)
     lens = (torch.full((B,), C, dtype=torch.long, device=x.device)
             if chunk_lens is None else chunk_lens.to(x.device, torch.long))
     # the new window: xfull rows lens .. lens + dc - 2

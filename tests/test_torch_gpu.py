@@ -58,6 +58,14 @@ launch at equal widths bitwise the parent checkout's (the digests
 ``tests/flash_dv_eq_hd_digests.json``), and a MoE + MLA decode step
 (deepseek-v2 / -v3 reduced) replayed from its CUDA graph bitwise the
 eager step (``-k "value_width or dv_eq_hd or deepseek"``).
+The scan kernel's two routes (``-k "ssm or selective or mamba_mixer"``):
+the scan route bitwise the digests of ``tests/ssm_scan_digests.json``
+(recorded from the kernel before its redesign by
+``tools/ssm_scan_ab.py``, at the cases and inputs of
+``tests/ssm_scan_cases.py``), the selective route's h_last bitwise the
+unfused route's and y within 1e-5, with faulted controls (a mask off by
+one, a step skipped) that fail the same check, and a reduced Mamba mixer
+(fp32, bf16) on it against the unfused composition.
 The tests that read the profiler (one device kernel per call) run their
 body in a Python process of its own, whose first profiler session it is
 (``_own_process``).
@@ -1910,6 +1918,143 @@ def test_ssm_scan_on_rglru_features_matches_plain(B, S, F, dtype):
     torch.testing.assert_close(h, want, rtol=tol, atol=tol)
     torch.testing.assert_close(hl, want_last, rtol=tol, atol=tol)
     assert ops.launch_counts()["ssm_scan"] == before + 1
+
+
+_SCAN_DIGESTS = Path(__file__).with_name("ssm_scan_digests.json")
+
+
+@pytest.mark.gpu
+def test_ssm_scan_launches_bitwise_the_parent():
+    """Every case of ``tests/ssm_scan_cases.py`` (recurrentgemma-9b's
+    prefill and chunk, falcon-mamba's chunk, a ragged S with d_state 1,
+    bf16 inputs, the register path, one step, a ragged feature tile)
+    gives the h and h_last bytes the scan kernel gave before its redesign
+    (their sha256, recorded by ``tools/ssm_scan_ab.py --digests`` from the
+    parent checkout), each launch counted once on the ``scan`` route."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from ssm_scan_cases import case_inputs, digest
+    from repro_torch.kernels import ssm_scan as sk
+    dev = _cuda()
+    cases = json.loads(_SCAN_DIGESTS.read_text())["cases"]
+    assert len(cases) >= 12
+    for c in cases:
+        a, b, h0 = case_inputs(c, dev)
+        before = (sk.ssm_scan.launches, dict(sk.ssm_scan.routes))
+        h, hl = ops.ssm_scan(a, b, h0)
+        assert (sk.ssm_scan.launches, sk.ssm_scan.routes["scan"],
+                sk.ssm_scan.routes["selective"]) == (
+            before[0] + 1, before[1]["scan"] + 1, before[1]["selective"])
+        assert (digest(h), digest(hl)) == (c["sha256_h"],
+                                           c["sha256_h_last"]), c
+        del a, b, h0, h, hl
+        torch.cuda.empty_cache()
+
+
+def _selective_inputs(dev, B, S, di, ds, seed, dtr=8):
+    """dt (softplus, as the mixer makes it), x, A = -(1 .. ds), Bt / Ct as
+    column views of one x_dbl, nonzero h0; fp32 on ``dev``."""
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)  # noqa: E731
+    dt = torch.nn.functional.softplus(t(rng.standard_normal((B, S, di))) / 2
+                                      + 0.5413)
+    x_dbl = t(rng.standard_normal((B, S, dtr + 2 * ds)) / 2)
+    A = -torch.arange(1, ds + 1, dtype=torch.float32,
+                      device=dev).expand(di, ds).contiguous()
+    return (dt, t(rng.standard_normal((B, S, di))), A,
+            x_dbl[..., dtr:dtr + ds], x_dbl[..., dtr + ds:],
+            t(rng.standard_normal((B, di, ds))))
+
+
+def _unfused(*args):
+    """The unfused route on the card: a, b and h in device memory, the
+    scan route, the einsum."""
+    return ref.selective_scan_plain(*args, scan=ops.ssm_scan)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,di,ds,lens", [
+    (3, 37, 300, 16, [37, 20, 0]), (2, 70, 128, 4, [64, 70]),
+    (2, 33, 96, 1, None), (3, 19, 40, 5, [1, 19, 7]),
+    (2, 256, 8192, 16, [256, 131])])
+def test_selective_scan_matches_the_unfused_route(B, S, di, ds, lens):
+    """The selective route against the unfused composition on the card
+    (the same discretisation, mask and scan route, then the einsum):
+    h_last bitwise (the kernel's expf is PyTorch's CUDA exp of fp32), y
+    within 1e-5 (its d_state sum runs in another order than the
+    einsum's); lens shorter than S (a row of 0 too) and nonzero h0; one
+    launch, counted on the ``selective`` route."""
+    from repro_torch.kernels import ssm_scan as sk
+    dev = _cuda()
+    args = _selective_inputs(dev, B, S, di, ds, B * S + di)
+    ln = None if lens is None else torch.tensor(lens, dtype=torch.int32,
+                                                device=dev)
+    before = (sk.ssm_scan.launches, dict(sk.ssm_scan.routes))
+    y, hl = ops.selective_scan(*args, ln)
+    assert (sk.ssm_scan.launches, sk.ssm_scan.routes["selective"],
+            sk.ssm_scan.routes["scan"]) == (
+        before[0] + 1, before[1]["selective"] + 1, before[1]["scan"])
+    uy, uhl = _unfused(*args, ln)
+    assert y.dtype == hl.dtype == torch.float32
+    assert torch.equal(hl, uhl)
+    torch.testing.assert_close(y, uy, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_selective_scan_check_catches_a_mask_off_by_one():
+    """The faulted control of the check above: the selective route run
+    with every row's lens one short (the chunk mask off by one) fails
+    it, h_last and y alike, as does a run with one step's dt zeroed (a
+    step skipped: a = 1, b = 0)."""
+    dev = _cuda()
+    args = _selective_inputs(dev, 3, 37, 300, 16, 5)
+    ln = torch.tensor([37, 20, 9], dtype=torch.int32, device=dev)
+    uy, uhl = _unfused(*args, ln)
+    y, hl = ops.selective_scan(*args, ln - 1)
+    assert not torch.equal(hl, uhl)
+    assert not torch.allclose(y, uy, rtol=1e-5, atol=1e-5)
+    dt = args[0].clone()
+    dt[:, 5] = 0.0
+    y, hl = ops.selective_scan(dt, *args[1:], ln)
+    assert not torch.equal(hl, uhl)
+    assert not torch.allclose(y, uy, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_mixer_on_the_selective_route_matches_the_unfused(
+        dtype, monkeypatch):
+    """A reduced falcon-mamba mixer on the card, fp32 and bf16 models:
+    ``ssm_chunk`` with a padded tail and ``ssm_apply`` from a nonzero h0
+    on the selective route against the same calls with the unfused
+    composition put in its place: the carried h bitwise, the outputs
+    within 1e-5 (fp32) / 2e-2 (bf16: y rounds to the model dtype)."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import decoder, ssm
+    from repro_torch.models.decoder import init_lm
+    dev = _cuda()
+    cfg = reduced_config("falcon-mamba-7b").replace(dtype=dtype)
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    p = decoder._at(params["unit"][0], 0)["mixer"]
+    s = cfg.ssm
+    rng = np.random.default_rng(9)
+    t = lambda a, dt=_TDT[dtype]: torch.from_numpy(  # noqa: E731
+        np.asarray(a, np.float32)).to(dev, dt)
+    x = t(rng.standard_normal((3, 12, cfg.d_model)))
+    h0 = t(rng.standard_normal((3, s.d_inner, s.d_state)), torch.float32)
+    win = t(rng.standard_normal((3, s.d_conv - 1, s.d_inner)))
+    lens = torch.tensor([12, 7, 1], device=dev)
+
+    def run():
+        return (ssm.ssm_chunk(p, x, (win, h0), cfg=cfg, chunk_lens=lens),
+                ssm.ssm_apply(p, x, cfg=cfg, return_cache=True, h0=h0))
+    (co, (cw, ch)), (ao, (aw, ah)) = run()
+    monkeypatch.setattr(ops, "selective_scan", _unfused)
+    (uco, (ucw, uch)), (uao, (uaw, uah)) = run()
+    assert torch.equal(ch, uch) and torch.equal(ah, uah)
+    assert torch.equal(cw, ucw) and torch.equal(aw, uaw)
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(co, uco, rtol=tol, atol=tol)
+    torch.testing.assert_close(ao, uao, rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu

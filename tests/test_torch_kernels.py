@@ -451,27 +451,32 @@ def test_reset_launch_counts_zeroes_the_route_counts():
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quant_matmul as qm
     from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.kernels import ssm_scan as sk
     keys = set(ops.launch_counts())
     saved = (ops.launch_counts(), dict(fa.flash_attention.routes),
-             dict(qm.int8_matmul.routes), dict(rn.rmsnorm.routes))
+             dict(qm.int8_matmul.routes), dict(rn.rmsnorm.routes),
+             dict(sk.ssm_scan.routes))
     try:
         for fn in ops.KERNELS.values():
             fn.launches = 3
         fa.flash_attention.routes["wgmma_tma"] = 2
         qm.int8_matmul.routes["mma_m16"] = 5
         rn.rmsnorm.routes["fuse_norm"] = 4
+        sk.ssm_scan.routes["selective"] = 6
         ops.reset_launch_counts()
         assert set(ops.launch_counts()) == keys
         assert not any(ops.launch_counts().values())
         assert not any(fa.flash_attention.routes.values())
         assert not any(qm.int8_matmul.routes.values())
         assert not any(rn.rmsnorm.routes.values())
+        assert not any(sk.ssm_scan.routes.values())
     finally:
         for name, n in saved[0].items():
             ops.KERNELS[name].launches = n
         fa.flash_attention.routes.update(saved[1])
         qm.int8_matmul.routes.update(saved[2])
         rn.rmsnorm.routes.update(saved[3])
+        sk.ssm_scan.routes.update(saved[4])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -32,7 +32,7 @@ from repro.models import ssm as jssm
 from repro.serving.engine import Engine as JEngine
 from repro.serving.engine import arch_capabilities as j_arch_capabilities
 from repro_torch.configs import reduced_config
-from repro_torch.kernels import ref
+from repro_torch.kernels import ops, ref
 from repro_torch.launch.steps import model_fns
 from repro_torch.models import decoder, layers, ssm
 from repro_torch.serving.cache import PagedKVCache
@@ -469,3 +469,110 @@ def test_serve_cli_falcon_mamba_chunked_on_cpu():
     assert "finished 3/3 requests" in out.stdout
     assert "leaves {'state': 2}, pool 0.0 MB" in out.stdout
     assert "chunk calls 4" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# (vii) the scan's selective route: its plain version, the counters
+# ---------------------------------------------------------------------------
+
+def _selective_np(B, S, di, ds, seed):
+    """numpy inputs of the selective route: dt > 0 (a softplus), x, A =
+    -(1 .. ds), x_dbl holding B_t and C_t, h0."""
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, di)) / 2 + 0.5413))
+    return [a.astype(np.float32) for a in (
+        dt, rng.standard_normal((B, S, di)),
+        -np.broadcast_to(np.arange(1, ds + 1), (di, ds)),
+        rng.standard_normal((B, S, 3 + 2 * ds)) / 2,
+        rng.standard_normal((B, di, ds)))]
+
+
+_LENS = [None, [9, 4, 0]]
+
+
+@pytest.mark.parametrize("lens", _LENS)
+def test_selective_scan_plain_is_bitwise_the_unfused_composition(lens):
+    """``selective_scan_plain`` (and the CPU wrapper) is the composition
+    ``ssm_apply`` / ``ssm_chunk`` ran before the route existed, step for
+    step: a = exp(dt A) in place, b = (dt x) B_t, the chunk mask, the
+    plain scan, the einsum; bitwise, with and without ``lens``."""
+    dt, x, A, x_dbl, h0 = map(torch.from_numpy, _selective_np(3, 9, 6, 4, 7))
+    Bt, Ct = x_dbl[..., 3:7], x_dbl[..., 7:]
+    ln = None if lens is None else torch.tensor(lens)
+    a = (dt[..., None] * A[None, None]).exp_()
+    b = (dt * x)[..., None] * Bt.float()[:, :, None, :]
+    if ln is not None:
+        pad = (torch.arange(9)[None] >= ln[:, None])[..., None, None]
+        a.masked_fill_(pad, 1.0)
+        b.masked_fill_(pad, 0.0)
+    h, want_last = ref.ssm_scan_plain(a, b, h0)
+    want = torch.einsum("bsiz,bsz->bsi", h, Ct.float())
+    for fn in (ref.selective_scan_plain, ops.selective_scan):
+        y, hl = fn(dt, x, A, Bt, Ct, h0, ln)
+        assert torch.equal(y, want) and torch.equal(hl, want_last)
+    if ln is not None:                  # a row of 0 keeps h0 exactly
+        assert torch.equal(want_last[2], h0[2])
+
+
+@pytest.mark.parametrize("lens", _LENS)
+def test_selective_scan_plain_matches_reference_chunk_pieces(lens):
+    """y and h_last of the plain selective route against the reference
+    ``ssm_chunk``'s lines from x_dbl to its einsum (jnp discretisation,
+    ``jnp.where`` mask, its chunked associative scan) on shared numpy
+    inputs, at the single-op tolerance (2e-5)."""
+    S, ds = 16, 4
+    dt, x, A, x_dbl, h0 = _selective_np(2, S, 8, ds, 8)
+    ln = None if lens is None else np.asarray([S, 5], np.int32)
+    Bt, Ct = x_dbl[..., 3:3 + ds], x_dbl[..., 3 + ds:]
+
+    def pieces(dt, x, A, Bt, Ct, h0, ln):
+        a = jnp.exp(dt[..., None] * A[None, None])
+        b = (dt * x)[..., None] * Bt[:, :, None, :]
+        if ln is not None:
+            valid = jnp.arange(S, dtype=jnp.int32)[None] < ln[:, None]
+            a = jnp.where(valid[..., None, None], a, 1.0)
+            b = jnp.where(valid[..., None, None], b, 0.0)
+        h, h_last = jssm._chunked_linear_scan(a, b, h0, 8)
+        return jnp.einsum("bsiz,bsz->bsi", h, Ct), h_last
+
+    jy, jhl = jax.jit(pieces)(dt, x, A, Bt, Ct, h0, ln)
+    t = torch.from_numpy
+    y, hl = ref.selective_scan_plain(t(dt), t(x), t(A), t(Bt), t(Ct), t(h0),
+                                     None if ln is None else t(ln))
+    _close(y, jy)
+    _close(hl, jhl)
+
+
+def test_scan_routes_are_counters_and_the_cpu_counts_nothing():
+    """``ssm_scan.routes`` (``scan``, ``selective``) are counters beside
+    ``ssm_scan.launches``: listed by ``counters()``, set and zeroed with
+    the others; the CPU's plain versions count no launch or route; the
+    selective wrapper refuses shapes that do not fit."""
+    from repro_torch.kernels import ssm_scan as sk
+    assert sk.ROUTES == ("scan", "selective")
+    assert set(sk.ssm_scan.routes) == set(sk.ROUTES)
+    keys = set(ops.counters())
+    assert {"ssm_scan", "ssm_scan/scan", "ssm_scan/selective"} <= keys
+    before = ops.counters()
+    dt, x, A, x_dbl, h0 = map(torch.from_numpy, _selective_np(2, 5, 4, 2, 9))
+    ops.selective_scan(dt, x, A, x_dbl[..., 3:5], x_dbl[..., 5:], h0)
+    ops.ssm_scan(torch.rand(2, 5, 4, 2), torch.rand(2, 5, 4, 2), h0)
+    assert ops.counters() == before
+    try:
+        ops.set_counters({"ssm_scan/selective": 4, "ssm_scan/scan": 0,
+                          "ssm_scan": 4})
+        ops.add_counters({"ssm_scan/scan": 2, "ssm_scan": 2})
+        assert (sk.ssm_scan.launches, sk.ssm_scan.routes) == (
+            6, {"scan": 2, "selective": 4})
+        ops.reset_launch_counts()
+        assert not any(sk.ssm_scan.routes.values())
+        assert sk.ssm_scan.launches == 0
+    finally:
+        ops.set_counters(before)
+    with pytest.raises(ValueError):
+        ops.selective_scan(dt, x, A[:3], x_dbl[..., 3:5], x_dbl[..., 5:], h0)
+    with pytest.raises(ValueError):
+        ops.selective_scan(dt, x, A, x_dbl[..., 3:6], x_dbl[..., 5:], h0)
+    with pytest.raises(ValueError):
+        ops.selective_scan(dt, x, A, x_dbl[..., 3:5], x_dbl[..., 5:], h0,
+                           torch.tensor([1, 2, 3]))

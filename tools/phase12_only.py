@@ -2,10 +2,11 @@
 on a GPU machine: build the kernels, then the steps named (default all):
 ``kernels`` (phase 3's rows at their shapes: decode over recurrentgemma's
 2048-slot rings at 16 query heads a KV head, paged decode at qwen2-vl's,
-flash at both prefills, the scan at recurrentgemma's; each held against
-its plain version), ``parity`` (phase 4's reduced qwen2-vl from
-precomputed embeddings with grid (t, h, w) streams and reduced
-recurrentgemma whole and chunked, card against CPU) and ``serve`` (phase
+flash at both prefills, the scan at recurrentgemma's prefill and
+chunk; each held against its plain version), ``parity`` (phase 4's
+reduced qwen2-vl from precomputed embeddings with grid (t, h, w)
+streams and reduced recurrentgemma whole and chunked, card against CPU)
+and ``serve`` (phase
 12: qwen2-vl-72b at 16 of 80 layers with its embeddings arm,
 recurrentgemma-9b at full depth, sync, planned and chunked).
 
@@ -35,8 +36,7 @@ def main():
     t0 = time.perf_counter()
     if "kernels" in steps:
         rows = [{"name": n, "shapes": []} for n in (
-            "flash_attention", "paged_decode_attention", "decode_attention",
-            "ssm_scan")]
+            "flash_attention", "paged_decode_attention", "decode_attention")]
         g = torch.Generator(device=dev).manual_seed(1)
         c.check_slice16_kernels(dev, g, rows)
         print(json.dumps({"kernels": rows}), flush=True)

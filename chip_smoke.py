@@ -249,6 +249,20 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      128], against its plain version and SDPA's memory-efficient
      backend; its phase 4 (``check_slice17_parity``): both reduced
      models, fp32, card against CPU (1e-4), equal streams.
+ 14. training (``train_phase``; train mode runs plain ops, no kernel):
+     (a) reduced PT and dense, fp32, 4 steps of ``make_train_step`` on
+     the card and on the CPU from one seeded state (losses within 1e-5,
+     params within 2 x the summed lr with at most 1e-3 of a leaf past
+     1e-5; no kernel launched); (d) the card-trained reduced PT saved as
+     a checkpoint and served by ``launch/serve.py --ckpt-dir`` on the
+     card and the CPU (streams equal by the CLI's sha256; flash, paged
+     decode and RMSNorm launched); (c) in a child process with
+     deterministic algorithms, 6 ``train_loop`` steps against 3, an
+     ``AsyncCheckpointer`` save and a resumed loop's 3 (params and
+     optimizer state bitwise); (b) pt-6b-d4 at 16 and dense-6b at 8 of
+     their 32 layers, bf16 + fp32 master, ``train_loop`` 4 steps of 8 x
+     512: step ms, tokens/s, peak memory, losses, the model-FLOP share;
+     finite losses and grad norms, every parameter leaf changed.
 Prints one ``{"kernels": [...]}`` JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -5603,6 +5617,287 @@ def phase13_summary() -> str:
          for k, v in PHASE13.items()}, default=str)
 
 
+# ---------------------------------------------------------------------------
+# phase 14: training (the reference's train path on plain ops: blockwise
+# attention, plain norms, autograd, the reference's AdamW), checkpoint and
+# resume, and the trained checkpoint served through the kernels
+# ---------------------------------------------------------------------------
+
+TRAIN_STEPS = 4
+TRAIN_CUT = {"pt-6b-d4": 16, "dense-6b": 8}   # layers kept, of 32 each
+TRAIN_B, TRAIN_S = 8, 512
+TRAIN_LOSS_TOL = 1e-5     # losses, card against CPU, relative
+# params after the steps, card against CPU: Adam moves an element by
+# about lr whatever the size of its grad, so an element whose grad is
+# within the two devices' rounding of zero can step the other way: every
+# element within 2 x the steps' summed lr, and at most 1e-3 of a leaf's
+# elements more than 1e-5 apart
+TRAIN_PARAM_CLOSE, TRAIN_PARAM_SHARE = 1e-5, 1e-3
+PHASE14 = {}          # the figures of phase 14, for the summary
+
+
+def _run_steps(cfg, params, dev, dcfg):
+    """TRAIN_STEPS of ``make_train_step`` (warmup 2, so that every step
+    after the first moves the params) on ``params`` (moved to ``dev``)
+    from the data pipeline: (params, opt state, losses, grad norms,
+    learning rates)."""
+    from repro_torch.common.pytree import tree_map
+    from repro_torch.data.pipeline import DataLoader
+    from repro_torch.launch.steps import make_train_step
+    fn, opt_init, _ = make_train_step(cfg, microbatches=1, peak_lr=3e-3,
+                                      warmup=2, total_steps=TRAIN_STEPS)
+    # a copy: the optimizer updates the params in place
+    params = tree_map(lambda t: t.to(dev, copy=True), params)
+    st = opt_init(params)
+    losses, norms, lrs = [], [], []
+    loader = DataLoader(dcfg)
+    for _ in range(TRAIN_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in next(loader).items()}
+        params, st, m = fn(params, st, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        lrs.append(float(m["lr"]))
+    return params, st, losses, norms, lrs
+
+
+def train_parity(dev: torch.device) -> dict:
+    """Phase 14 (a): reduced PT and reduced dense, fp32 (TF32 off), from
+    one seeded state: TRAIN_STEPS train steps on the card and on the CPU.
+    Gates: losses within TRAIN_LOSS_TOL relative, params within the
+    stated tolerance, no kernel launched by the train steps.  Returns the
+    card-trained reduced PT params (for (d))."""
+    from repro_torch.common.pytree import tree_paths
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import model_fns
+    cpu = torch.device("cpu")
+    trained = None
+    for arch in (ARCH, DENSE_ARCH):
+        cfg = reduced_config(arch)
+        init = model_fns(cfg)["init"](torch.Generator().manual_seed(0), cfg,
+                                      cpu)
+        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                          global_batch=4)
+        ops.reset_launch_counts()
+        got = {d: _run_steps(cfg, init, d, dcfg) for d in (cpu, dev)}
+        launched = {k: v for k, v in ops.counters().items() if v}
+        if launched:
+            raise SystemExit(f"[train] {arch}: train steps launched "
+                             f"kernels {launched}")
+        lc, ld = got[cpu][2], got[dev][2]
+        rel = max(abs(a - b) / abs(a) for a, b in zip(lc, ld))
+        atol = 2 * sum(got[cpu][4])
+        worst, share = 0.0, 0.0
+        want = dict(tree_paths(got[cpu][0]))
+        for p, leaf in tree_paths(got[dev][0]):
+            err = (leaf.float().cpu() - want[p].float()).abs()
+            worst = max(worst, err.max().item())
+            share = max(share, (err > TRAIN_PARAM_CLOSE).float().mean().item())
+        log(f"[train] (a) {cfg.name} fp32, {TRAIN_STEPS} steps card vs CPU: "
+            f"losses card {ld} CPU {lc} (max rel {rel:.2e}, tol "
+            f"{TRAIN_LOSS_TOL}); grad norms card {got[dev][3]}; params max "
+            f"|diff| {worst:.3e} (tol {atol:.3e} = 2 x summed lr), largest "
+            f"share over {TRAIN_PARAM_CLOSE} {share:.2e} (tol "
+            f"{TRAIN_PARAM_SHARE})")
+        PHASE14[f"parity {arch}"] = {"losses_card": ld, "losses_cpu": lc,
+                                     "max_rel": rel, "params_max_diff": worst,
+                                     "params_share_off": share}
+        if rel > TRAIN_LOSS_TOL or worst > atol or share > TRAIN_PARAM_SHARE:
+            raise SystemExit(f"[train] (a) {arch}: card and CPU disagree")
+        if arch == ARCH:
+            trained = got[dev]
+    return trained
+
+
+def _first_params(cfg, dev):
+    from repro_torch.launch.steps import model_fns
+    return model_fns(cfg)["init"](torch.Generator(device=dev).manual_seed(0),
+                                  cfg, dev)
+
+
+def train_full(dev: torch.device, card: str, arch: str) -> None:
+    """Phase 14 (b): ``arch`` at every published width, cut to
+    TRAIN_CUT[arch] of its 32 layers, bf16 with AdamW's fp32 master,
+    trained by ``launch.train.train_loop`` for TRAIN_STEPS steps of
+    TRAIN_B x TRAIN_S tokens from the data pipeline.  Prints step ms
+    (median of the last 3), tokens/s, peak memory, the loss per step and
+    the model-FLOP share (6 N T a step over BF16_FLOP_S, N every
+    parameter).  Gates: finite losses and grad norms, every parameter
+    leaf changed, no kernel launched."""
+    from repro_torch.common.pytree import count_params, tree_paths
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train_loop
+    cfg = get_config(arch).replace(n_layers=TRAIN_CUT[arch])
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    marks, lines = [], []
+
+    def mark(line):
+        torch.cuda.synchronize(dev)
+        marks.append(time.perf_counter())
+        lines.append(line)
+        log(line)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = train_loop(cfg, steps=TRAIN_STEPS, batch=TRAIN_B, seq=TRAIN_S,
+                     log_every=1, print_fn=mark, device=dev)
+    torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launched = {k: v for k, v in ops.counters().items() if v}
+    peak = torch.cuda.max_memory_allocated(dev)
+    step_ms = [1e3 * (b - a) for a, b in zip(marks[:-1], marks[1:])]
+    ms = float(np.median(step_ms[-3:]))
+    n = count_params(out["params"])
+    tokens = TRAIN_B * TRAIN_S
+    mfu = 6 * n * tokens / (ms / 1e3) / BF16_FLOP_S
+    losses = [l for _, l in out["losses"]]
+    norms = [float(ln.split("gnorm ")[1].split()[0]) for ln in lines[1:]]
+    first = _first_params(cfg, dev)
+    unchanged = [p for (p, a), (_, b) in zip(tree_paths(first),
+                                             tree_paths(out["params"]))
+                 if torch.equal(a, b)]
+    del first
+    fig = {"layers": f"{cfg.n_layers} of {get_config(arch).n_layers}",
+           "params": n,
+           "step_ms": step_ms, "step_ms_median_last3": ms,
+           "tokens_per_s": tokens / (ms / 1e3), "peak_gb": peak / 1e9,
+           "losses": losses, "grad_norms": norms, "model_flop_share": mfu,
+           "wall_s": wall, "card": card}
+    PHASE14[arch] = fig
+    log(f"[train] (b) {card} | {arch} {cfg.dtype} + fp32 master at "
+        f"{cfg.n_layers} of {get_config(arch).n_layers} layers "
+        f"({n / 1e9:.3f} B params), batch {TRAIN_B} x "
+        f"{TRAIN_S}: step ms {[round(x, 3) for x in step_ms]} (median of "
+        f"the last 3 {ms:.3f}), {fig['tokens_per_s']:.1f} tokens/s, peak "
+        f"{fig['peak_gb']:.3f} GB, losses {losses}, grad norms {norms}, "
+        f"model-FLOP share {100 * mfu:.2f} % of {BF16_FLOP_S / 1e12:.0f} "
+        f"TFLOP/s bf16 (6 N T, N = all {n} params)")
+    bad = [x for x in losses + norms if not math.isfinite(x)]
+    if bad or unchanged or launched or len(losses) != TRAIN_STEPS:
+        raise SystemExit(f"[train] (b) {arch}: non-finite {bad}, unchanged "
+                         f"leaves {unchanged}, kernels launched {launched}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def resume_check() -> None:
+    """Phase 14 (c), in a process of its own (``CUBLAS_WORKSPACE_CONFIG``
+    set before CUDA starts, ``torch.use_deterministic_algorithms(True)``):
+    reduced PT on the card, 6 uninterrupted ``train_loop`` steps against
+    3 steps, an ``AsyncCheckpointer`` save, a fresh ``train_loop`` that
+    resumes, and 3 more.  Prints a JSON line: params and optimizer state
+    bitwise equal or not."""
+    import tempfile
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.common.pytree import tree_paths
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch.train import train_loop
+    torch.use_deterministic_algorithms(True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = reduced_config(ARCH)
+    kw = dict(batch=2, seq=32, device=dev, log_every=1, print_fn=log)
+    whole = train_loop(cfg, steps=6, **kw)
+    with tempfile.TemporaryDirectory() as d:
+        train_loop(cfg, steps=3, ckpt_dir=d, ckpt_every=3, **kw)
+        resumed = train_loop(cfg, steps=6, ckpt_dir=d, **kw)
+    diff = []
+    for key, name in (("params", "params"), ("opt_state", "opt")):
+        want = dict(tree_paths(whole[key]))
+        diff += [f"{name}/{p}" for p, leaf in tree_paths(resumed[key])
+                 if not torch.equal(leaf, want[p])]
+    print(json.dumps({"resume_bitwise": not diff, "differ": diff,
+                      "first_resumed_step": resumed["losses"][0][0]}),
+          flush=True)
+
+
+def train_resume(dev: torch.device) -> None:
+    """Phase 14 (c): ``resume_check`` in a child process; gated bitwise."""
+    import os
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    here = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.resume_check()"],
+        cwd=here, env=env, capture_output=True, text=True, timeout=600)
+    for ln in out.stdout.splitlines()[:-1]:
+        log(f"[train] (c) {ln}")
+    if out.returncode != 0:
+        log(out.stderr[-4000:])
+        raise SystemExit("[train] (c) the resume run failed")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    res["seconds"] = time.perf_counter() - t0
+    PHASE14["resume"] = res
+    log(f"[train] (c) resume after an AsyncCheckpointer save, deterministic "
+        f"algorithms: params and optimizer state "
+        f"{'bitwise equal' if res['resume_bitwise'] else 'DIFFER'} to 6 "
+        f"uninterrupted steps ({res['seconds']:.1f}s)")
+    if not res["resume_bitwise"] or res["first_resumed_step"] != 3:
+        raise SystemExit(f"[train] (c) resume differs: {res['differ']}")
+
+
+def train_then_serve(dev: torch.device, trained, runs: dict) -> None:
+    """Phase 14 (d): the reduced PT trained on the card in (a), saved as
+    a checkpoint and served by ``launch/serve.py --ckpt-dir`` on the card
+    and on the CPU.  Gates: equal greedy streams (by the CLI's sha256),
+    flash, paged decode and RMSNorm launched on the card."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.checkpoint import store
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    params, st = trained[0], trained[1]
+    digests = {}
+    with tempfile.TemporaryDirectory() as d:
+        store.save(d, TRAIN_STEPS, {"params": params, "opt": st},
+                   extra={"next_step": TRAIN_STEPS})
+        for where in (str(dev), "cpu"):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                code = serve.main(["--arch", ARCH, "--reduced", "--ckpt-dir",
+                                   d, "--device", where, "--requests", "4",
+                                   "--input-len", "16", "--output-len", "12",
+                                   "--no-prefix-cache"])
+            text = buf.getvalue()
+            runs.setdefault("train-then-serve", ops.launch_counts())
+            for ln in text.splitlines():
+                log(f"[train] (d) {where}: {ln}")
+            digests[where] = [ln for ln in text.splitlines()
+                              if "output streams" in ln]
+            if code != 0 or "loaded params from" not in text:
+                raise SystemExit(f"[train] (d) serve on {where} failed")
+    c = runs["train-then-serve"]
+    used = {k: c[k] for k in FP_PATH}
+    equal = digests[str(dev)] == digests["cpu"]
+    PHASE14["serve"] = {"streams_equal": equal, "launches": used}
+    log(f"[train] (d) trained checkpoint served: streams card vs CPU "
+        f"{'equal' if equal else 'DIFFER'} ({digests['cpu']}); card "
+        f"launches {used}")
+    if not equal or not digests["cpu"] or not all(used.values()):
+        raise SystemExit("[train] (d) the trained checkpoint's streams "
+                         "differ, or a kernel of the path did not launch")
+
+
+def train_phase(dev: torch.device, card: str, runs: dict) -> None:
+    """Phase 14, (a) to (d)."""
+    t0 = time.perf_counter()
+    trained = train_parity(dev)
+    train_then_serve(dev, trained, runs)
+    del trained
+    train_resume(dev)
+    for arch in TRAIN_CUT:
+        train_full(dev, card, arch)
+    PHASE14["seconds"] = time.perf_counter() - t0
+    log(f"[train] phase 14 took {PHASE14['seconds']:.1f}s")
+
+
 def head_choice_ms(eng, head, dev) -> None:
     """The LM head in fp32: the fp32 copy the runner keeps against a
     per-step cast of the bf16 head, at the decode shape."""
@@ -5738,6 +6033,8 @@ def main() -> int:
     serve_phase12(dev, card, runs)
     serve_phase13(dev, card, runs)
     log_time("phases 11-13")
+    train_phase(dev, card, runs)
+    log_time("phase 14")
     runs["prefix bf16 warm"] = PREFIX["bf16"]["warm"]["launches"]
     for row in rows:
         # each kernel's count from the run of the path it belongs to (the
@@ -5793,6 +6090,7 @@ def main() -> int:
          for k, v in LAYER_RUNS.items()}))
     log("[phase12] summary " + phase12_summary())
     log("[phase13] summary " + phase13_summary())
+    log("[train] summary " + json.dumps(PHASE14))
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -1,6 +1,6 @@
 """Config dataclasses (the port's own copy of ``repro.common.types``).
 
-Only what the ported serving paths read is kept: ``MoEConfig``,
+Only what the ported serving and train paths read is kept: ``MoEConfig``,
 ``MLAConfig``, ``PTConfig``, ``SSMConfig``, ``RGLRUConfig``,
 ``LayerSpec`` and ``ModelConfig`` with the fields ``pt_ify`` and the
 models touch.  The encoder-decoder sub-config is not ported yet (ROADMAP
@@ -137,8 +137,12 @@ class ModelConfig:
     input_kind: str = "tokens"         # 'tokens' | 'embeds' (vlm stub)
 
     dtype: str = "bfloat16"
-    attn_chunk_q: int = 512            # kept for config parity; unused
-    attn_chunk_k: int = 1024
+    attn_chunk_q: int = 512            # blockwise attention's chunks
+    attn_chunk_k: int = 1024           # (train mode)
+    remat: bool = True                 # activation checkpointing on the
+                                       # scanned unit (train mode)
+    remat_policy: str = "nothing"      # 'nothing' | 'dots' (matmul outputs
+                                       # kept)
     logits_fp32: bool = True
 
     def __post_init__(self):

@@ -34,12 +34,15 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.common.pytree import unstack
 from repro_torch.common.quant import QuantTensor
 from repro_torch.common.types import ModelConfig, PTConfig
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.decoder import _embed, _logits, model_dtype
-from repro_torch.models.layers import (check_supported, layer_shapes,
-                                       layer_step, norm_in)
+from repro_torch.models.decoder import (_embed, _logits, _remat,
+                                        model_dtype, train_head, xent)
+from repro_torch.models.layers import (check_supported, check_trainable,
+                                       layer_shapes, layer_step,
+                                       layer_train, norm_in)
 from repro_torch.models.norms import fuse_norm
 from repro_torch.models.params import Leaf, make_params, stack
 from repro_torch.runtime.parallel import NO_PARALLEL, Parallelism
@@ -262,11 +265,15 @@ def pt_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     reads only the cache (the drafter's prefill, whose logits the
     reference computes and drops).  On a rank (``par``) the blocks and
     the cache hold its n/W tracks.  (The reference also returns an
-    auxiliary loss, always zero here; training is ROADMAP queue 1,
-    item 9.)"""
+    auxiliary loss, always zero here.)  ``mode="train"`` returns
+    (logits, aux) from ``_pt_train``."""
+    if mode == "train":
+        if par.sharded:
+            raise NotImplementedError("training on track ranks: ROADMAP "
+                                      "queue 1, item 9c")
+        return _pt_train(params, batch, cfg)
     if mode != "prefill":
-        raise NotImplementedError(f"pt_forward mode {mode!r} is not ported "
-                                  "(train: ROADMAP queue 1, item 9)")
+        raise ValueError(f"unknown pt_forward mode {mode!r}")
     pt = _pt(cfg)
     spec = cfg.spec(cfg.pattern_unit[0])
     inputs = batch["inputs"]
@@ -291,6 +298,44 @@ def pt_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         return torch.stack(xs).reshape(R, pt.block_depth, *xs[0].shape)
 
     return logits, {"blocks": (stacked(ks), stacked(vs)), "tail": ()}
+
+
+def _pt_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """pt_forward(mode="train"), the reference's on ordinary ops: each
+    track block spreads the fused carry [B, S, d] to the n tracks, runs
+    its D layers (``layer_train``) and fuses them (the fp32 mean, cast
+    back: ``_fuse``), the whole block under ``_remat``; then the plain
+    final norm and the head.  Returns (logits [B, S, V], aux = 0)."""
+    check_trainable(cfg)
+    pt = _pt(cfg)
+    spec = cfg.spec(cfg.pattern_unit[0])
+    inputs = batch["inputs"]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = rope_lib.positions_default(*inputs.shape[:2],
+                                               device=inputs.device)
+    R, _ = _block_counts(cfg)
+
+    def block(hf, layers):
+        hh = hf[None].expand(pt.n_tracks, *hf.shape)
+        for lp in layers:
+            hh = layer_train(lp, hh, cfg=cfg, spec=spec, positions=positions)
+        return _fuse(hh, cfg)                       # 1 sync / block
+
+    block = _remat(block, cfg)
+    h = _embed(params, inputs, cfg)
+    for layers in (unstack(b, pt.block_depth)
+                   for b in unstack(params["blocks"], R)):
+        h = block(h, layers)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return train_head(params, h, cfg), aux
+
+
+def pt_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """(loss, metrics) of train mode: batch {'inputs', 'targets',
+    'positions'?}."""
+    logits, aux = pt_forward(params, batch, cfg, mode="train")
+    return xent(logits, batch["targets"], aux)
 
 
 def _pt_step(params, cache, h: torch.Tensor, pos: torch.Tensor,

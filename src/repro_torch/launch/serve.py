@@ -7,8 +7,9 @@ from ``--seed``, serves a synthetic workload through the engine (the
 paged cache, or with ``--contiguous`` the contiguous one), greedy or
 with ``--temperature`` sampled (each request under its own seed, the
 engine's default), and reports TTFT / TPOT / throughput, the launch
-count of each kernel and, with the prefix cache on (the default; off
-with ``--no-prefix-cache``), the prompt tokens it served.
+count of each kernel, a sha256 of the output streams (two runs' streams
+compare by it) and, with the prefix cache on (the default; off with
+``--no-prefix-cache``), the prompt tokens it served.
 ``--shared-prefix N`` puts the same N tokens before every prompt (a
 system prompt).  The robustness knobs are the reference's: a bounded
 queue (``--max-queue``), the stall watchdog's patience, the preemption
@@ -16,7 +17,10 @@ cap, a per-request deadline, priorities cycled over the requests
 (``--priority-mix N``: N > 1 exercises preempt-and-recompute when the
 pool is small) and a seeded ``FaultPlan`` (``--fault-*``); the summary
 then counts preemptions, sheds, rejections, timeouts, watchdog fires and
-transfer faults.  Runs on the GPU unless ``--device cpu`` is given.
+transfer faults.  ``--ckpt-dir`` serves the params of the newest
+checkpoint there (one that ``launch/train.py`` or the reference's
+trainer wrote) in place of the random ones.  Runs on the GPU unless
+``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
       --requests 8 --input-len 512 --output-len 64 --slots 8
@@ -46,16 +50,21 @@ transfer faults.  Runs on the GPU unless ``--device cpu`` is given.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
       --reduced --device cpu --num-blocks 12 --priority-mix 2 \
       --fault-transfer-p 0.1
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
+      --reduced --device cpu --ckpt-dir /tmp/ckpt
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
+import json
 import time
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import store as ckpt_lib
 from repro_torch.common.device import resolve_device
 from repro_torch.configs import NAMES, get_config, reduced_config
 from repro_torch.kernels import ops
@@ -69,6 +78,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="pt-6b-d4", choices=NAMES)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the params of the newest checkpoint here")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--input-len", type=int, default=64)
     ap.add_argument("--output-len", type=int, default=32)
@@ -156,6 +167,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model_fns(cfg)["init"](gen, cfg, device)
+    if args.ckpt_dir:
+        params = ckpt_lib.restore(args.ckpt_dir, {"params": params})["params"]
+        print(f"[serve] loaded params from {args.ckpt_dir}")
     plan = None
     if args.fault_alloc_p or args.fault_transfer_p or args.fault_slow_p:
         plan = FaultPlan(seed=args.fault_seed, alloc_p=args.fault_alloc_p,
@@ -288,6 +302,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         print(f"[serve] faults injected: {fs['injected']} "
               f"(alloc {fs['alloc_faults']}, transfer "
               f"{fs['transfer_faults']}, slow {fs['slow_steps']})")
+    streams = json.dumps([r.output for r in reqs]).encode()
+    print(f"[serve] output streams: {sum(len(r.output) for r in reqs)} "
+          f"tokens, sha256 {hashlib.sha256(streams).hexdigest()}")
     done = sum(r.state is RequestState.DONE for r in reqs)
     print(f"[serve] finished {done}/{len(reqs)} requests")
     # every request ended, in one state (shed or timed out ones too)

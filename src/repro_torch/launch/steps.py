@@ -1,8 +1,9 @@
-"""Model-function dispatch of the serving path (counterpart of the
-``model_fns`` table of ``repro.launch.steps``; its train and dry-run
-step functions are ROADMAP queue 1, item 9), and ``StepGraph``, the
-counterpart of its ``aot_compile``: one serving step captured once as a
-CUDA graph and replayed.
+"""Model-function dispatch (counterpart of the ``model_fns`` table of
+``repro.launch.steps``), the train step (``make_train_step``,
+``cfg_default_microbatches``; the dry-run's step functions and input
+specs are ROADMAP queue 1, item 9c), and ``StepGraph``, the counterpart
+of its ``aot_compile``: one serving step captured once as a CUDA graph
+and replayed.
 
 A PT config (``cfg.pt`` set) serves through ``core.track``, every other
 config through the dense ``lm_*`` decoder.  The entries take the same
@@ -27,10 +28,15 @@ from typing import Any, Callable, Dict, Hashable, Optional
 
 import torch
 
+from repro_torch.common.pytree import (count_params, map_with_path,
+                                       tree_map, tree_paths)
 from repro_torch.common.types import ModelConfig
 from repro_torch.core import track as pt_lib
 from repro_torch.kernels import ops
 from repro_torch.models import decoder as dec_lib
+from repro_torch.models.layers import check_trainable
+from repro_torch.optim import (clip_by_global_norm, make_optimizer,
+                               warmup_cosine)
 from repro_torch.runtime.parallel import NO_PARALLEL, Parallelism
 
 
@@ -44,16 +50,127 @@ def model_fns(cfg: ModelConfig,
                "init_cache": pt_lib.pt_init_cache}
         fns = {k: functools.update_wrapper(functools.partial(f, par=par), f)
                for k, f in fns.items()}
-        return dict(fns, init=pt_lib.init_pt)
+        return dict(fns, init=pt_lib.init_pt, loss=pt_lib.pt_loss)
     if par.sharded:
         raise ValueError(f"{cfg.name} has no tracks to place on ranks: "
                          "track ranks serve PT configs only")
     return {"init": dec_lib.init_lm,
+            "loss": dec_lib.lm_loss,
             "forward": dec_lib.lm_forward,
             "decode": dec_lib.lm_decode_step,
             "chunk": dec_lib.lm_chunk_step,
             "chunk_hidden": dec_lib.lm_chunk_hidden,
             "init_cache": dec_lib.init_cache}
+
+
+# ---------------------------------------------------------------------------
+# the train step
+# ---------------------------------------------------------------------------
+
+def _n_params(cfg: ModelConfig) -> int:
+    specs = (pt_lib.param_specs(cfg) if cfg.pt is not None
+             else dec_lib.lm_param_specs(cfg))
+    return count_params(specs)
+
+
+def value_and_grad(loss_fn: Callable, params, batch):
+    """(loss, grads) of ``loss_fn(params, batch) -> (loss, metrics)`` by
+    autograd: every leaf of ``params`` requires grad for the call only;
+    grads have the params' structure (zeros for a leaf the loss does not
+    read)."""
+    paths, leaves = zip(*tree_paths(params))
+    with torch.enable_grad():
+        for leaf in leaves:
+            leaf.requires_grad_(True)
+        try:
+            loss, _ = loss_fn(params, batch)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        finally:
+            for leaf in leaves:
+                leaf.requires_grad_(False)
+    by_path = {p: torch.zeros_like(l) if g is None else g
+               for p, l, g in zip(paths, leaves, grads)}
+    return loss.detach(), map_with_path(lambda p, _: by_path[p], params)
+
+
+def make_train_step(cfg: ModelConfig, par: Parallelism = NO_PARALLEL,
+                    microbatches: int = 0, peak_lr: float = 3e-4,
+                    warmup: int = 100, total_steps: int = 10000,
+                    clip_norm: float = 1.0):
+    """(train_step, opt_init, opt_name), train_step (params, opt_state,
+    batch) -> (params, opt_state, metrics) as the reference's: the batch
+    split into microbatches on its leading axis (M-RoPE positions on
+    their second), the grads of each summed in fp32 and divided by
+    their count (one microbatch: the grads in the params' dtype), then
+    clipping to ``clip_norm``, the warmup-cosine rate at the optimizer's
+    step, and the optimizer's update (AdamW below 30 B params, in
+    place; Adafactor above).  One process:
+    training on several cards is ROADMAP queue 1, item 9c."""
+    if par.sharded:
+        raise NotImplementedError("training on track ranks or several "
+                                  "cards: ROADMAP queue 1, item 9c")
+    check_trainable(cfg)
+    fns = model_fns(cfg)
+    opt_init, opt_update, opt_name = make_optimizer(cfg, _n_params(cfg))
+    mb = microbatches or cfg_default_microbatches(cfg)
+
+    def loss_fn(params, batch):
+        return fns["loss"](params, batch, cfg)
+
+    def train_step(params, opt_state, batch):
+        B = batch["targets"].shape[0]
+        mb_eff = mb
+        while mb_eff > 1 and B % mb_eff:
+            mb_eff //= 2
+        if mb_eff > 1:
+            def micro(x, i):
+                if x.shape[0] == B:
+                    return x.reshape(mb_eff, B // mb_eff, *x.shape[1:])[i]
+                return x.reshape(x.shape[0], mb_eff, B // mb_eff,
+                                 *x.shape[2:])[:, i]
+
+            gsum, lsum = None, 0.0
+            for i in range(mb_eff):
+                loss, g = value_and_grad(
+                    loss_fn, params, {k: micro(v, i) for k, v in
+                                      batch.items()})
+                gsum = (tree_map(lambda b: b.float(), g) if gsum is None
+                        else tree_map(lambda a, b: a.add_(b.float()),
+                                      gsum, g))
+                lsum = lsum + loss
+            grads = tree_map(lambda g: g.div_(mb_eff), gsum)
+            loss = lsum / mb_eff
+        else:
+            loss, grads = value_and_grad(loss_fn, params, batch)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        lr = warmup_cosine(opt_state["step"], peak_lr=peak_lr,
+                           warmup=warmup, total=total_steps)
+        params, opt_state = opt_update(grads, opt_state, params, lr)
+        return params, opt_state, {"loss": loss, "grad_norm": gnorm,
+                                   "lr": lr}
+
+    return train_step, opt_init, opt_name
+
+
+def cfg_default_microbatches(cfg: ModelConfig) -> int:
+    """The reference's accumulation factor per architecture (sized for
+    its 4k-token train cell)."""
+    by_name = {
+        "deepseek-v3-671b": 16,
+        "deepseek-v2-236b": 16,
+        "qwen2-vl-72b": 16,
+        "nemotron-4-15b": 8,
+        "recurrentgemma-9b": 8,
+        "falcon-mamba-7b": 8,
+        "gemma3-4b": 4,
+        "gemma2-2b": 4,
+        "whisper-medium": 2,
+        "tinyllama-1.1b": 2,
+    }
+    for k, v in by_name.items():
+        if cfg.name.startswith(k):
+            return v
+    return 4 if cfg.n_layers >= 24 else 1
 
 
 _SIDE: Dict[torch.device, torch.cuda.Stream] = {}

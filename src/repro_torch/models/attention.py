@@ -57,7 +57,7 @@ from repro_torch.common.types import LayerSpec, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import NEG_INF
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.norms import rmsnorm
+from repro_torch.models.norms import plain_rmsnorm, rmsnorm
 from repro_torch.models.params import Leaf
 
 
@@ -85,18 +85,19 @@ def rope_theta(spec: LayerSpec, cfg: ModelConfig) -> float:
 
 
 def _project_qkv(params, x: torch.Tensor, spec: LayerSpec,
-                 cfg: ModelConfig, positions: torch.Tensor):
+                 cfg: ModelConfig, positions: torch.Tensor, qk_norm=rmsnorm):
     """x [n, B, S, d] -> q [n, B, S, H, hd], k/v [n, B, S, KH, hd]: the
-    projections, qk-norm (``cfg.qk_norm``), then RoPE (or M-RoPE) at the
-    layer's theta applied to q and k in fp32 (``rope_tables``)."""
+    projections, qk-norm (``cfg.qk_norm``; ``qk_norm`` the norm function,
+    the kernel's by default), then RoPE (or M-RoPE) at the layer's theta
+    applied to q and k in fp32 (``rope_tables``)."""
     n, B, S, d = x.shape
     wq, wk, wv = params["wq"], params["wk"], params["wv"]
     q = matmul(x, as_matrix(wq, d)).reshape(n, B, S, *wq.shape[2:])
     k = matmul(x, as_matrix(wk, d)).reshape(n, B, S, *wk.shape[2:])
     v = matmul(x, as_matrix(wv, d)).reshape(n, B, S, *wv.shape[2:])
     if cfg.qk_norm:
-        q = rmsnorm(params["q_norm"], q, eps=cfg.norm_eps)
-        k = rmsnorm(params["k_norm"], k, eps=cfg.norm_eps)
+        q = qk_norm(params["q_norm"], q, eps=cfg.norm_eps)
+        k = qk_norm(params["k_norm"], k, eps=cfg.norm_eps)
     cos, sin = rope_tables(spec, cfg, positions, wq.shape[-1])
     return rope_lib.apply_rope(q, cos, sin), rope_lib.apply_rope(k, cos, sin), v
 
@@ -133,16 +134,113 @@ def _out_proj(params, ctx: torch.Tensor) -> torch.Tensor:
                   as_matrix(wo, H * hd))
 
 
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: Optional[int] = None,
+                        softcap: Optional[float] = None, q_start: int = 0,
+                        chunk_q: int = 512, chunk_k: int = 1024
+                        ) -> torch.Tensor:
+    """Online-softmax attention with static causal / window block
+    skipping (the reference's ``blockwise_attention``, the train path's
+    attention): q [B, Sq, H, hd], k [B, Sk, H, hd], v [B, Sk, H, dv]
+    (K/V already expanded to H heads; dv <= hd, as MLA's).  q row i sits
+    at position q_start + i, key j at j.  The q chunks and each chunk's
+    key range are static, whole key chunks outside the causal / window
+    range are skipped, and scores, max, sum and accumulator are fp32 with
+    the reference's NEG_INF mask and its clamp of the sum at 1e-37.
+    Every op returns a new tensor, so autograd differentiates it."""
+    B, Sq, H, hd = q.shape
+    Sk, dv = k.shape[1], v.shape[-1]
+    scale = hd ** -0.5
+    cq = chunk_q if Sq % chunk_q == 0 else Sq
+    ck = chunk_k if Sk % chunk_k == 0 else Sk
+    dev = q.device
+    out = []
+    for i in range(Sq // cq):
+        q_lo = q_start + i * cq                    # position of the first row
+        q_hi = q_start + (i + 1) * cq - 1          # and of the last
+        k_hi = min(Sk, q_hi + 1) if causal else Sk
+        k_lo = max(0, q_lo - window + 1) if window is not None else 0
+        k_lo = (k_lo // ck) * ck                   # whole key chunks
+        k_hi = min(Sk, ((k_hi + ck - 1) // ck) * ck)
+        if k_hi <= k_lo:
+            out.append(torch.zeros(B, cq, H, dv, dtype=q.dtype, device=dev))
+            continue
+        qi = q[:, i * cq:(i + 1) * cq].float() * scale
+        q_pos = q_lo + torch.arange(cq, device=dev)
+        m = torch.full((B, H, cq), NEG_INF, dtype=torch.float32, device=dev)
+        l = torch.zeros(B, H, cq, dtype=torch.float32, device=dev)
+        acc = torch.zeros(B, H, cq, dv, dtype=torch.float32, device=dev)
+        for lo in range(k_lo, k_hi, ck):
+            s = torch.einsum("bqhd,bkhd->bhqk", qi,
+                             k[:, lo:lo + ck].float())
+            if softcap is not None:
+                s = softcap * torch.tanh(s / softcap)
+            k_pos = lo + torch.arange(ck, device=dev)
+            mask = torch.ones(cq, ck, dtype=torch.bool, device=dev)
+            if causal:
+                mask = mask & (k_pos[None, :] <= q_pos[:, None])
+            if window is not None:
+                mask = mask & (k_pos[None, :] > q_pos[:, None] - window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p, v[:, lo:lo + ck].float())
+            m = m_new
+        l = torch.clamp_min(l, 1e-37)
+        out.append((acc / l[..., None]).to(q.dtype).movedim(1, 2))
+    return out[0] if len(out) == 1 else torch.cat(out, dim=1)
+
+
+def _expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """[..., KH, hd] -> [..., H, hd]: KV head h // (H / KH) for query
+    head h (the reference's static gather), as a broadcast copy, whose
+    backward is a sum over each KV head's G query heads (no atomics, so
+    the same bits every run)."""
+    *lead, kh, hd = k.shape
+    g = n_heads // kh
+    return k[..., None, :].expand(*lead, kh, g, hd).reshape(*lead, kh * g,
+                                                            hd)
+
+
+def _attention_train(params, x: torch.Tensor, spec: LayerSpec,
+                     cfg: ModelConfig, positions: torch.Tensor
+                     ) -> torch.Tensor:
+    """The train path: plain qk-norm, K/V expanded to the query heads and
+    ``blockwise_attention`` (tracks flattened into its batch); no kernel
+    wrapper, no cache."""
+    n, B, S, _ = x.shape
+    q, k, v = _project_qkv(params, x, spec, cfg, positions,
+                           qk_norm=plain_rmsnorm)
+    H, hd = q.shape[-2:]
+    ctx = blockwise_attention(
+        q.reshape(n * B, S, H, hd),
+        _expand_kv(k, H).reshape(n * B, S, H, hd),
+        _expand_kv(v, H).reshape(n * B, S, H, v.shape[-1]),
+        causal=spec.causal, window=spec.window,
+        softcap=spec.attn_logit_softcap, chunk_q=cfg.attn_chunk_q,
+        chunk_k=cfg.attn_chunk_k)
+    return _out_proj(params, ctx.reshape(n, B, S, H, v.shape[-1]))
+
+
 def attention_apply(params, x: torch.Tensor, *, spec: LayerSpec,
                     cfg: ModelConfig, positions: torch.Tensor,
                     return_cache: bool = False,
-                    lengths: Optional[torch.Tensor] = None):
+                    lengths: Optional[torch.Tensor] = None,
+                    train: bool = False):
     """Causal (windowed) self-attention over x [n, B, S, d] at
     ``positions`` [B, S] (or M-RoPE streams [3, B, S]) through the
     flash kernel (tracks flattened into its batch).  Returns (out
     [n, B, S, d], cache or None): (k, v) [n, B, S, KH, hd] with RoPE
     applied, or for a window W < S the rings [n, B, W, KH, hd] built from
-    each row's true ``lengths`` [B] (default S: no padding)."""
+    each row's true ``lengths`` [B] (default S: no padding).  ``train``:
+    the reference's train mode, (out, None) from ``blockwise_attention``
+    on plain ops (``_attention_train``)."""
+    if train:
+        return _attention_train(params, x, spec, cfg, positions), None
     n, B, S, _ = x.shape
     q, k, v = _project_qkv(params, x, spec, cfg, positions)
     H, hd = q.shape[-2:]

@@ -16,7 +16,9 @@ also takes precomputed input embeddings (qwen2-vl's stub vision
 frontend) with (t, h, w) M-RoPE positions.
 
   init_lm(generator, cfg, device)               -> params
-  lm_forward(params, batch, cfg, mode)          -> (logits, cache)
+  lm_forward(params, batch, cfg, mode)          -> prefill: (logits, cache)
+                                                   train: (logits, aux)
+  lm_loss(params, batch, cfg)                   -> (loss, metrics)
   lm_decode_step(params, cache, tokens, pos, cfg, ...) -> (logits, cache)
   lm_chunk_step(params, cache, tokens, pos, cfg, ...)  -> (logits, cache)
   lm_chunk_hidden(...)                          -> hidden states (no head)
@@ -35,27 +37,71 @@ Mamba layer's entry is (conv window [.., B, dc-1, di] in the model
 dtype, h [.., B, di, ds] fp32) and an RG-LRU layer's (conv window
 [.., B, dc-1, di], h [.., B, di] fp32): per-slot state rows.  The decode and
 chunk steps update every leaf in place.  (The reference's prefill also returns an
-auxiliary loss, always zero here; training is ROADMAP queue 1, item 9.)
+auxiliary loss, always zero here.)
+
+Train mode (``lm_forward(mode="train")``, ``lm_loss``) runs the
+reference's train-time functions on plain PyTorch ops, so autograd
+differentiates them: ``layers.layer_train`` (plain norms, blockwise
+attention), each repeat of the unit under ``_remat`` (activation
+checkpointing).  It reaches no kernel wrapper.  The GQA layers train;
+MLA, Mamba, RG-LRU and MoE layers raise (ROADMAP queue 1, item 9b).
 """
 from __future__ import annotations
 
+import functools
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.common import quant
 from repro_torch.common.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.common.pytree import unstack
 from repro_torch.common.types import ModelConfig
-from repro_torch.models.layers import (check_supported, layer_shapes,
-                                       layer_step, norm_in, norm_shapes)
+from repro_torch.models.layers import (check_supported, check_trainable,
+                                       layer_shapes, layer_step,
+                                       layer_train, norm_in, norm_shapes)
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.norms import apply_norm
+from repro_torch.models.norms import apply_norm, plain_norm
 from repro_torch.models.params import Leaf, make_params, stack
 
 
 def model_dtype(cfg: ModelConfig) -> torch.dtype:
     return torch_dtype(cfg.dtype)
+
+
+# the matmul outputs that remat policy "dots" keeps (the reference's
+# dots_with_no_batch_dims_saveable keeps its dot products' outputs)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _keep_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
+    """``fn`` under activation checkpointing (the reference's ``_remat``):
+    with ``cfg.remat`` only its inputs are saved and its forward runs
+    again in the backward; remat policy 'dots' also keeps the matmul
+    outputs, 'nothing' recomputes everything."""
+    if not cfg.remat:
+        return fn
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _keep_dots)
+    elif cfg.remat_policy != "nothing":
+        raise ValueError(f"unknown remat policy {cfg.remat_policy!r}")
+
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False, **kw)
+
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -195,10 +241,12 @@ def lm_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     padded key lies causally after every real query, and ``lengths``
     keeps padding out of the rings.  Recurrent layers carry every
     position into their state, so their rows must not be right-padded:
-    the engine prefills them at exact length."""
+    the engine prefills them at exact length.  ``mode="train"``:
+    (logits, aux) of ``_lm_train`` (no cache, plain ops)."""
+    if mode == "train":
+        return _lm_train(params, batch, cfg)
     if mode != "prefill":
-        raise NotImplementedError(f"lm_forward mode {mode!r} is not ported "
-                                  "(train: ROADMAP queue 1, item 9)")
+        raise ValueError(f"unknown lm_forward mode {mode!r}")
     inputs = batch["inputs"]
     lengths = batch.get("lengths")
     positions = batch.get("positions")
@@ -222,6 +270,66 @@ def lm_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                       if cfg.pattern_repeat else ()),
              "suffix": tuple(caches["suffix"])}
     return _logits(params, _final(params, x, delta, cfg), cfg), cache
+
+
+def train_head(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The final norm (plain) and the LM head of train mode."""
+    return _logits(params, plain_norm(cfg.norm, params["final_norm"], h,
+                                      eps=cfg.norm_eps), cfg)
+
+
+def _lm_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """lm_forward(mode="train"): (logits [B, S, V], aux) as the
+    reference's, aux the MoE loss (zero: no MoE layer trains yet)."""
+    check_trainable(cfg)
+    inputs = batch["inputs"]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = rope_lib.positions_default(*inputs.shape[:2],
+                                               device=inputs.device)
+    h = _embed(params, inputs, cfg)
+
+    def run(lp, x, nm):
+        return layer_train(lp, x, cfg=cfg, spec=cfg.spec(nm),
+                           positions=positions)
+
+    for i, nm in enumerate(cfg.pattern_prefix):
+        h = run(params["prefix"][i], h, nm)
+
+    def unit(x, layers):
+        for lp, nm in zip(layers, cfg.pattern_unit):
+            x = run(lp, x, nm)
+        return x
+
+    unit = _remat(unit, cfg)
+    R = cfg.pattern_repeat
+    for layers in zip(*(unstack(u, R) for u in params["unit"])):
+        h = unit(h, layers)
+    for i, nm in enumerate(cfg.pattern_suffix):
+        h = run(params["suffix"][i], h, nm)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return train_head(params, h, cfg), aux
+
+
+def xent(logits: torch.Tensor, targets: torch.Tensor, aux: torch.Tensor):
+    """Next-token cross entropy of the reference's losses: the fp32
+    logsumexp, targets == -1 masked out, the mean over at least one
+    token; returns (loss + aux, metrics)."""
+    mask = (targets >= 0).float()
+    t = torch.clamp_min(targets, 0).long()
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, t[..., None])[..., 0] - logz
+    denom = torch.clamp_min(mask.sum(), 1.0)
+    loss = -torch.sum(ll * mask) / denom
+    return loss + aux, {"loss": loss, "aux": aux, "tokens": mask.sum()}
+
+
+def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """(loss, metrics) of train mode: batch {'inputs', 'targets',
+    'positions'?}."""
+    logits, aux = lm_forward(params, batch, cfg, mode="train")
+    return xent(logits, batch["targets"], aux)
 
 
 def _step_layers(params, cache, h: torch.Tensor, pos: torch.Tensor,

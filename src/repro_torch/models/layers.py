@@ -31,6 +31,10 @@ Both run the modes the serving path needs:
               window, h) for Mamba and RG-LRU)
   'decode'  — one token per row against the layer's cache
   'chunk'   — C tokens per row appended to the layer's cache
+``layer_train`` is a GQA layer in the reference's 'train' mode (no
+cache) on plain ops: plain norms, blockwise attention, no kernel
+wrapper, so autograd differentiates it; the train modes of MLA, Mamba,
+RG-LRU and MoE layers raise (``check_trainable``, ROADMAP item 9b).
 GQA caches are block pools written through the block table, or
 contiguous per-slot rows [.., B, S, KH, hd] written at each row's
 position (inactive decode lanes keep their rows), or for a window
@@ -60,7 +64,7 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models import rglru as rglru_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.mlp import MLPS, mlp_apply, mlp_shapes
-from repro_torch.models.norms import NORMS, add_norm, apply_norm
+from repro_torch.models.norms import NORMS, add_norm, apply_norm, plain_norm
 from repro_torch.models.params import Leaf
 
 _PT_LAYER = ("gqa", "swiglu")       # (mixer, mlp) of the PT path
@@ -106,6 +110,22 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: not ported to repro_torch yet ("
             + "; ".join(sorted(set(unported)))
             + "); see ROADMAP queue 1, item 3")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise unless every layer has a ported train mode: GQA with a
+    SwiGLU, GeGLU or squared-ReLU MLP (the PT models, the dense
+    baselines, tinyllama, the gemma models, nemotron, qwen2-vl).  The
+    train modes of MLA, Mamba, RG-LRU and the MoE (with its auxiliary
+    loss) are ROADMAP queue 1, item 9b."""
+    check_supported(cfg)
+    missing = sorted({s.mixer if s.mixer != "gqa" else s.mlp
+                      for s in map(cfg.spec, cfg.layer_names)
+                      if s.mixer != "gqa" or s.mlp == "moe"})
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: the train mode of {', '.join(missing)} layers is "
+            "not ported (ROADMAP queue 1, item 9b)")
 
 
 def norm_shapes(kind: str, d: int) -> Dict[str, Leaf]:
@@ -184,8 +204,8 @@ def _recurrent(params, h: torch.Tensor, *, cfg: ModelConfig, mixer: str,
         rows = cache if slots is None else tuple(l[slots] for l in cache)
         out, new_rows = chunk(params, h, rows, cfg=cfg, chunk_lens=chunk_lens)
         return out, _write_rows(cache, new_rows, slots)
-    raise NotImplementedError(f"layer mode {mode!r} is not ported (train: "
-                              "ROADMAP queue 1, item 9)")
+    raise NotImplementedError(f"{mixer} layer mode {mode!r} is not ported "
+                              "(train: ROADMAP queue 1, item 9b)")
 
 
 def _mla(params, h: torch.Tensor, *, cfg: ModelConfig, spec: LayerSpec,
@@ -201,8 +221,8 @@ def _mla(params, h: torch.Tensor, *, cfg: ModelConfig, spec: LayerSpec,
                                   kv_max_len=kv_max_len, active=active)
     if mode in ("chunk", "fill"):
         return mla_lib.mla_chunk()
-    raise NotImplementedError(f"layer mode {mode!r} is not ported (train: "
-                              "ROADMAP queue 1, item 9)")
+    raise NotImplementedError(f"mla layer mode {mode!r} is not ported "
+                              "(train: ROADMAP queue 1, item 9b)")
 
 
 def _gqa(params, h: torch.Tensor, *, cfg: ModelConfig, spec: LayerSpec,
@@ -222,8 +242,10 @@ def _gqa(params, h: torch.Tensor, *, cfg: ModelConfig, spec: LayerSpec,
                                     kv_max_len=kv_max_len, slots=slots,
                                     chunk_lens=chunk_lens,
                                     prefill=mode == "fill")
-    raise NotImplementedError(f"layer mode {mode!r} is not ported (train: "
-                              "ROADMAP queue 1, item 9)")
+    if mode == "train":
+        return attn.attention_apply(params, h, spec=spec, cfg=cfg,
+                                    positions=positions, train=True)
+    raise ValueError(f"unknown layer mode {mode!r}")
 
 
 def _track1(tree):
@@ -310,6 +332,34 @@ def layer_step(params, x: torch.Tensor, y: torch.Tensor, *,
         return x1[0], d1[0], (tuple(c[0] for c in c1) if mode == "prefill"
                               else cache)
     return _step(params, x, y, cache=cache, **kw)
+
+
+def layer_train(params, x: torch.Tensor, *, cfg: ModelConfig,
+                spec: LayerSpec, positions: torch.Tensor) -> torch.Tensor:
+    """One GQA layer in train mode, the reference's ``layer_apply(mode=
+    "train")`` on plain ops: ln1, attention (``blockwise_attention``),
+    ln1_post, the residual add, ln2, the MLP, ln2_post, the residual add,
+    every norm the plain one (``plain_norm``), so that no kernel wrapper
+    runs and autograd differentiates it.  x [n, B, S, d] with track-
+    stacked params (PT), or [B, S, d] (lm_*: run on n = 1 views).
+    Returns the layer's output."""
+    if spec.mixer != "gqa" or spec.mlp == "moe":
+        raise NotImplementedError(f"{spec.mixer} / {spec.mlp} train mode "
+                                  "(ROADMAP queue 1, item 9b)")
+    if cfg.pt is None:
+        params, x = _track1(params), x[None]
+
+    def norm(name, h):
+        return plain_norm(cfg.norm, params[name], h, eps=cfg.norm_eps)
+
+    h, _ = _gqa(params["mixer"], norm("ln1", x), cfg=cfg, spec=spec,
+                mode="train", positions=positions, pos=None, cache=None,
+                block_table=None, kv_max_len=None, active=None,
+                lengths=None, slots=None, chunk_lens=None)
+    x = x + (norm("ln1_post", h) if cfg.post_norm else h)
+    h = mlp_apply(params["mlp"], norm("ln2", x), spec.mlp)
+    x = x + (norm("ln2_post", h) if cfg.post_norm else h)
+    return x if cfg.pt is not None else x[0]
 
 
 def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig,

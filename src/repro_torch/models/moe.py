@@ -33,7 +33,7 @@ The port's tree keeps the ``n_routed_experts`` real experts; a
 reference tree stored padded to ``n_experts_padded`` loses its padded
 rows and router columns in ``weights.from_jax_params`` (they are never
 routed to).  The reference's auxiliary load-balancing loss is a training
-quantity (ROADMAP queue 1, item 9) and is not computed.
+quantity (MoE training: ROADMAP queue 1, item 9b) and is not computed.
 
 ``track_drops(device)`` turns on the drop counters: every call on that
 device then adds its routed (token, expert) pairs and its dropped ones,

@@ -10,7 +10,11 @@ LayerNorm (nemotron-4-15b): ``scale`` and ``bias``, fp32 statistics
 (population variance), plain PyTorch: the reference has no Pallas
 kernel for it, and the RMSNorm kernel does not compute it.  Its residual
 add is the same add in x's dtype, then the norm.  Track fusion is a PT
-boundary and PT models use RMSNorm only."""
+boundary and PT models use RMSNorm only.
+
+``plain_norm`` is the reference's jnp norm as written, with no kernel
+wrapper: the train mode runs it (the reference's ``layers._norm``), so
+autograd differentiates plain PyTorch ops."""
 from __future__ import annotations
 
 from typing import Optional, Tuple
@@ -42,11 +46,37 @@ def layernorm(params, x: torch.Tensor, *, eps: float = 1e-5
     xf = x.float()
     mu = xf.mean(dim=-1, keepdim=True)
     var = (xf - mu).square().mean(dim=-1, keepdim=True)
-    w, b = params["scale"].float(), params["bias"].float()
-    if w.dim() == 2 and x.dim() > 2:
-        w = w.reshape(w.shape[0], *([1] * (x.dim() - 2)), w.shape[-1])
-        b = b.reshape(w.shape)
+    w = _rows(params["scale"].float(), x)
+    b = _rows(params["bias"].float(), x)
     return ((xf - mu) * torch.rsqrt(var + eps) * w + b).to(x.dtype)
+
+
+def _rows(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A per-track scale row [n, d] viewed against x [n, ..., d]."""
+    if w.dim() == 2 and x.dim() > 2:
+        return w.reshape(w.shape[0], *([1] * (x.dim() - 2)), w.shape[-1])
+    return w
+
+
+def plain_rmsnorm(params, x: torch.Tensor, *, eps: float = 1e-6
+                  ) -> torch.Tensor:
+    """The reference's jnp ``rmsnorm``, op for op: x * rsqrt(mean(x^2) +
+    eps) in fp32, times (1 + scale), cast back to x's dtype.  Scale [d],
+    or per-track [n, d] with x [n, ..., d]."""
+    xf = x.float()
+    var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
+    xf = xf * torch.rsqrt(var + eps)
+    w = 1.0 + _rows(params["scale"].float(), x)
+    return (xf * w).to(x.dtype)
+
+
+def plain_norm(kind: str, params, x: torch.Tensor, *,
+               eps: float) -> torch.Tensor:
+    """RMSNorm or LayerNorm in plain PyTorch (train mode)."""
+    _known(kind)
+    if kind == "layernorm":
+        return layernorm(params, x, eps=eps)
+    return plain_rmsnorm(params, x, eps=eps)
 
 
 def apply_norm(kind: str, params, x: torch.Tensor, *,

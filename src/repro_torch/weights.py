@@ -18,6 +18,12 @@ loses the padded experts (router columns, e_bias entries, expert rows):
 they are never routed to.
 Nothing here imports JAX: the caller hands over numpy arrays.
 
+``from_jax_state`` carries a whole train state across, {"params": ...,
+"opt": ...} with the optimizer state of the reference's ``adamw_init``
+(step, fp32 m / v / master with the params' structure) or
+``adafactor_init`` (step, fp32 factored statistics), so that both
+packages can start training from one state.
+
 A tree from the reference's ``quantize_params`` carries across too: each
 of its ``QuantTensor`` leaves given as a ``(payload, scale)`` numpy pair
 becomes a :class:`~repro_torch.common.quant.QuantTensor`, checked
@@ -26,7 +32,7 @@ shape, fp32 scale with the contraction axes collapsed to 1).
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -40,11 +46,11 @@ from repro_torch.models.params import Leaf
 
 
 def _to_torch(a: Any, device: torch.device) -> torch.Tensor:
-    a = np.asarray(a)
+    a = np.array(a, order="C")              # a copy; a scalar stays 0-d
     if a.dtype.name == "bfloat16":          # ml_dtypes bfloat16 (2 bytes)
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
-        return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 # the expert axis of each MoE leaf (its padding is dropped)
@@ -53,13 +59,15 @@ _EXPERT_AXIS = {"router": -1, "e_bias": -1, "w_gate": -3, "w_up": -3,
 
 
 def from_jax_params(tree: Any, cfg: ModelConfig,
-                    device: DeviceLike = None) -> Any:
+                    device: DeviceLike = None,
+                    dtype: Optional[torch.dtype] = None) -> Any:
     """Numpy-leaved JAX ``init_pt`` / ``init_lm`` tree (optionally
     quantized, with ``(payload, scale)`` pairs) -> the port's parameters
     on ``device``.  Raises when the tree's keys, shapes or dtypes differ
-    from what ``cfg`` describes."""
+    from what ``cfg`` describes; ``dtype`` set: every leaf must be of
+    that dtype (an optimizer's fp32 moments)."""
     device = resolve_device(device)
-    dtype = model_dtype(cfg)
+    model = model_dtype(cfg)
     n_exp = cfg.moe.n_routed_experts if cfg.moe is not None else 0
 
     def quantized(shape, node, path):
@@ -99,7 +107,7 @@ def from_jax_params(tree: Any, cfg: ModelConfig,
         if n_exp and axis is not None and ".mlp." in f".{path}":
             node = np.take(np.asarray(node), np.arange(n_exp), axis=axis)
         t = _to_torch(node, device)
-        want = spec.dtype(dtype)
+        want = dtype or spec.dtype(model)
         if tuple(t.shape) != tuple(spec.shape) or t.dtype != want:
             raise ValueError(f"{path}: got {tuple(t.shape)} {t.dtype}, "
                              f"want {tuple(spec.shape)} {want}")
@@ -107,3 +115,31 @@ def from_jax_params(tree: Any, cfg: ModelConfig,
 
     specs = param_specs(cfg) if cfg.pt is not None else lm_param_specs(cfg)
     return walk(specs, tree, "")
+
+
+def _generic(tree: Any, device: torch.device) -> Any:
+    if isinstance(tree, dict):
+        return {k: _generic(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_generic(v, device) for v in tree)
+    return _to_torch(tree, device)
+
+
+def from_jax_state(state: Any, cfg: ModelConfig,
+                   device: DeviceLike = None) -> Any:
+    """Numpy-leaved train state {"params": tree, "opt": optimizer state}
+    of the reference -> the port's, on ``device``.  AdamW's m, v and
+    master are checked against the params' specs in fp32; Adafactor's
+    statistics are carried as they are."""
+    device = resolve_device(device)
+    opt = state["opt"]
+    out = {"step": _to_torch(opt["step"], device)}
+    if out["step"].dtype != torch.int32 or out["step"].dim():
+        raise ValueError("opt/step: want an int32 scalar")
+    for key, node in opt.items():
+        if key == "stats":
+            out[key] = _generic(node, device)
+        elif key != "step":
+            out[key] = from_jax_params(node, cfg, device, torch.float32)
+    return {"params": from_jax_params(state["params"], cfg, device),
+            "opt": out}

@@ -263,6 +263,29 @@ Needs one CUDA GPU.  Phases, each of which exits non-zero on failure:
      their 32 layers, bf16 + fp32 master, ``train_loop`` 4 steps of 8 x
      512: step ms, tokens/s, peak memory, losses, the model-FLOP share;
      finite losses and grad norms, every parameter leaf changed.
+ 15. whisper-medium at full width and depth (24 encoder + 24 decoder
+     layers, d 1024, 16 heads of 64), bf16, seeded random weights
+     (``serve_whisper``): 8 rows of 1500 seeded frame embeddings and a
+     4-token prompt, ``lm_forward`` (encoder + decoder prefill),
+     ``pad_cache``, 63 greedy ``lm_decode_step``s on the contiguous
+     cache (64 new tokens a row; the engine, as the reference's, serves
+     decoder-only models): encode ms, TTFT and TPOT p50, tokens/s, peak
+     memory, a decode step's device-busy share (torch.profiler) and byte
+     bound, launches by kernel and route; gates: every flash launch
+     (encoder full, decoder causal, cross-attention prefill full) on
+     ``wgmma_tma`` at hd 64, one per layer and role, ``decode_attention``
+     twice a layer a step (self and cross), no other kernel; the first
+     logits and the logits teacher-forced along the 64-token streams
+     recomputed with the plain versions of flash and
+     ``decode_attention`` (mean |diff| at most 2e-2 x the logits' std;
+     SDPA in flash's place beside it as a control, not gated);
+     one reduced AdamW train step card against CPU.  Its phase-3 rows
+     (``check_slice21_kernels``): flash full at the encoder's q, k, v
+     [8, 1500, 16, 64] and the cross prefill's q [8, 4, 16, 64] over k, v
+     [8, 1500, 16, 64], ``decode_attention`` at the cross decode's q [8,
+     16, 64] over [8, 1500, 16, 64] (lengths 1500, G 1); its phase 4
+     (``check_whisper_parity``): reduced whisper fp32, card against CPU
+     (1e-4), equal greedy streams.
 Prints one ``{"kernels": [...]}`` JSON line, then the card line, then
 ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -553,6 +576,7 @@ def check_kernels(dev: torch.device):
     check_layer_kernels(dev, g, rows)
     check_slice16_kernels(dev, g, rows)
     check_slice17_kernels(dev, g, rows)
+    check_slice21_kernels(dev, g, rows)
     return rows
 
 
@@ -3483,8 +3507,24 @@ def serve_ranks(dev: torch.device, card: str, prompts, streams,
 # ---------------------------------------------------------------------------
 
 PFX_SHARED, PFX_TAIL = 448, 64      # 28 shared blocks, a 64-token tail each
+# phase 9 (a, b) serves pt-6b-d4 cut to 8 of its 32 layers (two of its 8
+# track blocks): its gates hold warm against its own cold run, and the cut
+# keeps the script inside its time limit on a slow host
+PFX_LAYERS = 8
 FORK_STEPS = 5                      # decode steps before the fork: pos 517
 PREFIX = {}                         # the figures of phase 9, for the summary
+
+
+def pt_depth_cut(cfg, params, layers: int):
+    """A PT config cut to ``layers`` (whole track blocks of D layers) and
+    its tree: views of the first layers / D blocks of ``params``, embed,
+    head and final norm as they are.  Widths, tracks and weights stay the
+    full model's."""
+    from repro_torch.common.pytree import tree_map
+    cut = cfg.replace(n_layers=layers)
+    R = layers // cfg.pt.block_depth
+    return cut, dict(params, blocks=tree_map(lambda t: t[:R],
+                                             params["blocks"]))
 
 
 def _prefix_prompts(vocab: int, seed: int):
@@ -3782,8 +3822,9 @@ def probe_rows(dev, cfg, int8: bool) -> dict:
 
 
 def prefix_hit(dev, card: str, params, tag: str, int8: bool = False) -> None:
-    """Phase 9 (a), (b with ``int8``): pt-6b-d4 on phase 5's seeded tree,
-    SLOTS slots, capacity PROMPT + NEW + 8, block BLOCK.  A cold engine
+    """Phase 9 (a), (b with ``int8``): pt-6b-d4 cut to PFX_LAYERS of its
+    layers (``pt_depth_cut``) on phase 5's seeded tree, SLOTS slots,
+    capacity PROMPT + NEW + 8, block BLOCK.  A cold engine
     (``prefix_cache=False``) serves SLOTS prompts that share their first
     PFX_SHARED tokens; a prefix-cache engine serves a seed request (the
     shared prefix and a tail of its own) and then the same SLOTS prompts,
@@ -3798,9 +3839,11 @@ def prefix_hit(dev, card: str, params, tag: str, int8: bool = False) -> None:
     after admission, peak memory, and whether the streams are bitwise
     the cold ones."""
     from repro_torch.configs import get_config
-    cfg = get_config(ARCH)
+    cfg, params = pt_depth_cut(get_config(ARCH), params, PFX_LAYERS)
     L = cfg.n_layers
     knobs = dict(weight_dtype="int8", kv_dtype="int8") if int8 else {}
+    log(f"[prefix] {tag}: {ARCH} cut to {L} of its "
+        f"{get_config(ARCH).n_layers} layers, widths as published")
     seed, prompts = _prefix_prompts(cfg.vocab_size, 9)
     _, probe = _prefix_prompts(cfg.vocab_size, 10)     # the busy-time probe
     probe = [seed[:PFX_SHARED] + p[PFX_SHARED:] for p in probe]
@@ -5618,6 +5661,546 @@ def phase13_summary() -> str:
 
 
 # ---------------------------------------------------------------------------
+# phases 3, 4 and 15 for whisper-medium (the encoder, cross-attention and
+# the encoder-decoder cache, on the contiguous cache)
+# ---------------------------------------------------------------------------
+
+WH_ARCH = "whisper-medium"
+WH_PROMPT, WH_NEW = 4, 64           # phase 15's decoder prompt, new tokens
+PHASE15 = {}          # the figures of phase 15, for the summary
+
+
+def whisper_flash_row(dev, g, Sq: int, role: str):
+    """Phase 3, flash at whisper-medium's full (non-causal) attention, bf16,
+    16 heads of 64, G 1: q [SLOTS, Sq, 16, 64] over k, v [SLOTS, 1500,
+    16, 64], the encoder's self-attention (Sq 1500) or the decoder's
+    cross-attention prefill (Sq WH_PROMPT).  1500 = 23 x 64 + 28: the
+    last key tile runs past the keys, so its mask runs in full mode too.
+    Gated on the ``wgmma_tma`` route, against the plain version (2e-2,
+    ``row_rel_err`` within FLASH_ROW_REL_TOL); SDPA (K / V transposed
+    beforehand, untimed) beside it; both as device work."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.whisper_medium import ENC_FRAMES
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+    cfg = get_config(WH_ARCH)
+    B, H, hd, Sk, bf = (SLOTS, cfg.n_heads, cfg.head_dim, ENC_FRAMES,
+                        torch.bfloat16)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+
+    one = B * (Sq + 2 * Sk) * H * hd * 2
+    sets = [(randn(B, Sq, H, hd), randn(B, Sk, H, hd), randn(B, Sk, H, hd))
+            for _ in range(copies_for(one))]
+    q, k, v = sets[0]
+    routes0 = dict(fa.flash_attention.routes)
+    out = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    took = {r for r, c in fa.flash_attention.routes.items()
+            if c != routes0[r]}
+    if took != {"wgmma_tma"} or fa.route(bf, hd, True) != "wgmma_tma":
+        raise SystemExit(f"[kernel] flash_attention at whisper's {role} "
+                         f"took {took}, want wgmma_tma")
+    want = ref.flash_attention_plain(q, k, v, causal=False)
+    rel = row_rel_err(out, want)
+
+    def kern(q, k, v):
+        return ops.flash_attention(q, k, v, causal=False)
+
+    lib_sets = [tuple(x.transpose(1, 2).contiguous() for x in st)
+                for st in sets]
+    t = device_timing(kern, F.scaled_dot_product_attention, sets, lib_sets,
+                      50)
+    del lib_sets
+    p_ms = time_ms(lambda q, k, v: ref.flash_attention_plain(
+        q, k, v, causal=False), sets, 4)
+    row = _report("flash_attention", "cuda",
+                  "src/repro_torch/kernels/csrc/flash_attention.cu",
+                  "src/repro/kernels/flash_attention.py:79", out, want,
+                  t["ms"], p_ms, t["library_ms"], nbytes(q, k, v, out),
+                  4.0 * B * H * hd * Sq * Sk, BF16_FLOP_S)
+    row.update(kernel_route="wgmma_tma", run="whisper", row_rel_err=rel)
+    log(f"[kernel]   flash_attention whisper {role}: row_rel_err {rel:.3e} "
+        f"(tol {FLASH_ROW_REL_TOL})")
+    if rel > FLASH_ROW_REL_TOL:
+        raise SystemExit(f"[kernel] flash_attention at whisper's {role}: "
+                         f"row_rel_err {rel:.3e}")
+    timed_extras(row, t, f"whisper-medium {role}: q [{B},{Sq},{H},{hd}], "
+                         f"k, v [{B},{Sk},{H},{hd}] bf16, full (no causal "
+                         "mask); route wgmma_tma")
+    del sets, q, k, v, out, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def whisper_decode_row(dev, g):
+    """Phase 3, ``decode_attention`` at whisper-medium's cross-attention
+    decode: q [SLOTS, 16, 64] bf16 over the encoder's K/V [SLOTS, 1500,
+    16, 64], every row's length 1500, no max_len cut, G 1 (the cache is
+    only read).  Against the plain version (2e-2); SDPA beside it (one
+    query row, K / V transposed beforehand, untimed; no mask: every row
+    is live), both as device work; its split plan and share of the
+    bound (each K/V row read once)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.whisper_medium import ENC_FRAMES
+    from repro_torch.kernels import ops, ref
+    F = torch.nn.functional
+    cfg = get_config(WH_ARCH)
+    B, H, hd, Sk, bf = (SLOTS, cfg.n_heads, cfg.head_dim, ENC_FRAMES,
+                        torch.bfloat16)
+    lengths = torch.full((B,), Sk, dtype=torch.int32, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(bf)
+
+    sets = [(randn(B, H, hd), randn(B, Sk, H, hd), randn(B, Sk, H, hd))
+            for _ in range(copies_for(2 * B * Sk * H * hd * 2))]
+
+    def kern(q, k, v):
+        return ops.decode_attention(q, k, v, lengths)
+
+    def plain(q, k, v):
+        return ref.decode_attention_plain(q, k, v, lengths)
+
+    out, want = kern(*sets[0]), plain(*sets[0])
+    p_ms = time_ms(plain, sets, 20)
+    lib_sets = [(q[:, :, None], k.transpose(1, 2).contiguous(),
+                 v.transpose(1, 2).contiguous()) for q, k, v in sets]
+    t = device_timing(kern, F.scaled_dot_product_attention, sets, lib_sets)
+    del lib_sets
+    q = sets[0][0]
+    row = _report("decode_attention", "cuda",
+                  "src/repro_torch/kernels/csrc/paged_decode.cu",
+                  "src/repro/kernels/decode_attention.py:92", out, want,
+                  t["ms"], p_ms, t["library_ms"],
+                  B * Sk * H * hd * 2 * 2 + nbytes(q, lengths, out),
+                  4.0 * B * Sk * H * hd, BF16_FLOP_S)
+    decode_extras(row, t, Sk, B * H, None, Sk)
+    row.update(run="whisper",
+               at=f"whisper-medium cross-attention decode: q [{B},{H},{hd}] "
+                  f"bf16 over the encoder's K/V [{B},{Sk},{H},{hd}], lengths "
+                  f"{Sk}, no max_len (G 1, read only)")
+    log(f"[kernel]   decode_attention at {row['at']}")
+    del sets, out, want
+    torch.cuda.empty_cache()
+    return row
+
+
+def check_slice21_kernels(dev, g, rows) -> None:
+    """Phase 3 for whisper-medium, appended to the flash and the bf16
+    ``decode_attention`` rows' shapes: flash full at the encoder's and
+    the cross prefill's shapes (the table's first hd-64 rows), and the
+    contiguous decode at the cross decode's."""
+    by = {r["name"]: r for r in rows}
+    from repro_torch.configs.whisper_medium import ENC_FRAMES
+    by["flash_attention"]["shapes"] += [
+        whisper_flash_row(dev, g, ENC_FRAMES, "encoder self-attention"),
+        whisper_flash_row(dev, g, WH_PROMPT, "cross-attention prefill")]
+    by["decode_attention"]["shapes"].append(whisper_decode_row(dev, g))
+
+
+def _whisper_inputs(cfg, dev, rows: int, frames: int, prompt: int,
+                    seed: int):
+    """Seeded frame embeddings [rows, frames, d] fp32 and prompt tokens
+    [rows, prompt] int32, drawn on ``dev``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    enc = torch.randn(rows, frames, cfg.d_model, generator=g, device=dev)
+    tok = torch.randint(1, cfg.vocab_size, (rows, prompt), generator=g,
+                        device=dev, dtype=torch.int32)
+    return enc, tok
+
+
+def check_whisper_parity(dev: torch.device) -> None:
+    """Phase 4 for whisper-medium, fp32 (``reduced_config``: 2 encoder
+    and 3 decoder layers, d 64, 4 heads of 64), one seeded tree on the
+    card and the CPU, 2 rows of 40 frames and 5 prompt tokens: prefill
+    logits and every cache leaf (the decoder's K/V and the encoder's),
+    ``pad_cache`` then 8 greedy decode steps (each device its own
+    tokens: logits within 1e-4, streams identical), and a 4-token chunk
+    after the prefill, card against CPU within 1e-4."""
+    from repro_torch.common.pytree import tree_paths
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import decoder as dec
+    from repro_torch.serving.cache import pad_cache
+    cpu = torch.device("cpu")
+    cfg = reduced_config(WH_ARCH)
+    params = {cpu: dec.init_lm(torch.Generator().manual_seed(0), cfg, cpu)}
+    params[dev] = _to(params[cpu], dev)
+    enc, tok = _whisper_inputs(cfg, cpu, 2, 40, 5, 21)
+    chunk = torch.randint(1, cfg.vocab_size, (2, 4), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(22))
+    got = {}
+    with torch.no_grad():
+        for d in (cpu, dev):
+            p = params[d]
+            logits, cache = dec.lm_forward(
+                p, {"inputs": tok.to(d), "enc_inputs": enc.to(d)}, cfg)
+            leaves = [l.clone() for _, l in tree_paths(cache)]
+            pos = torch.full((2,), 5, dtype=torch.int32, device=d)
+            # the chunk writes its own padded copy of the self K/V
+            ch, _ = dec.lm_chunk_step(p, pad_cache(cache, cfg, 16),
+                                      chunk.to(d), pos, cfg)
+            cache = pad_cache(cache, cfg, 16)
+            t, steps, stream = logits[:, -1].argmax(-1).int(), [], []
+            for i in range(8):
+                lg, cache = dec.lm_decode_step(p, cache, t, pos + i, cfg)
+                steps.append(lg)
+                t = lg.argmax(-1).int()
+                stream.append(t.tolist())
+            got[d] = (logits, leaves, ch, torch.stack(steps), stream)
+    _close("whisper prefill logits", got[dev][0], got[cpu][0])
+    for i, (a, b) in enumerate(zip(got[dev][1], got[cpu][1])):
+        _close(f"whisper prefill cache leaf {i}", a, b)
+    _close("whisper chunk logits", got[dev][2], got[cpu][2])
+    _close("whisper decode logits", got[dev][3], got[cpu][3])
+    same = got[dev][4] == got[cpu][4]
+    log(f"[parity] whisper-medium greedy token streams, card vs CPU: "
+        f"{'identical' if same else 'DIFFER'}")
+    if not same:
+        raise SystemExit("[parity] whisper-medium greedy streams differ")
+
+
+def _whisper_generate(params, cfg, batch, dev, teacher=None):
+    """lm_forward (prefill), pad_cache to WH_PROMPT + WH_NEW, then
+    WH_NEW - 1 decode steps: greedy, or fed ``teacher`` [B, WH_NEW]'s
+    tokens.  Returns (prefill logits, the decode steps' logits [steps, B,
+    V], the stream [B, WH_NEW], TTFT s, each step's s, total s), every
+    time on the host's clock around synchronised work."""
+    from repro_torch.models import decoder as dec
+    from repro_torch.serving.cache import pad_cache
+    B = batch["inputs"].shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = dec.lm_forward(params, batch, cfg)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)
+    torch.cuda.synchronize()
+    ttft = time.perf_counter() - t0
+    cache = pad_cache(cache, cfg, WH_PROMPT + WH_NEW)
+    stream, step_logits, step_s = [tok], [], []
+    for i in range(WH_NEW - 1):
+        t1 = time.perf_counter()
+        feed = tok if teacher is None else teacher[:, i]
+        pos = torch.full((B,), WH_PROMPT + i, dtype=torch.int32, device=dev)
+        lg, cache = dec.lm_decode_step(params, cache, feed, pos, cfg)
+        tok = lg.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t1)
+        stream.append(tok)
+        step_logits.append(lg)
+    total = time.perf_counter() - t0
+    return (logits, torch.stack(step_logits), torch.stack(stream, 1), ttft,
+            step_s, total)
+
+
+def _sdpa_flash(q, k, v, *, causal=True, **rest):
+    """SDPA in flash's place, a library control for phase 15's logits:
+    whisper's calls have G 1 and no window, softcap or offsets."""
+    if any(x is not None for x in rest.values()) or q.shape[2] != k.shape[2]:
+        raise ValueError("the SDPA control takes G 1, no window, softcap "
+                         "or offsets")
+    out = torch.nn.functional.scaled_dot_product_attention(
+        *(x.transpose(1, 2) for x in (q, k, v)), is_causal=causal)
+    return out.transpose(1, 2).contiguous()
+
+
+def _swapped_kernels(flash):
+    """ops.flash_attention swapped for ``flash`` and ops.decode_attention
+    for its plain version (on CUDA tensors); returns the function that
+    puts both back."""
+    from repro_torch.kernels import ops, ref
+    saved = (ops.flash_attention, ops.decode_attention)
+    ops.flash_attention = flash
+
+    def decode_plain(q, k, v, lengths, plan_scale=1, **kw):
+        return ref.decode_attention_plain(q, k, v, lengths, **kw)
+
+    ops.decode_attention = decode_plain
+
+    def restore():
+        ops.flash_attention, ops.decode_attention = saved
+
+    return restore
+
+
+def _device_rows(prof, n: int):
+    """(ms a call, launches a call, name) of every device-side event of
+    a profile over ``n`` calls, largest first (an aten op's row repeats
+    the device time of the kernels it launched, which have rows of their
+    own)."""
+    from torch.autograd import DeviceType
+    return sorted(((e.self_device_time_total / n / 1e3, e.count / n, e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0), reverse=True)
+
+
+def whisper_train_step(dev: torch.device) -> None:
+    """Phase 15: one AdamW ``make_train_step`` step (microbatches 2: the
+    batch's enc_inputs split with the rest) of reduced whisper, fp32,
+    from one seeded state on the card and on the CPU: loss within
+    TRAIN_LOSS_TOL, params within 2 x lr with at most
+    TRAIN_PARAM_SHARE of a leaf past TRAIN_PARAM_CLOSE, no kernel
+    launched."""
+    from repro_torch.common.pytree import tree_map, tree_paths
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import decoder as dec
+    cpu = torch.device("cpu")
+    cfg = reduced_config(WH_ARCH)
+    init = dec.init_lm(torch.Generator().manual_seed(0), cfg, cpu)
+    enc, tok = _whisper_inputs(cfg, cpu, 4, 40, 24, 23)
+    tgt = torch.randint(0, cfg.vocab_size, (4, 24), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(24))
+    got = {}
+    ops.reset_launch_counts()
+    for d in (cpu, dev):
+        fn, opt_init, _ = make_train_step(cfg, microbatches=2, peak_lr=3e-3,
+                                          warmup=0, total_steps=3)
+        params = tree_map(lambda t: t.to(d, copy=True), init)
+        params, _, m = fn(params, opt_init(params),
+                          {"inputs": tok.to(d), "targets": tgt.to(d),
+                           "enc_inputs": enc.to(d)})
+        got[d] = (params, float(m["loss"]), float(m["lr"]))
+    launched = {k: v for k, v in ops.counters().items() if v}
+    rel = abs(got[dev][1] - got[cpu][1]) / abs(got[cpu][1])
+    want = dict(tree_paths(got[cpu][0]))
+    worst, share = 0.0, 0.0
+    for p, leaf in tree_paths(got[dev][0]):
+        err = (leaf.float().cpu() - want[p].float()).abs()
+        worst = max(worst, err.max().item())
+        share = max(share, (err > TRAIN_PARAM_CLOSE).float().mean().item())
+    atol = 2 * got[cpu][2]
+    log(f"[whisper] reduced train step card vs CPU: loss {got[dev][1]:.6f} "
+        f"vs {got[cpu][1]:.6f} (rel {rel:.2e}, tol {TRAIN_LOSS_TOL}); params "
+        f"max |diff| {worst:.3e} (tol {atol:.3e}), share over "
+        f"{TRAIN_PARAM_CLOSE} {share:.2e} (tol {TRAIN_PARAM_SHARE}); "
+        f"kernels launched {launched}")
+    PHASE15["train_step"] = {"loss_card": got[dev][1], "loss_cpu": got[cpu][1],
+                             "rel": rel, "params_max_diff": worst,
+                             "params_share_off": share}
+    if rel > TRAIN_LOSS_TOL or worst > atol or share > TRAIN_PARAM_SHARE \
+            or launched:
+        raise SystemExit("[whisper] reduced train step: card and CPU "
+                         "disagree, or a kernel launched")
+
+
+def whisper_step_bound(cfg, params, pos: int) -> dict:
+    """Bytes a decode step at position ``pos`` must move and their time at
+    HBM_BYTES_S: every decoder weight it reads (the cross-attention's wk
+    and wv are not: the encoder K/V are cached), the tied embedding as
+    the head, the final norm, the encoder K/V (every layer, every row)
+    and the self K/V live at ``pos`` (pos + 1 rows)."""
+    from repro_torch.common.pytree import tree_paths
+    from repro_torch.configs.whisper_medium import ENC_FRAMES
+    weights = sum(nbytes(leaf) for p, leaf in tree_paths(params["unit"])
+                  if not p.endswith(("cross/wk", "cross/wv")))
+    weights += nbytes(params["embed"]) + sum(
+        nbytes(leaf) for _, leaf in tree_paths(params["final_norm"]))
+    row = cfg.n_kv_heads * cfg.head_dim * 2 * 2            # K and V, bf16
+    enc = cfg.n_layers * SLOTS * ENC_FRAMES * row
+    own = cfg.n_layers * SLOTS * (pos + 1) * row
+    total = weights + enc + own
+    return {"weights_bytes": weights, "enc_kv_bytes": enc,
+            "self_kv_bytes": own, "pos": pos,
+            "bound_ms": total / HBM_BYTES_S * 1e3,
+            "enc_kv_ms": enc / HBM_BYTES_S * 1e3}
+
+
+def serve_whisper(dev: torch.device, card: str, runs: dict) -> None:
+    """Phase 15: whisper-medium at full width and depth, bf16, seeded
+    random weights and frame embeddings, SLOTS rows of WH_PROMPT prompt
+    tokens, WH_NEW greedy tokens a row (``_whisper_generate``); the
+    figures and gates of the module docstring's phase 15."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.whisper_medium import ENC_FRAMES
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models import decoder as dec
+    from repro_torch.serving.cache import pad_cache
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config(WH_ARCH)
+    L = cfg.n_layers
+    params = dec.init_lm(torch.Generator(device=dev).manual_seed(0), cfg,
+                         dev)
+    enc, tok = _whisper_inputs(cfg, dev, SLOTS, ENC_FRAMES, WH_PROMPT, 15)
+    batch = {"inputs": tok, "enc_inputs": enc}
+    n_params = sum(t.numel() for t in _leaves(params))
+    log(f"[whisper] {cfg.name}: {n_params / 1e9:.3f} B parameters "
+        f"({cfg.encdec.n_enc_layers} encoder + {L} decoder layers, d "
+        f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.head_dim}); {SLOTS} "
+        f"rows of {ENC_FRAMES} frames, {WH_PROMPT} prompt tokens, {WH_NEW} "
+        "new tokens")
+    with torch.no_grad():
+        # warm-up: the prefill and two decode steps (cuBLAS, first loads)
+        _, cache = dec.lm_forward(params, batch, cfg)
+        cache = pad_cache(cache, cfg, WH_PROMPT + WH_NEW)
+        for i in range(2):
+            dec.lm_decode_step(params, cache, tok[:, 0], torch.full(
+                (SLOTS,), WH_PROMPT + i, dtype=torch.int32, device=dev), cfg)
+        del cache
+        enc_s = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dec.encode(params, enc, cfg)
+            torch.cuda.synchronize()
+            enc_s.append(time.perf_counter() - t0)
+        ttfts = []
+        for _ in range(4):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, _ = dec.lm_forward(params, batch, cfg)
+            lg[:, -1].argmax(-1)
+            torch.cuda.synchronize()
+            ttfts.append(time.perf_counter() - t0)
+        del lg
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        first, steps, stream, ttft, step_s, total = _whisper_generate(
+            params, cfg, batch, dev)
+        launches = ops.launch_counts()
+        routes = dict(fa.flash_attention.routes)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+    runs["whisper"] = launches
+    ttfts.append(ttft)
+    tpot = float(np.median(step_s)) * 1e3
+    # the arithmetic: flash once per encoder layer (full), per decoder
+    # layer (causal) and per cross layer (full); decode_attention twice a
+    # decoder layer a step (self, cross); nothing else
+    want = dict.fromkeys(launches, 0)
+    n_flash = cfg.encdec.n_enc_layers + 2 * L
+    want["flash_attention"] = n_flash
+    want["decode_attention"] = 2 * L * (WH_NEW - 1)
+    want_routes = {"wgmma_tma": n_flash, "cuda_core": 0}
+    log(f"[whisper] launches {json.dumps(launches)}, flash routes "
+        f"{json.dumps(routes)}; want {json.dumps(want)}, "
+        f"{json.dumps(want_routes)}: "
+        f"{'met' if launches == want and routes == want_routes else 'NOT MET'}")
+    if launches != want or routes != want_routes:
+        raise SystemExit("[whisper] kernel launches off the arithmetic")
+    if tuple(stream.shape) != (SLOTS, WH_NEW) or not all(
+            torch.isfinite(t).all() for t in (first, steps)):
+        raise SystemExit("[whisper] streams or logits malformed")
+    bound = whisper_step_bound(cfg, params, WH_PROMPT + WH_NEW // 2)
+    # a decode step's device busy share: three steps at a mid position
+    # (their rows are rewritten; the streams are already taken)
+    busy = None
+    with torch.no_grad():
+        _, cache = dec.lm_forward(params, batch, cfg)
+        cache = pad_cache(cache, cfg, WH_PROMPT + WH_NEW)
+        pos = torch.full((SLOTS,), bound["pos"], dtype=torch.int32,
+                         device=dev)
+        feed = stream[:, 0].contiguous()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            dec.encode(params, enc, cfg)
+            torch.cuda.synchronize()
+        rows = _device_rows(prof, 1)
+        if rows:
+            log(f"[whisper] encode (profiled): device busy "
+                f"{sum(r[0] for r in rows):.3f} ms in "
+                f"{sum(r[1] for r in rows):.0f} kernels")
+            for ms, count, key in rows[:8]:
+                log(f"[whisper]   {ms:9.3f} ms {count:6.0f}x  {key[:90]}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                dec.lm_decode_step(params, cache, feed, pos, cfg)
+            torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3 / 3
+        del cache
+    rows = _device_rows(prof, 3)
+    if rows:
+        busy = sum(r[0] for r in rows)
+        log(f"[whisper] decode step (profiled): device busy {busy:.3f} ms of "
+            f"TPOT p50 {tpot:.3f} ms unprofiled ({100 * busy / tpot:.1f} % "
+            f"busy), {sum(r[1] for r in rows):.0f} kernels a step; "
+            f"profiled step {prof_ms:.3f} ms")
+        for ms, count, key in rows[:8]:
+            log(f"[whisper]   {ms:9.3f} ms {count:6.0f}x  {key[:90]}")
+    else:
+        log("[whisper] the profiler saw no device time (busy share not "
+            "measured)")
+    # the same run through the plain versions of flash and
+    # decode_attention, teacher-forced along the kernel run's streams;
+    # then, as a control, with SDPA (a library's bf16 kernel) in flash's
+    # place: how far one bf16 attention lies from the plain version
+    from repro_torch.kernels import ref
+    other = {}
+    for name, flash in (("plain", ref.flash_attention_plain),
+                        ("sdpa", _sdpa_flash)):
+        restore = _swapped_kernels(flash)
+        try:
+            with torch.no_grad():
+                other[name] = _whisper_generate(params, cfg, batch, dev,
+                                                teacher=stream[:, 1:])[:2]
+        finally:
+            restore()
+    checks = {}
+    for i, what in enumerate(("prefill", "decode steps")):
+        a, b, c_ = (first, steps)[i], other["plain"][i], other["sdpa"][i]
+        diff = (a.float() - b.float()).abs()
+        ctrl = (c_.float() - b.float()).abs()
+        std = b.float().std().item()
+        agree = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
+        checks[what] = {"mean_abs_diff": diff.mean().item(),
+                        "max_abs_diff": diff.max().item(), "logit_std": std,
+                        "argmax_agree": agree,
+                        "sdpa_mean_abs_diff": ctrl.mean().item(),
+                        "sdpa_max_abs_diff": ctrl.max().item()}
+        log(f"[whisper] {what} logits, kernels vs plain versions: mean "
+            f"|diff| {diff.mean().item():.3e}, max {diff.max().item():.3e}, "
+            f"limit {KERNEL_TOL * std:.3e} (2e-2 x std {std:.3f}); argmax "
+            f"agreement {100 * agree:.2f} %; control, SDPA for flash vs "
+            f"plain: mean {ctrl.mean().item():.3e}, max "
+            f"{ctrl.max().item():.3e}")
+        if diff.mean().item() > KERNEL_TOL * std:
+            raise SystemExit(f"[whisper] {what} logits: kernels and plain "
+                             "versions disagree")
+    del other
+    PHASE15.update({
+        "card": card, "encode_ms_p50": float(np.median(enc_s)) * 1e3,
+        "encode_ms": [x * 1e3 for x in enc_s],
+        "ttft_ms_p50": float(np.median(ttfts)) * 1e3,
+        "ttft_ms": [x * 1e3 for x in ttfts], "tpot_ms_p50": tpot,
+        "tpot_ms_p90": float(np.percentile(step_s, 90)) * 1e3,
+        "tokens_per_s": SLOTS * WH_NEW / total, "run_s": total,
+        "peak_gb": peak, "params_b": n_params / 1e9,
+        "decode_busy_ms": busy,
+        "decode_busy_share": None if busy is None else busy / tpot,
+        "decode_bound": bound, "launches": launches, "flash_routes": routes,
+        "plain_checks": checks})
+    log(f"[whisper] encode p50 {PHASE15['encode_ms_p50']:.3f} ms; TTFT p50 "
+        f"{PHASE15['ttft_ms_p50']:.3f} ms (encode + decoder prefill); TPOT "
+        f"p50 {tpot:.3f} ms (p90 {PHASE15['tpot_ms_p90']:.3f}); "
+        f"{PHASE15['tokens_per_s']:.1f} tokens/s over the run; peak "
+        f"{peak:.3f} GB [{card}]")
+    gb = {k: bound[k] / 1e9 for k in ("weights_bytes", "enc_kv_bytes",
+                                      "self_kv_bytes")}
+    log(f"[whisper] decode step byte bound {bound['bound_ms']:.4f} ms at "
+        f"position {bound['pos']}: weights {gb['weights_bytes']:.3f} GB, "
+        f"encoder K/V {gb['enc_kv_bytes']:.3f} GB ({bound['enc_kv_ms']:.4f} "
+        f"ms), self K/V {gb['self_kv_bytes']:.4f} GB; TPOT p50 is "
+        f"{tpot / bound['bound_ms']:.1f} x it [{card}]")
+    del params, first, steps
+    gc.collect()
+    torch.cuda.empty_cache()
+    whisper_train_step(dev)
+    PHASE15["seconds"] = time.perf_counter() - t_phase
+    log(f"[whisper] phase 15 took {PHASE15['seconds']:.1f}s")
+
+
+# ---------------------------------------------------------------------------
 # phase 14: training (the reference's train path on plain ops: blockwise
 # attention, plain norms, autograd, the reference's AdamW), checkpoint and
 # resume, and the trained checkpoint served through the kernels
@@ -5951,6 +6534,7 @@ def main() -> int:
     check_layer_parity(dev)
     check_slice16_parity(dev)
     check_slice17_parity(dev)
+    check_whisper_parity(dev)
     log_time("phase 4 (parity)")
     keep = {}
     runs = {"bf16": serve_full(dev, card, keep=keep)}
@@ -6035,6 +6619,8 @@ def main() -> int:
     log_time("phases 11-13")
     train_phase(dev, card, runs)
     log_time("phase 14")
+    serve_whisper(dev, card, runs)
+    log_time("phase 15")
     runs["prefix bf16 warm"] = PREFIX["bf16"]["warm"]["launches"]
     for row in rows:
         # each kernel's count from the run of the path it belongs to (the
@@ -6091,6 +6677,8 @@ def main() -> int:
     log("[phase12] summary " + phase12_summary())
     log("[phase13] summary " + phase13_summary())
     log("[train] summary " + json.dumps(PHASE14))
+    log("[whisper] summary " + json.dumps(
+        {k: v for k, v in PHASE15.items() if k != "launches"}))
     faulthandler.cancel_dump_traceback_later()
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -2,16 +2,14 @@
 
 Only what the ported serving and train paths read is kept: ``MoEConfig``,
 ``MLAConfig``, ``PTConfig``, ``SSMConfig``, ``RGLRUConfig``,
-``LayerSpec`` and ``ModelConfig`` with the fields ``pt_ify`` and the
-models touch.  The encoder-decoder sub-config is not ported yet (ROADMAP
-queue 1, item 3.6); its field stays so a config reads the same, and must
-be None.
+``EncDecConfig`` (whisper's encoder stack), ``LayerSpec`` and
+``ModelConfig`` with the fields ``pt_ify`` and the models touch.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Mapping, Optional, Tuple
+from typing import Mapping, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -81,18 +79,28 @@ class RGLRUConfig:
 
 
 @dataclass(frozen=True)
+class EncDecConfig:
+    """Encoder stack configuration for encoder-decoder models (whisper)."""
+
+    n_enc_layers: int
+    cross_attn: bool = True
+    enc_window: Optional[int] = None
+
+
+@dataclass(frozen=True)
 class LayerSpec:
     """One transformer-layer flavour referenced by the layer pattern."""
 
     mixer: str                         # 'gqa' (PT), 'mla', 'mamba' and
                                        # 'rglru' are ported
-    mlp: str                           # 'swiglu' (PT), 'geglu', 'sqrelu',
-                                       # 'moe' and 'none' are ported
+    mlp: str                           # 'swiglu' (PT), 'geglu', 'gelu',
+                                       # 'sqrelu', 'moe' and 'none' are
+                                       # ported
     window: Optional[int] = None
     rope: str = "rope"                 # 'rope' | 'mrope' | 'local_rope' | 'none'
     attn_logit_softcap: Optional[float] = None
-    causal: bool = True
-    cross_attn: bool = False
+    causal: bool = True                # False for encoder layers (whisper)
+    cross_attn: bool = False           # decoder cross-attention (whisper)
 
 
 @dataclass(frozen=True)
@@ -126,13 +134,13 @@ class ModelConfig:
     mrope_sections: Tuple[int, ...] = ()   # M-RoPE (t, h, w) pairs; sum
                                            # = head_dim // 2
 
-    # sub-configs; all but ``encdec`` are ported
+    # sub-configs
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     rglru: Optional[RGLRUConfig] = None
     pt: Optional[PTConfig] = None
-    encdec: Optional[Any] = None
+    encdec: Optional[EncDecConfig] = None
 
     input_kind: str = "tokens"         # 'tokens' | 'embeds' (vlm stub)
 

@@ -1,7 +1,8 @@
 """Config registry of the port: the paper's Parallel-Track models, its
 dense baselines, tinyllama-1.1b, falcon-mamba-7b, nemotron-4-15b,
-gemma2-2b, gemma3-4b, qwen2-vl-72b, recurrentgemma-9b, deepseek-v2-236b
-and deepseek-v3-671b.
+gemma2-2b, gemma3-4b, qwen2-vl-72b, recurrentgemma-9b, deepseek-v2-236b,
+deepseek-v3-671b and whisper-medium: every architecture of the
+reference's zoo.
 
   get_config(name)      — full-size config
   reduced_config(name)  — small same-family config (CPU tests)
@@ -11,10 +12,11 @@ The ``pt-*`` names serve through ``core.track``; ``dense-*``,
 ``nemotron-4-15b`` (LayerNorm, squared ReLU), the gemma models
 (GeGLU, sliding windows, softcaps, qk-norm, sandwich norms),
 ``qwen2-vl-72b`` (M-RoPE, precomputed input embeddings),
-``recurrentgemma-9b`` (RG-LRU beside windowed MQA) and the deepseek
-models (MLA over paged latent pools, capacity-routed MoE) through the
-dense ``lm_*`` decoder.  The last assigned architecture, whisper-medium,
-needs cross-attention, not ported yet (ROADMAP queue 1, item 3.6).
+``recurrentgemma-9b`` (RG-LRU beside windowed MQA), the deepseek
+models (MLA over paged latent pools, capacity-routed MoE) and
+``whisper-medium`` (an encoder over precomputed frame embeddings, a
+decoder with cross-attention, no RoPE, sinusoid positions) through the
+dense ``lm_*`` decoder.  An unknown name raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -24,7 +26,8 @@ from repro_torch.common.types import ModelConfig
 from repro_torch.configs import (deepseek_v2_236b, deepseek_v3_671b,
                                 falcon_mamba_7b, gemma2_2b, gemma3_4b,
                                 nemotron_4_15b, pt_paper, qwen2_vl_72b,
-                                recurrentgemma_9b, tinyllama_1_1b)
+                                recurrentgemma_9b, tinyllama_1_1b,
+                                whisper_medium)
 
 _PAPER: Dict[str, Callable[[], ModelConfig]] = {
     "pt-6b-d2": lambda: pt_paper.pt_6b(2),
@@ -52,15 +55,13 @@ _LM: Dict[str, Tuple[Callable[[], ModelConfig], Callable[[], ModelConfig]]] = {
     "recurrentgemma-9b": (recurrentgemma_9b.config, recurrentgemma_9b.reduced),
     "deepseek-v2-236b": (deepseek_v2_236b.config, deepseek_v2_236b.reduced),
     "deepseek-v3-671b": (deepseek_v3_671b.config, deepseek_v3_671b.reduced),
+    "whisper-medium": (whisper_medium.config, whisper_medium.reduced),
 }
 NAMES: List[str] = PT_NAMES + list(_LM)
 
 
-def _unported(name: str) -> KeyError:
-    return KeyError(
-        f"arch {name!r} is not ported to repro_torch yet: only {NAMES} are "
-        "(whisper-medium needs cross-attention: ROADMAP queue 1, item "
-        "3.6)")
+def _unknown(name: str) -> KeyError:
+    return KeyError(f"unknown arch {name!r}: one of {NAMES}")
 
 
 def get_config(name: str) -> ModelConfig:
@@ -68,7 +69,7 @@ def get_config(name: str) -> ModelConfig:
         return _PAPER[name]()
     if name in _LM:
         return _LM[name][0]()
-    raise _unported(name)
+    raise _unknown(name)
 
 
 def reduced_config(name: str) -> ModelConfig:
@@ -76,4 +77,4 @@ def reduced_config(name: str) -> ModelConfig:
         return pt_paper.reduced_pt()
     if name in _LM:
         return _LM[name][1]()
-    raise _unported(name)
+    raise _unknown(name)

@@ -42,7 +42,13 @@ of it came from the prefix cache (flash sums each row over the same key
 tiles in the same order whatever its offset).  The verify, int8 pools
 and the CPU keep the reference's plain masked softmax.
 
-Not ported (it raises): cross-attention.
+Cross-attention (whisper's decoder, ``cross_kv`` and
+``cross_attention_apply``): the encoder's K/V are projected once, at
+prefill, and kept in the layer's cache, which no later step writes; a
+prefill or a chunk attends over them on the flash kernel with no causal
+mask, a decode step on the contiguous decode kernel with every row's
+length the encoder's.  Layers with ``rope="none"`` (whisper) take no
+RoPE.
 """
 from __future__ import annotations
 
@@ -89,17 +95,23 @@ def _project_qkv(params, x: torch.Tensor, spec: LayerSpec,
     """x [n, B, S, d] -> q [n, B, S, H, hd], k/v [n, B, S, KH, hd]: the
     projections, qk-norm (``cfg.qk_norm``; ``qk_norm`` the norm function,
     the kernel's by default), then RoPE (or M-RoPE) at the layer's theta
-    applied to q and k in fp32 (``rope_tables``)."""
-    n, B, S, d = x.shape
-    wq, wk, wv = params["wq"], params["wk"], params["wv"]
-    q = matmul(x, as_matrix(wq, d)).reshape(n, B, S, *wq.shape[2:])
-    k = matmul(x, as_matrix(wk, d)).reshape(n, B, S, *wk.shape[2:])
-    v = matmul(x, as_matrix(wv, d)).reshape(n, B, S, *wv.shape[2:])
+    applied to q and k in fp32 (``rope_tables``; none where the layer's
+    ``rope`` is "none")."""
+    q, k, v = (_project(params[w], x) for w in ("wq", "wk", "wv"))
     if cfg.qk_norm:
         q = qk_norm(params["q_norm"], q, eps=cfg.norm_eps)
         k = qk_norm(params["k_norm"], k, eps=cfg.norm_eps)
-    cos, sin = rope_tables(spec, cfg, positions, wq.shape[-1])
+    if spec.rope == "none":
+        return q, k, v
+    cos, sin = rope_tables(spec, cfg, positions, q.shape[-1])
     return rope_lib.apply_rope(q, cos, sin), rope_lib.apply_rope(k, cos, sin), v
+
+
+def _project(w, x: torch.Tensor) -> torch.Tensor:
+    """x [n, B, S, d] times a head projection w [n, d, H, hd] -> [n, B, S,
+    H, hd]."""
+    n, B, S, d = x.shape
+    return matmul(x, as_matrix(w, d)).reshape(n, B, S, *w.shape[2:])
 
 
 def rope_tables(spec: LayerSpec, cfg: ModelConfig, positions: torch.Tensor,
@@ -618,3 +630,48 @@ def attention_chunk(params, x: torch.Tensor, cache: Tuple[Any, Any], *,
         ctx = _masked_ctx(q, k_g, v_g, mask, k_g.dtype, cap)
     out = _out_proj(params, ctx.to(x.dtype))
     return out, (k_leaf, v_leaf)
+
+
+# ---------------------------------------------------------------------------
+# cross-attention (whisper's decoder)
+# ---------------------------------------------------------------------------
+
+def cross_kv(params, enc_states: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoder's output projected once (the reference's ``cross_kv``):
+    enc_states [n, B, S_enc, d] -> (k, v) [n, B, S_enc, KH, hd], no RoPE."""
+    return _project(params["wk"], enc_states), _project(params["wv"],
+                                                         enc_states)
+
+
+def cross_attention_apply(params, x: torch.Tensor,
+                          enc_kv: Tuple[torch.Tensor, torch.Tensor], *,
+                          cfg: ModelConfig, mode: str) -> torch.Tensor:
+    """x [n, B, S, d] attends over the encoder's (k, v) [n, B, S_enc, KH,
+    hd] with no mask (the reference's ``cross_attention_apply``): mode
+    'decode' (S = 1) on the contiguous decode kernel, every row's length
+    S_enc and nothing written; 'train' on ``blockwise_attention`` (plain
+    ops, K/V expanded to the query heads); any other mode (prefill, a
+    chunk) on the flash kernel with ``causal=False``, tracks folded into
+    the batch.  Returns [n, B, S, d]."""
+    q = _project(params["wq"], x)
+    k, v = enc_kv
+    n, B, S, H, hd = q.shape
+    Se, KH = k.shape[2:4]
+    if mode == "train":
+        ctx = blockwise_attention(
+            q.reshape(n * B, S, H, hd),
+            _expand_kv(k, H).reshape(n * B, Se, H, hd),
+            _expand_kv(v, H).reshape(n * B, Se, H, hd), causal=False,
+            chunk_q=cfg.attn_chunk_q, chunk_k=cfg.attn_chunk_k)
+    elif mode == "decode":
+        lengths = torch.full((n * B,), Se, dtype=torch.int32,
+                             device=q.device)
+        ctx = ops.decode_attention(q.reshape(n * B, H, hd),
+                                   k.reshape(n * B, Se, KH, hd),
+                                   v.reshape(n * B, Se, KH, hd), lengths)
+    else:
+        ctx = ops.flash_attention(q.reshape(n * B, S, H, hd),
+                                  k.reshape(n * B, Se, KH, hd),
+                                  v.reshape(n * B, Se, KH, hd), causal=False)
+    return _out_proj(params, ctx.reshape(n, B, S, H, hd))

@@ -11,18 +11,23 @@ GeGLU, sandwich norms, sliding windows, softcaps and qk-norm;
 qwen2-vl-72b with M-RoPE), Mamba (falcon-mamba-7b), RG-LRU
 (recurrentgemma-9b, beside its windowed MQA layers) and MLA with a
 SwiGLU or MoE MLP (deepseek-v2-236b, deepseek-v3-671b: a dense prefix,
-then the MoE unit).  ``lm_forward``
-also takes precomputed input embeddings (qwen2-vl's stub vision
-frontend) with (t, h, w) M-RoPE positions.
+then the MoE unit), and whisper-medium's encoder-decoder: ``encode``
+runs the encoder stack (non-causal GQA layers with a GELU MLP over
+precomputed frame embeddings, the stub of its conv frontend) and each
+decoder layer cross-attends to its output; both stacks add fixed
+sinusoid positions (``_sinusoid``) to their inputs and take no RoPE.
+``lm_forward`` also takes precomputed input embeddings (qwen2-vl's stub
+vision frontend) with (t, h, w) M-RoPE positions.
 
   init_lm(generator, cfg, device)               -> params
   lm_forward(params, batch, cfg, mode)          -> prefill: (logits, cache)
                                                    train: (logits, aux)
+  encode(params, enc_inputs, cfg)               -> encoder output
   lm_loss(params, batch, cfg)                   -> (loss, metrics)
   lm_decode_step(params, cache, tokens, pos, cfg, ...) -> (logits, cache)
   lm_chunk_step(params, cache, tokens, pos, cfg, ...)  -> (logits, cache)
   lm_chunk_hidden(...)                          -> hidden states (no head)
-  init_cache(cfg, batch, seq_len, device)       -> zeroed cache
+  init_cache(cfg, batch, seq_len, device, enc_len) -> zeroed cache
 
 The cache is the reference's tree {"prefix", "unit", "suffix"} (unit
 leaves stacked [R, ...]).  A GQA layer's entry is (k, v), each
@@ -35,16 +40,22 @@ rope]) or the paged engine's latent pools [.., N, bs, r] and [.., N,
 bs, rope] (no KV-head axis); a
 Mamba layer's entry is (conv window [.., B, dc-1, di] in the model
 dtype, h [.., B, di, ds] fp32) and an RG-LRU layer's (conv window
-[.., B, dc-1, di], h [.., B, di] fp32): per-slot state rows.  The decode and
-chunk steps update every leaf in place.  (The reference's prefill also returns an
-auxiliary loss, always zero here.)
+[.., B, dc-1, di], h [.., B, di] fp32): per-slot state rows.  A
+whisper decoder layer's entry is ((k, v), (enc_k, enc_v)): its own
+contiguous K/V and the encoder's output projected once at prefill,
+[.., B, S_enc, KH, hd], which no later step writes (whisper runs on the
+contiguous cache only: the engine, as the reference's, serves
+decoder-only models).  The decode and chunk steps update every leaf in
+place.  (The reference's prefill also returns an auxiliary loss, always
+zero here.)
 
 Train mode (``lm_forward(mode="train")``, ``lm_loss``) runs the
 reference's train-time functions on plain PyTorch ops, so autograd
 differentiates them: ``layers.layer_train`` (plain norms, blockwise
-attention), each repeat of the unit under ``_remat`` (activation
-checkpointing).  It reaches no kernel wrapper.  The GQA layers train;
-MLA, Mamba, RG-LRU and MoE layers raise (ROADMAP queue 1, item 9b).
+attention), each repeat of the unit (and each encoder layer) under
+``_remat`` (activation checkpointing).  It reaches no kernel wrapper.
+The GQA layers train, whisper's encoder and decoder among them; MLA,
+Mamba, RG-LRU and MoE layers raise (ROADMAP queue 1, item 9b).
 """
 from __future__ import annotations
 
@@ -111,7 +122,9 @@ def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
 def lm_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     """The tree ``repro.models.decoder.init_lm`` builds, as
     :class:`~repro_torch.models.params.Leaf` specs: embed [V, d], head
-    [d, V], prefix/suffix layers, unit layers stacked [R, ...]."""
+    [d, V], prefix/suffix layers, unit layers stacked [R, ...], and for
+    an encoder-decoder model enc {"layers": stacked [n_enc, ...],
+    "final_norm"}."""
     check_supported(cfg)
     if cfg.pt is not None:
         raise ValueError(f"{cfg.name} is a PT model: use core.track.init_pt")
@@ -129,6 +142,11 @@ def lm_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         specs["head"] = Leaf((d, cfg.vocab_size), 1.0 / math.sqrt(d))
+    if cfg.encdec is not None:
+        specs["enc"] = {
+            "layers": stack(layer_shapes(cfg, cfg.spec("enc"), d),
+                            (cfg.encdec.n_enc_layers,)),
+            "final_norm": norm_shapes(cfg.norm, d)}
     return specs
 
 
@@ -148,16 +166,35 @@ def init_lm(generator: torch.Generator, cfg: ModelConfig,
 # embedding / head
 # ---------------------------------------------------------------------------
 
-def _embed(params, inputs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _sinusoid(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (the reference's
+    ``_sinusoid``): positions [B, S] -> [B, S, d] fp32, sines then
+    cosines of positions x exp(-ln(10000) i / max(d / 2 - 1, 1))."""
+    half = d // 2
+    freqs = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device)
+        / max(half - 1, 1))
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _embed(params, inputs: torch.Tensor, cfg: ModelConfig,
+           positions: Optional[torch.Tensor] = None) -> torch.Tensor:
     """inputs [B, S] token ids, or [B, S, d] floating precomputed
     embeddings (cast to the model dtype) -> [B, S, d] in the model dtype,
-    times the embedding multiplier."""
+    times the embedding multiplier; an encoder-decoder model adds the
+    sinusoid at ``positions`` [B, S] (or the first of M-RoPE's [3, B, S]
+    streams), cast to the model dtype."""
+    dtype = model_dtype(cfg)
     if inputs.is_floating_point():
-        h = inputs.to(model_dtype(cfg))
+        h = inputs.to(dtype)
     else:
         h = params["embed"][inputs.long()]
     if cfg.embedding_multiplier != 1.0:
-        h = (h.float() * cfg.embedding_multiplier).to(model_dtype(cfg))
+        h = (h.float() * cfg.embedding_multiplier).to(dtype)
+    if cfg.encdec is not None:
+        p = positions if positions.dim() == 2 else positions[0]
+        h = h + _sinusoid(p, cfg.d_model).to(dtype)
     return h
 
 
@@ -228,18 +265,52 @@ def _stacked(caches: List[Any]) -> Any:
     return torch.stack(caches)
 
 
+def encode(params, enc_inputs: torch.Tensor, cfg: ModelConfig,
+           train: bool = False) -> torch.Tensor:
+    """The encoder stack (the reference's ``encode``): enc_inputs [B,
+    S_enc, d] precomputed frame embeddings (the stub of whisper's conv
+    frontend), cast to the model dtype, plus the sinusoid at positions
+    0 .. S_enc - 1, through the stacked ``params["enc"]["layers"]`` (GQA
+    without a causal mask, ``spec("enc")``) and ``enc.final_norm``.
+    Self-attention runs on the flash kernel (full, no mask) and each
+    layer's last residual add is folded into the next norm; with
+    ``train`` every layer is ``layer_train`` (plain ops) under
+    ``_remat``, as the reference's scan body.  Returns [B, S_enc, d]."""
+    B, S, _ = enc_inputs.shape
+    positions = rope_lib.positions_default(B, S, device=enc_inputs.device)
+    dtype = model_dtype(cfg)
+    h = enc_inputs.to(dtype) + _sinusoid(positions, cfg.d_model).to(dtype)
+    spec, enc = cfg.spec("enc"), params["enc"]
+    n = cfg.encdec.n_enc_layers
+    if train:
+        layer = _remat(lambda x, lp: layer_train(
+            lp, x, cfg=cfg, spec=spec, positions=positions), cfg)
+        for lp in unstack(enc["layers"], n):
+            h = layer(h, lp)
+        return plain_norm(cfg.norm, enc["final_norm"], h, eps=cfg.norm_eps)
+    x, delta = h, None
+    for r in range(n):
+        lp = _at(enc["layers"], r)
+        x, y = norm_in(cfg, lp["ln1"], x, delta)
+        x, delta, _ = layer_step(lp, x, y, cfg=cfg, spec=spec,
+                                 mode="encode", positions=positions)
+    return norm_in(cfg, enc["final_norm"], x, delta)[1]
+
+
 def lm_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                mode: str = "prefill"):
     """Whole-prompt prefill.  batch: {'inputs': [B, S] token ids or
     [B, S, d] floating precomputed embeddings, 'positions'?: [B, S] or
     [3, B, S] (M-RoPE's (t, h, w) streams), 'lengths'?: [B] true lengths
-    of right-padded rows}.
+    of right-padded rows, 'enc_inputs': [B, S_enc, d] frame embeddings
+    of an encoder-decoder model}.
     Returns (logits [B, S, V], cache) in the reference's prefill layout
     (a GQA layer's (k, v) [B, S, KH, hd] with RoPE applied, a window
-    W < S's rings [B, W, KH, hd] built from ``lengths``, unit leaves
-    stacked [R, B, ...]).  Right-padded rows are safe for attention: a
-    padded key lies causally after every real query, and ``lengths``
-    keeps padding out of the rings.  Recurrent layers carry every
+    W < S's rings [B, W, KH, hd] built from ``lengths``, a cross-
+    attending layer's ((k, v), (enc_k, enc_v)) with the encoder's K/V
+    [B, S_enc, KH, hd], unit leaves stacked [R, B, ...]).  Right-padded
+    rows are safe for attention: a padded key lies causally after every
+    real query, and ``lengths`` keeps padding out of the rings.  Recurrent layers carry every
     position into their state, so their rows must not be right-padded:
     the engine prefills them at exact length.  ``mode="train"``:
     (logits, aux) of ``_lm_train`` (no cache, plain ops)."""
@@ -253,7 +324,9 @@ def lm_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     if positions is None:
         positions = rope_lib.positions_default(*inputs.shape[:2],
                                                device=inputs.device)
-    x, delta = _embed(params, inputs, cfg), None
+    enc_states = (encode(params, batch["enc_inputs"], cfg)
+                  if cfg.encdec is not None else None)
+    x, delta = _embed(params, inputs, cfg, positions), None
     caches: Dict[str, Any] = {"prefix": [], "unit": [[] for _ in
                                                      cfg.pattern_unit],
                               "suffix": []}
@@ -263,7 +336,7 @@ def lm_forward(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
         x, y = norm_in(cfg, lp["ln1"], x, delta)
         x, delta, c = layer_step(lp, x, y, cfg=cfg, spec=cfg.spec(nm),
                                  mode="prefill", positions=positions,
-                                 lengths=lengths)
+                                 lengths=lengths, enc_states=enc_states)
         (caches[group] if r is None else caches["unit"][i]).append(c)
     cache = {"prefix": tuple(caches["prefix"]),
              "unit": (tuple(_stacked(cs) for cs in caches["unit"])
@@ -280,18 +353,21 @@ def train_head(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def _lm_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     """lm_forward(mode="train"): (logits [B, S, V], aux) as the
-    reference's, aux the MoE loss (zero: no MoE layer trains yet)."""
+    reference's, aux the MoE loss (zero: no MoE layer trains yet); an
+    encoder-decoder model encodes ``batch["enc_inputs"]`` first."""
     check_trainable(cfg)
     inputs = batch["inputs"]
     positions = batch.get("positions")
     if positions is None:
         positions = rope_lib.positions_default(*inputs.shape[:2],
                                                device=inputs.device)
-    h = _embed(params, inputs, cfg)
+    enc_states = (encode(params, batch["enc_inputs"], cfg, train=True)
+                  if cfg.encdec is not None else None)
+    h = _embed(params, inputs, cfg, positions)
 
     def run(lp, x, nm):
         return layer_train(lp, x, cfg=cfg, spec=cfg.spec(nm),
-                           positions=positions)
+                           positions=positions, enc_states=enc_states)
 
     for i, nm in enumerate(cfg.pattern_prefix):
         h = run(params["prefix"][i], h, nm)
@@ -327,7 +403,7 @@ def xent(logits: torch.Tensor, targets: torch.Tensor, aux: torch.Tensor):
 
 def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     """(loss, metrics) of train mode: batch {'inputs', 'targets',
-    'positions'?}."""
+    'positions'?, 'enc_inputs' (an encoder-decoder model)}."""
     logits, aux = lm_forward(params, batch, cfg, mode="train")
     return xent(logits, batch["targets"], aux)
 
@@ -368,10 +444,15 @@ def lm_decode_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
     """tokens [B]; pos [B] int32 (cache write index).  ``active`` [B]
     bool freezes the state rows of inactive lanes.  The cache is updated
     in place.  Returns (logits [B, V], cache)."""
-    h = _embed(params, tokens[:, None], cfg)
+    h = _embed(params, tokens[:, None], cfg, pos[:, None])
     x, delta = _step_layers(params, cache, h, pos, cfg, "decode",
                             block_table, kv_max_len, active=active)
     return _logits(params, _final(params, x, delta, cfg)[:, 0], cfg), cache
+
+
+def _chunk_positions(pos: torch.Tensor, C: int) -> torch.Tensor:
+    """[B, C] positions pos[:, None] + arange(C) of a chunk's tokens."""
+    return pos[:, None] + torch.arange(C, dtype=pos.dtype, device=pos.device)
 
 
 def lm_chunk_hidden(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
@@ -387,7 +468,7 @@ def lm_chunk_hidden(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
     serving runner applies the head to each row's last real token only;
     the head is row-wise, so those logits are the rows ``lm_chunk_step``
     returns.  It runs as the chunk program of a prompt (mode 'fill')."""
-    h = _embed(params, tokens, cfg)
+    h = _embed(params, tokens, cfg, _chunk_positions(pos, tokens.shape[1]))
     x, delta = _step_layers(params, cache, h, pos, cfg, "fill",
                             block_table, kv_max_len, slots=slots,
                             chunk_lens=chunk_lens)
@@ -402,7 +483,7 @@ def lm_chunk_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
                   chunk_lens: Optional[torch.Tensor] = None):
     """Chunked prefill: tokens [B, C] appended against the cache (updated
     in place).  Returns (logits [B, C, V], cache)."""
-    h = _embed(params, tokens, cfg)
+    h = _embed(params, tokens, cfg, _chunk_positions(pos, tokens.shape[1]))
     x, delta = _step_layers(params, cache, h, pos, cfg, "chunk",
                             block_table, kv_max_len, slots=slots,
                             chunk_lens=chunk_lens)
@@ -411,14 +492,16 @@ def lm_chunk_step(params, cache, tokens: torch.Tensor, pos: torch.Tensor,
 
 def layer_cache(cfg: ModelConfig, nm: str, lead, batch: int, seq_len: int,
                 device, kv_dtype: Optional[torch.dtype] = None,
-                pool: bool = False) -> Any:
+                pool: bool = False, enc_len: int = 0) -> Any:
     """Zeroed cache entry of layer ``nm`` with stacking dims ``lead``: a
     GQA layer's (k, v) [*lead, batch, min(seq_len, window), KH, hd] (in
     ``kv_dtype``, default the model dtype; the paged engine asks for
     pools with ``pool``, (num_blocks, block_size) in place of (batch,
     seq_len), which no window clamps), an MLA layer's latents (c_kv
     [*lead, batch, seq_len, r], k_rope [*lead, batch, seq_len, rope]),
-    a Mamba or RG-LRU layer's state rows for ``batch`` slots."""
+    a Mamba or RG-LRU layer's state rows for ``batch`` slots; a cross-
+    attending layer's ((k, v), (enc_k, enc_v)), the encoder's K/V
+    [*lead, batch, enc_len, KH, hd]."""
     spec = cfg.spec(nm)
     if spec.mixer == "mla":
         dtype = kv_dtype or model_dtype(cfg)
@@ -429,10 +512,14 @@ def layer_cache(cfg: ModelConfig, nm: str, lead, batch: int, seq_len: int,
     if spec.mixer == "gqa":
         if spec.window is not None and not pool:
             seq_len = min(seq_len, spec.window)
-        shape = (*lead, batch, seq_len, cfg.n_kv_heads, cfg.head_dim)
         dtype = kv_dtype or model_dtype(cfg)
-        return tuple(torch.zeros(shape, dtype=dtype, device=device)
-                     for _ in range(2))
+
+        def kv(s):
+            return tuple(torch.zeros(*lead, batch, s, cfg.n_kv_heads,
+                                     cfg.head_dim, dtype=dtype,
+                                     device=device) for _ in range(2))
+
+        return (kv(seq_len), kv(enc_len)) if spec.cross_attn else kv(seq_len)
     s = cfg.rglru if spec.mixer == "rglru" else cfg.ssm
     h = (s.d_inner,) if spec.mixer == "rglru" else (s.d_inner, s.d_state)
     return (torch.zeros(*lead, batch, s.d_conv - 1, s.d_inner,
@@ -452,10 +539,11 @@ def map_layers(cfg: ModelConfig, fn) -> Dict[str, Any]:
 
 
 def init_cache(cfg: ModelConfig, batch: int, seq_len: int,
-               device: DeviceLike = None) -> Dict[str, Any]:
+               device: DeviceLike = None, enc_len: int = 0) -> Dict[str, Any]:
     """Zeroed contiguous cache for ``batch`` rows of ``seq_len``
-    positions (``seq_len`` does not change the size of state leaves)."""
+    positions (``seq_len`` does not change the size of state leaves;
+    ``enc_len`` is the encoder K/V's rows of a cross-attending layer)."""
     check_supported(cfg)
     device = resolve_device(device)
     return map_layers(cfg, lambda nm, lead: layer_cache(
-        cfg, nm, lead, batch, seq_len, device))
+        cfg, nm, lead, batch, seq_len, device, enc_len=enc_len))

@@ -18,7 +18,12 @@ Three flavours are ported:
   * the MLA layer of the dense ``lm_*`` decoder (deepseek-v2 / -v3):
     Multi-head Latent Attention (``models/mla.py``), then a SwiGLU MLP
     on n = 1 views (the dense prefix) or the capacity-routed MoE
-    (``models/moe.py``), x [B, S, d].
+    (``models/moe.py``), x [B, S, d];
+  * whisper-medium's layers, GQA with no RoPE, a GELU MLP and LayerNorm:
+    the encoder's (no causal mask, mode 'encode': no cache) and the
+    decoder's, which add a cross-attention sub-block (ln_x, attention
+    over the encoder's K/V, its residual add) between self-attention and
+    the MLP.
 
 ``layer_step`` is what the model loops run: its caller applies ln1 (the
 norm of the residual stream, with the previous layer's pending residual
@@ -29,10 +34,13 @@ Both run the modes the serving path needs:
   'prefill' — full-sequence forward, returns the layer's cache
               ((k, v) for GQA, (c_kv, k_rope) latents for MLA, (conv
               window, h) for Mamba and RG-LRU)
+  'encode'  — an encoder layer's full-sequence forward, no cache
   'decode'  — one token per row against the layer's cache
   'chunk'   — C tokens per row appended to the layer's cache
-``layer_train`` is a GQA layer in the reference's 'train' mode (no
-cache) on plain ops: plain norms, blockwise attention, no kernel
+A cross-attending layer's cache is ((k, v), (enc_k, enc_v)): the
+encoder's K/V are projected at prefill and only read after that.
+``layer_train`` is a GQA layer (whisper's too) in the reference's
+'train' mode (no cache) on plain ops: plain norms, blockwise attention, no kernel
 wrapper, so autograd differentiates it; the train modes of MLA, Mamba,
 RG-LRU and MoE layers raise (``check_trainable``, ROADMAP item 9b).
 GQA caches are block pools written through the block table, or
@@ -72,18 +80,26 @@ _LM_LAYERS = tuple(("gqa", m) for m in MLPS) + (("mamba", "none"),
                                                  ("rglru", "geglu"),
                                                  ("mla", "swiglu"),
                                                  ("mla", "moe"))
-_GQA_ROPES = ("rope", "local_rope", "mrope")
+_GQA_ROPES = ("rope", "local_rope", "mrope", "none")
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise unless every layer is a ported flavour: GQA + SwiGLU with
-    RMSNorm and plain RoPE in a PT model; GQA with a SwiGLU, GeGLU or
-    squared-ReLU MLP (windows, local RoPE, M-RoPE, softcaps, qk-norm and
-    sandwich norms too), Mamba alone, RG-LRU + GeGLU, or MLA with a
-    SwiGLU MLP or MoE, in a dense ``lm_*`` model.  No cross-attention or
-    encoder-decoder."""
+    RMSNorm and plain RoPE in a PT model (no encoder, no cross-attention);
+    in a dense ``lm_*`` model GQA with a SwiGLU, GeGLU, GELU or
+    squared-ReLU MLP (windows, local RoPE, M-RoPE or none, softcaps,
+    qk-norm and sandwich norms too), Mamba alone, RG-LRU + GeGLU, or MLA
+    with a SwiGLU MLP or MoE.  An encoder-decoder ``lm_*`` model
+    (whisper) has GQA encoder layers (``spec("enc")``) and GQA decoder
+    layers with cross-attention."""
     unported = []
-    for nm in cfg.layer_names:
+    names = cfg.layer_names
+    if cfg.encdec is not None:
+        if "enc" not in cfg.layer_specs:
+            unported.append("encoder-decoder without an 'enc' layer spec")
+        else:
+            names += ("enc",)
+    for nm in names:
         s = cfg.spec(nm)
         if cfg.pt is not None:
             if (s.mixer, s.mlp) != _PT_LAYER:
@@ -94,15 +110,20 @@ def check_supported(cfg: ModelConfig) -> None:
             unported.append(f"lm_* layer mixer={s.mixer} mlp={s.mlp}")
         if s.mixer == "gqa" and s.rope not in _GQA_ROPES:
             unported.append(f"rope={s.rope}")
-        if s.cross_attn:
-            unported.append("cross-attention")
+        if s.cross_attn and (cfg.encdec is None or cfg.pt is not None
+                             or s.mixer != "gqa" or nm == "enc"):
+            unported.append("cross-attention outside an encoder-decoder's "
+                            "GQA decoder layers")
     if cfg.norm not in NORMS:
         unported.append(f"norm={cfg.norm}")
     if cfg.pt is not None and (cfg.post_norm or cfg.qk_norm
                                or cfg.norm != "rmsnorm"):
         unported.append("PT with post_norm / qk_norm / non-RMS norms")
-    if cfg.encdec is not None:
-        unported.append("encoder-decoder")
+    if cfg.encdec is not None and (
+            cfg.pt is not None or "enc" in cfg.layer_specs
+            and cfg.spec("enc").mixer != "gqa"):
+        unported.append("encoder-decoder other than GQA encoder layers in "
+                        "a dense lm_* model")
     if cfg.pt is not None and (cfg.ssm is not None or cfg.rglru is not None):
         unported.append("SSM / RG-LRU in a PT model")
     if unported:
@@ -114,10 +135,11 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def check_trainable(cfg: ModelConfig) -> None:
     """Raise unless every layer has a ported train mode: GQA with a
-    SwiGLU, GeGLU or squared-ReLU MLP (the PT models, the dense
-    baselines, tinyllama, the gemma models, nemotron, qwen2-vl).  The
-    train modes of MLA, Mamba, RG-LRU and the MoE (with its auxiliary
-    loss) are ROADMAP queue 1, item 9b."""
+    SwiGLU, GeGLU, GELU or squared-ReLU MLP (the PT models, the dense
+    baselines, tinyllama, the gemma models, nemotron, qwen2-vl, and
+    whisper's encoder and cross-attending decoder layers).  The train
+    modes of MLA, Mamba, RG-LRU and the MoE (with its auxiliary loss) are
+    ROADMAP queue 1, item 9b."""
     check_supported(cfg)
     missing = sorted({s.mixer if s.mixer != "gqa" else s.mlp
                       for s in map(cfg.spec, cfg.layer_names)
@@ -155,6 +177,10 @@ def layer_shapes(cfg: ModelConfig, spec: LayerSpec,
          "ln2": norm,
          "mlp": (moe_lib.moe_shapes(cfg, d_stream) if spec.mlp == "moe"
                  else mlp_shapes(spec.mlp, d_stream, cfg.d_ff))}
+    if spec.cross_attn:
+        p["ln_x"] = norm
+        p["cross"] = attn.attention_shapes(d_stream, cfg.n_heads,
+                                           cfg.n_kv_heads, cfg.head_dim)
     if cfg.post_norm:
         p["ln1_post"] = norm
         p["ln2_post"] = norm
@@ -228,9 +254,10 @@ def _mla(params, h: torch.Tensor, *, cfg: ModelConfig, spec: LayerSpec,
 def _gqa(params, h: torch.Tensor, *, cfg: ModelConfig, spec: LayerSpec,
          mode: str, positions, pos, cache, block_table, kv_max_len, active,
          lengths, slots, chunk_lens):
-    if mode == "prefill":
+    if mode in ("prefill", "encode"):
         return attn.attention_apply(params, h, spec=spec, cfg=cfg,
-                                    positions=positions, return_cache=True,
+                                    positions=positions,
+                                    return_cache=mode == "prefill",
                                     lengths=lengths)
     if mode == "decode":
         return attn.attention_decode(params, h, cache, spec=spec, cfg=cfg,
@@ -260,6 +287,13 @@ def _track1(tree):
     return tree
 
 
+def _untrack1(tree):
+    """The inverse of ``_track1`` on a tree of tensors: track 0 of each."""
+    if isinstance(tree, tuple):
+        return tuple(_untrack1(v) for v in tree)
+    return tree[0]
+
+
 def _post(cfg: ModelConfig, params, name: str,
           h: torch.Tensor) -> torch.Tensor:
     """A sublayer's output before its residual add: normed under
@@ -271,7 +305,7 @@ def _post(cfg: ModelConfig, params, name: str,
 
 def _step(params, x: torch.Tensor, y: torch.Tensor, *, cfg: ModelConfig,
           spec: LayerSpec, mode: str, positions, pos, cache, block_table,
-          kv_max_len, slots, chunk_lens, active, lengths
+          kv_max_len, slots, chunk_lens, active, lengths, enc_states
           ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
     if spec.mixer in _RECURRENT or spec.mixer == "mla":
         if spec.mixer == "mla":
@@ -295,12 +329,24 @@ def _step(params, x: torch.Tensor, y: torch.Tensor, *, cfg: ModelConfig,
             # the MLP's weights take a track dim of 1, as a GQA layer's
             h = mlp_apply(_track1(params["mlp"]), y[None], spec.mlp)[0]
         return x, _post(cfg, params, "ln2_post", h), new_cache
+    # a cross-attending layer's cache is (self K/V, encoder K/V); the
+    # encoder's are projected at prefill and only read after that
+    self_cache, enc_kv = (cache if spec.cross_attn and cache is not None
+                          else (cache, None))
     h, new_cache = _gqa(params["mixer"], y, cfg=cfg, spec=spec, mode=mode,
-                        positions=positions, pos=pos, cache=cache,
+                        positions=positions, pos=pos, cache=self_cache,
                         block_table=block_table, kv_max_len=kv_max_len,
                         active=active, lengths=lengths, slots=slots,
                         chunk_lens=chunk_lens)
-    x, y = norm_in(cfg, params["ln2"], x, _post(cfg, params, "ln1_post", h))
+    h = _post(cfg, params, "ln1_post", h)
+    if spec.cross_attn:
+        if enc_kv is None:
+            enc_kv = attn.cross_kv(params["cross"], enc_states)
+        x, y = norm_in(cfg, params["ln_x"], x, h)
+        h = attn.cross_attention_apply(params["cross"], y, enc_kv, cfg=cfg,
+                                       mode=mode)
+        new_cache = (new_cache, enc_kv)
+    x, y = norm_in(cfg, params["ln2"], x, h)
     return x, _post(cfg, params, "ln2_post",
                     mlp_apply(params["mlp"], y, spec.mlp)), new_cache
 
@@ -314,40 +360,51 @@ def layer_step(params, x: torch.Tensor, y: torch.Tensor, *,
                slots: Optional[torch.Tensor] = None,
                chunk_lens: Optional[torch.Tensor] = None,
                active: Optional[torch.Tensor] = None,
-               lengths: Optional[torch.Tensor] = None
+               lengths: Optional[torch.Tensor] = None,
+               enc_states: Optional[torch.Tensor] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, Any]:
     """One layer whose ln1 the caller applied: x the residual stream (in a
     PT model possibly one fused row broadcast to every track), y =
     ln1(x).  Returns (x, delta, cache): the layer's output is x + delta,
     the add left for the next norm to fold in (``norm_in``).  Arguments
     and cache as ``layer_apply``; mode 'fill' is 'chunk' run as the
-    chunk program of a prompt (``attention_chunk(prefill=True)``)."""
+    chunk program of a prompt (``attention_chunk(prefill=True)``), mode
+    'encode' an encoder layer's prefill, which returns no cache.  A
+    cross-attending layer's residual adds run in the reference's order,
+    each in the model dtype: self-attention's (folded into ln_x's
+    launch), cross-attention's (into ln2's), the MLP's (left pending)."""
     kw = dict(cfg=cfg, spec=spec, mode=mode, positions=positions, pos=pos,
               block_table=block_table, kv_max_len=kv_max_len, slots=slots,
               chunk_lens=chunk_lens, active=active, lengths=lengths)
     if cfg.pt is None and spec.mixer == "gqa":
         # an lm_* GQA layer runs the PT layer's code at n = 1, on views
         x1, d1, c1 = _step(_track1(params), x[None], y[None],
-                           cache=_track1(cache), **kw)
-        return x1[0], d1[0], (tuple(c[0] for c in c1) if mode == "prefill"
-                              else cache)
-    return _step(params, x, y, cache=cache, **kw)
+                           cache=_track1(cache),
+                           enc_states=_track1(enc_states), **kw)
+        if mode == "prefill":
+            cache = _untrack1(c1)
+        return x1[0], d1[0], cache
+    return _step(params, x, y, cache=cache, enc_states=enc_states, **kw)
 
 
 def layer_train(params, x: torch.Tensor, *, cfg: ModelConfig,
-                spec: LayerSpec, positions: torch.Tensor) -> torch.Tensor:
+                spec: LayerSpec, positions: torch.Tensor,
+                enc_states: Optional[torch.Tensor] = None) -> torch.Tensor:
     """One GQA layer in train mode, the reference's ``layer_apply(mode=
     "train")`` on plain ops: ln1, attention (``blockwise_attention``),
-    ln1_post, the residual add, ln2, the MLP, ln2_post, the residual add,
-    every norm the plain one (``plain_norm``), so that no kernel wrapper
-    runs and autograd differentiates it.  x [n, B, S, d] with track-
-    stacked params (PT), or [B, S, d] (lm_*: run on n = 1 views).
+    ln1_post, the residual add, for a cross-attending layer ln_x, cross-
+    attention over ``enc_states`` projected here and the residual add,
+    then ln2, the MLP, ln2_post, the residual add, every norm the plain
+    one (``plain_norm``), so that no kernel wrapper runs and autograd
+    differentiates it.  x [n, B, S, d] with track-stacked params (PT), or
+    [B, S, d] (lm_*: run on n = 1 views; enc_states [B, S_enc, d]).
     Returns the layer's output."""
     if spec.mixer != "gqa" or spec.mlp == "moe":
         raise NotImplementedError(f"{spec.mixer} / {spec.mlp} train mode "
                                   "(ROADMAP queue 1, item 9b)")
     if cfg.pt is None:
         params, x = _track1(params), x[None]
+        enc_states = _track1(enc_states)
 
     def norm(name, h):
         return plain_norm(cfg.norm, params[name], h, eps=cfg.norm_eps)
@@ -357,6 +414,11 @@ def layer_train(params, x: torch.Tensor, *, cfg: ModelConfig,
                 block_table=None, kv_max_len=None, active=None,
                 lengths=None, slots=None, chunk_lens=None)
     x = x + (norm("ln1_post", h) if cfg.post_norm else h)
+    if spec.cross_attn:
+        x = x + attn.cross_attention_apply(
+            params["cross"], norm("ln_x", x),
+            attn.cross_kv(params["cross"], enc_states), cfg=cfg,
+            mode="train")
     h = mlp_apply(params["mlp"], norm("ln2", x), spec.mlp)
     x = x + (norm("ln2_post", h) if cfg.post_norm else h)
     return x if cfg.pt is not None else x[0]
@@ -371,7 +433,8 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
                 slots: Optional[torch.Tensor] = None,
                 chunk_lens: Optional[torch.Tensor] = None,
                 active: Optional[torch.Tensor] = None,
-                lengths: Optional[torch.Tensor] = None
+                lengths: Optional[torch.Tensor] = None,
+                enc_states: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Any]:
     """One layer.  A PT layer takes x [n, B, S, d] and params leaves
     [n, ...]; an lm_* layer x [B, S, d].  'prefill' takes ``positions``
@@ -381,7 +444,11 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
     RG-LRU layer's state rows with ``slots`` [B] (chunk rows -> engine
     slots; None when the rows align with the batch) and ``chunk_lens``
     [B] (valid tokens of a padded final chunk).  ``active`` [B] marks the decode lanes
-    whose contiguous rows or state may change.  Returns (x, cache).
+    whose contiguous rows or state may change.  A cross-attending layer
+    (whisper's decoder) takes the encoder's output ``enc_states`` [B,
+    S_enc, d] in 'prefill' and returns its cache as ((k, v), (enc_k,
+    enc_v)); in 'decode' and 'chunk' it reads that cache's encoder K/V
+    and writes only its own.  Returns (x, cache).
     (The reference also returns an auxiliary MoE loss, a training
     quantity not computed here.)"""
     x, y = norm_in(cfg, params["ln1"], x, None)
@@ -390,5 +457,5 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
                                  cache=cache, block_table=block_table,
                                  kv_max_len=kv_max_len, slots=slots,
                                  chunk_lens=chunk_lens, active=active,
-                                 lengths=lengths)
+                                 lengths=lengths, enc_states=enc_states)
     return x + delta, cache

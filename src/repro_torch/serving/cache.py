@@ -1,6 +1,8 @@
 """The serving caches (counterpart of ``repro.serving.cache``): the
-block-pool ``PagedKVCache`` with its block accounting, and the row
-insert of the contiguous cache, ``insert_rows``.
+block-pool ``PagedKVCache`` with its block accounting, the row insert of
+the contiguous cache, ``insert_rows``, and ``pad_cache``, which pads an
+``lm_*`` prefill cache out to a decode capacity (whisper's decode loop
+runs on it).
 
 Every leaf of a paged engine cache is one of three layouts
 (``common.paged.leaf_kind``; the reference classifies them by probing,
@@ -126,6 +128,52 @@ def insert_rows(dst: Any, src: Any, slots: Sequence[int]) -> None:
             idx = torch.as_tensor(list(slots), dtype=torch.long,
                                   device=d.device)
         d.index_copy_(ax, idx, _padded(s, d, ax).to(d.dtype))
+
+
+def _pad_seq(x: torch.Tensor, axis: int, new_len: int) -> torch.Tensor:
+    """x zero-padded along ``axis`` to ``new_len`` (x itself when it is
+    as long already)."""
+    cur = x.shape[axis]
+    if cur >= new_len:
+        return x
+    shape = list(x.shape)
+    shape[axis] = new_len
+    out = x.new_zeros(shape)
+    out.narrow(axis, 0, cur).copy_(x)
+    return out
+
+
+def _pad_layer(cache: Any, spec, new_len: int) -> Any:
+    """One layer's prefill cache (possibly [R]-stacked) padded to
+    ``new_len`` positions: GQA K/V along their sequence axis (a window's
+    to at most W rows; a ring already W rows long stays as it is), a
+    cross-attending layer's own K/V only (the encoder's keep their
+    rows), MLA latents along theirs; recurrent state rows unchanged."""
+    if spec.mixer == "gqa":
+        (k, v), enc = cache if spec.cross_attn else (cache, None)
+        if spec.window is not None and k.shape[-3] >= spec.window:
+            out = (k, v)                       # a ring: fixed size
+        else:
+            tgt = new_len if spec.window is None else min(new_len,
+                                                          spec.window)
+            out = (_pad_seq(k, -3, tgt), _pad_seq(v, -3, tgt))
+        return (out, enc) if spec.cross_attn else out
+    if spec.mixer == "mla":
+        return tuple(_pad_seq(t, -2, new_len) for t in cache)
+    return cache
+
+
+def pad_cache(cache: Dict[str, Any], cfg: ModelConfig,
+              new_len: int) -> Dict[str, Any]:
+    """An ``lm_*`` prefill cache {"prefix", "unit", "suffix"} padded out
+    to capacity ``new_len`` (the reference's ``pad_cache``): the
+    contiguous cache that ``lm_decode_step`` / ``lm_chunk_step`` then
+    write in place."""
+    groups = {"prefix": cfg.pattern_prefix, "unit": cfg.pattern_unit,
+              "suffix": cfg.pattern_suffix}
+    return {g: tuple(_pad_layer(c, cfg.spec(nm), new_len)
+                     for c, nm in zip(cache[g], names))
+            for g, names in groups.items()}
 
 
 _HASH_ROOT = b"pkv-root"           # chain-hash seed for position-0 blocks

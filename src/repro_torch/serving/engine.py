@@ -524,7 +524,12 @@ class ModelRunner:
     tracks [0, draft_tracks) of the full tree.  Every forward, decode
     and verify then makes R collectives (one per track block), the
     drafter none, and every rank samples the same tokens from the same
-    full logits."""
+    full logits.
+
+    An encoder-decoder config (whisper-medium) is refused before any
+    other check, with the reference's ValueError ("engine serves
+    decoder-only models"); it runs through the ``lm_*`` entry points on
+    the contiguous cache (``serving/cache.py::pad_cache``)."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int,
                  max_seq_len: int, min_bucket: int = 16,
@@ -537,6 +542,8 @@ class ModelRunner:
                  pipeline_depth: int = 0, device: DeviceLike = None,
                  par: Parallelism = NO_PARALLEL,
                  fault_plan: Optional[FaultPlan] = None):
+        if cfg.encdec is not None:
+            raise ValueError("engine serves decoder-only models")
         self.device = resolve_device(device)
         check_supported(cfg)
         if par.sharded and pipeline_depth:
@@ -1288,7 +1295,8 @@ class Engine:
     is the number of steps in a row without progress after which the
     stall watchdog fires, ``max_preemptions`` the evictions a request
     survives before it is REJECTED, and ``fault_plan`` a
-    ``faults.FaultPlan`` of injected faults."""
+    ``faults.FaultPlan`` of injected faults.  Encoder-decoder configs are
+    refused first, as ``ModelRunner`` refuses them."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int = 4,
                  max_seq_len: int = 256,
@@ -1305,6 +1313,8 @@ class Engine:
                  watchdog_patience: int = 25, max_preemptions: int = 8,
                  fault_plan: Optional[FaultPlan] = None,
                  par: Parallelism = NO_PARALLEL):
+        if cfg.encdec is not None:
+            raise ValueError("engine serves decoder-only models")
         if par.sharded and preplan:
             raise _ranks_unpipelined("preplan=True")
         if pipeline_depth < 0:

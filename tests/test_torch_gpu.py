@@ -66,6 +66,9 @@ the scan route bitwise the digests of ``tests/ssm_scan_digests.json``
 unfused route's and y within 1e-5, with faulted controls (a mask off by
 one, a step skipped) that fail the same check, and a reduced Mamba mixer
 (fp32, bf16) on it against the unfused composition.
+whisper-medium's two kernel roles (``-k whisper or cross_rows``): flash
+full at 16 heads of 64 over a ragged last key tile on the wgmma route,
+and the contiguous decode at G 1 over encoder rows it leaves untouched.
 The tests that read the profiler (one device kernel per call) run their
 body in a Python process of its own, whose first profiler session it is
 (``_own_process``).
@@ -240,6 +243,50 @@ def test_flash_attention_wgmma_route_takes_sq_unlike_sk(Sq, Sk, hd, softcap):
             out, ref.flash_attention_plain(q, k, v, causal=causal,
                                            softcap=softcap),
             rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Sq,Sk", [(1500, 1500), (4, 1500), (37, 1499),
+                                   (4, 300)])
+def test_flash_attention_full_at_whisper_heads_matches_plain(Sq, Sk):
+    """whisper-medium's full attention on the wgmma route: 16 heads of 64,
+    G 1, no causal mask, over keys that end inside a key tile (1500 = 23
+    x 64 + 28; 1499 and 300 not multiples of 8): the encoder's self-
+    attention and the cross-attention prefill, against the plain
+    version."""
+    dev = _cuda()
+    q, k, v = _flash_inputs(dev, "bfloat16", 2, Sq, Sk, 16, 16, 64, seed=5)
+    out, r = _flash_routed(q, k, v, causal=False)
+    assert r == "wgmma_tma"
+    torch.testing.assert_close(
+        out, ref.flash_attention_plain(q, k, v, causal=False),
+        rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1500, 37])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_over_cross_rows_matches_plain(S, dtype):
+    """whisper-medium's cross-attention decode: the contiguous kernel at
+    G 1, hd 64, 16 heads, every row's length the encoder's S and no
+    max_len cut, against the plain version; the encoder rows it reads
+    are left bitwise as they were."""
+    dev, tol = _cuda(), _TOL[dtype]
+    rng = np.random.default_rng(S)
+    cast = lambda a: torch.from_numpy(a).to(dev, _TDT[dtype])   # noqa: E731
+    q = cast(rng.standard_normal((8, 16, 64)).astype(np.float32))
+    k, v = (cast(rng.standard_normal((8, S, 16, 64)).astype(np.float32))
+            for _ in range(2))
+    kept = (k.clone(), v.clone())
+    lengths = torch.full((8,), S, dtype=torch.int32, device=dev)
+    before = ops.launch_counts()["decode_attention"]
+    out = ops.decode_attention(q, k, v, lengths)
+    torch.testing.assert_close(out, ref.decode_attention_plain(q, k, v,
+                                                               lengths),
+                               rtol=tol, atol=tol)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["decode_attention"] == before + 1
+    assert torch.equal(k, kept[0]) and torch.equal(v, kept[1])
 
 
 @pytest.mark.gpu

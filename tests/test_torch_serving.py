@@ -177,8 +177,10 @@ def test_engine_rejects_invalid_requests_and_unported_features(model):
     assert eng.cancel(sampled) and sampled.state is RequestState.CANCELLED
     with pytest.raises(ValueError, match="decoding"):   # fork is ported
         eng.fork(sampled, 1)
-    with pytest.raises(KeyError, match="ROADMAP"):
-        reduced_config("whisper-medium")
+    whisper = reduced_config("whisper-medium")    # the model is ported;
+    with pytest.raises(ValueError, match="decoder-only"):   # the engine,
+        Engine(whisper, params, device="cpu")       # as the reference's,
+                                                    # serves decoder-only
 
 
 def test_entry_points_without_device_refuse_to_run_on_cpu(model):

@@ -4944,10 +4944,12 @@ def layer_arith(cfg, c: dict) -> dict:
     a pool layer and the contiguous one on a ring layer or on the
     contiguous cache (``c["contiguous"]``), none for an MLA layer (its
     absorbed decode is plain products, as the reference's); the RMSNorm
-    launches ``norm_routes`` counts (none for LayerNorm)."""
+    launches ``norm_routes`` counts (none for LayerNorm; one residual add
+    per layer in a model of Mamba layers without MLPs)."""
     from repro_torch.common.paged import leaf_kind
     P, C, T = c["P"], c.get("C", 0), c["T"]
     specs = [cfg.spec(nm) for nm in cfg.layer_names]
+    kind = "falcon" if all(s.mlp == "none" for s in specs) else "layers"
     gqa = [leaf_kind(s, c["capacity"]) for s in specs if s.mixer == "gqa"]
     attn = sum(s.mixer in ("gqa", "mla") for s in specs)
     pools = 0 if c.get("contiguous") else gqa.count("paged")
@@ -4957,7 +4959,7 @@ def layer_arith(cfg, c: dict) -> dict:
             "decode_attention": (len(gqa) - pools) * T,
             "paged_decode_attention_int8": 0, "decode_attention_int8": 0,
             "int8_matmul": 0, "ssm_scan": rec * (P + C),
-            "rmsnorm": sum(norm_routes("layers", cfg, c).values())}
+            "rmsnorm": sum(norm_routes(kind, cfg, c).values())}
 
 
 def serve_layer_model(dev, card: str, arch: str, prompt: int, new: int,
@@ -6219,8 +6221,8 @@ TRAIN_PARAM_CLOSE, TRAIN_PARAM_SHARE = 1e-5, 1e-3
 PHASE14 = {}          # the figures of phase 14, for the summary
 
 
-def _run_steps(cfg, params, dev, dcfg):
-    """TRAIN_STEPS of ``make_train_step`` (warmup 2, so that every step
+def _run_steps(cfg, params, dev, dcfg, steps: int = TRAIN_STEPS):
+    """``steps`` of ``make_train_step`` (warmup 2, so that every step
     after the first moves the params) on ``params`` (moved to ``dev``)
     from the data pipeline: (params, opt state, losses, grad norms,
     learning rates)."""
@@ -6228,13 +6230,13 @@ def _run_steps(cfg, params, dev, dcfg):
     from repro_torch.data.pipeline import DataLoader
     from repro_torch.launch.steps import make_train_step
     fn, opt_init, _ = make_train_step(cfg, microbatches=1, peak_lr=3e-3,
-                                      warmup=2, total_steps=TRAIN_STEPS)
+                                      warmup=2, total_steps=steps)
     # a copy: the optimizer updates the params in place
     params = tree_map(lambda t: t.to(dev, copy=True), params)
     st = opt_init(params)
     losses, norms, lrs = [], [], []
     loader = DataLoader(dcfg)
-    for _ in range(TRAIN_STEPS):
+    for _ in range(steps):
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in next(loader).items()}
         params, st, m = fn(params, st, batch)
@@ -6244,53 +6246,57 @@ def _run_steps(cfg, params, dev, dcfg):
     return params, st, losses, norms, lrs
 
 
-def train_parity(dev: torch.device) -> dict:
-    """Phase 14 (a): reduced PT and reduced dense, fp32 (TF32 off), from
-    one seeded state: TRAIN_STEPS train steps on the card and on the CPU.
-    Gates: losses within TRAIN_LOSS_TOL relative, params within the
-    stated tolerance, no kernel launched by the train steps.  Returns the
-    card-trained reduced PT params (for (d))."""
+def _card_vs_cpu(tag: str, arch: str, dev: torch.device, steps: int,
+                 store: dict):
+    """Reduced ``arch`` in fp32 (TF32 off) from one seeded train tree:
+    ``steps`` train steps on the card and on the CPU.  Gates: losses
+    within TRAIN_LOSS_TOL relative, params within the stated tolerance,
+    no kernel launched by the train steps.  Returns the card's
+    ``_run_steps`` result."""
     from repro_torch.common.pytree import tree_paths
     from repro_torch.configs import reduced_config
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import model_fns
     cpu = torch.device("cpu")
-    trained = None
-    for arch in (ARCH, DENSE_ARCH):
-        cfg = reduced_config(arch)
-        init = model_fns(cfg)["init"](torch.Generator().manual_seed(0), cfg,
-                                      cpu)
-        dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
-                          global_batch=4)
-        ops.reset_launch_counts()
-        got = {d: _run_steps(cfg, init, d, dcfg) for d in (cpu, dev)}
-        launched = {k: v for k, v in ops.counters().items() if v}
-        if launched:
-            raise SystemExit(f"[train] {arch}: train steps launched "
-                             f"kernels {launched}")
-        lc, ld = got[cpu][2], got[dev][2]
-        rel = max(abs(a - b) / abs(a) for a, b in zip(lc, ld))
-        atol = 2 * sum(got[cpu][4])
-        worst, share = 0.0, 0.0
-        want = dict(tree_paths(got[cpu][0]))
-        for p, leaf in tree_paths(got[dev][0]):
-            err = (leaf.float().cpu() - want[p].float()).abs()
-            worst = max(worst, err.max().item())
-            share = max(share, (err > TRAIN_PARAM_CLOSE).float().mean().item())
-        log(f"[train] (a) {cfg.name} fp32, {TRAIN_STEPS} steps card vs CPU: "
-            f"losses card {ld} CPU {lc} (max rel {rel:.2e}, tol "
-            f"{TRAIN_LOSS_TOL}); grad norms card {got[dev][3]}; params max "
-            f"|diff| {worst:.3e} (tol {atol:.3e} = 2 x summed lr), largest "
-            f"share over {TRAIN_PARAM_CLOSE} {share:.2e} (tol "
-            f"{TRAIN_PARAM_SHARE})")
-        PHASE14[f"parity {arch}"] = {"losses_card": ld, "losses_cpu": lc,
-                                     "max_rel": rel, "params_max_diff": worst,
-                                     "params_share_off": share}
-        if rel > TRAIN_LOSS_TOL or worst > atol or share > TRAIN_PARAM_SHARE:
-            raise SystemExit(f"[train] (a) {arch}: card and CPU disagree")
-        if arch == ARCH:
-            trained = got[dev]
+    cfg = reduced_config(arch)
+    init = model_fns(cfg)["init_train"](torch.Generator().manual_seed(0),
+                                        cfg, cpu)
+    dcfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=64, global_batch=4)
+    ops.reset_launch_counts()
+    got = {d: _run_steps(cfg, init, d, dcfg, steps) for d in (cpu, dev)}
+    launched = {k: v for k, v in ops.counters().items() if v}
+    if launched:
+        raise SystemExit(f"[{tag}] {arch}: train steps launched kernels "
+                         f"{launched}")
+    lc, ld = got[cpu][2], got[dev][2]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(lc, ld))
+    atol = 2 * sum(got[cpu][4])
+    worst, share = 0.0, 0.0
+    want = dict(tree_paths(got[cpu][0]))
+    for p, leaf in tree_paths(got[dev][0]):
+        err = (leaf.float().cpu() - want[p].float()).abs()
+        worst = max(worst, err.max().item())
+        share = max(share, (err > TRAIN_PARAM_CLOSE).float().mean().item())
+    log(f"[{tag}] (a) {cfg.name} fp32, {steps} steps card vs CPU: losses "
+        f"card {ld} CPU {lc} (max rel {rel:.2e}, tol {TRAIN_LOSS_TOL}); "
+        f"grad norms card {got[dev][3]}; params max |diff| {worst:.3e} (tol "
+        f"{atol:.3e} = 2 x summed lr), largest share over "
+        f"{TRAIN_PARAM_CLOSE} {share:.2e} (tol {TRAIN_PARAM_SHARE})")
+    store[f"parity {arch}"] = {"losses_card": ld, "losses_cpu": lc,
+                               "max_rel": rel, "params_max_diff": worst,
+                               "params_share_off": share}
+    if rel > TRAIN_LOSS_TOL or worst > atol or share > TRAIN_PARAM_SHARE:
+        raise SystemExit(f"[{tag}] (a) {arch}: card and CPU disagree")
+    return got[dev]
+
+
+def train_parity(dev: torch.device) -> dict:
+    """Phase 14 (a): reduced PT and reduced dense, TRAIN_STEPS steps card
+    vs CPU (``_card_vs_cpu``).  Returns the card-trained reduced PT's
+    ``_run_steps`` result (for (d))."""
+    trained = _card_vs_cpu("train", ARCH, dev, TRAIN_STEPS, PHASE14)
+    _card_vs_cpu("train", DENSE_ARCH, dev, TRAIN_STEPS, PHASE14)
     return trained
 
 
@@ -6481,6 +6487,260 @@ def train_phase(dev: torch.device, card: str, runs: dict) -> None:
     log(f"[train] phase 14 took {PHASE14['seconds']:.1f}s")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: training the Mamba, RG-LRU and MLA + MoE models (train modes on
+# plain ops: the sequential scan, blockwise attention, the MoE's dispatch
+# and its auxiliary loss), and their trained checkpoints served through the
+# kernels
+# ---------------------------------------------------------------------------
+
+TRAIN16_ARCHS = ("falcon-mamba-7b", "recurrentgemma-9b", "deepseek-v2-236b",
+                 "deepseek-v3-671b")
+TRAIN16_STEPS = 3
+# (b): layers kept of the published depth, rows of TRAIN_S tokens, the
+# optimizer.  falcon-mamba-7b 8 of 64 (1.37 B params), recurrentgemma-9b
+# 8 of 38 (two (rec, rec, attn) units and the (rec, rec) suffix; 2.65 B):
+# AdamW, as the reference picks it by their counts.  deepseek-v2-236b 2 of
+# 60 (the dense layer and one MoE layer of 160 routed experts stored as
+# 256; 7.6 B): Adafactor, which the full 236 B model takes by the
+# reference's threshold (AdamW's 16 B a parameter would need ~122 GB).
+# deepseek-v3-671b trains on the CPU only: one MoE layer of 256 experts
+# and its 3 dense layers need ~60 GB for bf16 params and grads alone.
+TRAIN16_FULL = {"falcon-mamba-7b": (8, 8, "adamw"),
+                "recurrentgemma-9b": (8, 8, "adamw"),
+                "deepseek-v2-236b": (2, 4, "adafactor")}
+PHASE16 = {}          # the figures of phase 16, for the summary
+
+
+def active_params(cfg) -> int:
+    """Parameters a token passes through: the serving tree's (a MoE's real
+    experts only), its routed experts counted top_k / n_routed."""
+    from repro_torch.common.pytree import count_params
+    from repro_torch.models.decoder import lm_param_specs
+    n = count_params(lm_param_specs(cfg))
+    if cfg.moe is None:
+        return n
+    m = cfg.moe
+    moe_layers = sum(cfg.spec(nm).mlp == "moe" for nm in cfg.layer_names)
+    routed = moe_layers * 3 * m.n_routed_experts * cfg.d_model * m.d_expert
+    return int(n - routed + routed * m.top_k / m.n_routed_experts)
+
+
+def _adafactor_step(cfg):
+    """deepseek-v2's step in (b): ``make_train_step``'s at one microbatch
+    (``value_and_grad`` of ``lm_loss``, ``clip_by_global_norm``,
+    ``warmup_cosine`` at warmup 1) with Adafactor in AdamW's place.  At 2
+    of 60 layers the train tree counts 7.6 B, under the reference's 30 B
+    threshold, so the count rule picks AdamW, whose 16 B a parameter
+    (~122 GB) no single card holds; the full 236 B model takes Adafactor,
+    and the reference has no option to choose it, so neither has the
+    port.  Its metrics carry ``lm_loss``'s aux."""
+    from repro_torch.launch import steps
+    from repro_torch.models.decoder import lm_loss
+    from repro_torch.optim import (adafactor_update, clip_by_global_norm,
+                                   warmup_cosine)
+    seen = {}
+
+    def loss_fn(p, b):
+        loss, metrics = lm_loss(p, b, cfg)
+        seen["aux"] = metrics["aux"].detach()
+        return loss, metrics
+
+    def step(params, st, batch):
+        loss, grads = steps.value_and_grad(loss_fn, params, batch)
+        grads, gnorm = clip_by_global_norm(grads, 1.0)
+        lr = warmup_cosine(st["step"], peak_lr=3e-3, warmup=1,
+                           total=TRAIN16_STEPS)
+        params, st = adafactor_update(grads, st, params, lr)
+        return params, st, {"loss": loss, "grad_norm": gnorm, "lr": lr,
+                            "aux": seen["aux"]}
+
+    return step
+
+
+def train16_full(dev: torch.device, card: str, arch: str) -> None:
+    """Phase 16 (b): ``arch`` at every published width, cut to
+    TRAIN16_FULL's depth, bf16, TRAIN16_STEPS steps of rows x TRAIN_S
+    tokens from the data pipeline.  falcon-mamba-7b and recurrentgemma-9b
+    take the trainer's own step, ``make_train_step`` at one microbatch
+    (AdamW, as the count rule picks it; no MoE layer, so no aux);
+    deepseek-v2-236b takes ``_adafactor_step``.  Prints step ms (median
+    of steps 1-2), tokens/s, peak memory, loss, aux and grad norm per
+    step, and 6 N_active T over BF16_FLOP_S.  Gates: finite losses, aux
+    and grad norms, every leaf changed, no kernel launched, peak under
+    the card's memory."""
+    from repro_torch.common.pytree import tree_paths
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, DataLoader
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.optim import adafactor_init
+    layers, rows, opt = TRAIN16_FULL[arch]
+    full = get_config(arch)
+    cfg = full.replace(n_layers=layers)
+    n = steps._n_params(cfg)
+    if opt == "adamw":
+        step_fn, opt_init, name = steps.make_train_step(
+            cfg, microbatches=1, peak_lr=3e-3, warmup=1,
+            total_steps=TRAIN16_STEPS)
+        if name != "adamw":
+            raise SystemExit(f"[train16] (b) {arch}: the count rule picks "
+                             f"{name}")
+    else:
+        step_fn, opt_init = _adafactor_step(cfg), adafactor_init
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    before = torch.cuda.memory_allocated(dev)
+    init = steps.model_fns(cfg)["init_train"]
+    params = init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    st = opt_init(params)
+    loader = DataLoader(DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                                   global_batch=rows))
+    ops.reset_launch_counts()
+    step_ms, per_step = [], []
+    for _ in range(TRAIN16_STEPS):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in next(loader).items()}
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, st, metrics = step_fn(params, st, batch)
+        torch.cuda.synchronize(dev)
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        per_step.append({"loss": float(metrics["loss"]),
+                         "aux": (float(metrics["aux"]) if "aux" in metrics
+                                 else None),
+                         "grad_norm": float(metrics["grad_norm"]),
+                         "lr": float(metrics["lr"])})
+        del metrics
+    peak = torch.cuda.max_memory_allocated(dev)
+    launched = {k: v for k, v in ops.counters().items() if v}
+    del st
+    gc.collect()
+    torch.cuda.empty_cache()
+    first = init(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    unchanged = [p for (p, a), (_, b) in zip(tree_paths(first),
+                                             tree_paths(params))
+                 if torch.equal(a, b)]
+    del first, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = float(np.median(step_ms[1:]))
+    tokens = rows * TRAIN_S
+    n_active = active_params(cfg)
+    mfu = 6 * n_active * tokens / (ms / 1e3) / BF16_FLOP_S
+    total_mem = torch.cuda.get_device_properties(dev).total_memory
+    fig = {"layers": f"{layers} of {full.n_layers}", "batch": [rows, TRAIN_S],
+           "optimizer": opt, "params": n, "params_active": n_active,
+           "step_ms": step_ms, "step_ms_median_1_2": ms,
+           "tokens_per_s": tokens / (ms / 1e3), "peak_gb": peak / 1e9,
+           "allocated_before_gb": before / 1e9, "steps": per_step,
+           "model_flop_share": mfu, "card": card}
+    PHASE16[arch] = fig
+    log(f"[train16] (b) {card} | {arch} {cfg.dtype} at {fig['layers']} "
+        f"layers ({n / 1e9:.3f} B params in the train tree, "
+        f"{n_active / 1e9:.3f} B active), {opt}, batch {rows} x {TRAIN_S}: "
+        f"step ms {[round(x, 3) for x in step_ms]} (median of steps 1-2 "
+        f"{ms:.3f}), {fig['tokens_per_s']:.1f} tokens/s, peak "
+        f"{fig['peak_gb']:.3f} GB of {total_mem / 1e9:.1f} ({before / 1e9:.3f}"
+        f" GB held before the run); per step "
+        f"{json.dumps(per_step)}; 6 N_active T share {100 * mfu:.2f} % of "
+        f"{BF16_FLOP_S / 1e12:.0f} TFLOP/s bf16")
+    bad = [x for st_ in per_step for x in st_.values()
+           if x is not None and not math.isfinite(x)]
+    if bad or unchanged or launched or peak >= total_mem:
+        raise SystemExit(f"[train16] (b) {arch}: non-finite {bad}, "
+                         f"unchanged leaves {unchanged}, kernels launched "
+                         f"{launched}, peak {peak / 1e9:.3f} GB")
+
+
+def train16_serve(dev: torch.device, trained: dict, runs: dict) -> None:
+    """Phase 16 (c): each reduced model trained on the card in (a), saved
+    as a checkpoint and served by ``launch/serve.py --ckpt-dir`` on the
+    card and on the CPU (4 requests of 16 + 12 tokens).  Gates: equal
+    greedy streams (by the CLI's sha256); on the card the launches per
+    kernel equal ``layer_arith``'s for the run's prefill calls, chunk
+    calls and decode steps (as the CLI prints them), and every scan launch
+    on the route of the model's recurrence (Mamba: ``selective``, RG-LRU:
+    ``scan``)."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import reduced_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    prompt, new = 16, 12
+    for arch in TRAIN16_ARCHS:
+        cfg = reduced_config(arch)
+        params, st = trained[arch][0], trained[arch][1]
+        digests, counts, texts = [], [], []
+        with tempfile.TemporaryDirectory() as d:
+            store.save(d, TRAIN16_STEPS, {"params": params, "opt": st},
+                       extra={"next_step": TRAIN16_STEPS})
+            for where in (str(dev), "cpu"):
+                ops.reset_launch_counts()
+                buf = io.StringIO()
+                with contextlib.redirect_stdout(buf):
+                    code = serve.main([
+                        "--arch", arch, "--reduced", "--ckpt-dir", d,
+                        "--device", where, "--requests", "4",
+                        "--input-len", str(prompt), "--output-len", str(new),
+                        "--no-prefix-cache"])
+                text = buf.getvalue()
+                counts.append(ops.counters())
+                texts.append(text)
+                digests.append([ln for ln in text.splitlines()
+                                if "output streams" in ln])
+                if code != 0 or "loaded params from" not in text:
+                    log(text[-3000:])
+                    raise SystemExit(f"[train16] (c) {arch}: serve on "
+                                     f"{where} failed")
+        card = counts[0]
+        runs[f"trained {arch}"] = {k: card[k] for k in ops.launch_counts()}
+        calls = dict(re.findall(r"(chunk calls|prefill calls|decode steps) "
+                                r"(\d+)", texts[0]))
+        c = {"P": int(calls["prefill calls"]), "C": int(calls["chunk calls"]),
+             "T": int(calls["decode steps"]), "capacity": prompt + new + 8}
+        want = layer_arith(cfg, c)
+        got = {k: card[k] for k in want}
+        rec = {cfg.spec(nm).mixer for nm in cfg.layer_names}
+        route = ("selective" if "mamba" in rec else
+                 "scan" if "rglru" in rec else None)
+        routes = {k: v for k, v in card.items() if k.startswith("ssm_scan/")}
+        want_routes = dict(dict.fromkeys(routes, 0), **(
+            {f"ssm_scan/{route}": want["ssm_scan"]} if route else {}))
+        equal = digests[0] == digests[1]
+        ok = (equal and bool(digests[1]) and c["P"] + c["C"] > 0
+              and c["T"] > 0 and got == want and routes == want_routes)
+        PHASE16[f"serve {arch}"] = {"streams_equal": equal, "calls": c,
+                                    "launches": got, "scan_routes": routes}
+        log(f"[train16] (c) {cfg.name}: trained checkpoint served, streams "
+            f"card vs CPU {'equal' if equal else 'DIFFER'} "
+            f"({digests[1]}); {c['P']} prefill calls, {c['C']} chunk calls, "
+            f"{c['T']} decode steps; card launches {json.dumps(got)}, scan "
+            f"routes {json.dumps(routes)}; launch arithmetic "
+            f"{json.dumps(want)}, routes {json.dumps(want_routes)}: "
+            f"{'met' if ok else 'NOT MET'}")
+        if not ok:
+            raise SystemExit(f"[train16] (c) {arch}: streams differ or the "
+                             "launches differ from the arithmetic")
+
+
+def train16_phase(dev: torch.device, card: str, runs: dict) -> None:
+    """Phase 16, (a) to (c)."""
+    t0 = time.perf_counter()
+    trained = {arch: _card_vs_cpu("train16", arch, dev, TRAIN16_STEPS,
+                                  PHASE16) for arch in TRAIN16_ARCHS}
+    train16_serve(dev, trained, runs)
+    del trained
+    for arch in TRAIN16_FULL:
+        train16_full(dev, card, arch)
+    PHASE16["seconds"] = time.perf_counter() - t0
+    log(f"[train16] phase 16 took {PHASE16['seconds']:.1f}s")
+
+
 def head_choice_ms(eng, head, dev) -> None:
     """The LM head in fp32: the fp32 copy the runner keeps against a
     per-step cast of the bf16 head, at the decode shape."""
@@ -6621,6 +6881,8 @@ def main() -> int:
     log_time("phase 14")
     serve_whisper(dev, card, runs)
     log_time("phase 15")
+    train16_phase(dev, card, runs)
+    log_time("phase 16")
     runs["prefix bf16 warm"] = PREFIX["bf16"]["warm"]["launches"]
     for row in rows:
         # each kernel's count from the run of the path it belongs to (the
@@ -6677,6 +6939,7 @@ def main() -> int:
     log("[phase12] summary " + phase12_summary())
     log("[phase13] summary " + phase13_summary())
     log("[train] summary " + json.dumps(PHASE14))
+    log("[train16] summary " + json.dumps(PHASE16))
     log("[whisper] summary " + json.dumps(
         {k: v for k, v in PHASE15.items() if k != "launches"}))
     faulthandler.cancel_dump_traceback_later()

@@ -28,9 +28,10 @@ class MoEConfig:
     aux_loss_coef: float = 0.001
     # storage padding of the expert axis in the reference's tree, so that
     # it divides an expert-parallel mesh (deepseek-v2: 160 experts padded
-    # to 256); padded experts are never routed to.  The port keeps the
+    # to 256); padded experts are never routed to.  The port's train tree
+    # keeps them (the reference's layout); its serving tree keeps the
     # n_routed_experts real experts only (``weights.from_jax_params``
-    # drops the padding).
+    # and ``weights.drop_expert_padding`` drop the padding).
     n_experts_padded: int = 0
 
 

@@ -40,7 +40,7 @@ from repro_torch.common.types import ModelConfig, PTConfig
 from repro_torch.models import rope as rope_lib
 from repro_torch.models.decoder import (_embed, _logits, _remat,
                                         model_dtype, train_head, xent)
-from repro_torch.models.layers import (check_supported, check_trainable,
+from repro_torch.models.layers import (check_supported,
                                        layer_shapes, layer_step,
                                        layer_train, norm_in)
 from repro_torch.models.norms import fuse_norm
@@ -306,7 +306,7 @@ def _pt_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     its D layers (``layer_train``) and fuses them (the fp32 mean, cast
     back: ``_fuse``), the whole block under ``_remat``; then the plain
     final norm and the head.  Returns (logits [B, S, V], aux = 0)."""
-    check_trainable(cfg)
+    check_supported(cfg)
     pt = _pt(cfg)
     spec = cfg.spec(cfg.pattern_unit[0])
     inputs = batch["inputs"]
@@ -319,7 +319,8 @@ def _pt_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     def block(hf, layers):
         hh = hf[None].expand(pt.n_tracks, *hf.shape)
         for lp in layers:
-            hh = layer_train(lp, hh, cfg=cfg, spec=spec, positions=positions)
+            hh, _ = layer_train(lp, hh, cfg=cfg, spec=spec,
+                                positions=positions)
         return _fuse(hh, cfg)                       # 1 sync / block
 
     block = _remat(block, cfg)

@@ -19,7 +19,8 @@ pool is small) and a seeded ``FaultPlan`` (``--fault-*``); the summary
 then counts preemptions, sheds, rejections, timeouts, watchdog fires and
 transfer faults.  ``--ckpt-dir`` serves the params of the newest
 checkpoint there (one that ``launch/train.py`` or the reference's
-trainer wrote) in place of the random ones.  Runs on the GPU unless
+trainer wrote, a MoE's padded experts dropped) in place of the random
+ones.  Runs on the GPU unless
 ``--device cpu`` is given.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch pt-6b-d4 \
@@ -72,6 +73,7 @@ from repro_torch.launch.steps import model_fns
 from repro_torch.serving.engine import Engine, EngineStallError, RequestState
 from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.sampler import SampleParams
+from repro_torch.weights import drop_expert_padding
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -168,7 +170,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = model_fns(cfg)["init"](gen, cfg, device)
     if args.ckpt_dir:
-        params = ckpt_lib.restore(args.ckpt_dir, {"params": params})["params"]
+        params = drop_expert_padding(ckpt_lib.restore(
+            args.ckpt_dir, {"params": params})["params"], cfg)
         print(f"[serve] loaded params from {args.ckpt_dir}")
     plan = None
     if args.fault_alloc_p or args.fault_transfer_p or args.fault_slow_p:
@@ -253,7 +256,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     print(f"[serve] throughput {m['throughput_tok_s']:.1f} tok/s   "
           f"wall {wall:.3f}s   engine steps {eng.steps_run}   "
           f"prefill variants {len(eng.runner.prefill_shapes)}   "
-          f"chunk calls {eng.runner.chunk_calls}")
+          f"chunk calls {eng.runner.chunk_calls}   "
+          f"prefill calls {eng.runner.prefill_calls}   "
+          f"decode steps {eng.runner.decode_transfers}")
     print(f"[serve] TTFT ms: p50 {m['ttft_ms']['p50']:.2f}  "
           f"p90 {m['ttft_ms']['p90']:.2f}  p99 {m['ttft_ms']['p99']:.2f}")
     print(f"[serve] TPOT ms: p50 {m['tpot_ms']['p50']:.2f}  "

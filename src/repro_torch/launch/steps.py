@@ -18,7 +18,9 @@ model, the ``lm_*`` tree of per-layer rows otherwise.  The PT entries
 take ``par`` (``runtime.parallel``), as the reference's step functions
 do; ``model_fns(cfg, par)`` binds it, so that a track rank's runner
 calls them as one process does.  Only a PT model has tracks to place on
-ranks.
+ranks.  ``init`` draws the serving tree, ``init_train`` the train tree
+(a MoE's experts in the reference's stored layout, padding included:
+``decoder.init_lm(padded=True)``).
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ from repro_torch.common.types import ModelConfig
 from repro_torch.core import track as pt_lib
 from repro_torch.kernels import ops
 from repro_torch.models import decoder as dec_lib
-from repro_torch.models.layers import check_trainable
+from repro_torch.models.layers import check_supported
 from repro_torch.optim import (clip_by_global_norm, make_optimizer,
                                warmup_cosine)
 from repro_torch.runtime.parallel import NO_PARALLEL, Parallelism
@@ -50,11 +52,13 @@ def model_fns(cfg: ModelConfig,
                "init_cache": pt_lib.pt_init_cache}
         fns = {k: functools.update_wrapper(functools.partial(f, par=par), f)
                for k, f in fns.items()}
-        return dict(fns, init=pt_lib.init_pt, loss=pt_lib.pt_loss)
+        return dict(fns, init=pt_lib.init_pt, init_train=pt_lib.init_pt,
+                    loss=pt_lib.pt_loss)
     if par.sharded:
         raise ValueError(f"{cfg.name} has no tracks to place on ranks: "
                          "track ranks serve PT configs only")
     return {"init": dec_lib.init_lm,
+            "init_train": functools.partial(dec_lib.init_lm, padded=True),
             "loss": dec_lib.lm_loss,
             "forward": dec_lib.lm_forward,
             "decode": dec_lib.lm_decode_step,
@@ -68,8 +72,10 @@ def model_fns(cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def _n_params(cfg: ModelConfig) -> int:
+    """Parameters of the train tree, a MoE's padded experts included:
+    the count the reference picks its optimizer by."""
     specs = (pt_lib.param_specs(cfg) if cfg.pt is not None
-             else dec_lib.lm_param_specs(cfg))
+             else dec_lib.lm_param_specs(cfg, padded=True))
     return count_params(specs)
 
 
@@ -109,7 +115,7 @@ def make_train_step(cfg: ModelConfig, par: Parallelism = NO_PARALLEL,
     if par.sharded:
         raise NotImplementedError("training on track ranks or several "
                                   "cards: ROADMAP queue 1, item 9c")
-    check_trainable(cfg)
+    check_supported(cfg)
     fns = model_fns(cfg)
     opt_init, opt_update, opt_name = make_optimizer(cfg, _n_params(cfg))
     mb = microbatches or cfg_default_microbatches(cfg)

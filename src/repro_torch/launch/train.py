@@ -11,9 +11,10 @@ master or Adafactor), async checkpoints with keep-k and atomic
 promotion, straggler monitoring, resume from the newest complete
 checkpoint (the data stream replayed by step index) and retry with
 backoff.  Parameters are drawn by the port's ``init_pt`` / ``init_lm``
-from a ``torch.Generator`` seeded 0.  Runs on the GPU unless ``--device
-cpu`` is given.  Data- and model-parallel training over several cards
-is ROADMAP queue 1, item 9c.
+from a ``torch.Generator`` seeded 0, in the train tree's layout (a MoE's
+padded experts included, as the reference stores them).  Runs on the
+GPU unless ``--device cpu`` is given.  Data- and model-parallel training
+over several cards is ROADMAP queue 1, item 9c.
 """
 from __future__ import annotations
 
@@ -29,7 +30,7 @@ from repro_torch.common.pytree import count_params
 from repro_torch.configs import NAMES, get_config, reduced_config
 from repro_torch.data.pipeline import DataConfig, DataLoader
 from repro_torch.launch import steps as steps_lib
-from repro_torch.models.layers import check_trainable
+from repro_torch.models.layers import check_supported
 from repro_torch.runtime.elastic import RetryPolicy, StragglerMonitor
 
 
@@ -49,7 +50,7 @@ def train_loop(cfg, *, steps: int, batch: int, seq: int,
         warmup=max(10, steps // 20), total_steps=steps)
 
     gen = torch.Generator(device=device).manual_seed(0)
-    params = fns["init"](gen, cfg, device)
+    params = fns["init_train"](gen, cfg, device)
     opt_state = opt_init(params)
     print_fn(f"[train] {cfg.name}: {count_params(params)/1e6:.1f}M params, "
              f"optimizer={opt_name}, device={device}")
@@ -122,7 +123,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise NotImplementedError("data- and model-parallel training over "
                                   "several cards: ROADMAP queue 1, item 9c")
     cfg = reduced_config(args.arch) if args.reduced else get_config(args.arch)
-    check_trainable(cfg)                   # before the retry loop
+    check_supported(cfg)                   # before the retry loop
     device = resolve_device(args.device)
     policy = RetryPolicy(max_restarts=args.max_restarts)
 

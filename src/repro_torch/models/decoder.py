@@ -52,10 +52,13 @@ zero here.)
 Train mode (``lm_forward(mode="train")``, ``lm_loss``) runs the
 reference's train-time functions on plain PyTorch ops, so autograd
 differentiates them: ``layers.layer_train`` (plain norms, blockwise
-attention), each repeat of the unit (and each encoder layer) under
-``_remat`` (activation checkpointing).  It reaches no kernel wrapper.
-The GQA layers train, whisper's encoder and decoder among them; MLA,
-Mamba, RG-LRU and MoE layers raise (ROADMAP queue 1, item 9b).
+attention, the plain scan, the MoE with its auxiliary loss), each
+repeat of the unit (and each encoder layer) under ``_remat``
+(activation checkpointing).  It reaches no kernel wrapper.  Every
+layer trains.  The train tree (``init_lm(padded=True)``,
+``lm_param_specs(padded=True)``) holds a MoE's experts in the
+reference's stored layout, padding included; the serving tree drops the
+padded experts (``weights.drop_expert_padding``).
 """
 from __future__ import annotations
 
@@ -71,7 +74,7 @@ from repro_torch.common import quant
 from repro_torch.common.device import DeviceLike, resolve_device, torch_dtype
 from repro_torch.common.pytree import unstack
 from repro_torch.common.types import ModelConfig
-from repro_torch.models.layers import (check_supported, check_trainable,
+from repro_torch.models.layers import (check_supported,
                                        layer_shapes, layer_step,
                                        layer_train, norm_in, norm_shapes)
 from repro_torch.models import rope as rope_lib
@@ -119,12 +122,15 @@ def _remat(fn: Callable, cfg: ModelConfig) -> Callable:
 # parameters
 # ---------------------------------------------------------------------------
 
-def lm_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
+def lm_param_specs(cfg: ModelConfig, padded: bool = False
+                   ) -> Dict[str, Any]:
     """The tree ``repro.models.decoder.init_lm`` builds, as
     :class:`~repro_torch.models.params.Leaf` specs: embed [V, d], head
     [d, V], prefix/suffix layers, unit layers stacked [R, ...], and for
     an encoder-decoder model enc {"layers": stacked [n_enc, ...],
-    "final_norm"}."""
+    "final_norm"}.  A MoE's experts: the ``n_routed_experts`` real ones,
+    or with ``padded`` all of the reference's stored layout (the train
+    tree)."""
     check_supported(cfg)
     if cfg.pt is not None:
         raise ValueError(f"{cfg.name} is a PT model: use core.track.init_pt")
@@ -132,12 +138,12 @@ def lm_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
     specs: Dict[str, Any] = {
         "embed": Leaf((cfg.vocab_size, d), 1.0 / math.sqrt(d)),
         "final_norm": norm_shapes(cfg.norm, d),
-        "prefix": tuple(layer_shapes(cfg, cfg.spec(nm), d)
+        "prefix": tuple(layer_shapes(cfg, cfg.spec(nm), d, padded)
                         for nm in cfg.pattern_prefix),
-        "unit": tuple(stack(layer_shapes(cfg, cfg.spec(nm), d),
+        "unit": tuple(stack(layer_shapes(cfg, cfg.spec(nm), d, padded),
                             (cfg.pattern_repeat,))
                       for nm in cfg.pattern_unit) if cfg.pattern_repeat else (),
-        "suffix": tuple(layer_shapes(cfg, cfg.spec(nm), d)
+        "suffix": tuple(layer_shapes(cfg, cfg.spec(nm), d, padded)
                         for nm in cfg.pattern_suffix),
     }
     if not cfg.tie_embeddings:
@@ -151,15 +157,16 @@ def lm_param_specs(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def init_lm(generator: torch.Generator, cfg: ModelConfig,
-            device: DeviceLike = None) -> Dict[str, Any]:
+            device: DeviceLike = None, padded: bool = False
+            ) -> Dict[str, Any]:
     """Random parameters with the reference's distributions (see
-    ``lm_param_specs``).  ``generator`` must live on ``device`` (CUDA
-    unless 'cpu' is given).  The numbers differ from the JAX init of the
-    same seed; tests load one JAX tree into both packages through
-    ``weights.from_jax_params``."""
+    ``lm_param_specs``; ``padded``: the train tree).  ``generator`` must
+    live on ``device`` (CUDA unless 'cpu' is given).  The numbers differ
+    from the JAX init of the same seed; tests load one JAX tree into both
+    packages through ``weights.from_jax_params``."""
     device = resolve_device(device)
-    return make_params(lm_param_specs(cfg), generator, model_dtype(cfg),
-                       device)
+    return make_params(lm_param_specs(cfg, padded), generator,
+                       model_dtype(cfg), device)
 
 
 # ---------------------------------------------------------------------------
@@ -284,7 +291,7 @@ def encode(params, enc_inputs: torch.Tensor, cfg: ModelConfig,
     n = cfg.encdec.n_enc_layers
     if train:
         layer = _remat(lambda x, lp: layer_train(
-            lp, x, cfg=cfg, spec=spec, positions=positions), cfg)
+            lp, x, cfg=cfg, spec=spec, positions=positions)[0], cfg)
         for lp in unstack(enc["layers"], n):
             h = layer(h, lp)
         return plain_norm(cfg.norm, enc["final_norm"], h, eps=cfg.norm_eps)
@@ -353,9 +360,12 @@ def train_head(params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def _lm_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     """lm_forward(mode="train"): (logits [B, S, V], aux) as the
-    reference's, aux the MoE loss (zero: no MoE layer trains yet); an
-    encoder-decoder model encodes ``batch["enc_inputs"]`` first."""
-    check_trainable(cfg)
+    reference's, aux the MoE layers' auxiliary losses summed as the
+    reference sums them (each prefix layer's into the total, the unit's
+    repeats into a carry that leaves each remat'd repeat, then the
+    suffix's); an encoder-decoder model encodes ``batch["enc_inputs"]``
+    first."""
+    check_supported(cfg)
     inputs = batch["inputs"]
     positions = batch.get("positions")
     if positions is None:
@@ -364,26 +374,32 @@ def _lm_train(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     enc_states = (encode(params, batch["enc_inputs"], cfg, train=True)
                   if cfg.encdec is not None else None)
     h = _embed(params, inputs, cfg, positions)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
 
     def run(lp, x, nm):
         return layer_train(lp, x, cfg=cfg, spec=cfg.spec(nm),
                            positions=positions, enc_states=enc_states)
 
     for i, nm in enumerate(cfg.pattern_prefix):
-        h = run(params["prefix"][i], h, nm)
+        h, a = run(params["prefix"][i], h, nm)
+        aux = aux + a
 
-    def unit(x, layers):
+    def unit(x, carry, layers):
         for lp, nm in zip(layers, cfg.pattern_unit):
-            x = run(lp, x, nm)
-        return x
+            x, a = run(lp, x, nm)
+            carry = carry + a
+        return x, carry
 
     unit = _remat(unit, cfg)
     R = cfg.pattern_repeat
-    for layers in zip(*(unstack(u, R) for u in params["unit"])):
-        h = unit(h, layers)
+    if R:
+        carry = torch.zeros((), dtype=torch.float32, device=h.device)
+        for layers in zip(*(unstack(u, R) for u in params["unit"])):
+            h, carry = unit(h, carry, layers)
+        aux = aux + carry
     for i, nm in enumerate(cfg.pattern_suffix):
-        h = run(params["suffix"][i], h, nm)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        h, a = run(params["suffix"][i], h, nm)
+        aux = aux + a
     return train_head(params, h, cfg), aux
 
 

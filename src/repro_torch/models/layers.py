@@ -39,10 +39,11 @@ Both run the modes the serving path needs:
   'chunk'   — C tokens per row appended to the layer's cache
 A cross-attending layer's cache is ((k, v), (enc_k, enc_v)): the
 encoder's K/V are projected at prefill and only read after that.
-``layer_train`` is a GQA layer (whisper's too) in the reference's
-'train' mode (no cache) on plain ops: plain norms, blockwise attention, no kernel
-wrapper, so autograd differentiates it; the train modes of MLA, Mamba,
-RG-LRU and MoE layers raise (``check_trainable``, ROADMAP item 9b).
+``layer_train`` is any of these layers in the reference's 'train' mode
+(no cache) on plain ops, so that autograd differentiates it: plain
+norms, blockwise attention (GQA and MLA), the plain sequential scan
+(Mamba and RG-LRU: ``ssm.linear_scan``), the MoE with its auxiliary
+loss; no kernel wrapper.
 GQA caches are block pools written through the block table, or
 contiguous per-slot rows [.., B, S, KH, hd] written at each row's
 position (inactive decode lanes keep their rows), or for a window
@@ -133,23 +134,6 @@ def check_supported(cfg: ModelConfig) -> None:
             + "); see ROADMAP queue 1, item 3")
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise unless every layer has a ported train mode: GQA with a
-    SwiGLU, GeGLU, GELU or squared-ReLU MLP (the PT models, the dense
-    baselines, tinyllama, the gemma models, nemotron, qwen2-vl, and
-    whisper's encoder and cross-attending decoder layers).  The train
-    modes of MLA, Mamba, RG-LRU and the MoE (with its auxiliary loss) are
-    ROADMAP queue 1, item 9b."""
-    check_supported(cfg)
-    missing = sorted({s.mixer if s.mixer != "gqa" else s.mlp
-                      for s in map(cfg.spec, cfg.layer_names)
-                      if s.mixer != "gqa" or s.mlp == "moe"})
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: the train mode of {', '.join(missing)} layers is "
-            "not ported (ROADMAP queue 1, item 9b)")
-
-
 def norm_shapes(kind: str, d: int) -> Dict[str, Leaf]:
     """A norm's fp32 leaves, as ``repro.models.norms.norm_init`` makes
     them: RMSNorm's (1 + scale) scale zeros; LayerNorm's scale ones and
@@ -159,9 +143,11 @@ def norm_shapes(kind: str, d: int) -> Dict[str, Leaf]:
     return {"scale": Leaf((d,))}
 
 
-def layer_shapes(cfg: ModelConfig, spec: LayerSpec,
-                 d_stream: int) -> Dict[str, Any]:
-    """Parameter specs of one layer (per track for a PT layer)."""
+def layer_shapes(cfg: ModelConfig, spec: LayerSpec, d_stream: int,
+                 padded: bool = False) -> Dict[str, Any]:
+    """Parameter specs of one layer (per track for a PT layer); a MoE
+    MLP's experts in the reference's stored layout with ``padded``
+    (``moe.moe_shapes``)."""
     norm = norm_shapes(cfg.norm, d_stream)
     if spec.mixer == "mamba":
         return {"ln1": norm, "mixer": ssm_lib.ssm_shapes(cfg, d_stream)}
@@ -175,7 +161,8 @@ def layer_shapes(cfg: ModelConfig, spec: LayerSpec,
     p = {"ln1": norm,
          "mixer": mixer,
          "ln2": norm,
-         "mlp": (moe_lib.moe_shapes(cfg, d_stream) if spec.mlp == "moe"
+         "mlp": (moe_lib.moe_shapes(cfg, d_stream, padded)
+                 if spec.mlp == "moe"
                  else mlp_shapes(spec.mlp, d_stream, cfg.d_ff))}
     if spec.cross_attn:
         p["ln_x"] = norm
@@ -230,8 +217,7 @@ def _recurrent(params, h: torch.Tensor, *, cfg: ModelConfig, mixer: str,
         rows = cache if slots is None else tuple(l[slots] for l in cache)
         out, new_rows = chunk(params, h, rows, cfg=cfg, chunk_lens=chunk_lens)
         return out, _write_rows(cache, new_rows, slots)
-    raise NotImplementedError(f"{mixer} layer mode {mode!r} is not ported "
-                              "(train: ROADMAP queue 1, item 9b)")
+    raise ValueError(f"unknown layer mode {mode!r}")
 
 
 def _mla(params, h: torch.Tensor, *, cfg: ModelConfig, spec: LayerSpec,
@@ -247,8 +233,7 @@ def _mla(params, h: torch.Tensor, *, cfg: ModelConfig, spec: LayerSpec,
                                   kv_max_len=kv_max_len, active=active)
     if mode in ("chunk", "fill"):
         return mla_lib.mla_chunk()
-    raise NotImplementedError(f"mla layer mode {mode!r} is not ported "
-                              "(train: ROADMAP queue 1, item 9b)")
+    raise ValueError(f"unknown layer mode {mode!r}")
 
 
 def _gqa(params, h: torch.Tensor, *, cfg: ModelConfig, spec: LayerSpec,
@@ -269,9 +254,6 @@ def _gqa(params, h: torch.Tensor, *, cfg: ModelConfig, spec: LayerSpec,
                                     kv_max_len=kv_max_len, slots=slots,
                                     chunk_lens=chunk_lens,
                                     prefill=mode == "fill")
-    if mode == "train":
-        return attn.attention_apply(params, h, spec=spec, cfg=cfg,
-                                    positions=positions, train=True)
     raise ValueError(f"unknown layer mode {mode!r}")
 
 
@@ -389,39 +371,59 @@ def layer_step(params, x: torch.Tensor, y: torch.Tensor, *,
 
 def layer_train(params, x: torch.Tensor, *, cfg: ModelConfig,
                 spec: LayerSpec, positions: torch.Tensor,
-                enc_states: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """One GQA layer in train mode, the reference's ``layer_apply(mode=
-    "train")`` on plain ops: ln1, attention (``blockwise_attention``),
+                enc_states: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer in train mode, the reference's ``layer_apply(mode=
+    "train")`` on plain ops: ln1, the mixer (GQA and MLA on
+    ``blockwise_attention``, Mamba and RG-LRU on ``ssm.linear_scan``),
     ln1_post, the residual add, for a cross-attending layer ln_x, cross-
     attention over ``enc_states`` projected here and the residual add,
-    then ln2, the MLP, ln2_post, the residual add, every norm the plain
-    one (``plain_norm``), so that no kernel wrapper runs and autograd
-    differentiates it.  x [n, B, S, d] with track-stacked params (PT), or
-    [B, S, d] (lm_*: run on n = 1 views; enc_states [B, S_enc, d]).
-    Returns the layer's output."""
-    if spec.mixer != "gqa" or spec.mlp == "moe":
-        raise NotImplementedError(f"{spec.mixer} / {spec.mlp} train mode "
-                                  "(ROADMAP queue 1, item 9b)")
-    if cfg.pt is None:
+    then (unless the layer has no MLP) ln2, the MLP or the MoE, ln2_post,
+    the residual add; every norm the plain one (``plain_norm``), so that
+    no kernel wrapper runs and autograd differentiates it.  x [n, B, S,
+    d] with track-stacked params (PT), or [B, S, d] (lm_*: a GQA layer
+    runs on n = 1 views; enc_states [B, S_enc, d]).  Returns (the
+    layer's output, its auxiliary loss: the MoE's, else an fp32 zero)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    views = cfg.pt is None and spec.mixer == "gqa"
+    if views:
         params, x = _track1(params), x[None]
         enc_states = _track1(enc_states)
 
     def norm(name, h):
         return plain_norm(cfg.norm, params[name], h, eps=cfg.norm_eps)
 
-    h, _ = _gqa(params["mixer"], norm("ln1", x), cfg=cfg, spec=spec,
-                mode="train", positions=positions, pos=None, cache=None,
-                block_table=None, kv_max_len=None, active=None,
-                lengths=None, slots=None, chunk_lens=None)
-    x = x + (norm("ln1_post", h) if cfg.post_norm else h)
+    def post(name, h):
+        return norm(name, h) if cfg.post_norm else h
+
+    y = norm("ln1", x)
+    if spec.mixer == "gqa":
+        h, _ = attn.attention_apply(params["mixer"], y, spec=spec, cfg=cfg,
+                                    positions=positions, train=True)
+    elif spec.mixer == "mla":
+        h, _ = mla_lib.mla_apply(params["mixer"], y, spec=spec, cfg=cfg,
+                                 positions=positions, train=True)
+    else:                       # Mamba or RG-LRU: its apply function
+        apply = _RECURRENT[spec.mixer][0]
+        h, _ = apply(params["mixer"], y, cfg=cfg, train=True)
+    x = x + post("ln1_post", h)
     if spec.cross_attn:
         x = x + attn.cross_attention_apply(
             params["cross"], norm("ln_x", x),
             attn.cross_kv(params["cross"], enc_states), cfg=cfg,
             mode="train")
-    h = mlp_apply(params["mlp"], norm("ln2", x), spec.mlp)
-    x = x + (norm("ln2_post", h) if cfg.post_norm else h)
-    return x if cfg.pt is not None else x[0]
+    if spec.mlp == "none":
+        return (x[0] if views else x), aux
+    y = norm("ln2", x)
+    if spec.mlp == "moe":
+        h, aux = moe_lib.moe_train(params["mlp"], y, cfg=cfg)
+    elif views or cfg.pt is not None:
+        h = mlp_apply(params["mlp"], y, spec.mlp)
+    else:
+        # the MLP's weights take a track dim of 1, as a GQA layer's
+        h = mlp_apply(_track1(params["mlp"]), y[None], spec.mlp)[0]
+    x = x + post("ln2_post", h)
+    return (x[0] if views else x), aux
 
 
 def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
@@ -450,7 +452,7 @@ def layer_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
     enc_v)); in 'decode' and 'chunk' it reads that cache's encoder K/V
     and writes only its own.  Returns (x, cache).
     (The reference also returns an auxiliary MoE loss, a training
-    quantity not computed here.)"""
+    quantity: ``layer_train`` computes it.)"""
     x, y = norm_in(cfg, params["ln1"], x, None)
     x, delta, cache = layer_step(params, x, y, cfg=cfg, spec=spec,
                                  mode=mode, positions=positions, pos=pos,

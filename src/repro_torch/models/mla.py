@@ -28,6 +28,11 @@ differ) then contract over the same columns, so no bound changes a
 bit.  RMSNorms (q_norm over q_lora_rank, kv_norm over kv_lora_rank) run
 on the RMSNorm kernel's ``norm`` route.
 
+Train mode (``mla_apply(train=True)``) is the reference's ``mla_apply``
+on plain ops, for autograd: the latent norms plain (``plain_rmsnorm``),
+attention the reference's ``blockwise_attention`` at its
+``attn_chunk_q`` / ``attn_chunk_k``, no kernel wrapper.
+
 The chunk step (``mla_chunk``: chunked prefill, prefix-cache tails,
 the speculative verify) is reached by no config: every MLA config
 served has MoE layers, which turn those features off
@@ -45,8 +50,9 @@ from repro_torch.common.types import LayerSpec, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import NEG_INF
 from repro_torch.models import rope as rope_lib
-from repro_torch.models.attention import pool_read, pool_write
-from repro_torch.models.norms import rmsnorm
+from repro_torch.models.attention import (blockwise_attention, pool_read,
+                                          pool_write)
+from repro_torch.models.norms import plain_rmsnorm, rmsnorm
 from repro_torch.models.params import Leaf
 
 
@@ -83,13 +89,14 @@ def _rope(cfg: ModelConfig, positions: torch.Tensor):
 
 
 def _q_proj(params, x: torch.Tensor, cfg: ModelConfig,
-            positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+            positions: torch.Tensor, norm=rmsnorm
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, d] -> q_nope [B, S, H, nope], q_rope [B, S, H, rope]
-    (RoPE applied)."""
+    (RoPE applied); ``norm`` the RMSNorm of the q latent."""
     m = cfg.mla
     B, S, _ = x.shape
     if m.q_lora_rank > 0:
-        cq = rmsnorm(params["q_norm"], x @ params["w_dq"], eps=cfg.norm_eps)
+        cq = norm(params["q_norm"], x @ params["w_dq"], eps=cfg.norm_eps)
         q = cq @ params["w_uq"].reshape(m.q_lora_rank, -1)
     else:
         q = x @ params["w_uq"].reshape(x.shape[-1], -1)
@@ -100,12 +107,13 @@ def _q_proj(params, x: torch.Tensor, cfg: ModelConfig,
 
 
 def _kv_latent(params, x: torch.Tensor, cfg: ModelConfig,
-               positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x [B, S, d] -> c_kv [B, S, r] (normed), k_rope [B, S, rope]
-    (RoPE applied)."""
+               positions: torch.Tensor, norm=rmsnorm
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x [B, S, d] -> c_kv [B, S, r] (normed by ``norm``), k_rope [B, S,
+    rope] (RoPE applied)."""
     r = cfg.mla.kv_lora_rank
     ckr = x @ params["w_dkv"]
-    c_kv = rmsnorm(params["kv_norm"], ckr[..., :r].contiguous(),
+    c_kv = norm(params["kv_norm"], ckr[..., :r].contiguous(),
                    eps=cfg.norm_eps)
     cos, sin = _rope(cfg, positions)
     k_rope = rope_lib.apply_rope(ckr[..., None, r:], cos, sin)[..., 0, :]
@@ -123,21 +131,29 @@ def _out(params, ctx: torch.Tensor) -> torch.Tensor:
 
 def mla_apply(params, x: torch.Tensor, *, spec: LayerSpec,
               cfg: ModelConfig, positions: torch.Tensor,
-              return_cache: bool = False):
+              return_cache: bool = False, train: bool = False):
     """Causal MLA over x [B, S, d] at ``positions`` [B, S].  Returns
-    (out [B, S, d], (c_kv [B, S, r], k_rope [B, S, rope]) or None)."""
+    (out [B, S, d], (c_kv [B, S, r], k_rope [B, S, rope]) or None).
+    ``train``: plain latent norms and ``blockwise_attention`` in place of
+    the kernels, for autograd."""
     m = cfg.mla
     B, S, _ = x.shape
     H, r = cfg.n_heads, m.kv_lora_rank
-    q_nope, q_rope = _q_proj(params, x, cfg, positions)
-    c_kv, k_rope = _kv_latent(params, x, cfg, positions)
+    norm = plain_rmsnorm if train else rmsnorm
+    q_nope, q_rope = _q_proj(params, x, cfg, positions, norm)
+    c_kv, k_rope = _kv_latent(params, x, cfg, positions, norm)
     k_nope = (c_kv @ params["w_uk"].reshape(r, -1)).reshape(B, S, H, -1)
     v = (c_kv @ params["w_uv"].reshape(r, -1)).reshape(B, S, H, -1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
         B, S, H, m.qk_rope_head_dim)], dim=-1)
-    ctx = ops.flash_attention(q, k, v, causal=True, window=spec.window,
-                              softcap=spec.attn_logit_softcap)
+    kw = dict(causal=True, window=spec.window,
+              softcap=spec.attn_logit_softcap)
+    if train:
+        ctx = blockwise_attention(q, k, v, chunk_q=cfg.attn_chunk_q,
+                                  chunk_k=cfg.attn_chunk_k, **kw)
+    else:
+        ctx = ops.flash_attention(q, k, v, **kw)
     return _out(params, ctx), ((c_kv, k_rope) if return_cache else None)
 
 

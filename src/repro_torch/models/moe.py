@@ -29,11 +29,27 @@ Nothing depends on the data's values through the host (no ``.item()``,
 no ``nonzero``, no data-dependent shape): a decode step with MoE layers
 captures into a CUDA graph.
 
-The port's tree keeps the ``n_routed_experts`` real experts; a
+The serving tree keeps the ``n_routed_experts`` real experts: a
 reference tree stored padded to ``n_experts_padded`` loses its padded
 rows and router columns in ``weights.from_jax_params`` (they are never
-routed to).  The reference's auxiliary load-balancing loss is a training
-quantity (MoE training: ROADMAP queue 1, item 9b) and is not computed.
+routed to).  The train tree keeps the reference's stored layout
+(``moe_shapes(padded=True)``: ``e_store(cfg)`` rows), since Adafactor's
+statistics are means over a whole leaf and checkpoints cross between the
+packages: every function here reads the first ``n_routed_experts``
+experts and router columns of whichever tree it gets (the reference
+masks the others' logits to -1e30, which gives them probability 0 and
+never selects them; their FFN sees only zero rows), so a padded
+expert's grads are exact zeros, as the reference's.
+
+``moe_train`` is the train mode: the same routing and dispatch on ops
+autograd differentiates (into x through the packed rows' gather, into
+the router through the gathered top-k weights), and the reference's
+auxiliary load-balancing loss beside the output: for the softmax router
+``aux_loss_coef * E * sum(f * pbar)``, f the mean count of each expert
+among the top k (no gradient) and pbar the mean probability; for
+'sigmoid_bias' exactly 0 (``e_bias`` only steers the top k, so its
+gradient is exactly 0; the reference updates no bias and neither does
+the port).
 
 ``track_drops(device)`` turns on the drop counters: every call on that
 device then adds its routed (token, expert) pairs and its dropped ones,
@@ -84,15 +100,24 @@ def drop_counts() -> Dict[str, Dict[str, int]]:
             for p, (r, d) in zip(PHASES, _DROPS[_TRACKED[0]].tolist())}
 
 
-def moe_shapes(cfg: ModelConfig, d_stream: int) -> Dict[str, Leaf]:
+def e_store(cfg: ModelConfig) -> int:
+    """Experts in the reference's stored tree (padding included)."""
+    m = cfg.moe
+    return max(m.n_routed_experts, m.n_experts_padded)
+
+
+def moe_shapes(cfg: ModelConfig, d_stream: int,
+               padded: bool = False) -> Dict[str, Leaf]:
     """The MoE MLP's leaves, as ``repro.models.moe.moe_init`` draws them
-    but for the ``n_routed_experts`` real experts only: router [d, E]
+    but for the ``n_routed_experts`` real experts only (``padded``: all
+    ``e_store(cfg)`` of the reference's stored layout): router [d, E]
     fp32, w_gate / w_up [E, d, de], w_down [E, de, d], e_bias [E] fp32
     zeros ('sigmoid_bias'), the shared experts' ws_gate / ws_up [d, ds]
     and ws_down [ds, d] (ds = n_shared * de).  The expert stacks draw one
     matrix at a time (``Leaf.by_matrix``)."""
     m = cfg.moe
-    E, de, d = m.n_routed_experts, m.d_expert, d_stream
+    E = e_store(cfg) if padded else m.n_routed_experts
+    de, d = m.d_expert, d_stream
     p = {"router": Leaf((d, E), 1 / math.sqrt(d), fp32=True),
          "w_gate": Leaf((E, d, de), 1 / math.sqrt(d), by_matrix=True),
          "w_up": Leaf((E, d, de), 1 / math.sqrt(d), by_matrix=True),
@@ -122,20 +147,31 @@ def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
-def _route(params, x2: torch.Tensor, cfg: ModelConfig
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x2 [T, d] -> (weights [T, k] fp32, expert ids [T, k] int64)."""
+def _route(params, x2: torch.Tensor, cfg: ModelConfig,
+           with_aux: bool = False
+           ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
+    """x2 [T, d] -> (weights [T, k] fp32, expert ids [T, k] int64, the
+    auxiliary loss (an fp32 scalar) with ``with_aux``, else None).  Only
+    the first E = ``n_routed_experts`` router columns are read."""
     m = cfg.moe
-    logits = x2.float() @ params["router"].float()               # [T, E]
+    E = m.n_routed_experts
+    logits = x2.float() @ params["router"][:, :E].float()       # [T, E]
+    aux = None
     if m.router == "sigmoid_bias":
         scores = torch.sigmoid(logits)
-        _, idx = _top_k(scores + params["e_bias"][None, :], m.top_k)
+        _, idx = _top_k(scores + params["e_bias"][None, :E], m.top_k)
         w = torch.gather(scores, -1, idx)
+        if with_aux:
+            aux = torch.zeros((), dtype=torch.float32, device=x2.device)
     else:
-        w, idx = _top_k(torch.softmax(logits, dim=-1), m.top_k)
+        probs = torch.softmax(logits, dim=-1)
+        w, idx = _top_k(probs, m.top_k)
+        if with_aux:
+            f = F.one_hot(idx, E).float().sum(dim=1).mean(dim=0)
+            aux = m.aux_loss_coef * E * torch.sum(f * probs.mean(dim=0))
     if m.norm_topk_prob:
         w = w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-20)
-    return w * m.routed_scaling_factor, idx
+    return w * m.routed_scaling_factor, idx, aux
 
 
 def _dispatch_indices(idx: torch.Tensor, E: int, cap: int
@@ -165,25 +201,25 @@ def _pack(x2: torch.Tensor, slot: torch.Tensor, n_slots: int
 
 
 def _expert_ffn(params, buf: torch.Tensor) -> torch.Tensor:
-    """buf [E, cap, d] -> [E, cap, d]: each expert's SwiGLU."""
-    g = torch.bmm(buf, params["w_gate"])
-    u = torch.bmm(buf, params["w_up"])
-    return torch.bmm(F.silu(g) * u, params["w_down"])
+    """buf [E, cap, d] -> [E, cap, d]: each of the first E experts'
+    SwiGLU."""
+    E = buf.shape[0]
+    g = torch.bmm(buf, params["w_gate"][:E])
+    u = torch.bmm(buf, params["w_up"][:E])
+    return torch.bmm(F.silu(g) * u, params["w_down"][:E])
 
 
-def moe_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
-              phase: str = "prefill") -> torch.Tensor:
-    """x [B, S, d] -> y [B, S, d] in x's dtype (every row routed in one
-    capacity pool).  ``phase`` names the drop counter the call adds to."""
+def _moe(params, x: torch.Tensor, cfg: ModelConfig, phase: Optional[str],
+         with_aux: bool) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     B, S, d = x.shape
     m = cfg.moe
     E = m.n_routed_experts
     T = B * S
     x2 = x.reshape(T, d)
     cap = capacity(T, cfg)
-    w, idx = _route(params, x2, cfg)
+    w, idx, aux = _route(params, x2, cfg, with_aux)
     slot, keep = _dispatch_indices(idx, E, cap)
-    if _TRACKED[0] == x.device:
+    if phase is not None and _TRACKED[0] == x.device:
         row = _DROPS[x.device][PHASES.index(phase)]
         row[0].add_(keep.numel())
         row[1].add_((~keep).sum())
@@ -195,4 +231,19 @@ def moe_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
     if m.n_shared_experts > 0:
         h = F.silu(x2 @ params["ws_gate"]) * (x2 @ params["ws_up"])
         y = y + h @ params["ws_down"]
-    return y.reshape(B, S, d)
+    return y.reshape(B, S, d), aux
+
+
+def moe_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
+              phase: str = "prefill") -> torch.Tensor:
+    """x [B, S, d] -> y [B, S, d] in x's dtype (every row routed in one
+    capacity pool).  ``phase`` names the drop counter the call adds to."""
+    return _moe(params, x, cfg, phase, False)[0]
+
+
+def moe_train(params, x: torch.Tensor, *, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Train mode: x [B, S, d] -> (y [B, S, d], aux fp32 scalar), the
+    reference's ``moe_apply`` on one process, for autograd (no drop
+    counter)."""
+    return _moe(params, x, cfg, None, True)

@@ -12,8 +12,10 @@ The recurrence ``h_t = a_t * h_{t-1} + b_t`` of ``rglru_apply`` and
 ``rglru_chunk`` runs through the ``ssm_scan`` kernel
 (``kernels/ssm_scan``), a and b [B, S, di] taken as its di features;
 the reference scans chunks of an associative jnp scan
-(``_chunked_linear_scan``), so its sums run in another order.  The
-decode step is elementwise, as in the reference.  The convolution is
+(``_chunked_linear_scan``), so its sums run in another order;
+``rglru_apply(train=True)``, the reference's train mode on plain
+differentiable ops, scans with ``ssm.linear_scan``.  The decode step is
+elementwise, as in the reference.  The convolution is
 the Mamba mixer's shifted sum (``ssm._causal_conv``).  Every function
 here is functional; the layer writes the new state rows into the cache
 in place.
@@ -30,7 +32,7 @@ import torch.nn.functional as F
 from repro_torch.common.types import ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.params import Leaf
-from repro_torch.models.ssm import _causal_conv
+from repro_torch.models.ssm import _causal_conv, linear_scan
 
 State = Tuple[torch.Tensor, torch.Tensor]     # (conv window, h)
 
@@ -104,10 +106,11 @@ def _in_proj(params, x: torch.Tensor):
 
 def _scan_out(params, xc: torch.Tensor, gate: torch.Tensor,
               h0: torch.Tensor, cfg: ModelConfig,
-              valid: Optional[torch.Tensor] = None):
+              valid: Optional[torch.Tensor] = None, train: bool = False):
     """The gates of the conv output xc [B, S, di] (x's dtype), the scan
     from h0 [B, di] through the ``ssm_scan`` kernel (``valid`` [B, S]
-    False: an identity update, a = 1 and b = 0), and the gated output
+    False: an identity update, a = 1 and b = 0; ``train``: through the
+    plain ``linear_scan``, for autograd), and the gated output
     projection.  Returns (out [B, S, d], h_last [B, di] fp32)."""
     a, mult, inp = _gates(params, xc, cfg)
     b = mult * (inp * xc.float())
@@ -115,24 +118,30 @@ def _scan_out(params, xc: torch.Tensor, gate: torch.Tensor,
         pad = ~valid[..., None]
         a.masked_fill_(pad, 1.0)
         b.masked_fill_(pad, 0.0)
-    h, h_last = ops.ssm_scan(a, b, h0.float())
+    if train:
+        h = linear_scan(a, b, h0.float())
+        h_last = h[:, -1]
+    else:
+        h, h_last = ops.ssm_scan(a, b, h0.float())
     del a, b
     return (h.to(gate.dtype) * gate) @ params["w_out"], h_last
 
 
 def rglru_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
                 return_cache: bool = False,
-                h0: Optional[torch.Tensor] = None
+                h0: Optional[torch.Tensor] = None, train: bool = False
                 ) -> Tuple[torch.Tensor, Optional[State]]:
     """Whole-sequence forward.  x [B, S, d] -> (out [B, S, d], cache |
-    None) with cache = (conv window [B, dc-1, di], h_last [B, di])."""
+    None) with cache = (conv window [B, dc-1, di], h_last [B, di]).
+    ``train``: the reference's train mode, the gates op for op (the
+    gradient of sqrt(1 - a^2) grows as a nears 1), the scan plain."""
     B, S, _ = x.shape
     u, gate = _in_proj(params, x)
     xc = _causal_conv(u, params["conv_w"], params["conv_b"]).to(x.dtype)
     if h0 is None:
         h0 = torch.zeros((B, cfg.rglru.d_inner), dtype=torch.float32,
                          device=x.device)
-    out, h_last = _scan_out(params, xc, gate, h0, cfg)
+    out, h_last = _scan_out(params, xc, gate, h0, cfg, train=train)
     if not return_cache:
         return out, None
     dc = params["conv_w"].shape[0]

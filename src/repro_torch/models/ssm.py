@@ -13,7 +13,10 @@ h_{t-1} + b_t`` and the ``C`` contraction of ``ssm_apply`` and
 never reach device memory; on the CPU its plain version is the unfused
 composition, the reference's (which takes a jnp associative scan in
 ``ssm_apply`` and the Pallas kernel in ``ssm_chunk``: the same
-function).  Every dtype promotion JAX makes silently is written out:
+function).  ``ssm_apply(train=True)`` is the reference's train mode on
+plain differentiable ops, a, b and h [B, S, di, ds] in memory: the
+recurrence through ``linear_scan``, which no kernel runs.  Every dtype
+promotion JAX makes silently is written out:
 ``conv_w`` and ``dt_w`` are fp32, so the conv output, ``x_dbl`` and
 ``dt`` of prefill and chunk are fp32 (``x_proj`` is upcast), while
 decode casts the conv output back to the model dtype and upcasts only
@@ -81,19 +84,66 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return y + b[None, None, :]
 
 
+class _LinearScan(torch.autograd.Function):
+    """h_t = a_t * h_{t-1} + b_t over axis 1, step by step, with its
+    gradient written out: dh_t = g_t + a_{t+1} dh_{t+1} backwards from
+    the last step, then da_t = dh_t h_{t-1}, db_t = dh_t, dh0 = a_0 dh_0.
+    Saves a, h and h0 (autograd over the loop would keep every step's
+    operands and run several ops a step)."""
+
+    @staticmethod
+    def forward(ctx, a, b, h0):
+        h = torch.empty_like(b)
+        prev = h0
+        for t in range(a.shape[1]):
+            prev = torch.addcmul(b[:, t], a[:, t], prev, out=h[:, t])
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        a, h, h0 = ctx.saved_tensors
+        dh = g.clone()
+        for t in range(a.shape[1] - 2, -1, -1):
+            dh[:, t].addcmul_(a[:, t + 1], dh[:, t + 1])
+        da = dh * torch.cat([h0[:, None], h[:, :-1]], dim=1)
+        return da, dh, a[:, 0] * dh[:, 0]
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor,
+                h0: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t over axis 1 on plain ops, differentiable
+    (the train modes' scan; no kernel).  a, b [B, S, ...] fp32, h0 [B,
+    ...] -> h [B, S, ...].  The reference's
+    ``_chunked_linear_scan`` runs an associative scan within chunks of
+    ``chunk`` steps and carries h across them: the same recurrence summed
+    in another order.  A sequential scan gives the same sums wherever
+    chunks begin, so it has none."""
+    return _LinearScan.apply(a, b, h0)
+
+
 def _scan(params, xc: torch.Tensor, x_dbl: torch.Tensor, ds: int,
-          h0: torch.Tensor, lens: Optional[torch.Tensor] = None
-          ) -> Tuple[torch.Tensor, torch.Tensor]:
+          h0: torch.Tensor, lens: Optional[torch.Tensor] = None,
+          train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Discretisation, recurrence and ``C`` contraction of prefill and
     chunk: xc [B, S, di] fp32, x_dbl [B, S, dtr + 2 ds] fp32, h0 [B, di,
     ds], ``lens`` [B] valid tokens a row or None -> (y = h·C [B, S, di]
-    fp32, h_last [B, di, ds] fp32)."""
+    fp32, h_last [B, di, ds] fp32).  ``train``: the reference's
+    decomposition on plain ops, a = exp(dt A), b = dt x B,
+    ``linear_scan``, y = h C (no ``lens``)."""
     dtr = params["dt_w"].shape[0]
     dt_in, Bt, Ct = (x_dbl[..., :dtr], x_dbl[..., dtr:dtr + ds],
                      x_dbl[..., dtr + ds:])
     dt = F.softplus((dt_in @ params["dt_w"]).float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])                          # [di, ds]
-    return ops.selective_scan(dt, xc, A, Bt, Ct, h0.float(), lens)
+    if not train:
+        return ops.selective_scan(dt, xc, A, Bt, Ct, h0.float(), lens)
+    a = torch.exp(dt[..., None] * A[None, None])             # [B, S, di, ds]
+    b = (dt * xc)[..., None] * Bt[:, :, None, :]
+    h = linear_scan(a, b, h0.float())
+    del a, b
+    return torch.einsum("bsiz,bsz->bsi", h, Ct), h[:, -1]
 
 
 def _output(params, y: torch.Tensor, xc: torch.Tensor, z: torch.Tensor,
@@ -106,10 +156,12 @@ def _output(params, y: torch.Tensor, xc: torch.Tensor, z: torch.Tensor,
 
 def ssm_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
               return_cache: bool = False,
-              h0: Optional[torch.Tensor] = None
+              h0: Optional[torch.Tensor] = None, train: bool = False
               ) -> Tuple[torch.Tensor, Optional[State]]:
     """Whole-sequence forward.  x [B, S, d] -> (out [B, S, d], cache |
-    None) with cache = (conv window [B, dc-1, di], h_last [B, di, ds])."""
+    None) with cache = (conv window [B, dc-1, di], h_last [B, di, ds]).
+    ``train``: the reference's train mode, on plain differentiable ops
+    (``_scan(train=True)``), for autograd."""
     s = cfg.ssm
     B, S, _ = x.shape
     di, ds = s.d_inner, s.d_state
@@ -119,7 +171,7 @@ def ssm_apply(params, x: torch.Tensor, *, cfg: ModelConfig,
     x_dbl = xc @ params["x_proj"].float()
     if h0 is None:
         h0 = torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
-    y, h_last = _scan(params, xc, x_dbl, ds, h0)
+    y, h_last = _scan(params, xc, x_dbl, ds, h0, train=train)
     out = _output(params, y, xc, z, x.dtype)
     if not return_cache:
         return out, None

@@ -14,15 +14,20 @@ q_lora_rank 0), w_dkv, kv_norm, w_uk, w_uv and wo; a MoE layer's MLP
 its router (fp32), e_bias (fp32, the sigmoid_bias router), expert stacks
 w_gate / w_up / w_down and shared experts ws_gate / ws_up / ws_down.  A
 reference tree that stores its experts padded to ``n_experts_padded``
-loses the padded experts (router columns, e_bias entries, expert rows):
-they are never routed to.
+loses the padded experts (router columns, e_bias entries, expert rows)
+in the serving tree: they are never routed to.  ``padded=True`` keeps
+them: the train tree, in the reference's stored layout.
 Nothing here imports JAX: the caller hands over numpy arrays.
 
 ``from_jax_state`` carries a whole train state across, {"params": ...,
 "opt": ...} with the optimizer state of the reference's ``adamw_init``
 (step, fp32 m / v / master with the params' structure) or
 ``adafactor_init`` (step, fp32 factored statistics), so that both
-packages can start training from one state.
+packages can start training from one state; params, moments and
+statistics in the train tree's layout, padded experts included.  The
+train tree goes back to the reference through a checkpoint
+(``checkpoint/store.py``, the same layout), and to the serving tree
+through ``drop_expert_padding``.
 
 A tree from the reference's ``quantize_params`` carries across too: each
 of its ``QuantTensor`` leaves given as a ``(payload, scale)`` numpy pair
@@ -38,10 +43,12 @@ import numpy as np
 import torch
 
 from repro_torch.common.device import DeviceLike, resolve_device
+from repro_torch.common.pytree import map_with_path
 from repro_torch.common.quant import QuantTensor, weight_axes
 from repro_torch.common.types import ModelConfig
 from repro_torch.core.track import param_specs
 from repro_torch.models.decoder import lm_param_specs, model_dtype
+from repro_torch.models.moe import e_store
 from repro_torch.models.params import Leaf
 
 
@@ -58,17 +65,25 @@ _EXPERT_AXIS = {"router": -1, "e_bias": -1, "w_gate": -3, "w_up": -3,
                 "w_down": -3}
 
 
+def _is_expert_leaf(path: str) -> bool:
+    keys = path.replace("/", ".").split(".")
+    return len(keys) > 1 and keys[-2] == "mlp" and keys[-1] in _EXPERT_AXIS
+
+
 def from_jax_params(tree: Any, cfg: ModelConfig,
                     device: DeviceLike = None,
-                    dtype: Optional[torch.dtype] = None) -> Any:
+                    dtype: Optional[torch.dtype] = None,
+                    padded: bool = False) -> Any:
     """Numpy-leaved JAX ``init_pt`` / ``init_lm`` tree (optionally
     quantized, with ``(payload, scale)`` pairs) -> the port's parameters
-    on ``device``.  Raises when the tree's keys, shapes or dtypes differ
-    from what ``cfg`` describes; ``dtype`` set: every leaf must be of
-    that dtype (an optimizer's fp32 moments)."""
+    on ``device`` (the serving tree, or with ``padded`` the train tree).
+    Raises when the tree's keys, shapes or dtypes differ from what
+    ``cfg`` describes; ``dtype`` set: every leaf must be of that dtype
+    (an optimizer's fp32 moments)."""
     device = resolve_device(device)
     model = model_dtype(cfg)
-    n_exp = cfg.moe.n_routed_experts if cfg.moe is not None else 0
+    n_exp = (cfg.moe.n_routed_experts if cfg.moe is not None and not padded
+             else 0)
 
     def quantized(shape, node, path):
         keys = path.split(".")
@@ -103,9 +118,9 @@ def from_jax_params(tree: Any, cfg: ModelConfig,
         assert isinstance(spec, Leaf), spec
         if isinstance(node, tuple):
             return quantized(spec.shape, node, path)
-        axis = _EXPERT_AXIS.get(path.rsplit(".", 1)[-1])
-        if n_exp and axis is not None and ".mlp." in f".{path}":
-            node = np.take(np.asarray(node), np.arange(n_exp), axis=axis)
+        if n_exp and _is_expert_leaf(path):
+            node = np.take(np.asarray(node), np.arange(n_exp),
+                           axis=_EXPERT_AXIS[path.rsplit(".", 1)[-1]])
         t = _to_torch(node, device)
         want = dtype or spec.dtype(model)
         if tuple(t.shape) != tuple(spec.shape) or t.dtype != want:
@@ -113,8 +128,26 @@ def from_jax_params(tree: Any, cfg: ModelConfig,
                              f"want {tuple(spec.shape)} {want}")
         return t
 
-    specs = param_specs(cfg) if cfg.pt is not None else lm_param_specs(cfg)
+    specs = (param_specs(cfg) if cfg.pt is not None
+             else lm_param_specs(cfg, padded))
     return walk(specs, tree, "")
+
+
+def drop_expert_padding(params: Any, cfg: ModelConfig) -> Any:
+    """The serving tree of a train tree (or of a checkpoint's params): each
+    MoE leaf cut to its ``n_routed_experts`` real experts (copies, so
+    that the padded leaf can be freed); other leaves as they are."""
+    if cfg.moe is None or e_store(cfg) == cfg.moe.n_routed_experts:
+        return params
+    n = cfg.moe.n_routed_experts
+
+    def cut(path, leaf):
+        if not _is_expert_leaf(path):
+            return leaf
+        return leaf.narrow(_EXPERT_AXIS[path.rsplit("/", 1)[-1]], 0,
+                           n).clone()
+
+    return map_with_path(cut, params)
 
 
 def _generic(tree: Any, device: torch.device) -> Any:
@@ -128,9 +161,10 @@ def _generic(tree: Any, device: torch.device) -> Any:
 def from_jax_state(state: Any, cfg: ModelConfig,
                    device: DeviceLike = None) -> Any:
     """Numpy-leaved train state {"params": tree, "opt": optimizer state}
-    of the reference -> the port's, on ``device``.  AdamW's m, v and
-    master are checked against the params' specs in fp32; Adafactor's
-    statistics are carried as they are."""
+    of the reference -> the port's train state, on ``device`` (the train
+    tree: a MoE's padded experts kept).  AdamW's m, v and master are
+    checked against the params' specs in fp32; Adafactor's statistics are
+    carried as they are."""
     device = resolve_device(device)
     opt = state["opt"]
     out = {"step": _to_torch(opt["step"], device)}
@@ -140,6 +174,8 @@ def from_jax_state(state: Any, cfg: ModelConfig,
         if key == "stats":
             out[key] = _generic(node, device)
         elif key != "step":
-            out[key] = from_jax_params(node, cfg, device, torch.float32)
-    return {"params": from_jax_params(state["params"], cfg, device),
+            out[key] = from_jax_params(node, cfg, device, torch.float32,
+                                       padded=True)
+    return {"params": from_jax_params(state["params"], cfg, device,
+                                      padded=True),
             "opt": out}

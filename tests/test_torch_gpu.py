@@ -2135,6 +2135,44 @@ def test_decode_kernels_take_softcap_and_wide_heads(hd, G, dtype, softcap):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "recurrentgemma-9b",
+                                  "deepseek-v2-236b", "deepseek-v3-671b"])
+def test_train_steps_of_recurrent_and_moe_models_on_card_match_cpu(arch):
+    """One ``make_train_step`` step of each reduced Mamba, RG-LRU and MLA +
+    MoE model (fp32, TF32 off) on the card and on the CPU from one seeded
+    train tree: losses within 1e-5 relative, params within 2 x the step's
+    learning rate, no kernel launched (train mode's plain scan, blockwise
+    attention and MoE dispatch run no kernel)."""
+    from repro_torch.common.pytree import tree_map, tree_paths
+    from repro_torch.configs import reduced_config
+    from repro_torch.data.pipeline import DataConfig, DataLoader
+    from repro_torch.launch.steps import make_train_step, model_fns
+    dev = _cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduced_config(arch)
+    init = model_fns(cfg)["init_train"](torch.Generator().manual_seed(0),
+                                        cfg, "cpu")
+    batch = next(DataLoader(DataConfig(cfg.vocab_size, 32, 4)))
+    out = {}
+    for d in ("cpu", dev):
+        fn, opt_init, _ = make_train_step(cfg, microbatches=1, warmup=0,
+                                          total_steps=1)
+        params = tree_map(lambda t: t.to(d, copy=True), init)
+        ops.reset_launch_counts()
+        params, _, m = fn(params, opt_init(params),
+                          {k: torch.from_numpy(v).to(d)
+                           for k, v in batch.items()})
+        assert not any(ops.counters().values())
+        out[str(d)] = (float(m["loss"]), float(m["lr"]), params)
+    (lc, lr, pc), (ld, _, pd) = out["cpu"], out[str(dev)]
+    np.testing.assert_allclose(ld, lc, rtol=1e-5)
+    want = dict(tree_paths(pc))
+    for p, leaf in tree_paths(pd):
+        err = (leaf.cpu() - want[p]).abs().max().item()
+        assert err <= 2 * lr, (p, err)
+
+
+@pytest.mark.gpu
 def test_train_steps_on_card_match_cpu(tmp_path):
     """Train mode on the card (reduced PT, fp32, TF32 off): three steps of
     ``make_train_step`` from one seeded state, losses within 1e-5 of the

@@ -140,7 +140,7 @@ def test_moe_apply_matches_reference(case):
     cap = jmoe.capacity(21, jcfg)
     _, jkeep = jmoe._dispatch_indices(jidx, jmoe.e_store(jcfg), cap)
     assert moe.capacity(21, cfg) == cap
-    _, idx = moe._route(params, _t(x2), cfg)
+    _, idx, _ = moe._route(params, _t(x2), cfg)
     np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
     _, keep = moe._dispatch_indices(idx, cfg.moe.n_routed_experts, cap)
     np.testing.assert_array_equal(keep.numpy(), np.asarray(jkeep))
@@ -183,7 +183,7 @@ def test_moe_drop_counters_count_the_pairs():
         got = moe.drop_counts()
     finally:
         moe.track_drops(None)
-    _, idx = moe._route(params, x.reshape(21, -1), cfg)
+    _, idx, _ = moe._route(params, x.reshape(21, -1), cfg)
     _, keep = moe._dispatch_indices(idx, 8, moe.capacity(21, cfg))
     assert got["prefill"] == {"routed": 42, "dropped": int((~keep).sum())}
     assert got["prefill"]["dropped"] > 0

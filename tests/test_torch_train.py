@@ -254,8 +254,11 @@ def test_remat_policies_change_no_bit(ref):
 
 
 def test_train_mode_reaches_no_kernel_wrapper(ref, monkeypatch):
-    """Every kernel wrapper raises: train mode's loss and grads (qk-norm,
-    windows, softcaps: gemma3-4b) still run, on plain ops only."""
+    """Every kernel wrapper raises: train mode's loss and grads still run,
+    on plain ops only: gemma3-4b (qk-norm, windows, softcaps), and on the
+    port's own trees falcon-mamba-7b (Mamba), recurrentgemma-9b (RG-LRU
+    beside windowed MQA) and deepseek-v2 / -v3 (MLA with and without a q
+    latent, both MoE routers)."""
     def boom(*a, **k):
         raise AssertionError("train mode called a kernel wrapper")
 
@@ -268,23 +271,20 @@ def test_train_mode_reaches_no_kernel_wrapper(ref, monkeypatch):
     tree = _np(jax.jit(lambda k: jdec.init_lm(k, jcfg))(
         jax.random.PRNGKey(1)))
     params = from_jax_params(tree, cfg, device="cpu")
-    inp, tgt = _batch(cfg)
-    loss, grads = steps.value_and_grad(
-        lambda p, b: decoder.lm_loss(p, b, cfg), params,
-        {"inputs": torch.from_numpy(inp), "targets": torch.from_numpy(tgt)})
-    assert torch.isfinite(loss)
-    assert all(torch.isfinite(g).all() for g in pytree.tree_leaves(grads))
-
-
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "deepseek-v2-236b",
-                                  "recurrentgemma-9b"])
-def test_unported_train_modes_raise(arch):
-    cfg = reduced_config(arch)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        steps.make_train_step(cfg)
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        decoder.lm_forward({}, {"inputs": torch.zeros(1, 4, dtype=torch.int32)},
-                           cfg, mode="train")
+    trees = [(cfg, params)]
+    for arch in ("falcon-mamba-7b", "recurrentgemma-9b", "deepseek-v2-236b",
+                 "deepseek-v3-671b"):
+        c = reduced_config(arch)
+        trees.append((c, decoder.init_lm(torch.Generator().manual_seed(0), c,
+                                         "cpu", padded=True)))
+    for cfg, params in trees:
+        inp, tgt = _batch(cfg)
+        loss, grads = steps.value_and_grad(
+            lambda p, b: decoder.lm_loss(p, b, cfg), params,
+            {"inputs": torch.from_numpy(inp),
+             "targets": torch.from_numpy(tgt)})
+        assert torch.isfinite(loss), cfg.name
+        assert all(torch.isfinite(g).all() for g in pytree.tree_leaves(grads))
 
 
 # ---------------------------------------------------------------------------
